@@ -1,22 +1,31 @@
 """Coordinates: the per-block solvers of GAME coordinate descent (port of
 photon_ml_tpu/algorithm/coordinates.py: Coordinate :48,
-FixedEffectCoordinate :122, RandomEffectCoordinate :544, _solve_block
-:1371, _solve_fixed :1442, _fe_score_impl / _scatter_margins /
-_re_score_impl :1474-1494, the size guard of _use_pallas_entity_solver
-:1294-1366, which the kernel makes unnecessary by taking any bucket).
+FixedEffectCoordinate :122, RandomEffectCoordinate :544,
+_gather_block_normalization :687, _dispatch_pallas_solver :1207,
+_solve_block :1371, _solve_fixed :1442, _fe_score_impl /
+_scatter_margins / _re_score_impl :1474-1494, the size guard of
+_use_pallas_entity_solver :1294-1366, which the kernel makes unnecessary
+by taking any bucket).
 
 Each coordinate solves against offsets augmented with the other
 coordinates' scores (reference: ml/algorithm/Coordinate.scala:26-82).
-Scores are raw margins x.coef; offsets are not included.
+Scores are raw margins x.coef; offsets are not included. Models live in
+the original feature space; with a NormalizationContext the solve runs
+in the normalized space (warm start converted in, solution converted
+out) and the penalties are taken there.
 
 - FixedEffectCoordinate: one GLM solve over the whole shard
-  (optimization/solver.py, the margin-cached L-BFGS).
-- RandomEffectCoordinate: one batched per-entity solve per bucket. On
-  CUDA tensors every bucket goes to the entity-solver kernel, whatever
-  its n_pad and d_pad (the kernel keeps an entity too tall for shared
-  memory in device memory, where the JAX package's VMEM guard routes it
-  off the Pallas kernel). On CPU tensors the wrapper runs the plain
-  solver.
+  (optimization/solver.py: TRON, OWL-QN or the margin-cached L-BFGS),
+  normalization as objective-level algebra.
+- RandomEffectCoordinate: one batched per-entity solve per bucket, mode
+  "owlqn" when the L1 weight is positive, else "lbfgs", with the
+  normalization gathered per block into each entity's local feature
+  space at construction. On CUDA tensors every bucket goes to the
+  entity-solver kernel, whatever its n_pad and d_pad (the kernel keeps
+  an entity too tall for shared memory in device memory, where the JAX
+  package's VMEM guard routes it off the Pallas kernel). On CPU tensors
+  the wrapper runs the plain solver. TRON and bounds are not ported for
+  the random effect (ROADMAP queue B rows 3, 5 and 6).
 """
 
 from __future__ import annotations
@@ -27,6 +36,12 @@ from typing import List, Optional, Tuple
 import torch
 
 from photon_ml_tpu_torch.data.game_data import GameDataset
+from photon_ml_tpu_torch.data.normalization import (
+    NormalizationContext,
+    gather_normalization,
+    gathered_to_normalized_space,
+    gathered_to_original_space,
+)
 from photon_ml_tpu_torch.data.random_effect import (
     EntityBlock,
     RandomEffectDataset,
@@ -37,14 +52,15 @@ from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.models.fixed_effect import FixedEffectModel
 from photon_ml_tpu_torch.models.glm import model_for_task
 from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
-from photon_ml_tpu_torch.ops.entity_solver import entity_lbfgs
+from photon_ml_tpu_torch.ops.entity_solver import check_mode, entity_lbfgs
 from photon_ml_tpu_torch.ops.glm_objective import GLMBatch, GLMObjective
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.optimization.config import (
     GLMOptimizationConfiguration,
+    OptimizerType,
 )
 from photon_ml_tpu_torch.optimization.convergence import OptimizerResult
-from photon_ml_tpu_torch.optimization.solver import check_lbfgs_l2, solve_glm
+from photon_ml_tpu_torch.optimization.solver import solve_glm
 from photon_ml_tpu_torch.types import TaskType
 
 Tensor = torch.Tensor
@@ -82,6 +98,7 @@ class FixedEffectCoordinate(Coordinate):
     feature_shard_id: str
     task_type: TaskType
     config: GLMOptimizationConfiguration
+    normalization: Optional[NormalizationContext] = None
     dtype: object = torch.float32
     device: object = "cuda"
 
@@ -89,7 +106,11 @@ class FixedEffectCoordinate(Coordinate):
         self.device = resolve_device(self.device)
         self._batch = self.data.fixed_effect_batch(
             self.feature_shard_id, dtype=self.dtype, device=self.device)
-        self._objective = GLMObjective(loss_for_task(self.task_type))
+        if self.normalization is not None:
+            self.normalization = self.normalization.to(self.device,
+                                                       self.dtype)
+        self._objective = GLMObjective(loss_for_task(self.task_type),
+                                       self.normalization)
         self._l1, self._l2 = self.config.l1_weight, self.config.l2_weight
 
     def initialize_model(self) -> FixedEffectModel:
@@ -103,11 +124,11 @@ class FixedEffectCoordinate(Coordinate):
                      residual_scores: Optional[Tensor],
                      generator: Optional[torch.Generator] = None
                      ) -> Tuple[FixedEffectModel, OptimizerResult]:
-        result = _solve_fixed(
+        result, coef = _solve_fixed(
             self._objective, self.config,
             self.task_type.is_classification, self._batch, residual_scores,
-            generator, model.glm.coefficients.means)
-        new_glm = model.glm.update_coefficients(Coefficients(result.x))
+            generator, model.glm.coefficients.means, self.normalization)
+        new_glm = model.glm.update_coefficients(Coefficients(coef))
         return model.update_model(new_glm), result
 
     def score(self, model: FixedEffectModel) -> Tensor:
@@ -115,7 +136,11 @@ class FixedEffectCoordinate(Coordinate):
                               self._batch.features, self.data.num_rows)
 
     def penalties(self, model: FixedEffectModel):
-        return [(model.glm.coefficients.means, self._l1, self._l2)]
+        # The penalty applies in the optimization (normalized) space.
+        coef = model.glm.coefficients.means
+        if self.normalization is not None:
+            coef = self.normalization.model_to_normalized_space(coef)
+        return [(coef, self._l1, self._l2)]
 
 
 @dataclasses.dataclass
@@ -128,11 +153,15 @@ class RandomEffectCoordinate(Coordinate):
     dataset: RandomEffectDataset
     task_type: TaskType
     config: GLMOptimizationConfiguration
+    normalization: Optional[NormalizationContext] = None  # global space
 
     def __post_init__(self):
-        check_lbfgs_l2(self.config)
+        check_mode(entity_mode(self.config))
         self._objective = GLMObjective(loss_for_task(self.task_type))
         self._l1, self._l2 = self.config.l1_weight, self.config.l2_weight
+        self.norm_blocks = tuple(
+            _gather_block_normalization(self.normalization, b)
+            for b in self.dataset.blocks)
 
     def initialize_model(self) -> RandomEffectModel:
         blocks = self.dataset.blocks
@@ -144,12 +173,21 @@ class RandomEffectCoordinate(Coordinate):
                      generator: Optional[torch.Generator] = None
                      ) -> Tuple[RandomEffectModel, List[OptimizerResult]]:
         """One solve per bucket (the analog of the reference's per-entity
-        mapValues solve, RandomEffectCoordinate.scala:104-113)."""
-        results = [
-            _solve_block(self._objective, self.config, block,
-                         residual_scores, c0)
-            for block, c0 in zip(self.dataset.blocks, model.local_coefs)]
-        return model.with_coefs([r.x for r in results]), results
+        mapValues solve, RandomEffectCoordinate.scala:104-113), in the
+        normalized space when there is a normalization."""
+        coefs, results = [], []
+        for block, c0, norm in zip(self.dataset.blocks, model.local_coefs,
+                                   self.norm_blocks):
+            if norm is not None:
+                c0 = gathered_to_normalized_space(c0, *norm)
+            result = _solve_block(self._objective, self.config, block,
+                                  residual_scores, c0, norm)
+            coef = result.x
+            if norm is not None:
+                coef = gathered_to_original_space(coef, *norm)
+            coefs.append(coef)
+            results.append(result)
+        return model.with_coefs(coefs), results
 
     def score(self, model: RandomEffectModel) -> Tensor:
         return _re_score_impl(self.dataset.blocks,
@@ -157,7 +195,36 @@ class RandomEffectCoordinate(Coordinate):
                               model.local_coefs, self.dataset.n_rows)
 
     def penalties(self, model: RandomEffectModel):
-        return [(c, self._l1, self._l2) for c in model.local_coefs]
+        # In the optimization (normalized) space, like the fixed effect.
+        return [(c if norm is None
+                 else gathered_to_normalized_space(c, *norm),
+                 self._l1, self._l2)
+                for c, norm in zip(model.local_coefs, self.norm_blocks)]
+
+
+def _gather_block_normalization(normalization, block: EntityBlock):
+    """(factors, shifts, intercept_mask) in the block's local feature
+    space and type, or None without normalization."""
+    if normalization is None:
+        return None
+    factors, shifts, mask = gather_normalization(normalization,
+                                                 block.feat_idx)
+    if factors is None and shifts is None:
+        return None
+    dt = block.x.dtype
+
+    def conv(a):
+        return None if a is None else a.to(dt)
+
+    return conv(factors), conv(shifts), mask.to(dt)
+
+
+def entity_mode(config: GLMOptimizationConfiguration) -> str:
+    """The entity solver's mode for a configuration, as the JAX
+    ``_dispatch_pallas_solver`` chooses it."""
+    if config.optimizer_type == OptimizerType.TRON:
+        return "tron"
+    return "owlqn" if config.l1_weight > 0 else "lbfgs"
 
 
 def block_offsets(block: EntityBlock, residual_scores: Optional[Tensor]
@@ -174,23 +241,31 @@ def block_offsets(block: EntityBlock, residual_scores: Optional[Tensor]
 
 def _solve_block(objective: GLMObjective,
                  config: GLMOptimizationConfiguration, block: EntityBlock,
-                 residual_scores: Optional[Tensor], coefs0: Tensor
-                 ) -> OptimizerResult:
-    """One batched solve over the bucket's entity axis."""
-    check_lbfgs_l2(config)
+                 residual_scores: Optional[Tensor], coefs0: Tensor,
+                 norm=None) -> OptimizerResult:
+    """One batched solve over the bucket's entity axis. ``norm`` is the
+    gathered (factors, shifts, intercept_mask); coefs0 and the result
+    are in the solve space."""
     offsets = block_offsets(block, residual_scores)
+    factors, shifts = (norm[0], norm[1]) if norm is not None else (None,
+                                                                   None)
     return entity_lbfgs(objective.loss, block.x, block.labels, offsets,
                         block.weights, coefs0, config.l2_weight,
-                        max_iter=config.max_iterations, tol=config.tolerance)
+                        config.l1_weight, factors, shifts,
+                        max_iter=config.max_iterations, tol=config.tolerance,
+                        mode=entity_mode(config))
 
 
 def _solve_fixed(objective: GLMObjective,
                  config: GLMOptimizationConfiguration,
                  is_classification: bool, batch: GLMBatch,
                  residual_scores: Optional[Tensor],
-                 generator: Optional[torch.Generator], coef0: Tensor
-                 ) -> OptimizerResult:
-    """The fixed-effect update: residual -> offsets, down-sampling, solve."""
+                 generator: Optional[torch.Generator], coef0: Tensor,
+                 normalization: Optional[NormalizationContext] = None
+                 ) -> Tuple[OptimizerResult, Tensor]:
+    """The fixed-effect update: residual -> offsets, down-sampling, the
+    solve in the normalized space, the coefficients back to the original
+    space. Returns (result, original-space coefficients)."""
     if residual_scores is not None:
         batch = batch.with_offsets(
             batch.offsets + residual_scores.to(batch.offsets.dtype))
@@ -198,7 +273,13 @@ def _solve_fixed(objective: GLMObjective,
                                   config.down_sampling_rate,
                                   is_classification)
     batch = GLMBatch(batch.features, batch.labels, batch.offsets, weights)
-    return solve_glm(objective, batch, config, coef0)
+    if normalization is not None:
+        coef0 = normalization.model_to_normalized_space(coef0)
+    result = solve_glm(objective, batch, config, coef0)
+    coef = result.x
+    if normalization is not None:
+        coef = normalization.model_to_original_space(coef)
+    return result, coef
 
 
 def _fe_score_impl(coef: Tensor, feats, n_rows: int) -> Tensor:

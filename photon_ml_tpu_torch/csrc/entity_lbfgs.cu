@@ -1,16 +1,19 @@
-// Per-entity GLM L2 L-BFGS solve for Hopper (sm_90a).
+// Per-entity GLM solve for Hopper (sm_90a): L-BFGS (L2) and OWL-QN (L1 /
+// elastic net), with an optional per-entity normalization fold.
 //
 // Replaces the Pallas TPU kernel photon_ml_tpu/ops/pallas_entity_solver.py
-// (pallas_entity_lbfgs, mode "lbfgs": _make_kernel -> body, _two_loop,
-// finish). The algorithm, stop reasons and their order are documented in
+// (pallas_entity_lbfgs, modes "lbfgs" and "owlqn": _make_kernel -> body,
+// body_owlqn, _tiered_sweep, _two_loop, finish, and the factors/shifts
+// fold). The algorithm, stop reasons and their order are documented in
 // photon_ml_tpu_torch/ops/entity_solver.py, whose entity_lbfgs_plain is
 // the same function in plain PyTorch.
 //
 // Design: one warp per entity, up to 4 warps per block. Each entity has a
 // working set of compute-type T arrays (float64 by default, float32 on
-// request): the rows' labels, offsets, weights, margins z, direction
-// margins zp and d1 weights u, the coordinates' c, g, direction, c_new,
-// g_new, and the (s, y) history (oldest first, shift-left on store).
+// request): the rows' labels, offsets, weights, margins z, direction (or
+// trial) margins zp and d1 weights u, the coordinates' c, g, direction,
+// c_new (the trial point in OWL-QN), g_new, pseudo-gradient, factor and
+// shift, and the (s, y) history (oldest first, shift-left on store).
 // Where it fits a block's shared memory, the working set sits there,
 // followed by a float32 copy of the entity's x tile [r, d] with row stride
 // d + 1 (lanes over rows then hit distinct banks). A tall entity whose x
@@ -22,415 +25,31 @@
 // coordinates or rows are xor-butterfly warp shuffles, which give every
 // lane the same bits, so all control flow is warp-uniform. Each warp
 // loops until its own entity stops and then exits; no block-level barrier
-// is used. Inputs and outputs are float32. Bound on the H100: each
-// entity's iterations are a serial chain of shared-memory dot products and
-// shuffles, so latency, not bandwidth or FLOPs, sets the time; the kernel
-// keeps the state on chip where it fits and as many entity warps resident
-// per SM as shared memory allows.
+// is used. Inputs and outputs are float32.
+//
+// Normalization (factor and shift given): x' = (x - shift) * factor,
+// computed in T and rounded to float32. In the shared layout it is applied
+// once, as the x tile is loaded; where x is read from device memory it is
+// applied on every read, with factor and shift in the working set. Either
+// way every margin, gradient and trial sees the same x'. Coefficients are
+// in the solve (normalized) space.
+//
+// OWL-QN is a template argument (its line search differs in kind: each
+// trial is projected onto an orthant, so margins are not affine in the
+// step and every trial recomputes X x_t); normalization is a runtime flag
+// (a null factor pointer means off), so the instance count only doubles.
+// Each (mode, compute type) pair is its own translation unit,
+// entity_lbfgs_<mode>_<f64|f32>.cu, so that nvcc builds the four in
+// parallel; this file holds the C entry points, entity_lbfgs.cuh the rest.
+//
+// Bound on the H100: each entity's iterations are a serial chain of
+// shared-memory dot products and shuffles, so latency, not bandwidth or
+// FLOPs, sets the time; the kernel keeps the state on chip where it fits
+// and as many entity warps resident per SM as shared memory allows.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "entity_lbfgs.cuh"
 
-namespace {
-
-constexpr unsigned kFull = 0xffffffffu;
-constexpr double kCautiousEps = 1e-10;
-constexpr int kMaxWarps = 4;
-constexpr int kNotConverged = 0;
-constexpr int kMaxIterations = 1;
-constexpr int kFunctionValuesConverged = 2;
-constexpr int kGradientConverged = 3;
-constexpr int kObjectiveNotImproving = 4;
-
-struct Params {
-  const float* x;    // [E, r, d]
-  const float* y;    // [E, r]
-  const float* off;  // [E, r]
-  const float* w;    // [E, r]
-  const float* c0;   // [E, d]
-  float* out_c;      // [E, d]
-  float* out_f;      // [E]
-  float* out_gnorm;  // [E]
-  int* out_it;       // [E]
-  int* out_reason;   // [E]
-  unsigned char* workspace;  // [E, state_bytes] when the state is global
-  int E, r, d, m, max_iter, max_line_search;
-  double l2, tol, c1;
-};
-
-// Where one launch keeps each entity's data. The layout is a template
-// argument of the kernel, so that in the shared-memory layouts the
-// compiler sees shared-memory pointers and emits shared loads.
-enum Layout { kAllShared = 0, kXGlobal = 1, kAllGlobal = 2 };
-
-struct Plan {
-  size_t state_bytes;  // the T working set, rounded up to 16 bytes
-  size_t warp_bytes;   // shared memory per warp (0 in kAllGlobal)
-  int layout;
-  int warps;           // warps (entities) per block
-};
-
-size_t round16(size_t n) { return (n + 15) / 16 * 16; }
-
-int make_plan(int r, int d, int m, size_t t_size, Plan* plan) {
-  int dev = 0, budget = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &budget, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  const size_t state = round16(
-      t_size * (6 * (size_t)r + 5 * (size_t)d + 2 * (size_t)m * d +
-                2 * (size_t)m));
-  const size_t x_tile = round16(4 * (size_t)r * (d + 1));
-  plan->state_bytes = state;
-  if (state + x_tile <= (size_t)budget) {
-    plan->warp_bytes = state + x_tile;
-    plan->layout = kAllShared;
-  } else if (state <= (size_t)budget) {
-    plan->warp_bytes = state;
-    plan->layout = kXGlobal;
-  } else {
-    plan->warp_bytes = 0;
-    plan->layout = kAllGlobal;
-  }
-  plan->warps = kMaxWarps;
-  if (plan->warp_bytes > 0 && budget / plan->warp_bytes < kMaxWarps)
-    plan->warps = (int)(budget / plan->warp_bytes);
-  return 0;
-}
-
-// Math in the compute type.
-__device__ __forceinline__ float ex(float v) { return expf(v); }
-__device__ __forceinline__ double ex(double v) { return exp(v); }
-__device__ __forceinline__ float lg1p(float v) { return log1pf(v); }
-__device__ __forceinline__ double lg1p(double v) { return log1p(v); }
-__device__ __forceinline__ float ab(float v) { return fabsf(v); }
-__device__ __forceinline__ double ab(double v) { return fabs(v); }
-__device__ __forceinline__ float mx(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ double mx(double a, double b) { return fmax(a, b); }
-__device__ __forceinline__ float rt(float v) { return sqrtf(v); }
-__device__ __forceinline__ double rt(double v) { return sqrt(v); }
-__device__ __forceinline__ float half_pow(float t, int k) {
-  return ldexpf(t, -k);
-}
-__device__ __forceinline__ double half_pow(double t, int k) {
-  return ldexp(t, -k);
-}
-__device__ __forceinline__ bool finite(float v) { return isfinite(v); }
-__device__ __forceinline__ bool finite(double v) { return isfinite(v); }
-
-// Losses (photon_ml_tpu_torch/ops/losses.py, kernel_id order).
-template <int LOSS, typename T>
-struct Loss;
-
-template <typename T>
-struct Loss<0, T> {  // logistic: log(1 + e^z) - y z
-  __device__ static T value(T z, T y) {
-    return mx(z, T(0)) + lg1p(ex(-ab(z))) - y * z;
-  }
-  __device__ static T d1(T z, T y) { return T(1) / (T(1) + ex(-z)) - y; }
-};
-
-template <typename T>
-struct Loss<1, T> {  // squared: (z - y)^2 / 2
-  __device__ static T value(T z, T y) {
-    T e = z - y;
-    return T(0.5) * e * e;
-  }
-  __device__ static T d1(T z, T y) { return z - y; }
-};
-
-template <typename T>
-struct Loss<2, T> {  // Poisson: e^z - y z
-  __device__ static T value(T z, T y) { return ex(z) - y * z; }
-  __device__ static T d1(T z, T y) { return ex(z) - y; }
-};
-
-template <typename T>
-struct Loss<3, T> {  // smoothed hinge on t = (2y - 1) z
-  __device__ static T value(T z, T y) {
-    T t = (T(2) * y - T(1)) * z;
-    return t <= T(0) ? T(0.5) - t
-                     : (t < T(1) ? T(0.5) * (T(1) - t) * (T(1) - t) : T(0));
-  }
-  __device__ static T d1(T z, T y) {
-    T yy = T(2) * y - T(1);
-    T t = yy * z;
-    return (t <= T(0) ? T(-1) : (t < T(1) ? t - T(1) : T(0))) * yy;
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// sum_j a[j] b[j], lanes over coordinates.
-template <typename T>
-__device__ T dot(const T* a, const T* b, int d, int lane) {
-  T s = T(0);
-  for (int j = lane; j < d; j += 32) s += a[j] * b[j];
-  return warp_sum(s);
-}
-
-// out[i] = sum_j x[i, j] v[j] + off[i], lanes over rows.
-template <typename T>
-__device__ void margins(const float* xs, int ld, const T* v, const T* off,
-                        T* out, int r, int d, int lane) {
-  for (int i = lane; i < r; i += 32) {
-    const float* row = xs + (size_t)i * ld;
-    T acc = T(0);
-    for (int j = 0; j < d; ++j) acc += (T)row[j] * v[j];
-    out[i] = acc + off[i];
-  }
-}
-
-// out[j] = l2 c[j] + sum_i x[i, j] u[i] with u = w * l'(z, y).
-template <int LOSS, typename T>
-__device__ void gradient(const float* xs, int ld, const T* z, const T* y,
-                         const T* w, T* u, const T* c, T l2, T* out, int r,
-                         int d, int lane) {
-  __syncwarp();
-  for (int i = lane; i < r; i += 32)
-    u[i] = w[i] * Loss<LOSS, T>::d1(z[i], y[i]);
-  __syncwarp();
-  for (int j = lane; j < d; j += 32) {
-    T acc = l2 * c[j];
-    for (int i = 0; i < r; ++i) acc += (T)xs[(size_t)i * ld + j] * u[i];
-    out[j] = acc;
-  }
-}
-
-// sum_i w[i] l(z[i] + t zp[i], y[i]), lanes over rows.
-template <int LOSS, typename T>
-__device__ T data_value(const T* z, const T* zp, T t, const T* y, const T* w,
-                        int r, int lane) {
-  T s = T(0);
-  for (int i = lane; i < r; i += 32)
-    s += w[i] * Loss<LOSS, T>::value(zp ? z[i] + t * zp[i] : z[i], y[i]);
-  return warp_sum(s);
-}
-
-template <int LOSS, typename T, int LAYOUT>
-__global__ void __launch_bounds__(128)
-    entity_lbfgs_kernel(Params p, Plan plan) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int e = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (e >= p.E) return;  // whole warps only: no block barrier follows
-  const int r = p.r, d = p.d, m = p.m;
-  const T l2 = (T)p.l2, tol = (T)p.tol, c1 = (T)p.c1;
-  const T eps = (T)kCautiousEps;
-
-  unsigned char* base;
-  if constexpr (LAYOUT == kAllGlobal)
-    base = p.workspace + (size_t)e * plan.state_bytes;
-  else
-    base = smem + (size_t)warp * plan.warp_bytes;
-  T* y = reinterpret_cast<T*>(base);
-  T* off = y + r;
-  T* w = off + r;
-  T* z = w + r;
-  T* zp = z + r;
-  T* u = zp + r;
-  T* c = u + r;
-  T* g = c + d;
-  T* dir = g + d;
-  T* cn = dir + d;
-  T* gn = cn + d;
-  T* S = gn + d;
-  T* Y = S + (size_t)m * d;
-  T* rho = Y + (size_t)m * d;
-  T* alpha = rho + m;
-
-  const size_t rd = (size_t)r * d;
-  const float* xe = p.x + (size_t)e * rd;
-  const float* xs = xe;
-  int ld = d;
-  if constexpr (LAYOUT == kAllShared) {
-    float* tile = reinterpret_cast<float*>(base + plan.state_bytes);
-    ld = d + 1;
-    for (size_t k = lane; k < rd; k += 32) {
-      size_t i = k / d, j = k - i * d;
-      tile[i * ld + j] = xe[k];
-    }
-    xs = tile;
-  }
-  for (int i = lane; i < r; i += 32) {
-    size_t o = (size_t)e * r + i;
-    y[i] = p.y[o];
-    off[i] = p.off[o];
-    w[i] = p.w[o];
-  }
-  for (int j = lane; j < d; j += 32) c[j] = p.c0[(size_t)e * d + j];
-  for (size_t k = lane; k < (size_t)m * d; k += 32) S[k] = Y[k] = T(0);
-  for (int k = lane; k < m; k += 32) rho[k] = T(0);
-  __syncwarp();
-
-  margins(xs, ld, c, off, z, r, d, lane);
-  T f = data_value<LOSS, T>(z, (const T*)nullptr, T(0), y, w, r, lane) +
-        T(0.5) * l2 * dot(c, c, d, lane);
-  gradient<LOSS, T>(xs, ld, z, y, w, u, c, l2, g, r, d, lane);
-  const T gnorm0 = rt(dot(g, g, d, lane));
-  const T f0_scale = mx(ab(f), (T)1e-30);
-  T gnorm = gnorm0;
-  int reason = gnorm0 <= T(0) ? kGradientConverged : kNotConverged;
-  int it = 0, count = 0;
-
-  for (int k = 0; k < p.max_iter && reason == kNotConverged; ++k) {
-    // Direction: two-loop recursion, newest pair first.
-    for (int j = lane; j < d; j += 32) dir[j] = g[j];
-    for (int h = m - 1; h >= 0; --h) {
-      const T a = rho[h] * dot(S + (size_t)h * d, dir, d, lane);
-      if (lane == 0) alpha[h] = a;
-      for (int j = lane; j < d; j += 32) dir[j] -= a * Y[(size_t)h * d + j];
-    }
-    const T* s_new = S + (size_t)(m - 1) * d;
-    const T* y_new = Y + (size_t)(m - 1) * d;
-    const T yy = dot(y_new, y_new, d, lane);
-    const T sy_new = dot(s_new, y_new, d, lane);
-    const T gamma = count > 0 ? sy_new / mx(yy, eps) : T(1);
-    for (int j = lane; j < d; j += 32) dir[j] *= gamma;
-    __syncwarp();
-    for (int h = 0; h < m; ++h) {
-      const T b = rho[h] * dot(Y + (size_t)h * d, dir, d, lane);
-      const T coef = alpha[h] - b;
-      for (int j = lane; j < d; j += 32) dir[j] += coef * S[(size_t)h * d + j];
-    }
-    for (int j = lane; j < d; j += 32) dir[j] = -dir[j];
-    if (dot(dir, g, d, lane) >= T(0))
-      for (int j = lane; j < d; j += 32) dir[j] = -g[j];
-    __syncwarp();
-
-    // Line search priced from cached margins: zp = (X d + off) - off.
-    margins(xs, ld, dir, off, zp, r, d, lane);
-    for (int i = lane; i < r; i += 32) zp[i] -= off[i];
-    const T xx = dot(c, c, d, lane);
-    const T xp = dot(c, dir, d, lane);
-    const T pp = dot(dir, dir, d, lane);
-    const T gp = dot(g, dir, d, lane);
-    const T t0 = count == 0 ? T(1) / mx(rt(pp), T(1)) : T(1);
-    bool ok = false;
-    T t_acc = T(0), f_new = T(0);
-    for (int kk = 0; kk <= p.max_line_search; ++kk) {
-      const T t = half_pow(t0, kk);  // t0 * 0.5^kk, exactly
-      const T ft = data_value<LOSS, T>(z, (const T*)zp, t, y, w, r, lane) +
-                   T(0.5) * l2 * (xx + T(2) * t * xp + t * t * pp);
-      if (ft <= f + c1 * t * gp && finite(ft)) {
-        ok = true;
-        t_acc = t;
-        f_new = ft;
-        break;
-      }
-    }
-    ++it;
-    if (!ok) {  // the iterate stays; the iteration counts
-      reason = kObjectiveNotImproving;
-      break;
-    }
-
-    for (int j = lane; j < d; j += 32) cn[j] = c[j] + t_acc * dir[j];
-    for (int i = lane; i < r; i += 32) z[i] += t_acc * zp[i];
-    gradient<LOSS, T>(xs, ld, z, y, w, u, cn, l2, gn, r, d, lane);
-    const T gnorm_new = rt(dot(gn, gn, d, lane));
-
-    // Cautious history update.
-    T sy = T(0), ss = T(0), yy2 = T(0);
-    for (int j = lane; j < d; j += 32) {
-      const T sj = cn[j] - c[j], yj = gn[j] - g[j];
-      sy += sj * yj;
-      ss += sj * sj;
-      yy2 += yj * yj;
-    }
-    sy = warp_sum(sy);
-    ss = warp_sum(ss);
-    yy2 = warp_sum(yy2);
-    if (sy > eps * rt(ss) * rt(yy2)) {
-      for (int h = 0; h + 1 < m; ++h)
-        for (int j = lane; j < d; j += 32) {
-          S[(size_t)h * d + j] = S[(size_t)(h + 1) * d + j];
-          Y[(size_t)h * d + j] = Y[(size_t)(h + 1) * d + j];
-        }
-      for (int j = lane; j < d; j += 32) {
-        S[(size_t)(m - 1) * d + j] = cn[j] - c[j];
-        Y[(size_t)(m - 1) * d + j] = gn[j] - g[j];
-      }
-      if (lane == 0) {
-        for (int h = 0; h + 1 < m; ++h) rho[h] = rho[h + 1];
-        rho[m - 1] = sy != T(0) ? T(1) / sy : T(0);
-      }
-      count = count + 1 < m ? count + 1 : m;
-    }
-
-    if (gnorm_new <= tol * gnorm0)
-      reason = kGradientConverged;
-    else if (ab(f - f_new) <= tol * f0_scale)
-      reason = kFunctionValuesConverged;
-    else if (it >= p.max_iter)
-      reason = kMaxIterations;
-    for (int j = lane; j < d; j += 32) {
-      c[j] = cn[j];
-      g[j] = gn[j];
-    }
-    f = f_new;
-    gnorm = gnorm_new;
-    __syncwarp();
-  }
-
-  for (int j = lane; j < d; j += 32) p.out_c[(size_t)e * d + j] = (float)c[j];
-  if (lane == 0) {
-    p.out_f[e] = (float)f;
-    p.out_gnorm[e] = (float)gnorm;
-    p.out_it[e] = it;
-    p.out_reason[e] = reason;
-  }
-}
-
-template <int LOSS, typename T, int LAYOUT>
-int launch_layout(const Params& p, const Plan& plan, cudaStream_t stream) {
-  const size_t smem = plan.warp_bytes * plan.warps;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        entity_lbfgs_kernel<LOSS, T, LAYOUT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (p.E + plan.warps - 1) / plan.warps;
-  entity_lbfgs_kernel<LOSS, T, LAYOUT>
-      <<<blocks, 32 * plan.warps, smem, stream>>>(p, plan);
-  return (int)cudaGetLastError();
-}
-
-template <int LOSS, typename T>
-int launch(const Params& p, cudaStream_t stream) {
-  Plan plan;
-  int err = make_plan(p.r, p.d, p.m, sizeof(T), &plan);
-  if (err != 0) return err;
-  switch (plan.layout) {
-    case kAllShared: return launch_layout<LOSS, T, kAllShared>(p, plan, stream);
-    case kXGlobal: return launch_layout<LOSS, T, kXGlobal>(p, plan, stream);
-    default:
-      if (p.workspace == nullptr) return (int)cudaErrorInvalidValue;
-      return launch_layout<LOSS, T, kAllGlobal>(p, plan, stream);
-  }
-}
-
-template <typename T>
-int launch_loss(const Params& p, int loss, cudaStream_t stream) {
-  switch (loss) {
-    case 0: return launch<0, T>(p, stream);
-    case 1: return launch<1, T>(p, stream);
-    case 2: return launch<2, T>(p, stream);
-    case 3: return launch<3, T>(p, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
+using namespace entity_lbfgs;
 
 // Bytes of device-memory workspace a solve of E entities needs: 0 when
 // each entity's working set fits a block's shared memory on the current
@@ -443,20 +62,34 @@ extern "C" size_t entity_lbfgs_workspace_bytes(int E, int r, int d, int m,
   return plan.layout == kAllGlobal ? (size_t)E * plan.state_bytes : 0;
 }
 
+// The layout a solve at these shapes uses: 0 x tile and working set in
+// shared memory, 1 x read from device memory, 2 working set in the
+// workspace too; negative on a CUDA error.
+extern "C" int entity_lbfgs_layout(int r, int d, int m, int f64) {
+  Plan plan;
+  int err = make_plan(r, d, m, f64 ? sizeof(double) : sizeof(float), &plan);
+  return err != 0 ? -err : plan.layout;
+}
+
 // Launches the solve of E entities on `stream`; returns the CUDA error
 // of the launch (0 on success). Does not synchronise. `workspace` holds
 // entity_lbfgs_workspace_bytes(E, r, d, m, f64) bytes (may be null when
-// that is 0).
+// that is 0). `factor` null means no normalization (`shift` is then not
+// read). `owlqn` selects OWL-QN with weight `l1`; otherwise l1 is unused.
 extern "C" int entity_lbfgs_launch(
     const float* x, const float* y, const float* off, const float* w,
-    const float* c0, float* out_c, float* out_f, float* out_gnorm,
-    int* out_it, int* out_reason, void* workspace, int E, int r, int d,
-    int m, int max_iter, int max_line_search, double l2, double tol,
-    double c1, int loss, int f64, void* stream) {
+    const float* c0, const float* factor, const float* shift, float* out_c,
+    float* out_f, float* out_gnorm, int* out_it, int* out_reason,
+    int* out_trials, void* workspace, int E, int r, int d, int m,
+    int max_iter, int max_line_search, double l2, double l1, double tol,
+    double c1, int loss, int f64, int owlqn, void* stream) {
   if (E <= 0 || r <= 0 || d <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
-  Params p{x, y, off, w, c0, out_c, out_f, out_gnorm, out_it, out_reason,
-           static_cast<unsigned char*>(workspace),
-           E, r, d, m, max_iter, max_line_search, l2, tol, c1};
+  if (factor != nullptr && shift == nullptr) return (int)cudaErrorInvalidValue;
+  Params p{x, y, off, w, c0, factor, shift, out_c, out_f, out_gnorm, out_it,
+           out_reason, out_trials, static_cast<unsigned char*>(workspace),
+           E, r, d, m, max_iter, max_line_search, l2, l1, tol, c1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? launch_loss<double>(p, loss, s) : launch_loss<float>(p, loss, s);
+  if (owlqn)
+    return f64 ? launch_owlqn_f64(p, loss, s) : launch_owlqn_f32(p, loss, s);
+  return f64 ? launch_lbfgs_f64(p, loss, s) : launch_lbfgs_f32(p, loss, s);
 }

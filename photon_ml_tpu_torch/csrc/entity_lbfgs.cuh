@@ -1,0 +1,543 @@
+// Per-entity GLM solve for Hopper (sm_90a): the kernel and its launch
+// templates, shared by the translation units entity_lbfgs_*.cu. See
+// entity_lbfgs.cu for what it computes and how it is laid out.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+namespace entity_lbfgs {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr double kCautiousEps = 1e-10;
+constexpr int kMaxWarps = 4;
+constexpr int kNotConverged = 0;
+constexpr int kMaxIterations = 1;
+constexpr int kFunctionValuesConverged = 2;
+constexpr int kGradientConverged = 3;
+constexpr int kObjectiveNotImproving = 4;
+
+struct Params {
+  const float* x;       // [E, r, d]
+  const float* y;       // [E, r]
+  const float* off;     // [E, r]
+  const float* w;       // [E, r]
+  const float* c0;      // [E, d]
+  const float* factor;  // [E, d] or null (no normalization)
+  const float* shift;   // [E, d] (read only when factor is given)
+  float* out_c;         // [E, d]
+  float* out_f;         // [E]
+  float* out_gnorm;     // [E]
+  int* out_it;          // [E]
+  int* out_reason;      // [E]
+  int* out_trials;      // [E] line-search trials priced
+  unsigned char* workspace;  // [E, state_bytes] when the state is global
+  int E, r, d, m, max_iter, max_line_search;
+  double l2, l1, tol, c1;
+};
+
+// Where one launch keeps each entity's data. The layout is a template
+// argument of the kernel, so that in the shared-memory layouts the
+// compiler sees shared-memory pointers and emits shared loads.
+enum Layout { kAllShared = 0, kXGlobal = 1, kAllGlobal = 2 };
+
+struct Plan {
+  size_t state_bytes;  // the T working set, rounded up to 16 bytes
+  size_t warp_bytes;   // shared memory per warp (0 in kAllGlobal)
+  int layout;
+  int warps;           // warps (entities) per block
+};
+
+inline size_t round16(size_t n) { return (n + 15) / 16 * 16; }
+
+inline int make_plan(int r, int d, int m, size_t t_size, Plan* plan) {
+  int dev = 0, budget = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &budget, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const size_t state = round16(
+      t_size * (6 * (size_t)r + 8 * (size_t)d + 2 * (size_t)m * d +
+                2 * (size_t)m));
+  const size_t x_tile = round16(4 * (size_t)r * (d + 1));
+  plan->state_bytes = state;
+  if (state + x_tile <= (size_t)budget) {
+    plan->warp_bytes = state + x_tile;
+    plan->layout = kAllShared;
+  } else if (state <= (size_t)budget) {
+    plan->warp_bytes = state;
+    plan->layout = kXGlobal;
+  } else {
+    plan->warp_bytes = 0;
+    plan->layout = kAllGlobal;
+  }
+  plan->warps = kMaxWarps;
+  if (plan->warp_bytes > 0 && budget / plan->warp_bytes < kMaxWarps)
+    plan->warps = (int)(budget / plan->warp_bytes);
+  return 0;
+}
+
+// Math in the compute type.
+__device__ __forceinline__ float ex(float v) { return expf(v); }
+__device__ __forceinline__ double ex(double v) { return exp(v); }
+__device__ __forceinline__ float lg1p(float v) { return log1pf(v); }
+__device__ __forceinline__ double lg1p(double v) { return log1p(v); }
+__device__ __forceinline__ float ab(float v) { return fabsf(v); }
+__device__ __forceinline__ double ab(double v) { return fabs(v); }
+__device__ __forceinline__ float mx(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double mx(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float rt(float v) { return sqrtf(v); }
+__device__ __forceinline__ double rt(double v) { return sqrt(v); }
+__device__ __forceinline__ float half_pow(float t, int k) {
+  return ldexpf(t, -k);
+}
+__device__ __forceinline__ double half_pow(double t, int k) {
+  return ldexp(t, -k);
+}
+__device__ __forceinline__ bool finite(float v) { return isfinite(v); }
+__device__ __forceinline__ bool finite(double v) { return isfinite(v); }
+// sign(v) as -1, 0 or 1; -0.0 and 0.0 both give 0.
+template <typename T>
+__device__ __forceinline__ int sgn(T v) {
+  return (v > T(0)) - (v < T(0));
+}
+
+// The normalization fold of one x value, rounded to float32 as the tile
+// stores it: (x - shift) * factor.
+template <typename T>
+__device__ __forceinline__ float fold(float x, T sh, T fa) {
+  return (float)(((T)x - sh) * fa);
+}
+
+// Pseudo-gradient of f + l1 |c| at one coordinate (optimization/owlqn.py).
+template <typename T>
+__device__ __forceinline__ T pseudo_grad(T c, T g, T l1) {
+  if (c != T(0)) return g + l1 * (T)sgn(c);
+  const T right = g + l1, left = g - l1;
+  return right < T(0) ? right : (left > T(0) ? left : T(0));
+}
+
+// Losses (photon_ml_tpu_torch/ops/losses.py, kernel_id order).
+template <int LOSS, typename T>
+struct Loss;
+
+template <typename T>
+struct Loss<0, T> {  // logistic: log(1 + e^z) - y z
+  __device__ static T value(T z, T y) {
+    return mx(z, T(0)) + lg1p(ex(-ab(z))) - y * z;
+  }
+  __device__ static T d1(T z, T y) { return T(1) / (T(1) + ex(-z)) - y; }
+};
+
+template <typename T>
+struct Loss<1, T> {  // squared: (z - y)^2 / 2
+  __device__ static T value(T z, T y) {
+    T e = z - y;
+    return T(0.5) * e * e;
+  }
+  __device__ static T d1(T z, T y) { return z - y; }
+};
+
+template <typename T>
+struct Loss<2, T> {  // Poisson: e^z - y z
+  __device__ static T value(T z, T y) { return ex(z) - y * z; }
+  __device__ static T d1(T z, T y) { return ex(z) - y; }
+};
+
+template <typename T>
+struct Loss<3, T> {  // smoothed hinge on t = (2y - 1) z
+  __device__ static T value(T z, T y) {
+    T t = (T(2) * y - T(1)) * z;
+    return t <= T(0) ? T(0.5) - t
+                     : (t < T(1) ? T(0.5) * (T(1) - t) * (T(1) - t) : T(0));
+  }
+  __device__ static T d1(T z, T y) {
+    T yy = T(2) * y - T(1);
+    T t = yy * z;
+    return (t <= T(0) ? T(-1) : (t < T(1) ? t - T(1) : T(0))) * yy;
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// sum_j a[j] b[j], lanes over coordinates.
+template <typename T>
+__device__ T dot(const T* a, const T* b, int d, int lane) {
+  T s = T(0);
+  for (int j = lane; j < d; j += 32) s += a[j] * b[j];
+  return warp_sum(s);
+}
+
+// The entity's x as the solve sees it. In the shared layout the tile
+// already holds x' (folded at load); where x is read from device memory
+// and normalization is on, every read folds with the working set's
+// factor and shift.
+template <typename T, int LAYOUT>
+struct XView {
+  const float* xs;
+  int ld;
+  const T* fa;  // null: no fold on read
+  const T* sh;
+  __device__ __forceinline__ T at(int i, int j) const {
+    const float v = xs[(size_t)i * ld + j];
+    if constexpr (LAYOUT != kAllShared) {
+      if (fa != nullptr) return (T)fold(v, sh[j], fa[j]);
+    }
+    return (T)v;
+  }
+};
+
+// out[i] = sum_j x[i, j] v[j] + off[i], lanes over rows.
+template <typename T, int LAYOUT>
+__device__ void margins(const XView<T, LAYOUT>& xv, const T* v, const T* off,
+                        T* out, int r, int d, int lane) {
+  for (int i = lane; i < r; i += 32) {
+    T acc = T(0);
+    for (int j = 0; j < d; ++j) acc += xv.at(i, j) * v[j];
+    out[i] = acc + off[i];
+  }
+}
+
+// out[j] = l2 c[j] + sum_i x[i, j] u[i] with u = w * l'(z, y).
+template <int LOSS, typename T, int LAYOUT>
+__device__ void gradient(const XView<T, LAYOUT>& xv, const T* z, const T* y,
+                         const T* w, T* u, const T* c, T l2, T* out, int r,
+                         int d, int lane) {
+  __syncwarp();
+  for (int i = lane; i < r; i += 32)
+    u[i] = w[i] * Loss<LOSS, T>::d1(z[i], y[i]);
+  __syncwarp();
+  for (int j = lane; j < d; j += 32) {
+    T acc = l2 * c[j];
+    for (int i = 0; i < r; ++i) acc += xv.at(i, j) * u[i];
+    out[j] = acc;
+  }
+}
+
+// sum_i w[i] l(z[i] + t zp[i], y[i]), lanes over rows.
+template <int LOSS, typename T>
+__device__ T data_value(const T* z, const T* zp, T t, const T* y, const T* w,
+                        int r, int lane) {
+  T s = T(0);
+  for (int i = lane; i < r; i += 32)
+    s += w[i] * Loss<LOSS, T>::value(zp ? z[i] + t * zp[i] : z[i], y[i]);
+  return warp_sum(s);
+}
+
+// sum_j |v[j]|, lanes over coordinates.
+template <typename T>
+__device__ T l1_norm(const T* v, int d, int lane) {
+  T s = T(0);
+  for (int j = lane; j < d; j += 32) s += ab(v[j]);
+  return warp_sum(s);
+}
+
+// |pg(c, g)|: the OWL-QN stationarity measure.
+template <typename T>
+__device__ T pg_norm(const T* c, const T* g, T l1, int d, int lane) {
+  T s = T(0);
+  for (int j = lane; j < d; j += 32) {
+    const T p = pseudo_grad(c[j], g[j], l1);
+    s += p * p;
+  }
+  return rt(warp_sum(s));
+}
+
+template <int LOSS, typename T, int LAYOUT, bool OWLQN>
+__global__ void __launch_bounds__(128)
+    entity_lbfgs_kernel(Params p, Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int e = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (e >= p.E) return;  // whole warps only: no block barrier follows
+  const int r = p.r, d = p.d, m = p.m;
+  const T l2 = (T)p.l2, l1 = (T)p.l1, tol = (T)p.tol, c1 = (T)p.c1;
+  const T eps = (T)kCautiousEps;
+  const bool normalized = p.factor != nullptr;
+
+  unsigned char* base;
+  if constexpr (LAYOUT == kAllGlobal)
+    base = p.workspace + (size_t)e * plan.state_bytes;
+  else
+    base = smem + (size_t)warp * plan.warp_bytes;
+  T* y = reinterpret_cast<T*>(base);
+  T* off = y + r;
+  T* w = off + r;
+  T* z = w + r;
+  T* zp = z + r;
+  T* u = zp + r;
+  T* c = u + r;
+  T* g = c + d;
+  T* dir = g + d;
+  T* cn = dir + d;
+  T* gn = cn + d;
+  T* pg = gn + d;
+  T* fa = pg + d;
+  T* sh = fa + d;
+  T* S = sh + d;
+  T* Y = S + (size_t)m * d;
+  T* rho = Y + (size_t)m * d;
+  T* alpha = rho + m;
+
+  if (normalized)
+    for (int j = lane; j < d; j += 32) {
+      fa[j] = (T)p.factor[(size_t)e * d + j];
+      sh[j] = (T)p.shift[(size_t)e * d + j];
+    }
+  __syncwarp();
+
+  const size_t rd = (size_t)r * d;
+  const float* xe = p.x + (size_t)e * rd;
+  XView<T, LAYOUT> xv{xe, d, normalized ? fa : nullptr, sh};
+  if constexpr (LAYOUT == kAllShared) {
+    float* tile = reinterpret_cast<float*>(base + plan.state_bytes);
+    const int ld = d + 1;
+    for (size_t k = lane; k < rd; k += 32) {
+      const size_t i = k / d, j = k - i * d;
+      tile[i * ld + j] = normalized ? fold(xe[k], sh[j], fa[j]) : xe[k];
+    }
+    xv.xs = tile;
+    xv.ld = ld;
+  }
+  for (int i = lane; i < r; i += 32) {
+    size_t o = (size_t)e * r + i;
+    y[i] = p.y[o];
+    off[i] = p.off[o];
+    w[i] = p.w[o];
+  }
+  for (int j = lane; j < d; j += 32) c[j] = p.c0[(size_t)e * d + j];
+  for (size_t k = lane; k < (size_t)m * d; k += 32) S[k] = Y[k] = T(0);
+  for (int k = lane; k < m; k += 32) rho[k] = T(0);
+  __syncwarp();
+
+  margins(xv, c, off, z, r, d, lane);
+  T f = data_value<LOSS, T>(z, (const T*)nullptr, T(0), y, w, r, lane) +
+        T(0.5) * l2 * dot(c, c, d, lane);
+  if constexpr (OWLQN) f += l1 * l1_norm(c, d, lane);
+  gradient<LOSS, T>(xv, z, y, w, u, c, l2, g, r, d, lane);
+  __syncwarp();
+  const T gnorm0 =
+      OWLQN ? pg_norm(c, g, l1, d, lane) : rt(dot(g, g, d, lane));
+  const T f0_scale = mx(ab(f), (T)1e-30);
+  T gnorm = gnorm0;
+  int reason = gnorm0 <= T(0) ? kGradientConverged : kNotConverged;
+  int it = 0, count = 0, trials = 0;
+
+  for (int k = 0; k < p.max_iter && reason == kNotConverged; ++k) {
+    // The gradient the direction descends: g, or OWL-QN's pseudo-gradient.
+    const T* q0 = g;
+    if constexpr (OWLQN) {
+      for (int j = lane; j < d; j += 32) pg[j] = pseudo_grad(c[j], g[j], l1);
+      __syncwarp();
+      q0 = pg;
+    }
+    // Direction: two-loop recursion, newest pair first.
+    for (int j = lane; j < d; j += 32) dir[j] = q0[j];
+    for (int h = m - 1; h >= 0; --h) {
+      const T a = rho[h] * dot(S + (size_t)h * d, dir, d, lane);
+      if (lane == 0) alpha[h] = a;
+      for (int j = lane; j < d; j += 32) dir[j] -= a * Y[(size_t)h * d + j];
+    }
+    const T* s_new = S + (size_t)(m - 1) * d;
+    const T* y_new = Y + (size_t)(m - 1) * d;
+    const T yy = dot(y_new, y_new, d, lane);
+    const T sy_new = dot(s_new, y_new, d, lane);
+    const T gamma = count > 0 ? sy_new / mx(yy, eps) : T(1);
+    for (int j = lane; j < d; j += 32) dir[j] *= gamma;
+    __syncwarp();
+    for (int h = 0; h < m; ++h) {
+      const T b = rho[h] * dot(Y + (size_t)h * d, dir, d, lane);
+      const T coef = alpha[h] - b;
+      for (int j = lane; j < d; j += 32) dir[j] += coef * S[(size_t)h * d + j];
+    }
+    for (int j = lane; j < d; j += 32) dir[j] = -dir[j];
+    if constexpr (OWLQN) {
+      // Keep only the components that descend along -pg.
+      for (int j = lane; j < d; j += 32)
+        if (!(dir[j] * pg[j] < T(0))) dir[j] = T(0);
+    }
+    if (dot(dir, q0, d, lane) >= T(0))
+      for (int j = lane; j < d; j += 32) dir[j] = -q0[j];
+    __syncwarp();
+
+    bool ok = false;
+    T t_acc = T(0), f_new = T(0);
+    const T pp = dot(dir, dir, d, lane);
+    const T t0 = count == 0 ? T(1) / mx(rt(pp), T(1)) : T(1);
+    if constexpr (OWLQN) {
+      // Orthant-projected trials, each priced from its own margins: the
+      // first that passes Armijo on the realized displacement wins. The
+      // trial point is built in cn and its margins in zp.
+      for (int kk = 0; kk <= p.max_line_search; ++kk) {
+        const T t = half_pow(t0, kk);  // t0 * 0.5^kk, exactly
+        for (int j = lane; j < d; j += 32) {
+          const T xt = c[j] + t * dir[j];
+          const int orth = c[j] != T(0) ? sgn(c[j]) : sgn(-pg[j]);
+          cn[j] = sgn(xt) == orth ? xt : T(0);
+        }
+        __syncwarp();
+        margins(xv, cn, off, zp, r, d, lane);
+        T dec = T(0);
+        for (int j = lane; j < d; j += 32) dec += pg[j] * (cn[j] - c[j]);
+        dec = warp_sum(dec);
+        const T ft =
+            data_value<LOSS, T>(zp, (const T*)nullptr, T(0), y, w, r, lane) +
+            T(0.5) * l2 * dot(cn, cn, d, lane) + l1 * l1_norm(cn, d, lane);
+        ++trials;
+        if (ft <= f + c1 * dec && finite(ft)) {
+          ok = true;
+          f_new = ft;
+          break;
+        }
+        __syncwarp();
+      }
+    } else {
+      // Line search priced from cached margins: zp = (X d + off) - off.
+      margins(xv, dir, off, zp, r, d, lane);
+      for (int i = lane; i < r; i += 32) zp[i] -= off[i];
+      const T xx = dot(c, c, d, lane);
+      const T xp = dot(c, dir, d, lane);
+      const T gp = dot(g, dir, d, lane);
+      for (int kk = 0; kk <= p.max_line_search; ++kk) {
+        const T t = half_pow(t0, kk);  // t0 * 0.5^kk, exactly
+        const T ft = data_value<LOSS, T>(z, (const T*)zp, t, y, w, r, lane) +
+                     T(0.5) * l2 * (xx + T(2) * t * xp + t * t * pp);
+        ++trials;
+        if (ft <= f + c1 * t * gp && finite(ft)) {
+          ok = true;
+          t_acc = t;
+          f_new = ft;
+          break;
+        }
+      }
+    }
+    ++it;
+    if (!ok) {  // the iterate stays; the iteration counts
+      reason = kObjectiveNotImproving;
+      break;
+    }
+
+    if constexpr (OWLQN) {
+      for (int i = lane; i < r; i += 32) z[i] = zp[i];
+    } else {
+      for (int j = lane; j < d; j += 32) cn[j] = c[j] + t_acc * dir[j];
+      for (int i = lane; i < r; i += 32) z[i] += t_acc * zp[i];
+    }
+    gradient<LOSS, T>(xv, z, y, w, u, cn, l2, gn, r, d, lane);
+    __syncwarp();
+    const T gnorm_new =
+        OWLQN ? pg_norm(cn, gn, l1, d, lane) : rt(dot(gn, gn, d, lane));
+
+    // Cautious history update, from the smooth gradients.
+    T sy = T(0), ss = T(0), yy2 = T(0);
+    for (int j = lane; j < d; j += 32) {
+      const T sj = cn[j] - c[j], yj = gn[j] - g[j];
+      sy += sj * yj;
+      ss += sj * sj;
+      yy2 += yj * yj;
+    }
+    sy = warp_sum(sy);
+    ss = warp_sum(ss);
+    yy2 = warp_sum(yy2);
+    if (sy > eps * rt(ss) * rt(yy2)) {
+      for (int h = 0; h + 1 < m; ++h)
+        for (int j = lane; j < d; j += 32) {
+          S[(size_t)h * d + j] = S[(size_t)(h + 1) * d + j];
+          Y[(size_t)h * d + j] = Y[(size_t)(h + 1) * d + j];
+        }
+      for (int j = lane; j < d; j += 32) {
+        S[(size_t)(m - 1) * d + j] = cn[j] - c[j];
+        Y[(size_t)(m - 1) * d + j] = gn[j] - g[j];
+      }
+      if (lane == 0) {
+        for (int h = 0; h + 1 < m; ++h) rho[h] = rho[h + 1];
+        rho[m - 1] = sy != T(0) ? T(1) / sy : T(0);
+      }
+      count = count + 1 < m ? count + 1 : m;
+    }
+
+    if (gnorm_new <= tol * gnorm0)
+      reason = kGradientConverged;
+    else if (ab(f - f_new) <= tol * f0_scale)
+      reason = kFunctionValuesConverged;
+    else if (it >= p.max_iter)
+      reason = kMaxIterations;
+    __syncwarp();
+    for (int j = lane; j < d; j += 32) {
+      c[j] = cn[j];
+      g[j] = gn[j];
+    }
+    f = f_new;
+    gnorm = gnorm_new;
+    __syncwarp();
+  }
+
+  for (int j = lane; j < d; j += 32) p.out_c[(size_t)e * d + j] = (float)c[j];
+  if (lane == 0) {
+    p.out_f[e] = (float)f;
+    p.out_gnorm[e] = (float)gnorm;
+    p.out_it[e] = it;
+    p.out_reason[e] = reason;
+    p.out_trials[e] = trials;
+  }
+}
+
+template <int LOSS, typename T, int LAYOUT, bool OWLQN>
+int launch_layout(const Params& p, const Plan& plan, cudaStream_t stream) {
+  const size_t smem = plan.warp_bytes * plan.warps;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        entity_lbfgs_kernel<LOSS, T, LAYOUT, OWLQN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (p.E + plan.warps - 1) / plan.warps;
+  entity_lbfgs_kernel<LOSS, T, LAYOUT, OWLQN>
+      <<<blocks, 32 * plan.warps, smem, stream>>>(p, plan);
+  return (int)cudaGetLastError();
+}
+
+template <int LOSS, typename T, bool OWLQN>
+int launch(const Params& p, cudaStream_t stream) {
+  Plan plan;
+  int err = make_plan(p.r, p.d, p.m, sizeof(T), &plan);
+  if (err != 0) return err;
+  switch (plan.layout) {
+    case kAllShared:
+      return launch_layout<LOSS, T, kAllShared, OWLQN>(p, plan, stream);
+    case kXGlobal:
+      return launch_layout<LOSS, T, kXGlobal, OWLQN>(p, plan, stream);
+    default:
+      if (p.workspace == nullptr) return (int)cudaErrorInvalidValue;
+      return launch_layout<LOSS, T, kAllGlobal, OWLQN>(p, plan, stream);
+  }
+}
+
+// Launchers of one (compute type, mode) for every loss, one per
+// translation unit so that nvcc builds them in parallel.
+int launch_lbfgs_f64(const Params& p, int loss, cudaStream_t stream);
+int launch_lbfgs_f32(const Params& p, int loss, cudaStream_t stream);
+int launch_owlqn_f64(const Params& p, int loss, cudaStream_t stream);
+int launch_owlqn_f32(const Params& p, int loss, cudaStream_t stream);
+
+template <typename T, bool OWLQN>
+int launch_loss(const Params& p, int loss, cudaStream_t stream) {
+  switch (loss) {
+    case 0: return launch<0, T, OWLQN>(p, stream);
+    case 1: return launch<1, T, OWLQN>(p, stream);
+    case 2: return launch<2, T, OWLQN>(p, stream);
+    case 3: return launch<3, T, OWLQN>(p, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+
+}  // namespace entity_lbfgs

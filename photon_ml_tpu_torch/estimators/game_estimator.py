@@ -4,9 +4,11 @@ RandomEffectSpec :58, GameEstimator.fit :110, select_best_result :227;
 reference ml/estimators/GameEstimator.scala:51-527).
 
 ``fit`` builds each random-effect dataset once, then trains one
-coordinate-descent run per combination of per-coordinate configs.
-Normalization, box constraints, feature sharding, factored random
-effects and checkpoints are not ported yet (ROADMAP queue A).
+coordinate-descent run per combination of per-coordinate configs. A
+spec's ``normalization`` (a NormalizationContext over the coordinate's
+global feature space, data/normalization.py) goes to its coordinate. Box
+constraints, feature sharding, factored random effects and checkpoints
+are not ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from photon_ml_tpu_torch.algorithm.coordinates import (
     RandomEffectCoordinate,
 )
 from photon_ml_tpu_torch.data.game_data import GameDataset
+from photon_ml_tpu_torch.data.normalization import NormalizationContext
 from photon_ml_tpu_torch.data.random_effect import (
     RandomEffectDataConfiguration,
     build_random_effect_dataset,
@@ -46,6 +49,7 @@ class FixedEffectSpec:
     name: str
     feature_shard_id: str
     configs: Sequence[GLMOptimizationConfiguration]
+    normalization: Optional[NormalizationContext] = None
 
 
 @dataclasses.dataclass
@@ -54,6 +58,7 @@ class RandomEffectSpec:
     data_config: RandomEffectDataConfiguration
     configs: Sequence[GLMOptimizationConfiguration]
     intercept_col: Optional[int] = None
+    normalization: Optional[NormalizationContext] = None
 
 
 CoordinateSpec = Union[FixedEffectSpec, RandomEffectSpec]
@@ -100,11 +105,13 @@ class GameEstimator:
                         name=s.name, data=data,
                         feature_shard_id=s.feature_shard_id,
                         task_type=self.task_type, config=configs[s.name],
-                        dtype=self.dtype, device=self.device)
+                        normalization=s.normalization, dtype=self.dtype,
+                        device=self.device)
                 else:
                     coords[s.name] = RandomEffectCoordinate(
                         name=s.name, dataset=re_datasets[s.name],
-                        task_type=self.task_type, config=configs[s.name])
+                        task_type=self.task_type, config=configs[s.name],
+                        normalization=s.normalization)
             cd = CoordinateDescent(
                 coords, self.task_type, validation_data=validation_data,
                 validation_evaluators=self.validation_evaluators,

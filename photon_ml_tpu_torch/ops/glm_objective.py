@@ -1,12 +1,17 @@
 """The GLM objective in closed form (port of photon_ml_tpu/ops/
-glm_objective.py: GLMBatch :41, GLMObjective :84).
+glm_objective.py: GLMBatch :41, GLMObjective :84, margins :108,
+_jt_product :152, curvature_from_margins :174,
+hessian_vector_from_margins :181, make_tron_hvp :191).
 
-    f(c) = sum_i w_i l(z_i, y_i) + l2/2 ||c||^2,    z = X c + offsets
-    g(c) = X^T (w * l'(z, y)) + l2 c
+    f(c) = sum_i w_i l(z_i, y_i) + l2/2 ||c||^2
+    z    = X (c * factor) + offsets - (c * factor) . shift
+    g(c) = J^T (w * l'(z, y)) + l2 c,  J^T u = (X^T u - sum(u) shift) * factor
+    H v  = J^T (w l''(z, y) * J v) + l2 v
 
-The JAX package differentiates ``value`` automatically; the port writes
-the gradient out, which is the same function. Only ``normalization=None``
-is ported (ROADMAP queue A, normalization item).
+The normalization (data/normalization.py) is algebra on the coefficients,
+so CSR features stay sparse and x' is never materialized. The JAX
+package differentiates ``value`` automatically; the port writes the
+gradient out, which is the same function.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from photon_ml_tpu_torch.data.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.features import FeatureMatrix
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 
@@ -49,25 +55,32 @@ def make_batch(features, labels, offsets=None, weights=None) -> GLMBatch:
 @dataclasses.dataclass(frozen=True, eq=False)
 class GLMObjective:
     """value(coef) = sum_i w_i * l(margin_i, y_i) + l2/2 ||coef||^2.
-    L2 applies to all coefficients, the intercept included
-    (ml/function/L2Regularization.scala:75)."""
+    L2 applies to all coefficients, the intercept included, in the
+    (normalized) optimization space (ml/function/L2Regularization.scala:75).
+    """
 
     loss: PointwiseLoss
-    normalization: Optional[object] = None
-
-    def __post_init__(self):
-        if self.normalization is not None:
-            raise NotImplementedError(
-                "feature normalization is not ported yet "
-                "(ROADMAP queue A, item 3: data/normalization.py)")
+    normalization: Optional[NormalizationContext] = None
 
     def margins(self, coef: Tensor, batch: GLMBatch) -> Tensor:
-        return batch.features.matvec(coef) + batch.offsets
+        norm = self.normalization
+        if norm is None:
+            return batch.features.matvec(coef) + batch.offsets
+        eff = norm.effective_coefficients(coef)
+        return (batch.features.matvec(eff) + batch.offsets
+                + norm.margin_shift(coef))
 
     def value(self, coef: Tensor, batch: GLMBatch, l2_weight=0.0) -> Tensor:
         z = self.margins(coef, batch)
         return self.value_from_margins(z, torch.dot(coef, coef), batch,
                                        l2_weight)
+
+    def value_and_grad(self, coef: Tensor, batch: GLMBatch, l2_weight=0.0):
+        """(value, gradient) from one margin pass."""
+        z = self.margins(coef, batch)
+        return (self.value_from_margins(z, torch.dot(coef, coef), batch,
+                                        l2_weight),
+                self.gradient_from_margins(coef, z, batch, l2_weight))
 
     def gradient(self, coef: Tensor, batch: GLMBatch,
                  l2_weight=0.0) -> Tensor:
@@ -85,8 +98,42 @@ class GLMObjective:
         return (torch.sum(batch.weights * self.loss.loss(z, batch.labels))
                 + 0.5 * l2_weight * coef_sq_norm)
 
+    def _jt_product(self, u: Tensor, batch: GLMBatch) -> Tensor:
+        """J^T u with J = dz/dcoef: the normalization chain rule shared by
+        the gradient and the Hessian-vector product, in the JAX order of
+        operations (ValueAndGradientAggregator.scala:133-154)."""
+        r = batch.features.rmatvec(u)
+        norm = self.normalization
+        if norm is not None:
+            if norm.shifts is not None:
+                r = r - torch.sum(u) * norm.shifts
+            if norm.factors is not None:
+                r = r * norm.factors
+        return r
+
     def gradient_from_margins(self, coef: Tensor, z: Tensor,
                               batch: GLMBatch, l2_weight=0.0) -> Tensor:
-        """X^T (w * l'(z, y)) + l2 * coef: one feature contraction."""
+        """J^T (w * l'(z, y)) + l2 * coef: one feature contraction."""
         u = batch.weights * self.loss.d1(z, batch.labels)
-        return batch.features.rmatvec(u) + l2_weight * coef
+        return self._jt_product(u, batch) + l2_weight * coef
+
+    def curvature_from_margins(self, z: Tensor, batch: GLMBatch) -> Tensor:
+        """d2_i = w_i l''(z_i, y_i): the Gauss-Newton curvature weights,
+        computed once per TRON outer iteration."""
+        return batch.weights * self.loss.d2(z, batch.labels)
+
+    def hessian_vector_from_margins(self, vec: Tensor, d2: Tensor,
+                                    batch: GLMBatch, l2_weight=0.0
+                                    ) -> Tensor:
+        """H @ vec with precomputed curvature weights: one matvec and one
+        rmatvec (J v is the directional margin)."""
+        jv = self.margin_direction(vec, batch)
+        return self._jt_product(d2 * jv, batch) + l2_weight * vec
+
+    def make_tron_hvp(self, x: Tensor, batch: GLMBatch, l2_weight=0.0):
+        """Hessian-vector factory for minimize_tron's ``make_hvp`` hook:
+        margins and curvature once per outer iteration, then one matvec
+        and one rmatvec per CG step."""
+        d2 = self.curvature_from_margins(self.margins(x, batch), batch)
+        return lambda v: self.hessian_vector_from_margins(v, d2, batch,
+                                                          l2_weight)

@@ -33,7 +33,9 @@ class OptimizerResult:
     """Solution + telemetry. For a batched (per-entity) solve every field
     has a leading entity axis; ``value_history``/``grad_norm_history``
     are ``[max_iter + 1]`` vectors (NaN past ``iterations``) for a single
-    solve and None for the batched entity solver, as in the JAX package."""
+    solve and None for the batched entity solver, as in the JAX package.
+    TRON counts only accepted steps in ``iterations``; its total outer
+    and inner CG steps are in ``outer_steps`` and ``cg_steps``."""
 
     x: Tensor
     value: Tensor
@@ -42,3 +44,10 @@ class OptimizerResult:
     reason: Tensor  # int32, a ConvergenceReason value
     value_history: Optional[Tensor] = None
     grad_norm_history: Optional[Tensor] = None
+    # Batched entity solver only: line-search trials priced per entity,
+    # summed over its iterations (the JAX package does not report them).
+    trials: Optional[Tensor] = None
+    # TRON only (host loop): outer iterations run, accepted or not, and
+    # conjugate-gradient steps summed over them.
+    outer_steps: Optional[int] = None
+    cg_steps: Optional[int] = None

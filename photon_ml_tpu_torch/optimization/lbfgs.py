@@ -1,6 +1,7 @@
-"""L-BFGS history and search directions (port of
-photon_ml_tpu/optimization/lbfgs.py: _LBFGSHistory :47,
-two_loop_direction :63, compact_direction :93, update_history :136).
+"""L-BFGS history, search directions and the projected line search (port
+of photon_ml_tpu/optimization/lbfgs.py: _LBFGSHistory :47,
+two_loop_direction :63, compact_direction :93, update_history :136,
+_project :173, backtracking_line_search :181-229).
 
 The history is a fixed-shape chronological ring of ``m`` (s, y) pairs,
 oldest first; empty slots carry rho = 0 and contribute nothing. Updates
@@ -11,7 +12,7 @@ history back to the host.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -103,3 +104,45 @@ def select_history(cond: Tensor, a: LBFGSHistory, b: LBFGSHistory
                    ) -> LBFGSHistory:
     """Field-wise ``where(cond, a, b)`` for a scalar condition."""
     return LBFGSHistory(*(torch.where(cond, x, y) for x, y in zip(a, b)))
+
+
+def _project(x: Tensor, lower: Optional[Tensor], upper: Optional[Tensor]
+             ) -> Tensor:
+    if lower is not None:
+        x = torch.maximum(x, lower)
+    if upper is not None:
+        x = torch.minimum(x, upper)
+    return x
+
+
+def backtracking_line_search(
+    vg: Callable[..., Tuple[Tensor, Tensor]],
+    x: Tensor,
+    f: Tensor,
+    decrease_grad: Tensor,
+    direction: Tensor,
+    args: Tuple,
+    *,
+    initial_step: Tensor,
+    c1: float,
+    max_steps: int,
+    project_fn: Callable[[Tensor], Tensor],
+    shrink: float = 0.5,
+) -> Tuple[bool, Tensor, Tensor, Tensor]:
+    """Armijo backtracking on the projected step: t = initial_step, then
+    t * shrink up to ``max_steps`` more times, until
+    f(x_t) <= f + c1 <decrease_grad, x_t - x> with f(x_t) finite, where
+    x_t = project_fn(x + t direction). Returns (ok, x_new, f_new, g_new),
+    the last trial when none passed. A host loop: one sync per trial."""
+    t = initial_step
+    k = 0
+    while True:
+        x_t = project_fn(x + t * direction)
+        f_t, g_t = vg(x_t, *args)
+        armijo = ((f_t <= f + c1 * torch.dot(decrease_grad, x_t - x))
+                  & torch.isfinite(f_t))
+        ok = bool(armijo)
+        if ok or k >= max_steps:
+            return ok, x_t, f_t, g_t
+        t = t * shrink
+        k += 1

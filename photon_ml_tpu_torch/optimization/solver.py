@@ -1,9 +1,10 @@
-"""Solver dispatch (port of photon_ml_tpu/optimization/solver.py:32-96).
+"""Solver dispatch (port of photon_ml_tpu/optimization/solver.py:32-94).
 
-The slice ports the unconstrained L-BFGS/L2 route, which
-``solve_glm`` sends to the margin-cached GLM L-BFGS. TRON, OWL-QN (any
-L1 weight) and box constraints raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+TRON for twice-differentiable objectives without L1, OWL-QN whenever the
+L1 weight is positive, the margin-cached GLM L-BFGS otherwise (reference
+ml/optimization/OptimizerFactory.scala). The L2 part always rides inside
+the objective; L1 is OWL-QN's orthant machinery. Box constraints raise
+``NotImplementedError`` naming the ROADMAP items that port them.
 """
 
 from __future__ import annotations
@@ -19,20 +20,10 @@ from photon_ml_tpu_torch.optimization.config import (
 )
 from photon_ml_tpu_torch.optimization.convergence import OptimizerResult
 from photon_ml_tpu_torch.optimization.glm_lbfgs import minimize_lbfgs_glm
+from photon_ml_tpu_torch.optimization.owlqn import minimize_owlqn
+from photon_ml_tpu_torch.optimization.tron import minimize_tron
 
 Tensor = torch.Tensor
-
-
-def check_lbfgs_l2(config: GLMOptimizationConfiguration) -> None:
-    """Raise for the optimizer configurations the port has no solver for
-    yet (ROADMAP queue A, item 4)."""
-    if config.optimizer_type == OptimizerType.TRON:
-        raise NotImplementedError(
-            "TRON is not ported yet (ROADMAP queue A item 4, queue B row 5)")
-    if config.l1_weight > 0:
-        raise NotImplementedError(
-            "OWL-QN (L1 / elastic net) is not ported yet "
-            "(ROADMAP queue A item 4, queue B row 4)")
 
 
 def solve_glm(
@@ -43,12 +34,27 @@ def solve_glm(
     lower_bounds: Optional[Tensor] = None,
     upper_bounds: Optional[Tensor] = None,
 ) -> OptimizerResult:
-    """One GLM solve: L-BFGS with the L2 weight inside the objective."""
-    check_lbfgs_l2(config)
+    """One GLM solve, routed as the JAX ``solve_glm`` routes it."""
     if lower_bounds is not None or upper_bounds is not None:
         raise NotImplementedError(
-            "box constraints are not ported yet "
-            "(ROADMAP queue A item 4, queue B row 3)")
+            "box constraints are not ported yet (ROADMAP queue A item 4, "
+            "queue B rows 3 and 6)")
+    l1, l2 = config.l1_weight, config.l2_weight
+    if config.optimizer_type == OptimizerType.TRON:
+        if not objective.loss.twice_differentiable:
+            raise ValueError(
+                f"TRON requires a twice-differentiable loss, got "
+                f"{objective.loss.name}")
+        if l1 > 0:
+            raise ValueError("TRON does not support L1 regularization")
+        return minimize_tron(
+            objective.value_and_grad, coef0, args=(batch, l2),
+            max_iter=config.max_iterations, tol=config.tolerance,
+            make_hvp=objective.make_tron_hvp)
+    if l1 > 0:
+        return minimize_owlqn(
+            objective.value_and_grad, coef0, args=(batch, l2), l1_weight=l1,
+            max_iter=config.max_iterations, tol=config.tolerance)
     return minimize_lbfgs_glm(
-        objective, batch, coef0, config.l2_weight,
+        objective, batch, coef0, l2,
         max_iter=config.max_iterations, tol=config.tolerance)

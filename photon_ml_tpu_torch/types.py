@@ -1,4 +1,4 @@
-"""Common enums (port of photon_ml_tpu/types.py:12-26).
+"""Common enums (port of photon_ml_tpu/types.py:12-40).
 
 Mirrors the task-type vocabulary of the reference
 (photon-ml/src/main/scala/com/linkedin/photon/ml/TaskType.scala).
@@ -23,3 +23,15 @@ class TaskType(str, enum.Enum):
             TaskType.LOGISTIC_REGRESSION,
             TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM,
         )
+
+
+class NormalizationType(str, enum.Enum):
+    """Feature normalization flavors.
+
+    Reference: ml/normalization/NormalizationType.java:25-40.
+    """
+
+    NONE = "NONE"
+    SCALE_WITH_STANDARD_DEVIATION = "SCALE_WITH_STANDARD_DEVIATION"
+    SCALE_WITH_MAX_MAGNITUDE = "SCALE_WITH_MAX_MAGNITUDE"
+    STANDARDIZATION = "STANDARDIZATION"

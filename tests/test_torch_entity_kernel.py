@@ -1,7 +1,10 @@
 """The entity-solver CUDA kernel against its plain PyTorch version on the
 card, for all four losses and shapes that exercise the kernel's edges:
 rows and coordinates beyond one warp's 32 lanes, a ragged last block of
-warps, non-zero starting coefficients and zero-weight entities.
+warps, non-zero starting coefficients and zero-weight entities; in
+L-BFGS and OWL-QN mode, with and without the normalization fold, and in
+the layouts that keep x in device memory. Iterations, stop reasons,
+trial counts and exact-zero sets must be equal.
 
 Marked ``cuda``: skips without a GPU. This file imports neither jax nor
 the JAX package, so it runs on a GPU host that has only PyTorch:
@@ -23,6 +26,25 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")
     return torch.device("cuda")
+
+
+def _normalization(e, d, seed):
+    """Per-entity factors and shifts with an inert intercept column 0."""
+    rng = np.random.default_rng(seed)
+    fac = rng.uniform(0.5, 2.0, (e, d))
+    sh = rng.normal(0, 0.3, (e, d))
+    fac[:, 0], sh[:, 0] = 1.0, 0.0
+    return [np.asarray(a, np.float32) for a in (fac, sh)]
+
+
+def _assert_same_solve(res_k, res_p):
+    assert torch.equal(res_k.iterations, res_p.iterations)
+    assert torch.equal(res_k.reason, res_p.reason)
+    assert torch.equal(res_k.trials, res_p.trials)
+    assert torch.equal(res_k.x == 0, res_p.x == 0)
+    torch.testing.assert_close(res_k.value, res_p.value, rtol=1e-6,
+                               atol=1e-6)
+    torch.testing.assert_close(res_k.x, res_p.x, rtol=0, atol=1e-6)
 
 
 def _inputs(task, e, r, d, seed):
@@ -98,6 +120,7 @@ def test_tall_bucket_launches_the_kernel(cuda_device, e, r, d):
         row_ids=torch.zeros((e, r), dtype=torch.int32, device=cuda_device),
         feat_idx=torch.zeros((e, d), dtype=torch.int32, device=cuda_device))
     cfg = GLMOptimizationConfiguration.parse("10,1e-6,1.0,1.0,LBFGS,L2")
+    assert entity_solver.kernel_layout(r, d) == (1 if r == 4096 else 2)
     launches = entity_solver.entity_lbfgs.launches
     res_k = _solve_block(GLMObjective(loss), cfg, block, None, c0)
     torch.cuda.synchronize()
@@ -127,3 +150,64 @@ def test_float32_compute_matches_plain_float32(cuda_device, r):
     res_p = entity_solver.entity_lbfgs_plain(loss, *args, 1.0, **kw)
     torch.testing.assert_close(res_k.value, res_p.value, rtol=1e-4, atol=0)
     torch.testing.assert_close(res_k.x, res_p.x, rtol=0, atol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", list(TaskType))
+@pytest.mark.parametrize("e,r,d", [(257, 12, 7), (66, 45, 37)])
+def test_owlqn_kernel_matches_plain_version(cuda_device, task, e, r, d):
+    loss = loss_for_task(task)
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in _inputs(task, e, r, d, seed=e + r + d)]
+    kw = dict(max_iter=25, tol=1e-7, mode="owlqn")
+    before = entity_solver.entity_lbfgs.variants["owlqn"]
+    res_k = entity_solver.entity_lbfgs(loss, *args, 0.2, 0.3, **kw)
+    torch.cuda.synchronize()
+    assert entity_solver.entity_lbfgs.variants["owlqn"] == before + 1
+    res_p = entity_solver.entity_lbfgs_plain(loss, *args, 0.2, 0.3, **kw)
+    _assert_same_solve(res_k, res_p)
+    assert bool((res_k.x == 0).any())  # the l1 weight gives exact zeros
+    assert int(res_k.iterations[1]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lbfgs", "owlqn"])
+@pytest.mark.parametrize("r", [12, 4096])
+def test_normalized_kernel_matches_plain_version(cuda_device, mode, r):
+    """The fold at tile load (r = 12) and on every read from device
+    memory (r = 4,096)."""
+    from photon_ml_tpu_torch.ops.entity_solver import variant
+
+    e, d = (70, 9) if r < 100 else (3, 8)
+    loss = loss_for_task(TaskType.LOGISTIC_REGRESSION)
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in _inputs(TaskType.LOGISTIC_REGRESSION, e, r, d, seed=r)]
+    fac, sh = (torch.as_tensor(a, device=cuda_device)
+               for a in _normalization(e, d, seed=r + 1))
+    kw = dict(max_iter=20, tol=1e-7, mode=mode)
+    name = variant(mode, True)
+    assert entity_solver.kernel_layout(r, d) == (0 if r < 100 else 1)
+    before = entity_solver.entity_lbfgs.variants[name]
+    res_k = entity_solver.entity_lbfgs(loss, *args, 0.5, 0.2, fac, sh, **kw)
+    torch.cuda.synchronize()
+    assert entity_solver.entity_lbfgs.variants[name] == before + 1
+    res_p = entity_solver.entity_lbfgs_plain(loss, *args, 0.5, 0.2, fac, sh,
+                                             **kw)
+    _assert_same_solve(res_k, res_p)
+    raw = entity_solver.entity_lbfgs(loss, *args, 0.5, 0.2, **kw)
+    assert not torch.equal(raw.x, res_k.x)  # the fold changed the solve
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tron", "bounds"])
+def test_kernel_raises_for_unported_variants(cuda_device, kind):
+    loss = loss_for_task(TaskType.LOGISTIC_REGRESSION)
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in _inputs(TaskType.LOGISTIC_REGRESSION, 4, 5, 3, 0)]
+    before = entity_solver.entity_lbfgs.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if kind == "tron":
+            entity_solver.entity_lbfgs(loss, *args, 1.0, mode="tron")
+        else:
+            entity_solver.entity_lbfgs(loss, *args, 1.0, lower=args[4])
+    assert entity_solver.entity_lbfgs.launches == before

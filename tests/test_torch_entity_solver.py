@@ -1,8 +1,9 @@
-"""Parity: the port's per-entity L-BFGS solver (its plain PyTorch version,
+"""Parity: the port's per-entity solver (its plain PyTorch version,
 which the wrapper runs for CPU tensors) against the JAX package's Pallas
 kernel run in interpreter mode, as tests/test_pallas_entity_solver.py
-runs it. Float64 on both sides; iterations and stop reasons must be
-equal, values within rtol 1e-10 and coefficients within atol 1e-8."""
+runs it: L-BFGS and OWL-QN, with and without the normalization fold.
+Float64 on both sides; iterations, stop reasons and exact-zero sets must
+be equal, values within rtol 1e-10 and coefficients within atol 1e-8."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -155,3 +156,62 @@ def test_unsupported_compute_dtype_raises():
             loss_for_task(TaskType.LOGISTIC_REGRESSION), x, y, off, w,
             torch.zeros((2, 3), dtype=x.dtype), 1.0,
             compute_dtype=torch.float16)
+
+
+@pytest.fixture(scope="module")
+def elastic_net_bucket():
+    """One bucket with per-entity normalization, solved by the JAX kernel
+    in three variants (the interpreter is slow, so once per module)."""
+    rng = np.random.default_rng(17)
+    e, r, d = 16, 8, 4
+    x, y, off, w = _bucket(rng, e, r, d)
+    x[:, :, 1:] = x[:, :, 1:] * 3.0 + 1.0
+    fac = rng.uniform(0.3, 1.0, (e, d))
+    sh = rng.normal(1.0, 0.3, (e, d))
+    fac[:, 0], sh[:, 0] = 1.0, 0.0
+    loss = jax_loss_for_task(JaxTaskType.LOGISTIC_REGRESSION)
+    args = [jnp.asarray(a) for a in (x, y, off, w)]
+    ref = {}
+    for mode, normalized in (("owlqn", False), ("owlqn", True),
+                             ("lbfgs", True)):
+        extra = ((jnp.asarray(fac), jnp.asarray(sh)) if normalized
+                 else (None, None))
+        ref[mode, normalized] = pallas_entity_lbfgs(
+            loss, *args, jnp.zeros((e, d)), 0.4, 0.4, *extra, max_iter=40,
+            tol=1e-9, mode=mode, interpret=True)
+    return dict(inputs=(x, y, off, w, np.zeros((e, d))), fac=fac, sh=sh,
+                ref=ref)
+
+
+@pytest.mark.parametrize("mode,normalized", [("owlqn", False),
+                                             ("owlqn", True),
+                                             ("lbfgs", True)])
+def test_owlqn_and_normalized_modes_match_pallas_kernel(
+        elastic_net_bucket, mode, normalized):
+    b = elastic_net_bucket
+    extra = ((torch.as_tensor(b["fac"]), torch.as_tensor(b["sh"]))
+             if normalized else (None, None))
+    res_t = entity_solver.entity_lbfgs(
+        loss_for_task(TaskType.LOGISTIC_REGRESSION),
+        *(torch.as_tensor(a) for a in b["inputs"]), 0.4, 0.4, *extra,
+        max_iter=40, tol=1e-9, mode=mode)
+    res_j = b["ref"][mode, normalized]
+    _assert_parity(res_j, res_t)
+    zeros = res_t.x.numpy() == 0.0
+    np.testing.assert_array_equal(zeros, np.asarray(res_j.x) == 0.0)
+    assert zeros.any() == (mode == "owlqn")
+    assert bool((res_t.trials >= res_t.iterations).all())
+
+
+@pytest.mark.parametrize("kind", ["tron", "bounds"])
+def test_unported_variants_raise(kind):
+    rng = np.random.default_rng(18)
+    x, y, off, w = (torch.as_tensor(a) for a in _bucket(rng, 3, 4, 2))
+    c0 = torch.zeros((3, 2), dtype=x.dtype)
+    loss = loss_for_task(TaskType.LOGISTIC_REGRESSION)
+    for fn in (entity_solver.entity_lbfgs, entity_solver.entity_lbfgs_plain):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+            if kind == "tron":
+                fn(loss, x, y, off, w, c0, 1.0, mode="tron")
+            else:
+                fn(loss, x, y, off, w, c0, 1.0, lower=c0 - 1.0)

@@ -104,6 +104,8 @@ def test_two_loop_equals_compact_direction():
 
 @pytest.mark.parametrize("spec", ["TRON", "OWLQN"])
 def test_unported_solvers_raise(spec):
+    """TRON and OWL-QN are ported; their box-constrained variants are not
+    (tests/test_torch_owlqn_tron.py holds the unbounded ones to JAX)."""
     x, y, off = _problem(n=20, d=3)
     reg = (config.RegularizationType.L1 if spec == "OWLQN"
            else config.RegularizationType.L2)
@@ -112,11 +114,13 @@ def test_unported_solvers_raise(spec):
         optimizer_type=(config.OptimizerType.TRON if spec == "TRON"
                         else config.OptimizerType.LBFGS),
         regularization_context=config.RegularizationContext(reg))
+    bound = torch.full((3,), 5.0, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve_glm(GLMObjective(LogisticLoss),
                   make_batch(DenseFeatures(torch.as_tensor(x)),
                              torch.as_tensor(y)),
-                  cfg, torch.zeros(3, dtype=torch.float64))
+                  cfg, torch.zeros(3, dtype=torch.float64),
+                  upper_bounds=bound)
 
 
 def test_config_string_round_trip():
