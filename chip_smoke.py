@@ -7,10 +7,11 @@ Run from the repository root:
 
 It builds the port's CUDA kernels from photon_ml_tpu_torch/csrc/ with
 nvcc (one process per translation unit, all at once), then trains
-bench.py's headline data (200k rows x 200 fixed features with an
-intercept, 5k users x 25 per-user features, logistic; a 20% hold-out
-scored for AUC) through photon_ml_tpu_torch's GameEstimator on two
-paths, 3 coordinate-descent iterations each:
+bench.py's data at its full size (seed 7: 200k rows x 200 fixed features
+with an intercept, 5k users x 25 per-user features, 2k items x 16
+per-item features, both with an intercept in column 0, logistic; a 20%
+hold-out scored for AUC) through photon_ml_tpu_torch's GameEstimator on
+four paths, 3 coordinate-descent iterations each:
 
 - path 1, the headline GLMix of bench.py: fixed effect L-BFGS max_iter
   50, tol 1e-7, L2 1; per-user L-BFGS max_iter 20, tol 1e-6, L2 1;
@@ -18,23 +19,42 @@ paths, 3 coordinate-descent iterations each:
   (examples/run_game_full.sh:36-38): fixed effect TRON/L2
   "15,1e-5,1.0,1.0", per-user elastic net "30,1e-6,0.5,1.0,LBFGS,
   ELASTIC_NET,0.5" (OWL-QN, l1 = l2 = 0.25), both under STANDARDIZATION
-  (the fixed effect's intercept is column 199, the per-user one's 0).
+  (the fixed effect's intercept is column 199, the per-user one's 0);
+- path 3, per-entity TRON: bench.py's config-5 coordinates without its
+  factored one (fixed, per-user, per-item), every one TRON/L2
+  "15,1e-5,1.0,1.0" (the reference's TRON defaults that
+  run_game_full.sh:36 gives its fixed effect); fixed and per-user under
+  STANDARDIZATION as on path 2, per-item without normalization;
+- path 4, box constraints: the same three coordinates, fixed and
+  per-user with path 1's L-BFGS configurations, per-item TRON/L2
+  "15,1e-5,1.0,1.0"; every coordinate gets a coefficient box made with
+  optimization/config.constraint_arrays, intercept free: |c| <= 0.5
+  (fixed), 0.25 (per-user), 0.1 (per-item). The fixed effect runs the
+  host projected L-BFGS (optimization/lbfgs.minimize_lbfgs).
 
 For each path it checks:
 
 - every random-effect bucket went through the entity-solver kernel in
-  the path's variant ("lbfgs" on path 1, "owlqn+normalized" on path 2):
-  launches == buckets x iterations, counted from 0 just before the
-  path's fit and read just after;
-- per bucket of the first random-effect update, replayed on the same
-  inputs (the replay must give the main run's iterations and stop
-  reasons), the kernel against its plain PyTorch version on the same
-  CUDA inputs: value rtol 1e-4, coefficients atol 5e-3 (the f32 floors
-  of tests/test_pallas_entity_solver.py), equal iterations and stop
-  reasons, and on path 2 equal exact-zero sets, in "owlqn" mode and in
-  "lbfgs" mode with the same gathered factors and shifts;
+  the path's variants ("lbfgs" on path 1, "owlqn+normalized" on path 2,
+  "tron+normalized" per user and "tron" per item on path 3,
+  "lbfgs+bounded" per user and "tron+bounded" per item on path 4):
+  launches == buckets x iterations per variant, counted from 0 just
+  before the path's fit and read just after;
+- per bucket of the first update of every random-effect coordinate,
+  replayed on the same inputs (the replay must give the main run's
+  iterations and stop reasons), the kernel against its plain PyTorch
+  version on the same CUDA inputs: value rtol 1e-4, coefficients atol
+  5e-3 (the f32 floors of tests/test_pallas_entity_solver.py), equal
+  iterations, stop reasons and work (line-search trials, or TRON's trips
+  and CG steps); on path 2 equal exact-zero sets, in "owlqn" mode and in
+  "lbfgs" mode with the same gathered factors and shifts; on path 4
+  equal sets of coefficients at a bound; on path 3's per-user buckets
+  also TRON with the fold and path 4's per-user box, a variant no path
+  launches;
 - objectives, AUC and scores are finite, the objective falls, the AUC
-  beats chance, and the device scorer agrees with the host scorer.
+  beats chance, and the device scorer agrees with the host scorer; on
+  path 4 every coefficient lies in its box and every coordinate has
+  coefficients exactly at a bound.
 
 Path 1 also measures, per bucket, how many entities the float32-compute
 kernel and the float32 plain version stop with different reasons or
@@ -44,8 +64,10 @@ the float32 kernel's time.
 TF32 is switched off for matmuls and cuDNN, so every float32 product
 runs in full float32. Timings are CUDA-event or synchronised host times
 on the card named in the output. The third line from the end is a JSON
-record of the kernels, then the card's name and power limit, and the
-last line is {"ok": true, "device": ...}. It exits non-zero, printing no
+record of the kernels (rows 1-6 of the PERF.md table: L-BFGS, the
+normalization fold, bounded L-BFGS, OWL-QN, TRON and bounded TRON, each
+with its launches on the main paths, times and bound), then the card's
+name and power limit, and the last line is {"ok": true, "device": ...}. It exits non-zero, printing no
 result, without CUDA or when any check fails.
 """
 
@@ -72,6 +94,8 @@ LOSS_OPS = 8  # a loss value or derivative counts 8 operations
 # examples/run_game_full.sh:36-38
 FE_TRON_CFG = "15,1e-5,1.0,1.0,TRON,L2"
 RE_ENET_CFG = "30,1e-6,0.5,1.0,LBFGS,ELASTIC_NET,0.5"
+# Path 4's coefficient boxes, |c| <= bound, intercepts free.
+FE_BOX, USER_BOX, ITEM_BOX = 0.5, 0.25, 0.1
 SOURCE = "photon_ml_tpu_torch/csrc/entity_lbfgs.cu"
 REPLACES = "photon_ml_tpu/ops/pallas_entity_solver.py:963"
 
@@ -94,8 +118,7 @@ def card_line() -> str:
 
 def build_problem(seed: int = 7):
     """bench.py:build_problem at its full shapes: the same draws in the
-    same order, so the data is bench.py's (the item columns are drawn and
-    left out: this slice trains the fixed effect and per-user effect)."""
+    same order, so the data is bench.py's."""
     import scipy.sparse as sp
 
     from photon_ml_tpu_torch.data.game_data import GameDataset
@@ -114,12 +137,12 @@ def build_problem(seed: int = 7):
     bias_i = rng.normal(0, 0.5, N_ITEMS)
     z = x @ w + np.einsum("nd,nd->n", xu, wu[users]) + bias_i[items]
     y = (rng.random(N_ROWS) < 1 / (1 + np.exp(-z))).astype(float)
-    del xi
     return GameDataset.build(
         responses=y,
         feature_shards={"global": sp.csr_matrix(x),
-                        "user": sp.csr_matrix(xu)},
-        ids={"userId": users.astype(str)})
+                        "user": sp.csr_matrix(xu),
+                        "item": sp.csr_matrix(xi)},
+        ids={"userId": users.astype(str), "itemId": items.astype(str)})
 
 
 def configs():
@@ -157,13 +180,14 @@ def contexts_path2(train):
 
 
 def entity_solver_flops(e: int, r: int, d: int, m: int, iterations: int,
-                        trials: int, mode: str, normalized: bool) -> float:
-    """Floating-point operations one bucket's solve needs, counted from
-    the kernel's code: the set-up per entity, the work of each iteration
-    it ran and of each line-search trial it priced (both reported by the
-    kernel). An OWL-QN trial recomputes its margins (2 r d) from the
-    orthant-projected trial point; an L-BFGS trial prices cached
-    margins."""
+                        trials: int, mode: str, normalized: bool,
+                        bounded: bool = False) -> float:
+    """Floating-point operations one bucket's L-BFGS or OWL-QN solve
+    needs, counted from the kernel's code: the set-up per entity, the
+    work of each iteration it ran and of each line-search trial it priced
+    (both reported by the kernel). An OWL-QN or bounded trial recomputes
+    its margins (2 r d) from the projected trial point; an L-BFGS trial
+    prices cached margins."""
     L = LOSS_OPS
     gradient = r * (L + 1) + 2 * r * d + d
     setup = (2 * r * d + r  # z0
@@ -181,6 +205,13 @@ def entity_solver_flops(e: int, r: int, d: int, m: int, iterations: int,
         per_trial = (5 * d  # trial point and orthant
                      + 2 * r * d + r  # its margins
                      + r * (L + 1) + 4 * d + 3 * d + 10)  # value, Armijo
+    elif bounded:
+        setup += 2 * d  # c0 projected
+        per_iter = (two_loop + 3 * d + 2 * d + 4  # direction, |dir|, t0
+                    + gradient + 2 * d + history)
+        per_trial = (4 * d  # c + t d, clamped
+                     + 2 * r * d + r  # its margins
+                     + r * (L + 1) + 2 * d + 3 * d + 10)  # value, Armijo
     else:
         per_iter = (two_loop + 3 * d  # direction, descent check
                     + 2 * r * d + 2 * r  # zp = X dir
@@ -191,12 +222,45 @@ def entity_solver_flops(e: int, r: int, d: int, m: int, iterations: int,
     return float(e * setup + iterations * per_iter + trials * per_trial)
 
 
-def entity_solver_bytes(e: int, r: int, d: int, normalized: bool) -> float:
+def tron_flops(e: int, r: int, d: int, outer: int, cg: int,
+               normalized: bool, bounded: bool) -> float:
+    """Floating-point operations one bucket's TRON solve needs, counted
+    from the kernel's code with the trips and CG steps it reports: per
+    trip the curvature weights, the trial's margins, value and gradient,
+    the model and radius arithmetic (bounded: the pinned mask, the
+    clamped trial and one more Hv); per CG step one Hv and the dot
+    products and vector updates."""
+    L = LOSS_OPS
+    gradient = r * (L + 1) + 2 * r * d + d
+    hv = 2 * r * d + r + 2 * r * d + 2 * d  # X v, d2w . , X^T u + l2 v
+    stat = 5 * d if bounded else 2 * d
+    setup = (2 * r * d + r + r * (L + 2) + 2 * d + gradient + stat)
+    if normalized:
+        setup += 2 * r * d
+    if bounded:
+        setup += 2 * d
+    per_trip = (r * (L + 1)  # d2w
+                + 4 * d  # CG start: residual, direction, |g|
+                + d + 2 * r * d + r + r * (L + 2) + 2 * d  # trial, f_t
+                + gradient + 2 * d + 2 * d + 2 * d  # g_t, g.s, s.r, |s|
+                + 30 + 2 * d + stat)  # radius, accept, stationarity
+    if bounded:
+        per_trip += 6 * d + 3 * d + hv + 2 * d  # pins, clamp, extra Hv
+    per_cg = (hv + (2 * d if bounded else 0)  # the mask
+              + 2 * d + 3 * d + 6 * d  # d.Hd, |s + a d|^2, s.d, d.d, s.s
+              + 4 * d + 2 * d + 2 * d + 20)  # s, r updates, r.r, d
+    return float(e * setup + outer * per_trip + cg * per_cg)
+
+
+def entity_solver_bytes(e: int, r: int, d: int, normalized: bool,
+                        bounded: bool = False, tron: bool = False) -> float:
     """Bytes in (x, labels, offsets, weights, coef0, and factors and
-    shifts when normalized) and out (c, f, |g|, iterations, reason,
-    trials), each once, float32/int32."""
-    ins = e * r * d + 3 * e * r + e * d + (2 * e * d if normalized else 0)
-    return 4.0 * ins + 4.0 * (e * d + 5 * e)
+    shifts when normalized, lower and upper when bounded) and out (c, f,
+    |g|, iterations, reason, trials or trips, and TRON's CG steps), each
+    once, float32/int32."""
+    ins = (e * r * d + 3 * e * r + e * d + (2 * e * d if normalized else 0)
+           + (2 * e * d if bounded else 0))
+    return 4.0 * ins + 4.0 * (e * d + (6 if tron else 5) * e)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -214,10 +278,12 @@ def cuda_ms(fn, reps: int) -> float:
 
 def hold_against_plain(tag: str, args, kw, main=None, check_zeros=False):
     """The kernel and its plain version on the same CUDA inputs: equal
-    iterations and stop reasons (and exact-zero sets when asked), value
-    and coefficients within the f32 floors. ``main`` is the main run's
-    result for this bucket, which the replay must reproduce. Returns the
-    kernel's result and a row of measurements."""
+    iterations, stop reasons and work (trials, or TRON's trips and CG
+    steps), exact-zero sets when asked and the sets of coefficients at a
+    bound when bounded; value and coefficients within the f32 floors.
+    ``main`` is the main run's result for this bucket, which the replay
+    must reproduce. Returns the kernel's result and a row of
+    measurements."""
     import torch
 
     from photon_ml_tpu_torch.ops import entity_solver
@@ -232,6 +298,10 @@ def hold_against_plain(tag: str, args, kw, main=None, check_zeros=False):
     err = float((res_k.x - res_p.x).abs().max())
     rel = float(((res_k.value - res_p.value).abs()
                  / res_p.value.abs().clamp_min(1e-30)).max())
+    mode = kw.get("mode", "lbfgs")
+    tron = mode == "tron"
+    normalized = len(args) > 8 and args[8] is not None
+    bounded = len(args) > 10 and args[10] is not None
     if main is not None:
         check(torch.equal(main.iterations, res_k.iterations)
               and torch.equal(main.reason, res_k.reason),
@@ -242,139 +312,112 @@ def hold_against_plain(tag: str, args, kw, main=None, check_zeros=False):
     check(torch.equal(res_k.reason, res_p.reason), f"{tag}: reasons differ")
     check(torch.equal(res_k.iterations, res_p.iterations),
           f"{tag}: iteration counts differ")
+    if tron:
+        check(torch.equal(res_k.outer_steps, res_p.outer_steps)
+              and torch.equal(res_k.cg_steps, res_p.cg_steps),
+              f"{tag}: TRON trips or CG steps differ")
+    else:
+        check(torch.equal(res_k.trials, res_p.trials),
+              f"{tag}: line-search trials differ")
     if check_zeros:
         check(torch.equal(res_k.x == 0, res_p.x == 0),
               f"{tag}: exact-zero sets differ")
+    pinned = 0
+    if bounded:
+        lo, hi = args[10], args[11]
+        pin_k = (res_k.x == lo) | (res_k.x == hi)
+        check(torch.equal(pin_k, (res_p.x == lo) | (res_p.x == hi)),
+              f"{tag}: the sets of coefficients at a bound differ")
+        check(bool(((res_k.x >= lo) & (res_k.x <= hi)).all()),
+              f"{tag}: a coefficient left its box")
+        pinned = int(pin_k.sum())
     check(bool(torch.isfinite(res_k.x).all()), f"{tag}: non-finite")
     e, r, d = args[1].shape
-    mode = kw.get("mode", "lbfgs")
-    normalized = len(args) > 8 and args[8] is not None
     its = int(res_k.iterations.sum())
-    trials = int(res_k.trials.sum())
-    bound_bytes_ms = 1e3 * entity_solver_bytes(e, r, d, normalized) \
-        / HBM_BYTES_PER_S
-    bound_ops_ms = 1e3 * entity_solver_flops(
-        e, r, d, entity_solver.DEFAULT_M, its, trials, mode, normalized) \
-        / FP64_FLOPS_PER_S
+    bound_bytes_ms = 1e3 * entity_solver_bytes(e, r, d, normalized, bounded,
+                                               tron) / HBM_BYTES_PER_S
+    if tron:
+        outer, cg = int(res_k.outer_steps.sum()), int(res_k.cg_steps.sum())
+        flops = tron_flops(e, r, d, outer, cg, normalized, bounded)
+        work = dict(mean_trips=outer / e, mean_cg_steps=cg / e)
+    else:
+        trials = int(res_k.trials.sum())
+        flops = entity_solver_flops(e, r, d, entity_solver.DEFAULT_M, its,
+                                    trials, mode, normalized, bounded)
+        work = dict(mean_trials=trials / e)
     row = dict(check=tag, entities=e, n_pad=r, d_pad=d,
-               layout=entity_solver.kernel_layout(r, d),
+               layout=entity_solver.kernel_layout(r, d, mode=mode),
                kernel_ms=kernel_ms, plain_ms=plain_ms,
                max_abs_coef_err=err, max_value_rel_err=rel,
-               mean_iterations=its / e, mean_trials=trials / e,
-               trials_differ=int((res_k.trials != res_p.trials).sum()),
-               zeros=int((res_k.x == 0).sum()),
+               mean_iterations=its / e, **work,
+               zeros=int((res_k.x == 0).sum()), pinned=pinned,
                reasons=np.bincount(res_k.reason.cpu().numpy(),
                                    minlength=5).tolist(),
-               bound_bytes_ms=bound_bytes_ms, bound_ops_ms=bound_ops_ms)
+               bound_bytes_ms=bound_bytes_ms,
+               bound_ops_ms=1e3 * flops / FP64_FLOPS_PER_S)
     return res_k, res_p, row
 
 
-def compare_first_re_update(train, fe_cfg, re_cfg, main_tracker):
-    """Path 1: replay the first random-effect update's inputs (the
-    residual is the fixed effect's score after its first solve) and hold
-    the kernel against the plain version per bucket, on the same CUDA
-    tensors; also the float32-compute experiment."""
+def replay_first_updates(tag: str, coords, main_trackers, extra=None,
+                         check_zeros=False):
+    """The first coordinate-descent iteration replayed as
+    CoordinateDescent.run runs it, over coordinates built as the fit
+    builds them; every bucket of every random-effect coordinate's first
+    update is held against the plain version on that update's inputs
+    (the replay must reproduce the main run's iterations and reasons).
+    ``extra(name, block, args, kw, res_k)`` may run more checks on a
+    bucket's inputs and return fields for its row. Returns the rows per
+    coordinate."""
     import torch
 
     from photon_ml_tpu_torch.algorithm.coordinates import (
-        FixedEffectCoordinate,
         RandomEffectCoordinate,
         block_offsets,
-    )
-    from photon_ml_tpu_torch.data.random_effect import (
-        RandomEffectDataConfiguration,
-        build_random_effect_dataset,
-    )
-    from photon_ml_tpu_torch.ops import entity_solver
-    from photon_ml_tpu_torch.ops.losses import LogisticLoss
-    from photon_ml_tpu_torch.types import TaskType
-
-    task = TaskType.LOGISTIC_REGRESSION
-    fe = FixedEffectCoordinate("fixed", train, "global", task, fe_cfg)
-    ds = build_random_effect_dataset(
-        train, RandomEffectDataConfiguration("userId", "user"), seed=0,
-        intercept_col=0)
-    re = RandomEffectCoordinate("perUser", ds, task, re_cfg)
-    fe_model, _ = fe.update_model(fe.initialize_model(),
-                                  re.score(re.initialize_model()))
-    residual = fe.score(fe_model)
-    kw = dict(max_iter=re_cfg.max_iterations, tol=re_cfg.tolerance)
-    rows = []
-    for bi, block in enumerate(ds.blocks):
-        off = block_offsets(block, residual)
-        c0 = torch.zeros((block.num_entities, block.d_pad),
-                         dtype=torch.float32, device=off.device)
-        args = (LogisticLoss, block.x, block.labels, off, block.weights, c0,
-                re_cfg.l2_weight)
-        res_k, _, row = hold_against_plain(f"path 1 bucket {bi}", args, kw,
-                                           main=main_tracker[bi])
-        # The float32-compute experiment: kernel vs plain, both in f32.
-        kw32 = dict(kw, compute_dtype=torch.float32)
-        k32 = entity_solver.entity_lbfgs(*args, **kw32)
-        p32 = entity_solver.entity_lbfgs_plain(*args, **kw32)
-        torch.cuda.synchronize()
-        row.update(
-            bucket=bi,
-            kernel_f32_ms=cuda_ms(
-                lambda: entity_solver.entity_lbfgs(*args, **kw32), 10),
-            f32_reasons_differ=int((k32.reason != p32.reason).sum()),
-            f32_iterations_differ=int(
-                (k32.iterations != p32.iterations).sum()),
-            f32_vs_f64_reasons_differ=int((k32.reason != res_k.reason).sum()))
-        print("bucket " + json.dumps(row), flush=True)
-        rows.append(row)
-    return rows
-
-
-def compare_first_re_update_path2(train, fe_cfg, re_cfg, fe_norm, re_norm,
-                                  main_tracker):
-    """Path 2: the same replay with normalization, per bucket in "owlqn"
-    mode (the main run's) and in "lbfgs" mode with the same gathered
-    factors and shifts."""
-    import torch
-
-    from photon_ml_tpu_torch.algorithm.coordinates import (
-        FixedEffectCoordinate,
-        RandomEffectCoordinate,
-        block_offsets,
+        entity_mode,
     )
     from photon_ml_tpu_torch.data.normalization import (
         gathered_to_normalized_space,
     )
-    from photon_ml_tpu_torch.data.random_effect import (
-        RandomEffectDataConfiguration,
-        build_random_effect_dataset,
-    )
-    from photon_ml_tpu_torch.ops.losses import LogisticLoss
-    from photon_ml_tpu_torch.types import TaskType
+    from photon_ml_tpu_torch.ops.entity_solver import variant
 
-    task = TaskType.LOGISTIC_REGRESSION
-    fe = FixedEffectCoordinate("fixed", train, "global", task, fe_cfg,
-                               normalization=fe_norm)
-    ds = build_random_effect_dataset(
-        train, RandomEffectDataConfiguration("userId", "user"), seed=0,
-        intercept_col=0)
-    re = RandomEffectCoordinate("perUser", ds, task, re_cfg,
-                                normalization=re_norm)
-    re_model = re.initialize_model()
-    fe_model, _ = fe.update_model(fe.initialize_model(), re.score(re_model))
-    residual = fe.score(fe_model)
-    kw = dict(max_iter=re_cfg.max_iterations, tol=re_cfg.tolerance)
-    rows = {"owlqn": [], "lbfgs": []}
-    for bi, (block, c0, norm) in enumerate(zip(ds.blocks, re_model.local_coefs,
-                                               re.norm_blocks)):
-        off = block_offsets(block, residual)
-        c0 = gathered_to_normalized_space(c0, *norm).contiguous()
-        args = (LogisticLoss, block.x, block.labels, off, block.weights, c0,
-                re_cfg.l2_weight, re_cfg.l1_weight, norm[0], norm[1])
-        for mode in ("owlqn", "lbfgs"):
-            _, _, row = hold_against_plain(
-                f"path 2 bucket {bi} {mode}", args, dict(kw, mode=mode),
-                main=main_tracker[bi] if mode == "owlqn" else None,
-                check_zeros=True)
-            row.update(bucket=bi, mode=mode + "+normalized")
-            print("bucket " + json.dumps(row), flush=True)
-            rows[mode].append(row)
+    names = list(coords)
+    models = {n: c.initialize_model() for n, c in coords.items()}
+    scores = {n: coords[n].score(models[n]) for n in names}
+    rows = {}
+    for n in names:
+        coord = coords[n]
+        residual = None
+        for other in names:
+            if other != n:
+                residual = (scores[other] if residual is None
+                            else residual + scores[other])
+        if isinstance(coord, RandomEffectCoordinate):
+            cfg = coord.config
+            kw = dict(max_iter=cfg.max_iterations, tol=cfg.tolerance,
+                      mode=entity_mode(cfg))
+            rows[n] = []
+            for bi, (block, c0, norm, bounds) in enumerate(zip(
+                    coord.dataset.blocks, models[n].local_coefs,
+                    coord.norm_blocks, coord.bounds_blocks)):
+                if norm is not None:
+                    c0 = gathered_to_normalized_space(c0, *norm)
+                args = (coord._objective.loss, block.x, block.labels,
+                        block_offsets(block, residual), block.weights,
+                        c0.contiguous(), cfg.l2_weight, cfg.l1_weight,
+                        *(norm[:2] if norm is not None else (None, None)),
+                        *(bounds if bounds is not None else (None, None)))
+                res_k, _, row = hold_against_plain(
+                    f"{tag} {n} bucket {bi}", args, kw,
+                    main=main_trackers[n][0][bi], check_zeros=check_zeros)
+                row.update(bucket=bi, coordinate=n, mode=variant(
+                    kw["mode"], norm is not None, bounds is not None))
+                if extra is not None:
+                    row.update(extra(n, block, args, kw, res_k) or {})
+                print("bucket " + json.dumps(row), flush=True)
+                rows[n].append(row)
+        models[n], _ = coord.update_model(models[n], residual, None)
+        scores[n] = coord.score(models[n])
+        torch.cuda.synchronize()
     return rows
 
 
@@ -385,10 +428,16 @@ def report_updates(result) -> None:
         tracker = result.trackers[u["coordinate"]][u["iteration"]]
         if isinstance(tracker, list):  # one result per bucket
             its = torch.cat([t.iterations for t in tracker]).float()
-            trials = torch.cat([t.trials for t in tracker]).float()
+            if tracker[0].trials is not None:
+                work = torch.cat([t.trials for t in tracker]).float()
+                work = f"line-search trials mean {float(work.mean()):.2f}"
+            else:
+                trips = torch.cat([t.outer_steps for t in tracker]).float()
+                cg = torch.cat([t.cg_steps for t in tracker]).float()
+                work = (f"TRON trips mean {float(trips.mean()):.2f}, CG "
+                        f"steps mean {float(cg.mean()):.2f}")
             solver = (f"entity iterations mean {float(its.mean()):.2f} "
-                      f"max {int(its.max())}, line-search trials mean "
-                      f"{float(trials.mean()):.2f}")
+                      f"max {int(its.max())}, {work}")
         elif tracker.outer_steps is not None:
             solver = (f"TRON iterations {int(tracker.iterations)} "
                       f"({tracker.outer_steps} outer, {tracker.cg_steps} "
@@ -403,30 +452,34 @@ def report_updates(result) -> None:
         print(f"validation AUC after iteration {it}: {m['AUC']:.6f}")
 
 
-def check_model(result, val, tag: str) -> None:
+def check_model(result, val, tag: str, entities=None) -> None:
     """Finite objectives that fall, an AUC above chance, finite
-    coefficients of the right shapes, device scores equal to host
-    scores."""
+    coefficients of the right shapes (``entities``: (random-effect
+    coordinate, entity count) pairs, the per-user one by default),
+    device scores equal to host scores."""
     import torch
 
+    entities = entities or (("perUser", N_USERS),)
     from photon_ml_tpu_torch.models.device_scoring import DeviceGameScorer
 
     hist = result.objective_history
-    check(len(hist) == 2 * CD_ITERATIONS and all(map(math.isfinite, hist)),
+    check(len(hist) == (1 + len(entities)) * CD_ITERATIONS
+          and all(map(math.isfinite, hist)),
           f"{tag}: objective history {hist}")
     check(hist[-1] < hist[0], f"{tag}: objective did not fall: {hist}")
     aucs = [m["AUC"] for m in result.validation_history]
     check(all(math.isfinite(a) and a > 0.5 for a in aucs),
           f"{tag}: AUC {aucs}")
     model = result.model
-    re_model = model.models["perUser"]
     fe_coef = model.models["fixed"].glm.coefficients.means
     check(tuple(fe_coef.shape) == (D_FIXED,)
           and bool(torch.isfinite(fe_coef).all()), f"{tag}: fixed coefs")
-    check(sum(c.shape[0] for c in re_model.local_coefs) == N_USERS
-          and all(bool(torch.isfinite(c).all())
-                  for c in re_model.local_coefs),
-          f"{tag}: per-user coefficients")
+    for name, count in entities:
+        re_model = model.models[name]
+        check(sum(c.shape[0] for c in re_model.local_coefs) == count
+              and all(bool(torch.isfinite(c).all())
+                      for c in re_model.local_coefs),
+              f"{tag}: {name} coefficients")
     dev_scores = DeviceGameScorer(model, val).score(model).cpu().numpy()
     host_scores = model.score(val)
     score_err = float(np.abs(dev_scores - host_scores).max())
@@ -435,6 +488,125 @@ def check_model(result, val, tag: str) -> None:
     check(dev_scores.shape == (val.num_rows,)
           and np.isfinite(dev_scores).all() and score_err <= 1e-3,
           f"{tag}: device scorer disagrees with the host scorer")
+
+
+def box(d: int, bound: float, intercept: int):
+    """|c| <= bound on every feature but the intercept, through the
+    port's GLMSuite constraint parser and constraint_arrays."""
+    from photon_ml_tpu_torch.optimization.config import (
+        constraint_arrays,
+        parse_constraint_string,
+    )
+
+    spec = json.dumps([{"name": "*", "term": "*", "lowerBound": -bound,
+                        "upperBound": bound}])
+    index_map = {(f"f{j}", ""): j for j in range(d)}
+    return constraint_arrays(parse_constraint_string(spec, index_map), d,
+                             intercept)
+
+
+def count_at_bounds(tag: str, model, boxes) -> dict:
+    """Per coordinate, the coefficients on real columns exactly at a
+    bound; fails when one lies outside its box or a coordinate has none
+    at a bound."""
+    import torch
+
+    counts = {}
+    for name, (lo, hi) in boxes.items():
+        sub = model.models[name]
+        if name == "fixed":
+            pairs = [(sub.glm.coefficients.means, None)]
+        else:
+            pairs = list(zip(sub.local_coefs, sub.feat_idx))
+        at, total = 0, 0
+        for c, fidx in pairs:
+            lo_t = torch.as_tensor(lo, dtype=c.dtype, device=c.device)
+            hi_t = torch.as_tensor(hi, dtype=c.dtype, device=c.device)
+            if fidx is None:
+                real = torch.ones_like(c, dtype=torch.bool)
+            else:
+                real = fidx >= 0
+                idx = fidx.long().clamp_min(0)
+                lo_t = torch.where(real, lo_t[idx],
+                                   torch.full_like(c, -math.inf))
+                hi_t = torch.where(real, hi_t[idx],
+                                   torch.full_like(c, math.inf))
+            check(bool(((c >= lo_t) & (c <= hi_t)).all()),
+                  f"{tag}: a {name} coefficient left its box")
+            at += int((((c == lo_t) | (c == hi_t)) & real).sum())
+            total += int(real.sum())
+        counts[name] = at
+        print(f"{tag} {name}: {at} of {total} coefficients exactly at a "
+              "bound", flush=True)
+        check(at > 0, f"{tag}: no {name} coefficient at a bound")
+    return counts
+
+
+def coordinates_of(train, specs):
+    """The coordinates GameEstimator.fit builds from these specs (each
+    spec's first configuration, the fit's seed 0)."""
+    from photon_ml_tpu_torch.algorithm.coordinates import (
+        FixedEffectCoordinate,
+        RandomEffectCoordinate,
+    )
+    from photon_ml_tpu_torch.data.random_effect import (
+        build_random_effect_dataset,
+    )
+    from photon_ml_tpu_torch.estimators.game_estimator import FixedEffectSpec
+    from photon_ml_tpu_torch.types import TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    coords = {}
+    for spec in specs:
+        bounds = dict(lower_bounds=spec.lower_bounds,
+                      upper_bounds=spec.upper_bounds)
+        if isinstance(spec, FixedEffectSpec):
+            coords[spec.name] = FixedEffectCoordinate(
+                spec.name, train, spec.feature_shard_id, task,
+                spec.configs[0], normalization=spec.normalization, **bounds)
+        else:
+            ds = build_random_effect_dataset(
+                train, spec.data_config, seed=0,
+                intercept_col=spec.intercept_col)
+            coords[spec.name] = RandomEffectCoordinate(
+                spec.name, ds, task, spec.configs[0],
+                normalization=spec.normalization, **bounds)
+    return coords
+
+
+def fit_path(tag: str, specs, train, val):
+    """The path's main run: GameEstimator.fit with the launch counts set
+    to 0 just before and read just after. Returns (result, launches per
+    variant, buckets per random-effect coordinate)."""
+    import torch
+
+    from photon_ml_tpu_torch.estimators.game_estimator import GameEstimator
+    from photon_ml_tpu_torch.evaluation.evaluators import (
+        AreaUnderROCCurveEvaluator,
+    )
+    from photon_ml_tpu_torch.ops import entity_solver
+    from photon_ml_tpu_torch.types import TaskType
+
+    estimator = GameEstimator(
+        TaskType.LOGISTIC_REGRESSION, specs, num_iterations=CD_ITERATIONS,
+        validation_evaluators=[AreaUnderROCCurveEvaluator()])
+    # ---- the main path: counts set to 0 just before, read just after ----
+    entity_solver.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (_, result), = estimator.fit(train, val)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(entity_solver.entity_lbfgs.variants)
+    # ----------------------------------------------------------------------
+    buckets = {name: len(m.local_coefs)
+               for name, m in result.model.models.items()
+               if hasattr(m, "local_coefs")}
+    print(f"{tag} fit: {fit_s:.2f} s (random-effect dataset builds "
+          f"included), buckets {buckets}", flush=True)
+    report_updates(result)
+    print(f"{tag} entity-solver launches: {launches}", flush=True)
+    return result, launches, buckets
 
 
 def kernel_entry(name: str, rows, launches: int) -> dict:
@@ -463,19 +635,20 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 1
     try:
+        from photon_ml_tpu_torch.algorithm.coordinates import (
+            _gather_block_bounds,
+        )
         from photon_ml_tpu_torch.data.random_effect import (
             RandomEffectDataConfiguration,
         )
         from photon_ml_tpu_torch.estimators.game_estimator import (
             FixedEffectSpec,
-            GameEstimator,
             RandomEffectSpec,
         )
-        from photon_ml_tpu_torch.evaluation.evaluators import (
-            AreaUnderROCCurveEvaluator,
-        )
         from photon_ml_tpu_torch.ops import cuda_build, entity_solver
-        from photon_ml_tpu_torch.types import TaskType
+        from photon_ml_tpu_torch.optimization.config import (
+            GLMOptimizationConfiguration,
+        )
     except ImportError as exc:
         print(f"chip_smoke: cannot import the port ({exc}); run it from the "
               "repository root", file=sys.stderr)
@@ -505,40 +678,39 @@ def main() -> int:
     train = data.subset(np.arange(cut))
     val = data.subset(np.arange(cut, N_ROWS))
     print(f"data: {train.num_rows} train / {val.num_rows} hold-out rows, "
-          f"{D_FIXED} fixed features, {N_USERS} users x {D_USER} "
+          f"{D_FIXED} fixed features, {N_USERS} users x {D_USER}, "
+          f"{N_ITEMS} items x {D_ITEM} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    task = TaskType.LOGISTIC_REGRESSION
-    auc = AreaUnderROCCurveEvaluator()
     user_cfg = RandomEffectDataConfiguration("userId", "user")
+    item_cfg = RandomEffectDataConfiguration("itemId", "item")
 
     # ---------------- path 1: the headline GLMix, L-BFGS/L2 ----------------
     fe_cfg, re_cfg = configs()
-    estimator = GameEstimator(
-        task, [FixedEffectSpec("fixed", "global", [fe_cfg]),
-               RandomEffectSpec("perUser", user_cfg, [re_cfg],
-                                intercept_col=0)],
-        num_iterations=CD_ITERATIONS, validation_evaluators=[auc])
-    # ---- the main path: counts set to 0 just before, read just after ----
-    entity_solver.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    (_, result), = estimator.fit(train, val)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    launches1 = dict(entity_solver.entity_lbfgs.variants)
-    # ----------------------------------------------------------------------
-    buckets = len(result.model.models["perUser"].local_coefs)
-    print(f"path 1 fit: {fit_s:.2f} s (random-effect dataset build "
-          f"included), {buckets} buckets", flush=True)
-    report_updates(result)
-    print(f"path 1 entity-solver launches: {launches1} (buckets x "
-          f"iterations = {buckets * CD_ITERATIONS})", flush=True)
-    check(launches1 == {"lbfgs": buckets * CD_ITERATIONS},
-          f"path 1 launches {launches1} != {buckets} x {CD_ITERATIONS} "
-          "lbfgs")
-    check_model(result, val, "path 1")
-    rows1 = compare_first_re_update(train, fe_cfg, re_cfg,
-                                    result.trackers["perUser"][0])
+    specs1 = [FixedEffectSpec("fixed", "global", [fe_cfg]),
+              RandomEffectSpec("perUser", user_cfg, [re_cfg],
+                               intercept_col=0)]
+    result1, launches1, buckets1 = fit_path("path 1", specs1, train, val)
+    want1 = {"lbfgs": buckets1["perUser"] * CD_ITERATIONS}
+    check(launches1 == want1, f"path 1 launches {launches1} != {want1}")
+    check_model(result1, val, "path 1")
+
+    def float32_compute(name, block, args, kw, res_k):
+        # The kernel against the plain version, both computing in float32.
+        kw32 = dict(kw, compute_dtype=torch.float32)
+        k32 = entity_solver.entity_lbfgs(*args, **kw32)
+        p32 = entity_solver.entity_lbfgs_plain(*args, **kw32)
+        torch.cuda.synchronize()
+        return dict(
+            kernel_f32_ms=cuda_ms(
+                lambda: entity_solver.entity_lbfgs(*args, **kw32), 10),
+            f32_reasons_differ=int((k32.reason != p32.reason).sum()),
+            f32_iterations_differ=int(
+                (k32.iterations != p32.iterations).sum()),
+            f32_vs_f64_reasons_differ=int((k32.reason != res_k.reason).sum()))
+
+    rows1 = replay_first_updates("path 1", coordinates_of(train, specs1),
+                                 result1.trackers,
+                                 extra=float32_compute)["perUser"]
     print("float32 compute, kernel vs plain: "
           f"{sum(r['f32_reasons_differ'] for r in rows1)} of {N_USERS} "
           "entities stop for different reasons, "
@@ -554,33 +726,15 @@ def main() -> int:
     fe_norm, re_norm = contexts_path2(train)
     print(f"path 2 normalization contexts: "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    estimator2 = GameEstimator(
-        task, [FixedEffectSpec("fixed", "global", [fe_cfg2],
-                               normalization=fe_norm),
-               RandomEffectSpec("perUser", user_cfg, [re_cfg2],
-                                intercept_col=0, normalization=re_norm)],
-        num_iterations=CD_ITERATIONS, validation_evaluators=[auc])
-    # ---- the main path: counts set to 0 just before, read just after ----
-    entity_solver.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    (_, result2), = estimator2.fit(train, val)
-    torch.cuda.synchronize()
-    fit2_s = time.perf_counter() - t0
-    launches2 = dict(entity_solver.entity_lbfgs.variants)
-    # ----------------------------------------------------------------------
-    model2 = result2.model
-    buckets2 = len(model2.models["perUser"].local_coefs)
-    print(f"path 2 fit: {fit2_s:.2f} s (random-effect dataset build "
-          f"included), {buckets2} buckets", flush=True)
-    report_updates(result2)
-    print(f"path 2 entity-solver launches: {launches2} (buckets x "
-          f"iterations = {buckets2 * CD_ITERATIONS})", flush=True)
-    check(launches2 == {"owlqn+normalized": buckets2 * CD_ITERATIONS},
-          f"path 2 launches {launches2} != {buckets2} x {CD_ITERATIONS} "
-          "owlqn+normalized")
+    specs2 = [FixedEffectSpec("fixed", "global", [fe_cfg2],
+                              normalization=fe_norm),
+              RandomEffectSpec("perUser", user_cfg, [re_cfg2],
+                               intercept_col=0, normalization=re_norm)]
+    result2, launches2, buckets2 = fit_path("path 2", specs2, train, val)
+    want2 = {"owlqn+normalized": buckets2["perUser"] * CD_ITERATIONS}
+    check(launches2 == want2, f"path 2 launches {launches2} != {want2}")
     check_model(result2, val, "path 2")
-    re2 = model2.models["perUser"]
+    re2 = result2.model.models["perUser"]
     real = [f >= 0 for f in re2.feat_idx]
     zeros = sum(int(((c == 0) & m).sum())
                 for c, m in zip(re2.local_coefs, real))
@@ -588,19 +742,97 @@ def main() -> int:
     print(f"path 2 per-user coefficients exactly zero: {zeros} of {total}",
           flush=True)
     check(zeros > 0, "path 2: the elastic net gave no exact zeros")
-    rows2 = compare_first_re_update_path2(
-        train, fe_cfg2, re_cfg2, fe_norm, re_norm,
-        result2.trackers["perUser"][0])
+    fold_rows = []
+
+    def lbfgs_with_the_fold(name, block, args, kw, res_k):
+        # L-BFGS mode on the same gathered factors and shifts: the fold
+        # without OWL-QN (row 2).
+        _, _, row = hold_against_plain(
+            f"path 2 {name} bucket {len(fold_rows)} lbfgs", args,
+            dict(kw, mode="lbfgs"), check_zeros=True)
+        row.update(bucket=len(fold_rows), mode="lbfgs+normalized")
+        print("bucket " + json.dumps(row), flush=True)
+        fold_rows.append(row)
+
+    rows2 = {"owlqn": replay_first_updates(
+        "path 2", coordinates_of(train, specs2), result2.trackers,
+        extra=lbfgs_with_the_fold, check_zeros=True)["perUser"],
+        "lbfgs": fold_rows}
+
+    # ------- path 3: per-entity TRON on fixed, per-user, per-item --------
+    tron_cfg = GLMOptimizationConfiguration.parse(FE_TRON_CFG)
+    specs3 = [FixedEffectSpec("fixed", "global", [tron_cfg],
+                              normalization=fe_norm),
+              RandomEffectSpec("perUser", user_cfg, [tron_cfg],
+                               intercept_col=0, normalization=re_norm),
+              RandomEffectSpec("perItem", item_cfg, [tron_cfg],
+                               intercept_col=0)]
+    result3, launches3, buckets3 = fit_path("path 3", specs3, train, val)
+    want3 = {"tron+normalized": buckets3["perUser"] * CD_ITERATIONS,
+             "tron": buckets3["perItem"] * CD_ITERATIONS}
+    check(launches3 == want3, f"path 3 launches {launches3} != {want3}")
+    entities = (("perUser", N_USERS), ("perItem", N_ITEMS))
+    check_model(result3, val, "path 3", entities)
+    u_lo, u_hi = box(D_USER, USER_BOX, 0)
+    fold_box_rows = []
+
+    def fold_and_box(name, block, args, kw, res_k):
+        # TRON with the fold and path 4's per-user box: no path launches
+        # this variant, so it is held against the plain version here.
+        if name != "perUser":
+            return
+        bounds = _gather_block_bounds(u_lo, u_hi, block)
+        _, _, row = hold_against_plain(
+            f"path 3 perUser bucket {len(fold_box_rows)} tron+fold+box",
+            args[:10] + bounds, kw)
+        row.update(mode="tron+normalized+bounded")
+        print("bucket " + json.dumps(row), flush=True)
+        fold_box_rows.append(row)
+
+    rows3 = replay_first_updates("path 3", coordinates_of(train, specs3),
+                                 result3.trackers, extra=fold_and_box)
+
+    # ------- path 4: box constraints on all three coordinates -------------
+    fe_box = box(D_FIXED, FE_BOX, D_FIXED - 1)
+    i_lo, i_hi = box(D_ITEM, ITEM_BOX, 0)
+    specs4 = [FixedEffectSpec("fixed", "global", [fe_cfg],
+                              lower_bounds=fe_box[0],
+                              upper_bounds=fe_box[1]),
+              RandomEffectSpec("perUser", user_cfg, [re_cfg],
+                               intercept_col=0, lower_bounds=u_lo,
+                               upper_bounds=u_hi),
+              RandomEffectSpec("perItem", item_cfg, [tron_cfg],
+                               intercept_col=0, lower_bounds=i_lo,
+                               upper_bounds=i_hi)]
+    result4, launches4, buckets4 = fit_path("path 4", specs4, train, val)
+    want4 = {"lbfgs+bounded": buckets4["perUser"] * CD_ITERATIONS,
+             "tron+bounded": buckets4["perItem"] * CD_ITERATIONS}
+    check(launches4 == want4, f"path 4 launches {launches4} != {want4}")
+    check_model(result4, val, "path 4", entities)
+    count_at_bounds("path 4", result4.model,
+                    {"fixed": fe_box, "perUser": (u_lo, u_hi),
+                     "perItem": (i_lo, i_hi)})
+    rows4 = replay_first_updates("path 4", coordinates_of(train, specs4),
+                                 result4.trackers)
 
     kernels = [
         kernel_entry("entity_lbfgs[lbfgs] (row 1)", rows1,
                      launches1.get("lbfgs", 0)),
         kernel_entry("entity_lbfgs[normalization fold] (row 2)",
                      rows2["lbfgs"],
-                     sum(n for v, n in launches2.items()
-                         if v.endswith("+normalized"))),
+                     sum(n for launches in (launches2, launches3)
+                         for v, n in launches.items()
+                         if "+normalized" in v)),
+        kernel_entry("entity_lbfgs[bounded lbfgs] (row 3)",
+                     rows4["perUser"], launches4.get("lbfgs+bounded", 0)),
         kernel_entry("entity_lbfgs[owlqn] (row 4)", rows2["owlqn"],
                      launches2.get("owlqn+normalized", 0)),
+        kernel_entry("entity_lbfgs[tron] (row 5)",
+                     rows3["perUser"] + rows3["perItem"],
+                     launches3.get("tron", 0)
+                     + launches3.get("tron+normalized", 0)),
+        kernel_entry("entity_lbfgs[bounded tron] (row 6)", rows4["perItem"],
+                     launches4.get("tron+bounded", 0)),
     ]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the paths did not launch: {kernels}")

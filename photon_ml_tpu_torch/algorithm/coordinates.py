@@ -1,7 +1,8 @@
 """Coordinates: the per-block solvers of GAME coordinate descent (port of
 photon_ml_tpu/algorithm/coordinates.py: Coordinate :48,
 FixedEffectCoordinate :122, RandomEffectCoordinate :544,
-_gather_block_normalization :687, _dispatch_pallas_solver :1207,
+_gather_block_normalization :687, _gather_block_bounds :704-721,
+_dispatch_pallas_solver :1207,
 _solve_block :1371, _solve_fixed :1442, _fe_score_impl /
 _scatter_margins / _re_score_impl :1474-1494, the size guard of
 _use_pallas_entity_solver :1294-1366, which the kernel makes unnecessary
@@ -15,22 +16,31 @@ in the normalized space (warm start converted in, solution converted
 out) and the penalties are taken there.
 
 - FixedEffectCoordinate: one GLM solve over the whole shard
-  (optimization/solver.py: TRON, OWL-QN or the margin-cached L-BFGS),
-  normalization as objective-level algebra.
+  (optimization/solver.py: TRON, OWL-QN, the margin-cached L-BFGS, or
+  the projected L-BFGS with bounds), normalization as objective-level
+  algebra.
 - RandomEffectCoordinate: one batched per-entity solve per bucket, mode
-  "owlqn" when the L1 weight is positive, else "lbfgs", with the
-  normalization gathered per block into each entity's local feature
-  space at construction. On CUDA tensors every bucket goes to the
-  entity-solver kernel, whatever its n_pad and d_pad (the kernel keeps
-  an entity too tall for shared memory in device memory, where the JAX
-  package's VMEM guard routes it off the Pallas kernel). On CPU tensors
-  the wrapper runs the plain solver. TRON and bounds are not ported for
-  the random effect (ROADMAP queue B rows 3, 5 and 6).
+  "tron" for a TRON configuration, else "owlqn" when the L1 weight is
+  positive, else "lbfgs", with the normalization and the bounds gathered
+  per block into each entity's local feature space at construction. On
+  CUDA tensors every bucket goes to the entity-solver kernel, whatever
+  its n_pad and d_pad (the kernel keeps an entity too tall for shared
+  memory in device memory, where the JAX package's VMEM guard routes it
+  off the Pallas kernel). On CPU tensors the wrapper runs the plain
+  solver.
+
+Box constraints (``lower_bounds``/``upper_bounds``, [d] in the
+coordinate's global feature space, +-inf where free) clamp the
+solve-space coefficients as they are, with no space conversion: with a
+normalization they bound the normalized iterate, as the reference's
+projected Breeze iterate is the normalized vector (LBFGS.scala:77,
+OptimizationUtils.scala:53).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -101,6 +111,8 @@ class FixedEffectCoordinate(Coordinate):
     normalization: Optional[NormalizationContext] = None
     dtype: object = torch.float32
     device: object = "cuda"
+    lower_bounds: Optional[object] = None  # [d], solve space
+    upper_bounds: Optional[object] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -109,6 +121,10 @@ class FixedEffectCoordinate(Coordinate):
         if self.normalization is not None:
             self.normalization = self.normalization.to(self.device,
                                                        self.dtype)
+        self._bounds = tuple(
+            None if b is None else torch.as_tensor(
+                b, dtype=self.dtype, device=self.device)
+            for b in (self.lower_bounds, self.upper_bounds))
         self._objective = GLMObjective(loss_for_task(self.task_type),
                                        self.normalization)
         self._l1, self._l2 = self.config.l1_weight, self.config.l2_weight
@@ -127,7 +143,8 @@ class FixedEffectCoordinate(Coordinate):
         result, coef = _solve_fixed(
             self._objective, self.config,
             self.task_type.is_classification, self._batch, residual_scores,
-            generator, model.glm.coefficients.means, self.normalization)
+            generator, model.glm.coefficients.means, self.normalization,
+            *self._bounds)
         new_glm = model.glm.update_coefficients(Coefficients(coef))
         return model.update_model(new_glm), result
 
@@ -154,13 +171,19 @@ class RandomEffectCoordinate(Coordinate):
     task_type: TaskType
     config: GLMOptimizationConfiguration
     normalization: Optional[NormalizationContext] = None  # global space
+    lower_bounds: Optional[object] = None  # [d], global feature space
+    upper_bounds: Optional[object] = None
 
     def __post_init__(self):
-        check_mode(entity_mode(self.config))
         self._objective = GLMObjective(loss_for_task(self.task_type))
+        check_mode(entity_mode(self.config), self.lower_bounds,
+                   self.upper_bounds, self._objective.loss)
         self._l1, self._l2 = self.config.l1_weight, self.config.l2_weight
         self.norm_blocks = tuple(
             _gather_block_normalization(self.normalization, b)
+            for b in self.dataset.blocks)
+        self.bounds_blocks = tuple(
+            _gather_block_bounds(self.lower_bounds, self.upper_bounds, b)
             for b in self.dataset.blocks)
 
     def initialize_model(self) -> RandomEffectModel:
@@ -176,12 +199,13 @@ class RandomEffectCoordinate(Coordinate):
         mapValues solve, RandomEffectCoordinate.scala:104-113), in the
         normalized space when there is a normalization."""
         coefs, results = [], []
-        for block, c0, norm in zip(self.dataset.blocks, model.local_coefs,
-                                   self.norm_blocks):
+        for block, c0, norm, bounds in zip(
+                self.dataset.blocks, model.local_coefs, self.norm_blocks,
+                self.bounds_blocks):
             if norm is not None:
                 c0 = gathered_to_normalized_space(c0, *norm)
             result = _solve_block(self._objective, self.config, block,
-                                  residual_scores, c0, norm)
+                                  residual_scores, c0, norm, bounds)
             coef = result.x
             if norm is not None:
                 coef = gathered_to_original_space(coef, *norm)
@@ -219,6 +243,27 @@ def _gather_block_normalization(normalization, block: EntityBlock):
     return conv(factors), conv(shifts), mask.to(dt)
 
 
+def _gather_block_bounds(lower, upper, block: EntityBlock):
+    """(lower, upper) [E, d] in the block's local feature space and type,
+    or None without bounds. Padding columns (feat_idx < 0) are unbounded:
+    their coefficients touch no data and L2 holds them at zero."""
+    if lower is None and upper is None:
+        return None
+    dt, dev = block.x.dtype, block.x.device
+    idx = block.feat_idx.long()
+    safe = torch.clamp_min(idx, 0)
+    pad = idx < 0
+
+    def gather(vec, default):
+        fill = torch.full(tuple(idx.shape), default, dtype=dt, device=dev)
+        if vec is None:
+            return fill
+        return torch.where(pad, fill,
+                           torch.as_tensor(vec, dtype=dt, device=dev)[safe])
+
+    return gather(lower, -math.inf), gather(upper, math.inf)
+
+
 def entity_mode(config: GLMOptimizationConfiguration) -> str:
     """The entity solver's mode for a configuration, as the JAX
     ``_dispatch_pallas_solver`` chooses it."""
@@ -242,16 +287,18 @@ def block_offsets(block: EntityBlock, residual_scores: Optional[Tensor]
 def _solve_block(objective: GLMObjective,
                  config: GLMOptimizationConfiguration, block: EntityBlock,
                  residual_scores: Optional[Tensor], coefs0: Tensor,
-                 norm=None) -> OptimizerResult:
+                 norm=None, bounds=None) -> OptimizerResult:
     """One batched solve over the bucket's entity axis. ``norm`` is the
-    gathered (factors, shifts, intercept_mask); coefs0 and the result
-    are in the solve space."""
+    gathered (factors, shifts, intercept_mask) and ``bounds`` the
+    gathered (lower, upper); coefs0 and the result are in the solve
+    space."""
     offsets = block_offsets(block, residual_scores)
     factors, shifts = (norm[0], norm[1]) if norm is not None else (None,
                                                                    None)
+    lower, upper = bounds if bounds is not None else (None, None)
     return entity_lbfgs(objective.loss, block.x, block.labels, offsets,
                         block.weights, coefs0, config.l2_weight,
-                        config.l1_weight, factors, shifts,
+                        config.l1_weight, factors, shifts, lower, upper,
                         max_iter=config.max_iterations, tol=config.tolerance,
                         mode=entity_mode(config))
 
@@ -261,11 +308,14 @@ def _solve_fixed(objective: GLMObjective,
                  is_classification: bool, batch: GLMBatch,
                  residual_scores: Optional[Tensor],
                  generator: Optional[torch.Generator], coef0: Tensor,
-                 normalization: Optional[NormalizationContext] = None
+                 normalization: Optional[NormalizationContext] = None,
+                 lower_bounds: Optional[Tensor] = None,
+                 upper_bounds: Optional[Tensor] = None
                  ) -> Tuple[OptimizerResult, Tensor]:
     """The fixed-effect update: residual -> offsets, down-sampling, the
-    solve in the normalized space, the coefficients back to the original
-    space. Returns (result, original-space coefficients)."""
+    solve in the normalized space (bounds clamp that iterate), the
+    coefficients back to the original space. Returns (result,
+    original-space coefficients)."""
     if residual_scores is not None:
         batch = batch.with_offsets(
             batch.offsets + residual_scores.to(batch.offsets.dtype))
@@ -275,7 +325,8 @@ def _solve_fixed(objective: GLMObjective,
     batch = GLMBatch(batch.features, batch.labels, batch.offsets, weights)
     if normalization is not None:
         coef0 = normalization.model_to_normalized_space(coef0)
-    result = solve_glm(objective, batch, config, coef0)
+    result = solve_glm(objective, batch, config, coef0, lower_bounds,
+                       upper_bounds)
     coef = result.x
     if normalization is not None:
         coef = normalization.model_to_original_space(coef)

@@ -1,6 +1,7 @@
-// Per-entity GLM solve for Hopper (sm_90a): the kernel and its launch
-// templates, shared by the translation units entity_lbfgs_*.cu. See
-// entity_lbfgs.cu for what it computes and how it is laid out.
+// Per-entity GLM solve for Hopper (sm_90a): the kernels (L-BFGS/OWL-QN
+// and TRON) and their launch templates, shared by the translation units
+// entity_lbfgs_*.cu. See entity_lbfgs.cu for what they compute and how
+// they are laid out.
 
 #pragma once
 
@@ -18,6 +19,17 @@ constexpr int kMaxIterations = 1;
 constexpr int kFunctionValuesConverged = 2;
 constexpr int kGradientConverged = 3;
 constexpr int kObjectiveNotImproving = 4;
+// Modes, as the C entry point numbers them.
+constexpr int kModeLbfgs = 0;
+constexpr int kModeOwlqn = 1;
+constexpr int kModeTron = 2;
+// TRON (the Pallas kernel's LIBLINEAR rules and budgets).
+constexpr double kEta0 = 1e-4, kEta1 = 0.25, kEta2 = 0.75;
+constexpr double kSigma1 = 0.25, kSigma2 = 0.5, kSigma3 = 4.0;
+constexpr double kCgXi = 0.1;
+constexpr double kPinEps = 1e-12;
+constexpr int kMaxCg = 20;
+constexpr int kMaxFailures = 5;
 
 struct Params {
   const float* x;       // [E, r, d]
@@ -27,12 +39,15 @@ struct Params {
   const float* c0;      // [E, d]
   const float* factor;  // [E, d] or null (no normalization)
   const float* shift;   // [E, d] (read only when factor is given)
+  const float* lower;   // [E, d] or null (no bounds)
+  const float* upper;   // [E, d] (read only when lower is given)
   float* out_c;         // [E, d]
   float* out_f;         // [E]
   float* out_gnorm;     // [E]
   int* out_it;          // [E]
   int* out_reason;      // [E]
-  int* out_trials;      // [E] line-search trials priced
+  int* out_steps;       // [E] line-search trials priced, or TRON's trips
+  int* out_cg;          // [E] TRON's CG steps (TRON only)
   unsigned char* workspace;  // [E, state_bytes] when the state is global
   int E, r, d, m, max_iter, max_line_search;
   double l2, l1, tol, c1;
@@ -52,16 +67,24 @@ struct Plan {
 
 inline size_t round16(size_t n) { return (n + 15) / 16 * 16; }
 
-inline int make_plan(int r, int d, int m, size_t t_size, Plan* plan) {
+// The working set of one entity, in T elements: TRON keeps 7 row vectors
+// and 11 coordinate vectors and no history; L-BFGS and OWL-QN keep 6 row
+// vectors, 8 coordinate vectors and the m (s, y) pairs. Bounds are not
+// part of it (see load_entity).
+inline size_t state_elements(int r, int d, int m, bool tron) {
+  if (tron) return 7 * (size_t)r + 11 * (size_t)d;
+  return 6 * (size_t)r + 8 * (size_t)d + 2 * (size_t)m * d + 2 * (size_t)m;
+}
+
+inline int make_plan(int r, int d, int m, size_t t_size, bool tron,
+                     Plan* plan) {
   int dev = 0, budget = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(
         &budget, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  const size_t state = round16(
-      t_size * (6 * (size_t)r + 8 * (size_t)d + 2 * (size_t)m * d +
-                2 * (size_t)m));
+  const size_t state = round16(t_size * state_elements(r, d, m, tron));
   const size_t x_tile = round16(4 * (size_t)r * (d + 1));
   plan->state_bytes = state;
   if (state + x_tile <= (size_t)budget) {
@@ -104,6 +127,21 @@ template <typename T>
 __device__ __forceinline__ int sgn(T v) {
   return (v > T(0)) - (v < T(0));
 }
+// max and min that return NaN when either operand is NaN, as jnp.maximum
+// and torch.maximum do (fmax and fmin drop a NaN operand).
+template <typename T>
+__device__ __forceinline__ T nmax(T a, T b) {
+  return (a != a || b != b) ? a + b : (a > b ? a : b);
+}
+template <typename T>
+__device__ __forceinline__ T nmin(T a, T b) {
+  return (a != a || b != b) ? a + b : (a < b ? a : b);
+}
+// The box projection min(max(v, lo), hi).
+template <typename T>
+__device__ __forceinline__ T box(T v, T lo, T hi) {
+  return nmin(nmax(v, lo), hi);
+}
 
 // The normalization fold of one x value, rounded to float32 as the tile
 // stores it: (x - shift) * factor.
@@ -130,6 +168,10 @@ struct Loss<0, T> {  // logistic: log(1 + e^z) - y z
     return mx(z, T(0)) + lg1p(ex(-ab(z))) - y * z;
   }
   __device__ static T d1(T z, T y) { return T(1) / (T(1) + ex(-z)) - y; }
+  __device__ static T d2(T z, T) {
+    const T s = T(1) / (T(1) + ex(-z));
+    return s * (T(1) - s);
+  }
 };
 
 template <typename T>
@@ -139,14 +181,17 @@ struct Loss<1, T> {  // squared: (z - y)^2 / 2
     return T(0.5) * e * e;
   }
   __device__ static T d1(T z, T y) { return z - y; }
+  __device__ static T d2(T, T) { return T(1); }
 };
 
 template <typename T>
 struct Loss<2, T> {  // Poisson: e^z - y z
   __device__ static T value(T z, T y) { return ex(z) - y * z; }
   __device__ static T d1(T z, T y) { return ex(z) - y; }
+  __device__ static T d2(T z, T) { return ex(z); }
 };
 
+// Once differentiable only: TRON is not instantiated for it.
 template <typename T>
 struct Loss<3, T> {  // smoothed hinge on t = (2y - 1) z
   __device__ static T value(T z, T y) {
@@ -250,6 +295,62 @@ __device__ T pg_norm(const T* c, const T* g, T l1, int d, int lane) {
   return rt(warp_sum(s));
 }
 
+// Loads one entity's factor and shift when normalized, its x tile into
+// shared memory in the shared layout (folded there when normalized), its
+// rows and c0 (projected when bounded). Returns the view the solve reads
+// x through. The bounds stay in device memory, read in place (read-only
+// and cached) by the few projections that use them: staged in the
+// working set they would cost 2 d of shared memory per warp, which at
+// n_pad 64, d_pad 32 drops an SM from 3 blocks of 4 warps to 2.
+template <typename T, int LAYOUT>
+__device__ XView<T, LAYOUT> load_entity(const Params& p, const Plan& plan,
+                                        unsigned char* base, int e, T* y,
+                                        T* off, T* w, T* c, T* fa, T* sh,
+                                        int lane) {
+  const int r = p.r, d = p.d;
+  const bool normalized = p.factor != nullptr;
+  const bool bounded = p.lower != nullptr;
+  if (normalized)
+    for (int j = lane; j < d; j += 32) {
+      const size_t o = (size_t)e * d + j;
+      fa[j] = (T)p.factor[o];
+      sh[j] = (T)p.shift[o];
+    }
+  __syncwarp();
+  const size_t rd = (size_t)r * d;
+  const float* xe = p.x + (size_t)e * rd;
+  XView<T, LAYOUT> xv{xe, d, normalized ? fa : nullptr, sh};
+  if constexpr (LAYOUT == kAllShared) {
+    float* tile = reinterpret_cast<float*>(base + plan.state_bytes);
+    const int ld = d + 1;
+    for (size_t k = lane; k < rd; k += 32) {
+      const size_t i = k / d, j = k - i * d;
+      tile[i * ld + j] = normalized ? fold(xe[k], sh[j], fa[j]) : xe[k];
+    }
+    xv.xs = tile;
+    xv.ld = ld;
+  }
+  for (int i = lane; i < r; i += 32) {
+    const size_t o = (size_t)e * r + i;
+    y[i] = p.y[o];
+    off[i] = p.off[o];
+    w[i] = p.w[o];
+  }
+  for (int j = lane; j < d; j += 32) {
+    const size_t o = (size_t)e * d + j;
+    const T c0 = p.c0[o];
+    c[j] = bounded ? box(c0, (T)p.lower[o], (T)p.upper[o]) : c0;
+  }
+  __syncwarp();
+  return xv;
+}
+
+// The entity's bounds in device memory, or null without bounds.
+__device__ __forceinline__ const float* entity_row(const float* a, int e,
+                                                   int d) {
+  return a != nullptr ? a + (size_t)e * d : nullptr;
+}
+
 template <int LOSS, typename T, int LAYOUT, bool OWLQN>
 __global__ void __launch_bounds__(128)
     entity_lbfgs_kernel(Params p, Plan plan) {
@@ -261,7 +362,10 @@ __global__ void __launch_bounds__(128)
   const int r = p.r, d = p.d, m = p.m;
   const T l2 = (T)p.l2, l1 = (T)p.l1, tol = (T)p.tol, c1 = (T)p.c1;
   const T eps = (T)kCautiousEps;
-  const bool normalized = p.factor != nullptr;
+  // Trials that are projected (orthant or box) and priced from their own
+  // margins; otherwise the line search prices cached margins. Bounds are
+  // uniform over a launch, like the fold.
+  const bool projected = OWLQN || p.lower != nullptr;
 
   unsigned char* base;
   if constexpr (LAYOUT == kAllGlobal)
@@ -287,33 +391,10 @@ __global__ void __launch_bounds__(128)
   T* rho = Y + (size_t)m * d;
   T* alpha = rho + m;
 
-  if (normalized)
-    for (int j = lane; j < d; j += 32) {
-      fa[j] = (T)p.factor[(size_t)e * d + j];
-      sh[j] = (T)p.shift[(size_t)e * d + j];
-    }
-  __syncwarp();
-
-  const size_t rd = (size_t)r * d;
-  const float* xe = p.x + (size_t)e * rd;
-  XView<T, LAYOUT> xv{xe, d, normalized ? fa : nullptr, sh};
-  if constexpr (LAYOUT == kAllShared) {
-    float* tile = reinterpret_cast<float*>(base + plan.state_bytes);
-    const int ld = d + 1;
-    for (size_t k = lane; k < rd; k += 32) {
-      const size_t i = k / d, j = k - i * d;
-      tile[i * ld + j] = normalized ? fold(xe[k], sh[j], fa[j]) : xe[k];
-    }
-    xv.xs = tile;
-    xv.ld = ld;
-  }
-  for (int i = lane; i < r; i += 32) {
-    size_t o = (size_t)e * r + i;
-    y[i] = p.y[o];
-    off[i] = p.off[o];
-    w[i] = p.w[o];
-  }
-  for (int j = lane; j < d; j += 32) c[j] = p.c0[(size_t)e * d + j];
+  const float* lb = entity_row(p.lower, e, d);
+  const float* ub = entity_row(p.upper, e, d);
+  const XView<T, LAYOUT> xv =
+      load_entity<T, LAYOUT>(p, plan, base, e, y, off, w, c, fa, sh, lane);
   for (size_t k = lane; k < (size_t)m * d; k += 32) S[k] = Y[k] = T(0);
   for (int k = lane; k < m; k += 32) rho[k] = T(0);
   __syncwarp();
@@ -372,25 +453,31 @@ __global__ void __launch_bounds__(128)
     T t_acc = T(0), f_new = T(0);
     const T pp = dot(dir, dir, d, lane);
     const T t0 = count == 0 ? T(1) / mx(rt(pp), T(1)) : T(1);
-    if constexpr (OWLQN) {
-      // Orthant-projected trials, each priced from its own margins: the
-      // first that passes Armijo on the realized displacement wins. The
-      // trial point is built in cn and its margins in zp.
+    if (projected) {
+      // Projected trials (onto the orthant in OWL-QN, onto the box with
+      // bounds), each priced from its own margins: the first that passes
+      // Armijo on the realized displacement q0.(x_t - c) wins. The trial
+      // point is built in cn and its margins in zp.
       for (int kk = 0; kk <= p.max_line_search; ++kk) {
         const T t = half_pow(t0, kk);  // t0 * 0.5^kk, exactly
         for (int j = lane; j < d; j += 32) {
           const T xt = c[j] + t * dir[j];
-          const int orth = c[j] != T(0) ? sgn(c[j]) : sgn(-pg[j]);
-          cn[j] = sgn(xt) == orth ? xt : T(0);
+          if constexpr (OWLQN) {
+            const int orth = c[j] != T(0) ? sgn(c[j]) : sgn(-pg[j]);
+            cn[j] = sgn(xt) == orth ? xt : T(0);
+          } else {
+            cn[j] = box(xt, (T)lb[j], (T)ub[j]);
+          }
         }
         __syncwarp();
         margins(xv, cn, off, zp, r, d, lane);
         T dec = T(0);
-        for (int j = lane; j < d; j += 32) dec += pg[j] * (cn[j] - c[j]);
+        for (int j = lane; j < d; j += 32) dec += q0[j] * (cn[j] - c[j]);
         dec = warp_sum(dec);
-        const T ft =
-            data_value<LOSS, T>(zp, (const T*)nullptr, T(0), y, w, r, lane) +
-            T(0.5) * l2 * dot(cn, cn, d, lane) + l1 * l1_norm(cn, d, lane);
+        T ft = data_value<LOSS, T>(zp, (const T*)nullptr, T(0), y, w, r,
+                                   lane) +
+               T(0.5) * l2 * dot(cn, cn, d, lane);
+        if constexpr (OWLQN) ft += l1 * l1_norm(cn, d, lane);
         ++trials;
         if (ft <= f + c1 * dec && finite(ft)) {
           ok = true;
@@ -425,8 +512,10 @@ __global__ void __launch_bounds__(128)
       break;
     }
 
-    if constexpr (OWLQN) {
-      for (int i = lane; i < r; i += 32) z[i] = zp[i];
+    if (projected) {
+      // The accepted trial's margins, non-finite ones kept as 0 (the
+      // Pallas kernel's accumulator rule).
+      for (int i = lane; i < r; i += 32) z[i] = finite(zp[i]) ? zp[i] : T(0);
     } else {
       for (int j = lane; j < d; j += 32) cn[j] = c[j] + t_acc * dir[j];
       for (int i = lane; i < r; i += 32) z[i] += t_acc * zp[i];
@@ -486,58 +575,305 @@ __global__ void __launch_bounds__(128)
     p.out_gnorm[e] = (float)gnorm;
     p.out_it[e] = it;
     p.out_reason[e] = reason;
-    p.out_trials[e] = trials;
+    p.out_steps[e] = trials;
   }
 }
 
-template <int LOSS, typename T, int LAYOUT, bool OWLQN>
-int launch_layout(const Params& p, const Plan& plan, cudaStream_t stream) {
+// out = fr .* (H (fr .* v)) with H v = X^T (d2w .* X v) + l2 v, in the
+// Pallas kernel's order (l2 v first, then the rows); fr null means no
+// mask. u is r scratch.
+template <typename T, int LAYOUT>
+__device__ void hess_vec(const XView<T, LAYOUT>& xv, const T* d2w,
+                         const T* v, const T* fr, T l2, T* u, T* out, int r,
+                         int d, int lane) {
+  __syncwarp();
+  for (int i = lane; i < r; i += 32) {
+    T acc = T(0);
+    for (int j = 0; j < d; ++j)
+      acc += xv.at(i, j) * (fr != nullptr ? fr[j] * v[j] : v[j]);
+    u[i] = d2w[i] * acc;
+  }
+  __syncwarp();
+  for (int j = lane; j < d; j += 32) {
+    T acc = l2 * (fr != nullptr ? fr[j] * v[j] : v[j]);
+    for (int i = 0; i < r; ++i) acc += xv.at(i, j) * u[i];
+    out[j] = fr != nullptr ? fr[j] * acc : acc;
+  }
+  __syncwarp();
+}
+
+// TRON's stationarity: |g|, or |c - P(c - g)| with bounds.
+template <typename T>
+__device__ T stat_norm(const T* c, const T* g, const float* lb,
+                       const float* ub, int d, int lane) {
+  if (lb == nullptr) return rt(dot(g, g, d, lane));
+  T s = T(0);
+  for (int j = lane; j < d; j += 32) {
+    const T v = c[j] - box(c[j] - g[j], (T)lb[j], (T)ub[j]);
+    s += v * v;
+  }
+  return rt(warp_sum(s));
+}
+
+// Per-entity TRON (the Pallas _make_tron_kernel): a trust-region loop
+// whose Steihaug-Toint CG runs per warp, with the curvature weights d2w
+// computed once per trip. Bounds freeze the pinned coordinates in CG,
+// clamp the trial and price the realized step with one more Hv.
+template <int LOSS, typename T, int LAYOUT>
+__global__ void __launch_bounds__(128) entity_tron_kernel(Params p, Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int e = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (e >= p.E) return;  // whole warps only: no block barrier follows
+  const int r = p.r, d = p.d;
+  const T l2 = (T)p.l2, tol = (T)p.tol;
+  const T pin_eps = (T)kPinEps;
+  const T eta0 = (T)kEta0, eta1 = (T)kEta1, eta2 = (T)kEta2;
+  const T sig1 = (T)kSigma1, sig2 = (T)kSigma2, sig3 = (T)kSigma3;
+  const T tiny = (T)1e-30;
+  const bool bounded = p.lower != nullptr;
+
+  unsigned char* base;
+  if constexpr (LAYOUT == kAllGlobal)
+    base = p.workspace + (size_t)e * plan.state_bytes;
+  else
+    base = smem + (size_t)warp * plan.warp_bytes;
+  T* y = reinterpret_cast<T*>(base);
+  T* off = y + r;
+  T* w = off + r;
+  T* z = w + r;
+  T* zt = z + r;    // trial margins
+  T* d2w = zt + r;  // curvature weights of the trip
+  T* u = d2w + r;   // scratch: d1 weights, or d2w .* X v
+  T* c = u + r;
+  T* g = c + d;
+  T* s = g + d;   // CG step
+  T* rr = s + d;  // CG residual
+  T* dv = rr + d; // CG direction, then the realized step
+  T* hd = dv + d;
+  T* cn = hd + d;  // trial point
+  T* gn = cn + d;
+  T* fr = gn + d;  // 1 free, 0 pinned
+  T* fa = fr + d;
+  T* sh = fa + d;
+  const T* mask = bounded ? fr : nullptr;
+  const float* lb = entity_row(p.lower, e, d);
+  const float* ub = entity_row(p.upper, e, d);
+
+  const XView<T, LAYOUT> xv =
+      load_entity<T, LAYOUT>(p, plan, base, e, y, off, w, c, fa, sh, lane);
+  margins(xv, c, off, z, r, d, lane);
+  T f = data_value<LOSS, T>(z, (const T*)nullptr, T(0), y, w, r, lane) +
+        T(0.5) * l2 * dot(c, c, d, lane);
+  gradient<LOSS, T>(xv, z, y, w, u, c, l2, g, r, d, lane);
+  __syncwarp();
+  const T gnorm0 = stat_norm(c, g, lb, ub, d, lane);
+  const T f0_scale = mx(ab(f), tiny);
+  T gnorm = gnorm0, delta = gnorm0;
+  int reason = gnorm0 <= T(0) ? kGradientConverged : kNotConverged;
+  int it = 0, fails = 0, trips = 0, cg_steps = 0;
+  const int max_trips = p.max_iter * (kMaxFailures + 2);
+
+  for (; trips < max_trips && reason == kNotConverged; ++trips) {
+    for (int i = lane; i < r; i += 32)
+      d2w[i] = w[i] * Loss<LOSS, T>::d2(z[i], y[i]);
+    // Coordinates pinned at a bound with the gradient pushing outward
+    // stay out of CG.
+    T gg = T(0);
+    for (int j = lane; j < d; j += 32) {
+      const bool pinned =
+          bounded && ((c[j] <= (T)lb[j] + pin_eps && g[j] > T(0)) ||
+                      (c[j] >= (T)ub[j] - pin_eps && g[j] < T(0)));
+      fr[j] = pinned ? T(0) : T(1);
+      const T gc = bounded ? g[j] * fr[j] : g[j];
+      s[j] = T(0);
+      rr[j] = -gc;
+      dv[j] = -gc;
+      gg += gc * gc;
+    }
+    gg = warp_sum(gg);
+    // Steihaug-Toint truncated CG.
+    const T stop_norm = (T)kCgXi * rt(gg);
+    T rtr = gg;
+    bool done = rt(gg) <= stop_norm;
+    for (int kk = 0; kk < kMaxCg && !done; ++kk) {
+      hess_vec(xv, d2w, dv, mask, l2, u, hd, r, d, lane);
+      const T dhd = dot(dv, hd, d, lane);
+      const T alpha = rtr / (dhd > T(0) ? dhd : T(1));
+      T sts = T(0), std_ = T(0), dd = T(0), ss = T(0);
+      for (int j = lane; j < d; j += 32) {
+        const T st = s[j] + alpha * dv[j];
+        sts += st * st;
+        std_ += s[j] * dv[j];
+        dd += dv[j] * dv[j];
+        ss += s[j] * s[j];
+      }
+      sts = warp_sum(sts);
+      std_ = warp_sum(std_);
+      dd = warp_sum(dd);
+      ss = warp_sum(ss);
+      const bool crossed = sts > delta * delta || dhd <= T(0);
+      const T gap = nmax(delta * delta - ss, T(0));
+      const T rad = rt(nmax(std_ * std_ + dd * gap, T(0)));
+      const T tau = std_ >= T(0) ? gap / nmax(std_ + rad, tiny)
+                                 : (rad - std_) / nmax(dd, tiny);
+      const T step = crossed ? tau : alpha;
+      for (int j = lane; j < d; j += 32) {
+        s[j] += step * dv[j];
+        rr[j] -= step * hd[j];
+      }
+      const T rtr_new = dot(rr, rr, d, lane);
+      const T beta = rtr_new / nmax(rtr, tiny);
+      for (int j = lane; j < d; j += 32) dv[j] = rr[j] + beta * dv[j];
+      __syncwarp();
+      rtr = rtr_new;
+      ++cg_steps;
+      done = crossed || rt(rtr_new) <= stop_norm;
+    }
+
+    // The trial, its value and gradient; the realized step in dv.
+    for (int j = lane; j < d; j += 32) {
+      cn[j] = bounded ? box(c[j] + s[j], (T)lb[j], (T)ub[j]) : c[j] + s[j];
+      if (bounded) dv[j] = cn[j] - c[j];
+    }
+    __syncwarp();
+    const T* sr = bounded ? dv : s;
+    margins(xv, cn, off, zt, r, d, lane);
+    const T f_new =
+        data_value<LOSS, T>(zt, (const T*)nullptr, T(0), y, w, r, lane) +
+        T(0.5) * l2 * dot(cn, cn, d, lane);
+    gradient<LOSS, T>(xv, zt, y, w, u, cn, l2, gn, r, d, lane);
+    __syncwarp();
+    const T gs = dot(g, sr, d, lane);
+    T prered;
+    if (bounded) {
+      hess_vec(xv, d2w, sr, (const T*)nullptr, l2, u, hd, r, d, lane);
+      prered = -(gs + T(0.5) * dot(sr, hd, d, lane));
+    } else {
+      prered = T(-0.5) * (gs - dot(s, rr, d, lane));
+    }
+    const T actred = f - f_new;
+    const T snorm = rt(dot(sr, sr, d, lane));
+
+    // LIBLINEAR's radius update.
+    T delta_n = trips == 0 ? nmin(delta, snorm) : delta;
+    const T denom = f_new - f - gs;
+    const T alpha_i =
+        denom <= T(0) ? sig3 : nmax(sig1, T(-0.5) * (gs / nmax(denom, tiny)));
+    const T alpha_s = alpha_i * snorm;
+    if (actred < eta0 * prered)
+      delta_n = nmin(nmax(alpha_i, sig1) * snorm, sig2 * delta_n);
+    else if (actred < eta1 * prered)
+      delta_n = nmax(sig1 * delta_n, nmin(alpha_s, sig2 * delta_n));
+    else if (actred < eta2 * prered)
+      delta_n = nmax(sig1 * delta_n, nmin(alpha_s, sig3 * delta_n));
+    else
+      delta_n = nmax(delta_n, nmin(alpha_s, sig3 * delta_n));
+
+    const bool accept = actred > eta0 * prered && finite(f_new);
+    const T f_old = f;
+    if (accept) {
+      ++it;
+      fails = 0;
+      // Non-finite margins and gradient entries are kept as 0, as the
+      // Pallas kernel keeps them.
+      for (int j = lane; j < d; j += 32) {
+        c[j] = cn[j];
+        g[j] = finite(gn[j]) ? gn[j] : T(0);
+      }
+      for (int i = lane; i < r; i += 32) z[i] = finite(zt[i]) ? zt[i] : T(0);
+      f = f_new;
+    } else {
+      ++fails;
+    }
+    __syncwarp();
+    gnorm = stat_norm(c, g, lb, ub, d, lane);
+    delta = delta_n;
+    if (fails > kMaxFailures)
+      reason = kObjectiveNotImproving;
+    else if (accept && gnorm <= tol * gnorm0)
+      reason = kGradientConverged;
+    else if (accept && ab(f_old - f) <= tol * f0_scale)
+      reason = kFunctionValuesConverged;
+    else if (it >= p.max_iter)
+      reason = kMaxIterations;
+  }
+
+  for (int j = lane; j < d; j += 32) p.out_c[(size_t)e * d + j] = (float)c[j];
+  if (lane == 0) {
+    p.out_f[e] = (float)f;
+    p.out_gnorm[e] = (float)gnorm;
+    p.out_it[e] = it;
+    p.out_reason[e] = reason;
+    p.out_steps[e] = trips;
+    p.out_cg[e] = cg_steps;
+  }
+}
+
+using KernelFn = void (*)(Params, Plan);
+
+template <int LOSS, typename T, int LAYOUT, int MODE>
+KernelFn kernel_of() {
+  if constexpr (MODE == kModeTron)
+    return entity_tron_kernel<LOSS, T, LAYOUT>;
+  else
+    return entity_lbfgs_kernel<LOSS, T, LAYOUT, MODE == kModeOwlqn>;
+}
+
+inline int launch_kernel(KernelFn kernel, const Params& p, const Plan& plan,
+                         cudaStream_t stream) {
   const size_t smem = plan.warp_bytes * plan.warps;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        entity_lbfgs_kernel<LOSS, T, LAYOUT, OWLQN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (p.E + plan.warps - 1) / plan.warps;
-  entity_lbfgs_kernel<LOSS, T, LAYOUT, OWLQN>
-      <<<blocks, 32 * plan.warps, smem, stream>>>(p, plan);
+  kernel<<<blocks, 32 * plan.warps, smem, stream>>>(p, plan);
   return (int)cudaGetLastError();
 }
 
-template <int LOSS, typename T, bool OWLQN>
+template <int LOSS, typename T, int MODE>
 int launch(const Params& p, cudaStream_t stream) {
   Plan plan;
-  int err = make_plan(p.r, p.d, p.m, sizeof(T), &plan);
+  int err = make_plan(p.r, p.d, p.m, sizeof(T), MODE == kModeTron, &plan);
   if (err != 0) return err;
   switch (plan.layout) {
     case kAllShared:
-      return launch_layout<LOSS, T, kAllShared, OWLQN>(p, plan, stream);
+      return launch_kernel(kernel_of<LOSS, T, kAllShared, MODE>(), p, plan,
+                           stream);
     case kXGlobal:
-      return launch_layout<LOSS, T, kXGlobal, OWLQN>(p, plan, stream);
+      return launch_kernel(kernel_of<LOSS, T, kXGlobal, MODE>(), p, plan,
+                           stream);
     default:
       if (p.workspace == nullptr) return (int)cudaErrorInvalidValue;
-      return launch_layout<LOSS, T, kAllGlobal, OWLQN>(p, plan, stream);
+      return launch_kernel(kernel_of<LOSS, T, kAllGlobal, MODE>(), p, plan,
+                           stream);
   }
 }
 
-// Launchers of one (compute type, mode) for every loss, one per
-// translation unit so that nvcc builds them in parallel.
+// Launchers of one (mode, compute type) for every loss the mode takes,
+// one per translation unit so that nvcc builds them in parallel.
 int launch_lbfgs_f64(const Params& p, int loss, cudaStream_t stream);
 int launch_lbfgs_f32(const Params& p, int loss, cudaStream_t stream);
 int launch_owlqn_f64(const Params& p, int loss, cudaStream_t stream);
 int launch_owlqn_f32(const Params& p, int loss, cudaStream_t stream);
+int launch_tron_f64(const Params& p, int loss, cudaStream_t stream);
+int launch_tron_f32(const Params& p, int loss, cudaStream_t stream);
 
-template <typename T, bool OWLQN>
+template <typename T, int MODE>
 int launch_loss(const Params& p, int loss, cudaStream_t stream) {
   switch (loss) {
-    case 0: return launch<0, T, OWLQN>(p, stream);
-    case 1: return launch<1, T, OWLQN>(p, stream);
-    case 2: return launch<2, T, OWLQN>(p, stream);
-    case 3: return launch<3, T, OWLQN>(p, stream);
+    case 0: return launch<0, T, MODE>(p, stream);
+    case 1: return launch<1, T, MODE>(p, stream);
+    case 2: return launch<2, T, MODE>(p, stream);
+    case 3:
+      // TRON needs a twice-differentiable loss.
+      if constexpr (MODE == kModeTron) return (int)cudaErrorInvalidValue;
+      else return launch<3, T, MODE>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
-
 
 }  // namespace entity_lbfgs

@@ -6,7 +6,7 @@
 namespace entity_lbfgs {
 
 int launch_lbfgs_f32(const Params& p, int loss, cudaStream_t stream) {
-  return launch_loss<float, false>(p, loss, stream);
+  return launch_loss<float, kModeLbfgs>(p, loss, stream);
 }
 
 }  // namespace entity_lbfgs

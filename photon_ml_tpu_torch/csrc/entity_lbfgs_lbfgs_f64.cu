@@ -6,7 +6,7 @@
 namespace entity_lbfgs {
 
 int launch_lbfgs_f64(const Params& p, int loss, cudaStream_t stream) {
-  return launch_loss<double, false>(p, loss, stream);
+  return launch_loss<double, kModeLbfgs>(p, loss, stream);
 }
 
 }  // namespace entity_lbfgs

@@ -6,7 +6,7 @@
 namespace entity_lbfgs {
 
 int launch_owlqn_f32(const Params& p, int loss, cudaStream_t stream) {
-  return launch_loss<float, true>(p, loss, stream);
+  return launch_loss<float, kModeOwlqn>(p, loss, stream);
 }
 
 }  // namespace entity_lbfgs

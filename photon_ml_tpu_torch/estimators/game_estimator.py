@@ -6,9 +6,13 @@ reference ml/estimators/GameEstimator.scala:51-527).
 ``fit`` builds each random-effect dataset once, then trains one
 coordinate-descent run per combination of per-coordinate configs. A
 spec's ``normalization`` (a NormalizationContext over the coordinate's
-global feature space, data/normalization.py) goes to its coordinate. Box
-constraints, feature sharding, factored random effects and checkpoints
-are not ported yet (ROADMAP queue A).
+global feature space, data/normalization.py) and its box constraints
+``lower_bounds``/``upper_bounds`` (global [d] arrays, e.g. from
+optimization/config.constraint_arrays) go to its coordinate (the
+reference's per-problem normalization and constraintMap,
+RandomEffectOptimizationProblem.scala:105-125). Feature sharding,
+factored random effects and checkpoints are not ported yet (ROADMAP
+queue A).
 """
 
 from __future__ import annotations
@@ -50,6 +54,8 @@ class FixedEffectSpec:
     feature_shard_id: str
     configs: Sequence[GLMOptimizationConfiguration]
     normalization: Optional[NormalizationContext] = None
+    lower_bounds: Optional[object] = None
+    upper_bounds: Optional[object] = None
 
 
 @dataclasses.dataclass
@@ -59,6 +65,8 @@ class RandomEffectSpec:
     configs: Sequence[GLMOptimizationConfiguration]
     intercept_col: Optional[int] = None
     normalization: Optional[NormalizationContext] = None
+    lower_bounds: Optional[object] = None
+    upper_bounds: Optional[object] = None
 
 
 CoordinateSpec = Union[FixedEffectSpec, RandomEffectSpec]
@@ -106,12 +114,15 @@ class GameEstimator:
                         feature_shard_id=s.feature_shard_id,
                         task_type=self.task_type, config=configs[s.name],
                         normalization=s.normalization, dtype=self.dtype,
-                        device=self.device)
+                        device=self.device, lower_bounds=s.lower_bounds,
+                        upper_bounds=s.upper_bounds)
                 else:
                     coords[s.name] = RandomEffectCoordinate(
                         name=s.name, dataset=re_datasets[s.name],
                         task_type=self.task_type, config=configs[s.name],
-                        normalization=s.normalization)
+                        normalization=s.normalization,
+                        lower_bounds=s.lower_bounds,
+                        upper_bounds=s.upper_bounds)
             cd = CoordinateDescent(
                 coords, self.task_type, validation_data=validation_data,
                 validation_evaluators=self.validation_evaluators,

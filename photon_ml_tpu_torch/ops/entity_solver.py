@@ -1,21 +1,27 @@
 """Per-entity GLM solve: a hand-written Hopper kernel and its plain
 PyTorch version (port of photon_ml_tpu/ops/pallas_entity_solver.py:
-``pallas_entity_lbfgs`` :852 in modes "lbfgs" and "owlqn", with or
-without the normalization fold, without bounds: ``_make_kernel`` ->
-``body`` :453-541, ``body_owlqn`` :328-394, ``_tiered_sweep`` :141,
-``_two_loop`` :116, ``finish`` :267, the fold :199-209).
+``pallas_entity_lbfgs`` :852 in its three modes, with or without the
+normalization fold and box constraints: ``_make_kernel`` -> ``body``
+:453-541, ``body_owlqn`` :328-394, ``body_bounded`` :396-451,
+``_tiered_sweep`` :141, ``_two_loop`` :116, ``finish`` :267, the fold
+:199-209; ``_make_tron_kernel`` :561-845).
 
 The random-effect coordinate solves thousands of tiny independent GLMs,
 one per entity, over a bucket's ``[E, r, d]`` block. With ``factors`` and
 ``shifts`` the solve runs on x' = (x - shift) * factor, per entity; x' is
 computed in the compute type and rounded to the input type (float32 on
-the card), so the kernel's shared-memory tile holds it exactly.
-Coefficients in and out are in that solve space. Per entity:
+the card), so the kernel's shared-memory tile holds it exactly. With
+``lower``/``upper`` ([E, d], +-inf where a coordinate is free) every
+iterate is clamped onto the box P(c) = min(max(c, lower), upper); c0 is
+projected first. Bounds clamp the solve-space coefficients as they are.
+Coefficients in and out are in that solve space.
+
+Modes "lbfgs" and "owlqn", per entity:
 
     c0 given; z0 = X c0 + off; f0 = sum w l(z0) + l2/2 |c0|^2
       (+ l1 |c0|_1 in OWL-QN); g0 = smooth gradient
     q = g (L-BFGS) or the pseudo-gradient pg(c, g) (OWL-QN); |q0| is the
-      gradient norm every stop test uses
+      gradient norm every stop test uses (the raw |g| with bounds)
     reason = GRADIENT_CONVERGED if |q0| <= 0 else NOT_CONVERGED
     while k < max_iter and the entity is active:
       direction: two-loop recursion on q over the last count <= m pairs
@@ -27,10 +33,13 @@ Coefficients in and out are in that solve space. Per entity:
         t whose trial value is finite and passes Armijo:
         L-BFGS: zp = X d; f_t = sum w l(z + t zp) + l2/2 (xx + 2 t xp +
           t^2 pp) <= f + c1 t g.d
+        bounded L-BFGS: x_t = P(c + t d); z_t = X x_t + off; f_t = sum w
+          l(z_t) + l2/2 |x_t|^2 <= f + c1 g.(x_t - c)
         OWL-QN: x_t = c + t d with each coordinate whose sign differs
           from the orthant (sign(c) where c != 0, else sign(-pg)) set to
           0; z_t = X x_t + off; f_t = sum w l(z_t) + l2/2 |x_t|^2 +
           l1 |x_t|_1 <= f + c1 pg.(x_t - c)
+        the accepted trial's non-finite margins are kept as 0
       history: store (s, y) from the smooth gradients when the search
         succeeded and s.y > 1e-10 |s| |y|; rho = 1/s.y; count =
         min(count + 1, m)
@@ -40,19 +49,45 @@ Coefficients in and out are in that solve space. Per entity:
       a failed search leaves the iterate where it was but counts the
         iteration
 
+Mode "tron" (twice-differentiable losses, L2 only), per entity, the
+Pallas kernel's TRON and not optimization/tron.py's (they differ in
+where a trip is counted and in how non-finite trials are kept):
+
+    stationarity |g|, or |c - P(c - g)| with bounds; gnorm0 from c0;
+      radius delta = gnorm0; first = true
+    while trips < max_iter * 7 and the entity is active:
+      d2w = w l''(z) once per trip; Hv = X^T (d2w * X v) + l2 v
+      with bounds: free = not (c <= lower + 1e-12 and g > 0 or c >= upper
+        - 1e-12 and g < 0); CG sees g * free and free * H(free * v)
+      Steihaug-Toint CG from s = 0 for at most 20 steps, stopping on the
+        boundary |s| = delta, on curvature d.Hd <= 0, or at |r| <= 0.1 |g|
+      c_t = c + s (P(c + s) with bounds), s_real = c_t - c; f_t, g_t;
+        prered = -(g.s - s.r)/2, or -(g.s_real + s_real.H s_real / 2)
+        with bounds (one more Hv); actred = f - f_t
+      delta: min(delta, |s_real|) on the first trip, then LIBLINEAR's
+        update (eta 1e-4, 0.25, 0.75; sigma 0.25, 0.5, 4)
+      accept when actred > 1e-4 prered and f_t is finite: iterations + 1,
+        failures 0; else failures + 1. Non-finite z_t, g_t and f_t are
+        kept as 0
+      stop: failures > 5 -> OBJECTIVE_NOT_IMPROVING; accepted and
+        stationarity <= tol gnorm0 -> GRADIENT_CONVERGED; accepted and
+        |df| <= tol max(|f0|, 1e-30) -> FUNCTION_VALUES_CONVERGED;
+        iterations >= max_iter -> MAX_ITERATIONS
+
 Both versions compute in ``compute_dtype`` (float64 by default) whatever
 the input type, and the kernel takes float32 in and writes float32 out.
 Float64 is the default because two float32 implementations that sum in
 different orders stop some entities for different reasons at the
 random-effect tolerance: chip_smoke.py counts those disagreements
 between the float32 kernel and the float32 plain version at the headline
-buckets. Both report the line-search trials each entity priced
-(``OptimizerResult.trials``), from which chip_smoke.py counts operations.
+buckets. Both report the work each entity did, from which chip_smoke.py
+counts operations: the line-search trials it priced
+(``OptimizerResult.trials``) in the L-BFGS modes, its TRON trips and CG
+steps (``outer_steps``, ``cg_steps``) in TRON.
 
 ``entity_lbfgs`` is the wrapper: it runs the plain version for tensors on
 the CPU, launches the CUDA kernel for tensors on the card, and raises for
-anything else. There is no fallback from one to the other. TRON mode
-(ROADMAP B5) and bounds (B3) are not ported and raise on either device.
+anything else. There is no fallback from one to the other.
 
 Kernel note (csrc/entity_lbfgs.cu). Replaces the Pallas TPU kernel above,
 which ran 128 entities in lane lockstep. On the H100 one warp owns one
@@ -63,16 +98,18 @@ lanes over coordinates, and sums over coordinates are warp shuffles.
 Each warp loops until its own entity stops, so a slow entity never holds
 up its neighbours, and tries line-search candidates in order, stopping at
 the first that passes, where the TPU prices 8 as a block and 23 more on
-demand (the same accepted step). The normalization fold is applied once
-as the tile is loaded, or on every read where x stays in device memory.
-An entity too tall for shared memory reads x from device memory, and its
-working set goes to a workspace the wrapper allocates, so every bucket
-launches the kernel. The solve moves few bytes (each x tile is read
-once) and does little arithmetic; what bounds it on this card is the
-serial dependency chain of each entity's iterations (dot -> shuffle ->
-update), so the design keeps every operand on chip where it fits and
-runs as many entity warps per SM as shared memory allows. Making it fast
-is later work.
+demand (the same accepted step). TRON is its own kernel body on the same
+helpers, with its own working set (no history) and its CG loop per warp.
+The normalization fold is applied once as the tile is loaded, or on
+every read where x stays in device memory; bounds are a runtime flag (a
+null pointer means none). An entity too tall for shared memory reads x
+from device memory, and its working set goes to a workspace the wrapper
+allocates, so every bucket launches the kernel. The solve moves few
+bytes (each x tile is read once) and does little arithmetic; what bounds
+it on this card is the serial dependency chain of each entity's
+iterations (dot -> shuffle -> update), so the design keeps every operand
+on chip where it fits and runs as many entity warps per SM as shared
+memory allows. Making it fast is later work.
 """
 
 from __future__ import annotations
@@ -80,7 +117,8 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -96,7 +134,14 @@ Tensor = torch.Tensor
 DEFAULT_M = 10
 DEFAULT_MAX_LINE_SEARCH = 30
 _CAUTIOUS_EPS = 1e-10
-MODES = ("lbfgs", "owlqn")
+MODES = ("lbfgs", "owlqn", "tron")
+# TRON's constants (the LIBLINEAR rules of optimization/tron.py and the
+# Pallas kernel :579-582, with its CG and failure budgets).
+TRON_ETA0, TRON_ETA1, TRON_ETA2 = 1e-4, 0.25, 0.75
+TRON_SIGMA1, TRON_SIGMA2, TRON_SIGMA3 = 0.25, 0.5, 4.0
+TRON_CG_XI = 0.1
+TRON_MAX_CG = 20
+TRON_MAX_FAILURES = 5
 
 
 def _where(mask: Tensor, a: Tensor, b: Tensor) -> Tensor:
@@ -124,20 +169,29 @@ def _two_loop(g, S, Y, rho, count):
     return -rr
 
 
-def check_mode(mode: str, lower=None, upper=None) -> None:
-    """Raise for what the port's entity solver does not take (on the CPU
-    and the card alike)."""
-    if mode == "tron":
-        raise NotImplementedError(
-            "the per-entity TRON solver is not ported yet (ROADMAP queue B "
-            "row 5, with queue A item 4)")
+def check_mode(mode: str, lower=None, upper=None,
+               loss: Optional[PointwiseLoss] = None) -> None:
+    """Raise for what the entity solver does not take (on the CPU and the
+    card alike): an unknown mode, bounds with OWL-QN, and TRON on a loss
+    that is not twice differentiable, as ``solve_glm`` refuses them."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}: expected lbfgs | owlqn | "
                          "tron")
-    if lower is not None or upper is not None:
-        raise NotImplementedError(
-            "box constraints in the entity solver are not ported yet "
-            "(ROADMAP queue B row 3)")
+    if mode == "owlqn" and (lower is not None or upper is not None):
+        raise ValueError("box constraints with L1 are not supported "
+                         "(matching solve_glm)")
+    if mode == "tron" and loss is not None and \
+            not loss.twice_differentiable:
+        raise ValueError(f"TRON requires a twice-differentiable loss, got "
+                         f"{loss.name}")
+
+
+def _project(c: Tensor, lo: Optional[Tensor], hi: Optional[Tensor]
+             ) -> Tensor:
+    """min(max(c, lo), hi), NaN-propagating as jnp's; c when unbounded."""
+    if lo is None:
+        return c
+    return torch.minimum(torch.maximum(c, lo), hi)
 
 
 def entity_lbfgs_plain(
@@ -150,19 +204,25 @@ def entity_lbfgs_plain(
     mode: str = "lbfgs", compute_dtype: torch.dtype = torch.float64,
 ) -> OptimizerResult:
     """The solve in plain batched PyTorch over the entity axis, with
-    masks for entities that have stopped (one host sync per iteration).
-    All line-search candidates are priced as one [E, T, r] block (in
-    OWL-QN from the [E, T, d] trial points' own margins); the first
-    passing one per entity is the accepted step, and the trials an
-    entity priced are counted as the kernel prices them, in order up to
-    that one."""
-    check_mode(mode, lower, upper)
+    masks for entities that have stopped (one host sync per iteration,
+    and per CG step in TRON). All line-search candidates are priced as
+    one [E, T, r] block (from the [E, T, d] trial points' own margins in
+    OWL-QN and with bounds); the first passing one per entity is the
+    accepted step, and the trials an entity priced are counted as the
+    kernel prices them, in order up to that one."""
+    check_mode(mode, lower, upper, loss)
     _check_compute_dtype(compute_dtype)
-    owlqn = mode == "owlqn"
     out_dtype = x.dtype
     dt = compute_dtype
     x = _fold(x, factors, shifts, dt)
     y, off, w, c = (a.to(dt) for a in (labels, offsets, weights, coef0))
+    lo, hi = _box(lower, upper, c)
+    c = _project(c, lo, hi)
+    if mode == "tron":
+        return _tron_plain(loss, x, y, off, w, c, l2_weight, lo, hi,
+                           max_iter, tol, out_dtype)
+    owlqn = mode == "owlqn"
+    bounded = lo is not None
     E, _, d = x.shape
     dev = x.device
     i32 = torch.int32
@@ -176,14 +236,11 @@ def entity_lbfgs_plain(
         u = w * loss.d1(zz, y)
         return l2_weight * cc + torch.sum(x * u[:, :, None], dim=1)
 
-    def sq(v):
-        return torch.sum(v * v, dim=-1)
-
     def conv_norm(cc, gg):
-        return torch.sqrt(sq(pseudo_gradient(cc, gg, l1) if owlqn else gg))
+        return torch.sqrt(_sq(pseudo_gradient(cc, gg, l1) if owlqn else gg))
 
     z = margins(c)
-    f = torch.sum(w * loss.loss(z, y), dim=-1) + 0.5 * l2_weight * sq(c)
+    f = torch.sum(w * loss.loss(z, y), dim=-1) + 0.5 * l2_weight * _sq(c)
     if owlqn:
         f = f + l1 * torch.sum(torch.abs(c), dim=-1)
     g = grad_from(c, z)
@@ -220,26 +277,32 @@ def entity_lbfgs_plain(
             direction = _two_loop(g, S, Y, rho, count)
             direction = _where(torch.sum(direction * g, dim=-1) >= 0, -g,
                                direction)
-        pp = sq(direction)
+        pp = _sq(direction)
         init = torch.where(count == 0,
                            1.0 / torch.clamp_min(torch.sqrt(pp), 1.0),
                            torch.ones_like(pp))
         ts = init[:, None] * powers  # [E, T]
-        if owlqn:
-            orthant = torch.where(c != 0, torch.sign(c), torch.sign(-pg))
+        if owlqn or bounded:
+            # Projected trials, each priced from its own margins.
             xt = c[:, None, :] + ts[:, :, None] * direction[:, None, :]
-            xt = torch.where(torch.sign(xt) == orthant[:, None, :], xt,
-                             torch.zeros_like(xt))  # [E, T, d]
+            if owlqn:
+                orthant = torch.where(c != 0, torch.sign(c), torch.sign(-pg))
+                xt = torch.where(torch.sign(xt) == orthant[:, None, :], xt,
+                                 torch.zeros_like(xt))  # [E, T, d]
+                q = pg
+            else:
+                xt = _project(xt, lo[:, None, :], hi[:, None, :])
+                q = g
             zt = torch.einsum("erd,etd->etr", x, xt) + off[:, None, :]
             ft = (torch.sum(w[:, None, :] * loss.loss(zt, y[:, None, :]),
                             dim=-1)
                   + 0.5 * l2_weight * torch.sum(xt * xt, dim=-1)
                   + l1 * torch.sum(torch.abs(xt), dim=-1))
-            dec = torch.sum(pg[:, None, :] * (xt - c[:, None, :]), dim=-1)
+            dec = torch.sum(q[:, None, :] * (xt - c[:, None, :]), dim=-1)
             armijo = (ft <= f[:, None] + c1 * dec) & torch.isfinite(ft)
         else:
             zp = margins(direction) - off
-            xx = sq(c)
+            xx = _sq(c)
             xp = torch.sum(c * direction, dim=-1)
             gp = torch.sum(g * direction, dim=-1)
             zt = z[:, None, :] + ts[:, :, None] * zp[:, None, :]  # [E, T, r]
@@ -253,10 +316,12 @@ def entity_lbfgs_plain(
         first = torch.argmax(armijo.to(i32), dim=-1, keepdim=True)
         f_new = torch.where(ok, torch.gather(ft, 1, first)[:, 0],
                             torch.zeros_like(pp))
-        if owlqn:
+        if owlqn or bounded:
             pick = first[:, :, None]
             c_new = torch.gather(xt, 1, pick.expand(E, 1, d))[:, 0]
             z_new = torch.gather(zt, 1, pick.expand(E, 1, zt.shape[-1]))[:, 0]
+            z_new = torch.where(torch.isfinite(z_new), z_new,
+                                torch.zeros_like(z_new))
         else:
             t_acc = torch.where(ok, torch.gather(ts, 1, first)[:, 0],
                                 torch.zeros_like(pp))
@@ -267,8 +332,8 @@ def entity_lbfgs_plain(
 
         s_vec, y_vec = c_new - c, g_new - g
         sy = torch.sum(s_vec * y_vec, dim=-1)
-        store = ok & (sy > _CAUTIOUS_EPS * torch.sqrt(sq(s_vec))
-                      * torch.sqrt(sq(y_vec)))
+        store = ok & (sy > _CAUTIOUS_EPS * torch.sqrt(_sq(s_vec))
+                      * torch.sqrt(_sq(y_vec)))
         store = store & active
         S = _where(store, torch.cat([S[:, 1:], s_vec[:, None]], dim=1), S)
         Y = _where(store, torch.cat([Y[:, 1:], y_vec[:, None]], dim=1), Y)
@@ -311,6 +376,215 @@ def entity_lbfgs_plain(
         trials=trials)
 
 
+def _tron_plain(loss: PointwiseLoss, x: Tensor, y: Tensor, off: Tensor,
+                w: Tensor, c: Tensor, l2: float, lo: Optional[Tensor],
+                hi: Optional[Tensor], max_iter: int, tol: float,
+                out_dtype: torch.dtype) -> OptimizerResult:
+    """Mode "tron" of ``entity_lbfgs_plain`` (the Pallas ``_make_tron_kernel``
+    body :655-828) on folded ``x`` and a projected ``c``, all in the
+    compute type: outer trips and CG steps batched over entities with
+    per-entity masks, one host sync per trip and per CG step."""
+    E = x.shape[0]
+    dev, dt = x.device, x.dtype
+    i32 = torch.int32
+    bounded = lo is not None
+    NC = int(ConvergenceReason.NOT_CONVERGED)
+
+    def code(reason):
+        return torch.full((E,), int(reason), dtype=i32, device=dev)
+
+    def margins(v):
+        return torch.sum(x * v[:, None, :], dim=-1) + off
+
+    def value_from(zz, cc):
+        return torch.sum(w * loss.loss(zz, y), dim=-1) + 0.5 * l2 * _sq(cc)
+
+    def grad_from(cc, zz):
+        u = w * loss.d1(zz, y)
+        return l2 * cc + torch.sum(x * u[:, :, None], dim=1)
+
+    def stat_norm(cc, gg):
+        if not bounded:
+            return torch.sqrt(_sq(gg))
+        return torch.sqrt(_sq(cc - _project(cc - gg, lo, hi)))
+
+    def zero_nonfinite(a):
+        return torch.where(torch.isfinite(a), a, torch.zeros_like(a))
+
+    z = margins(c)
+    f = value_from(z, c)
+    g = grad_from(c, z)
+    gnorm0 = stat_norm(c, g)
+    f0_scale = torch.clamp_min(torch.abs(f), 1e-30)
+    delta, gnorm = gnorm0, gnorm0
+    it = torch.zeros((E,), dtype=i32, device=dev)
+    fails = torch.zeros_like(it)
+    outer = torch.zeros_like(it)
+    cg_steps = torch.zeros_like(it)
+    first = torch.ones((E,), dtype=torch.bool, device=dev)
+    reason = torch.where(gnorm0 <= 0.0,
+                         code(ConvergenceReason.GRADIENT_CONVERGED), code(NC))
+    trips = max_iter * (TRON_MAX_FAILURES + 2)
+    k = 0
+    while k < trips and bool(torch.any(reason == NC)):
+        active = reason == NC
+        d2w = w * loss.d2(z, y)  # curvature once per trip
+
+        def hvp(v):
+            u = d2w * torch.sum(x * v[:, None, :], dim=-1)
+            return l2 * v + torch.sum(x * u[:, :, None], dim=1)
+
+        if bounded:
+            # Coordinates pinned at a bound with the gradient pushing
+            # outward stay out of CG.
+            eps = 1e-12
+            pinned = (((c <= lo + eps) & (g > 0))
+                      | ((c >= hi - eps) & (g < 0)))
+            free = (~pinned).to(dt)
+            g_cg = g * free
+
+            def hvp_cg(v):
+                return free * hvp(free * v)
+        else:
+            g_cg, hvp_cg = g, hvp
+
+        # Steihaug-Toint truncated CG; entities that stop keep their state.
+        gg = _sq(g_cg)
+        stop_norm = TRON_CG_XI * torch.sqrt(gg)
+        s = torch.zeros_like(g_cg)
+        rres, dvec, rtr = -g_cg, -g_cg, gg
+        done = ~active | (torch.sqrt(gg) <= stop_norm)
+        kk = 0
+        while kk < TRON_MAX_CG and not bool(torch.all(done)):
+            hd = hvp_cg(dvec)
+            dhd = torch.sum(dvec * hd, dim=-1)
+            alpha = rtr / torch.where(dhd > 0, dhd, torch.ones_like(dhd))
+            s_try = s + alpha[:, None] * dvec
+            crossed = (_sq(s_try) > delta * delta) | (dhd <= 0)
+            std = torch.sum(s * dvec, dim=-1)
+            dd = _sq(dvec)
+            ss = _sq(s)
+            gap = torch.clamp_min(delta * delta - ss, 0.0)
+            rad = torch.sqrt(torch.clamp_min(std * std + dd * gap, 0.0))
+            tau = torch.where(std >= 0,
+                              gap / torch.clamp_min(std + rad, 1e-30),
+                              (rad - std) / torch.clamp_min(dd, 1e-30))
+            step = torch.where(crossed, tau, alpha)
+            s_new = s + step[:, None] * dvec
+            r_new = rres - step[:, None] * hd
+            rtr_new = _sq(r_new)
+            beta = rtr_new / torch.clamp_min(rtr, 1e-30)
+            d_new = r_new + beta[:, None] * dvec
+            done_new = crossed | (torch.sqrt(rtr_new) <= stop_norm)
+            cg_steps = cg_steps + (~done).to(i32)
+            s = _where(done, s, s_new)
+            rres = _where(done, rres, r_new)
+            dvec = _where(done, dvec, d_new)
+            rtr = torch.where(done, rtr, rtr_new)
+            done = done | done_new
+            kk += 1
+
+        if bounded:
+            c_try = _project(c + s, lo, hi)
+            s_real = c_try - c
+        else:
+            c_try = c + s
+            s_real = s
+        z_try = margins(c_try)
+        f_new = value_from(z_try, c_try)
+        g_new = grad_from(c_try, z_try)
+        gs = torch.sum(g * s_real, dim=-1)
+        if bounded:
+            prered = -(gs + 0.5 * torch.sum(s_real * hvp(s_real), dim=-1))
+        else:
+            prered = -0.5 * (gs - torch.sum(s * rres, dim=-1))
+        actred = f - f_new
+        snorm = torch.sqrt(_sq(s_real))
+        delta_n = torch.where(first, torch.minimum(delta, snorm), delta)
+        denom = f_new - f - gs
+        alpha_i = torch.where(
+            denom <= 0, torch.full_like(denom, TRON_SIGMA3),
+            torch.clamp_min(-0.5 * (gs / torch.clamp_min(denom, 1e-30)),
+                            TRON_SIGMA1))
+        alpha_s = alpha_i * snorm
+        delta_n = torch.where(
+            actred < TRON_ETA0 * prered,
+            torch.minimum(torch.clamp_min(alpha_i, TRON_SIGMA1) * snorm,
+                          TRON_SIGMA2 * delta_n),
+            torch.where(
+                actred < TRON_ETA1 * prered,
+                torch.maximum(TRON_SIGMA1 * delta_n,
+                              torch.minimum(alpha_s, TRON_SIGMA2 * delta_n)),
+                torch.where(
+                    actred < TRON_ETA2 * prered,
+                    torch.maximum(TRON_SIGMA1 * delta_n,
+                                  torch.minimum(alpha_s,
+                                                TRON_SIGMA3 * delta_n)),
+                    torch.maximum(delta_n,
+                                  torch.minimum(alpha_s,
+                                                TRON_SIGMA3 * delta_n)))))
+
+        accept = (actred > TRON_ETA0 * prered) & torch.isfinite(f_new)
+        it_n = it + accept.to(i32)
+        fails_n = torch.where(accept, torch.zeros_like(fails), fails + 1)
+        # The Pallas kernel keeps a rejected trial's non-finite values as 0.
+        z_try, g_new, f_new = (zero_nonfinite(a) for a in (z_try, g_new,
+                                                            f_new))
+        c_acc = _where(accept, c_try, c)
+        z_acc = _where(accept, z_try, z)
+        f_acc = torch.where(accept, f_new, f)
+        g_acc = _where(accept, g_new, g)
+        gnorm_acc = stat_norm(c_acc, g_acc)
+        f_delta = torch.abs(f - f_acc)
+        reason_n = torch.where(
+            fails_n > TRON_MAX_FAILURES,
+            code(ConvergenceReason.OBJECTIVE_NOT_IMPROVING),
+            torch.where(
+                accept & (gnorm_acc <= tol * gnorm0),
+                code(ConvergenceReason.GRADIENT_CONVERGED),
+                torch.where(
+                    accept & (f_delta <= tol * f0_scale),
+                    code(ConvergenceReason.FUNCTION_VALUES_CONVERGED),
+                    torch.where(it_n >= max_iter,
+                                code(ConvergenceReason.MAX_ITERATIONS),
+                                code(NC)))))
+
+        c = _where(active, c_acc, c)
+        z = _where(active, z_acc, z)
+        f = torch.where(active, f_acc, f)
+        g = _where(active, g_acc, g)
+        delta = torch.where(active, delta_n, delta)
+        it = torch.where(active, it_n, it)
+        fails = torch.where(active, fails_n, fails)
+        reason = torch.where(active, reason_n, reason)
+        gnorm = torch.where(active, gnorm_acc, gnorm)
+        first = first & ~active
+        outer = outer + active.to(i32)
+        k += 1
+
+    return OptimizerResult(
+        x=c.to(out_dtype), value=f.to(out_dtype),
+        grad_norm=gnorm.to(out_dtype), iterations=it, reason=reason,
+        outer_steps=outer, cg_steps=cg_steps)
+
+
+def _sq(v: Tensor) -> Tensor:
+    return torch.sum(v * v, dim=-1)
+
+
+def _box(lower: Optional[Tensor], upper: Optional[Tensor], like: Tensor
+         ) -> Tuple[Optional[Tensor], Optional[Tensor]]:
+    """Both bounds in ``like``'s type (the missing one +-inf), or (None,
+    None) without bounds."""
+    if lower is None and upper is None:
+        return None, None
+    lo = (torch.full_like(like, -math.inf) if lower is None
+          else lower.to(like.dtype))
+    hi = (torch.full_like(like, math.inf) if upper is None
+          else upper.to(like.dtype))
+    return lo, hi
+
+
 def _fold(x: Tensor, factors: Optional[Tensor], shifts: Optional[Tensor],
           dt: torch.dtype) -> Tensor:
     """x' = (x - shift) * factor in ``dt``, rounded to x's own type as the
@@ -331,6 +605,9 @@ def _check_compute_dtype(compute_dtype: torch.dtype) -> None:
                         f"torch.float64, got {compute_dtype}")
 
 
+_MODE_IDS = {"lbfgs": 0, "owlqn": 1, "tron": 2}
+
+
 @functools.lru_cache(maxsize=None)
 def _load_kernel():
     """The kernel's C entry points with their ctypes signatures, set once:
@@ -340,31 +617,35 @@ def _load_kernel():
     lib = cuda_build.load("entity_lbfgs")
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     launch = lib.entity_lbfgs_launch
-    launch.argtypes = [vp] * 14 + [ci] * 6 + [cd] * 4 + [ci, ci, ci, vp]
+    launch.argtypes = [vp] * 17 + [ci] * 6 + [cd] * 4 + [ci, ci, ci, vp]
     launch.restype = ci
     workspace_bytes = lib.entity_lbfgs_workspace_bytes
-    workspace_bytes.argtypes = [ci] * 5
+    workspace_bytes.argtypes = [ci] * 6
     workspace_bytes.restype = ctypes.c_size_t
     layout = lib.entity_lbfgs_layout
-    layout.argtypes = [ci] * 4
+    layout.argtypes = [ci] * 5
     layout.restype = ci
     return launch, workspace_bytes, layout
 
 
 def kernel_layout(r: int, d: int, m: int = DEFAULT_M,
-                  compute_dtype: torch.dtype = torch.float64) -> int:
+                  compute_dtype: torch.dtype = torch.float64,
+                  mode: str = "lbfgs") -> int:
     """Where the kernel keeps an entity of r rows and d coordinates on the
-    current CUDA device: 0 x tile and working set in shared memory, 1 x
-    read from device memory, 2 x and working set in device memory."""
-    layout = _load_kernel()[2](r, d, m, int(compute_dtype == torch.float64))
+    current CUDA device in ``mode``: 0 x tile and working set in shared
+    memory, 1 x read from device memory, 2 x and working set in device
+    memory."""
+    layout = _load_kernel()[2](r, d, m, int(compute_dtype == torch.float64),
+                               _MODE_IDS[mode])
     if layout < 0:
         raise RuntimeError(f"entity_lbfgs layout query: CUDA error {-layout}")
     return layout
 
 
-def variant(mode: str, normalized: bool) -> str:
+def variant(mode: str, normalized: bool, bounded: bool = False) -> str:
     """The name a launch is counted under in ``entity_lbfgs.variants``."""
-    return mode + ("+normalized" if normalized else "")
+    return (mode + ("+normalized" if normalized else "")
+            + ("+bounded" if bounded else ""))
 
 
 def entity_lbfgs(
@@ -378,18 +659,22 @@ def entity_lbfgs(
 ) -> OptimizerResult:
     """Batched per-entity GLM solve. ``x`` [E, r, d], ``labels``/
     ``offsets``/``weights`` [E, r], ``coef0`` and the optional
-    ``factors``/``shifts`` [E, d]; ``mode`` "lbfgs" (L2; ``l1_weight``
-    unused) or "owlqn" (elastic net). Returns an OptimizerResult with
-    [E]-leading fields (no histories) and the trials each entity priced.
+    ``factors``/``shifts`` and ``lower``/``upper`` [E, d]; ``mode``
+    "lbfgs" (L2; ``l1_weight`` unused), "owlqn" (elastic net) or "tron"
+    (L2, twice-differentiable losses; ``m``, ``c1`` and
+    ``max_line_search`` unused). Returns an OptimizerResult with
+    [E]-leading fields (no histories): the trials each entity priced in
+    the L-BFGS modes, its TRON trips and CG steps in TRON.
 
     CPU tensors (float32 or float64) run ``entity_lbfgs_plain``. CUDA
     tensors launch the kernel (float32, contiguous, any r and d) and raise
     on anything it does not take. Both compute in ``compute_dtype``.
     ``entity_lbfgs.launches`` counts kernel launches, and
-    ``entity_lbfgs.variants`` counts them per ``variant(mode,
-    normalized)``."""
-    check_mode(mode, lower, upper)
+    ``entity_lbfgs.variants`` counts them per ``variant(mode, normalized,
+    bounded)``."""
+    check_mode(mode, lower, upper, loss)
     normalized = factors is not None or shifts is not None
+    bounded = lower is not None or upper is not None
     if x.dim() != 3:
         raise ValueError(f"x must be [E, r, d], got {tuple(x.shape)}")
     E, r, d = x.shape
@@ -399,13 +684,21 @@ def entity_lbfgs(
             factors = torch.ones_like(shifts)
         if shifts is None:
             shifts = torch.zeros_like(factors)
+    if bounded:
+        # Likewise for the bounds: the absent one is +-inf.
+        if lower is None:
+            lower = torch.full_like(upper, -math.inf)
+        if upper is None:
+            upper = torch.full_like(lower, math.inf)
     tensors = {"x": x, "labels": labels, "offsets": offsets,
                "weights": weights, "coef0": coef0}
     if normalized:
         tensors.update(factors=factors, shifts=shifts)
-    shapes = {"x": (E, r, d), "labels": (E, r), "offsets": (E, r),
-              "weights": (E, r), "coef0": (E, d), "factors": (E, d),
-              "shifts": (E, d)}
+    if bounded:
+        tensors.update(lower=lower, upper=upper)
+    shapes = dict(x=(E, r, d), labels=(E, r), offsets=(E, r),
+                  weights=(E, r), coef0=(E, d), factors=(E, d),
+                  shifts=(E, d), lower=(E, d), upper=(E, d))
     for name, t in tensors.items():
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} must be {shapes[name]}, got "
@@ -426,7 +719,8 @@ def entity_lbfgs(
                             "CPU, got "
                             f"{[t.dtype for t in tensors.values()]}")
         return entity_lbfgs_plain(loss, x, labels, offsets, weights, coef0,
-                                  l2_weight, l1_weight, factors, shifts, **kw)
+                                  l2_weight, l1_weight, factors, shifts,
+                                  lower, upper, **kw)
     for t in tensors.values():
         if t.dtype != torch.float32:
             raise TypeError(f"the CUDA kernel takes float32, got {t.dtype}")
@@ -435,41 +729,52 @@ def entity_lbfgs(
     if min(m, max_iter) < 1 or max_line_search < 0:
         raise ValueError("m and max_iter must be >= 1, max_line_search >= 0")
 
+    tron = mode == "tron"
     out_c = torch.empty((E, d), dtype=torch.float32, device=x.device)
     out_f = torch.empty((E,), dtype=torch.float32, device=x.device)
     out_gnorm = torch.empty_like(out_f)
     out_it = torch.empty((E,), dtype=torch.int32, device=x.device)
     out_reason = torch.empty_like(out_it)
-    out_trials = torch.empty_like(out_it)
-    if E == 0:
+    out_steps = torch.empty_like(out_it)  # trials, or TRON's trips
+    out_cg = torch.empty_like(out_it) if tron else None
+
+    def result():
+        if tron:
+            return OptimizerResult(out_c, out_f, out_gnorm, out_it,
+                                   out_reason, outer_steps=out_steps,
+                                   cg_steps=out_cg)
         return OptimizerResult(out_c, out_f, out_gnorm, out_it, out_reason,
-                               trials=out_trials)
+                               trials=out_steps)
+
+    if E == 0:
+        return result()
     launch, workspace_bytes, _ = _load_kernel()
     f64 = int(compute_dtype == torch.float64)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(x.device):
         # Scratch for entities too tall for shared memory (0 bytes at
         # the slice's buckets).
-        n_ws = workspace_bytes(E, r, d, m, f64)
+        n_ws = workspace_bytes(E, r, d, m, f64, _MODE_IDS[mode])
         workspace = torch.empty((n_ws,), dtype=torch.uint8, device=x.device)
         err = launch(
             x.data_ptr(), labels.data_ptr(), offsets.data_ptr(),
-            weights.data_ptr(), coef0.data_ptr(),
-            factors.data_ptr() if normalized else None,
-            shifts.data_ptr() if normalized else None,
+            weights.data_ptr(), coef0.data_ptr(), ptr(factors), ptr(shifts),
+            ptr(lower), ptr(upper),
             out_c.data_ptr(), out_f.data_ptr(), out_gnorm.data_ptr(),
-            out_it.data_ptr(), out_reason.data_ptr(), out_trials.data_ptr(),
-            workspace.data_ptr() if n_ws else None,
+            out_it.data_ptr(), out_reason.data_ptr(), out_steps.data_ptr(),
+            ptr(out_cg), workspace.data_ptr() if n_ws else None,
             E, r, d, m, max_iter, max_line_search, float(l2_weight),
             float(l1_weight), float(tol), float(c1), loss.kernel_id, f64,
-            int(mode == "owlqn"),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            _MODE_IDS[mode], torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"entity_lbfgs kernel launch failed: CUDA error "
                            f"{err}")
     entity_lbfgs.launches += 1
-    entity_lbfgs.variants[variant(mode, normalized)] += 1
-    return OptimizerResult(out_c, out_f, out_gnorm, out_it, out_reason,
-                           trials=out_trials)
+    entity_lbfgs.variants[variant(mode, normalized, bounded)] += 1
+    return result()
 
 
 def reset_launch_counts() -> None:

@@ -1,5 +1,6 @@
-"""Optimizer / regularization configuration (port of
-photon_ml_tpu/optimization/config.py:19-228).
+"""Optimizer / regularization configuration and box constraints (port of
+photon_ml_tpu/optimization/config.py:19-228 and parse_constraint_string /
+constraint_arrays :313-370).
 
 Mirrors the reference's config vocabulary so CLI strings and model
 metadata round-trip compatibly:
@@ -9,13 +10,21 @@ metadata round-trip compatibly:
   (ml/optimization/RegularizationContext.scala:35-113)
 - the six-field "maxIter,tol,lambda,downSampleRate,optimizer,regType" string
   (ml/optimization/GLMOptimizationConfiguration.scala:56-90)
+- the GLMSuite box-constraint JSON (ml/io/GLMSuite.scala:207-260)
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Optional
+import json
+import math
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+
+# feature index -> (lower, upper)
+ConstraintMap = Dict[int, Tuple[float, float]]
 
 
 class OptimizerType(str, enum.Enum):
@@ -137,3 +146,56 @@ class GLMOptimizationConfiguration:
                 RegularizationType.ELASTIC_NET:
             base += f",{self.regularization_context.elastic_net_alpha}"
         return base
+
+
+def parse_constraint_string(s: str,
+                            index_map: Mapping[Tuple[str, str], int]
+                            ) -> ConstraintMap:
+    """Parse the reference's box-constraint JSON: a list of
+    {"name": ..., "term": ..., "lowerBound": ..., "upperBound": ...} with
+    "*" wildcards for name and term (a missing bound is unbounded, a
+    missing term is ""). ``index_map`` maps (name, term) to the feature
+    index; keys it lacks are skipped. A {"*", "*"} entry applies to every
+    feature no other entry constrains. Returns {index: (lower, upper)}."""
+    out: ConstraintMap = {}
+    wildcard_all: Optional[Tuple[float, float]] = None
+    for e in json.loads(s):
+        name = e["name"]
+        term = e.get("term", "")
+        lb = float(e.get("lowerBound", -math.inf))
+        ub = float(e.get("upperBound", math.inf))
+        if lb > ub:
+            raise ValueError(f"lowerBound > upperBound in constraint {e}")
+        if name == "*" and term == "*":
+            wildcard_all = (lb, ub)
+        elif name == "*" or term == "*":
+            for (kname, kterm), idx in index_map.items():
+                if (name == "*" or kname == name) and \
+                        (term == "*" or kterm == term):
+                    out[idx] = (lb, ub)
+        else:
+            idx = index_map.get((name, term), -1)
+            if idx >= 0:
+                out[idx] = (lb, ub)
+    if wildcard_all is not None:
+        for idx in index_map.values():
+            out.setdefault(idx, wildcard_all)
+    return out
+
+
+def constraint_arrays(constraint_map: Optional[ConstraintMap],
+                      num_features: int, intercept_id: int = -1
+                      ) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
+    """Dense float64 (lower, upper) arrays from a constraint map:
+    unconstrained features get (-inf, +inf) and the intercept is never
+    constrained. (None, None) for an empty or missing map."""
+    if not constraint_map:
+        return None, None
+    lo = np.full(num_features, -np.inf)
+    hi = np.full(num_features, np.inf)
+    for idx, (lb, ub) in constraint_map.items():
+        if idx == intercept_id:
+            continue
+        lo[idx] = lb
+        hi[idx] = ub
+    return lo, hi

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -47,7 +47,8 @@ class OptimizerResult:
     # Batched entity solver only: line-search trials priced per entity,
     # summed over its iterations (the JAX package does not report them).
     trials: Optional[Tensor] = None
-    # TRON only (host loop): outer iterations run, accepted or not, and
-    # conjugate-gradient steps summed over them.
-    outer_steps: Optional[int] = None
-    cg_steps: Optional[int] = None
+    # TRON only: outer iterations run, accepted or not, and
+    # conjugate-gradient steps summed over them (ints for a single solve,
+    # [E] int32 tensors for the batched entity solver).
+    outer_steps: Optional[Union[int, Tensor]] = None
+    cg_steps: Optional[Union[int, Tensor]] = None

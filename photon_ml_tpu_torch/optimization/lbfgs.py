@@ -1,20 +1,36 @@
-"""L-BFGS history, search directions and the projected line search (port
-of photon_ml_tpu/optimization/lbfgs.py: _LBFGSHistory :47,
+"""L-BFGS history, search directions, the projected line search and the
+generic projected L-BFGS solver (port of
+photon_ml_tpu/optimization/lbfgs.py: _LBFGSHistory :47,
 two_loop_direction :63, compact_direction :93, update_history :136,
-_project :173, backtracking_line_search :181-229).
+_project :173, backtracking_line_search :181-229, _minimize_lbfgs_impl
+and minimize_lbfgs :232-387).
 
 The history is a fixed-shape chronological ring of ``m`` (s, y) pairs,
 oldest first; empty slots carry rho = 0 and contribute nothing. Updates
 are cautious: a pair is stored only when s.y > eps ||s|| ||y||. Every
 field stays a device tensor, so a solver loop never has to read the
 history back to the host.
+
+``minimize_lbfgs`` is the solver ``solve_glm`` takes for a bounded
+L-BFGS problem (box constraints break the margin cache of
+glm_lbfgs.py): x0 is projected onto [lower, upper] first, each trial is
+clamped and priced by a full value-and-gradient evaluation, Armijo is
+tested on the realized displacement, and the stop tests use the raw
+gradient norm (reference: OptimizationUtils.projectCoefficientsToHypercube
+at LBFGS.scala:77). The JAX ``lax.while_loop`` becomes a host loop: one
+sync per line-search trial and one per iteration.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
+
+from photon_ml_tpu_torch.optimization.convergence import (
+    ConvergenceReason,
+    OptimizerResult,
+)
 
 Tensor = torch.Tensor
 
@@ -146,3 +162,69 @@ def backtracking_line_search(
             return ok, x_t, f_t, g_t
         t = t * shrink
         k += 1
+
+
+def minimize_lbfgs(
+    value_and_grad: Callable[..., Tuple[Tensor, Tensor]],
+    x0: Tensor,
+    args: Tuple[Any, ...] = (),
+    *,
+    max_iter: int = 100,
+    tol: float = 1e-7,
+    history_size: int = 10,
+    lower_bounds: Optional[Tensor] = None,
+    upper_bounds: Optional[Tensor] = None,
+    c1: float = 1e-4,
+    max_line_search: int = 30,
+) -> OptimizerResult:
+    """Minimize f(x, *args) from ``x0`` within [lower_bounds,
+    upper_bounds] (either may be None: unbounded on that side).
+    ``value_and_grad(x, *args)`` returns (value, gradient). Defaults
+    mirror the reference (maxIter=100, tol=1e-7, m=10)."""
+    # glm_lbfgs imports this module, so its stop-reason helper is taken
+    # at call time.
+    from photon_ml_tpu_torch.optimization.glm_lbfgs import _reason
+
+    dtype, device = x0.dtype, x0.device
+    x = _project(x0, lower_bounds, upper_bounds)
+    f, g = value_and_grad(x, *args)
+    gnorm0 = torch.linalg.norm(g)
+    f0_scale = torch.clamp_min(torch.abs(f), 1e-30)
+    hist = empty_history(x.shape[-1], history_size, dtype, device)
+    values, gnorms = [f], [gnorm0]
+    nc = int(ConvergenceReason.NOT_CONVERGED)
+    reason = (int(ConvergenceReason.GRADIENT_CONVERGED)
+              if float(gnorm0) <= 0.0 else nc)
+    it = 0
+    while reason == nc:
+        direction = compact_direction(g, hist)
+        # Steepest descent when the direction does not descend.
+        direction = torch.where(torch.dot(direction, g) >= 0, -g, direction)
+        init_step = torch.where(
+            hist.count == 0,
+            1.0 / torch.clamp_min(torch.linalg.norm(direction), 1.0),
+            torch.ones((), dtype=dtype, device=device))
+        ok, x_new, f_new, g_new = backtracking_line_search(
+            value_and_grad, x, f, g, direction, args, initial_step=init_step,
+            c1=c1, max_steps=max_line_search,
+            project_fn=lambda v: _project(v, lower_bounds, upper_bounds))
+        hist_new = update_history(hist, x_new - x, g_new - g)
+        it += 1
+        gnorm_new = torch.linalg.norm(g_new)
+        reason_t = _reason(torch.tensor(ok, device=device), gnorm_new,
+                           gnorm0, torch.abs(f - f_new), f0_scale, it,
+                           max_iter, tol)
+        if ok:  # a failed search leaves the iterate where it was
+            x, f, g, hist = x_new, f_new, g_new, hist_new
+        values.append(f)
+        gnorms.append(gnorm_new)
+        reason = int(reason_t)  # the iteration's sync
+
+    pad = max_iter + 1 - len(values)
+    nan = torch.full((pad,), float("nan"), dtype=dtype, device=device)
+    return OptimizerResult(
+        x=x, value=f, grad_norm=torch.linalg.norm(g),
+        iterations=torch.tensor(it, dtype=torch.int32),
+        reason=torch.tensor(reason, dtype=torch.int32),
+        value_history=torch.cat([torch.stack(values), nan]),
+        grad_norm_history=torch.cat([torch.stack(gnorms), nan]))

@@ -3,8 +3,9 @@
 TRON for twice-differentiable objectives without L1, OWL-QN whenever the
 L1 weight is positive, the margin-cached GLM L-BFGS otherwise (reference
 ml/optimization/OptimizerFactory.scala). The L2 part always rides inside
-the objective; L1 is OWL-QN's orthant machinery. Box constraints raise
-``NotImplementedError`` naming the ROADMAP items that port them.
+the objective; L1 is OWL-QN's orthant machinery. Box constraints go to
+TRON's projected variant, or to the generic projected L-BFGS (they break
+the margin cache); with L1 they raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from photon_ml_tpu_torch.optimization.config import (
 )
 from photon_ml_tpu_torch.optimization.convergence import OptimizerResult
 from photon_ml_tpu_torch.optimization.glm_lbfgs import minimize_lbfgs_glm
+from photon_ml_tpu_torch.optimization.lbfgs import minimize_lbfgs
 from photon_ml_tpu_torch.optimization.owlqn import minimize_owlqn
 from photon_ml_tpu_torch.optimization.tron import minimize_tron
 
@@ -34,11 +36,10 @@ def solve_glm(
     lower_bounds: Optional[Tensor] = None,
     upper_bounds: Optional[Tensor] = None,
 ) -> OptimizerResult:
-    """One GLM solve, routed as the JAX ``solve_glm`` routes it."""
-    if lower_bounds is not None or upper_bounds is not None:
-        raise NotImplementedError(
-            "box constraints are not ported yet (ROADMAP queue A item 4, "
-            "queue B rows 3 and 6)")
+    """One GLM solve, routed as the JAX ``solve_glm`` routes it.
+    ``lower_bounds``/``upper_bounds`` ([d], either may be None) clamp the
+    solve-space coefficients."""
+    bounded = lower_bounds is not None or upper_bounds is not None
     l1, l2 = config.l1_weight, config.l2_weight
     if config.optimizer_type == OptimizerType.TRON:
         if not objective.loss.twice_differentiable:
@@ -50,11 +51,20 @@ def solve_glm(
         return minimize_tron(
             objective.value_and_grad, coef0, args=(batch, l2),
             max_iter=config.max_iterations, tol=config.tolerance,
+            lower_bounds=lower_bounds, upper_bounds=upper_bounds,
             make_hvp=objective.make_tron_hvp)
     if l1 > 0:
+        if bounded:
+            raise ValueError(
+                "box constraints with L1 regularization are not supported")
         return minimize_owlqn(
             objective.value_and_grad, coef0, args=(batch, l2), l1_weight=l1,
             max_iter=config.max_iterations, tol=config.tolerance)
-    return minimize_lbfgs_glm(
-        objective, batch, coef0, l2,
-        max_iter=config.max_iterations, tol=config.tolerance)
+    if not bounded:
+        return minimize_lbfgs_glm(
+            objective, batch, coef0, l2,
+            max_iter=config.max_iterations, tol=config.tolerance)
+    return minimize_lbfgs(
+        objective.value_and_grad, coef0, args=(batch, l2),
+        max_iter=config.max_iterations, tol=config.tolerance,
+        lower_bounds=lower_bounds, upper_bounds=upper_bounds)

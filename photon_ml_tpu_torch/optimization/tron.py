@@ -1,7 +1,7 @@
 """TRON: trust-region Newton with truncated conjugate gradient (port of
 photon_ml_tpu/optimization/tron.py: the LIBLINEAR constants :42-44,
-_truncated_cg :47-109, _minimize_tron_impl :132-290 without bounds,
-minimize_tron :755-793; reference ml/optimization/TRON.scala:153-340).
+_truncated_cg :47-109, _minimize_tron_impl :132-290, minimize_tron
+:755-793; reference ml/optimization/TRON.scala:153-340).
 
 An outer trust-region loop whose inner Steihaug-Toint CG does one
 Hessian-vector product per step. The radius starts at ||g0||, is clamped
@@ -10,9 +10,14 @@ stops after more than 5 consecutive improvement failures. The JAX
 ``lax.while_loop``s become host loops over device tensors: one sync per
 CG step (its stop test) and one per outer iteration (the stop reason).
 
-Box constraints (the projected variant) wait for ROADMAP queue A item 4
-with queue B row 6; the streaming and batched-grid variants (tron.py
-:293-751) wait for queue A item 12.
+With box constraints (the projected variant, TRON.scala:228) x0 is
+projected first; stationarity is the projected-gradient norm
+||x - P(x - g)||, which also seeds the radius; coordinates pinned at a
+bound with the gradient pushing outward (within 1e-12) are frozen, so CG
+runs in the free subspace; the trial is P(x + s), and the predicted
+reduction is the quadratic model on the realized step, with one more
+Hessian-vector product. The streaming and batched-grid variants
+(tron.py:293-751) wait for ROADMAP queue A item 12.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from photon_ml_tpu_torch.optimization.convergence import (
     ConvergenceReason,
     OptimizerResult,
 )
+from photon_ml_tpu_torch.optimization.lbfgs import _project
 
 Tensor = torch.Tensor
 
@@ -96,11 +102,8 @@ def minimize_tron(
     per outer iteration (GLMObjective.make_tron_hvp). Defaults mirror the
     reference (maxIter=15, tol=1e-5, <=20 CG steps, <=5 improvement
     failures). ``iterations`` counts accepted steps; ``outer_steps`` and
-    ``cg_steps`` count every outer iteration and CG step."""
-    if lower_bounds is not None or upper_bounds is not None:
-        raise NotImplementedError(
-            "TRON with box constraints is not ported yet (ROADMAP queue A "
-            "item 4, queue B row 6)")
+    ``cg_steps`` count every outer iteration and CG step. Either bound
+    may be None (unbounded on that side)."""
     if make_hvp is None:
         raise TypeError("minimize_tron needs make_hvp: the port has no "
                         "automatic Hessian-vector product")
@@ -110,9 +113,18 @@ def minimize_tron(
         return torch.tensor(v, dtype=dtype, device=device)
 
     sigma1, sigma2, sigma3 = scalar(_SIGMA1), scalar(_SIGMA2), scalar(_SIGMA3)
-    x = x0
+    lo, hi = lower_bounds, upper_bounds
+    bounded = lo is not None or hi is not None
+
+    def proj_grad_norm(x, g):
+        # ||g|| unconstrained; the projected-gradient norm with bounds.
+        if not bounded:
+            return torch.linalg.norm(g)
+        return torch.linalg.norm(x - _project(x - g, lo, hi))
+
+    x = _project(x0, lo, hi)
     f, g = value_and_grad(x, *args)
-    gnorm0 = torch.linalg.norm(g)
+    gnorm0 = proj_grad_norm(x, g)
     f0_scale = torch.clamp_min(torch.abs(f), 1e-30)
     delta = gnorm0
     values, gnorms = [f], [gnorm0]
@@ -123,15 +135,32 @@ def minimize_tron(
     first = True
     while reason == int(ConvergenceReason.NOT_CONVERGED):
         hvp = make_hvp(x, *args)
-        s, r, k = _truncated_cg(hvp, g, delta, max_cg)
+        if bounded:
+            # Active-set reduction: CG runs in the free subspace.
+            eps = 1e-12
+            pinned = torch.zeros_like(x, dtype=torch.bool)
+            if lo is not None:
+                pinned = pinned | ((x <= lo + eps) & (g > 0))
+            if hi is not None:
+                pinned = pinned | ((x >= hi - eps) & (g < 0))
+            free = (~pinned).to(dtype)
+            s, r, k = _truncated_cg(lambda v: free * hvp(free * v), g * free,
+                                    delta, max_cg)
+        else:
+            s, r, k = _truncated_cg(hvp, g, delta, max_cg)
         cg_steps += k
         outer += 1
-        x_try = x + s
+        x_try = _project(x + s, lo, hi)
         s_real = x_try - x
         f_new, g_new = value_and_grad(x_try, *args)
 
         gs = torch.dot(g, s_real)
-        prered = -0.5 * (gs - torch.dot(s_real, r))
+        if bounded:
+            # The projection changed the step: the model on the realized
+            # step, with one more Hessian-vector product.
+            prered = -(gs + 0.5 * torch.dot(s_real, hvp(s_real)))
+        else:
+            prered = -0.5 * (gs - torch.dot(s_real, r))
         actred = f - f_new
         snorm = torch.linalg.norm(s_real)
         if first:
@@ -166,7 +195,7 @@ def minimize_tron(
             fails = 0
             f_delta = torch.abs(f - f_new)
             x, f, g = x_try, f_new, g_new
-            gnorm = torch.linalg.norm(g)
+            gnorm = proj_grad_norm(x, g)
             values.append(f)
             gnorms.append(gnorm)
             if bool(gnorm <= tol * gnorm0):

@@ -2,9 +2,10 @@
 card, for all four losses and shapes that exercise the kernel's edges:
 rows and coordinates beyond one warp's 32 lanes, a ragged last block of
 warps, non-zero starting coefficients and zero-weight entities; in
-L-BFGS and OWL-QN mode, with and without the normalization fold, and in
-the layouts that keep x in device memory. Iterations, stop reasons,
-trial counts and exact-zero sets must be equal.
+L-BFGS, OWL-QN and TRON mode, with and without the normalization fold
+and box constraints, and in the layouts that keep x in device memory.
+Iterations, stop reasons, trial counts (TRON: trips and CG steps),
+exact-zero sets and the sets of coefficients at a bound must be equal.
 
 Marked ``cuda``: skips without a GPU. This file imports neither jax nor
 the JAX package, so it runs on a GPU host that has only PyTorch:
@@ -198,16 +199,114 @@ def test_normalized_kernel_matches_plain_version(cuda_device, mode, r):
     assert not torch.equal(raw.x, res_k.x)  # the fold changed the solve
 
 
+def _bounds(e, d, seed):
+    """A box that pins many coefficients, the intercept column 0 free."""
+    rng = np.random.default_rng(seed)
+    lo = -rng.uniform(0.05, 0.2, (e, d))
+    hi = rng.uniform(0.05, 0.2, (e, d))
+    lo[:, 0], hi[:, 0] = -np.inf, np.inf
+    return [np.asarray(a, np.float32) for a in (lo, hi)]
+
+
+def _assert_same_steps(res_k, res_p, mode):
+    if mode == "tron":
+        assert torch.equal(res_k.outer_steps, res_p.outer_steps)
+        assert torch.equal(res_k.cg_steps, res_p.cg_steps)
+    else:
+        assert torch.equal(res_k.trials, res_p.trials)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", [TaskType.LOGISTIC_REGRESSION,
+                                  TaskType.LINEAR_REGRESSION,
+                                  TaskType.POISSON_REGRESSION])
+@pytest.mark.parametrize("e,r,d", [(257, 12, 7), (66, 45, 37)])
+def test_tron_kernel_matches_plain_version(cuda_device, task, e, r, d):
+    """L2 3: at 0.3 the Poisson entities of (66, 45, 37) run CG to its cap
+    on every trip, and moving the offsets by 2e-16 changes 12 of 66 of
+    their stops in the plain version alone; at 3 no stop of these inputs
+    moves under such perturbations, so kernel and plain version must
+    agree exactly."""
+    loss = loss_for_task(task)
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in _inputs(task, e, r, d, seed=e + r + d)]
+    kw = dict(max_iter=15, tol=1e-7, mode="tron")
+    before = entity_solver.entity_lbfgs.variants["tron"]
+    res_k = entity_solver.entity_lbfgs(loss, *args, 3.0, **kw)
+    torch.cuda.synchronize()
+    assert entity_solver.entity_lbfgs.variants["tron"] == before + 1
+    res_p = entity_solver.entity_lbfgs_plain(loss, *args, 3.0, **kw)
+    assert torch.equal(res_k.iterations, res_p.iterations)
+    assert torch.equal(res_k.reason, res_p.reason)
+    _assert_same_steps(res_k, res_p, "tron")
+    torch.testing.assert_close(res_k.value, res_p.value, rtol=1e-6,
+                               atol=1e-6)
+    torch.testing.assert_close(res_k.x, res_p.x, rtol=0, atol=1e-6)
+    assert int(res_k.iterations[1]) == 0 and int(res_k.outer_steps[1]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,normalized,bounded", [
+    ("lbfgs", False, True), ("lbfgs", True, True), ("tron", True, False),
+    ("tron", False, True), ("tron", True, True)])
+@pytest.mark.parametrize("r", [12, 4096, 8192])
+def test_new_variants_match_plain_version_in_every_layout(
+        cuda_device, mode, normalized, bounded, r):
+    """Bounded L-BFGS and TRON with the fold and the box, with the x tile
+    in shared memory (r = 12), x read from device memory (r = 4,096) and
+    the working set in the workspace too (r = 8,192)."""
+    from photon_ml_tpu_torch.ops.entity_solver import variant
+
+    e, d = (70, 9) if r < 100 else (3, 8)
+    loss = loss_for_task(TaskType.LOGISTIC_REGRESSION)
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in _inputs(TaskType.LOGISTIC_REGRESSION, e, r, d, seed=r)]
+    fold = ([torch.as_tensor(a, device=cuda_device)
+             for a in _normalization(e, d, seed=r + 1)] if normalized
+            else [None, None])
+    box = ([torch.as_tensor(a, device=cuda_device)
+            for a in _bounds(e, d, seed=r + 2)] if bounded else [None, None])
+    kw = dict(max_iter=15, tol=1e-7, mode=mode)
+    name = variant(mode, normalized, bounded)
+    assert entity_solver.kernel_layout(r, d, mode=mode) == (
+        0 if r < 100 else 1 if r == 4096 else 2)
+    before = entity_solver.entity_lbfgs.variants[name]
+    res_k = entity_solver.entity_lbfgs(loss, *args, 0.5, 0.0, *fold, *box,
+                                       **kw)
+    torch.cuda.synchronize()
+    assert entity_solver.entity_lbfgs.variants[name] == before + 1
+    res_p = entity_solver.entity_lbfgs_plain(loss, *args, 0.5, 0.0, *fold,
+                                             *box, **kw)
+    assert torch.equal(res_k.iterations, res_p.iterations)
+    assert torch.equal(res_k.reason, res_p.reason)
+    _assert_same_steps(res_k, res_p, mode)
+    torch.testing.assert_close(res_k.value, res_p.value, rtol=1e-6,
+                               atol=1e-6)
+    torch.testing.assert_close(res_k.x, res_p.x, rtol=0, atol=1e-6)
+    if bounded:
+        lo, hi = box
+        assert bool(((res_k.x >= lo) & (res_k.x <= hi)).all())
+        pinned_k = (res_k.x == lo) | (res_k.x == hi)
+        assert torch.equal(pinned_k, (res_p.x == lo) | (res_p.x == hi))
+        assert bool(pinned_k.any())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["tron", "bounds"])
 def test_kernel_raises_for_unported_variants(cuda_device, kind):
-    loss = loss_for_task(TaskType.LOGISTIC_REGRESSION)
+    """What the solver refuses on the CPU it refuses on the card, before
+    any launch: TRON on the once-differentiable smoothed hinge, and
+    bounds with OWL-QN."""
+    task = (TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM if kind == "tron"
+            else TaskType.LOGISTIC_REGRESSION)
+    loss = loss_for_task(task)
     args = [torch.as_tensor(a, device=cuda_device)
-            for a in _inputs(TaskType.LOGISTIC_REGRESSION, 4, 5, 3, 0)]
+            for a in _inputs(task, 4, 5, 3, 0)]
     before = entity_solver.entity_lbfgs.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError):
         if kind == "tron":
             entity_solver.entity_lbfgs(loss, *args, 1.0, mode="tron")
         else:
-            entity_solver.entity_lbfgs(loss, *args, 1.0, lower=args[4])
+            entity_solver.entity_lbfgs(loss, *args, 1.0, 0.5, lower=args[4],
+                                       mode="owlqn")
     assert entity_solver.entity_lbfgs.launches == before

@@ -1,7 +1,8 @@
 """Parity: the port's per-entity solver (its plain PyTorch version,
 which the wrapper runs for CPU tensors) against the JAX package's Pallas
 kernel run in interpreter mode, as tests/test_pallas_entity_solver.py
-runs it: L-BFGS and OWL-QN, with and without the normalization fold.
+runs it: L-BFGS and OWL-QN, with and without the normalization fold
+(TRON and box constraints: test_torch_entity_tron.py).
 Float64 on both sides; iterations, stop reasons and exact-zero sets must
 be equal, values within rtol 1e-10 and coefficients within atol 1e-8."""
 
@@ -205,13 +206,26 @@ def test_owlqn_and_normalized_modes_match_pallas_kernel(
 
 @pytest.mark.parametrize("kind", ["tron", "bounds"])
 def test_unported_variants_raise(kind):
+    """What the entity solver refuses, as solve_glm refuses it: TRON on
+    the once-differentiable smoothed hinge, and bounds with OWL-QN; the
+    JAX kernel refuses the second too."""
     rng = np.random.default_rng(18)
     x, y, off, w = (torch.as_tensor(a) for a in _bucket(rng, 3, 4, 2))
     c0 = torch.zeros((3, 2), dtype=x.dtype)
-    loss = loss_for_task(TaskType.LOGISTIC_REGRESSION)
+    loss = loss_for_task(TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM
+                         if kind == "tron"
+                         else TaskType.LOGISTIC_REGRESSION)
     for fn in (entity_solver.entity_lbfgs, entity_solver.entity_lbfgs_plain):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+        with pytest.raises(ValueError):
             if kind == "tron":
                 fn(loss, x, y, off, w, c0, 1.0, mode="tron")
             else:
-                fn(loss, x, y, off, w, c0, 1.0, lower=c0 - 1.0)
+                fn(loss, x, y, off, w, c0, 1.0, 0.5, lower=c0 - 1.0,
+                   mode="owlqn")
+    if kind == "bounds":
+        with pytest.raises(ValueError):
+            pallas_entity_lbfgs(
+                jax_loss_for_task(JaxTaskType.LOGISTIC_REGRESSION),
+                *(jnp.asarray(a.numpy()) for a in (x, y, off, w, c0)), 1.0,
+                0.5, lower=jnp.asarray(c0.numpy()) - 1.0, mode="owlqn",
+                interpret=True)

@@ -104,18 +104,19 @@ def test_two_loop_equals_compact_direction():
 
 @pytest.mark.parametrize("spec", ["TRON", "OWLQN"])
 def test_unported_solvers_raise(spec):
-    """TRON and OWL-QN are ported; their box-constrained variants are not
-    (tests/test_torch_owlqn_tron.py holds the unbounded ones to JAX)."""
+    """Box constraints with an L1 weight raise ValueError, whether TRON
+    (which takes no L1) or OWL-QN (which takes no bounds) was asked for,
+    as the JAX solve_glm raises (tests/test_torch_owlqn_tron.py holds the
+    bounded TRON and L-BFGS solves to JAX)."""
     x, y, off = _problem(n=20, d=3)
-    reg = (config.RegularizationType.L1 if spec == "OWLQN"
-           else config.RegularizationType.L2)
+    reg = config.RegularizationType.L1
     cfg = config.GLMOptimizationConfiguration(
         max_iterations=5, tolerance=1e-6, regularization_weight=1.0,
         optimizer_type=(config.OptimizerType.TRON if spec == "TRON"
                         else config.OptimizerType.LBFGS),
         regularization_context=config.RegularizationContext(reg))
     bound = torch.full((3,), 5.0, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="L1"):
         solve_glm(GLMObjective(LogisticLoss),
                   make_batch(DenseFeatures(torch.as_tensor(x)),
                              torch.as_tensor(y)),

@@ -1,7 +1,11 @@
-"""Parity: the port's ``solve_glm`` routes to OWL-QN and TRON as the JAX
-``solve_glm`` does, and both solvers match the JAX ones on a dense batch,
-float64: equal iterations and stop reason, value rtol 1e-10,
-coefficients atol 1e-8, and for OWL-QN equal exact-zero sets."""
+"""Parity: the port's ``solve_glm`` routes to OWL-QN, TRON and, with box
+constraints, bounded TRON and the projected L-BFGS as the JAX
+``solve_glm`` does, and every solver matches the JAX one on a dense
+batch, float64: equal iterations and stop reason, value rtol 1e-10,
+coefficients atol 1e-8, for OWL-QN equal exact-zero sets and with bounds
+equal sets of coefficients at a bound. The box-constraint helpers
+(``parse_constraint_string``, ``constraint_arrays``) give exactly the
+JAX package's results."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -45,7 +49,8 @@ def _problem(task, seed, n=300, d=10, scale=1.0):
     return x, y, rng.normal(0, 0.1, n)
 
 
-def _solve_both(task, x, y, off, cfg_string, normalized=False):
+def _solve_both(task, x, y, off, cfg_string, normalized=False,
+                bounds=(None, None)):
     cfg = config.GLMOptimizationConfiguration.parse(cfg_string)
     jcfg = jax_config.GLMOptimizationConfiguration.parse(cfg_string)
     norm = jnorm = None
@@ -56,15 +61,18 @@ def _solve_both(task, x, y, off, cfg_string, normalized=False):
                                                           torch.float64)
         jnorm = jax_build_context("STANDARDIZATION", JaxSummary.compute(x),
                                   intercept_id=x.shape[1] - 1)
+    opt = lambda a, f: None if a is None else f(a)
     res = solve_glm(GLMObjective(loss_for_task(task), norm),
                     make_batch(DenseFeatures(torch.as_tensor(x)),
                                torch.as_tensor(y), torch.as_tensor(off)),
-                    cfg, torch.zeros(x.shape[1], dtype=torch.float64))
+                    cfg, torch.zeros(x.shape[1], dtype=torch.float64),
+                    *(opt(b, torch.as_tensor) for b in bounds))
     ref = jax_solve_glm(
         JaxObjective(jax_loss_for_task(JaxTaskType(task.value)), jnorm),
         jax_make_batch(JaxDense(jnp.asarray(x)), jnp.asarray(y),
                        jnp.asarray(off)),
-        jcfg, jnp.zeros(x.shape[1]))
+        jcfg, jnp.zeros(x.shape[1]),
+        *(opt(b, jnp.asarray) for b in bounds))
     assert int(res.iterations) == int(ref.iterations)
     assert int(res.reason) == int(ref.reason)
     np.testing.assert_allclose(float(res.value), float(ref.value),
@@ -120,3 +128,87 @@ def test_tron_rejects_what_jax_rejects(cfg, error):
                              torch.as_tensor(y)),
                   config.GLMOptimizationConfiguration.parse(cfg),
                   torch.zeros(3, dtype=torch.float64))
+
+
+def _box(d, seed):
+    rng = np.random.default_rng(seed)
+    lo, hi = -rng.uniform(0.05, 0.2, d), rng.uniform(0.05, 0.2, d)
+    lo[-1], hi[-1] = -np.inf, np.inf  # the intercept is free
+    return lo, hi
+
+
+@pytest.mark.parametrize("cfg", ["15,1e-7,1.0,1.0,TRON,L2",
+                                 "60,1e-9,1.0,1.0,LBFGS,L2"])
+@pytest.mark.parametrize("sides", ["both", "upper"])
+def test_bounded_solves_match_jax(cfg, sides):
+    """Bounded TRON (active-set CG, projected trial, model on the realized
+    step) and the projected L-BFGS (minimize_lbfgs), with a box on both
+    sides or only an upper bound."""
+    x, y, off = _problem(TaskType.LOGISTIC_REGRESSION, seed=25)
+    lo, hi = _box(x.shape[1], seed=26)
+    if sides == "upper":
+        lo = None
+    res, ref = _solve_both(TaskType.LOGISTIC_REGRESSION, x, y, off, cfg,
+                           bounds=(lo, hi))
+    c, jc = res.x.numpy(), np.asarray(ref.x)
+    lo_ = -np.inf if lo is None else lo
+    assert ((c >= lo_) & (c <= hi)).all()
+    pinned = (c == lo_) | (c == hi)
+    assert pinned.any()
+    np.testing.assert_array_equal(pinned, (jc == lo_) | (jc == hi))
+    if "TRON" in cfg:
+        assert res.outer_steps >= int(res.iterations) >= 2
+
+
+def test_bounded_tron_on_a_normalized_objective_matches_jax():
+    """The bounds clamp the normalized iterate as they are."""
+    x, y, off = _problem(TaskType.LOGISTIC_REGRESSION, seed=27, scale=7.0)
+    _solve_both(TaskType.LOGISTIC_REGRESSION, x, y, off,
+                "15,1e-5,1.0,1.0,TRON,L2", normalized=True,
+                bounds=_box(x.shape[1], seed=28))
+
+
+CONSTRAINTS = [
+    # an exact (name, term) entry, a missing term, a one-sided bound and
+    # a key the index map lacks
+    [{"name": "age", "term": "", "lowerBound": -1.0, "upperBound": 2.0},
+     {"name": "city", "term": "sf", "upperBound": 0.5},
+     {"name": "nope", "term": "x", "lowerBound": 0.0, "upperBound": 1.0}],
+    # name and term wildcards, then {"*", "*"} for every other feature
+    [{"name": "city", "term": "*", "lowerBound": -0.3, "upperBound": 0.3},
+     {"name": "*", "term": "b", "lowerBound": -2.0, "upperBound": -1.0},
+     {"name": "*", "term": "*", "lowerBound": -0.1, "upperBound": 0.1}],
+    [],
+]
+
+
+@pytest.mark.parametrize("spec", CONSTRAINTS)
+def test_constraint_helpers_match_jax(spec):
+    import json
+
+    from photon_ml_tpu.data.index_map import IndexMap, INTERCEPT_KEY
+
+    pairs = [("age", ""), ("city", "sf"), ("city", "nyc"), ("tag", "b"),
+             ("tag", "c")]
+    jmap = IndexMap.from_name_terms(pairs, add_intercept=True)
+    index_map = dict(jmap.items())  # {(name, term): index}
+    assert len(index_map) == len(pairs) + 1
+    text = json.dumps(spec)
+    got = config.parse_constraint_string(text, index_map)
+    want = jax_config.parse_constraint_string(text, jmap)
+    assert got == want
+    intercept = jmap.get_index(INTERCEPT_KEY)
+    lo, hi = config.constraint_arrays(got, len(index_map), intercept)
+    jlo, jhi = jax_config.constraint_arrays(want, len(index_map), intercept)
+    if not spec:
+        assert lo is None and hi is None and jlo is None and jhi is None
+        return
+    np.testing.assert_array_equal(lo, jlo)
+    np.testing.assert_array_equal(hi, jhi)
+    assert lo[intercept] == -np.inf and hi[intercept] == np.inf
+
+
+def test_constraint_string_rejects_an_empty_box():
+    spec = '[{"name": "a", "term": "", "lowerBound": 1, "upperBound": 0}]'
+    with pytest.raises(ValueError, match="lowerBound"):
+        config.parse_constraint_string(spec, {("a", ""): 0})
