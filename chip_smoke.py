@@ -11,7 +11,7 @@ bench.py's data at its full size (seed 7: 200k rows x 200 fixed features
 with an intercept, 5k users x 25 per-user features, 2k items x 16
 per-item features, both with an intercept in column 0, logistic; a 20%
 hold-out scored for AUC) through photon_ml_tpu_torch's GameEstimator on
-four paths, 3 coordinate-descent iterations each:
+five paths, 3 coordinate-descent iterations each:
 
 - path 1, the headline GLMix of bench.py: fixed effect L-BFGS max_iter
   50, tol 1e-7, L2 1; per-user L-BFGS max_iter 20, tol 1e-6, L2 1;
@@ -30,7 +30,20 @@ four paths, 3 coordinate-descent iterations each:
   "15,1e-5,1.0,1.0"; every coordinate gets a coefficient box made with
   optimization/config.constraint_arrays, intercept free: |c| <= 0.5
   (fixed), 0.25 (per-user), 0.1 (per-item). The fixed effect runs the
-  host projected L-BFGS (optimization/lbfgs.minimize_lbfgs).
+  host projected L-BFGS (optimization/lbfgs.minimize_lbfgs);
+- path 5, bench.py's full GAME (config 5, bench.py:200-228): path 1's
+  fixed and per-user coordinates, a per-item one with the per-user
+  configuration, and the factored itemFactors coordinate on the item
+  shard (latent solves and refit of B both L-BFGS max_iter 20, tol 1e-6,
+  L2 1; one MF alternation, k = 4), whose latent buckets [E, n_pad, 4]
+  go through the entity-solver kernel.
+
+Then the gather phase runs the port's gather experiment
+(photon_ml_tpu_torch/dev_scripts/gather_experiments.py) at its full
+width, m = 12,000,000 lookups into d = 2,000,000 coefficients: w[idx],
+the one-hot scan in torch, and kernel rows 7 (the one-hot tensor-core
+gather) and 8 (the residue-class gather, its table read from L2), each
+verified against w[idx] and timed.
 
 For each path it checks:
 
@@ -64,9 +77,10 @@ the float32 kernel's time.
 TF32 is switched off for matmuls and cuDNN, so every float32 product
 runs in full float32. Timings are CUDA-event or synchronised host times
 on the card named in the output. The third line from the end is a JSON
-record of the kernels (rows 1-6 of the PERF.md table: L-BFGS, the
-normalization fold, bounded L-BFGS, OWL-QN, TRON and bounded TRON, each
-with its launches on the main paths, times and bound), then the card's
+record of the kernels (rows 1-8 of the PERF.md table: L-BFGS, the
+normalization fold, bounded L-BFGS, OWL-QN, TRON and bounded TRON, the
+one-hot and the residue-class gather, each with its launches on the main
+paths, times and bound), then the card's
 name and power limit, and the last line is {"ok": true, "device": ...}. It exits non-zero, printing no
 result, without CUDA or when any check fails.
 """
@@ -98,6 +112,13 @@ RE_ENET_CFG = "30,1e-6,0.5,1.0,LBFGS,ELASTIC_NET,0.5"
 FE_BOX, USER_BOX, ITEM_BOX = 0.5, 0.25, 0.1
 SOURCE = "photon_ml_tpu_torch/csrc/entity_lbfgs.cu"
 REPLACES = "photon_ml_tpu/ops/pallas_entity_solver.py:963"
+# bench.py:_configs, :218-227: the factored coordinate's MF knobs.
+MF_ITERATIONS, MF_FACTORS = 1, 4
+# The gather experiment's full width (dev_scripts/gather_experiments.py
+# :411-425) and --check's size.
+GATHER_M, GATHER_D = 12_000_000, 2_000_000
+CHECK_M, CHECK_D = 3_000, 4_096
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 
 
 class CheckFailed(RuntimeError):
@@ -366,14 +387,19 @@ def replay_first_updates(tag: str, coords, main_trackers, extra=None,
     update is held against the plain version on that update's inputs
     (the replay must reproduce the main run's iterations and reasons).
     ``extra(name, block, args, kw, res_k)`` may run more checks on a
-    bucket's inputs and return fields for its row. Returns the rows per
+    bucket's inputs and return fields for its row. A factored
+    coordinate's latent buckets (its first MF alternation, against the
+    initial B) must match their plain version exactly, and its update is
+    timed phase by phase (``rows["phases"][name]``). Returns the rows per
     coordinate."""
     import torch
 
     from photon_ml_tpu_torch.algorithm.coordinates import (
+        FactoredRandomEffectCoordinate,
         RandomEffectCoordinate,
         block_offsets,
         entity_mode,
+        project_latent,
     )
     from photon_ml_tpu_torch.data.normalization import (
         gathered_to_normalized_space,
@@ -415,18 +441,106 @@ def replay_first_updates(tag: str, coords, main_trackers, extra=None,
                     row.update(extra(n, block, args, kw, res_k) or {})
                 print("bucket " + json.dumps(row), flush=True)
                 rows[n].append(row)
+        elif isinstance(coord, FactoredRandomEffectCoordinate):
+            cfg = coord.config
+            kw = dict(max_iter=cfg.max_iterations, tol=cfg.tolerance,
+                      mode=entity_mode(cfg))
+            B = models[n].projection_matrix
+            d = coord.dataset.num_global_features
+            rows[n] = []
+            for bi, (block, g0) in enumerate(zip(
+                    coord.dataset.blocks, models[n].latent.local_coefs)):
+                args = (coord._objective.loss, project_latent(block, B, d),
+                        block.labels, block_offsets(block, residual),
+                        block.weights, g0.contiguous(), cfg.l2_weight,
+                        cfg.l1_weight)
+                _, _, row = hold_against_plain(
+                    f"{tag} {n} latent bucket {bi}", args, kw,
+                    main=main_trackers[n][0][0].latent[bi])
+                check(row["max_abs_coef_err"] == 0,
+                      f"{tag} {n} latent bucket {bi}: kernel and plain "
+                      f"version differ by {row['max_abs_coef_err']}")
+                row.update(bucket=bi, coordinate=n, mode="lbfgs (latent)")
+                print("bucket " + json.dumps(row), flush=True)
+                rows[n].append(row)
+            phases = factored_phase_ms(coord, models[n], residual)
+            print(f"{tag} {n} first update phases: " + json.dumps(phases),
+                  flush=True)
+            rows.setdefault("phases", {})[n] = phases
         models[n], _ = coord.update_model(models[n], residual, None)
         scores[n] = coord.score(models[n])
         torch.cuda.synchronize()
     return rows
 
 
+def factored_phase_ms(coord, model, residual, reps: int = 3) -> dict:
+    """A factored update's phases on its inputs, split as bench.py's
+    game_full_phase_ms splits them (bench.py:529-614): the latent solves
+    (every bucket's projection and entity-solver launch), the refit of B
+    (the host L-BFGS over the Kronecker features) and the rescoring of
+    the coordinate. Synchronised host clock, mean over ``reps`` runs
+    after a warm-up run."""
+    import torch
+
+    from photon_ml_tpu_torch.algorithm.coordinates import (
+        _flatten_factored_static,
+        _flatten_gammas,
+        _solve_factored_block,
+        block_offsets,
+    )
+    from photon_ml_tpu_torch.ops.features import KroneckerFeatures
+    from photon_ml_tpu_torch.ops.glm_objective import GLMBatch
+    from photon_ml_tpu_torch.optimization.solver import solve_glm
+
+    blocks = coord.dataset.blocks
+    d = coord.dataset.num_global_features
+    B = model.projection_matrix
+    offsets = [block_offsets(b, residual) for b in blocks]
+
+    def timed(fn):
+        out = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps, out
+
+    latent_ms, latent = timed(lambda: [
+        _solve_factored_block(coord._objective, coord.config, b, B, o, g, d)
+        for b, o, g in zip(blocks, offsets, model.latent.local_coefs)])
+    gammas = [r.x for r in latent]
+    x, y, off, w = _flatten_factored_static(blocks, offsets, d)
+    batch = GLMBatch(KroneckerFeatures(x, _flatten_gammas(blocks, gammas)),
+                     y, off, w)
+    refit_ms, refit = timed(lambda: solve_glm(
+        coord._objective, batch, coord.latent_config, B.reshape(-1)))
+    updated = model.with_update(gammas, refit.x.reshape(B.shape))
+    rescore_ms, _ = timed(lambda: coord.score(updated))
+    return dict(latent_solves_ms=latent_ms, refit_ms=refit_ms,
+                rescore_ms=rescore_ms,
+                refit_iterations=int(refit.iterations),
+                refit_rows=int(x.shape[0]))
+
+
 def report_updates(result) -> None:
     import torch
 
+    from photon_ml_tpu_torch.algorithm.coordinates import FactoredUpdate
+
     for u in result.updates:
         tracker = result.trackers[u["coordinate"]][u["iteration"]]
-        if isinstance(tracker, list):  # one result per bucket
+        if isinstance(tracker, list) and isinstance(tracker[0],
+                                                    FactoredUpdate):
+            parts = []
+            for alt in tracker:  # one per MF alternation
+                its = torch.cat([t.iterations for t in alt.latent]).float()
+                parts.append(
+                    f"latent entity iterations mean {float(its.mean()):.2f}"
+                    f", refit of B iterations {int(alt.refit.iterations)} "
+                    f"reason {int(alt.refit.reason)}")
+            solver = "; ".join(parts)
+        elif isinstance(tracker, list):  # one result per bucket
             its = torch.cat([t.iterations for t in tracker]).float()
             if tracker[0].trials is not None:
                 work = torch.cat([t.trials for t in tracker]).float()
@@ -476,6 +590,7 @@ def check_model(result, val, tag: str, entities=None) -> None:
           and bool(torch.isfinite(fe_coef).all()), f"{tag}: fixed coefs")
     for name, count in entities:
         re_model = model.models[name]
+        re_model = getattr(re_model, "latent", re_model)  # factored: gamma
         check(sum(c.shape[0] for c in re_model.local_coefs) == count
               and all(bool(torch.isfinite(c).all())
                       for c in re_model.local_coefs),
@@ -546,31 +661,37 @@ def coordinates_of(train, specs):
     """The coordinates GameEstimator.fit builds from these specs (each
     spec's first configuration, the fit's seed 0)."""
     from photon_ml_tpu_torch.algorithm.coordinates import (
+        FactoredRandomEffectCoordinate,
         FixedEffectCoordinate,
         RandomEffectCoordinate,
     )
-    from photon_ml_tpu_torch.data.random_effect import (
-        build_random_effect_dataset,
+    from photon_ml_tpu_torch.estimators.game_estimator import (
+        FactoredRandomEffectSpec,
+        FixedEffectSpec,
+        spec_dataset,
     )
-    from photon_ml_tpu_torch.estimators.game_estimator import FixedEffectSpec
     from photon_ml_tpu_torch.types import TaskType
 
     task = TaskType.LOGISTIC_REGRESSION
     coords = {}
     for spec in specs:
-        bounds = dict(lower_bounds=spec.lower_bounds,
-                      upper_bounds=spec.upper_bounds)
         if isinstance(spec, FixedEffectSpec):
             coords[spec.name] = FixedEffectCoordinate(
                 spec.name, train, spec.feature_shard_id, task,
-                spec.configs[0], normalization=spec.normalization, **bounds)
+                spec.configs[0], normalization=spec.normalization,
+                lower_bounds=spec.lower_bounds,
+                upper_bounds=spec.upper_bounds)
+        elif isinstance(spec, FactoredRandomEffectSpec):
+            cfg = spec.configs[0]
+            coords[spec.name] = FactoredRandomEffectCoordinate(
+                spec.name, spec_dataset(train, spec), task,
+                cfg.random_effect, cfg.latent_factor, cfg.mf, seed=0)
         else:
-            ds = build_random_effect_dataset(
-                train, spec.data_config, seed=0,
-                intercept_col=spec.intercept_col)
             coords[spec.name] = RandomEffectCoordinate(
-                spec.name, ds, task, spec.configs[0],
-                normalization=spec.normalization, **bounds)
+                spec.name, spec_dataset(train, spec), task, spec.configs[0],
+                normalization=spec.normalization,
+                lower_bounds=spec.lower_bounds,
+                upper_bounds=spec.upper_bounds)
     return coords
 
 
@@ -599,9 +720,9 @@ def fit_path(tag: str, specs, train, val):
     fit_s = time.perf_counter() - t0
     launches = dict(entity_solver.entity_lbfgs.variants)
     # ----------------------------------------------------------------------
-    buckets = {name: len(m.local_coefs)
+    buckets = {name: len(getattr(m, "latent", m).local_coefs)
                for name, m in result.model.models.items()
-               if hasattr(m, "local_coefs")}
+               if hasattr(getattr(m, "latent", m), "local_coefs")}
     print(f"{tag} fit: {fit_s:.2f} s (random-effect dataset builds "
           f"included), buckets {buckets}", flush=True)
     report_updates(result)
@@ -627,6 +748,106 @@ def kernel_entry(name: str, rows, launches: int) -> dict:
     }
 
 
+def gather_phase() -> list:
+    """The port's gather experiment at full width with both kernels'
+    launch counts set to 0 just before its run and read just after; then
+    each kernel against its plain version on the same inputs, exactly, at
+    full width (row 8 in its L2 layout) and at --check's size (row 8 in
+    its shared-memory layout). Returns rows 7 and 8 of the kernels
+    line."""
+    import torch
+
+    from photon_ml_tpu_torch.dev_scripts import gather_experiments as gx
+    from photon_ml_tpu_torch.ops import gather
+
+    t0 = time.perf_counter()
+    p = gx.problem(GATHER_M, GATHER_D, "cuda")
+    torch.cuda.synchronize()
+    kb, e = p["local"].shape
+    chunks, a, _ = p["res_idx"].shape
+    print(f"gather problem: m {GATHER_M}, d {GATHER_D}; one-hot blocks "
+          f"[{kb}, {e}], residue chunks [{chunks}, {a}, {gather.LANES}] "
+          f"({time.perf_counter() - t0:.1f} s to draw and pack)", flush=True)
+    # ---- the main path: counts set to 0 just before, read just after ----
+    gather.reset_launch_counts()
+    results = gx.run(GATHER_M, GATHER_D, p=p)
+    torch.cuda.synchronize()
+    launches = {"onehot": gather.onehot_gather.launches,
+                "residue": gather.residue_gather.launches,
+                "residue layouts": dict(gather.residue_gather.layouts)}
+    # ----------------------------------------------------------------------
+    print(f"gather launches: {launches}", flush=True)
+    check(all(r["ok"] for r in results.values()),
+          f"gather: a candidate disagrees with w[idx]: {results}")
+    check(launches["residue layouts"].get("l2", 0) == launches["residue"],
+          f"gather: row 8 did not take its L2 layout at d = {GATHER_D}")
+
+    small = gx.problem(CHECK_M, CHECK_D, "cuda")
+    check(gather.residue_layout(CHECK_D // gather.LANES) == "shared",
+          f"gather: row 8 does not take its shared layout at d = {CHECK_D}")
+    check(gather.residue_layout(GATHER_D // gather.LANES) == "l2",
+          f"gather: row 8 does not take its L2 layout at d = {GATHER_D}")
+    onehot_args = (p["local"], p["mask"], p["w_blk"])
+    residue_args = (p["w"], p["res_idx"])
+    errs = {}
+    for tag, q in (("full width", p), (f"d = {CHECK_D}", small)):
+        for name, fn, plain, args in (
+                ("onehot", gather.onehot_gather, gather.onehot_gather_plain,
+                 (q["local"], q["mask"], q["w_blk"])),
+                ("residue", gather.residue_gather,
+                 gather.residue_gather_plain, (q["w"], q["res_idx"]))):
+            got, want = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            errs[name] = max(errs.get(name, 0.0), err)
+            check(torch.equal(got, want),
+                  f"gather {name} at {tag}: kernel and plain version differ "
+                  f"(max abs {err})")
+    print(f"gather kernels equal their plain versions: max abs {errs}",
+          flush=True)
+
+    library_ms = results["torch_gather"]["ms"]
+    plain_ms = {"onehot": cuda_ms(lambda: gather.onehot_gather_plain(
+        *onehot_args), 3), "residue": cuda_ms(
+            lambda: gather.residue_gather_plain(*residue_args), 3)}
+    # Bytes: every input read once, every output written once (float32 and
+    # int32, 4 bytes each). Row 7's one-hot contraction does 2,048
+    # multiply-adds per slot on the tensor cores at the least (n = 1 useful
+    # column; the kernel's n = 8 tile does 8x that).
+    bounds = {
+        "onehot": (4.0 * (3 * kb * e + kb * gather.BLOCK) / HBM_BYTES_PER_S,
+                   2.0 * kb * e * gather.BLOCK / BF16_FLOPS_PER_S),
+        "residue": (4.0 * (2 * chunks * a * gather.LANES + GATHER_D)
+                    / HBM_BYTES_PER_S, 0.0)}
+    library_bound_ms = 1e3 * 4.0 * (2 * GATHER_M + GATHER_D) / HBM_BYTES_PER_S
+    print(f"gather w[idx] bound (bytes): {library_bound_ms:.4f} ms; row 7 "
+          f"at its kernel's n = 8 tile: "
+          f"{1e3 * 8 * bounds['onehot'][1]:.4f} ms of tensor-core work",
+          flush=True)
+    entries = []
+    for name, row, source, replaces, key in (
+            ("gather_onehot (row 7)", 7, "photon_ml_tpu_torch/csrc/"
+             "gather_onehot.cu", "dev_scripts/gather_experiments.py:142",
+             "onehot"),
+            ("gather_residue (row 8)", 8, "photon_ml_tpu_torch/csrc/"
+             "gather_residue.cu", "dev_scripts/gather_experiments.py:220",
+             "residue")):
+        bytes_s, ops_s = bounds[key]
+        candidate = "cuda_onehot" if key == "onehot" else \
+            "cuda_residue_gather"
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[key],
+            "max_abs_err": errs[key], "ms": results[candidate]["ms"],
+            "plain_ms": plain_ms[key],
+            "bound_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "library_ms": library_ms})
+    print("gather rates (M lookups/s): " + json.dumps(
+        {k: r["mlookups_per_sec"] for k, r in results.items()}), flush=True)
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -642,12 +863,15 @@ def main() -> int:
             RandomEffectDataConfiguration,
         )
         from photon_ml_tpu_torch.estimators.game_estimator import (
+            FactoredRandomEffectSpec,
             FixedEffectSpec,
             RandomEffectSpec,
         )
         from photon_ml_tpu_torch.ops import cuda_build, entity_solver
         from photon_ml_tpu_torch.optimization.config import (
+            FactoredRandomEffectOptimizationConfiguration,
             GLMOptimizationConfiguration,
+            MFOptimizationConfiguration,
         )
     except ImportError as exc:
         print(f"chip_smoke: cannot import the port ({exc}); run it from the "
@@ -815,9 +1039,41 @@ def main() -> int:
     rows4 = replay_first_updates("path 4", coordinates_of(train, specs4),
                                  result4.trackers)
 
+    # ------- path 5: bench.py's full GAME, with the factored effect -------
+    fac_cfg = FactoredRandomEffectOptimizationConfiguration(
+        re_cfg, re_cfg, MFOptimizationConfiguration(MF_ITERATIONS,
+                                                    MF_FACTORS))
+    specs5 = [FixedEffectSpec("fixed", "global", [fe_cfg]),
+              RandomEffectSpec("perUser", user_cfg, [re_cfg],
+                               intercept_col=0),
+              RandomEffectSpec("perItem", item_cfg, [re_cfg],
+                               intercept_col=0),
+              FactoredRandomEffectSpec("itemFactors", item_cfg, [fac_cfg])]
+    result5, launches5, buckets5 = fit_path("path 5", specs5, train, val)
+    want5 = {"lbfgs": (buckets5["perUser"] + buckets5["perItem"]
+                       + buckets5["itemFactors"] * MF_ITERATIONS)
+             * CD_ITERATIONS}
+    check(launches5 == want5, f"path 5 launches {launches5} != {want5}")
+    check_model(result5, val, "path 5", entities + (("itemFactors",
+                                                     N_ITEMS),))
+    B = result5.model.models["itemFactors"].projection_matrix
+    check(tuple(B.shape) == (MF_FACTORS, D_ITEM)
+          and bool(torch.isfinite(B).all()), "path 5: B")
+    rows5 = replay_first_updates("path 5", coordinates_of(train, specs5),
+                                 result5.trackers)
+    latent_shapes = [(r["entities"], r["n_pad"], r["d_pad"])
+                     for r in rows5["itemFactors"]]
+    print(f"path 5 final: AUC {result5.validation_history[-1]['AUC']:.6f}, "
+          f"objective {result5.objective_history[-1]:.6f}, latent buckets "
+          f"{latent_shapes}", flush=True)
+
+    t0 = time.perf_counter()
+    gather_entries = gather_phase()
+    print(f"gather phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     kernels = [
         kernel_entry("entity_lbfgs[lbfgs] (row 1)", rows1,
-                     launches1.get("lbfgs", 0)),
+                     launches1.get("lbfgs", 0) + launches5.get("lbfgs", 0)),
         kernel_entry("entity_lbfgs[normalization fold] (row 2)",
                      rows2["lbfgs"],
                      sum(n for launches in (launches2, launches3)
@@ -833,6 +1089,7 @@ def main() -> int:
                      + launches3.get("tron+normalized", 0)),
         kernel_entry("entity_lbfgs[bounded tron] (row 6)", rows4["perItem"],
                      launches4.get("tron+bounded", 0)),
+        *gather_entries,
     ]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the paths did not launch: {kernels}")

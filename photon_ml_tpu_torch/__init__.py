@@ -8,7 +8,8 @@ coefficients, ``[n]`` rows) so parity tests compare like with like.
 
 Entry points take an explicit ``device`` that defaults to ``"cuda"`` and
 raise when CUDA is absent unless the caller passes ``device="cpu"``.
-The per-entity L-BFGS solve runs as a hand-written CUDA kernel
-(``csrc/entity_lbfgs.cu``) on CUDA tensors and as its plain PyTorch
-version on CPU tensors.
+The per-entity solve runs as a hand-written CUDA kernel
+(``csrc/entity_lbfgs.cu``), and the gather experiment's two kernels as
+``csrc/gather_onehot.cu`` and ``csrc/gather_residue.cu``, on CUDA
+tensors; on CPU tensors each runs as its plain PyTorch version.
 """

@@ -2,11 +2,14 @@
 photon_ml_tpu/algorithm/coordinates.py: Coordinate :48,
 FixedEffectCoordinate :122, RandomEffectCoordinate :544,
 _gather_block_normalization :687, _gather_block_bounds :704-721,
-_dispatch_pallas_solver :1207,
+FactoredRandomEffectCoordinate :978-1120, _solve_factored_block
+:1120-1157, _flatten_factored_static :1159, _flatten_gammas :1176,
+_solve_latent_matrix :1188 (a solve_glm call), _dispatch_pallas_solver
+:1207,
 _solve_block :1371, _solve_fixed :1442, _fe_score_impl /
-_scatter_margins / _re_score_impl :1474-1494, the size guard of
-_use_pallas_entity_solver :1294-1366, which the kernel makes unnecessary
-by taking any bucket).
+_scatter_margins / _re_score_impl :1474-1494, _fre_score_impl
+:1498-1514, the size guard of _use_pallas_entity_solver :1294-1366,
+which the kernel makes unnecessary by taking any bucket).
 
 Each coordinate solves against offsets augmented with the other
 coordinates' scores (reference: ml/algorithm/Coordinate.scala:26-82).
@@ -59,18 +62,24 @@ from photon_ml_tpu_torch.data.random_effect import (
 from photon_ml_tpu_torch.data.sampling import down_sample_weights
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.models.coefficients import Coefficients
+from photon_ml_tpu_torch.models.factored_random_effect import (
+    FactoredRandomEffectModel,
+)
 from photon_ml_tpu_torch.models.fixed_effect import FixedEffectModel
 from photon_ml_tpu_torch.models.glm import model_for_task
 from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
 from photon_ml_tpu_torch.ops.entity_solver import check_mode, entity_lbfgs
+from photon_ml_tpu_torch.ops.features import KroneckerFeatures
 from photon_ml_tpu_torch.ops.glm_objective import GLMBatch, GLMObjective
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.optimization.config import (
     GLMOptimizationConfiguration,
+    MFOptimizationConfiguration,
     OptimizerType,
 )
 from photon_ml_tpu_torch.optimization.convergence import OptimizerResult
 from photon_ml_tpu_torch.optimization.solver import solve_glm
+from photon_ml_tpu_torch.projector.projectors import ProjectionMatrix
 from photon_ml_tpu_torch.types import TaskType
 
 Tensor = torch.Tensor
@@ -226,6 +235,152 @@ class RandomEffectCoordinate(Coordinate):
                 for c, norm in zip(model.local_coefs, self.norm_blocks)]
 
 
+@dataclasses.dataclass
+class FactoredUpdate:
+    """One MF alternation of a factored update: the latent solve of each
+    bucket and the refit of B."""
+
+    latent: List[OptimizerResult]
+    refit: OptimizerResult
+
+
+@dataclasses.dataclass
+class FactoredRandomEffectCoordinate(Coordinate):
+    """Matrix-factorization-flavoured random effect
+    (ml/algorithm/FactoredRandomEffectCoordinate.scala:39-289). The
+    dataset must be built with the IDENTITY projector, so blocks carry
+    global-width features (B is the dimension reduction). The tracker of
+    an update is one FactoredUpdate per MF alternation."""
+
+    name: str
+    dataset: RandomEffectDataset
+    task_type: TaskType
+    config: GLMOptimizationConfiguration  # per-entity latent solves
+    latent_config: GLMOptimizationConfiguration  # refit of B
+    mf_config: MFOptimizationConfiguration
+    seed: int = 7
+
+    def __post_init__(self):
+        if self.dataset.projection is not None:
+            raise ValueError(
+                "FactoredRandomEffectCoordinate learns its own projection: "
+                "build the dataset with projector_type=IDENTITY")
+        d = self.dataset.num_global_features
+        for b in self.dataset.blocks:
+            if b.d_pad < d:
+                raise ValueError(
+                    "factored random effects need global-width blocks "
+                    f"(d_pad {b.d_pad} < num_global_features {d}); build "
+                    "the dataset with projector_type=IDENTITY")
+        self._objective = GLMObjective(loss_for_task(self.task_type))
+        check_mode(entity_mode(self.config), loss=self._objective.loss)
+        self._l1, self._l2 = self.config.l1_weight, self.config.l2_weight
+        self._ll1 = self.latent_config.l1_weight
+        self._ll2 = self.latent_config.l2_weight
+
+    def initialize_model(self) -> FactoredRandomEffectModel:
+        """gamma = 0 and B from ProjectionMatrix.gaussian(k, d, no
+        intercept, seed): numpy, so bit-equal to the JAX package's B."""
+        ds = self.dataset
+        x0 = ds.blocks[0].x
+        k = self.mf_config.num_factors
+        b0 = ProjectionMatrix.gaussian(k, ds.num_global_features,
+                                       intercept_col=None, seed=self.seed)
+        latent = RandomEffectModel(
+            random_effect_type=ds.config.random_effect_type,
+            feature_shard_id=ds.config.feature_shard_id,
+            local_coefs=[torch.zeros((b.num_entities, k), dtype=x0.dtype,
+                                     device=x0.device) for b in ds.blocks],
+            feat_idx=[torch.arange(k, dtype=torch.int32, device=x0.device)
+                      .repeat(b.num_entities, 1) for b in ds.blocks],
+            entity_codes=list(ds.entity_codes),
+            vocabulary=ds.vocabulary,
+            num_global_features=ds.num_global_features,
+            projection=torch.as_tensor(b0.matrix, dtype=x0.dtype,
+                                       device=x0.device))
+        return FactoredRandomEffectModel(latent, self.mf_config)
+
+    def update_model(self, model: FactoredRandomEffectModel,
+                     residual_scores: Optional[Tensor],
+                     generator: Optional[torch.Generator] = None
+                     ) -> Tuple[FactoredRandomEffectModel,
+                                List[FactoredUpdate]]:
+        blocks = self.dataset.blocks
+        d = self.dataset.num_global_features
+        gammas = list(model.latent.local_coefs)
+        B = model.projection_matrix
+        offsets = [block_offsets(b, residual_scores) for b in blocks]
+        # Rows, labels, offsets and weights of the refit do not change
+        # across alternations; only the per-row gammas do.
+        x_flat, y_flat, off_flat, w_flat = _flatten_factored_static(
+            blocks, offsets, d)
+        trackers = []
+        for _ in range(self.mf_config.max_iterations):
+            latent = [_solve_factored_block(self._objective, self.config,
+                                            block, B, off, g0, d)
+                      for block, off, g0 in zip(blocks, offsets, gammas)]
+            gammas = [r.x for r in latent]
+            batch = GLMBatch(
+                KroneckerFeatures(x_flat, _flatten_gammas(blocks, gammas)),
+                y_flat, off_flat, w_flat)
+            refit = solve_glm(self._objective, batch, self.latent_config,
+                              B.reshape(-1))
+            B = refit.x.reshape(B.shape)
+            trackers.append(FactoredUpdate(latent, refit))
+        return model.with_update(gammas, B), trackers
+
+    def score(self, model: FactoredRandomEffectModel) -> Tensor:
+        return _fre_score_impl(
+            self.dataset.blocks, self.dataset.passive_blocks,
+            model.latent.local_coefs, model.projection_matrix,
+            self.dataset.n_rows, self.dataset.num_global_features)
+
+    def penalties(self, model: FactoredRandomEffectModel):
+        """Each bucket's gamma under the latent solves' weights, then B
+        under the refit's, in the JAX order."""
+        out = [(g, self._l1, self._l2) for g in model.latent.local_coefs]
+        out.append((model.projection_matrix, self._ll1, self._ll2))
+        return out
+
+
+def _solve_factored_block(objective: GLMObjective,
+                          config: GLMOptimizationConfiguration,
+                          block: EntityBlock, B: Tensor, offsets: Tensor,
+                          gamma0: Tensor, d: int) -> OptimizerResult:
+    """The bucket's latent solves against the current B: one projection
+    for the whole bucket, then the entity solver, as ``_solve_block``
+    calls it."""
+    lat = project_latent(block, B, d)
+    return entity_lbfgs(objective.loss, lat, block.labels, offsets,
+                        block.weights, gamma0.contiguous(), config.l2_weight,
+                        config.l1_weight, max_iter=config.max_iterations,
+                        tol=config.tolerance, mode=entity_mode(config))
+
+
+def project_latent(block: EntityBlock, B: Tensor, d: int) -> Tensor:
+    """The bucket's latent features lat = x[..., :d] B^T: [E, n_pad, k],
+    contiguous."""
+    return torch.einsum("end,kd->enk", block.x[..., :d], B).contiguous()
+
+
+def _flatten_factored_static(blocks, offsets, d: int):
+    """Every bucket's rows in block order, padding rows in place: the
+    alternation-invariant half of the refit batch (x [N, d], labels,
+    offsets with the residual, weights [N])."""
+    return (torch.cat([b.x[..., :d].reshape(-1, d) for b in blocks]),
+            torch.cat([b.labels.reshape(-1) for b in blocks]),
+            torch.cat([o.reshape(-1) for o in offsets]),
+            torch.cat([b.weights.reshape(-1) for b in blocks]))
+
+
+def _flatten_gammas(blocks, gammas) -> Tensor:
+    """Per-row latent factors aligned with _flatten_factored_static's
+    rows: each entity's gamma repeated over its n_pad rows."""
+    return torch.cat([
+        g[:, None, :].expand(b.num_entities, b.n_pad, g.shape[-1])
+        .reshape(-1, g.shape[-1]) for b, g in zip(blocks, gammas)])
+
+
 def _gather_block_normalization(normalization, block: EntityBlock):
     """(factors, shifts, intercept_mask) in the block's local feature
     space and type, or None without normalization."""
@@ -357,4 +512,24 @@ def _re_score_impl(blocks, pblocks, coefs, n_rows: int) -> Tensor:
     for block, c in zip(pblocks, coefs):
         if block is not None:
             _scatter_margins(scores, block, block.local_margins(c), n_rows)
+    return scores[:-1]
+
+
+def _fre_score_impl(blocks, pblocks, gammas, B: Tensor, n_rows: int,
+                    d: int) -> Tensor:
+    """gamma_e^T B x per row, active and passive, scattered into one
+    [n_rows] score vector."""
+    def block_margins(block, gamma):
+        coefs = gamma @ B  # [E, d]
+        pad = block.d_pad - d
+        if pad:
+            coefs = torch.nn.functional.pad(coefs, (0, pad))
+        return block.local_margins(coefs)
+
+    scores = torch.zeros((n_rows + 1,), dtype=B.dtype, device=B.device)
+    for block, g in zip(blocks, gammas):
+        _scatter_margins(scores, block, block_margins(block, g), n_rows)
+    for block, g in zip(pblocks, gammas):
+        if block is not None:
+            _scatter_margins(scores, block, block_margins(block, g), n_rows)
     return scores[:-1]

@@ -1,17 +1,20 @@
 """Random-effect datasets: per-entity problems as bucketed, padded dense
 blocks (port of photon_ml_tpu/data/random_effect.py: EntityBlock :83,
-RandomEffectDataset :125, build_random_effect_dataset :233,
-_pack_block :336).
+RandomEffectDataset :125, build_random_effect_dataset :233-333 with the
+RANDOM=<k> projector branch, _pack_block :336-375).
 
 Entities are grouped by id on the host, capped by reservoir sampling,
 restricted to their observed feature columns (the reference's
 IndexMapProjector, ml/projector/IndexMapProjector.scala:42-106, as a
 column gather; IDENTITY gathers every column), optionally Pearson-
 filtered, and bucketed by padded (n_rows, n_features) size classes. Each
-bucket is one dense ``[E, n_pad, d_pad]`` block. Bucket keys and every
-block array are the JAX package's exactly: blocks are packed in float32
-on the host and then cast, as there. The RANDOM projector waits (ROADMAP
-queue A, item 10).
+bucket is one dense ``[E, n_pad, d_pad]`` block. With RANDOM=<k> the
+blocks live in the shared Gaussian latent space
+(projector/projectors.py): the Pearson selection still runs first on the
+global columns, then each entity's rows are projected through the one
+matrix, and ``dataset.projection`` holds it. Bucket keys and every block
+array are the JAX package's exactly: blocks are packed in float32 on the
+host and then cast, as there.
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ from photon_ml_tpu_torch.data.game_data import (
 )
 from photon_ml_tpu_torch.data.sampling import reservoir_sample
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.projector.projectors import (
+    ProjectionMatrix,
+    build_random_effect_projector,
+)
 
 Tensor = torch.Tensor
 
@@ -42,7 +49,7 @@ class RandomEffectDataConfiguration:
     num_active_data_points: Optional[int] = None  # reservoir cap
     num_passive_data_points_lower_bound: Optional[int] = None
     num_features_to_samples_ratio: Optional[float] = None  # Pearson cap
-    projector_type: str = "INDEX_MAP"  # INDEX_MAP | IDENTITY
+    projector_type: str = "INDEX_MAP"  # INDEX_MAP | IDENTITY | RANDOM=<k>
 
     @classmethod
     def parse(cls, s: str) -> "RandomEffectDataConfiguration":
@@ -100,7 +107,10 @@ class EntityBlock:
 
 @dataclasses.dataclass
 class RandomEffectDataset:
-    """All buckets of one random-effect coordinate."""
+    """All buckets of one random-effect coordinate. ``projection`` is set
+    when the blocks live in a Gaussian-projected latent space (block
+    columns are then latent ids); None means local spaces are column
+    gathers of the global space."""
 
     config: RandomEffectDataConfiguration
     blocks: List[EntityBlock]  # active data
@@ -109,6 +119,7 @@ class RandomEffectDataset:
     vocabulary: np.ndarray  # entity name per code
     n_rows: int  # global row count == scatter sentinel
     num_global_features: int
+    projection: Optional[ProjectionMatrix] = None
 
     @property
     def bucket_keys(self) -> List[Tuple[int, int, int]]:
@@ -153,6 +164,7 @@ class _EntityRows:
     passive: np.ndarray
     weight_multiplier: float
     local_cols: np.ndarray  # selected global feature columns
+    d_local: int  # local block width (k1 when projected)
 
 
 def build_random_effect_dataset(
@@ -167,17 +179,14 @@ def build_random_effect_dataset(
 ) -> RandomEffectDataset:
     """Group -> cap -> select -> bucket, on the host, once at ingest."""
     dev = resolve_device(device)
-    projector = config.projector_type.upper()
-    if projector not in ("INDEX_MAP", "IDENTITY"):
-        raise NotImplementedError(
-            f"projector {config.projector_type!r} is not ported yet "
-            "(ROADMAP queue A, item 10); use INDEX_MAP or IDENTITY")
-    identity = projector == "IDENTITY"
+    identity = config.projector_type == "IDENTITY"
 
     col = data.id_columns[config.random_effect_type]
     mat = data.feature_shards[config.feature_shard_id].tocsr()
     n_rows, d_global = mat.shape
     rng = np.random.default_rng(seed)
+    projection = build_random_effect_projector(
+        config.projector_type, d_global, intercept_col, seed=seed)
 
     entities: List[_EntityRows] = []
     for rows in group_rows_by_code(col.codes):
@@ -214,13 +223,16 @@ def build_random_effect_dataset(
                     and intercept_col in observed else None)
                 top = np.argsort(-scores, kind="stable")[:keep]
                 observed = observed[np.sort(top)]
-        entities.append(_EntityRows(code, active, passive, mult,
-                                    np.sort(observed)))
+        observed = np.sort(observed)
+        d_local = (projection.projected_space_dimension
+                   if projection is not None else len(observed))
+        entities.append(_EntityRows(code, active, passive, mult, observed,
+                                    d_local))
 
     buckets: Dict[Tuple[int, int, int], List[_EntityRows]] = {}
     for e in entities:
         n_pad = _next_size(len(e.active), min_rows_pad)
-        d_pad = _next_size(max(len(e.local_cols), 1), min_cols_pad)
+        d_pad = _next_size(max(e.d_local, 1), min_cols_pad)
         p_pad = _next_size(len(e.passive), 1) if len(e.passive) else 0
         buckets.setdefault((n_pad, d_pad, p_pad), []).append(e)
 
@@ -228,23 +240,26 @@ def build_random_effect_dataset(
     for (n_pad, d_pad, p_pad), members in sorted(buckets.items()):
         blocks.append(_pack_block(
             members, [m.active for m in members], n_pad, d_pad, data, mat,
-            n_rows, dtype, dev, weight_mult=True))
+            n_rows, dtype, dev, weight_mult=True, projection=projection))
         passive_blocks.append(_pack_block(
             members, [m.passive for m in members], p_pad, d_pad, data, mat,
-            n_rows, dtype, dev, weight_mult=False) if p_pad else None)
+            n_rows, dtype, dev, weight_mult=False, projection=projection)
+            if p_pad else None)
         codes_per_block.append(np.asarray([m.code for m in members],
                                           np.int32))
 
     return RandomEffectDataset(
         config=config, blocks=blocks, passive_blocks=passive_blocks,
         entity_codes=codes_per_block, vocabulary=col.vocabulary,
-        n_rows=n_rows, num_global_features=d_global)
+        n_rows=n_rows, num_global_features=d_global, projection=projection)
 
 
 def _pack_block(members: List[_EntityRows], row_sets: Sequence[np.ndarray],
                 n_pad: int, d_pad: int, data: GameDataset,
                 mat: sp.csr_matrix, n_rows: int, dtype, device,
-                weight_mult: bool) -> EntityBlock:
+                weight_mult: bool,
+                projection: Optional[ProjectionMatrix] = None
+                ) -> EntityBlock:
     E = len(members)
     x = np.zeros((E, n_pad, d_pad), np.float32)
     labels = np.zeros((E, n_pad), np.float32)
@@ -258,8 +273,16 @@ def _pack_block(members: List[_EntityRows], row_sets: Sequence[np.ndarray],
         if k == 0:
             continue
         cols = m.local_cols
-        x[i, :k, :len(cols)] = mat[rows][:, cols].toarray()
-        feat_idx[i, :len(cols)] = cols
+        if projection is not None:
+            # Latent block: the kept columns on both sides, which equals
+            # zeroing the dropped columns and projecting the full row.
+            k1 = projection.projected_space_dimension
+            x[i, :k, :k1] = np.asarray(
+                mat[rows][:, cols] @ projection.matrix[:, cols].T)
+            feat_idx[i, :k1] = np.arange(k1)
+        else:
+            x[i, :k, :len(cols)] = mat[rows][:, cols].toarray()
+            feat_idx[i, :len(cols)] = cols
         labels[i, :k] = data.responses[rows]
         offsets[i, :k] = data.offsets[rows]
         weights[i, :k] = data.weights[rows] * (

@@ -1,6 +1,7 @@
 """GameEstimator: data prep + coordinate construction + grid training
 (port of photon_ml_tpu/estimators/game_estimator.py: FixedEffectSpec :42,
-RandomEffectSpec :58, GameEstimator.fit :110, select_best_result :227;
+RandomEffectSpec :58, FactoredRandomEffectSpec :74-83, GameEstimator.fit
+:110 with the factored wiring :124-168, select_best_result :227;
 reference ml/estimators/GameEstimator.scala:51-527).
 
 ``fit`` builds each random-effect dataset once, then trains one
@@ -10,9 +11,11 @@ global feature space, data/normalization.py) and its box constraints
 ``lower_bounds``/``upper_bounds`` (global [d] arrays, e.g. from
 optimization/config.constraint_arrays) go to its coordinate (the
 reference's per-problem normalization and constraintMap,
-RandomEffectOptimizationProblem.scala:105-125). Feature sharding,
-factored random effects and checkpoints are not ported yet (ROADMAP
-queue A).
+RandomEffectOptimizationProblem.scala:105-125). A factored spec's
+dataset is built with the IDENTITY projector whatever its config says,
+with no Pearson trim and no intercept column, and its coordinate draws
+B from the fit's ``seed``. Feature sharding and checkpoints are not
+ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from photon_ml_tpu_torch.algorithm.coordinate_descent import (
     CoordinateDescentResult,
 )
 from photon_ml_tpu_torch.algorithm.coordinates import (
+    FactoredRandomEffectCoordinate,
     FixedEffectCoordinate,
     RandomEffectCoordinate,
 )
@@ -41,6 +45,7 @@ from photon_ml_tpu_torch.data.random_effect import (
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.evaluation.evaluators import Evaluator
 from photon_ml_tpu_torch.optimization.config import (
+    FactoredRandomEffectOptimizationConfiguration,
     GLMOptimizationConfiguration,
 )
 from photon_ml_tpu_torch.types import TaskType
@@ -69,9 +74,36 @@ class RandomEffectSpec:
     upper_bounds: Optional[object] = None
 
 
-CoordinateSpec = Union[FixedEffectSpec, RandomEffectSpec]
+@dataclasses.dataclass
+class FactoredRandomEffectSpec:
+    """Per-entity latent factors and a learned shared projection matrix;
+    the dataset is built with the IDENTITY projector (B is the dimension
+    reduction)."""
+
+    name: str
+    data_config: RandomEffectDataConfiguration
+    configs: Sequence[FactoredRandomEffectOptimizationConfiguration]
+
+
+CoordinateSpec = Union[FixedEffectSpec, RandomEffectSpec,
+                       FactoredRandomEffectSpec]
 Results = List[Tuple[Dict[str, GLMOptimizationConfiguration],
                      CoordinateDescentResult]]
+
+
+def spec_dataset(data: GameDataset,
+                 spec: Union[RandomEffectSpec, FactoredRandomEffectSpec],
+                 seed: int = 0, dtype=torch.float32, device="cuda"):
+    """The random-effect dataset ``fit`` builds for a spec. A factored
+    spec's blocks carry global-width features whatever its config says:
+    the IDENTITY projector, no Pearson trim, no intercept column."""
+    cfg, intercept = spec.data_config, getattr(spec, "intercept_col", None)
+    if isinstance(spec, FactoredRandomEffectSpec):
+        cfg = dataclasses.replace(cfg, projector_type="IDENTITY",
+                                  num_features_to_samples_ratio=None)
+    return build_random_effect_dataset(data, cfg, seed=seed,
+                                       intercept_col=intercept, dtype=dtype,
+                                       device=device)
 
 
 class GameEstimator:
@@ -97,10 +129,9 @@ class GameEstimator:
             seed: int = 0) -> Results:
         """Train one model per per-coordinate config combination."""
         re_datasets = {
-            s.name: build_random_effect_dataset(
-                data, s.data_config, seed=seed, intercept_col=s.intercept_col,
-                dtype=self.dtype, device=self.device)
-            for s in self.specs if isinstance(s, RandomEffectSpec)}
+            s.name: spec_dataset(data, s, seed, self.dtype, self.device)
+            for s in self.specs
+            if isinstance(s, (RandomEffectSpec, FactoredRandomEffectSpec))}
 
         results = []
         for combo in itertools.product(
@@ -116,6 +147,14 @@ class GameEstimator:
                         normalization=s.normalization, dtype=self.dtype,
                         device=self.device, lower_bounds=s.lower_bounds,
                         upper_bounds=s.upper_bounds)
+                elif isinstance(s, FactoredRandomEffectSpec):
+                    cfg = configs[s.name]
+                    coords[s.name] = FactoredRandomEffectCoordinate(
+                        name=s.name, dataset=re_datasets[s.name],
+                        task_type=self.task_type,
+                        config=cfg.random_effect,
+                        latent_config=cfg.latent_factor, mf_config=cfg.mf,
+                        seed=seed)
                 else:
                     coords[s.name] = RandomEffectCoordinate(
                         name=s.name, dataset=re_datasets[s.name],
@@ -135,9 +174,11 @@ class GameEstimator:
 
 
 def _config_lambda_key(configs: Dict[str, GLMOptimizationConfiguration]):
-    """Regularization weights in sorted coordinate-name order: breaks
-    exact metric/objective ties toward the smallest lambda."""
-    return tuple(float(cfg.regularization_weight)
+    """Regularization weights in sorted coordinate-name order (a factored
+    effect's latent solves' weight): breaks exact metric/objective ties
+    toward the smallest lambda."""
+    return tuple(float(getattr(cfg, "random_effect", cfg)
+                       .regularization_weight)
                  for _, cfg in sorted(configs.items()))
 
 

@@ -1,6 +1,7 @@
 """Device-side GAME model scoring over a GameDataset (port of
-photon_ml_tpu/models/device_scoring.py: DeviceGameScorer :87, fixed and
-random-effect sub-models).
+photon_ml_tpu/models/device_scoring.py: DeviceGameScorer :87-140, fixed,
+random-effect (projected and factored too) and matrix-factorization
+sub-models; loaded snapshots are not ported).
 
 The dataset's feature shards and entity-code columns are uploaded once at
 construction; every scoring of an updated model then reuses them. Used by
@@ -17,7 +18,13 @@ import torch
 from photon_ml_tpu_torch.data.game_data import GameDataset
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.models.fixed_effect import FixedEffectModel
+from photon_ml_tpu_torch.models.factored_random_effect import (
+    FactoredRandomEffectModel,
+)
 from photon_ml_tpu_torch.models.game_model import GameModel
+from photon_ml_tpu_torch.models.matrix_factorization import (
+    MatrixFactorizationModel,
+)
 from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
 from photon_ml_tpu_torch.ops.features import features_to_device
 from photon_ml_tpu_torch.serving import kernels
@@ -51,7 +58,10 @@ class DeviceGameScorer:
                     data.feature_shards[m.feature_shard_id], dtype, dev)
                 self._kinds.append((name, "fixed"))
                 self._sdata.append((feats,))
-            elif isinstance(m, RandomEffectModel):
+            elif isinstance(m, (RandomEffectModel,
+                                FactoredRandomEffectModel)):
+                if isinstance(m, FactoredRandomEffectModel):
+                    m = m.latent
                 feats = features_to_device(
                     data.feature_shards[m.feature_shard_id], dtype, dev)
                 mapped = torch.as_tensor(_mapped_codes(
@@ -64,6 +74,12 @@ class DeviceGameScorer:
                 self._sdata.append((feats, mapped, block_static,
                                     len(m.vocabulary),
                                     m.num_global_features))
+            elif isinstance(m, MatrixFactorizationModel):
+                self._kinds.append((name, "mf"))
+                self._sdata.append(tuple(
+                    torch.as_tensor(_mapped_codes(data, t, v), device=dev)
+                    for t, v in ((m.row_effect_type, m.row_vocabulary),
+                                 (m.col_effect_type, m.col_vocabulary))))
             else:
                 raise TypeError(f"coordinate {name!r}: cannot device-score "
                                 f"{type(m).__name__}")
@@ -78,10 +94,18 @@ class DeviceGameScorer:
                 total = total + kernels.score_fixed(
                     sdata[0], m.glm.coefficients.means.to(self.device),
                     self.dtype)
+            elif kind == "mf":
+                total = total + kernels.score_mf(
+                    *sdata, m.row_factors.to(self.device),
+                    m.col_factors.to(self.device), self.dtype)
             else:
                 feats, mapped, block_static, n_codes, d_global = sdata
+                if isinstance(m, FactoredRandomEffectModel):
+                    m = m.latent
                 coefs = [c.to(self.device) for c in m.local_coefs]
+                proj = (None if m.projection is None
+                        else m.projection.to(self.device))
                 total = total + kernels.score_random(
-                    feats, mapped, block_static, coefs, n_codes, d_global,
-                    self.dtype)
+                    feats, mapped, block_static, coefs, proj, n_codes,
+                    d_global, self.dtype)
         return total

@@ -9,11 +9,18 @@ from typing import Dict, Union
 
 import numpy as np
 
+from photon_ml_tpu_torch.models.factored_random_effect import (
+    FactoredRandomEffectModel,
+)
 from photon_ml_tpu_torch.models.fixed_effect import FixedEffectModel
+from photon_ml_tpu_torch.models.matrix_factorization import (
+    MatrixFactorizationModel,
+)
 from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
 from photon_ml_tpu_torch.types import TaskType
 
-SubModel = Union[FixedEffectModel, RandomEffectModel]
+SubModel = Union[FixedEffectModel, RandomEffectModel,
+                 FactoredRandomEffectModel, MatrixFactorizationModel]
 
 
 @dataclasses.dataclass

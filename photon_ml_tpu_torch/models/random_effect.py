@@ -1,16 +1,20 @@
 """Random-effect model: one small GLM per entity, stored as bucketed local
-coefficient blocks (port of photon_ml_tpu/models/random_effect.py:28-133;
-reference ml/model/RandomEffectModel.scala:33-168).
+coefficient blocks (port of photon_ml_tpu/models/random_effect.py:28-133,
+with the ``projection`` field :38 and ``model_matrix`` :49-70 through
+P^T gamma; reference ml/model/RandomEffectModel.scala:33-168,
+RandomEffectModelInProjectedSpace.scala).
 
 Per-entity coefficients live in each entity's local feature subspace
-(the training blocks' ``feat_idx`` gathers); the global view is a host
-scatter used for persistence and host scoring.
+(the training blocks' ``feat_idx`` gathers), or, with a ``projection``
+[k1, d_global], in a shared latent space whose global view is
+gamma @ P; the global view is a host matrix used for persistence and
+host scoring.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -30,6 +34,11 @@ class RandomEffectModel:
     entity_codes: List[np.ndarray]  # [E_b] per bucket
     vocabulary: np.ndarray  # entity name per code
     num_global_features: int
+    # Set when local_coefs live in a projected latent space (a RANDOM
+    # projector's matrix, or a factored effect's learned B): [k1,
+    # d_global] on the coefficients' device; feat_idx then holds latent
+    # ids.
+    projection: Optional[Tensor] = None
 
     @property
     def num_entities(self) -> int:
@@ -40,7 +49,15 @@ class RandomEffectModel:
 
     def model_matrix(self) -> sp.csr_matrix:
         """CSR [num_codes, d_global]: row c = entity c's global
-        coefficients; entities never trained are zero rows."""
+        coefficients (gamma @ P when projected); entities never trained are
+        zero rows."""
+        if self.projection is not None:
+            p = self.projection.detach().cpu().numpy()
+            dense = np.zeros((len(self.vocabulary), self.num_global_features))
+            for coefs, codes in zip(self.local_coefs, self.entity_codes):
+                c = coefs.detach().cpu().numpy()[:, :p.shape[0]]
+                dense[np.asarray(codes)] = c @ p
+            return sp.csr_matrix(dense)
         rows, cols, vals = [], [], []
         for coefs, fidx, codes in zip(self.local_coefs, self.feat_idx,
                                       self.entity_codes):
@@ -88,4 +105,7 @@ class RandomEffectModel:
             entity_codes=list(ds.entity_codes),
             vocabulary=ds.vocabulary,
             num_global_features=ds.num_global_features,
+            projection=(None if ds.projection is None else torch.as_tensor(
+                ds.projection.matrix, dtype=dtype,
+                device=ds.blocks[0].x.device if ds.blocks else None)),
         )

@@ -46,6 +46,8 @@ KERNEL_SOURCES: Dict[str, KernelSources] = {
                "entity_lbfgs_owlqn_f32.cu", "entity_lbfgs_tron_f64.cu",
                "entity_lbfgs_tron_f32.cu"),
         headers=("entity_lbfgs.cuh",)),
+    "gather": KernelSources(
+        units=("gather_onehot.cu", "gather_residue.cu"), headers=()),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

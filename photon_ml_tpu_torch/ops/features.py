@@ -1,5 +1,6 @@
 """Device-resident feature matrices (port of photon_ml_tpu/ops/features.py:
-DenseFeatures :33, CSRFeatures :106, features_to_device :1002).
+DenseFeatures :33, CSRFeatures :106, KroneckerFeatures :177-228,
+features_to_device :1002).
 
 - ``DenseFeatures``: dense ``[n_rows, n_features]``; products are
   ``torch.matmul``.
@@ -7,6 +8,9 @@ DenseFeatures :33, CSRFeatures :106, features_to_device :1002).
   margins, plus the CSR of the transpose for the gradient product. The
   JAX package leaves both products to XLA, outside any Pallas kernel, so
   a library product is the port of them.
+- ``KroneckerFeatures``: the lazy row-wise Kronecker product x_i (x)
+  gamma_i of a factored random effect's projection-matrix refit; each
+  product is one contraction and the ``[n, k d]`` matrix is never built.
 
 The dense/sparse choice by density is the JAX package's; its
 TPU-specific ELL layouts (features.py:233-930) are not ported.
@@ -63,7 +67,47 @@ class CSRFeatures:
         return torch.mv(self.csr_t, u)
 
 
-FeatureMatrix = Union[DenseFeatures, CSRFeatures]
+@dataclasses.dataclass(frozen=True)
+class KroneckerFeatures:
+    """Virtual row i = vec(gamma_i (x) x_i): the features of the refit of
+    B [k, d] (FactoredRandomEffectCoordinate.scala:269-287 materializes
+    them per datum). Coefficient index (a, j) is a * d + j, the
+    ``B.reshape(-1)`` of a [k, d] matrix."""
+
+    x: Tensor  # [n, d]
+    gamma: Tensor  # [n, k]
+
+    @property
+    def shape(self):
+        return (self.x.shape[0], self.num_features)
+
+    @property
+    def num_features(self) -> int:
+        return self.gamma.shape[-1] * self.x.shape[-1]
+
+    def _as_matrix(self, v: Tensor) -> Tensor:
+        return v.reshape(self.gamma.shape[-1], self.x.shape[-1])
+
+    def matvec(self, v: Tensor) -> Tensor:
+        """margin_i = gamma_i^T B x_i."""
+        return torch.einsum("nd,kd,nk->n", self.x, self._as_matrix(v),
+                            self.gamma)
+
+    def rmatvec(self, u: Tensor) -> Tensor:
+        """sum_i u_i gamma_i x_i^T, flattened."""
+        return torch.einsum("n,nk,nd->kd", u, self.gamma,
+                            self.x).reshape(-1)
+
+    def row_sq_matvec(self, v: Tensor) -> Tensor:
+        return torch.einsum("nd,kd,nk->n", self.x * self.x,
+                            self._as_matrix(v), self.gamma * self.gamma)
+
+    def sq_rmatvec(self, u: Tensor) -> Tensor:
+        return torch.einsum("n,nk,nd->kd", u, self.gamma * self.gamma,
+                            self.x * self.x).reshape(-1)
+
+
+FeatureMatrix = Union[DenseFeatures, CSRFeatures, KroneckerFeatures]
 
 
 def _csr_tensor(mat: sp.csr_matrix, dtype, device) -> Tensor:

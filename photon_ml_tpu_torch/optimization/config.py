@@ -1,6 +1,7 @@
 """Optimizer / regularization configuration and box constraints (port of
-photon_ml_tpu/optimization/config.py:19-228 and parse_constraint_string /
-constraint_arrays :313-370).
+photon_ml_tpu/optimization/config.py:19-228, the matrix-factorization
+configurations :233-310 and parse_constraint_string / constraint_arrays
+:313-370).
 
 Mirrors the reference's config vocabulary so CLI strings and model
 metadata round-trip compatibly:
@@ -10,6 +11,8 @@ metadata round-trip compatibly:
   (ml/optimization/RegularizationContext.scala:35-113)
 - the six-field "maxIter,tol,lambda,downSampleRate,optimizer,regType" string
   (ml/optimization/GLMOptimizationConfiguration.scala:56-90)
+- the "maxIter,numFactors" MF string and the ';'-joined factored-random-
+  effect triple (ml/optimization/game/MFOptimizationConfiguration.scala)
 - the GLMSuite box-constraint JSON (ml/io/GLMSuite.scala:207-260)
 """
 
@@ -70,6 +73,10 @@ class RegularizationContext:
         if self.reg_type == RegularizationType.ELASTIC_NET:
             return (1.0 - self.elastic_net_alpha) * reg_weight
         return 0.0
+
+    def to_json(self) -> Dict:
+        return {"regularizationType": self.reg_type.value,
+                "elasticNetParam": self.elastic_net_alpha}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,6 +153,102 @@ class GLMOptimizationConfiguration:
                 RegularizationType.ELASTIC_NET:
             base += f",{self.regularization_context.elastic_net_alpha}"
         return base
+
+    def to_json(self) -> Dict:
+        return {"maxIterations": self.max_iterations,
+                "tolerance": self.tolerance,
+                "regularizationWeight": self.regularization_weight,
+                "downSamplingRate": self.down_sampling_rate,
+                "optimizerType": self.optimizer_type.value,
+                **self.regularization_context.to_json()}
+
+    @classmethod
+    def from_json(cls, d: Dict) -> "GLMOptimizationConfiguration":
+        return cls(
+            max_iterations=d["maxIterations"], tolerance=d["tolerance"],
+            regularization_weight=d["regularizationWeight"],
+            down_sampling_rate=d.get("downSamplingRate", 1.0),
+            optimizer_type=OptimizerType(d["optimizerType"]),
+            regularization_context=RegularizationContext(
+                RegularizationType(d["regularizationType"]),
+                d.get("elasticNetParam")))
+
+
+@dataclasses.dataclass(frozen=True)
+class MFOptimizationConfiguration:
+    """Matrix-factorization knobs of a factored random effect, string form
+    "maxIter,numFactors": ``max_iterations`` alternations of the
+    per-entity latent solves and the projection-matrix refit per
+    coordinate update; ``num_factors`` the latent dimension k."""
+
+    max_iterations: int = 1
+    num_factors: int = 5
+
+    def __post_init__(self):
+        if self.max_iterations <= 0:
+            raise ValueError(
+                f"maxIterations must be positive, got {self.max_iterations}")
+        if self.num_factors <= 0:
+            raise ValueError(
+                f"numFactors must be positive, got {self.num_factors}")
+
+    @classmethod
+    def parse(cls, s: str) -> "MFOptimizationConfiguration":
+        parts = [p.strip() for p in s.split(",") if p.strip()]
+        if len(parts) != 2:
+            raise ValueError(
+                f"expected 'maxNumberIterations,numFactors', got {s!r}")
+        return cls(max_iterations=int(parts[0]), num_factors=int(parts[1]))
+
+    def to_string(self) -> str:
+        return f"{self.max_iterations},{self.num_factors}"
+
+    def to_json(self) -> Dict:
+        return {"maxIterations": self.max_iterations,
+                "numFactors": self.num_factors}
+
+    @classmethod
+    def from_json(cls, d: Dict) -> "MFOptimizationConfiguration":
+        return cls(d["maxIterations"], d["numFactors"])
+
+
+@dataclasses.dataclass(frozen=True)
+class FactoredRandomEffectOptimizationConfiguration:
+    """A factored random effect's configurations: the per-entity latent
+    solves, the projection-matrix refit and the MF knobs, string form
+    'reCfg;latentCfg;maxIter,numFactors'."""
+
+    random_effect: GLMOptimizationConfiguration
+    latent_factor: GLMOptimizationConfiguration
+    mf: MFOptimizationConfiguration
+
+    @classmethod
+    def parse(cls, s: str
+              ) -> "FactoredRandomEffectOptimizationConfiguration":
+        parts = s.split(";")
+        if len(parts) != 3:
+            raise ValueError(
+                "expected 'reOptConfig;latentOptConfig;mfConfig' "
+                f"(';'-separated), got {s!r}")
+        return cls(GLMOptimizationConfiguration.parse(parts[0]),
+                   GLMOptimizationConfiguration.parse(parts[1]),
+                   MFOptimizationConfiguration.parse(parts[2]))
+
+    def to_string(self) -> str:
+        return (f"{self.random_effect.to_string()};"
+                f"{self.latent_factor.to_string()};{self.mf.to_string()}")
+
+    def to_json(self) -> Dict:
+        return {"randomEffect": self.random_effect.to_json(),
+                "latentFactor": self.latent_factor.to_json(),
+                "mf": self.mf.to_json()}
+
+    @classmethod
+    def from_json(cls, d: Dict
+                  ) -> "FactoredRandomEffectOptimizationConfiguration":
+        return cls(GLMOptimizationConfiguration.from_json(d["randomEffect"]),
+                   GLMOptimizationConfiguration.from_json(d["latentFactor"]),
+                   MFOptimizationConfiguration.from_json(d["mf"]))
 
 
 def parse_constraint_string(s: str,

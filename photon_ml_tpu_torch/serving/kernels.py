@@ -1,17 +1,20 @@
-"""Scoring math for fixed and random-effect sub-models (port of
-photon_ml_tpu/serving/kernels.py: score_fixed :94, assemble_re_matrix
-:99, score_random_with_matrix :121, score_random :132).
+"""Scoring math for fixed, random-effect and matrix-factorization
+sub-models (port of photon_ml_tpu/serving/kernels.py: score_fixed :94,
+assemble_re_matrix :99-118 with the projection, score_random_with_matrix
+:121, score_random :132, score_mf :145).
 
 These are plain tensor ops, not kernels: the JAX package runs them as XLA
-gathers and scatters with no Pallas kernel. The random effect assembles
-an entity -> global-coefficient matrix from the model's bucketed local
-blocks (row ``n_codes`` stays zero for unknown entities), then contracts
-it row by row against the feature shard.
+gathers, scatters and small products with no Pallas kernel. The random
+effect assembles an entity -> global-coefficient matrix from the model's
+bucketed local blocks (row ``n_codes`` stays zero for unknown entities;
+a projected or factored model's latent gamma goes through ``gamma @ P``),
+then contracts it row by row against the feature shard. MF scores are
+factor dots with a zero row for unknown entities.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -26,17 +29,25 @@ def score_fixed(feats, coefs: Tensor, dtype) -> Tensor:
 
 
 def assemble_re_matrix(block_static: Sequence[Tuple[Tensor, Tensor]],
-                       coefs: Sequence[Tensor], n_codes: int,
-                       d_global: int, dtype) -> Tensor:
+                       coefs: Sequence[Tensor], proj: Optional[Tensor],
+                       n_codes: int, d_global: int, dtype) -> Tensor:
     """Entity -> global-coefficient matrix [n_codes + 1, d_global]; local
-    padding columns (feat_idx -1) land in a scratch column that is cut."""
+    padding columns (feat_idx -1) land in a scratch column that is cut.
+    ``proj`` [k1, d_global] is the projection of a projected or factored
+    model, whose local coefficients are latent: row = gamma[:k1] @ proj."""
     device = coefs[0].device if coefs else None
     M = torch.zeros((n_codes + 1, d_global + 1), dtype=dtype, device=device)
     for (codes_b, fidx_b), coefs_b in zip(block_static, coefs):
+        c = coefs_b.to(dtype)
+        if proj is not None:
+            k = proj.shape[0]
+            M[:, :d_global].index_add_(0, codes_b.long(),
+                                       c[:, :k] @ proj.to(dtype))
+            continue
         cols = torch.where(fidx_b >= 0, fidx_b.long(),
                            torch.full_like(fidx_b.long(), d_global))
         rows = codes_b.long()[:, None].expand_as(cols)
-        M.index_put_((rows, cols), coefs_b.to(dtype), accumulate=True)
+        M.index_put_((rows, cols), c, accumulate=True)
     return M[:, :d_global]
 
 
@@ -53,9 +64,25 @@ def score_random_with_matrix(feats, mapped: Tensor, M: Tensor) -> Tensor:
 
 def score_random(feats, mapped: Tensor,
                  block_static: Sequence[Tuple[Tensor, Tensor]],
-                 coefs: Sequence[Tensor], n_codes: int, d_global: int,
-                 dtype) -> Tensor:
+                 coefs: Sequence[Tensor], proj: Optional[Tensor],
+                 n_codes: int, d_global: int, dtype) -> Tensor:
     """Assemble-then-contract, for coefficients that change per call
     (validation scoring during training)."""
-    M = assemble_re_matrix(block_static, coefs, n_codes, d_global, dtype)
+    M = assemble_re_matrix(block_static, coefs, proj, n_codes, d_global,
+                           dtype)
     return score_random_with_matrix(feats, mapped, M)
+
+
+def score_mf(row_mapped: Tensor, col_mapped: Tensor, row_factors: Tensor,
+             col_factors: Tensor, dtype) -> Tensor:
+    """MF margins rowFactor(row) . colFactor(col); -1 codes hit an
+    appended zero row on either side."""
+    rf, cf = row_factors.to(dtype), col_factors.to(dtype)
+    k = rf.shape[-1]
+    rf = torch.cat([rf, rf.new_zeros((1, k))])
+    cf = torch.cat([cf, cf.new_zeros((1, k))])
+    rr = torch.where(row_mapped >= 0, row_mapped.long(),
+                     torch.full_like(row_mapped.long(), rf.shape[0] - 1))
+    cc = torch.where(col_mapped >= 0, col_mapped.long(),
+                     torch.full_like(col_mapped.long(), cf.shape[0] - 1))
+    return torch.sum(rf[rr] * cf[cc], dim=-1)

@@ -1,0 +1,140 @@
+"""The gather kernels (rows 7 and 8) against their plain PyTorch versions
+on the card, exactly: the one-hot tensor-core gather at ragged block and
+slot counts, the residue-class gather in both layouts (the table in
+shared memory at d = 4,096, read in place at d = 2,000,000) and at ragged
+chunk counts; out-of-range indices reading nothing; and a factored random
+effect's latent bucket (d = k = 4) through the entity-solver kernel
+against its plain version.
+
+Marked ``cuda``: skips without a GPU. This file imports neither jax nor
+the JAX package, so it runs on a GPU host that has only PyTorch:
+
+    python -m pytest --noconftest -q tests/test_torch_gather_kernel.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from photon_ml_tpu_torch.ops import entity_solver, gather
+from photon_ml_tpu_torch.ops.losses import loss_for_task
+from photon_ml_tpu_torch.types import TaskType
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    return torch.device("cuda")
+
+
+def _draw(m, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, d, m).astype(np.int32),
+            rng.normal(0, 1, d).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(3_000, 4_096), (1, 5), (40_000, 2048 * 9),
+                                 (200_000, 2048 * 3 + 1)])
+def test_onehot_kernel_equals_plain_version(cuda_device, m, d):
+    idx, w = _draw(m, d, seed=m + d)
+    local, mask, slot = gather.prep_blocks(idx, d)
+    args = (torch.as_tensor(local, device=cuda_device),
+            torch.as_tensor(mask, device=cuda_device),
+            gather.block_table(torch.as_tensor(w, device=cuda_device)))
+    before = gather.onehot_gather.launches
+    got = gather.onehot_gather(*args)
+    torch.cuda.synchronize()
+    assert gather.onehot_gather.launches == before + 1
+    want = gather.onehot_gather_plain(*args)
+    assert torch.equal(got, want)
+    w_bf16 = torch.as_tensor(w).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(got.cpu().numpy().reshape(-1)[slot],
+                                  w_bf16[idx])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,layout", [
+    (3_000, 4_096, "shared"), (100_000, 128 * 57, "shared"),
+    (200_000, 128 * 440, "shared"), (2_000_000, 2_000_000, "l2"),
+    (77, 128 * 1_000, "l2")])
+def test_residue_kernel_equals_plain_version(cuda_device, m, d, layout):
+    idx, w = _draw(m, d, seed=m)
+    packed, slot = gather.prep_residue(idx, d)
+    w_t = torch.as_tensor(w, device=cuda_device)
+    idx_t = torch.as_tensor(packed, device=cuda_device)
+    assert gather.residue_layout(d // gather.LANES) == layout
+    before = gather.residue_gather.layouts[layout]
+    got = gather.residue_gather(w_t, idx_t)
+    torch.cuda.synchronize()
+    assert gather.residue_gather.layouts[layout] == before + 1
+    assert torch.equal(got, gather.residue_gather_plain(w_t, idx_t))
+    np.testing.assert_array_equal(got.cpu().numpy().reshape(-1)[slot],
+                                  w[idx])
+
+
+@pytest.mark.cuda
+def test_factored_latent_bucket_through_the_entity_kernel(cuda_device):
+    """A latent bucket of the factored random effect: x projected through
+    a Gaussian B (d = k = 4, no intercept), residual offsets, gamma from
+    0, the L-BFGS configuration of bench.py's itemFactors coordinate."""
+    rng = np.random.default_rng(4)
+    e, r, d, k = 300, 64, 16, 4
+    x = rng.normal(0, 1, (e, r, d))
+    x[:, :, 0] = 1.0
+    B = rng.normal(0, 1, (k, d)) / k
+    lat = np.einsum("end,kd->enk", x, B)
+    rows = rng.integers(r // 2, r + 1, e)
+    w = (np.arange(r)[None, :] < rows[:, None]).astype(float)
+    lat *= w[:, :, None]
+    y = (rng.random((e, r)) < 0.5) * w
+    off = rng.normal(0, 1, (e, r)) * w
+    args = [torch.as_tensor(np.asarray(a, np.float32), device=cuda_device)
+            for a in (lat, y, off, w, np.zeros((e, k)))]
+    loss = loss_for_task(TaskType.LOGISTIC_REGRESSION)
+    kw = dict(max_iter=20, tol=1e-6)
+    res_k = entity_solver.entity_lbfgs(loss, *args, 1.0, **kw)
+    res_p = entity_solver.entity_lbfgs_plain(loss, *args, 1.0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(res_k.iterations, res_p.iterations)
+    assert torch.equal(res_k.reason, res_p.reason)
+    assert torch.equal(res_k.trials, res_p.trials)
+    assert int(res_k.iterations.min()) >= 1
+    torch.testing.assert_close(res_k.value, res_p.value, rtol=1e-6,
+                               atol=1e-6)
+    torch.testing.assert_close(res_k.x, res_p.x, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4_096, 2_000_000])
+def test_out_of_range_indices_read_nothing(cuda_device, d):
+    """An index outside its range reads no memory: the residue kernel
+    gives NaN there, the one-hot kernel 0 (no column matches); every other
+    output stays exact."""
+    idx, w = _draw(5_000, d, seed=d)
+    packed, _ = gather.prep_residue(idx, d)
+    a = d // gather.LANES
+    bad = torch.as_tensor(packed, device=cuda_device)
+    bad[0, 0, :2] = torch.tensor([a, -1], dtype=torch.int32)
+    w_t = torch.as_tensor(w, device=cuda_device)
+    got = gather.residue_gather(w_t, bad)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[0, 0, :2]).all())
+    good = torch.ones_like(bad, dtype=torch.bool)
+    good[0, 0, :2] = False
+    want = gather.residue_gather_plain(w_t, bad.clamp(0, a - 1))
+    assert torch.equal(got[good], want[good])
+
+    local, mask, _ = gather.prep_blocks(idx, d)
+    local_t = torch.as_tensor(local, device=cuda_device)
+    local_t[0, :2] = torch.tensor([gather.BLOCK, -1], dtype=torch.int32)
+    mask_t = torch.as_tensor(mask, device=cuda_device)
+    w_blk = gather.block_table(w_t)
+    out = gather.onehot_gather(local_t, mask_t, w_blk)
+    torch.cuda.synchronize()
+    assert bool((out[0, :2] == 0).all())
+    ref = gather.onehot_gather_plain(local_t.clamp(0, gather.BLOCK - 1),
+                                     mask_t, w_blk)
+    assert torch.equal(out[:, 2:], ref[:, 2:]) and torch.equal(out[1:],
+                                                               ref[1:])

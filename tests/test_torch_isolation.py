@@ -38,6 +38,9 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 20
+    scanned = {p.relative_to(REPO).parts[1] for p in files
+               if p.parent != REPO}
+    assert {"projector", "dev_scripts", "ops", "models"} <= scanned
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -63,7 +66,8 @@ def _dataset():
 
 @pytest.mark.parametrize("entry", [
     "estimator", "fixed_effect_batch", "random_effect_dataset",
-    "coordinate", "coordinate_descent", "convert", "features"])
+    "coordinate", "coordinate_descent", "convert", "features",
+    "gather_experiments", "matrix_factorization"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            entry):
     from photon_ml_tpu_torch.algorithm.coordinate_descent import (
@@ -77,9 +81,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         RandomEffectDataConfiguration,
         build_random_effect_dataset,
     )
+    from photon_ml_tpu_torch.dev_scripts import gather_experiments
     from photon_ml_tpu_torch.estimators.game_estimator import (
         FixedEffectSpec,
         GameEstimator,
+    )
+    from photon_ml_tpu_torch.models.matrix_factorization import (
+        MatrixFactorizationModel,
     )
     from photon_ml_tpu_torch.ops.features import features_to_device
     from photon_ml_tpu_torch.optimization.config import (
@@ -104,6 +112,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                         device="cpu")}, task),
         "convert": lambda: game_model_from_numpy(task, {}),
         "features": lambda: features_to_device(data.feature_shards["g"]),
+        "gather_experiments": lambda: gather_experiments.main(["--check"]),
+        "matrix_factorization": lambda: MatrixFactorizationModel.random(
+            "u", "i", ["a"], ["b"], num_factors=2),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

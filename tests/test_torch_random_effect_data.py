@@ -104,8 +104,18 @@ def test_down_sample_weights_rate(classification):
 
 
 def test_random_projector_not_ported():
+    """RANDOM=<k> builds latent-space blocks with the projection attached
+    (tests/test_torch_projectors.py holds them against the JAX package's);
+    an unknown projector raises."""
     ds = game_data.GameDataset.build(**_columns(n=40))
     cfg = random_effect.RandomEffectDataConfiguration(
         "userId", "user", projector_type="RANDOM=4")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        random_effect.build_random_effect_dataset(ds, cfg, device="cpu")
+    out = random_effect.build_random_effect_dataset(ds, cfg, intercept_col=0,
+                                                    device="cpu")
+    assert out.projection is not None
+    assert out.projection.matrix.shape == (5, 10)
+    assert all(b.d_pad == 8 for b in out.blocks)
+    bad = random_effect.RandomEffectDataConfiguration(
+        "userId", "user", projector_type="GAUSSIAN")
+    with pytest.raises(ValueError, match="unknown projector"):
+        random_effect.build_random_effect_dataset(ds, bad, device="cpu")
