@@ -74,9 +74,27 @@ kernel and the float32 plain version stop with different reasons or
 iteration counts (the reason both compute in float64 by default), and
 the float32 kernel's time.
 
+Then the gather phase sweeps kernel row 7's launch (B viewed [2048 / N,
+N] for each N, times the warps per CTA) at full width, each candidate
+exactly equal to the plain version, and prints every time beside
+w[idx]'s from the same run.
+
 TF32 is switched off for matmuls and cuDNN, so every float32 product
 runs in full float32. Timings are CUDA-event or synchronised host times
-on the card named in the output. The third line from the end is a JSON
+on the card named in the output. Each kernel has a call time (CUDA
+events around back-to-back wrapper calls: ``kernel_ms``/``call_ms`` in a
+bucket line, ``ms`` in the kernels line) and a device time (the calls
+captured in one CUDA graph and replayed between events: ``device_ms``);
+bucket lines also carry the launch plan (lanes over the coordinates,
+resident entities, waves).
+
+    python3 chip_smoke.py --entity-buckets [--tree DIR]
+
+times only the entity-solver kernel of DIR's photon_ml_tpu_torch (this
+checkout by default) on every bucket of paths 1-5's first updates:
+device, call and host ms, occupancy and the spread of the entities'
+iterations, one ``ab`` line each; run it on two trees in turns to compare
+them on one card. The third line from the end is a JSON
 record of the kernels (rows 1-8 of the PERF.md table: L-BFGS, the
 normalization fold, bounded L-BFGS, OWL-QN, TRON and bounded TRON, the
 one-hot and the residue-class gather, each with its launches on the main
@@ -92,6 +110,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -297,6 +316,168 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Mean device ms per call of ``fn``, without its host work: ``reps``
+    calls captured in one CUDA graph (after a warm-up call, which plans
+    and builds outside the capture), the graph replayed 3 times between
+    CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = cuda_ms(graph.replay, 3) / reps
+    del graph
+    return ms
+
+
+def host_ms(fn, calls: int = 100) -> float:
+    """Mean host ms per call of ``fn`` over ``calls`` calls with no
+    synchronise between them (the host's share of a call)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / calls
+
+
+# The occupancy of a tree whose entity solver has no plan query (an older
+# checkout's): its own launch plan and kernel instance (logistic loss,
+# shared layout) asked of cudaOccupancyMaxActiveBlocksPerMultiprocessor.
+_PROBE_SRC = r"""
+#include "entity_lbfgs.cuh"
+using namespace entity_lbfgs;
+template <typename T, int MODE>
+static int occ(int r, int d, int m, int* out) {
+  Plan plan;
+  int err = make_plan(r, d, m, sizeof(T), MODE == kModeTron, &plan);
+  if (err != 0) return err;
+  if (plan.layout != kAllShared) return -1;
+  KernelFn k = kernel_of<0, T, kAllShared, MODE>();
+  const size_t smem = plan.warp_bytes * plan.warps;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  int blocks = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, k, 32 * plan.warps, smem);
+  out[0] = plan.layout;
+  out[1] = plan.warps;
+  out[2] = blocks;
+  out[3] = (int)smem;
+  return err;
+}
+extern "C" int occupancy_probe(int r, int d, int m, int f64, int mode,
+                               int* out) {
+  switch (mode * 2 + f64) {
+    case 0: return occ<float, kModeLbfgs>(r, d, m, out);
+    case 1: return occ<double, kModeLbfgs>(r, d, m, out);
+    case 2: return occ<float, kModeOwlqn>(r, d, m, out);
+    case 3: return occ<double, kModeOwlqn>(r, d, m, out);
+    case 4: return occ<float, kModeTron>(r, d, m, out);
+    case 5: return occ<double, kModeTron>(r, d, m, out);
+  }
+  return -2;
+}
+"""
+_PROBE = {}
+
+
+def _occupancy_probe():
+    import ctypes
+
+    from photon_ml_tpu_torch.ops import cuda_build
+
+    if "fn" not in _PROBE:
+        cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = cuda_build.BUILD_DIR / "occupancy_probe.cu"
+        lib = cuda_build.BUILD_DIR / "occupancy_probe.so"
+        src.write_text(_PROBE_SRC)
+        subprocess.run([cuda_build._nvcc(), *cuda_build.COMPILE_FLAGS,
+                        "-shared", "-I", str(cuda_build.CSRC), "-o",
+                        str(lib), str(src)], check=True,
+                       capture_output=True, timeout=600)
+        fn = ctypes.CDLL(str(lib)).occupancy_probe
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _PROBE["fn"] = fn
+    return _PROBE["fn"]
+
+
+def kernel_occupancy(e: int, r: int, d: int, kw) -> dict:
+    """How the kernel lays out a bucket of ``e`` entities of r rows and d
+    coordinates: its layout, lanes over an entity's coordinates (one warp
+    per entity), warps per block, resident blocks per SM, resident
+    entities on the card and waves (e ÷ resident)."""
+    import ctypes
+
+    import torch
+
+    from photon_ml_tpu_torch.ops import entity_solver
+
+    mode = kw.get("mode", "lbfgs")
+    dt = kw.get("compute_dtype", torch.float64)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if hasattr(entity_solver, "kernel_plan"):
+        plan = entity_solver.kernel_plan(r, d, mode=mode, compute_dtype=dt)
+        out = dict(layout=plan["layout"],
+                   coord_lanes=plan["coord_lanes"], warps=plan["warps"],
+                   blocks_per_sm=plan["blocks_per_sm"],
+                   smem_bytes=plan["smem_bytes"],
+                   resident=plan["resident"])
+    else:
+        info = (ctypes.c_int * 4)()
+        err = _occupancy_probe()(r, d, entity_solver.DEFAULT_M,
+                                 int(dt == torch.float64),
+                                 entity_solver._MODE_IDS[mode], info)
+        if err != 0:
+            return dict(occupancy_error=err)
+        out = dict(layout=info[0], coord_lanes=32, warps=info[1],
+                   blocks_per_sm=info[2], smem_bytes=info[3],
+                   resident=info[2] * info[1] * sms)
+    out["waves"] = e / max(1, out["resident"])
+    return out
+
+
+def spread(t) -> dict:
+    """min, median and max of an integer tensor."""
+    v = t.float()
+    return dict(min=int(v.min()), median=float(v.median()),
+                max=int(v.max()))
+
+
+def bench_bucket(args, kw) -> dict:
+    """One bucket through the entity solver: device ms (``device_ms``),
+    call ms (CUDA events over 10 back-to-back wrapper calls), host ms per
+    call (``host_ms``), the kernel's occupancy and the spread of the
+    entities' iterations and work (trials, or TRON's trips)."""
+    import torch
+
+    from photon_ml_tpu_torch.ops import entity_solver
+
+    res = entity_solver.entity_lbfgs(*args, **kw)
+    torch.cuda.synchronize()
+    e, r, d = args[1].shape
+
+    def call():
+        return entity_solver.entity_lbfgs(*args, **kw)
+
+    work = res.trials if res.trials is not None else res.outer_steps
+    return dict(entities=e, n_pad=r, d_pad=d, mode=kw.get("mode", "lbfgs"),
+                device_ms=device_ms(call), call_ms=cuda_ms(call, 10),
+                host_ms=host_ms(call), **kernel_occupancy(e, r, d, kw),
+                iterations=spread(res.iterations), work=spread(work))
+
+
 def hold_against_plain(tag: str, args, kw, main=None, check_zeros=False):
     """The kernel and its plain version on the same CUDA inputs: equal
     iterations, stop reasons and work (trials, or TRON's trips and CG
@@ -314,6 +495,7 @@ def hold_against_plain(tag: str, args, kw, main=None, check_zeros=False):
     res_p = entity_solver.entity_lbfgs_plain(*args, **kw)
     torch.cuda.synchronize()
     kernel_ms = cuda_ms(lambda: entity_solver.entity_lbfgs(*args, **kw), 10)
+    dev_ms = device_ms(lambda: entity_solver.entity_lbfgs(*args, **kw))
     plain_ms = cuda_ms(lambda: entity_solver.entity_lbfgs_plain(*args, **kw),
                        1)
     err = float((res_k.x - res_p.x).abs().max())
@@ -366,8 +548,11 @@ def hold_against_plain(tag: str, args, kw, main=None, check_zeros=False):
         flops = entity_solver_flops(e, r, d, entity_solver.DEFAULT_M, its,
                                     trials, mode, normalized, bounded)
         work = dict(mean_trials=trials / e)
+    occ = kernel_occupancy(e, r, d, kw)
     row = dict(check=tag, entities=e, n_pad=r, d_pad=d,
-               layout=entity_solver.kernel_layout(r, d, mode=mode),
+               layout=occ["layout"], coord_lanes=occ["coord_lanes"],
+               resident=occ["resident"],
+               waves=occ["waves"], device_ms=dev_ms, call_ms=kernel_ms,
                kernel_ms=kernel_ms, plain_ms=plain_ms,
                max_abs_coef_err=err, max_value_rel_err=rel,
                mean_iterations=its / e, **work,
@@ -379,19 +564,16 @@ def hold_against_plain(tag: str, args, kw, main=None, check_zeros=False):
     return res_k, res_p, row
 
 
-def replay_first_updates(tag: str, coords, main_trackers, extra=None,
-                         check_zeros=False):
+def first_update_buckets(coords):
     """The first coordinate-descent iteration replayed as
     CoordinateDescent.run runs it, over coordinates built as the fit
-    builds them; every bucket of every random-effect coordinate's first
-    update is held against the plain version on that update's inputs
-    (the replay must reproduce the main run's iterations and reasons).
-    ``extra(name, block, args, kw, res_k)`` may run more checks on a
-    bucket's inputs and return fields for its row. A factored
-    coordinate's latent buckets (its first MF alternation, against the
-    initial B) must match their plain version exactly, and its update is
-    timed phase by phase (``rows["phases"][name]``). Returns the rows per
-    coordinate."""
+    builds them. Yields ``(name, bucket, kind, block, args, kw)`` for every
+    bucket of every random-effect coordinate's first update, ``kind``
+    "re" or "latent" (a factored coordinate's latent buckets, against the
+    initial B), with the entity solver's arguments on that update's
+    inputs; after a factored coordinate's buckets it yields ``(name,
+    None, "factored", (coord, model, residual), None, None)``. Then it
+    makes the update and rescores, as the fit does."""
     import torch
 
     from photon_ml_tpu_torch.algorithm.coordinates import (
@@ -404,12 +586,10 @@ def replay_first_updates(tag: str, coords, main_trackers, extra=None,
     from photon_ml_tpu_torch.data.normalization import (
         gathered_to_normalized_space,
     )
-    from photon_ml_tpu_torch.ops.entity_solver import variant
 
     names = list(coords)
     models = {n: c.initialize_model() for n, c in coords.items()}
     scores = {n: coords[n].score(models[n]) for n in names}
-    rows = {}
     for n in names:
         coord = coords[n]
         residual = None
@@ -421,7 +601,6 @@ def replay_first_updates(tag: str, coords, main_trackers, extra=None,
             cfg = coord.config
             kw = dict(max_iter=cfg.max_iterations, tol=cfg.tolerance,
                       mode=entity_mode(cfg))
-            rows[n] = []
             for bi, (block, c0, norm, bounds) in enumerate(zip(
                     coord.dataset.blocks, models[n].local_coefs,
                     coord.norm_blocks, coord.bounds_blocks)):
@@ -432,44 +611,65 @@ def replay_first_updates(tag: str, coords, main_trackers, extra=None,
                         c0.contiguous(), cfg.l2_weight, cfg.l1_weight,
                         *(norm[:2] if norm is not None else (None, None)),
                         *(bounds if bounds is not None else (None, None)))
-                res_k, _, row = hold_against_plain(
-                    f"{tag} {n} bucket {bi}", args, kw,
-                    main=main_trackers[n][0][bi], check_zeros=check_zeros)
-                row.update(bucket=bi, coordinate=n, mode=variant(
-                    kw["mode"], norm is not None, bounds is not None))
-                if extra is not None:
-                    row.update(extra(n, block, args, kw, res_k) or {})
-                print("bucket " + json.dumps(row), flush=True)
-                rows[n].append(row)
+                yield n, bi, "re", block, args, kw
         elif isinstance(coord, FactoredRandomEffectCoordinate):
             cfg = coord.config
             kw = dict(max_iter=cfg.max_iterations, tol=cfg.tolerance,
                       mode=entity_mode(cfg))
             B = models[n].projection_matrix
             d = coord.dataset.num_global_features
-            rows[n] = []
             for bi, (block, g0) in enumerate(zip(
                     coord.dataset.blocks, models[n].latent.local_coefs)):
                 args = (coord._objective.loss, project_latent(block, B, d),
                         block.labels, block_offsets(block, residual),
                         block.weights, g0.contiguous(), cfg.l2_weight,
                         cfg.l1_weight)
-                _, _, row = hold_against_plain(
-                    f"{tag} {n} latent bucket {bi}", args, kw,
-                    main=main_trackers[n][0][0].latent[bi])
-                check(row["max_abs_coef_err"] == 0,
-                      f"{tag} {n} latent bucket {bi}: kernel and plain "
-                      f"version differ by {row['max_abs_coef_err']}")
-                row.update(bucket=bi, coordinate=n, mode="lbfgs (latent)")
-                print("bucket " + json.dumps(row), flush=True)
-                rows[n].append(row)
-            phases = factored_phase_ms(coord, models[n], residual)
-            print(f"{tag} {n} first update phases: " + json.dumps(phases),
-                  flush=True)
-            rows.setdefault("phases", {})[n] = phases
+                yield n, bi, "latent", block, args, kw
+            yield n, None, "factored", (coord, models[n], residual), None, \
+                None
         models[n], _ = coord.update_model(models[n], residual, None)
         scores[n] = coord.score(models[n])
         torch.cuda.synchronize()
+
+
+def replay_first_updates(tag: str, coords, main_trackers, extra=None,
+                         check_zeros=False):
+    """Every bucket of every random-effect coordinate's first update
+    (``first_update_buckets``) held against the plain version on that
+    update's inputs (the replay must reproduce the main run's iterations
+    and reasons). ``extra(name, block, args, kw, res_k)`` may run more
+    checks on a bucket's inputs and return fields for its row. A factored
+    coordinate's latent buckets must match their plain version exactly,
+    and its update is timed phase by phase (``rows["phases"][name]``).
+    Returns the rows per coordinate."""
+    from photon_ml_tpu_torch.ops.entity_solver import variant
+
+    rows = {}
+    for n, bi, kind, block, args, kw in first_update_buckets(coords):
+        if kind == "factored":
+            phases = factored_phase_ms(*block)
+            print(f"{tag} {n} first update phases: " + json.dumps(phases),
+                  flush=True)
+            rows.setdefault("phases", {})[n] = phases
+            continue
+        if kind == "re":
+            res_k, _, row = hold_against_plain(
+                f"{tag} {n} bucket {bi}", args, kw,
+                main=main_trackers[n][0][bi], check_zeros=check_zeros)
+            row.update(bucket=bi, coordinate=n, mode=variant(
+                kw["mode"], args[8] is not None, args[10] is not None))
+            if extra is not None:
+                row.update(extra(n, block, args, kw, res_k) or {})
+        else:
+            _, _, row = hold_against_plain(
+                f"{tag} {n} latent bucket {bi}", args, kw,
+                main=main_trackers[n][0][0].latent[bi])
+            check(row["max_abs_coef_err"] == 0,
+                  f"{tag} {n} latent bucket {bi}: kernel and plain "
+                  f"version differ by {row['max_abs_coef_err']}")
+            row.update(bucket=bi, coordinate=n, mode="lbfgs (latent)")
+        print("bucket " + json.dumps(row), flush=True)
+        rows.setdefault(n, []).append(row)
     return rows
 
 
@@ -741,6 +941,7 @@ def kernel_entry(name: str, rows, launches: int) -> dict:
         "launches": launches,
         "max_abs_err": max(r["max_abs_coef_err"] for r in rows),
         "ms": sum(r["kernel_ms"] for r in rows),
+        "device_ms": sum(r["device_ms"] for r in rows),
         "plain_ms": sum(r["plain_ms"] for r in rows),
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
@@ -806,14 +1007,38 @@ def gather_phase() -> list:
     print(f"gather kernels equal their plain versions: max abs {errs}",
           flush=True)
 
+    # Row 7's launch shapes: every view of B and CTA width, exactly equal
+    # to the plain version and timed, beside w[idx] in the same call.
+    want = gather.onehot_gather_plain(*onehot_args)
+    sweep = {}
+    for n in gather.ONEHOT_NS:
+        for wp in gather.ONEHOT_WARPS:
+            got = gather.onehot_gather(*onehot_args, n=n, warps=wp)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"gather onehot n = {n}, warps = {wp}: kernel and plain "
+                  "version differ")
+            sweep[f"n{n}_w{wp}"] = gx.cuda_ms(
+                lambda: gather.onehot_gather(*onehot_args, n=n, warps=wp))
+    del got, want
+    best = min(sweep, key=sweep.get)
+    print(f"gather row 7 launch: n {gather.ONEHOT_N}, warps "
+          f"{gather.ONEHOT_WARP_COUNT}; fastest of the sweep {best} "
+          f"{sweep[best]:.4f} ms; w[idx] "
+          f"{results['torch_gather']['ms']:.4f} ms; sweep (ms): "
+          + json.dumps(sweep), flush=True)
+
     library_ms = results["torch_gather"]["ms"]
     plain_ms = {"onehot": cuda_ms(lambda: gather.onehot_gather_plain(
         *onehot_args), 3), "residue": cuda_ms(
             lambda: gather.residue_gather_plain(*residue_args), 3)}
+    dev_ms = {"onehot": device_ms(lambda: gather.onehot_gather(*onehot_args),
+                                  5),
+              "residue": device_ms(
+                  lambda: gather.residue_gather(*residue_args), 5)}
     # Bytes: every input read once, every output written once (float32 and
     # int32, 4 bytes each). Row 7's one-hot contraction does 2,048
-    # multiply-adds per slot on the tensor cores at the least (n = 1 useful
-    # column; the kernel's n = 8 tile does 8x that).
+    # multiply-adds per slot on the tensor cores.
     bounds = {
         "onehot": (4.0 * (3 * kb * e + kb * gather.BLOCK) / HBM_BYTES_PER_S,
                    2.0 * kb * e * gather.BLOCK / BF16_FLOPS_PER_S),
@@ -821,9 +1046,7 @@ def gather_phase() -> list:
                     / HBM_BYTES_PER_S, 0.0)}
     library_bound_ms = 1e3 * 4.0 * (2 * GATHER_M + GATHER_D) / HBM_BYTES_PER_S
     print(f"gather w[idx] bound (bytes): {library_bound_ms:.4f} ms; row 7 "
-          f"at its kernel's n = 8 tile: "
-          f"{1e3 * 8 * bounds['onehot'][1]:.4f} ms of tensor-core work",
-          flush=True)
+          f"bound: {1e3 * max(bounds['onehot']):.4f} ms", flush=True)
     entries = []
     for name, row, source, replaces, key in (
             ("gather_onehot (row 7)", 7, "photon_ml_tpu_torch/csrc/"
@@ -839,7 +1062,7 @@ def gather_phase() -> list:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": errs[key], "ms": results[candidate]["ms"],
-            "plain_ms": plain_ms[key],
+            "device_ms": dev_ms[key], "plain_ms": plain_ms[key],
             "bound_ms": 1e3 * max(bytes_s, ops_s),
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
             "library_ms": library_ms})
@@ -848,7 +1071,145 @@ def gather_phase() -> list:
     return entries
 
 
-def main() -> int:
+def path_specs(train):
+    """Every path's coordinate specs (paths 1-5, as the module docstring
+    sets them out) and path 4's boxes per coordinate."""
+    from photon_ml_tpu_torch.data.random_effect import (
+        RandomEffectDataConfiguration,
+    )
+    from photon_ml_tpu_torch.estimators.game_estimator import (
+        FactoredRandomEffectSpec,
+        FixedEffectSpec,
+        RandomEffectSpec,
+    )
+    from photon_ml_tpu_torch.optimization.config import (
+        FactoredRandomEffectOptimizationConfiguration,
+        GLMOptimizationConfiguration,
+        MFOptimizationConfiguration,
+    )
+
+    user_cfg = RandomEffectDataConfiguration("userId", "user")
+    item_cfg = RandomEffectDataConfiguration("itemId", "item")
+    fe_cfg, re_cfg = configs()
+    fe_cfg2, re_cfg2 = configs_path2()
+    t0 = time.perf_counter()
+    fe_norm, re_norm = contexts_path2(train)
+    print(f"path 2 normalization contexts: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    tron_cfg = GLMOptimizationConfiguration.parse(FE_TRON_CFG)
+    boxes = {"fixed": box(D_FIXED, FE_BOX, D_FIXED - 1),
+             "perUser": box(D_USER, USER_BOX, 0),
+             "perItem": box(D_ITEM, ITEM_BOX, 0)}
+    fac_cfg = FactoredRandomEffectOptimizationConfiguration(
+        re_cfg, re_cfg, MFOptimizationConfiguration(MF_ITERATIONS,
+                                                    MF_FACTORS))
+    specs = {
+        1: [FixedEffectSpec("fixed", "global", [fe_cfg]),
+            RandomEffectSpec("perUser", user_cfg, [re_cfg],
+                             intercept_col=0)],
+        2: [FixedEffectSpec("fixed", "global", [fe_cfg2],
+                            normalization=fe_norm),
+            RandomEffectSpec("perUser", user_cfg, [re_cfg2],
+                             intercept_col=0, normalization=re_norm)],
+        3: [FixedEffectSpec("fixed", "global", [tron_cfg],
+                            normalization=fe_norm),
+            RandomEffectSpec("perUser", user_cfg, [tron_cfg],
+                             intercept_col=0, normalization=re_norm),
+            RandomEffectSpec("perItem", item_cfg, [tron_cfg],
+                             intercept_col=0)],
+        4: [FixedEffectSpec("fixed", "global", [fe_cfg],
+                            lower_bounds=boxes["fixed"][0],
+                            upper_bounds=boxes["fixed"][1]),
+            RandomEffectSpec("perUser", user_cfg, [re_cfg],
+                             intercept_col=0,
+                             lower_bounds=boxes["perUser"][0],
+                             upper_bounds=boxes["perUser"][1]),
+            RandomEffectSpec("perItem", item_cfg, [tron_cfg],
+                             intercept_col=0,
+                             lower_bounds=boxes["perItem"][0],
+                             upper_bounds=boxes["perItem"][1])],
+        5: [FixedEffectSpec("fixed", "global", [fe_cfg]),
+            RandomEffectSpec("perUser", user_cfg, [re_cfg],
+                             intercept_col=0),
+            RandomEffectSpec("perItem", item_cfg, [re_cfg],
+                             intercept_col=0),
+            FactoredRandomEffectSpec("itemFactors", item_cfg, [fac_cfg])],
+    }
+    return specs, boxes
+
+
+def build_kernels() -> None:
+    """Build every kernel of the port (one nvcc per unit, all at once)
+    and print nvcc's register, shared-memory and spill report."""
+    from photon_ml_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    builds = cuda_build.build_all()
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s for "
+          f"{sorted(builds)}", flush=True)
+    for name, rep in builds.items():
+        for line in rep["log"].splitlines():
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
+                print(f"  {name}: {line.strip()}")
+
+
+def split_data():
+    t0 = time.perf_counter()
+    data = build_problem()
+    cut = int(round(N_ROWS * (1 - HOLDOUT)))
+    train = data.subset(np.arange(cut))
+    val = data.subset(np.arange(cut, N_ROWS))
+    print(f"data: {train.num_rows} train / {val.num_rows} hold-out rows, "
+          f"{D_FIXED} fixed features, {N_USERS} users x {D_USER}, "
+          f"{N_ITEMS} items x {D_ITEM} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return train, val
+
+
+def entity_buckets(tag: str) -> None:
+    """``--entity-buckets``: the imported tree's entity-solver kernel on
+    every bucket of paths 1-5's first updates (path 1 in float64 and
+    float32 compute, path 2 in OWL-QN and L-BFGS mode), one ``ab`` line
+    each with ``bench_bucket``'s measurements. No checks and no contract lines: this mode compares
+    two trees' kernels in turns inside one call."""
+    train, _ = split_data()
+    specs, _ = path_specs(train)
+    import torch
+
+    for path, sp in specs.items():
+        for n, bi, kind, _, args, kw in first_update_buckets(
+                coordinates_of(train, sp)):
+            if kind == "factored":
+                continue
+            # Path 1 in both compute types; path 2's buckets also in
+            # L-BFGS mode on the same fold (row 2, as main() replays it).
+            runs = [dict(kw, compute_dtype=dt) for dt in (
+                (torch.float64, torch.float32) if path == 1
+                else (torch.float64,))]
+            if path == 2:
+                runs.append(dict(kw, mode="lbfgs"))
+            for kwr in runs:
+                row = bench_bucket(args, kwr)
+                row.update(tree=tag, path=path, coordinate=n, bucket=bi,
+                           kind=kind, compute=str(kwr.get(
+                               "compute_dtype", torch.float64)).split(".")[-1])
+                print("ab " + json.dumps(row), flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--entity-buckets", action="store_true",
+                    help="only time the entity-solver kernel per bucket of "
+                         "paths 1-5's first updates (an A/B of two trees)")
+    ap.add_argument("--tree", default=None,
+                    help="with --entity-buckets: the repository checkout "
+                         "whose photon_ml_tpu_torch is imported and built")
+    args = ap.parse_args(argv)
+    if args.tree is not None:
+        sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
 
     if not torch.cuda.is_available():
@@ -859,20 +1220,7 @@ def main() -> int:
         from photon_ml_tpu_torch.algorithm.coordinates import (
             _gather_block_bounds,
         )
-        from photon_ml_tpu_torch.data.random_effect import (
-            RandomEffectDataConfiguration,
-        )
-        from photon_ml_tpu_torch.estimators.game_estimator import (
-            FactoredRandomEffectSpec,
-            FixedEffectSpec,
-            RandomEffectSpec,
-        )
-        from photon_ml_tpu_torch.ops import cuda_build, entity_solver
-        from photon_ml_tpu_torch.optimization.config import (
-            FactoredRandomEffectOptimizationConfiguration,
-            GLMOptimizationConfiguration,
-            MFOptimizationConfiguration,
-        )
+        from photon_ml_tpu_torch.ops import entity_solver
     except ImportError as exc:
         print(f"chip_smoke: cannot import the port ({exc}); run it from the "
               "repository root", file=sys.stderr)
@@ -885,34 +1233,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: off for matmul and cudnn (float32 products in full "
           "float32)", flush=True)
-
-    t0 = time.perf_counter()
-    builds = cuda_build.build_all()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s for "
-          f"{sorted(builds)}", flush=True)
-    for name, rep in builds.items():
-        for line in rep["log"].splitlines():
-            if any(k in line for k in ("entry function", "registers",
-                                       "spill")):
-                print(f"  {name}: {line.strip()}")
-
-    t0 = time.perf_counter()
-    data = build_problem()
-    cut = int(round(N_ROWS * (1 - HOLDOUT)))
-    train = data.subset(np.arange(cut))
-    val = data.subset(np.arange(cut, N_ROWS))
-    print(f"data: {train.num_rows} train / {val.num_rows} hold-out rows, "
-          f"{D_FIXED} fixed features, {N_USERS} users x {D_USER}, "
-          f"{N_ITEMS} items x {D_ITEM} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    user_cfg = RandomEffectDataConfiguration("userId", "user")
-    item_cfg = RandomEffectDataConfiguration("itemId", "item")
+    build_kernels()
+    if args.entity_buckets:
+        entity_buckets(args.tree or ".")
+        print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    train, val = split_data()
 
     # ---------------- path 1: the headline GLMix, L-BFGS/L2 ----------------
-    fe_cfg, re_cfg = configs()
-    specs1 = [FixedEffectSpec("fixed", "global", [fe_cfg]),
-              RandomEffectSpec("perUser", user_cfg, [re_cfg],
-                               intercept_col=0)]
+    specs, boxes = path_specs(train)
+    specs1 = specs[1]
     result1, launches1, buckets1 = fit_path("path 1", specs1, train, val)
     want1 = {"lbfgs": buckets1["perUser"] * CD_ITERATIONS}
     check(launches1 == want1, f"path 1 launches {launches1} != {want1}")
@@ -927,6 +1257,8 @@ def main() -> int:
         return dict(
             kernel_f32_ms=cuda_ms(
                 lambda: entity_solver.entity_lbfgs(*args, **kw32), 10),
+            device_f32_ms=device_ms(
+                lambda: entity_solver.entity_lbfgs(*args, **kw32)),
             f32_reasons_differ=int((k32.reason != p32.reason).sum()),
             f32_iterations_differ=int(
                 (k32.iterations != p32.iterations).sum()),
@@ -940,20 +1272,14 @@ def main() -> int:
           "entities stop for different reasons, "
           f"{sum(r['f32_iterations_differ'] for r in rows1)} after "
           "different iteration counts; float32 kernel "
-          f"{sum(r['kernel_f32_ms'] for r in rows1):.4f} ms vs float64 "
-          f"{sum(r['kernel_ms'] for r in rows1):.4f} ms", flush=True)
+          f"{sum(r['kernel_f32_ms'] for r in rows1):.4f} ms a call "
+          f"({sum(r['device_f32_ms'] for r in rows1):.4f} ms on the device) "
+          f"vs float64 {sum(r['kernel_ms'] for r in rows1):.4f} ms "
+          f"({sum(r['device_ms'] for r in rows1):.4f} ms)", flush=True)
 
     # ------- path 2: TRON fixed effect, elastic-net per-user effect, -------
     # ------- both standardized --------------------------------------------
-    fe_cfg2, re_cfg2 = configs_path2()
-    t0 = time.perf_counter()
-    fe_norm, re_norm = contexts_path2(train)
-    print(f"path 2 normalization contexts: "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    specs2 = [FixedEffectSpec("fixed", "global", [fe_cfg2],
-                              normalization=fe_norm),
-              RandomEffectSpec("perUser", user_cfg, [re_cfg2],
-                               intercept_col=0, normalization=re_norm)]
+    specs2 = specs[2]
     result2, launches2, buckets2 = fit_path("path 2", specs2, train, val)
     want2 = {"owlqn+normalized": buckets2["perUser"] * CD_ITERATIONS}
     check(launches2 == want2, f"path 2 launches {launches2} != {want2}")
@@ -984,20 +1310,14 @@ def main() -> int:
         "lbfgs": fold_rows}
 
     # ------- path 3: per-entity TRON on fixed, per-user, per-item --------
-    tron_cfg = GLMOptimizationConfiguration.parse(FE_TRON_CFG)
-    specs3 = [FixedEffectSpec("fixed", "global", [tron_cfg],
-                              normalization=fe_norm),
-              RandomEffectSpec("perUser", user_cfg, [tron_cfg],
-                               intercept_col=0, normalization=re_norm),
-              RandomEffectSpec("perItem", item_cfg, [tron_cfg],
-                               intercept_col=0)]
+    specs3 = specs[3]
     result3, launches3, buckets3 = fit_path("path 3", specs3, train, val)
     want3 = {"tron+normalized": buckets3["perUser"] * CD_ITERATIONS,
              "tron": buckets3["perItem"] * CD_ITERATIONS}
     check(launches3 == want3, f"path 3 launches {launches3} != {want3}")
     entities = (("perUser", N_USERS), ("perItem", N_ITEMS))
     check_model(result3, val, "path 3", entities)
-    u_lo, u_hi = box(D_USER, USER_BOX, 0)
+    u_lo, u_hi = boxes["perUser"]
     fold_box_rows = []
 
     def fold_and_box(name, block, args, kw, res_k):
@@ -1017,38 +1337,18 @@ def main() -> int:
                                  result3.trackers, extra=fold_and_box)
 
     # ------- path 4: box constraints on all three coordinates -------------
-    fe_box = box(D_FIXED, FE_BOX, D_FIXED - 1)
-    i_lo, i_hi = box(D_ITEM, ITEM_BOX, 0)
-    specs4 = [FixedEffectSpec("fixed", "global", [fe_cfg],
-                              lower_bounds=fe_box[0],
-                              upper_bounds=fe_box[1]),
-              RandomEffectSpec("perUser", user_cfg, [re_cfg],
-                               intercept_col=0, lower_bounds=u_lo,
-                               upper_bounds=u_hi),
-              RandomEffectSpec("perItem", item_cfg, [tron_cfg],
-                               intercept_col=0, lower_bounds=i_lo,
-                               upper_bounds=i_hi)]
+    specs4 = specs[4]
     result4, launches4, buckets4 = fit_path("path 4", specs4, train, val)
     want4 = {"lbfgs+bounded": buckets4["perUser"] * CD_ITERATIONS,
              "tron+bounded": buckets4["perItem"] * CD_ITERATIONS}
     check(launches4 == want4, f"path 4 launches {launches4} != {want4}")
     check_model(result4, val, "path 4", entities)
-    count_at_bounds("path 4", result4.model,
-                    {"fixed": fe_box, "perUser": (u_lo, u_hi),
-                     "perItem": (i_lo, i_hi)})
+    count_at_bounds("path 4", result4.model, boxes)
     rows4 = replay_first_updates("path 4", coordinates_of(train, specs4),
                                  result4.trackers)
 
     # ------- path 5: bench.py's full GAME, with the factored effect -------
-    fac_cfg = FactoredRandomEffectOptimizationConfiguration(
-        re_cfg, re_cfg, MFOptimizationConfiguration(MF_ITERATIONS,
-                                                    MF_FACTORS))
-    specs5 = [FixedEffectSpec("fixed", "global", [fe_cfg]),
-              RandomEffectSpec("perUser", user_cfg, [re_cfg],
-                               intercept_col=0),
-              RandomEffectSpec("perItem", item_cfg, [re_cfg],
-                               intercept_col=0),
-              FactoredRandomEffectSpec("itemFactors", item_cfg, [fac_cfg])]
+    specs5 = specs[5]
     result5, launches5, buckets5 = fit_path("path 5", specs5, train, val)
     want5 = {"lbfgs": (buckets5["perUser"] + buckets5["perItem"]
                        + buckets5["itemFactors"] * MF_ITERATIONS)

@@ -1,13 +1,14 @@
 // Per-entity GLM solve for Hopper (sm_90a): the kernels (L-BFGS/OWL-QN
-// and TRON) and their launch templates, shared by the translation units
-// entity_lbfgs_*.cu. See entity_lbfgs.cu for what they compute and how
-// they are laid out.
+// and TRON), their launch plan and the instances each translation unit
+// builds (entity_lbfgs_*.cu). See entity_lbfgs.cu for what they compute
+// and how they are laid out.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace entity_lbfgs {
 
@@ -19,7 +20,7 @@ constexpr int kMaxIterations = 1;
 constexpr int kFunctionValuesConverged = 2;
 constexpr int kGradientConverged = 3;
 constexpr int kObjectiveNotImproving = 4;
-// Modes, as the C entry point numbers them.
+// Modes, as the C entry points number them.
 constexpr int kModeLbfgs = 0;
 constexpr int kModeOwlqn = 1;
 constexpr int kModeTron = 2;
@@ -48,6 +49,9 @@ struct Params {
   int* out_reason;      // [E]
   int* out_steps;       // [E] line-search trials priced, or TRON's trips
   int* out_cg;          // [E] TRON's CG steps (TRON only)
+  int* next;            // [2]: the next entity to take and the warps
+                        // done (L-BFGS modes; 0 before a launch and
+                        // after it)
   unsigned char* workspace;  // [E, state_bytes] when the state is global
   int E, r, d, m, max_iter, max_line_search;
   double l2, l1, tol, c1;
@@ -59,48 +63,55 @@ struct Params {
 enum Layout { kAllShared = 0, kXGlobal = 1, kAllGlobal = 2 };
 
 struct Plan {
-  size_t state_bytes;  // the T working set, rounded up to 16 bytes
-  size_t warp_bytes;   // shared memory per warp (0 in kAllGlobal)
+  size_t state_bytes;   // one entity's T working set, rounded up to 16
+  size_t entity_bytes;  // shared memory per entity (0 in kAllGlobal)
   int layout;
-  int warps;           // warps (entities) per block
+  int coord_lanes;  // C: the lanes over an entity's coordinates
+  int warps;        // warps (entities) per block
 };
 
 inline size_t round16(size_t n) { return (n + 15) / 16 * 16; }
 
 // The working set of one entity, in T elements: TRON keeps 7 row vectors
 // and 11 coordinate vectors and no history; L-BFGS and OWL-QN keep 6 row
-// vectors, 8 coordinate vectors and the m (s, y) pairs. Bounds are not
-// part of it (see load_entity).
+// vectors, 8 coordinate vectors and the m (s, y) pairs with their rho and
+// alpha. Bounds are not part of it (see load_entity).
 inline size_t state_elements(int r, int d, int m, bool tron) {
   if (tron) return 7 * (size_t)r + 11 * (size_t)d;
   return 6 * (size_t)r + 8 * (size_t)d + 2 * (size_t)m * d + 2 * (size_t)m;
 }
 
-inline int make_plan(int r, int d, int m, size_t t_size, bool tron,
-                     Plan* plan) {
-  int dev = 0, budget = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &budget, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
+// The lanes a coordinate sweep needs: the smallest power of two >= d,
+// from 4 to 32.
+inline int coord_lanes_for(int d) {
+  int c = 4;
+  while (c < d && c < 32) c *= 2;
+  return c;
+}
+
+// Plans a solve of r x d entities with `budget` bytes of opt-in shared
+// memory per block. C is coord_lanes_for(d) in the shared layout of the
+// L-BFGS modes, and 32 elsewhere.
+inline void make_plan(int r, int d, int m, size_t t_size, bool tron,
+                      size_t budget, Plan* plan) {
   const size_t state = round16(t_size * state_elements(r, d, m, tron));
   const size_t x_tile = round16(4 * (size_t)r * (d + 1));
   plan->state_bytes = state;
-  if (state + x_tile <= (size_t)budget) {
-    plan->warp_bytes = state + x_tile;
+  if (state + x_tile <= budget) {
+    plan->entity_bytes = state + x_tile;
     plan->layout = kAllShared;
-  } else if (state <= (size_t)budget) {
-    plan->warp_bytes = state;
+  } else if (state <= budget) {
+    plan->entity_bytes = state;
     plan->layout = kXGlobal;
   } else {
-    plan->warp_bytes = 0;
+    plan->entity_bytes = 0;
     plan->layout = kAllGlobal;
   }
+  plan->coord_lanes =
+      !tron && plan->layout == kAllShared ? coord_lanes_for(d) : 32;
   plan->warps = kMaxWarps;
-  if (plan->warp_bytes > 0 && budget / plan->warp_bytes < kMaxWarps)
-    plan->warps = (int)(budget / plan->warp_bytes);
-  return 0;
+  if (plan->entity_bytes > 0 && budget / plan->entity_bytes < kMaxWarps)
+    plan->warps = (int)(budget / plan->entity_bytes);
 }
 
 // Math in the compute type.
@@ -206,18 +217,35 @@ struct Loss<3, T> {  // smoothed hinge on t = (2y - 1) z
   }
 };
 
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+// One warp per entity. Its coordinates go over the first C lanes (C =
+// the smallest power of two >= d, from 4 to 32; lanes past d hold zeros)
+// and its rows over all 32. A sum over the rows is an xor butterfly over
+// the 32 lanes; a sum over the coordinates one over the first C lanes
+// (log2 C steps in place of 5: for d <= C the 32-lane tree would only add
+// zeros, so the bits are the same) and, where C < 32, a broadcast from
+// lane 0. Every lane gets the same bits, so the entity's control flow is
+// uniform over its warp.
+template <int W, typename T>
+__device__ __forceinline__ T lane_sum(T v) {
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// A sum over the coordinates, on every lane.
+template <int C, typename T>
+__device__ __forceinline__ T coord_sum(T v) {
+  v = lane_sum<C>(v);
+  if constexpr (C < 32) v = __shfl_sync(kFull, v, 0);
   return v;
 }
 
 // sum_j a[j] b[j], lanes over coordinates.
-template <typename T>
+template <int C, typename T>
 __device__ T dot(const T* a, const T* b, int d, int lane) {
   T s = T(0);
-  for (int j = lane; j < d; j += 32) s += a[j] * b[j];
-  return warp_sum(s);
+  for (int j = lane; j < d; j += C) s += a[j] * b[j];
+  return coord_sum<C>(s);
 }
 
 // The entity's x as the solve sees it. In the shared layout the tile
@@ -231,7 +259,7 @@ struct XView {
   const T* fa;  // null: no fold on read
   const T* sh;
   __device__ __forceinline__ T at(int i, int j) const {
-    const float v = xs[(size_t)i * ld + j];
+    const float v = xs[i * ld + j];
     if constexpr (LAYOUT != kAllShared) {
       if (fa != nullptr) return (T)fold(v, sh[j], fa[j]);
     }
@@ -251,7 +279,7 @@ __device__ void margins(const XView<T, LAYOUT>& xv, const T* v, const T* off,
 }
 
 // out[j] = l2 c[j] + sum_i x[i, j] u[i] with u = w * l'(z, y).
-template <int LOSS, typename T, int LAYOUT>
+template <int LOSS, int C, typename T, int LAYOUT>
 __device__ void gradient(const XView<T, LAYOUT>& xv, const T* z, const T* y,
                          const T* w, T* u, const T* c, T l2, T* out, int r,
                          int d, int lane) {
@@ -259,7 +287,7 @@ __device__ void gradient(const XView<T, LAYOUT>& xv, const T* z, const T* y,
   for (int i = lane; i < r; i += 32)
     u[i] = w[i] * Loss<LOSS, T>::d1(z[i], y[i]);
   __syncwarp();
-  for (int j = lane; j < d; j += 32) {
+  for (int j = lane; j < d; j += C) {
     T acc = l2 * c[j];
     for (int i = 0; i < r; ++i) acc += xv.at(i, j) * u[i];
     out[j] = acc;
@@ -273,59 +301,100 @@ __device__ T data_value(const T* z, const T* zp, T t, const T* y, const T* w,
   T s = T(0);
   for (int i = lane; i < r; i += 32)
     s += w[i] * Loss<LOSS, T>::value(zp ? z[i] + t * zp[i] : z[i], y[i]);
-  return warp_sum(s);
+  return lane_sum<32>(s);
 }
 
 // sum_j |v[j]|, lanes over coordinates.
-template <typename T>
+template <int C, typename T>
 __device__ T l1_norm(const T* v, int d, int lane) {
   T s = T(0);
-  for (int j = lane; j < d; j += 32) s += ab(v[j]);
-  return warp_sum(s);
+  for (int j = lane; j < d; j += C) s += ab(v[j]);
+  return coord_sum<C>(s);
 }
 
 // |pg(c, g)|: the OWL-QN stationarity measure.
-template <typename T>
+template <int C, typename T>
 __device__ T pg_norm(const T* c, const T* g, T l1, int d, int lane) {
   T s = T(0);
-  for (int j = lane; j < d; j += 32) {
+  for (int j = lane; j < d; j += C) {
     const T p = pseudo_grad(c[j], g[j], l1);
     s += p * p;
   }
-  return rt(warp_sum(s));
+  return rt(coord_sum<C>(s));
+}
+
+// One value of the x tile, folded when normalized.
+template <typename T>
+__device__ __forceinline__ float tile_value(float v, bool normalized,
+                                            const T* fa, const T* sh,
+                                            int j) {
+  return normalized ? fold(v, sh[j], fa[j]) : v;
 }
 
 // Loads one entity's factor and shift when normalized, its x tile into
 // shared memory in the shared layout (folded there when normalized), its
 // rows and c0 (projected when bounded). Returns the view the solve reads
-// x through. The bounds stay in device memory, read in place (read-only
+// x through. The tile is read with 16-byte loads where the entity's x is
+// 16-byte aligned, and laid out with row stride d + 1 (lanes over rows
+// then hit distinct banks); its row and column advance by additions, not
+// divisions. The bounds stay in device memory, read in place (read-only
 // and cached) by the few projections that use them: staged in the
-// working set they would cost 2 d of shared memory per warp, which at
+// working set they would cost 2 d of shared memory per entity, which at
 // n_pad 64, d_pad 32 drops an SM from 3 blocks of 4 warps to 2.
-template <typename T, int LAYOUT>
-__device__ XView<T, LAYOUT> load_entity(const Params& p, const Plan& plan,
-                                        unsigned char* base, int e, T* y,
+template <int C, typename T, int LAYOUT>
+__device__ XView<T, LAYOUT> load_entity(const Params& p, unsigned char* base,
+                                        size_t state_bytes, int e, T* y,
                                         T* off, T* w, T* c, T* fa, T* sh,
                                         int lane) {
   const int r = p.r, d = p.d;
   const bool normalized = p.factor != nullptr;
   const bool bounded = p.lower != nullptr;
   if (normalized)
-    for (int j = lane; j < d; j += 32) {
+    for (int j = lane; j < d; j += C) {
       const size_t o = (size_t)e * d + j;
       fa[j] = (T)p.factor[o];
       sh[j] = (T)p.shift[o];
     }
   __syncwarp();
-  const size_t rd = (size_t)r * d;
-  const float* xe = p.x + (size_t)e * rd;
+  const float* xe = p.x + (size_t)e * r * d;
   XView<T, LAYOUT> xv{xe, d, normalized ? fa : nullptr, sh};
   if constexpr (LAYOUT == kAllShared) {
-    float* tile = reinterpret_cast<float*>(base + plan.state_bytes);
-    const int ld = d + 1;
-    for (size_t k = lane; k < rd; k += 32) {
-      const size_t i = k / d, j = k - i * d;
-      tile[i * ld + j] = normalized ? fold(xe[k], sh[j], fa[j]) : xe[k];
+    float* tile = reinterpret_cast<float*>(base + state_bytes);
+    const int ld = d + 1, rd = r * d;
+    if ((rd & 3) == 0 && (reinterpret_cast<uintptr_t>(xe) & 15) == 0) {
+      const int step = 4 * 32, si = step / d, sj = step - si * d;
+      int k = 4 * lane, i = k / d, j = k - i * d;
+      for (; k < rd; k += step) {
+        const float4 v = *reinterpret_cast<const float4*>(xe + k);
+        const float vs[4] = {v.x, v.y, v.z, v.w};
+        int ii = i, jj = j;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          tile[ii * ld + jj] = tile_value(vs[q], normalized, fa, sh, jj);
+          if (++jj == d) {
+            jj = 0;
+            ++ii;
+          }
+        }
+        i += si;
+        j += sj;
+        if (j >= d) {
+          j -= d;
+          ++i;
+        }
+      }
+    } else {
+      const int si = 32 / d, sj = 32 - si * d;
+      int i = lane / d, j = lane - i * d;
+      for (int k = lane; k < rd; k += 32) {
+        tile[i * ld + j] = tile_value(xe[k], normalized, fa, sh, j);
+        i += si;
+        j += sj;
+        if (j >= d) {
+          j -= d;
+          ++i;
+        }
+      }
     }
     xv.xs = tile;
     xv.ld = ld;
@@ -336,7 +405,7 @@ __device__ XView<T, LAYOUT> load_entity(const Params& p, const Plan& plan,
     off[i] = p.off[o];
     w[i] = p.w[o];
   }
-  for (int j = lane; j < d; j += 32) {
+  for (int j = lane; j < d; j += C) {
     const size_t o = (size_t)e * d + j;
     const T c0 = p.c0[o];
     c[j] = bounded ? box(c0, (T)p.lower[o], (T)p.upper[o]) : c0;
@@ -351,14 +420,78 @@ __device__ __forceinline__ const float* entity_row(const float* a, int e,
   return a != nullptr ? a + (size_t)e * d : nullptr;
 }
 
-template <int LOSS, typename T, int LAYOUT, bool OWLQN>
-__global__ void __launch_bounds__(128)
-    entity_lbfgs_kernel(Params p, Plan plan) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int e = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (e >= p.E) return;  // whole warps only: no block barrier follows
+// The two-loop recursion (newest pair first, then oldest first) for d <=
+// C, one coordinate per lane: the direction stays in a register, and
+// each step loads the next pair's s, y and rho before its reduction, so
+// the loads leave the serial chain of dot -> shuffle -> update. The
+// arithmetic and its order are those of the general loop in solve_lbfgs
+// (lanes past d carry zeros), so the bits are the same. Leaves
+// -H q0 in dir[0, d).
+template <int C, typename T>
+__device__ __forceinline__ void two_loop_in_registers(
+    const T* S, const T* Y, const T* rho, T* alpha, const T* q0, T* dir,
+    int head, int m, int d, int count, T eps, int lane) {
+  const bool own = lane < d;
+  T q = own ? q0[lane] : T(0);
+  int h = head;
+  T sv = own ? S[h * d + lane] : T(0), yv = own ? Y[h * d + lane] : T(0);
+  T rh = rho[h];
+  for (int kk = 0; kk < m; ++kk) {
+    const int hn = h == 0 ? m - 1 : h - 1;
+    T sv_n = T(0), yv_n = T(0), rh_n = T(0);
+    if (kk + 1 < m) {
+      sv_n = own ? S[hn * d + lane] : T(0);
+      yv_n = own ? Y[hn * d + lane] : T(0);
+      rh_n = rho[hn];
+    }
+    const T a = rh * coord_sum<C>(T(0) + sv * q);
+    if (lane == 0) alpha[h] = a;
+    if (own) q -= a * yv;
+    h = hn;
+    sv = sv_n;
+    yv = yv_n;
+    rh = rh_n;
+  }
+  const T* s_new = S + head * d;
+  const T* y_new = Y + head * d;
+  const T yy = dot<C>(y_new, y_new, d, lane);
+  const T sy_new = dot<C>(s_new, y_new, d, lane);
+  const T gamma = count > 0 ? sy_new / mx(yy, eps) : T(1);
+  if (own) q *= gamma;
+  __syncwarp();  // alpha
+  h = head == m - 1 ? 0 : head + 1;
+  sv = own ? S[h * d + lane] : T(0);
+  yv = own ? Y[h * d + lane] : T(0);
+  rh = rho[h];
+  T al = alpha[h];
+  for (int kk = 0; kk < m; ++kk) {
+    const int hn = h == m - 1 ? 0 : h + 1;
+    T sv_n = T(0), yv_n = T(0), rh_n = T(0), al_n = T(0);
+    if (kk + 1 < m) {
+      sv_n = own ? S[hn * d + lane] : T(0);
+      yv_n = own ? Y[hn * d + lane] : T(0);
+      rh_n = rho[hn];
+      al_n = alpha[hn];
+    }
+    const T b = rh * coord_sum<C>(T(0) + yv * q);
+    const T coef = al - b;
+    if (own) q += coef * sv;
+    h = hn;
+    sv = sv_n;
+    yv = yv_n;
+    rh = rh_n;
+    al = al_n;
+  }
+  if (own) dir[lane] = -q;
+}
+
+// One entity's L-BFGS or OWL-QN solve on the warp's `lane`, its working
+// set at `base`. The (s, y) history is a ring: slot `head` holds the newest
+// pair, slot (head - k) mod m the k-th newest, so storing a pair writes
+// one slot where a shift-left copied m - 1 of them.
+template <int LOSS, typename T, int LAYOUT, bool OWLQN, int C>
+__device__ void solve_lbfgs(const Params& p, size_t state_bytes,
+                            unsigned char* base, int e, int lane) {
   const int r = p.r, d = p.d, m = p.m;
   const T l2 = (T)p.l2, l1 = (T)p.l1, tol = (T)p.tol, c1 = (T)p.c1;
   const T eps = (T)kCautiousEps;
@@ -367,11 +500,6 @@ __global__ void __launch_bounds__(128)
   // uniform over a launch, like the fold.
   const bool projected = OWLQN || p.lower != nullptr;
 
-  unsigned char* base;
-  if constexpr (LAYOUT == kAllGlobal)
-    base = p.workspace + (size_t)e * plan.state_bytes;
-  else
-    base = smem + (size_t)warp * plan.warp_bytes;
   T* y = reinterpret_cast<T*>(base);
   T* off = y + r;
   T* w = off + r;
@@ -387,71 +515,82 @@ __global__ void __launch_bounds__(128)
   T* fa = pg + d;
   T* sh = fa + d;
   T* S = sh + d;
-  T* Y = S + (size_t)m * d;
-  T* rho = Y + (size_t)m * d;
+  T* Y = S + m * d;
+  T* rho = Y + m * d;
   T* alpha = rho + m;
 
   const float* lb = entity_row(p.lower, e, d);
   const float* ub = entity_row(p.upper, e, d);
-  const XView<T, LAYOUT> xv =
-      load_entity<T, LAYOUT>(p, plan, base, e, y, off, w, c, fa, sh, lane);
-  for (size_t k = lane; k < (size_t)m * d; k += 32) S[k] = Y[k] = T(0);
+  const XView<T, LAYOUT> xv = load_entity<C, T, LAYOUT>(
+      p, base, state_bytes, e, y, off, w, c, fa, sh, lane);
+  for (int k = lane; k < m * d; k += 32) S[k] = Y[k] = T(0);
   for (int k = lane; k < m; k += 32) rho[k] = T(0);
   __syncwarp();
 
   margins(xv, c, off, z, r, d, lane);
   T f = data_value<LOSS, T>(z, (const T*)nullptr, T(0), y, w, r, lane) +
-        T(0.5) * l2 * dot(c, c, d, lane);
-  if constexpr (OWLQN) f += l1 * l1_norm(c, d, lane);
-  gradient<LOSS, T>(xv, z, y, w, u, c, l2, g, r, d, lane);
+        T(0.5) * l2 * dot<C>(c, c, d, lane);
+  if constexpr (OWLQN) f += l1 * l1_norm<C>(c, d, lane);
+  gradient<LOSS, C>(xv, z, y, w, u, c, l2, g, r, d, lane);
   __syncwarp();
-  const T gnorm0 =
-      OWLQN ? pg_norm(c, g, l1, d, lane) : rt(dot(g, g, d, lane));
+  const T gnorm0 = OWLQN ? pg_norm<C>(c, g, l1, d, lane) : rt(dot<C>(g, g, d, lane));
   const T f0_scale = mx(ab(f), (T)1e-30);
   T gnorm = gnorm0;
   int reason = gnorm0 <= T(0) ? kGradientConverged : kNotConverged;
-  int it = 0, count = 0, trials = 0;
+  int it = 0, count = 0, trials = 0, head = m - 1;
 
   for (int k = 0; k < p.max_iter && reason == kNotConverged; ++k) {
     // The gradient the direction descends: g, or OWL-QN's pseudo-gradient.
     const T* q0 = g;
     if constexpr (OWLQN) {
-      for (int j = lane; j < d; j += 32) pg[j] = pseudo_grad(c[j], g[j], l1);
+      for (int j = lane; j < d; j += C) pg[j] = pseudo_grad(c[j], g[j], l1);
       __syncwarp();
       q0 = pg;
     }
     // Direction: two-loop recursion, newest pair first.
-    for (int j = lane; j < d; j += 32) dir[j] = q0[j];
-    for (int h = m - 1; h >= 0; --h) {
-      const T a = rho[h] * dot(S + (size_t)h * d, dir, d, lane);
-      if (lane == 0) alpha[h] = a;
-      for (int j = lane; j < d; j += 32) dir[j] -= a * Y[(size_t)h * d + j];
+    if (d <= C) {
+      two_loop_in_registers<C>(S, Y, rho, alpha, q0, dir, head, m, d, count,
+                               eps, lane);
+      if constexpr (OWLQN) {
+        // Keep only the components that descend along -pg.
+        if (lane < d && !(dir[lane] * pg[lane] < T(0))) dir[lane] = T(0);
+      }
+      __syncwarp();
+      if (dot<C>(dir, q0, d, lane) >= T(0) && lane < d) dir[lane] = -q0[lane];
+    } else {
+      for (int j = lane; j < d; j += C) dir[j] = q0[j];
+      for (int kk = 0, h = head; kk < m; ++kk, h = h == 0 ? m - 1 : h - 1) {
+        const T a = rho[h] * dot<C>(S + h * d, dir, d, lane);
+        if (lane == 0) alpha[h] = a;
+        for (int j = lane; j < d; j += C) dir[j] -= a * Y[h * d + j];
+      }
+      const T* s_new = S + head * d;
+      const T* y_new = Y + head * d;
+      const T yy = dot<C>(y_new, y_new, d, lane);
+      const T sy_new = dot<C>(s_new, y_new, d, lane);
+      const T gamma = count > 0 ? sy_new / mx(yy, eps) : T(1);
+      for (int j = lane; j < d; j += C) dir[j] *= gamma;
+      __syncwarp();
+      for (int kk = 0, h = head == m - 1 ? 0 : head + 1; kk < m;
+           ++kk, h = h == m - 1 ? 0 : h + 1) {
+        const T b = rho[h] * dot<C>(Y + h * d, dir, d, lane);
+        const T coef = alpha[h] - b;
+        for (int j = lane; j < d; j += C) dir[j] += coef * S[h * d + j];
+      }
+      for (int j = lane; j < d; j += C) dir[j] = -dir[j];
+      if constexpr (OWLQN) {
+        // Keep only the components that descend along -pg.
+        for (int j = lane; j < d; j += C)
+          if (!(dir[j] * pg[j] < T(0))) dir[j] = T(0);
+      }
+      if (dot<C>(dir, q0, d, lane) >= T(0))
+        for (int j = lane; j < d; j += C) dir[j] = -q0[j];
     }
-    const T* s_new = S + (size_t)(m - 1) * d;
-    const T* y_new = Y + (size_t)(m - 1) * d;
-    const T yy = dot(y_new, y_new, d, lane);
-    const T sy_new = dot(s_new, y_new, d, lane);
-    const T gamma = count > 0 ? sy_new / mx(yy, eps) : T(1);
-    for (int j = lane; j < d; j += 32) dir[j] *= gamma;
-    __syncwarp();
-    for (int h = 0; h < m; ++h) {
-      const T b = rho[h] * dot(Y + (size_t)h * d, dir, d, lane);
-      const T coef = alpha[h] - b;
-      for (int j = lane; j < d; j += 32) dir[j] += coef * S[(size_t)h * d + j];
-    }
-    for (int j = lane; j < d; j += 32) dir[j] = -dir[j];
-    if constexpr (OWLQN) {
-      // Keep only the components that descend along -pg.
-      for (int j = lane; j < d; j += 32)
-        if (!(dir[j] * pg[j] < T(0))) dir[j] = T(0);
-    }
-    if (dot(dir, q0, d, lane) >= T(0))
-      for (int j = lane; j < d; j += 32) dir[j] = -q0[j];
     __syncwarp();
 
     bool ok = false;
     T t_acc = T(0), f_new = T(0);
-    const T pp = dot(dir, dir, d, lane);
+    const T pp = dot<C>(dir, dir, d, lane);
     const T t0 = count == 0 ? T(1) / mx(rt(pp), T(1)) : T(1);
     if (projected) {
       // Projected trials (onto the orthant in OWL-QN, onto the box with
@@ -460,7 +599,7 @@ __global__ void __launch_bounds__(128)
       // point is built in cn and its margins in zp.
       for (int kk = 0; kk <= p.max_line_search; ++kk) {
         const T t = half_pow(t0, kk);  // t0 * 0.5^kk, exactly
-        for (int j = lane; j < d; j += 32) {
+        for (int j = lane; j < d; j += C) {
           const T xt = c[j] + t * dir[j];
           if constexpr (OWLQN) {
             const int orth = c[j] != T(0) ? sgn(c[j]) : sgn(-pg[j]);
@@ -472,12 +611,12 @@ __global__ void __launch_bounds__(128)
         __syncwarp();
         margins(xv, cn, off, zp, r, d, lane);
         T dec = T(0);
-        for (int j = lane; j < d; j += 32) dec += q0[j] * (cn[j] - c[j]);
-        dec = warp_sum(dec);
+        for (int j = lane; j < d; j += C) dec += q0[j] * (cn[j] - c[j]);
+        dec = coord_sum<C>(dec);
         T ft = data_value<LOSS, T>(zp, (const T*)nullptr, T(0), y, w, r,
                                    lane) +
-               T(0.5) * l2 * dot(cn, cn, d, lane);
-        if constexpr (OWLQN) ft += l1 * l1_norm(cn, d, lane);
+               T(0.5) * l2 * dot<C>(cn, cn, d, lane);
+        if constexpr (OWLQN) ft += l1 * l1_norm<C>(cn, d, lane);
         ++trials;
         if (ft <= f + c1 * dec && finite(ft)) {
           ok = true;
@@ -490,9 +629,9 @@ __global__ void __launch_bounds__(128)
       // Line search priced from cached margins: zp = (X d + off) - off.
       margins(xv, dir, off, zp, r, d, lane);
       for (int i = lane; i < r; i += 32) zp[i] -= off[i];
-      const T xx = dot(c, c, d, lane);
-      const T xp = dot(c, dir, d, lane);
-      const T gp = dot(g, dir, d, lane);
+      const T xx = dot<C>(c, c, d, lane);
+      const T xp = dot<C>(c, dir, d, lane);
+      const T gp = dot<C>(g, dir, d, lane);
       for (int kk = 0; kk <= p.max_line_search; ++kk) {
         const T t = half_pow(t0, kk);  // t0 * 0.5^kk, exactly
         const T ft = data_value<LOSS, T>(z, (const T*)zp, t, y, w, r, lane) +
@@ -517,39 +656,32 @@ __global__ void __launch_bounds__(128)
       // Pallas kernel's accumulator rule).
       for (int i = lane; i < r; i += 32) z[i] = finite(zp[i]) ? zp[i] : T(0);
     } else {
-      for (int j = lane; j < d; j += 32) cn[j] = c[j] + t_acc * dir[j];
+      for (int j = lane; j < d; j += C) cn[j] = c[j] + t_acc * dir[j];
       for (int i = lane; i < r; i += 32) z[i] += t_acc * zp[i];
     }
-    gradient<LOSS, T>(xv, z, y, w, u, cn, l2, gn, r, d, lane);
+    gradient<LOSS, C>(xv, z, y, w, u, cn, l2, gn, r, d, lane);
     __syncwarp();
     const T gnorm_new =
-        OWLQN ? pg_norm(cn, gn, l1, d, lane) : rt(dot(gn, gn, d, lane));
+        OWLQN ? pg_norm<C>(cn, gn, l1, d, lane) : rt(dot<C>(gn, gn, d, lane));
 
     // Cautious history update, from the smooth gradients.
     T sy = T(0), ss = T(0), yy2 = T(0);
-    for (int j = lane; j < d; j += 32) {
+    for (int j = lane; j < d; j += C) {
       const T sj = cn[j] - c[j], yj = gn[j] - g[j];
       sy += sj * yj;
       ss += sj * sj;
       yy2 += yj * yj;
     }
-    sy = warp_sum(sy);
-    ss = warp_sum(ss);
-    yy2 = warp_sum(yy2);
+    sy = coord_sum<C>(sy);
+    ss = coord_sum<C>(ss);
+    yy2 = coord_sum<C>(yy2);
     if (sy > eps * rt(ss) * rt(yy2)) {
-      for (int h = 0; h + 1 < m; ++h)
-        for (int j = lane; j < d; j += 32) {
-          S[(size_t)h * d + j] = S[(size_t)(h + 1) * d + j];
-          Y[(size_t)h * d + j] = Y[(size_t)(h + 1) * d + j];
-        }
-      for (int j = lane; j < d; j += 32) {
-        S[(size_t)(m - 1) * d + j] = cn[j] - c[j];
-        Y[(size_t)(m - 1) * d + j] = gn[j] - g[j];
+      head = head == m - 1 ? 0 : head + 1;  // the oldest slot
+      for (int j = lane; j < d; j += C) {
+        S[head * d + j] = cn[j] - c[j];
+        Y[head * d + j] = gn[j] - g[j];
       }
-      if (lane == 0) {
-        for (int h = 0; h + 1 < m; ++h) rho[h] = rho[h + 1];
-        rho[m - 1] = sy != T(0) ? T(1) / sy : T(0);
-      }
+      if (lane == 0) rho[head] = sy != T(0) ? T(1) / sy : T(0);
       count = count + 1 < m ? count + 1 : m;
     }
 
@@ -560,7 +692,7 @@ __global__ void __launch_bounds__(128)
     else if (it >= p.max_iter)
       reason = kMaxIterations;
     __syncwarp();
-    for (int j = lane; j < d; j += 32) {
+    for (int j = lane; j < d; j += C) {
       c[j] = cn[j];
       g[j] = gn[j];
     }
@@ -569,13 +701,49 @@ __global__ void __launch_bounds__(128)
     __syncwarp();
   }
 
-  for (int j = lane; j < d; j += 32) p.out_c[(size_t)e * d + j] = (float)c[j];
+  for (int j = lane; j < d; j += C)
+    p.out_c[(size_t)e * d + j] = (float)c[j];
   if (lane == 0) {
     p.out_f[e] = (float)f;
     p.out_gnorm[e] = (float)gnorm;
     p.out_it[e] = it;
     p.out_reason[e] = reason;
     p.out_steps[e] = trials;
+  }
+}
+
+// The L-BFGS and OWL-QN kernel: a persistent grid whose warps each take
+// the next entity from p.next until none is left, so no block waits on
+// its slowest entity and no partial last wave idles. The last warp to
+// finish sets the counter pair back to 0 for the next launch.
+template <int LOSS, typename T, int LAYOUT, bool OWLQN, int C>
+__global__ void __launch_bounds__(128)
+    entity_lbfgs_kernel(Params p, Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned char* slot = smem + (size_t)warp * plan.entity_bytes;
+  for (;;) {
+    int e = 0;
+    if (lane == 0) e = atomicAdd(p.next, 1);
+    e = __shfl_sync(kFull, e, 0);
+    if (e >= p.E) break;  // whole warps only: no block barrier follows
+    unsigned char* base =
+        LAYOUT == kAllGlobal ? p.workspace + (size_t)e * plan.state_bytes
+                             : slot;
+    solve_lbfgs<LOSS, T, LAYOUT, OWLQN, C>(p, plan.state_bytes, base, e,
+                                           lane);
+    __syncwarp();  // the warp is done with the slot
+  }
+  if (lane == 0) {
+    // Every warp takes one ticket past E before it counts itself done, so
+    // the last one done is the last to touch p.next.
+    __threadfence();
+    const int warps = (int)(gridDim.x * (blockDim.x >> 5));
+    if (atomicAdd(p.next + 1, 1) == warps - 1) {
+      atomicExch(p.next, 0);
+      atomicExch(p.next + 1, 0);
+    }
   }
 }
 
@@ -606,13 +774,13 @@ __device__ void hess_vec(const XView<T, LAYOUT>& xv, const T* d2w,
 template <typename T>
 __device__ T stat_norm(const T* c, const T* g, const float* lb,
                        const float* ub, int d, int lane) {
-  if (lb == nullptr) return rt(dot(g, g, d, lane));
+  if (lb == nullptr) return rt(dot<32>(g, g, d, lane));
   T s = T(0);
   for (int j = lane; j < d; j += 32) {
     const T v = c[j] - box(c[j] - g[j], (T)lb[j], (T)ub[j]);
     s += v * v;
   }
-  return rt(warp_sum(s));
+  return rt(lane_sum<32>(s));
 }
 
 // Per-entity TRON (the Pallas _make_tron_kernel): a trust-region loop
@@ -638,7 +806,7 @@ __global__ void __launch_bounds__(128) entity_tron_kernel(Params p, Plan plan) {
   if constexpr (LAYOUT == kAllGlobal)
     base = p.workspace + (size_t)e * plan.state_bytes;
   else
-    base = smem + (size_t)warp * plan.warp_bytes;
+    base = smem + (size_t)warp * plan.entity_bytes;
   T* y = reinterpret_cast<T*>(base);
   T* off = y + r;
   T* w = off + r;
@@ -661,12 +829,12 @@ __global__ void __launch_bounds__(128) entity_tron_kernel(Params p, Plan plan) {
   const float* lb = entity_row(p.lower, e, d);
   const float* ub = entity_row(p.upper, e, d);
 
-  const XView<T, LAYOUT> xv =
-      load_entity<T, LAYOUT>(p, plan, base, e, y, off, w, c, fa, sh, lane);
+  const XView<T, LAYOUT> xv = load_entity<32, T, LAYOUT>(
+      p, base, plan.state_bytes, e, y, off, w, c, fa, sh, lane);
   margins(xv, c, off, z, r, d, lane);
   T f = data_value<LOSS, T>(z, (const T*)nullptr, T(0), y, w, r, lane) +
-        T(0.5) * l2 * dot(c, c, d, lane);
-  gradient<LOSS, T>(xv, z, y, w, u, c, l2, g, r, d, lane);
+        T(0.5) * l2 * dot<32>(c, c, d, lane);
+  gradient<LOSS, 32>(xv, z, y, w, u, c, l2, g, r, d, lane);
   __syncwarp();
   const T gnorm0 = stat_norm(c, g, lb, ub, d, lane);
   const T f0_scale = mx(ab(f), tiny);
@@ -692,14 +860,14 @@ __global__ void __launch_bounds__(128) entity_tron_kernel(Params p, Plan plan) {
       dv[j] = -gc;
       gg += gc * gc;
     }
-    gg = warp_sum(gg);
+    gg = lane_sum<32>(gg);
     // Steihaug-Toint truncated CG.
     const T stop_norm = (T)kCgXi * rt(gg);
     T rtr = gg;
     bool done = rt(gg) <= stop_norm;
     for (int kk = 0; kk < kMaxCg && !done; ++kk) {
       hess_vec(xv, d2w, dv, mask, l2, u, hd, r, d, lane);
-      const T dhd = dot(dv, hd, d, lane);
+      const T dhd = dot<32>(dv, hd, d, lane);
       const T alpha = rtr / (dhd > T(0) ? dhd : T(1));
       T sts = T(0), std_ = T(0), dd = T(0), ss = T(0);
       for (int j = lane; j < d; j += 32) {
@@ -709,10 +877,10 @@ __global__ void __launch_bounds__(128) entity_tron_kernel(Params p, Plan plan) {
         dd += dv[j] * dv[j];
         ss += s[j] * s[j];
       }
-      sts = warp_sum(sts);
-      std_ = warp_sum(std_);
-      dd = warp_sum(dd);
-      ss = warp_sum(ss);
+      sts = lane_sum<32>(sts);
+      std_ = lane_sum<32>(std_);
+      dd = lane_sum<32>(dd);
+      ss = lane_sum<32>(ss);
       const bool crossed = sts > delta * delta || dhd <= T(0);
       const T gap = nmax(delta * delta - ss, T(0));
       const T rad = rt(nmax(std_ * std_ + dd * gap, T(0)));
@@ -723,7 +891,7 @@ __global__ void __launch_bounds__(128) entity_tron_kernel(Params p, Plan plan) {
         s[j] += step * dv[j];
         rr[j] -= step * hd[j];
       }
-      const T rtr_new = dot(rr, rr, d, lane);
+      const T rtr_new = dot<32>(rr, rr, d, lane);
       const T beta = rtr_new / nmax(rtr, tiny);
       for (int j = lane; j < d; j += 32) dv[j] = rr[j] + beta * dv[j];
       __syncwarp();
@@ -742,19 +910,19 @@ __global__ void __launch_bounds__(128) entity_tron_kernel(Params p, Plan plan) {
     margins(xv, cn, off, zt, r, d, lane);
     const T f_new =
         data_value<LOSS, T>(zt, (const T*)nullptr, T(0), y, w, r, lane) +
-        T(0.5) * l2 * dot(cn, cn, d, lane);
-    gradient<LOSS, T>(xv, zt, y, w, u, cn, l2, gn, r, d, lane);
+        T(0.5) * l2 * dot<32>(cn, cn, d, lane);
+    gradient<LOSS, 32>(xv, zt, y, w, u, cn, l2, gn, r, d, lane);
     __syncwarp();
-    const T gs = dot(g, sr, d, lane);
+    const T gs = dot<32>(g, sr, d, lane);
     T prered;
     if (bounded) {
       hess_vec(xv, d2w, sr, (const T*)nullptr, l2, u, hd, r, d, lane);
-      prered = -(gs + T(0.5) * dot(sr, hd, d, lane));
+      prered = -(gs + T(0.5) * dot<32>(sr, hd, d, lane));
     } else {
-      prered = T(-0.5) * (gs - dot(s, rr, d, lane));
+      prered = T(-0.5) * (gs - dot<32>(s, rr, d, lane));
     }
     const T actred = f - f_new;
-    const T snorm = rt(dot(sr, sr, d, lane));
+    const T snorm = rt(dot<32>(sr, sr, d, lane));
 
     // LIBLINEAR's radius update.
     T delta_n = trips == 0 ? nmin(delta, snorm) : delta;
@@ -813,67 +981,54 @@ __global__ void __launch_bounds__(128) entity_tron_kernel(Params p, Plan plan) {
 
 using KernelFn = void (*)(Params, Plan);
 
-template <int LOSS, typename T, int LAYOUT, int MODE>
-KernelFn kernel_of() {
-  if constexpr (MODE == kModeTron)
-    return entity_tron_kernel<LOSS, T, LAYOUT>;
-  else
-    return entity_lbfgs_kernel<LOSS, T, LAYOUT, MODE == kModeOwlqn>;
-}
-
-inline int launch_kernel(KernelFn kernel, const Params& p, const Plan& plan,
-                         cudaStream_t stream) {
-  const size_t smem = plan.warp_bytes * plan.warps;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (p.E + plan.warps - 1) / plan.warps;
-  kernel<<<blocks, 32 * plan.warps, smem, stream>>>(p, plan);
-  return (int)cudaGetLastError();
-}
-
+// The instance for a plan: TRON in its three layouts; L-BFGS and OWL-QN
+// with C = 4, 8, 16 or 32 in the shared layout and C = 32 in the
+// device-memory layouts.
 template <int LOSS, typename T, int MODE>
-int launch(const Params& p, cudaStream_t stream) {
-  Plan plan;
-  int err = make_plan(p.r, p.d, p.m, sizeof(T), MODE == kModeTron, &plan);
-  if (err != 0) return err;
-  switch (plan.layout) {
-    case kAllShared:
-      return launch_kernel(kernel_of<LOSS, T, kAllShared, MODE>(), p, plan,
-                           stream);
-    case kXGlobal:
-      return launch_kernel(kernel_of<LOSS, T, kXGlobal, MODE>(), p, plan,
-                           stream);
-    default:
-      if (p.workspace == nullptr) return (int)cudaErrorInvalidValue;
-      return launch_kernel(kernel_of<LOSS, T, kAllGlobal, MODE>(), p, plan,
-                           stream);
+KernelFn plan_kernel(const Plan& plan) {
+  if constexpr (MODE == kModeTron) {
+    switch (plan.layout) {
+      case kAllShared: return entity_tron_kernel<LOSS, T, kAllShared>;
+      case kXGlobal: return entity_tron_kernel<LOSS, T, kXGlobal>;
+      default: return entity_tron_kernel<LOSS, T, kAllGlobal>;
+    }
+  } else {
+    constexpr bool kOwlqn = MODE == kModeOwlqn;
+    if (plan.layout == kXGlobal)
+      return entity_lbfgs_kernel<LOSS, T, kXGlobal, kOwlqn, 32>;
+    if (plan.layout == kAllGlobal)
+      return entity_lbfgs_kernel<LOSS, T, kAllGlobal, kOwlqn, 32>;
+    switch (plan.coord_lanes) {
+      case 4: return entity_lbfgs_kernel<LOSS, T, kAllShared, kOwlqn, 4>;
+      case 8: return entity_lbfgs_kernel<LOSS, T, kAllShared, kOwlqn, 8>;
+      case 16: return entity_lbfgs_kernel<LOSS, T, kAllShared, kOwlqn, 16>;
+      default: return entity_lbfgs_kernel<LOSS, T, kAllShared, kOwlqn, 32>;
+    }
   }
 }
 
-// Launchers of one (mode, compute type) for every loss the mode takes,
-// one per translation unit so that nvcc builds them in parallel.
-int launch_lbfgs_f64(const Params& p, int loss, cudaStream_t stream);
-int launch_lbfgs_f32(const Params& p, int loss, cudaStream_t stream);
-int launch_owlqn_f64(const Params& p, int loss, cudaStream_t stream);
-int launch_owlqn_f32(const Params& p, int loss, cudaStream_t stream);
-int launch_tron_f64(const Params& p, int loss, cudaStream_t stream);
-int launch_tron_f32(const Params& p, int loss, cudaStream_t stream);
-
+// A unit's instance for `loss` (kernel_id 0-3; TRON 0-2 only), or
+// nullptr.
 template <typename T, int MODE>
-int launch_loss(const Params& p, int loss, cudaStream_t stream) {
+KernelFn unit_kernel(const Plan& plan, int loss) {
   switch (loss) {
-    case 0: return launch<0, T, MODE>(p, stream);
-    case 1: return launch<1, T, MODE>(p, stream);
-    case 2: return launch<2, T, MODE>(p, stream);
+    case 0: return plan_kernel<0, T, MODE>(plan);
+    case 1: return plan_kernel<1, T, MODE>(plan);
+    case 2: return plan_kernel<2, T, MODE>(plan);
     case 3:
       // TRON needs a twice-differentiable loss.
-      if constexpr (MODE == kModeTron) return (int)cudaErrorInvalidValue;
-      else return launch<3, T, MODE>(p, stream);
-    default: return (int)cudaErrorInvalidValue;
+      if constexpr (MODE == kModeTron) return nullptr;
+      else return plan_kernel<3, T, MODE>(plan);
+    default: return nullptr;
   }
 }
+
+// One per translation unit, so that nvcc builds them in parallel.
+KernelFn kernel_lbfgs_f64(const Plan& plan, int loss);
+KernelFn kernel_lbfgs_f32(const Plan& plan, int loss);
+KernelFn kernel_owlqn_f64(const Plan& plan, int loss);
+KernelFn kernel_owlqn_f32(const Plan& plan, int loss);
+KernelFn kernel_tron_f64(const Plan& plan, int loss);
+KernelFn kernel_tron_f32(const Plan& plan, int loss);
 
 }  // namespace entity_lbfgs

@@ -1,12 +1,12 @@
-// The entity solver's lbfgs mode in float, for every loss (see
-// entity_lbfgs.cu).
+// The entity solver's lbfgs mode in float, for every loss and layout
+// (see entity_lbfgs.cu).
 
 #include "entity_lbfgs.cuh"
 
 namespace entity_lbfgs {
 
-int launch_lbfgs_f32(const Params& p, int loss, cudaStream_t stream) {
-  return launch_loss<float, kModeLbfgs>(p, loss, stream);
+KernelFn kernel_lbfgs_f32(const Plan& plan, int loss) {
+  return unit_kernel<float, kModeLbfgs>(plan, loss);
 }
 
 }  // namespace entity_lbfgs

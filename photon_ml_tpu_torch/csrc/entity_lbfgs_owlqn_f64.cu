@@ -1,12 +1,12 @@
-// The entity solver's owlqn mode in double, for every loss (see
-// entity_lbfgs.cu).
+// The entity solver's owlqn mode in double, for every loss and layout
+// (see entity_lbfgs.cu).
 
 #include "entity_lbfgs.cuh"
 
 namespace entity_lbfgs {
 
-int launch_owlqn_f64(const Params& p, int loss, cudaStream_t stream) {
-  return launch_loss<double, kModeOwlqn>(p, loss, stream);
+KernelFn kernel_owlqn_f64(const Plan& plan, int loss) {
+  return unit_kernel<double, kModeOwlqn>(plan, loss);
 }
 
 }  // namespace entity_lbfgs

@@ -91,25 +91,29 @@ anything else. There is no fallback from one to the other.
 
 Kernel note (csrc/entity_lbfgs.cu). Replaces the Pallas TPU kernel above,
 which ran 128 entities in lane lockstep. On the H100 one warp owns one
-entity: its working set and x tile sit in shared memory with the tile's
-row stride padded to d + 1 floats (no bank conflicts for lanes over
-rows), margins put lanes over rows, the gradient and the history put
-lanes over coordinates, and sums over coordinates are warp shuffles.
-Each warp loops until its own entity stops, so a slow entity never holds
-up its neighbours, and tries line-search candidates in order, stopping at
-the first that passes, where the TPU prices 8 as a block and 23 more on
-demand (the same accepted step). TRON is its own kernel body on the same
-helpers, with its own working set (no history) and its CG loop per warp.
-The normalization fold is applied once as the tile is loaded, or on
+entity; an L-BFGS or OWL-QN entity's coordinates go over its first C
+lanes, C the smallest power of two >= d, so a sum over coordinates is a
+butterfly of log2 C shuffle steps. Its working set and x tile sit in
+shared memory with the tile's row stride padded to d + 1 floats (no bank
+conflicts for lanes over rows); margins put lanes over rows, the gradient
+and the history (a ring, newest pair first) lanes over coordinates. The
+grid is persistent: as many blocks as the card holds resident, each
+warp taking the next entity from an atomic counter when its own stops,
+so a bucket of more than one wave keeps the card full to its last
+entity; the last warp out sets the counter back to 0. Line-search candidates are tried in order up to the first that
+passes, where the TPU prices 8 as a block and 23 more on demand (the same
+accepted step). TRON is its own kernel body on the same helpers, one warp
+per entity, with its own working set (no history) and its CG loop per
+warp. The normalization fold is applied once as the tile is loaded, or on
 every read where x stays in device memory; bounds are a runtime flag (a
 null pointer means none). An entity too tall for shared memory reads x
 from device memory, and its working set goes to a workspace the wrapper
-allocates, so every bucket launches the kernel. The solve moves few
-bytes (each x tile is read once) and does little arithmetic; what bounds
-it on this card is the serial dependency chain of each entity's
-iterations (dot -> shuffle -> update), so the design keeps every operand
-on chip where it fits and runs as many entity warps per SM as shared
-memory allows. Making it fast is later work.
+allocates, so every bucket launches the kernel. Each launch plan (layout,
+C, warps, resident blocks, the kernel's shared-memory attribute) is
+made once per shape, compute type, mode, loss and device (``kernel_plan``)
+and a call then allocates two output buffers and makes one C call. What
+bounds the solve on this card is each entity's serial dependency chain
+(dot -> shuffle -> update) times the waves of entities the card holds.
 """
 
 from __future__ import annotations
@@ -606,26 +610,70 @@ def _check_compute_dtype(compute_dtype: torch.dtype) -> None:
 
 
 _MODE_IDS = {"lbfgs": 0, "owlqn": 1, "tron": 2}
+_PLAN_FIELDS = ("layout", "coord_lanes", "warps", "blocks_per_sm", "sms",
+                "state_bytes", "smem_bytes")
 
 
 @functools.lru_cache(maxsize=None)
 def _load_kernel():
     """The kernel's C entry points with their ctypes signatures, set once:
-    (launch, workspace_bytes, layout)."""
+    (plan, launch)."""
     from photon_ml_tpu_torch.ops import cuda_build
 
     lib = cuda_build.load("entity_lbfgs")
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    plan = lib.entity_lbfgs_plan
+    plan.argtypes = [ci] * 6 + [vp]
+    plan.restype = ci
     launch = lib.entity_lbfgs_launch
-    launch.argtypes = [vp] * 17 + [ci] * 6 + [cd] * 4 + [ci, ci, ci, vp]
+    launch.argtypes = [ci] + [vp] * 14 + [ci] * 3 + [cd] * 4 + [vp]
     launch.restype = ci
-    workspace_bytes = lib.entity_lbfgs_workspace_bytes
-    workspace_bytes.argtypes = [ci] * 6
-    workspace_bytes.restype = ctypes.c_size_t
-    layout = lib.entity_lbfgs_layout
-    layout.argtypes = [ci] * 5
-    layout.restype = ci
-    return launch, workspace_bytes, layout
+    return plan, launch
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device: int, r: int, d: int, m: int, f64: bool, mode: int,
+          loss_id: int) -> Tuple[int, dict]:
+    """The kernel's launch plan on CUDA device ``device``, made once: its
+    handle and fields (``_PLAN_FIELDS`` and ``resident``, the entities
+    the card holds at once)."""
+    info = (ctypes.c_longlong * len(_PLAN_FIELDS))()
+    with torch.cuda.device(device):
+        handle = _load_kernel()[0](r, d, m, int(f64), mode, loss_id, info)
+    if handle < 0:
+        raise RuntimeError(f"entity_lbfgs plan: CUDA error {-handle}")
+    fields = dict(zip(_PLAN_FIELDS, info))
+    fields["resident"] = (fields["blocks_per_sm"] * fields["sms"]
+                          * fields["warps"])
+    return handle, fields
+
+
+@functools.lru_cache(maxsize=None)
+def _counter(device: int) -> Tensor:
+    """The persistent grid's entity counter on CUDA device ``device``: 2
+    int32 zeros, made once; every L-BFGS-mode launch on the device leaves
+    them 0 again. Launches follow each other on the current stream."""
+    return torch.zeros((2,), dtype=torch.int32,
+                       device=torch.device("cuda", device))
+
+
+def kernel_plan(r: int, d: int, m: int = DEFAULT_M,
+                compute_dtype: torch.dtype = torch.float64,
+                mode: str = "lbfgs", loss_id: int = 0,
+                device: Optional[int] = None) -> dict:
+    """How the kernel solves entities of r rows and d coordinates on a
+    CUDA device (the current one by default) in ``mode``, one warp per
+    entity: ``layout`` (0 x tile and working set in shared memory, 1 x
+    read from device memory, 2 x and working set in device memory),
+    ``coord_lanes`` (the lanes over an entity's coordinates: the smallest
+    power of two >= d, at least 4, in the shared layout of the L-BFGS
+    modes, else 32), ``warps`` per block, resident ``blocks_per_sm`` on
+    ``sms`` SMs, ``resident`` entities on the card, ``state_bytes`` per
+    entity and ``smem_bytes`` per block."""
+    if device is None:
+        device = torch.cuda.current_device()
+    return dict(_plan(device, r, d, m, compute_dtype == torch.float64,
+                      _MODE_IDS[mode], loss_id)[1])
 
 
 def kernel_layout(r: int, d: int, m: int = DEFAULT_M,
@@ -635,11 +683,7 @@ def kernel_layout(r: int, d: int, m: int = DEFAULT_M,
     current CUDA device in ``mode``: 0 x tile and working set in shared
     memory, 1 x read from device memory, 2 x and working set in device
     memory."""
-    layout = _load_kernel()[2](r, d, m, int(compute_dtype == torch.float64),
-                               _MODE_IDS[mode])
-    if layout < 0:
-        raise RuntimeError(f"entity_lbfgs layout query: CUDA error {-layout}")
-    return layout
+    return kernel_plan(r, d, m, compute_dtype, mode)["layout"]
 
 
 def variant(mode: str, normalized: bool, bounded: bool = False) -> str:
@@ -668,7 +712,8 @@ def entity_lbfgs(
 
     CPU tensors (float32 or float64) run ``entity_lbfgs_plain``. CUDA
     tensors launch the kernel (float32, contiguous, any r and d) and raise
-    on anything it does not take. Both compute in ``compute_dtype``.
+    on anything it does not take. Launches on one device follow each
+    other on the current stream. Both compute in ``compute_dtype``.
     ``entity_lbfgs.launches`` counts kernel launches, and
     ``entity_lbfgs.variants`` counts them per ``variant(mode, normalized,
     bounded)``."""
@@ -690,91 +735,91 @@ def entity_lbfgs(
             lower = torch.full_like(upper, -math.inf)
         if upper is None:
             upper = torch.full_like(lower, math.inf)
-    tensors = {"x": x, "labels": labels, "offsets": offsets,
-               "weights": weights, "coef0": coef0}
+    rows, coords = (E, r), (E, d)
+    tensors = [("x", x, (E, r, d)), ("labels", labels, rows),
+               ("offsets", offsets, rows), ("weights", weights, rows),
+               ("coef0", coef0, coords)]
     if normalized:
-        tensors.update(factors=factors, shifts=shifts)
+        tensors += [("factors", factors, coords), ("shifts", shifts, coords)]
     if bounded:
-        tensors.update(lower=lower, upper=upper)
-    shapes = dict(x=(E, r, d), labels=(E, r), offsets=(E, r),
-                  weights=(E, r), coef0=(E, d), factors=(E, d),
-                  shifts=(E, d), lower=(E, d), upper=(E, d))
-    for name, t in tensors.items():
-        if tuple(t.shape) != shapes[name]:
-            raise ValueError(f"{name} must be {shapes[name]}, got "
-                             f"{tuple(t.shape)}")
-    devices = {t.device for t in tensors.values()}
-    if len(devices) != 1 or x.device.type not in ("cpu", "cuda"):
-        raise ValueError("entity_lbfgs takes tensors all on the CPU or all "
-                         "on one CUDA device, got "
-                         f"{sorted(str(dv) for dv in devices)}")
+        tensors += [("lower", lower, coords), ("upper", upper, coords)]
+    dev = x.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"entity_lbfgs takes CPU or CUDA tensors, got {dev}")
+    on_cuda = dev.type == "cuda"
+    for name, t, shape in tensors:
+        if t.shape != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError("entity_lbfgs takes tensors all on the CPU or "
+                             "all on one CUDA device, got "
+                             f"{sorted({str(u.device) for _, u, _ in tensors})}")
+        if on_cuda and t.dtype != torch.float32:
+            raise TypeError(f"the CUDA kernel takes float32, got {t.dtype}")
+        if on_cuda and not t.is_contiguous():
+            raise ValueError("the CUDA kernel takes contiguous tensors")
     _check_compute_dtype(compute_dtype)
-    kw = dict(max_iter=max_iter, tol=tol, m=m, c1=c1,
-              max_line_search=max_line_search, mode=mode,
-              compute_dtype=compute_dtype)
-    if x.device.type == "cpu":
+    if not on_cuda:
         if any(t.dtype not in (torch.float32, torch.float64)
-               for t in tensors.values()):
+               for _, t, _ in tensors):
             raise TypeError("entity_lbfgs takes float32 or float64 on the "
                             "CPU, got "
-                            f"{[t.dtype for t in tensors.values()]}")
-        return entity_lbfgs_plain(loss, x, labels, offsets, weights, coef0,
-                                  l2_weight, l1_weight, factors, shifts,
-                                  lower, upper, **kw)
-    for t in tensors.values():
-        if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA kernel takes float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("the CUDA kernel takes contiguous tensors")
+                            f"{[t.dtype for _, t, _ in tensors]}")
+        return entity_lbfgs_plain(
+            loss, x, labels, offsets, weights, coef0, l2_weight, l1_weight,
+            factors, shifts, lower, upper, max_iter=max_iter, tol=tol, m=m,
+            c1=c1, max_line_search=max_line_search, mode=mode,
+            compute_dtype=compute_dtype)
     if min(m, max_iter) < 1 or max_line_search < 0:
         raise ValueError("m and max_iter must be >= 1, max_line_search >= 0")
 
-    tron = mode == "tron"
-    out_c = torch.empty((E, d), dtype=torch.float32, device=x.device)
-    out_f = torch.empty((E,), dtype=torch.float32, device=x.device)
-    out_gnorm = torch.empty_like(out_f)
-    out_it = torch.empty((E,), dtype=torch.int32, device=x.device)
-    out_reason = torch.empty_like(out_it)
-    out_steps = torch.empty_like(out_it)  # trials, or TRON's trips
-    out_cg = torch.empty_like(out_it) if tron else None
-
-    def result():
-        if tron:
-            return OptimizerResult(out_c, out_f, out_gnorm, out_it,
-                                   out_reason, outer_steps=out_steps,
-                                   cg_steps=out_cg)
-        return OptimizerResult(out_c, out_f, out_gnorm, out_it, out_reason,
-                               trials=out_steps)
-
+    # Three outputs: c [E, d], f and |g| as the rows of one [2, E] and
+    # iterations, reasons, trials (or trips) and CG steps as the rows of
+    # one [4, E] (a row view costs a host about what an allocation does).
+    out_c = torch.empty((E, d), dtype=torch.float32, device=dev)
+    fout = torch.empty((2, E), dtype=torch.float32, device=dev)
+    iout = torch.empty((4, E), dtype=torch.int32, device=dev)
+    out_f, out_gnorm = fout.unbind(0)
+    out_it, out_reason, out_steps, out_cg = iout.unbind(0)
+    if mode == "tron":
+        result = OptimizerResult(out_c, out_f, out_gnorm, out_it, out_reason,
+                                 outer_steps=out_steps, cg_steps=out_cg)
+    else:
+        result = OptimizerResult(out_c, out_f, out_gnorm, out_it, out_reason,
+                                 trials=out_steps)
     if E == 0:
-        return result()
-    launch, workspace_bytes, _ = _load_kernel()
-    f64 = int(compute_dtype == torch.float64)
+        return result
+    handle, plan = _plan(dev.index, r, d, m, compute_dtype == torch.float64,
+                         _MODE_IDS[mode], loss.kernel_id)
+    # Scratch for entities too tall for shared memory (none at the
+    # slice's buckets).
+    workspace = (torch.empty((E * plan["state_bytes"],), dtype=torch.uint8,
+                             device=dev) if plan["layout"] == 2 else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(x.device):
-        # Scratch for entities too tall for shared memory (0 bytes at
-        # the slice's buckets).
-        n_ws = workspace_bytes(E, r, d, m, f64, _MODE_IDS[mode])
-        workspace = torch.empty((n_ws,), dtype=torch.uint8, device=x.device)
-        err = launch(
-            x.data_ptr(), labels.data_ptr(), offsets.data_ptr(),
+    def launch():
+        return _load_kernel()[1](
+            handle, x.data_ptr(), labels.data_ptr(), offsets.data_ptr(),
             weights.data_ptr(), coef0.data_ptr(), ptr(factors), ptr(shifts),
-            ptr(lower), ptr(upper),
-            out_c.data_ptr(), out_f.data_ptr(), out_gnorm.data_ptr(),
-            out_it.data_ptr(), out_reason.data_ptr(), out_steps.data_ptr(),
-            ptr(out_cg), workspace.data_ptr() if n_ws else None,
-            E, r, d, m, max_iter, max_line_search, float(l2_weight),
-            float(l1_weight), float(tol), float(c1), loss.kernel_id, f64,
-            _MODE_IDS[mode], torch.cuda.current_stream(x.device).cuda_stream)
+            ptr(lower), ptr(upper), out_c.data_ptr(), fout.data_ptr(),
+            iout.data_ptr(), _counter(dev.index).data_ptr(), ptr(workspace),
+            E, max_iter, max_line_search, float(l2_weight),
+            float(l1_weight), float(tol), float(c1),
+            torch.cuda.current_stream().cuda_stream)
+
+    if dev.index == torch.cuda.current_device():
+        err = launch()
+    else:
+        with torch.cuda.device(dev):
+            err = launch()
     if err != 0:
         raise RuntimeError(f"entity_lbfgs kernel launch failed: CUDA error "
                            f"{err}")
     entity_lbfgs.launches += 1
     entity_lbfgs.variants[variant(mode, normalized, bounded)] += 1
-    return result()
+    return result
 
 
 def reset_launch_counts() -> None:

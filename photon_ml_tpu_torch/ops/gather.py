@@ -13,9 +13,11 @@ runs the same experiment on the card.
   block), ``mask`` [kb, e] (1 for a real lookup, 0 for padding) and the
   slot of each original index in the packed [kb * e] order. Then
   out[b, i] = mask[b, i] * bf16(w_blk[b, local[b, i]]), computed as a
-  one-hot [16, 2048] bf16 matrix times the block's w slice on the tensor
-  cores with float32 accumulation: with one non-zero term per row the
-  product is exactly the rounded w value.
+  one-hot bf16 matrix times the block's w slice on the tensor cores with
+  float32 accumulation: with one non-zero term per row the product is
+  exactly the rounded w value. The kernel views the slice as [2048 / N,
+  N] (``ONEHOT_N``), so the one-hot row of a lookup sits at
+  local >> log2 N and its value in column local & (N - 1).
 - **Residue classes (kernel row 8).** ``prep_residue`` buckets the
   indices by j mod 128: idx [chunks, a, 128] (int32, a = d / 128) holds
   j // 128 at lane j mod 128, so out[c, s, l] = T[idx[c, s, l], l] with
@@ -42,6 +44,13 @@ import torch
 Tensor = torch.Tensor
 
 BLOCK = 2048  # w columns per one-hot block
+# Row 7's launch: B = the block's w slice viewed [2048 / N, N], and warps
+# per CTA. The defaults are the fastest of the sweep over ONEHOT_NS x
+# ONEHOT_WARPS that chip_smoke.py runs at the gather experiment's full
+# width (PERF.md).
+ONEHOT_NS = (8, 16, 32, 64)
+ONEHOT_WARPS = (4, 8, 16)
+ONEHOT_N, ONEHOT_WARP_COUNT = 16, 16
 LANES = 128  # residue classes
 LAYOUTS = ("shared", "l2")
 
@@ -123,7 +132,7 @@ def _load_kernels():
     lib = cuda_build.load("gather")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     onehot = lib.gather_onehot_launch
-    onehot.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    onehot.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
     onehot.restype = ci
     residue = lib.gather_residue_launch
     residue.argtypes = [vp, vp, vp, ci, ci, vp]
@@ -153,15 +162,22 @@ def _device_of(*tensors: Tensor) -> torch.device:
     return dev
 
 
-def onehot_gather(local: Tensor, mask: Tensor, w_blk: Tensor) -> Tensor:
+def onehot_gather(local: Tensor, mask: Tensor, w_blk: Tensor, *,
+                  n: int = ONEHOT_N, warps: int = ONEHOT_WARP_COUNT
+                  ) -> Tensor:
     """Row 7: ``local`` int32 and ``mask`` float32 [kb, e], ``w_blk``
     float32 [kb, 2048] (``block_table``); returns float32 [kb, e]. A local
     index outside [0, 2048) raises in the plain version and gives 0 in
-    the kernel. ``onehot_gather.launches`` counts kernel launches."""
+    the kernel. ``n`` (one of ``ONEHOT_NS``) and ``warps`` (1-16) shape
+    the kernel's launch and do not change its result.
+    ``onehot_gather.launches`` counts kernel launches."""
     kb, e = local.shape
     _check("local", local, (kb, e), torch.int32)
     _check("mask", mask, (kb, e), torch.float32)
     _check("w_blk", w_blk, (kb, BLOCK), torch.float32)
+    if n not in ONEHOT_NS or not 1 <= warps <= 16:
+        raise ValueError(f"n must be one of {ONEHOT_NS} and warps 1-16, got "
+                         f"n={n}, warps={warps}")
     if _device_of(local, mask, w_blk).type == "cpu":
         return onehot_gather_plain(local, mask, w_blk)
     out = torch.empty((kb, e), dtype=torch.float32, device=local.device)
@@ -170,7 +186,7 @@ def onehot_gather(local: Tensor, mask: Tensor, w_blk: Tensor) -> Tensor:
     launch = _load_kernels()[0]
     with torch.cuda.device(local.device):
         err = launch(local.data_ptr(), mask.data_ptr(), w_blk.data_ptr(),
-                     out.data_ptr(), kb, e,
+                     out.data_ptr(), kb, e, n, warps,
                      torch.cuda.current_stream(local.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gather_onehot kernel launch failed: CUDA error "

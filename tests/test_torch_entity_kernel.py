@@ -19,6 +19,7 @@ import torch
 
 from photon_ml_tpu_torch.ops import entity_solver
 from photon_ml_tpu_torch.ops.losses import loss_for_task
+from photon_ml_tpu_torch.optimization.convergence import ConvergenceReason
 from photon_ml_tpu_torch.types import TaskType
 
 
@@ -64,7 +65,8 @@ def _inputs(task, e, r, d, seed):
     w[:, r - 3:] = 0.0
     off = rng.normal(0, 0.1, (e, r))
     c0 = rng.normal(0, 0.05, (e, d))
-    w[1], c0[1] = 0.0, 0.0  # no data, zero start: a zero gradient
+    if e > 1:
+        w[1], c0[1] = 0.0, 0.0  # no data, zero start: a zero gradient
     return [np.asarray(a, np.float32) for a in (x, y, off, w, c0)]
 
 
@@ -310,3 +312,137 @@ def test_kernel_raises_for_unported_variants(cuda_device, kind):
             entity_solver.entity_lbfgs(loss, *args, 1.0, 0.5, lower=args[4],
                                        mode="owlqn")
     assert entity_solver.entity_lbfgs.launches == before
+
+
+# The L-BFGS modes' variants: (mode, normalized, bounded).
+LBFGS_VARIANTS = [("lbfgs", False, False), ("lbfgs", True, False),
+                  ("lbfgs", False, True), ("owlqn", False, False)]
+
+
+def _variant_args(cuda_device, e, r, d, normalized, bounded, seed):
+    args = [torch.as_tensor(a, device=cuda_device) for a in
+            _inputs(TaskType.LOGISTIC_REGRESSION, e, r, d, seed)]
+    fold = ([torch.as_tensor(a, device=cuda_device)
+             for a in _normalization(e, d, seed + 1)] if normalized
+            else [None, None])
+    box = ([torch.as_tensor(a, device=cuda_device)
+            for a in _bounds(e, d, seed + 2)] if bounded else [None, None])
+    return args, fold, box
+
+
+def _assert_close_solve(res_k, res_p, compute_dtype, mode, bounded=False):
+    """float64: equal iterations, reasons, trials and zero sets, rtol and
+    atol 1e-6. With bounds, an entity whose last trials project back onto
+    its iterate passes or fails their Armijo test at float64 rounding, so
+    it may stop FUNCTION_VALUES_CONVERGED in one and
+    OBJECTIVE_NOT_IMPROVING in the other, or after other trial counts,
+    with the same iterations and bit-equal coefficients (ROADMAP.md
+    section C). float32 (kernel and plain version sum in other orders):
+    an entity may stop at another iteration (about 2% at chip_smoke.py's
+    headline buckets), so at least half must stop alike, those at the
+    value floor of tests/test_pallas_entity_solver.py (rtol 1e-4), and
+    every coefficient within its coefficient floor (atol 5e-3)."""
+    if compute_dtype == torch.float64:
+        assert torch.equal(res_k.iterations, res_p.iterations)
+        differ = ((res_k.reason != res_p.reason)
+                  | (res_k.trials != res_p.trials))
+        if bounded:
+            fvc_oni = {int(ConvergenceReason.FUNCTION_VALUES_CONVERGED),
+                       int(ConvergenceReason.OBJECTIVE_NOT_IMPROVING)}
+            assert set(res_k.reason[differ].tolist()) <= fvc_oni
+            assert set(res_p.reason[differ].tolist()) <= fvc_oni
+            assert torch.equal(res_k.x[differ], res_p.x[differ])
+        else:
+            assert not bool(differ.any())
+        if mode == "owlqn":
+            assert torch.equal(res_k.x == 0, res_p.x == 0)
+        torch.testing.assert_close(res_k.value, res_p.value, rtol=1e-6,
+                                   atol=1e-6)
+        torch.testing.assert_close(res_k.x, res_p.x, rtol=0, atol=1e-6)
+    else:
+        alike = ((res_k.iterations == res_p.iterations)
+                 & (res_k.reason == res_p.reason))
+        assert float(alike.float().mean()) >= 0.5
+        torch.testing.assert_close(res_k.value[alike], res_p.value[alike],
+                                   rtol=1e-4, atol=0)
+        torch.testing.assert_close(res_k.x, res_p.x, rtol=0, atol=5e-3)
+
+
+def _assert_same_bits(a, b):
+    for field in ("x", "value", "grad_norm", "iterations", "reason",
+                  "trials"):
+        assert torch.equal(getattr(a, field), getattr(b, field)), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,normalized,bounded", LBFGS_VARIANTS)
+@pytest.mark.parametrize("d", [1, 3, 4, 5, 8, 9, 16, 17, 25, 32, 33])
+def test_coordinate_lanes_across_widths(cuda_device, mode, normalized,
+                                        bounded, d):
+    """d on both sides of the power-of-two boundaries and past 32, so
+    every instance's C (the smallest power of two >= d, at least 4, lanes
+    over the coordinates) runs: against the plain version in both compute
+    types."""
+    e, r = 70, 19
+    args, fold, box = _variant_args(cuda_device, e, r, d, normalized,
+                                    bounded, seed=d)
+    loss = loss_for_task(TaskType.LOGISTIC_REGRESSION)
+    name = entity_solver.variant(mode, normalized, bounded)
+    for dt in (torch.float64, torch.float32):
+        plan = entity_solver.kernel_plan(r, d, compute_dtype=dt, mode=mode)
+        assert plan["coord_lanes"] == (
+            max(4, 1 << (d - 1).bit_length()) if d <= 32 else 32)
+        kw = dict(max_iter=20, tol=1e-7, mode=mode, compute_dtype=dt)
+        before = entity_solver.entity_lbfgs.variants[name]
+        res_k = entity_solver.entity_lbfgs(loss, *args, 0.4, 0.2, *fold,
+                                           *box, **kw)
+        torch.cuda.synchronize()
+        assert entity_solver.entity_lbfgs.variants[name] == before + 1
+        res_p = entity_solver.entity_lbfgs_plain(loss, *args, 0.4, 0.2,
+                                                 *fold, *box, **kw)
+        _assert_close_solve(res_k, res_p, dt, mode, bounded)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,normalized,bounded", LBFGS_VARIANTS)
+@pytest.mark.parametrize("e", [1, 7, 20_000])
+def test_persistent_queue_walks_every_entity(cuda_device, mode, normalized,
+                                             bounded, e):
+    """E = 1 and 7 fill less than one block; E = 20,000 is more than the
+    card holds resident, so warps take entities from the queue after their
+    first one stops. In both compute types two launches in a row give the
+    same bits (the counter is back at 0 after each), and at E = 20,000 so
+    do four launches of 5,000 (no entity's result depends on the warp
+    that took it). Against the plain version in float64 (float32's is
+    test_coordinate_lanes_across_widths')."""
+    r, d = 24, 9
+    args, fold, box = _variant_args(cuda_device, e, r, d, normalized,
+                                    bounded, seed=e)
+    loss = loss_for_task(TaskType.LOGISTIC_REGRESSION)
+    for dt in (torch.float64, torch.float32):
+        kw = dict(max_iter=20, tol=1e-7, mode=mode, compute_dtype=dt)
+        first = entity_solver.entity_lbfgs(loss, *args, 0.4, 0.2, *fold,
+                                           *box, **kw)
+        again = entity_solver.entity_lbfgs(loss, *args, 0.4, 0.2, *fold,
+                                           *box, **kw)
+        torch.cuda.synchronize()
+        _assert_same_bits(first, again)
+        if e == 20_000:
+            plan = entity_solver.kernel_plan(r, d, compute_dtype=dt,
+                                             mode=mode)
+            assert plan["resident"] < e
+            parts = [entity_solver.entity_lbfgs(
+                loss, *(a[k:k + 5_000] for a in args), 0.4, 0.2,
+                *(None if t is None else t[k:k + 5_000]
+                  for t in fold + box), **kw)
+                for k in range(0, e, 5_000)]
+            torch.cuda.synchronize()
+            for field in ("x", "value", "grad_norm", "iterations", "reason",
+                          "trials"):
+                assert torch.equal(getattr(first, field), torch.cat(
+                    [getattr(p, field) for p in parts])), field
+        if dt == torch.float64:
+            res_p = entity_solver.entity_lbfgs_plain(loss, *args, 0.4, 0.2,
+                                                     *fold, *box, **kw)
+            _assert_close_solve(first, res_p, dt, mode, bounded)
+        assert int(first.iterations.min()) >= (0 if e > 1 else 1)

@@ -102,6 +102,33 @@ def test_residue_plain_equals_interpreted_pallas(m, d):
     np.testing.assert_array_equal(ours.numpy().reshape(-1)[slot], w[idx])
 
 
+@pytest.mark.parametrize("n", [8, 16, 32, 64, 128])
+def test_tiled_onehot_formulation_equals_the_plain_version(n):
+    """Row 7's kernel views each block's w slice as B = [2048 / n, n]:
+    a lookup's one-hot row sits at local >> log2 n, every column of B
+    holds w, and the value is column local & (n - 1) of the product. In
+    bf16 with float32 accumulation that equals onehot_gather_plain
+    exactly, masked padding (local 0, mask 0) and locals 0 and 2047
+    included."""
+    kb, e = 3, 37
+    rng = np.random.default_rng(n)
+    local = rng.integers(0, gather.BLOCK, (kb, e)).astype(np.int32)
+    local[:, :2] = [0, gather.BLOCK - 1]
+    mask = np.ones((kb, e), np.float32)
+    local[2, -5:], mask[2, -5:] = 0, 0.0  # padding
+    w = torch.as_tensor(rng.normal(0, 1, kb * gather.BLOCK - 100)
+                        .astype(np.float32))
+    local_t, mask_t = torch.as_tensor(local), torch.as_tensor(mask)
+    w_blk = gather.block_table(w)
+    onehot = torch.nn.functional.one_hot(
+        local_t.long() >> (n.bit_length() - 1), gather.BLOCK // n)
+    b = w_blk.to(torch.bfloat16).view(kb, gather.BLOCK // n, n)
+    prod = torch.matmul(onehot.to(torch.bfloat16).float(), b.float())
+    tiled = prod.gather(2, (local_t.long() & (n - 1))[..., None])[..., 0]
+    assert torch.equal(tiled * mask_t,
+                       gather.onehot_gather_plain(local_t, mask_t, w_blk))
+
+
 def test_wrappers_take_the_plain_versions_on_the_cpu():
     m, d = 2_000, 128 * 40
     idx, w = _draw(m, d, seed=3)
@@ -122,6 +149,8 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
         gather.onehot_gather(args[0].long(), *args[1:])
     with pytest.raises(ValueError, match="w_blk"):
         gather.onehot_gather(*args[:2], args[2][:, :100])
+    with pytest.raises(ValueError, match="n must be"):
+        gather.onehot_gather(*args, n=128)
     with pytest.raises(ValueError, match="idx must be"):
         gather.residue_gather(w_t, torch.as_tensor(packed)[..., :64])
     with pytest.raises(ValueError, match="w must be"):

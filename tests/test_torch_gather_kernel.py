@@ -138,3 +138,36 @@ def test_out_of_range_indices_read_nothing(cuda_device, d):
                                      mask_t, w_blk)
     assert torch.equal(out[:, 2:], ref[:, 2:]) and torch.equal(out[1:],
                                                                ref[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", gather.ONEHOT_NS)
+@pytest.mark.parametrize("warps", gather.ONEHOT_WARPS)
+@pytest.mark.parametrize("e", [3 * 128, 1_001, 12_654])
+def test_onehot_every_launch_shape(cuda_device, n, warps, e):
+    """Every swept view of B ([2048 / n, n]) and CTA width, at e a whole
+    number of a warp's 128-slot chunks (the 16-byte path), e ragged and
+    not a multiple of 4 (the scalar path), and the full-width run's e:
+    exactly the plain version, with masked padding, locals 0 and 2047,
+    and out-of-range and negative locals giving 0."""
+    kb = 5
+    rng = np.random.default_rng(n * warps + e)
+    local = rng.integers(0, gather.BLOCK, (kb, e)).astype(np.int32)
+    local[:, :2] = [0, gather.BLOCK - 1]
+    mask = (rng.random((kb, e)) < 0.9).astype(np.float32)
+    bad = np.zeros((kb, e), bool)
+    bad[1, 3:7] = True
+    local[1, 3:7] = [gather.BLOCK, 5_000, -1, -(1 << 20)]
+    w = rng.normal(0, 1, kb * gather.BLOCK).astype(np.float32)
+    local_t = torch.as_tensor(local, device=cuda_device)
+    mask_t = torch.as_tensor(mask, device=cuda_device)
+    w_blk = gather.block_table(torch.as_tensor(w, device=cuda_device))
+    before = gather.onehot_gather.launches
+    got = gather.onehot_gather(local_t, mask_t, w_blk, n=n, warps=warps)
+    torch.cuda.synchronize()
+    assert gather.onehot_gather.launches == before + 1
+    want = gather.onehot_gather_plain(
+        local_t.clamp(0, gather.BLOCK - 1), mask_t, w_blk)
+    bad_t = torch.as_tensor(bad, device=cuda_device)
+    want = torch.where(bad_t, torch.zeros_like(want), want)
+    assert torch.equal(got, want)
