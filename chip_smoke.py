@@ -42,8 +42,10 @@ Then the gather phase runs the port's gather experiment
 (photon_ml_tpu_torch/dev_scripts/gather_experiments.py) at its full
 width, m = 12,000,000 lookups into d = 2,000,000 coefficients: w[idx],
 the one-hot scan in torch, and kernel rows 7 (the one-hot tensor-core
-gather) and 8 (the residue-class gather, its table read from L2), each
-verified against w[idx] and timed.
+gather) and 8 (the residue-class gather: one CTA per residue class, its
+column of the table in shared memory), each verified against w[idx] and
+timed; and the residue packing in torch ops on the card, bit for bit
+against the numpy packing, both timed.
 
 For each path it checks:
 
@@ -74,10 +76,12 @@ kernel and the float32 plain version stop with different reasons or
 iteration counts (the reason both compute in float64 by default), and
 the float32 kernel's time.
 
-Then the gather phase sweeps kernel row 7's launch (B viewed [2048 / N,
-N] for each N, times the warps per CTA) at full width, each candidate
-exactly equal to the plain version, and prints every time beside
-w[idx]'s from the same run.
+Then the gather phase holds both gather kernels against their plain
+versions exactly (row 8 also past its column layout's limit, in its l2
+layout), sweeps kernel row 7's
+launch (B viewed [2048 / N, N] for each N, times the warps per CTA) at
+full width, each candidate exactly equal to the plain version, and
+prints every time beside w[idx]'s from the same run.
 
 TF32 is switched off for matmuls and cuDNN, so every float32 product
 runs in full float32. Timings are CUDA-event or synchronised host times
@@ -92,15 +96,18 @@ resident entities, waves).
 
 times only the entity-solver kernel of DIR's photon_ml_tpu_torch (this
 checkout by default) on every bucket of paths 1-5's first updates:
-device, call and host ms, occupancy and the spread of the entities'
-iterations, one ``ab`` line each; run it on two trees in turns to compare
-them on one card. The third line from the end is a JSON
-record of the kernels (rows 1-8 of the PERF.md table: L-BFGS, the
-normalization fold, bounded L-BFGS, OWL-QN, TRON and bounded TRON, the
-one-hot and the residue-class gather, each with its launches on the main
-paths, times and bound), then the card's
-name and power limit, and the last line is {"ok": true, "device": ...}. It exits non-zero, printing no
-result, without CUDA or when any check fails.
+device, call and host ms, occupancy, the spread of the entities'
+iterations and a digest of every entity's iterations, reason and work
+(``stops``), one ``ab`` line each; run it on two trees in turns to
+compare them on one card (equal digests: no entity's stop moved).
+
+The third line from the end is a JSON record of the kernels (rows 1-8
+of the PERF.md table: L-BFGS, the normalization fold, bounded L-BFGS,
+OWL-QN, TRON and bounded TRON, the one-hot and the residue-class gather,
+each with its launches on the main paths, times and bound), then the
+card's name and power limit, and the last line is {"ok": true,
+"device": ...}. It exits non-zero, printing no result, without CUDA or
+when any check fails.
 """
 
 from __future__ import annotations
@@ -458,8 +465,12 @@ def spread(t) -> dict:
 def bench_bucket(args, kw) -> dict:
     """One bucket through the entity solver: device ms (``device_ms``),
     call ms (CUDA events over 10 back-to-back wrapper calls), host ms per
-    call (``host_ms``), the kernel's occupancy and the spread of the
-    entities' iterations and work (trials, or TRON's trips)."""
+    call (``host_ms``), the kernel's occupancy, the spread of the
+    entities' iterations and work (trials, or TRON's trips) and ``stops``,
+    a digest of every entity's iterations, reason and work: two trees
+    whose digests are equal stop every entity of the bucket alike."""
+    import hashlib
+
     import torch
 
     from photon_ml_tpu_torch.ops import entity_solver
@@ -472,10 +483,16 @@ def bench_bucket(args, kw) -> dict:
         return entity_solver.entity_lbfgs(*args, **kw)
 
     work = res.trials if res.trials is not None else res.outer_steps
+    stops = hashlib.sha1()
+    for t in (res.iterations, res.reason, res.trials, res.outer_steps,
+              res.cg_steps):
+        if t is not None:
+            stops.update(t.to(torch.int32).cpu().numpy().tobytes())
     return dict(entities=e, n_pad=r, d_pad=d, mode=kw.get("mode", "lbfgs"),
                 device_ms=device_ms(call), call_ms=cuda_ms(call, 10),
                 host_ms=host_ms(call), **kernel_occupancy(e, r, d, kw),
-                iterations=spread(res.iterations), work=spread(work))
+                iterations=spread(res.iterations), work=spread(work),
+                stops=stops.hexdigest()[:16])
 
 
 def hold_against_plain(tag: str, args, kw, main=None, check_zeros=False):
@@ -953,8 +970,10 @@ def gather_phase() -> list:
     """The port's gather experiment at full width with both kernels'
     launch counts set to 0 just before its run and read just after; then
     each kernel against its plain version on the same inputs, exactly, at
-    full width (row 8 in its L2 layout) and at --check's size (row 8 in
-    its shared-memory layout). Returns rows 7 and 8 of the kernels
+    full width and at --check's size (row 8 in its column layout) and row
+    8 in its l2 layout (a table past the column layout's limit); the
+    torch packing of the residue streams on the card against the numpy
+    one, bit for bit, and both timed. Returns rows 7 and 8 of the kernels
     line."""
     import torch
 
@@ -965,10 +984,12 @@ def gather_phase() -> list:
     p = gx.problem(GATHER_M, GATHER_D, "cuda")
     torch.cuda.synchronize()
     kb, e = p["local"].shape
-    chunks, a, _ = p["res_idx"].shape
+    per_lane = p["res_idx"].shape[1]
+    a = GATHER_D // gather.LANES
     print(f"gather problem: m {GATHER_M}, d {GATHER_D}; one-hot blocks "
-          f"[{kb}, {e}], residue chunks [{chunks}, {a}, {gather.LANES}] "
-          f"({time.perf_counter() - t0:.1f} s to draw and pack)", flush=True)
+          f"[{kb}, {e}], residue streams [{gather.LANES}, {per_lane}] "
+          f"(a = {a}; {time.perf_counter() - t0:.1f} s to draw and pack)",
+          flush=True)
     # ---- the main path: counts set to 0 just before, read just after ----
     gather.reset_launch_counts()
     results = gx.run(GATHER_M, GATHER_D, p=p)
@@ -980,18 +1001,40 @@ def gather_phase() -> list:
     print(f"gather launches: {launches}", flush=True)
     check(all(r["ok"] for r in results.values()),
           f"gather: a candidate disagrees with w[idx]: {results}")
-    check(launches["residue layouts"].get("l2", 0) == launches["residue"],
-          f"gather: row 8 did not take its L2 layout at d = {GATHER_D}")
+    check(launches["residue layouts"].get("column", 0)
+          == launches["residue"],
+          f"gather: row 8 did not take its column layout at d = {GATHER_D}")
+
+    # The residue packing on the card (torch ops, what problem() ran)
+    # against the numpy one.
+    idx_dev = p["idx"]
+    t0 = time.perf_counter()
+    streams, slot = gather.lane_major(*gather.prep_residue(p["idx_np"],
+                                                           GATHER_D))
+    host_pack_ms = 1e3 * (time.perf_counter() - t0)
+    check(torch.equal(p["res_idx"].cpu(), torch.as_tensor(streams))
+          and np.array_equal(p["res_slot"], slot),
+          "gather: the torch packing on the card differs from the numpy "
+          "packing")
+    del streams, slot
+    pack_ms = cuda_ms(lambda: gather.pack_residue(idx_dev, GATHER_D), 3)
+    print(f"gather residue packing at full width: torch on the card "
+          f"{pack_ms:.4f} ms, numpy on the host {host_pack_ms:.1f} ms "
+          "(equal bit for bit)", flush=True)
 
     small = gx.problem(CHECK_M, CHECK_D, "cuda")
-    check(gather.residue_layout(CHECK_D // gather.LANES) == "shared",
-          f"gather: row 8 does not take its shared layout at d = {CHECK_D}")
-    check(gather.residue_layout(GATHER_D // gather.LANES) == "l2",
-          f"gather: row 8 does not take its L2 layout at d = {GATHER_D}")
+    l2_d = 128 * 60_000
+    wide = gx.problem(5_000, l2_d, "cuda")
+    for d in (CHECK_D, GATHER_D):
+        check(gather.residue_layout(d // gather.LANES) == "column",
+              f"gather: row 8 does not take its column layout at d = {d}")
+    check(gather.residue_layout(l2_d // gather.LANES) == "l2",
+          f"gather: row 8 does not take its l2 layout at d = {l2_d}")
     onehot_args = (p["local"], p["mask"], p["w_blk"])
     residue_args = (p["w"], p["res_idx"])
     errs = {}
-    for tag, q in (("full width", p), (f"d = {CHECK_D}", small)):
+    for tag, q in (("full width", p), (f"d = {CHECK_D}", small),
+                   (f"d = {l2_d}", wide)):
         for name, fn, plain, args in (
                 ("onehot", gather.onehot_gather, gather.onehot_gather_plain,
                  (q["local"], q["mask"], q["w_blk"])),
@@ -1004,6 +1047,7 @@ def gather_phase() -> list:
             check(torch.equal(got, want),
                   f"gather {name} at {tag}: kernel and plain version differ "
                   f"(max abs {err})")
+    del small, wide
     print(f"gather kernels equal their plain versions: max abs {errs}",
           flush=True)
 
@@ -1042,11 +1086,17 @@ def gather_phase() -> list:
     bounds = {
         "onehot": (4.0 * (3 * kb * e + kb * gather.BLOCK) / HBM_BYTES_PER_S,
                    2.0 * kb * e * gather.BLOCK / BF16_FLOPS_PER_S),
-        "residue": (4.0 * (2 * chunks * a * gather.LANES + GATHER_D)
-                    / HBM_BYTES_PER_S, 0.0)}
-    library_bound_ms = 1e3 * 4.0 * (2 * GATHER_M + GATHER_D) / HBM_BYTES_PER_S
-    print(f"gather w[idx] bound (bytes): {library_bound_ms:.4f} ms; row 7 "
-          f"bound: {1e3 * max(bounds['onehot']):.4f} ms", flush=True)
+        # Row 8 (as w[idx]): the m lookups' indices and values and the
+        # table; its streams' padding is not work the function needs.
+        "residue": (4.0 * (2 * GATHER_M + GATHER_D) / HBM_BYTES_PER_S, 0.0)}
+    print(f"gather bound (bytes) of w[idx] and row 8: "
+          f"{1e3 * bounds['residue'][0]:.4f} ms; row 7: "
+          f"{1e3 * max(bounds['onehot']):.4f} ms; row 8 on the device "
+          f"{dev_ms['residue']:.4f} ms, "
+          f"{100 * 1e3 * bounds['residue'][0] / dev_ms['residue']:.1f}% of "
+          f"its bound (streams {gather.LANES} x {per_lane}: "
+          f"{100 * (gather.LANES * per_lane / GATHER_M - 1):.2f}% padding)",
+          flush=True)
     entries = []
     for name, row, source, replaces, key in (
             ("gather_onehot (row 7)", 7, "photon_ml_tpu_torch/csrc/"
@@ -1171,8 +1221,9 @@ def entity_buckets(tag: str) -> None:
     """``--entity-buckets``: the imported tree's entity-solver kernel on
     every bucket of paths 1-5's first updates (path 1 in float64 and
     float32 compute, path 2 in OWL-QN and L-BFGS mode), one ``ab`` line
-    each with ``bench_bucket``'s measurements. No checks and no contract lines: this mode compares
-    two trees' kernels in turns inside one call."""
+    each with ``bench_bucket``'s measurements. No checks and no contract
+    lines: this mode compares two trees' kernels in turns inside one call
+    (their ``stops`` digests tell whether a bucket's stops moved)."""
     train, _ = split_data()
     specs, _ = path_specs(train)
     import torch

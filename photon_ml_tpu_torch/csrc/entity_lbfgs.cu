@@ -17,10 +17,13 @@
 // (the trial point in OWL-QN and with bounds), g_new, pseudo-gradient,
 // factor and shift, and the (s, y) history as a ring (the newest pair at
 // `head`, so storing a pair writes one slot). TRON keeps no history: the
-// rows' labels, offsets, weights, margins, trial margins, curvature
-// weights and a scratch vector, and the coordinates' c, g, the CG step,
-// residual and direction, H d, the trial point and its gradient, the
-// free-coordinate mask, factor and shift. Bounds are read in place from
+// rows' margins, trial margins, curvature weights and a scratch vector,
+// and the coordinates' c, g, the CG step, residual and direction, H d,
+// the trial point and its gradient, the free-coordinate mask, factor and
+// shift, in T; its rows' labels, offsets and weights stay float32 as they
+// come (widening float32 to float64 is exact, so the arithmetic is the
+// same, and at n_pad 64, d_pad 32 the 768 bytes saved let an SM hold 16
+// entities where it held 12). Bounds are read in place from
 // device memory and do not grow the working set. Where it fits a
 // block's shared memory, the working set sits there, followed by a
 // float32 copy of the entity's x tile [r, d] with row stride d + 1 (lanes
@@ -30,30 +33,33 @@
 // either keeps it in a device-memory workspace the caller allocates, so
 // every r and d launches.
 //
-// Lanes. One warp per entity. An L-BFGS or OWL-QN entity's coordinates
-// go over the first C lanes, C the smallest power of two >= d (4 to 32),
-// its rows over all 32. Margins and H v's X v put lanes over rows; the
-// gradient, X^T u, the two-loop recursion, CG's vector updates and the
-// history put lanes over coordinates. Sums over coordinates are xor
-// butterflies over C lanes (log2 C shuffle steps in place of 5; for d <=
-// C the 32-lane tree would only add zeros, so the bits are the same) and
-// a broadcast from lane 0, sums over rows butterflies over 32 lanes.
-// Every lane gets the same bits, so each entity's control flow is uniform
-// over its warp. TRON keeps C = 32. (Groups of C lanes with 32 / C
-// entities per warp were measured and dropped: at the slice's buckets they
-// took 1.2-2.5x as long, each entity's row loops being 32 / C times
-// longer; PERF.md.)
+// Lanes. One warp per entity. Its coordinates go over the first C lanes, C
+// the smallest power of two >= d (4 to 32), its rows over all 32. Margins and
+// H v's X v put lanes over rows; the gradient, X^T u, the two-loop recursion,
+// CG's vector updates and the history put lanes over coordinates. (TRON's
+// passes keep that order: splitting H v's rows over the 32 / C idle lane
+// groups with several accumulators made it no faster or slower, and its
+// registers cost residency; PERF.md.) Sums over coordinates are xor
+// butterflies over C lanes (log2 C shuffle steps in place of 5; for d <= C
+// the 32-lane tree would only add zeros, so the bits are the same) and a
+// broadcast from lane 0, sums over rows butterflies over 32 lanes. Every lane
+// gets the same bits, so each entity's control flow is uniform over its warp.
+// (Groups of C lanes with 32 / C entities per warp were measured and dropped:
+// at the slice's buckets they took 1.2-2.5x as long, each entity's row loops
+// being 32 / C times longer; PERF.md.)
 //
-// Grid. The L-BFGS modes launch a persistent grid: as many blocks as the
-// card holds resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor at
-// plan time), each warp taking the next entity from an atomic counter
-// when its entity stops, so a bucket larger than one wave leaves no
-// partial last wave and no block waits on its slowest entity; the last
-// warp out sets the counter back to 0. TRON launches one warp per
-// entity. Inputs and outputs are float32.
+// Grid. Every mode launches a persistent grid: as many blocks as the card
+// holds resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor at plan time,
+// for the count of warps per block, 1 to 4, that holds the most entities;
+// TRON's instances are held to 96 registers so that registers do not cap the
+// SM below what shared memory holds), each warp taking the next entity from
+// an atomic counter when its entity stops, so a bucket larger than one wave
+// leaves no partial last wave and no block waits on its slowest entity; the
+// last warp out sets the counter back to 0. Inputs and outputs are float32.
 //
 // Plans. A launch plan (layout, C, warps per block, resident blocks, the
-// kernel instance with its shared-memory attribute set) is made once per
+// kernel instance with its shared-memory attribute at the card's opt-in
+// budget) is made once per
 // shape, compute type, mode, loss and device by entity_lbfgs_plan and
 // kept in a table; a launch names its plan and launches, with no query of
 // the device.
@@ -72,7 +78,7 @@
 // orthant projection; TRON freezes the pinned coordinates in CG, clamps
 // its trial and prices the realized step with one more H v.
 //
-// OWL-QN and TRON are template arguments (their loops differ in kind),
+// The mode is a template argument (OWL-QN and TRON loops differ in kind),
 // and so is C; normalization and bounds are runtime flags (null pointers
 // mean off, uniform over a launch), so they do not multiply the
 // instances. Each (mode, compute type) pair is its own translation unit,
@@ -92,8 +98,9 @@
 // of dot products (shuffle trees), shared-memory round trips and loss
 // evaluations, so the chain's latency, times the waves of entities the
 // card holds resident, sets the time. The design shortens the trees where
-// d < 32, keeps every operand on chip where it fits and keeps the card
-// full until the last entity starts.
+// d < 32 (and in TRON's CG step makes two butterflies of several values
+// where it made six of one), keeps every operand on chip where it fits
+// and keeps the card full until the last entity starts.
 
 #include "entity_lbfgs.cuh"
 
@@ -132,7 +139,7 @@ KernelFn kernel_of(const Plan& plan, int mode, int f64, int loss) {
 // Plans a solve of entities of r rows and d coordinates on the current
 // device: `mode` 0 L-BFGS, 1 OWL-QN, 2 TRON; `f64` float64 compute;
 // `loss` the kernel_id. Sets the kernel's shared-memory attribute and
-// asks for its occupancy, once. Returns the
+// picks the warps per block by its occupancy, once. Returns the
 // plan's handle (>= 0), or minus a CUDA error. `info` receives: layout (0
 // x tile and working set in shared memory, 1 x read from device memory,
 // 2 working set in the workspace too), C (the lanes over an entity's
@@ -161,18 +168,32 @@ extern "C" int entity_lbfgs_plan(int r, int d, int m, int f64, int mode,
   en.r = r;
   en.d = d;
   en.m = m;
-  en.smem = en.plan.entity_bytes * (size_t)en.plan.warps;
-  if (en.smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(en.kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)en.smem);
+  // The instance may serve plans of other shapes, so its shared-memory
+  // attribute is the card's opt-in budget, never one plan's need.
+  if (en.plan.entity_bytes * (size_t)en.plan.warps > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        en.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, budget);
     if (err != cudaSuccess) return -(int)err;
   }
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, en.kernel, 32 * en.plan.warps, en.smem);
-  if (err != cudaSuccess) return -(int)err;
-  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  // Warps per block: the count (up to the plan's) that keeps the most
+  // entities resident, more warps on a tie. Where shared memory caps the
+  // SM, narrower blocks waste less of it (at 15.7 KB per entity, blocks
+  // of 2 warps hold 14 entities per SM where blocks of 4 hold 12).
+  int best_warps = 0, best_per_sm = 0;
+  for (int wp = en.plan.warps; wp >= 1; --wp) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, en.kernel, 32 * wp, en.plan.entity_bytes * (size_t)wp);
+    if (err != cudaSuccess) return -(int)err;
+    if (per_sm * wp > best_per_sm * best_warps) {
+      best_warps = wp;
+      best_per_sm = per_sm;
+    }
+  }
+  if (best_per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  en.plan.warps = best_warps;
+  en.smem = en.plan.entity_bytes * (size_t)best_warps;
+  const int per_sm = best_per_sm;
   en.blocks = per_sm * sms;
   const long long out[7] = {en.plan.layout, en.plan.coord_lanes,
                             en.plan.warps, per_sm, sms,
@@ -189,14 +210,13 @@ extern "C" int entity_lbfgs_plan(int r, int d, int m, int f64, int mode,
 // launch (0 on success). Does not synchronise. `out_c` holds c [E, d],
 // `fout` f and |g| ([2, E]), `iout` [4, E] ints: iterations, reason,
 // trials (or TRON's trips) and TRON's CG steps.
-// `counter` holds 2 ints, 0 before the launch, which the L-BFGS modes'
-// persistent grid counts entities with and leaves 0 (launches sharing
-// one counter must follow each other on one stream; TRON does not read
-// it). `workspace` holds E times the plan's working-set bytes in layout 2
-// (may be null otherwise). `factor`
-// null means no normalization (`shift` is then not read); `lower` null
-// means no bounds (`upper` is then not read; not with OWL-QN).
-// max_line_search and c1 are unused by TRON, l1 by L-BFGS and TRON.
+// `counter` holds 2 ints, 0 before the launch, which the persistent grid
+// counts entities with and leaves 0 (launches sharing one counter must follow
+// each other on one stream). `workspace` holds E times the plan's working-set
+// bytes in layout 2 (may be null otherwise). `factor` null means no
+// normalization (`shift` is then not read); `lower` null means no bounds
+// (`upper` is then not read; not with OWL-QN). max_line_search and c1 are
+// unused by TRON, l1 by L-BFGS and TRON.
 extern "C" int entity_lbfgs_launch(
     int handle, const float* x, const float* y, const float* off,
     const float* w, const float* c0, const float* factor,
@@ -219,22 +239,15 @@ extern "C" int entity_lbfgs_launch(
     return (int)cudaErrorInvalidValue;
   if (en.plan.layout == kAllGlobal && workspace == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (en.mode != kModeTron && counter == nullptr)
-    return (int)cudaErrorInvalidValue;
+  if (counter == nullptr) return (int)cudaErrorInvalidValue;
   Params p{x, y, off, w, c0, factor, shift, lower, upper,
            out_c, fout, fout + E,
            iout, iout + E, iout + 2 * (size_t)E, iout + 3 * (size_t)E,
            counter, static_cast<unsigned char*>(workspace), E,
            en.r, en.d, en.m, max_iter, max_line_search, l2, l1, tol, c1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int blocks;
-  if (en.mode == kModeTron) {
-    blocks = (E + en.plan.warps - 1) / en.plan.warps;
-  } else {
-    const long long needed =
-        ((long long)E + en.plan.warps - 1) / en.plan.warps;
-    blocks = needed < en.blocks ? (int)needed : en.blocks;
-  }
+  const long long needed = ((long long)E + en.plan.warps - 1) / en.plan.warps;
+  const int blocks = needed < en.blocks ? (int)needed : en.blocks;
   en.kernel<<<blocks, 32 * en.plan.warps, en.smem, s>>>(p, en.plan);
   return (int)cudaGetLastError();
 }

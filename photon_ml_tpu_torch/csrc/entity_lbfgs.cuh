@@ -50,8 +50,7 @@ struct Params {
   int* out_steps;       // [E] line-search trials priced, or TRON's trips
   int* out_cg;          // [E] TRON's CG steps (TRON only)
   int* next;            // [2]: the next entity to take and the warps
-                        // done (L-BFGS modes; 0 before a launch and
-                        // after it)
+                        // done (0 before a launch and after it)
   unsigned char* workspace;  // [E, state_bytes] when the state is global
   int E, r, d, m, max_iter, max_line_search;
   double l2, l1, tol, c1;
@@ -72,13 +71,18 @@ struct Plan {
 
 inline size_t round16(size_t n) { return (n + 15) / 16 * 16; }
 
-// The working set of one entity, in T elements: TRON keeps 7 row vectors
-// and 11 coordinate vectors and no history; L-BFGS and OWL-QN keep 6 row
-// vectors, 8 coordinate vectors and the m (s, y) pairs with their rho and
-// alpha. Bounds are not part of it (see load_entity).
-inline size_t state_elements(int r, int d, int m, bool tron) {
-  if (tron) return 7 * (size_t)r + 11 * (size_t)d;
-  return 6 * (size_t)r + 8 * (size_t)d + 2 * (size_t)m * d + 2 * (size_t)m;
+// The working set of one entity, in bytes (rounded up to 16): TRON keeps
+// 4 row vectors and 11 coordinate vectors in T and the rows' labels,
+// offsets and weights as the float32 inputs they are (T = double widens
+// them exactly on every read); L-BFGS and OWL-QN keep 6 row vectors, 8
+// coordinate vectors and the m (s, y) pairs with their rho and alpha, all
+// in T. Bounds are not part of it (see load_entity).
+inline size_t state_bytes_of(int r, int d, int m, size_t t_size, bool tron) {
+  if (tron)
+    return round16(t_size * (4 * (size_t)r + 11 * (size_t)d) +
+                   sizeof(float) * 3 * (size_t)r);
+  return round16(t_size * (6 * (size_t)r + 8 * (size_t)d +
+                           2 * (size_t)m * d + 2 * (size_t)m));
 }
 
 // The lanes a coordinate sweep needs: the smallest power of two >= d,
@@ -90,11 +94,13 @@ inline int coord_lanes_for(int d) {
 }
 
 // Plans a solve of r x d entities with `budget` bytes of opt-in shared
-// memory per block. C is coord_lanes_for(d) in the shared layout of the
-// L-BFGS modes, and 32 elsewhere.
+// memory per block: the layout, C = coord_lanes_for(d) in the shared
+// layout and 32 elsewhere, and the most warps per block (up to 4) the
+// budget holds; entity_lbfgs_plan then takes the count of warps per block
+// that keeps the most entities resident.
 inline void make_plan(int r, int d, int m, size_t t_size, bool tron,
                       size_t budget, Plan* plan) {
-  const size_t state = round16(t_size * state_elements(r, d, m, tron));
+  const size_t state = state_bytes_of(r, d, m, t_size, tron);
   const size_t x_tile = round16(4 * (size_t)r * (d + 1));
   plan->state_bytes = state;
   if (state + x_tile <= budget) {
@@ -107,8 +113,7 @@ inline void make_plan(int r, int d, int m, size_t t_size, bool tron,
     plan->entity_bytes = 0;
     plan->layout = kAllGlobal;
   }
-  plan->coord_lanes =
-      !tron && plan->layout == kAllShared ? coord_lanes_for(d) : 32;
+  plan->coord_lanes = plan->layout == kAllShared ? coord_lanes_for(d) : 32;
   plan->warps = kMaxWarps;
   if (plan->entity_bytes > 0 && budget / plan->entity_bytes < kMaxWarps)
     plan->warps = (int)(budget / plan->entity_bytes);
@@ -294,14 +299,23 @@ __device__ void gradient(const XView<T, LAYOUT>& xv, const T* z, const T* y,
   }
 }
 
-// sum_i w[i] l(z[i] + t zp[i], y[i]), lanes over rows.
+// sum_i w[i] l(z[i] + t zp[i], y[i]) over the lane's rows (lanes over
+// rows; y and w in T, or float32), and, in data_value, its sum over the
+// warp.
+template <int LOSS, typename T, typename R>
+__device__ __forceinline__ T data_part(const T* z, const T* zp, T t,
+                                       const R* y, const R* w, int r,
+                                       int lane) {
+  T s = T(0);
+  for (int i = lane; i < r; i += 32)
+    s += (T)w[i] *
+         Loss<LOSS, T>::value(zp ? z[i] + t * zp[i] : z[i], (T)y[i]);
+  return s;
+}
 template <int LOSS, typename T>
 __device__ T data_value(const T* z, const T* zp, T t, const T* y, const T* w,
                         int r, int lane) {
-  T s = T(0);
-  for (int i = lane; i < r; i += 32)
-    s += w[i] * Loss<LOSS, T>::value(zp ? z[i] + t * zp[i] : z[i], y[i]);
-  return lane_sum<32>(s);
+  return lane_sum<32>(data_part<LOSS, T>(z, zp, t, y, w, r, lane));
 }
 
 // sum_j |v[j]|, lanes over coordinates.
@@ -331,20 +345,20 @@ __device__ __forceinline__ float tile_value(float v, bool normalized,
   return normalized ? fold(v, sh[j], fa[j]) : v;
 }
 
-// Loads one entity's factor and shift when normalized, its x tile into
-// shared memory in the shared layout (folded there when normalized), its
-// rows and c0 (projected when bounded). Returns the view the solve reads
-// x through. The tile is read with 16-byte loads where the entity's x is
-// 16-byte aligned, and laid out with row stride d + 1 (lanes over rows
-// then hit distinct banks); its row and column advance by additions, not
-// divisions. The bounds stay in device memory, read in place (read-only
-// and cached) by the few projections that use them: staged in the
-// working set they would cost 2 d of shared memory per entity, which at
-// n_pad 64, d_pad 32 drops an SM from 3 blocks of 4 warps to 2.
-template <int C, typename T, int LAYOUT>
+// Loads one entity's factor and shift when normalized, its x tile into shared
+// memory in the shared layout (folded there when normalized), its rows (in T,
+// or float32 as given) and c0 (projected when bounded). Returns the view the
+// solve reads x through. The tile is read with 16-byte loads where the
+// entity's x is 16-byte aligned, and laid out with row stride d + 1 (lanes
+// over rows then hit distinct banks); its row and column advance by
+// additions, not divisions. The bounds stay in device memory, read in place
+// (read-only and cached) by the few projections that use them: staged in the
+// working set they would cost 2 d of shared memory per entity, which at n_pad
+// 64, d_pad 32 drops an SM from 3 blocks of 4 warps to 2.
+template <int C, typename T, int LAYOUT, typename R>
 __device__ XView<T, LAYOUT> load_entity(const Params& p, unsigned char* base,
-                                        size_t state_bytes, int e, T* y,
-                                        T* off, T* w, T* c, T* fa, T* sh,
+                                        size_t state_bytes, int e, R* y,
+                                        R* off, R* w, T* c, T* fa, T* sh,
                                         int lane) {
   const int r = p.r, d = p.d;
   const bool normalized = p.factor != nullptr;
@@ -712,88 +726,140 @@ __device__ void solve_lbfgs(const Params& p, size_t state_bytes,
   }
 }
 
-// The L-BFGS and OWL-QN kernel: a persistent grid whose warps each take
-// the next entity from p.next until none is left, so no block waits on
-// its slowest entity and no partial last wave idles. The last warp to
-// finish sets the counter pair back to 0 for the next launch.
-template <int LOSS, typename T, int LAYOUT, bool OWLQN, int C>
-__global__ void __launch_bounds__(128)
-    entity_lbfgs_kernel(Params p, Plan plan) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  unsigned char* slot = smem + (size_t)warp * plan.entity_bytes;
-  for (;;) {
-    int e = 0;
-    if (lane == 0) e = atomicAdd(p.next, 1);
-    e = __shfl_sync(kFull, e, 0);
-    if (e >= p.E) break;  // whole warps only: no block barrier follows
-    unsigned char* base =
-        LAYOUT == kAllGlobal ? p.workspace + (size_t)e * plan.state_bytes
-                             : slot;
-    solve_lbfgs<LOSS, T, LAYOUT, OWLQN, C>(p, plan.state_bytes, base, e,
-                                           lane);
-    __syncwarp();  // the warp is done with the slot
-  }
-  if (lane == 0) {
-    // Every warp takes one ticket past E before it counts itself done, so
-    // the last one done is the last to touch p.next.
-    __threadfence();
-    const int warps = (int)(gridDim.x * (blockDim.x >> 5));
-    if (atomicAdd(p.next + 1, 1) == warps - 1) {
-      atomicExch(p.next, 0);
-      atomicExch(p.next + 1, 0);
-    }
+// Sums over the coordinates of N independent values at once, on every
+// lane: one butterfly whose N shuffles per step overlap, each value with
+// the bits of coord_sum<C>.
+template <int C, typename T, int N>
+__device__ __forceinline__ void coord_sums(T (&v)[N]) {
+#pragma unroll
+  for (int o = C / 2; o > 0; o >>= 1)
+#pragma unroll
+    for (int n = 0; n < N; ++n) v[n] += __shfl_xor_sync(kFull, v[n], o);
+  if constexpr (C < 32)
+#pragma unroll
+    for (int n = 0; n < N; ++n) v[n] = __shfl_sync(kFull, v[n], 0);
+}
+
+// Sums over the warp of N independent values at once (row sums, or a mix
+// of row and coordinate sums: a coordinate partial is 0 on lanes past C,
+// so the 32-lane tree gives it the bits of coord_sum<C>).
+template <typename T, int N>
+__device__ __forceinline__ void warp_sums(T (&v)[N]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int n = 0; n < N; ++n) v[n] += __shfl_xor_sync(kFull, v[n], o);
+}
+
+// TRON's row and column passes (X v, X^T u: its H v once per CG step, its
+// margins and gradient once per trip) round each product and each sum,
+// as -fmad=false asks and as the plain version does: a fused multiply-add
+// was 2-3% faster on the large buckets and moved more rounding-level
+// trust-region tests away from the plain version (PERF.md).
+
+// out[i] = scale[i] * (sum_j x[i, j] v[j]) + add[i], lanes over rows
+// (scale or add null: left out).
+template <typename T, int LAYOUT, typename R>
+__device__ __forceinline__ void tron_rows(const XView<T, LAYOUT>& xv,
+                                          const T* v, const T* scale,
+                                          const R* add, T* out, int r, int d,
+                                          int lane) {
+  for (int i = lane; i < r; i += 32) {
+    T acc = T(0);
+    for (int j = 0; j < d; ++j) acc += xv.at(i, j) * v[j];
+    if (scale != nullptr) acc = scale[i] * acc;
+    out[i] = add != nullptr ? acc + (T)add[i] : acc;
   }
 }
 
-// out = fr .* (H (fr .* v)) with H v = X^T (d2w .* X v) + l2 v, in the
-// Pallas kernel's order (l2 v first, then the rows); fr null means no
-// mask. u is r scratch.
+// init + sum_i x[i, j] u[i] for coordinate j, the rows in order (lanes
+// over coordinates).
 template <typename T, int LAYOUT>
-__device__ void hess_vec(const XView<T, LAYOUT>& xv, const T* d2w,
-                         const T* v, const T* fr, T l2, T* u, T* out, int r,
-                         int d, int lane) {
-  __syncwarp();
-  for (int i = lane; i < r; i += 32) {
-    T acc = T(0);
-    for (int j = 0; j < d; ++j)
-      acc += xv.at(i, j) * (fr != nullptr ? fr[j] * v[j] : v[j]);
-    u[i] = d2w[i] * acc;
+__device__ __forceinline__ T xt_col(const XView<T, LAYOUT>& xv, const T* u,
+                                    T init, int r, int j) {
+  T acc = init;
+  for (int i = 0; i < r; ++i) acc += xv.at(i, j) * u[i];
+  return acc;
+}
+
+// out[j] = l2 base[j] + sum_i x[i, j] u[i] (base = c in the gradient, the
+// (masked) v in H v), lanes over coordinates; mask non-null multiplies
+// the result by mask[j].
+template <int C, typename T, int LAYOUT>
+__device__ __forceinline__ void xt_times(const XView<T, LAYOUT>& xv,
+                                         const T* u, T l2, const T* base,
+                                         const T* mask, T* out, int r, int d,
+                                         int lane) {
+  for (int j = lane; j < d; j += C) {
+    const T a = xt_col(xv, u, l2 * base[j], r, j);
+    out[j] = mask != nullptr ? mask[j] * a : a;
   }
+}
+
+// TRON's gradient: out[j] = l2 c[j] + sum_i x[i, j] u[i] with u = w *
+// l'(z, y).
+template <int LOSS, int C, typename T, int LAYOUT>
+__device__ __forceinline__ void tron_gradient(const XView<T, LAYOUT>& xv,
+                                              const T* z, const float* y,
+                                              const float* w, T* u,
+                                              const T* c, T l2, T* out,
+                                              int r, int d, int lane) {
   __syncwarp();
-  for (int j = lane; j < d; j += 32) {
-    T acc = l2 * (fr != nullptr ? fr[j] * v[j] : v[j]);
-    for (int i = 0; i < r; ++i) acc += xv.at(i, j) * u[i];
-    out[j] = fr != nullptr ? fr[j] * acc : acc;
+  for (int i = lane; i < r; i += 32)
+    u[i] = (T)w[i] * Loss<LOSS, T>::d1(z[i], (T)y[i]);
+  __syncwarp();
+  xt_times<C>(xv, u, l2, c, (const T*)nullptr, out, r, d, lane);
+}
+
+// out = fr .* (H (fr .* v)) with H v = X^T (d2w .* X v) + l2 v; fr null
+// means no mask. u is r scratch; with a mask, out holds fr .* v until the
+// last pass overwrites it.
+template <int C, typename T, int LAYOUT>
+__device__ __forceinline__ void hess_vec(const XView<T, LAYOUT>& xv,
+                                         const T* d2w, const T* v,
+                                         const T* fr, T l2, T* u, T* out,
+                                         int r, int d, int lane) {
+  __syncwarp();
+  const T* vm = v;
+  if (fr != nullptr) {
+    for (int j = lane; j < d; j += C) out[j] = fr[j] * v[j];
+    __syncwarp();
+    vm = out;
   }
+  tron_rows(xv, vm, d2w, (const float*)nullptr, u, r, d, lane);
+  __syncwarp();
+  xt_times<C>(xv, u, l2, vm, fr, out, r, d, lane);
   __syncwarp();
 }
 
 // TRON's stationarity: |g|, or |c - P(c - g)| with bounds.
-template <typename T>
-__device__ T stat_norm(const T* c, const T* g, const float* lb,
-                       const float* ub, int d, int lane) {
-  if (lb == nullptr) return rt(dot<32>(g, g, d, lane));
+template <int C, typename T>
+__device__ __forceinline__ T stat_norm(const T* c, const T* g,
+                                       const float* lb, const float* ub,
+                                       int d, int lane) {
   T s = T(0);
-  for (int j = lane; j < d; j += 32) {
-    const T v = c[j] - box(c[j] - g[j], (T)lb[j], (T)ub[j]);
+  for (int j = lane; j < d; j += C) {
+    const T v = lb == nullptr ? g[j]
+                              : c[j] - box(c[j] - g[j], (T)lb[j], (T)ub[j]);
     s += v * v;
   }
-  return rt(lane_sum<32>(s));
+  return rt(coord_sum<C>(s));
 }
 
-// Per-entity TRON (the Pallas _make_tron_kernel): a trust-region loop
-// whose Steihaug-Toint CG runs per warp, with the curvature weights d2w
-// computed once per trip. Bounds freeze the pinned coordinates in CG,
-// clamp the trial and price the realized step with one more Hv.
-template <int LOSS, typename T, int LAYOUT>
-__global__ void __launch_bounds__(128) entity_tron_kernel(Params p, Plan plan) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int e = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (e >= p.E) return;  // whole warps only: no block barrier follows
+// One entity's TRON solve (the Pallas _make_tron_kernel) on the warp's
+// `lane`, its working set at `base`: a trust-region loop whose
+// Steihaug-Toint CG runs per warp, with the curvature weights d2w computed
+// once per trip. Bounds freeze the pinned coordinates in CG, clamp the
+// trial and price the realized step with one more H v. A CG step makes
+// one H v and two butterflies of several values: d.Hd, s.d, d.d and s.s
+// together, then |s + alpha d|^2 with the residual norm of the step
+// alpha, |r - alpha Hd|^2, so the step and the new residual norm are
+// known at once; the step that crosses the radius (at most one a trip)
+// sums |r - tau Hd|^2 in a third. A trip's value and ||c||^2 share one
+// butterfly, and so do g.s, ||s||^2 and the model term.
+template <int LOSS, typename T, int LAYOUT, int C>
+__device__ void solve_tron(const Params& p, size_t state_bytes,
+                           unsigned char* base, int e, int lane) {
   const int r = p.r, d = p.d;
   const T l2 = (T)p.l2, tol = (T)p.tol;
   const T pin_eps = (T)kPinEps;
@@ -802,41 +868,42 @@ __global__ void __launch_bounds__(128) entity_tron_kernel(Params p, Plan plan) {
   const T tiny = (T)1e-30;
   const bool bounded = p.lower != nullptr;
 
-  unsigned char* base;
-  if constexpr (LAYOUT == kAllGlobal)
-    base = p.workspace + (size_t)e * plan.state_bytes;
-  else
-    base = smem + (size_t)warp * plan.entity_bytes;
-  T* y = reinterpret_cast<T*>(base);
-  T* off = y + r;
-  T* w = off + r;
-  T* z = w + r;
+  T* z = reinterpret_cast<T*>(base);
   T* zt = z + r;    // trial margins
   T* d2w = zt + r;  // curvature weights of the trip
   T* u = d2w + r;   // scratch: d1 weights, or d2w .* X v
   T* c = u + r;
   T* g = c + d;
-  T* s = g + d;   // CG step
-  T* rr = s + d;  // CG residual
-  T* dv = rr + d; // CG direction, then the realized step
+  T* s = g + d;    // CG step
+  T* rr = s + d;   // CG residual
+  T* dv = rr + d;  // CG direction, then the realized step
   T* hd = dv + d;
   T* cn = hd + d;  // trial point
   T* gn = cn + d;
   T* fr = gn + d;  // 1 free, 0 pinned
   T* fa = fr + d;
   T* sh = fa + d;
+  float* y = reinterpret_cast<float*>(sh + d);
+  float* off = y + r;
+  float* w = off + r;
   const T* mask = bounded ? fr : nullptr;
   const float* lb = entity_row(p.lower, e, d);
   const float* ub = entity_row(p.upper, e, d);
 
-  const XView<T, LAYOUT> xv = load_entity<32, T, LAYOUT>(
-      p, base, plan.state_bytes, e, y, off, w, c, fa, sh, lane);
-  margins(xv, c, off, z, r, d, lane);
-  T f = data_value<LOSS, T>(z, (const T*)nullptr, T(0), y, w, r, lane) +
-        T(0.5) * l2 * dot<32>(c, c, d, lane);
-  gradient<LOSS, 32>(xv, z, y, w, u, c, l2, g, r, d, lane);
+  const XView<T, LAYOUT> xv = load_entity<C, T, LAYOUT>(
+      p, base, state_bytes, e, y, off, w, c, fa, sh, lane);
+  tron_rows(xv, c, (const T*)nullptr, off, z, r, d, lane);
+  T f;
+  {
+    T v[2] = {data_part<LOSS, T>(z, (const T*)nullptr, T(0), y, w, r, lane),
+              T(0)};
+    for (int j = lane; j < d; j += C) v[1] += c[j] * c[j];
+    warp_sums(v);
+    f = v[0] + T(0.5) * l2 * v[1];
+  }
+  tron_gradient<LOSS, C>(xv, z, y, w, u, c, l2, g, r, d, lane);
   __syncwarp();
-  const T gnorm0 = stat_norm(c, g, lb, ub, d, lane);
+  const T gnorm0 = stat_norm<C>(c, g, lb, ub, d, lane);
   const T f0_scale = mx(ab(f), tiny);
   T gnorm = gnorm0, delta = gnorm0;
   int reason = gnorm0 <= T(0) ? kGradientConverged : kNotConverged;
@@ -845,11 +912,11 @@ __global__ void __launch_bounds__(128) entity_tron_kernel(Params p, Plan plan) {
 
   for (; trips < max_trips && reason == kNotConverged; ++trips) {
     for (int i = lane; i < r; i += 32)
-      d2w[i] = w[i] * Loss<LOSS, T>::d2(z[i], y[i]);
+      d2w[i] = (T)w[i] * Loss<LOSS, T>::d2(z[i], (T)y[i]);
     // Coordinates pinned at a bound with the gradient pushing outward
     // stay out of CG.
     T gg = T(0);
-    for (int j = lane; j < d; j += 32) {
+    for (int j = lane; j < d; j += C) {
       const bool pinned =
           bounded && ((c[j] <= (T)lb[j] + pin_eps && g[j] > T(0)) ||
                       (c[j] >= (T)ub[j] - pin_eps && g[j] < T(0)));
@@ -860,40 +927,55 @@ __global__ void __launch_bounds__(128) entity_tron_kernel(Params p, Plan plan) {
       dv[j] = -gc;
       gg += gc * gc;
     }
-    gg = lane_sum<32>(gg);
+    gg = coord_sum<C>(gg);
     // Steihaug-Toint truncated CG.
     const T stop_norm = (T)kCgXi * rt(gg);
     T rtr = gg;
     bool done = rt(gg) <= stop_norm;
     for (int kk = 0; kk < kMaxCg && !done; ++kk) {
-      hess_vec(xv, d2w, dv, mask, l2, u, hd, r, d, lane);
-      const T dhd = dot<32>(dv, hd, d, lane);
-      const T alpha = rtr / (dhd > T(0) ? dhd : T(1));
-      T sts = T(0), std_ = T(0), dd = T(0), ss = T(0);
-      for (int j = lane; j < d; j += 32) {
-        const T st = s[j] + alpha * dv[j];
-        sts += st * st;
-        std_ += s[j] * dv[j];
-        dd += dv[j] * dv[j];
-        ss += s[j] * s[j];
+      hess_vec<C>(xv, d2w, dv, mask, l2, u, hd, r, d, lane);
+      T q[4] = {T(0), T(0), T(0), T(0)};  // d.Hd, s.d, d.d, s.s
+      for (int j = lane; j < d; j += C) {
+        q[0] += dv[j] * hd[j];
+        q[1] += s[j] * dv[j];
+        q[2] += dv[j] * dv[j];
+        q[3] += s[j] * s[j];
       }
-      sts = lane_sum<32>(sts);
-      std_ = lane_sum<32>(std_);
-      dd = lane_sum<32>(dd);
-      ss = lane_sum<32>(ss);
-      const bool crossed = sts > delta * delta || dhd <= T(0);
+      coord_sums<C>(q);
+      const T dhd = q[0], std_ = q[1], dd = q[2], ss = q[3];
+      const T alpha = rtr / (dhd > T(0) ? dhd : T(1));
       const T gap = nmax(delta * delta - ss, T(0));
       const T rad = rt(nmax(std_ * std_ + dd * gap, T(0)));
       const T tau = std_ >= T(0) ? gap / nmax(std_ + rad, tiny)
                                  : (rad - std_) / nmax(dd, tiny);
-      const T step = crossed ? tau : alpha;
-      for (int j = lane; j < d; j += 32) {
-        s[j] += step * dv[j];
-        rr[j] -= step * hd[j];
+      // |s + alpha d|^2 and |r - alpha Hd|^2; a step that crosses the
+      // radius (at most once a trip) sums |r - tau Hd|^2 on its own.
+      T n[2] = {T(0), T(0)};
+      for (int j = lane; j < d; j += C) {
+        const T st = s[j] + alpha * dv[j];
+        const T ra = rr[j] - alpha * hd[j];
+        n[0] += st * st;
+        n[1] += ra * ra;
       }
-      const T rtr_new = dot<32>(rr, rr, d, lane);
+      coord_sums<C>(n);
+      const bool crossed = n[0] > delta * delta || dhd <= T(0);
+      const T step = crossed ? tau : alpha;
+      T rtr_new = n[1];
+      if (crossed) {
+        T rt2 = T(0);
+        for (int j = lane; j < d; j += C) {
+          const T rt_ = rr[j] - tau * hd[j];
+          rt2 += rt_ * rt_;
+        }
+        rtr_new = coord_sum<C>(rt2);
+      }
       const T beta = rtr_new / nmax(rtr, tiny);
-      for (int j = lane; j < d; j += 32) dv[j] = rr[j] + beta * dv[j];
+      for (int j = lane; j < d; j += C) {
+        s[j] += step * dv[j];
+        const T rn = rr[j] - step * hd[j];
+        rr[j] = rn;
+        dv[j] = rn + beta * dv[j];
+      }
       __syncwarp();
       rtr = rtr_new;
       ++cg_steps;
@@ -901,28 +983,38 @@ __global__ void __launch_bounds__(128) entity_tron_kernel(Params p, Plan plan) {
     }
 
     // The trial, its value and gradient; the realized step in dv.
-    for (int j = lane; j < d; j += 32) {
+    for (int j = lane; j < d; j += C) {
       cn[j] = bounded ? box(c[j] + s[j], (T)lb[j], (T)ub[j]) : c[j] + s[j];
       if (bounded) dv[j] = cn[j] - c[j];
     }
     __syncwarp();
     const T* sr = bounded ? dv : s;
-    margins(xv, cn, off, zt, r, d, lane);
-    const T f_new =
-        data_value<LOSS, T>(zt, (const T*)nullptr, T(0), y, w, r, lane) +
-        T(0.5) * l2 * dot<32>(cn, cn, d, lane);
-    gradient<LOSS, 32>(xv, zt, y, w, u, cn, l2, gn, r, d, lane);
-    __syncwarp();
-    const T gs = dot<32>(g, sr, d, lane);
-    T prered;
-    if (bounded) {
-      hess_vec(xv, d2w, sr, (const T*)nullptr, l2, u, hd, r, d, lane);
-      prered = -(gs + T(0.5) * dot<32>(sr, hd, d, lane));
-    } else {
-      prered = T(-0.5) * (gs - dot<32>(s, rr, d, lane));
+    tron_rows(xv, cn, (const T*)nullptr, off, zt, r, d, lane);
+    T f_new;
+    {
+      T v[2] = {
+          data_part<LOSS, T>(zt, (const T*)nullptr, T(0), y, w, r, lane),
+          T(0)};
+      for (int j = lane; j < d; j += C) v[1] += cn[j] * cn[j];
+      warp_sums(v);
+      f_new = v[0] + T(0.5) * l2 * v[1];
     }
+    tron_gradient<LOSS, C>(xv, zt, y, w, u, cn, l2, gn, r, d, lane);
+    __syncwarp();
+    if (bounded) hess_vec<C>(xv, d2w, sr, (const T*)nullptr, l2, u, hd, r, d,
+                             lane);
+    // g.s_r, s_r.s_r, and s_r.H s_r with bounds or s.r without.
+    T q[3] = {T(0), T(0), T(0)};
+    for (int j = lane; j < d; j += C) {
+      q[0] += g[j] * sr[j];
+      q[1] += sr[j] * sr[j];
+      q[2] += bounded ? sr[j] * hd[j] : s[j] * rr[j];
+    }
+    coord_sums<C>(q);
+    const T gs = q[0];
+    const T prered = bounded ? -(gs + T(0.5) * q[2]) : T(-0.5) * (gs - q[2]);
     const T actred = f - f_new;
-    const T snorm = rt(dot<32>(sr, sr, d, lane));
+    const T snorm = rt(q[1]);
 
     // LIBLINEAR's radius update.
     T delta_n = trips == 0 ? nmin(delta, snorm) : delta;
@@ -941,12 +1033,13 @@ __global__ void __launch_bounds__(128) entity_tron_kernel(Params p, Plan plan) {
 
     const bool accept = actred > eta0 * prered && finite(f_new);
     const T f_old = f;
+    __syncwarp();
     if (accept) {
       ++it;
       fails = 0;
       // Non-finite margins and gradient entries are kept as 0, as the
       // Pallas kernel keeps them.
-      for (int j = lane; j < d; j += 32) {
+      for (int j = lane; j < d; j += C) {
         c[j] = cn[j];
         g[j] = finite(gn[j]) ? gn[j] : T(0);
       }
@@ -956,7 +1049,7 @@ __global__ void __launch_bounds__(128) entity_tron_kernel(Params p, Plan plan) {
       ++fails;
     }
     __syncwarp();
-    gnorm = stat_norm(c, g, lb, ub, d, lane);
+    gnorm = stat_norm<C>(c, g, lb, ub, d, lane);
     delta = delta_n;
     if (fails > kMaxFailures)
       reason = kObjectiveNotImproving;
@@ -968,7 +1061,7 @@ __global__ void __launch_bounds__(128) entity_tron_kernel(Params p, Plan plan) {
       reason = kMaxIterations;
   }
 
-  for (int j = lane; j < d; j += 32) p.out_c[(size_t)e * d + j] = (float)c[j];
+  for (int j = lane; j < d; j += C) p.out_c[(size_t)e * d + j] = (float)c[j];
   if (lane == 0) {
     p.out_f[e] = (float)f;
     p.out_gnorm[e] = (float)gnorm;
@@ -979,31 +1072,84 @@ __global__ void __launch_bounds__(128) entity_tron_kernel(Params p, Plan plan) {
   }
 }
 
+// The persistent grid of every mode: each warp takes the next entity from
+// p.next until none is left, so no block waits on its slowest entity and
+// no partial last wave idles. The last warp to finish sets the counter
+// pair back to 0 for the next launch.
+template <int LOSS, typename T, int LAYOUT, int MODE, int C>
+__device__ __forceinline__ void solve_entities(const Params& p,
+                                               const Plan& plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned char* slot = smem + (size_t)warp * plan.entity_bytes;
+  for (;;) {
+    int e = 0;
+    if (lane == 0) e = atomicAdd(p.next, 1);
+    e = __shfl_sync(kFull, e, 0);
+    if (e >= p.E) break;  // whole warps only: no block barrier follows
+    unsigned char* base =
+        LAYOUT == kAllGlobal ? p.workspace + (size_t)e * plan.state_bytes
+                             : slot;
+    if constexpr (MODE == kModeTron)
+      solve_tron<LOSS, T, LAYOUT, C>(p, plan.state_bytes, base, e, lane);
+    else
+      solve_lbfgs<LOSS, T, LAYOUT, MODE == kModeOwlqn, C>(
+          p, plan.state_bytes, base, e, lane);
+    __syncwarp();  // the warp is done with the slot
+  }
+  if (lane == 0) {
+    // Every warp takes one ticket past E before it counts itself done, so
+    // the last one done is the last to touch p.next.
+    __threadfence();
+    const int warps = (int)(gridDim.x * (blockDim.x >> 5));
+    if (atomicAdd(p.next + 1, 1) == warps - 1) {
+      atomicExch(p.next, 0);
+      atomicExch(p.next + 1, 0);
+    }
+  }
+}
+
+// The L-BFGS and OWL-QN kernel.
+template <int LOSS, typename T, int LAYOUT, int MODE, int C>
+__global__ void __launch_bounds__(128) entity_lbfgs_kernel(Params p,
+                                                           Plan plan) {
+  solve_entities<LOSS, T, LAYOUT, MODE, C>(p, plan);
+}
+
+// The TRON kernel. It asks for 5 resident blocks of 128 threads, so at
+// most 96 registers: uncapped, its float64 instances take 138-162 and an
+// SM then holds 3-4 blocks of 4 warps where shared memory allows 4-6
+// (PERF.md: at n_pad 32 and 64, d_pad 32, the cap is worth 16-20% of
+// device time).
+template <int LOSS, typename T, int LAYOUT, int MODE, int C>
+__global__ void __launch_bounds__(128, 5) entity_tron_kernel(Params p,
+                                                             Plan plan) {
+  solve_entities<LOSS, T, LAYOUT, kModeTron, C>(p, plan);
+}
+
 using KernelFn = void (*)(Params, Plan);
 
-// The instance for a plan: TRON in its three layouts; L-BFGS and OWL-QN
-// with C = 4, 8, 16 or 32 in the shared layout and C = 32 in the
-// device-memory layouts.
+// The instance for a plan, in every mode: C = 4, 8, 16 or 32 in the
+// shared layout and C = 32 in the device-memory layouts.
+template <int LOSS, typename T, int MODE, int LAYOUT, int C>
+constexpr KernelFn kernel_of_mode() {
+  if constexpr (MODE == kModeTron)
+    return entity_tron_kernel<LOSS, T, LAYOUT, MODE, C>;
+  else
+    return entity_lbfgs_kernel<LOSS, T, LAYOUT, MODE, C>;
+}
 template <int LOSS, typename T, int MODE>
 KernelFn plan_kernel(const Plan& plan) {
-  if constexpr (MODE == kModeTron) {
-    switch (plan.layout) {
-      case kAllShared: return entity_tron_kernel<LOSS, T, kAllShared>;
-      case kXGlobal: return entity_tron_kernel<LOSS, T, kXGlobal>;
-      default: return entity_tron_kernel<LOSS, T, kAllGlobal>;
-    }
-  } else {
-    constexpr bool kOwlqn = MODE == kModeOwlqn;
-    if (plan.layout == kXGlobal)
-      return entity_lbfgs_kernel<LOSS, T, kXGlobal, kOwlqn, 32>;
-    if (plan.layout == kAllGlobal)
-      return entity_lbfgs_kernel<LOSS, T, kAllGlobal, kOwlqn, 32>;
-    switch (plan.coord_lanes) {
-      case 4: return entity_lbfgs_kernel<LOSS, T, kAllShared, kOwlqn, 4>;
-      case 8: return entity_lbfgs_kernel<LOSS, T, kAllShared, kOwlqn, 8>;
-      case 16: return entity_lbfgs_kernel<LOSS, T, kAllShared, kOwlqn, 16>;
-      default: return entity_lbfgs_kernel<LOSS, T, kAllShared, kOwlqn, 32>;
-    }
+  if (plan.layout == kXGlobal)
+    return kernel_of_mode<LOSS, T, MODE, kXGlobal, 32>();
+  if (plan.layout == kAllGlobal)
+    return kernel_of_mode<LOSS, T, MODE, kAllGlobal, 32>();
+  switch (plan.coord_lanes) {
+    case 4: return kernel_of_mode<LOSS, T, MODE, kAllShared, 4>();
+    case 8: return kernel_of_mode<LOSS, T, MODE, kAllShared, 8>();
+    case 16: return kernel_of_mode<LOSS, T, MODE, kAllShared, 16>();
+    default: return kernel_of_mode<LOSS, T, MODE, kAllShared, 32>();
   }
 }
 

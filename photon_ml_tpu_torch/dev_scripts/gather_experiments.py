@@ -16,8 +16,8 @@ through each layout's slot map) and ``mlookups_per_sec``:
                        a few blocks at a time so memory stays bounded
   cuda_onehot          kernel row 7, the same contraction on the tensor
                        cores (ops/gather.onehot_gather)
-  cuda_residue_gather  kernel row 8, the residue-class gather
-                       (ops/gather.residue_gather)
+  cuda_residue_gather  kernel row 8, the residue-class gather over the
+                       lane-major packing (ops/gather.residue_gather)
 
 Times are CUDA events over REPS calls after a warm-up call, on inputs
 made on the card once (packing the indices is set-up). The table stays
@@ -90,21 +90,22 @@ def _rate(m: int, ms: Optional[float]) -> Optional[float]:
 
 def problem(m: int, d: int, device, seed: int = 0) -> Dict[str, object]:
     """The experiment's inputs: idx and w drawn as the JAX script draws
-    them, both packings, and their tensors on ``device``."""
+    them, both packings (the residue one lane-major, packed on ``device``
+    by ``gather.pack_residue``), and their tensors on ``device``."""
     rng = np.random.default_rng(seed)
     idx = rng.integers(0, d, m).astype(np.int32)
     w = rng.normal(0, 1, d).astype(np.float32)
     local, mask, slot = gather.prep_blocks(idx, d)
-    res_idx, res_slot = gather.prep_residue(idx, d)
     dev = torch.device(device)
     w_t = torch.as_tensor(w, device=dev)
+    idx_t = torch.as_tensor(idx, device=dev)
+    res_idx, res_slot = gather.pack_residue(idx_t, d)
     return dict(
-        m=m, d=d, idx_np=idx, w_np=w, slot=slot, res_slot=res_slot,
-        w=w_t, idx=torch.as_tensor(idx, device=dev),
+        m=m, d=d, idx_np=idx, w_np=w, slot=slot,
+        res_slot=res_slot.cpu().numpy(), w=w_t, idx=idx_t,
         w_blk=gather.block_table(w_t),
         local=torch.as_tensor(local, device=dev),
-        mask=torch.as_tensor(mask, device=dev),
-        res_idx=torch.as_tensor(res_idx, device=dev))
+        mask=torch.as_tensor(mask, device=dev), res_idx=res_idx)
 
 
 def candidates(p: Dict[str, object]) -> Dict[str, tuple]:

@@ -100,17 +100,22 @@ and the history (a ring, newest pair first) lanes over coordinates. The
 grid is persistent: as many blocks as the card holds resident, each
 warp taking the next entity from an atomic counter when its own stops,
 so a bucket of more than one wave keeps the card full to its last
-entity; the last warp out sets the counter back to 0. Line-search candidates are tried in order up to the first that
-passes, where the TPU prices 8 as a block and 23 more on demand (the same
-accepted step). TRON is its own kernel body on the same helpers, one warp
-per entity, with its own working set (no history) and its CG loop per
-warp. The normalization fold is applied once as the tile is loaded, or on
-every read where x stays in device memory; bounds are a runtime flag (a
-null pointer means none). An entity too tall for shared memory reads x
+entity; the last warp out sets the counter back to 0. Line-search
+candidates are tried in order up to the first that passes, where the TPU
+prices 8 as a block and 23 more on demand (the same accepted step). TRON
+is its own solve body on the same helpers and the same persistent grid
+and lanes, with its own working set (no history; its rows' labels,
+offsets and weights kept float32) and its CG loop per warp: a CG step's
+dot products go in two multi-value butterflies, and its instances are
+held to 96 registers so that registers do not cap residency. The
+normalization fold is applied once as the tile is loaded, or on every
+read where x stays in device memory; bounds are a runtime flag (a null
+pointer means none). An entity too tall for shared memory reads x
 from device memory, and its working set goes to a workspace the wrapper
 allocates, so every bucket launches the kernel. Each launch plan (layout,
-C, warps, resident blocks, the kernel's shared-memory attribute) is
-made once per shape, compute type, mode, loss and device (``kernel_plan``)
+C, warps per block, chosen by occupancy to keep the most entities
+resident, resident blocks, the kernel's shared-memory attribute) is made
+once per shape, compute type, mode, loss and device (``kernel_plan``)
 and a call then allocates two output buffers and makes one C call. What
 bounds the solve on this card is each entity's serial dependency chain
 (dot -> shuffle -> update) times the waves of entities the card holds.
@@ -651,8 +656,8 @@ def _plan(device: int, r: int, d: int, m: int, f64: bool, mode: int,
 @functools.lru_cache(maxsize=None)
 def _counter(device: int) -> Tensor:
     """The persistent grid's entity counter on CUDA device ``device``: 2
-    int32 zeros, made once; every L-BFGS-mode launch on the device leaves
-    them 0 again. Launches follow each other on the current stream."""
+    int32 zeros, made once; every launch on the device leaves them 0
+    again. Launches follow each other on the current stream."""
     return torch.zeros((2,), dtype=torch.int32,
                        device=torch.device("cuda", device))
 
@@ -666,8 +671,9 @@ def kernel_plan(r: int, d: int, m: int = DEFAULT_M,
     entity: ``layout`` (0 x tile and working set in shared memory, 1 x
     read from device memory, 2 x and working set in device memory),
     ``coord_lanes`` (the lanes over an entity's coordinates: the smallest
-    power of two >= d, at least 4, in the shared layout of the L-BFGS
-    modes, else 32), ``warps`` per block, resident ``blocks_per_sm`` on
+    power of two >= d, at least 4, in the shared layout, else 32),
+    ``warps`` per block (1-4, the count that keeps the most entities
+    resident), resident ``blocks_per_sm`` on
     ``sms`` SMs, ``resident`` entities on the card, ``state_bytes`` per
     entity and ``smem_bytes`` per block."""
     if device is None:

@@ -19,17 +19,28 @@ runs the same experiment on the card.
   N] (``ONEHOT_N``), so the one-hot row of a lookup sits at
   local >> log2 N and its value in column local & (N - 1).
 - **Residue classes (kernel row 8).** ``prep_residue`` buckets the
-  indices by j mod 128: idx [chunks, a, 128] (int32, a = d / 128) holds
-  j // 128 at lane j mod 128, so out[c, s, l] = T[idx[c, s, l], l] with
-  T = w.view(a, 128), exactly, in float32.
+  indices by j mod 128 as the JAX script does: idx [chunks, a, 128]
+  (int32, a = d / 128) holds j // 128 at lane j mod 128, each lane's
+  stream padded to a multiple of a (the TPU kernel's [a, 128] blocks).
+  The kernel reads the same streams lane-major and needs no such
+  padding: ``lane_major`` transposes that packing exactly into idx [128,
+  per_lane] (row l is lane l's stream of lookups, in order) with its
+  slot map, cut to the least multiple of ``pad`` that holds every
+  stream (by default ``PACK_PAD`` = 4: 16-byte rows for the kernel's
+  vector loads; ``pad`` = a keeps the JAX width). ``pack_residue`` builds
+  the kernel's packing from an index tensor with torch ops on its own
+  device (a stable sort by lane, a bincount and a cumsum), bit for bit
+  equal to ``lane_major(*prep_residue(idx, d))``. Then out[l, p] =
+  T[idx[l, p], l] with T = w.view(a, 128), exactly, in float32.
 
 ``onehot_gather`` and ``residue_gather`` are the wrappers: the plain
 version for tensors on the CPU, the CUDA kernel for tensors on the card
 (``csrc/gather_onehot.cu``, ``csrc/gather_residue.cu``), and a raise for
 anything else. Each counts its kernel launches in ``.launches``;
-``residue_gather.layouts`` counts them per layout ("shared": the whole
-table staged in each block's shared memory, "l2": the table read in
-place from device memory, where the 50 MB L2 holds it).
+``residue_gather.layouts`` counts them per layout ("column": one CTA per
+residue class, its column of the table staged in shared memory; "l2":
+the table read in place from device memory, where the column does not
+fit a block's shared memory).
 """
 
 from __future__ import annotations
@@ -52,7 +63,8 @@ ONEHOT_NS = (8, 16, 32, 64)
 ONEHOT_WARPS = (4, 8, 16)
 ONEHOT_N, ONEHOT_WARP_COUNT = 16, 16
 LANES = 128  # residue classes
-LAYOUTS = ("shared", "l2")
+PACK_PAD = 4  # residue streams padded to a multiple of 4 int32 (16 bytes)
+LAYOUTS = ("column", "l2")
 
 
 def prep_blocks(idx: np.ndarray, d: int, block: int = BLOCK):
@@ -102,6 +114,52 @@ def prep_residue(idx: np.ndarray, d: int):
     return packed, slot
 
 
+def lane_major(packed: np.ndarray, slot: np.ndarray,
+               pad: int = PACK_PAD):
+    """``prep_residue``'s packing [chunks, a, 128] as the lane-major
+    streams the kernel reads: idx [128, per_lane] with idx[l, c * a + s]
+    = packed[c, s, l], per_lane the least multiple of ``pad`` that holds
+    the longest stream (``pad`` = a keeps all chunks * a), and each
+    index's position in the flat [128, per_lane] output (from its flat
+    [chunks, a, 128] position c * a * 128 + s * 128 + l). An exact
+    transposition: what it cuts off or adds is zero padding."""
+    chunks, a, lanes = packed.shape
+    lane, pos = slot % lanes, slot // lanes
+    longest = int(pos.max()) + 1 if len(pos) else 1
+    per_lane = -(-longest // pad) * pad
+    keep = min(per_lane, chunks * a)
+    streams = np.zeros((lanes, per_lane), packed.dtype)
+    streams[:, :keep] = packed.transpose(2, 0, 1).reshape(
+        lanes, chunks * a)[:, :keep]
+    return streams, lane * per_lane + pos
+
+
+def pack_residue(idx: Tensor, d: int):
+    """The kernel's lane-major residue packing of int32 ``idx`` [m]
+    (indices in [0, d)) with torch ops on idx's device: each lane's stream
+    zero-padded to the least multiple of ``PACK_PAD`` that holds the
+    longest. Returns (streams int32 [128, per_lane], slot int64 [m]), bit
+    for bit equal to ``lane_major(*prep_residue(idx, d))``."""
+    if d % LANES:
+        raise ValueError(f"d must be a multiple of {LANES}, got {d}")
+    if idx.dim() != 1 or idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32 [m], got {idx.dtype} "
+                        f"{tuple(idx.shape)}")
+    dev = idx.device
+    lane = idx % LANES
+    order = torch.argsort(lane, stable=True)
+    counts = torch.bincount(lane, minlength=LANES)
+    per_lane = -(-max(1, int(counts.max())) // PACK_PAD) * PACK_PAD
+    lane_o = lane[order].long()
+    pos = (torch.arange(idx.numel(), device=dev)
+           - (torch.cumsum(counts, 0) - counts)[lane_o])
+    streams = torch.zeros((LANES, per_lane), dtype=torch.int32, device=dev)
+    streams[lane_o, pos] = (idx // LANES)[order]
+    slot = torch.empty(idx.numel(), dtype=torch.int64, device=dev)
+    slot[order] = lane_o * per_lane + pos
+    return streams, slot
+
+
 def block_table(w: Tensor, block: int = BLOCK) -> Tensor:
     """w [d] zero-padded to whole blocks: [kb, block], contiguous."""
     kb = -(-w.shape[0] // block)
@@ -117,10 +175,9 @@ def onehot_gather_plain(local: Tensor, mask: Tensor, w_blk: Tensor
 
 
 def residue_gather_plain(w: Tensor, idx: Tensor) -> Tensor:
-    """out[c, s, l] = w.view(a, 128)[idx[c, s, l], l]."""
-    chunks, a, lanes = idx.shape
-    table = w.view(a, lanes)
-    return table.expand(chunks, a, lanes).gather(1, idx.long())
+    """out[l, p] = w.view(a, 128)[idx[l, p], l] for lane-major idx [128,
+    n]."""
+    return w.view(-1, LANES).t().gather(1, idx.long())
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,7 +192,7 @@ def _load_kernels():
     onehot.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
     onehot.restype = ci
     residue = lib.gather_residue_launch
-    residue.argtypes = [vp, vp, vp, ci, ci, vp]
+    residue.argtypes = [vp, vp, vp, ctypes.c_longlong, ci, vp]
     residue.restype = ci
     layout = lib.gather_residue_layout
     layout.argtypes = [ci]
@@ -197,8 +254,8 @@ def onehot_gather(local: Tensor, mask: Tensor, w_blk: Tensor, *,
 
 def residue_layout(a: int) -> str:
     """The layout ``residue_gather`` takes for a table of a * 128 floats
-    on the current CUDA device: "shared" where it fits a block's opt-in
-    shared memory, else "l2"."""
+    on the current CUDA device: "column" where one class's column fits a
+    block's opt-in shared memory, else "l2"."""
     code = _load_kernels()[2](a)
     if code < 0:
         raise RuntimeError(f"gather_residue layout query: CUDA error {-code}")
@@ -206,28 +263,32 @@ def residue_layout(a: int) -> str:
 
 
 def residue_gather(w: Tensor, idx: Tensor) -> Tensor:
-    """Row 8: ``w`` float32 [a * 128], ``idx`` int32 [chunks, a, 128];
-    returns float32 [chunks, a, 128]. An entry of idx outside [0, a)
-    raises in the plain version and gives NaN in the kernel. The kernel
-    needs ``w`` 16-byte aligned. ``residue_gather.launches`` counts kernel
-    launches, ``residue_gather.layouts`` per layout."""
-    chunks, a, lanes = idx.shape
-    if lanes != LANES:
-        raise ValueError(f"idx must be [chunks, a, {LANES}], got "
+    """Row 8: ``w`` float32 [a * 128], ``idx`` int32 [128, n] (lane-major:
+    ``pack_residue`` or ``lane_major``; any n, rows of whole 16 bytes
+    taking the kernel's vector path end to end); returns float32 [128,
+    n]. An
+    entry of idx outside [0, a) raises in the plain version and gives NaN
+    in the kernel. The kernel needs ``w``, ``idx`` and the output 16-byte
+    aligned. ``residue_gather.launches`` counts kernel launches and
+    ``residue_gather.layouts`` per layout."""
+    if idx.dim() != 2 or idx.shape[0] != LANES:
+        raise ValueError(f"idx must be [{LANES}, n], got "
                          f"{tuple(idx.shape)}")
+    if w.dim() != 1 or w.shape[0] % LANES or w.shape[0] == 0:
+        raise ValueError(f"w must be [a * {LANES}], got {tuple(w.shape)}")
+    a, n = w.shape[0] // LANES, idx.shape[1]
     _check("w", w, (a * LANES,), torch.float32)
-    _check("idx", idx, (chunks, a, LANES), torch.int32)
+    _check("idx", idx, (LANES, n), torch.int32)
     if _device_of(w, idx).type == "cpu":
         return residue_gather_plain(w, idx)
-    out = torch.empty((chunks, a, LANES), dtype=torch.float32,
-                      device=w.device)
-    if chunks == 0 or a == 0:
+    out = torch.empty((LANES, n), dtype=torch.float32, device=w.device)
+    if n == 0:
         return out
     launch = _load_kernels()[1]
     with torch.cuda.device(w.device):
         layout = residue_layout(a)
-        err = launch(w.data_ptr(), idx.data_ptr(), out.data_ptr(), chunks,
-                     a, torch.cuda.current_stream(w.device).cuda_stream)
+        err = launch(w.data_ptr(), idx.data_ptr(), out.data_ptr(), n, a,
+                     torch.cuda.current_stream(w.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gather_residue kernel launch failed: CUDA "
                            f"error {err}")

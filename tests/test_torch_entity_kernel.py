@@ -314,9 +314,17 @@ def test_kernel_raises_for_unported_variants(cuda_device, kind):
     assert entity_solver.entity_lbfgs.launches == before
 
 
-# The L-BFGS modes' variants: (mode, normalized, bounded).
-LBFGS_VARIANTS = [("lbfgs", False, False), ("lbfgs", True, False),
-                  ("lbfgs", False, True), ("owlqn", False, False)]
+# The variants of the L-BFGS modes and of TRON: (mode, normalized,
+# bounded).
+VARIANTS = [("lbfgs", False, False), ("lbfgs", True, False),
+            ("lbfgs", False, True), ("owlqn", False, False),
+            ("tron", False, False), ("tron", True, False),
+            ("tron", False, True)]
+
+
+def _work_fields(mode):
+    """The result fields that count an entity's work in ``mode``."""
+    return ("outer_steps", "cg_steps") if mode == "tron" else ("trials",)
 
 
 def _variant_args(cuda_device, e, r, d, normalized, bounded, seed):
@@ -331,29 +339,34 @@ def _variant_args(cuda_device, e, r, d, normalized, bounded, seed):
 
 
 def _assert_close_solve(res_k, res_p, compute_dtype, mode, bounded=False):
-    """float64: equal iterations, reasons, trials and zero sets, rtol and
-    atol 1e-6. With bounds, an entity whose last trials project back onto
-    its iterate passes or fails their Armijo test at float64 rounding, so
-    it may stop FUNCTION_VALUES_CONVERGED in one and
-    OBJECTIVE_NOT_IMPROVING in the other, or after other trial counts,
-    with the same iterations and bit-equal coefficients (ROADMAP.md
-    section C). float32 (kernel and plain version sum in other orders):
+    """float64: equal iterations, reasons, work (trials, or TRON's trips
+    and CG steps) and zero sets, rtol and atol 1e-6. With bounds in the
+    L-BFGS modes, an entity whose last trials project back onto its
+    iterate passes or fails their Armijo test at float64 rounding, so it
+    may stop FUNCTION_VALUES_CONVERGED in one and OBJECTIVE_NOT_IMPROVING
+    in the other, or after other trial counts, with the same iterations
+    and bit-equal coefficients (ROADMAP.md section C); bounded TRON has no
+    such allowance. float32 (kernel and plain version sum in other orders):
     an entity may stop at another iteration (about 2% at chip_smoke.py's
     headline buckets), so at least half must stop alike, those at the
     value floor of tests/test_pallas_entity_solver.py (rtol 1e-4), and
     every coefficient within its coefficient floor (atol 5e-3)."""
     if compute_dtype == torch.float64:
-        assert torch.equal(res_k.iterations, res_p.iterations)
-        differ = ((res_k.reason != res_p.reason)
-                  | (res_k.trials != res_p.trials))
-        if bounded:
+        differ = res_k.reason != res_p.reason
+        for field in _work_fields(mode):
+            differ |= getattr(res_k, field) != getattr(res_p, field)
+        moved = differ | (res_k.iterations != res_p.iterations)
+        stops = (f"{int(moved.sum())} of {moved.numel()} entities stop "
+                 "otherwise than the plain version")
+        assert torch.equal(res_k.iterations, res_p.iterations), stops
+        if bounded and mode != "tron":
             fvc_oni = {int(ConvergenceReason.FUNCTION_VALUES_CONVERGED),
                        int(ConvergenceReason.OBJECTIVE_NOT_IMPROVING)}
             assert set(res_k.reason[differ].tolist()) <= fvc_oni
             assert set(res_p.reason[differ].tolist()) <= fvc_oni
             assert torch.equal(res_k.x[differ], res_p.x[differ])
         else:
-            assert not bool(differ.any())
+            assert not bool(differ.any()), stops
         if mode == "owlqn":
             assert torch.equal(res_k.x == 0, res_p.x == 0)
         torch.testing.assert_close(res_k.value, res_p.value, rtol=1e-6,
@@ -368,21 +381,21 @@ def _assert_close_solve(res_k, res_p, compute_dtype, mode, bounded=False):
         torch.testing.assert_close(res_k.x, res_p.x, rtol=0, atol=5e-3)
 
 
-def _assert_same_bits(a, b):
+def _assert_same_bits(a, b, mode):
     for field in ("x", "value", "grad_norm", "iterations", "reason",
-                  "trials"):
+                  *_work_fields(mode)):
         assert torch.equal(getattr(a, field), getattr(b, field)), field
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,normalized,bounded", LBFGS_VARIANTS)
+@pytest.mark.parametrize("mode,normalized,bounded", VARIANTS)
 @pytest.mark.parametrize("d", [1, 3, 4, 5, 8, 9, 16, 17, 25, 32, 33])
 def test_coordinate_lanes_across_widths(cuda_device, mode, normalized,
                                         bounded, d):
     """d on both sides of the power-of-two boundaries and past 32, so
     every instance's C (the smallest power of two >= d, at least 4, lanes
-    over the coordinates) runs: against the plain version in both compute
-    types."""
+    over the coordinates) runs, in the L-BFGS modes and in TRON: against
+    the plain version in both compute types."""
     e, r = 70, 19
     args, fold, box = _variant_args(cuda_device, e, r, d, normalized,
                                     bounded, seed=d)
@@ -404,7 +417,7 @@ def test_coordinate_lanes_across_widths(cuda_device, mode, normalized,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,normalized,bounded", LBFGS_VARIANTS)
+@pytest.mark.parametrize("mode,normalized,bounded", VARIANTS)
 @pytest.mark.parametrize("e", [1, 7, 20_000])
 def test_persistent_queue_walks_every_entity(cuda_device, mode, normalized,
                                              bounded, e):
@@ -426,7 +439,7 @@ def test_persistent_queue_walks_every_entity(cuda_device, mode, normalized,
         again = entity_solver.entity_lbfgs(loss, *args, 0.4, 0.2, *fold,
                                            *box, **kw)
         torch.cuda.synchronize()
-        _assert_same_bits(first, again)
+        _assert_same_bits(first, again, mode)
         if e == 20_000:
             plan = entity_solver.kernel_plan(r, d, compute_dtype=dt,
                                              mode=mode)
@@ -438,7 +451,7 @@ def test_persistent_queue_walks_every_entity(cuda_device, mode, normalized,
                 for k in range(0, e, 5_000)]
             torch.cuda.synchronize()
             for field in ("x", "value", "grad_norm", "iterations", "reason",
-                          "trials"):
+                          *_work_fields(mode)):
                 assert torch.equal(getattr(first, field), torch.cat(
                     [getattr(p, field) for p in parts])), field
         if dt == torch.float64:

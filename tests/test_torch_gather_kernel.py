@@ -1,10 +1,13 @@
 """The gather kernels (rows 7 and 8) against their plain PyTorch versions
 on the card, exactly: the one-hot tensor-core gather at ragged block and
-slot counts, the residue-class gather in both layouts (the table in
-shared memory at d = 4,096, read in place at d = 2,000,000) and at ragged
-chunk counts; out-of-range indices reading nothing; and a factored random
-effect's latent bucket (d = k = 4) through the entity-solver kernel
-against its plain version.
+slot counts, the residue-class gather in both layouts (one class's
+column in shared memory up to the card's opt-in limit, the table read in
+place past it), at ragged stream lengths,
+at the former shared layout's boundary and at the gather experiment's
+full width, with the torch packing on the card equal to the numpy one;
+out-of-range indices reading nothing; and a factored random effect's
+latent bucket (d = k = 4) through the entity-solver kernel against its
+plain version.
 
 Marked ``cuda``: skips without a GPU. This file imports neither jax nor
 the JAX package, so it runs on a GPU host that has only PyTorch:
@@ -54,24 +57,56 @@ def test_onehot_kernel_equals_plain_version(cuda_device, m, d):
                                   w_bf16[idx])
 
 
+def _column_limit():
+    """The largest a whose column takes the column layout on this card."""
+    lo, hi = 1, 1 << 22
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if gather.residue_layout(mid) == "column":
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,d,layout", [
-    (3_000, 4_096, "shared"), (100_000, 128 * 57, "shared"),
-    (200_000, 128 * 440, "shared"), (2_000_000, 2_000_000, "l2"),
-    (77, 128 * 1_000, "l2")])
+    (3_000, 4_096, "column"), (100_000, 128 * 57, "column"),
+    # The former shared layout's last table (the whole table in one block)
+    # and the first past it.
+    (200_000, 128 * 440, "column"), (200_000, 128 * 441, "column"),
+    (2_000_000, 2_000_000, "column"), (77, 128 * 1_000, "column"),
+    # The gather experiment's full width.
+    (12_000_000, 2_000_000, "column"),
+    # The column layout's last table on this card and the first past it.
+    (5_000, "limit", "column"), (5_000, "limit+1", "l2")])
 def test_residue_kernel_equals_plain_version(cuda_device, m, d, layout):
+    """Exactly the plain version and, through the slot map, w[idx], over
+    the streams padded to the kernel's 16 bytes (``pack_residue``'s
+    packing), ragged (pad 1) and at the JAX width (pad a); the torch
+    packing on the card is bit for bit the numpy one."""
+    if isinstance(d, str):
+        d = 128 * (_column_limit() + (1 if d.endswith("+1") else 0))
     idx, w = _draw(m, d, seed=m)
-    packed, slot = gather.prep_residue(idx, d)
+    packed = gather.prep_residue(idx, d)
     w_t = torch.as_tensor(w, device=cuda_device)
-    idx_t = torch.as_tensor(packed, device=cuda_device)
     assert gather.residue_layout(d // gather.LANES) == layout
-    before = gather.residue_gather.layouts[layout]
-    got = gather.residue_gather(w_t, idx_t)
-    torch.cuda.synchronize()
-    assert gather.residue_gather.layouts[layout] == before + 1
-    assert torch.equal(got, gather.residue_gather_plain(w_t, idx_t))
-    np.testing.assert_array_equal(got.cpu().numpy().reshape(-1)[slot],
-                                  w[idx])
+    for pad in (gather.PACK_PAD, 1, d // gather.LANES):
+        streams, slot = gather.lane_major(*packed, pad=pad)
+        streams_t = torch.as_tensor(streams, device=cuda_device)
+        if pad == gather.PACK_PAD:
+            got_t, slot_t = gather.pack_residue(
+                torch.as_tensor(idx, device=cuda_device), d)
+            assert torch.equal(got_t, streams_t)
+            assert torch.equal(slot_t.cpu(), torch.as_tensor(slot))
+        before = gather.residue_gather.layouts[layout]
+        got = gather.residue_gather(w_t, streams_t)
+        torch.cuda.synchronize()
+        assert gather.residue_gather.layouts[layout] == before + 1
+        assert torch.equal(got, gather.residue_gather_plain(w_t, streams_t))
+        np.testing.assert_array_equal(got.cpu().numpy().reshape(-1)[slot],
+                                      w[idx])
+        del streams_t, got
 
 
 @pytest.mark.cuda
@@ -107,22 +142,23 @@ def test_factored_latent_bucket_through_the_entity_kernel(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [4_096, 2_000_000])
+@pytest.mark.parametrize("d", [4_096, 2_000_000, 128 * 60_000])
 def test_out_of_range_indices_read_nothing(cuda_device, d):
     """An index outside its range reads no memory: the residue kernel
-    gives NaN there, the one-hot kernel 0 (no column matches); every other
-    output stays exact."""
+    gives NaN there (in the column layout at d = 4,096 and 2,000,000, in
+    the l2 layout at 7,680,000), the one-hot kernel 0 (no column
+    matches); every other output stays exact."""
     idx, w = _draw(5_000, d, seed=d)
-    packed, _ = gather.prep_residue(idx, d)
     a = d // gather.LANES
-    bad = torch.as_tensor(packed, device=cuda_device)
-    bad[0, 0, :2] = torch.tensor([a, -1], dtype=torch.int32)
+    assert gather.residue_layout(a) == ("l2" if d > 2_000_000 else "column")
+    bad, _ = gather.pack_residue(torch.as_tensor(idx, device=cuda_device), d)
+    bad[0, :2] = torch.tensor([a, -1], dtype=torch.int32)
     w_t = torch.as_tensor(w, device=cuda_device)
     got = gather.residue_gather(w_t, bad)
     torch.cuda.synchronize()
-    assert bool(torch.isnan(got[0, 0, :2]).all())
+    assert bool(torch.isnan(got[0, :2]).all())
     good = torch.ones_like(bad, dtype=torch.bool)
-    good[0, 0, :2] = False
+    good[0, :2] = False
     want = gather.residue_gather_plain(w_t, bad.clamp(0, a - 1))
     assert torch.equal(got[good], want[good])
 
