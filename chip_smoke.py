@@ -11,7 +11,8 @@ bench.py's data at its full size (seed 7: 200k rows x 200 fixed features
 with an intercept, 5k users x 25 per-user features, 2k items x 16
 per-item features, both with an intercept in column 0, logistic; a 20%
 hold-out scored for AUC) through photon_ml_tpu_torch's GameEstimator on
-five paths, 3 coordinate-descent iterations each:
+five paths, 3 coordinate-descent iterations each, and path 6 through the
+training and scoring drivers:
 
 - path 1, the headline GLMix of bench.py: fixed effect L-BFGS max_iter
   50, tol 1e-7, L2 1; per-user L-BFGS max_iter 20, tol 1e-6, L2 1;
@@ -37,6 +38,32 @@ five paths, 3 coordinate-descent iterations each:
   shard (latent solves and refit of B both L-BFGS max_iter 20, tol 1e-6,
   L2 1; one MF alternation, k = 4), whose latent buckets [E, n_pad, 4]
   go through the entity-solver kernel.
+
+Path 6 runs the drivers a user would call on Avro inputs: the first
+40,000 training and 10,000 hold-out rows of the same data (the one cut,
+rows only: the pure-Python Avro codec costs ~1-2 ms a row, and the
+whole script is held under 200 s), written as
+TrainingExampleAvro by the port's codec in worker processes (features
+g*, u*, i*, userId and itemId in metadataMap) beside three JSON
+feature-index stores (global, user, item); then
+photon_ml_tpu_torch.cli.game_training_driver.run with bench.py's config
+5 (path 5's coordinates and configurations, 3 iterations, evaluators
+AUC and LOGISTIC_LOSS), which saves the best model in the reference's
+layout, and game_scoring_driver.run on the hold-out. Its checks: the
+entity kernel launched once per bucket and solve during the driver run,
+as many times as GameEstimator.fit on the decoded files (decoded in two
+workers while the driver runs) launches it; the driver's objective
+history equals that fit's bit for bit; every bucket of that fit's first
+update (per user, per item and the factored effect's latent buckets),
+replayed against the plain version as on paths 1-5; the saved model,
+loaded back by
+io/model_io.load_game_model, gives the trained coefficients (fixed,
+per-user, per-item, the factored effect in the original space, its
+gamma and B) exactly; the scoring driver's AUC equals the best
+validation AUC of training within 1e-6 (DeviceGameScorer scores on the
+card and raises on a sub-model it cannot score; no host path). It prints
+the write, ingest, solve, finalize and score seconds and each update's
+ms.
 
 Then the gather phase runs the port's gather experiment
 (photon_ml_tpu_torch/dev_scripts/gather_experiments.py) at its full
@@ -104,7 +131,8 @@ compare them on one card (equal digests: no entity's stop moved).
 The third line from the end is a JSON record of the kernels (rows 1-8
 of the PERF.md table: L-BFGS, the normalization fold, bounded L-BFGS,
 OWL-QN, TRON and bounded TRON, the one-hot and the residue-class gather,
-each with its launches on the main paths, times and bound), then the
+each with its launches on the main paths, path 6's among row 1's, times
+and bound), then the
 card's name and power limit, and the last line is {"ok": true,
 "device": ...}. It exits non-zero, printing no result, without CUDA or
 when any check fails.
@@ -113,10 +141,13 @@ when any check fails.
 from __future__ import annotations
 
 import json
+import logging
 import math
+import multiprocessing
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -1248,6 +1279,289 @@ def entity_buckets(tag: str) -> None:
                 print("ab " + json.dumps(row), flush=True)
 
 
+# Path 6's one cut: rows. The pure-Python Avro codec costs ~1.1 ms a row
+# of path 6's wall time (the parallel write, the driver's single-process
+# read of both directories, the scoring read), and that time varied by up
+# to 40% between runs; bench.py's 200,000 rows become 50,000, which keeps
+# the whole script under 200 s at the slowest rate measured.
+PATH6_TRAIN, PATH6_VAL = 40_000, 10_000
+PATH6_SEQUENCE = "fixed,perUser,perItem,itemFactors"
+
+
+class _DriverLog(logging.Handler):
+    """Collects the drivers' phase and update log records."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.phases, self.updates = {}, []
+
+    def emit(self, record):
+        if hasattr(record, "phase"):
+            self.phases[record.phase] = (self.phases.get(record.phase, 0.0)
+                                         + record.seconds)
+        if hasattr(record, "update"):
+            self.updates.append(record.update)
+
+
+PATH6_NAMES = {"global": [f"g{j}" for j in range(D_FIXED - 1)],
+               "user": [f"u{j}" for j in range(1, D_USER)],
+               "item": [f"i{j}" for j in range(1, D_ITEM)]}
+PATH6_COLS = {"global": list(range(D_FIXED - 1)),
+              "user": list(range(1, D_USER)),
+              "item": list(range(1, D_ITEM))}
+# Avro files per directory, written in parallel.
+PATH6_PARTS = {"train": 5, "validate": 2}
+
+
+def _write_part(path, dense, labels, users, items, tag, first) -> None:
+    """One Avro part file of path 6's rows (run in a worker process)."""
+    from photon_ml_tpu_torch.io import schemas
+    from photon_ml_tpu_torch.io.avro_codec import write_container
+
+    def records():
+        for i in range(len(labels)):
+            feats = [{"name": nm, "term": None, "value": float(v)}
+                     for s, names in PATH6_NAMES.items()
+                     for nm, v in zip(names, dense[s][i])]
+            yield {"uid": f"{tag}{first + i}", "label": float(labels[i]),
+                   "features": feats, "weight": None, "offset": None,
+                   "metadataMap": {"userId": str(users[i]),
+                                   "itemId": str(items[i])}}
+
+    write_container(path, schemas.TRAINING_EXAMPLE, records())
+
+
+def _decode(path, maps_dir):
+    """read_game_dataset of one input directory (run in a worker
+    process, beside the driver)."""
+    from photon_ml_tpu_torch.data.avro_reader import read_game_dataset
+    from photon_ml_tpu_torch.data.paldb import load_feature_index_maps
+
+    data, _ = read_game_dataset(path, ["itemId", "userId"],
+                                load_feature_index_maps(maps_dir))
+    return data
+
+
+def write_path6_inputs(train, val, root: Path, pool) -> dict:
+    """The first PATH6_TRAIN training and PATH6_VAL hold-out rows (in
+    PATH6_PARTS files each) as TrainingExampleAvro through the port's
+    codec, each file in a worker of ``pool`` (features g0..g198, u1..u24,
+    i1..i15 with their float32 values, userId and itemId in metadataMap),
+    and JSON index stores global, user and item with the intercept where
+    build_problem has it. Returns the shard maps."""
+    from photon_ml_tpu_torch.data.index_map import (
+        INTERCEPT_KEY,
+        IndexMap,
+        feature_key,
+    )
+
+    maps = {s: IndexMap({**{feature_key(n): c for n, c in zip(
+        PATH6_NAMES[s], PATH6_COLS[s])},
+        INTERCEPT_KEY: D_FIXED - 1 if s == "global" else 0})
+        for s in PATH6_NAMES}
+    (root / "feature-index").mkdir(parents=True)
+    for s, imap in maps.items():
+        imap.save(root / "feature-index" / f"{s}.json")
+    jobs = []
+    for data, n, tag in ((train, PATH6_TRAIN, "train"),
+                         (val, PATH6_VAL, "validate")):
+        parts = PATH6_PARTS[tag]
+        (root / tag).mkdir()
+        dense = {s: data.feature_shards[s][:n].toarray()[:, PATH6_COLS[s]]
+                 for s in PATH6_NAMES}
+        names = {t: data.id_columns[t].vocabulary[data.id_columns[t]
+                                                  .codes[:n]]
+                 for t in ("userId", "itemId")}
+        for k, rows in enumerate(np.array_split(np.arange(n), parts)):
+            sl = slice(rows[0], rows[-1] + 1)
+            jobs.append(pool.submit(
+                _write_part, root / tag / f"part-{k:05d}.avro",
+                {s: v[sl] for s, v in dense.items()}, data.responses[sl],
+                names["userId"][sl], names["itemId"][sl], tag, rows[0]))
+    for job in jobs:
+        job.result()
+    return maps
+
+
+def path6(train, val, specs5) -> int:
+    """Path 6: bench.py's config 5 through the training driver on Avro
+    inputs, the model saved and loaded back, then the scoring driver on
+    the hold-out. Checks: the entity kernel launched once per bucket and
+    solve, as the estimator's own run on the decoded data gives; the
+    driver's objective history equals that run's bit for bit; every
+    bucket of that run's first update holds against the plain version
+    (``replay_first_updates``); the loaded model gives the trained
+    coefficients exactly; the scoring driver's AUC is the best validation
+    AUC of training within 1e-6. (Its ``scoring_path`` is a constant; the
+    device path is what DeviceGameScorer, which raises on a sub-model it
+    cannot score, guarantees.) Returns the driver run's entity-kernel
+    launches and the replayed bucket rows."""
+    import tempfile
+
+    import torch
+
+    from photon_ml_tpu_torch.cli import (
+        game_scoring_driver,
+        game_training_driver,
+    )
+    from photon_ml_tpu_torch.estimators.game_estimator import GameEstimator
+    from photon_ml_tpu_torch.evaluation import build_evaluator
+    from photon_ml_tpu_torch.io.avro_codec import read_container
+    from photon_ml_tpu_torch.io.model_io import load_game_model
+    from photon_ml_tpu_torch.ops import entity_solver
+    from photon_ml_tpu_torch.types import TaskType
+    from photon_ml_tpu_torch.utils.vocab import vocab_code_lookup
+
+    print(f"path 6 cut: rows only, {PATH6_TRAIN} training and {PATH6_VAL} "
+          "hold-out rows of bench.py's 200,000 (the pure-Python Avro "
+          "codec, the script held under 200 s); widths, entities and "
+          "configurations as path 5",
+          flush=True)
+    log = _DriverLog()
+    logging.getLogger("photon_ml_tpu_torch").addHandler(log)
+    spawn = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_path6_") as tmp, \
+            ProcessPoolExecutor(sum(PATH6_PARTS.values()),
+                                mp_context=spawn) as pool:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        maps = write_path6_inputs(train, val, root, pool)
+        write_s = time.perf_counter() - t0
+        # The estimator's own decode of the same files, in two workers
+        # while the driver runs here.
+        decoded = [pool.submit(_decode, root / tag, root / "feature-index")
+                   for tag in ("train", "validate")]
+        re_cfg = "20,1e-6,1.0,1.0,LBFGS,L2"
+        argv = [
+            "--train-input-dirs", str(root / "train"),
+            "--validate-input-dirs", str(root / "validate"),
+            "--feature-index-dir", str(root / "feature-index"),
+            "--output-dir", str(root / "model"),
+            "--task-type", "LOGISTIC_REGRESSION",
+            "--fixed-effect-data-configurations", "fixed:global",
+            "--fixed-effect-optimization-configurations",
+            "fixed:50,1e-7,1.0,1.0,LBFGS,L2",
+            "--random-effect-data-configurations",
+            "perUser:userId,user,1,-1,-1,-1",
+            "perItem:itemId,item,1,-1,-1,-1",
+            "--random-effect-optimization-configurations",
+            f"perUser:{re_cfg}", f"perItem:{re_cfg}",
+            "--factored-random-effect-data-configurations",
+            "itemFactors:itemId,item,1,-1,-1,-1,IDENTITY",
+            "--factored-random-effect-optimization-configurations",
+            f"itemFactors:{re_cfg};{re_cfg};{MF_ITERATIONS},{MF_FACTORS}",
+            "--updating-sequence", PATH6_SEQUENCE,
+            "--num-iterations", str(CD_ITERATIONS),
+            "--evaluators", "AUC,LOGISTIC_LOSS"]
+        # ---- the main path: counts set to 0 just before, read just after --
+        entity_solver.reset_launch_counts()
+        summary = game_training_driver.run(argv)
+        launches = dict(entity_solver.entity_lbfgs.variants)
+        # ----------------------------------------------------------------
+        train_phases = dict(log.phases)
+        driver_updates = list(log.updates)
+
+        # The estimator on the decoded data, in this process.
+        t0 = time.perf_counter()
+        data, vdata = (job.result() for job in decoded)
+        decode_wait_s = time.perf_counter() - t0
+        estimator = GameEstimator(
+            TaskType.LOGISTIC_REGRESSION, specs5,
+            num_iterations=CD_ITERATIONS,
+            validation_evaluators=[build_evaluator("AUC"),
+                                   build_evaluator("LOGISTIC_LOSS")])
+        entity_solver.reset_launch_counts()
+        results = estimator.fit(data, vdata)
+        est_launches = dict(entity_solver.entity_lbfgs.variants)
+        _, result = estimator.select_best(results)
+        buckets = {n: len(getattr(m, "latent", m).local_coefs)
+                   for n, m in result.model.models.items() if n != "fixed"}
+        want = {"lbfgs": (buckets["perUser"] + buckets["perItem"]
+                          + buckets["itemFactors"] * MF_ITERATIONS)
+                * CD_ITERATIONS}
+        print(f"path 6 entity-solver launches: driver {launches}, "
+              f"estimator {est_launches}, buckets {buckets}", flush=True)
+        check(launches == est_launches == want,
+              f"path 6 launches {launches} / {est_launches} != {want}")
+        check(summary["objectiveHistory"] == result.objective_history,
+              f"path 6: driver objective history "
+              f"{summary['objectiveHistory']} != the estimator's "
+              f"{result.objective_history}")
+        t0 = time.perf_counter()
+        rows6 = replay_first_updates("path 6", coordinates_of(data, specs5),
+                                     result.trackers)
+        print(f"path 6 replay: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        # The saved model, loaded back, against the trained coefficients.
+        t0 = time.perf_counter()
+        loaded = load_game_model(root / "model" / "best", maps)
+        load_s = time.perf_counter() - t0
+        best = result.best_model.models
+        fe = loaded.models["fixed"].glm.coefficients.means
+        check(torch.equal(fe, best["fixed"].glm.coefficients.means.cpu()
+                          .double()), "path 6: fixed effect not exact")
+        for name in ("perUser", "perItem", "itemFactors"):
+            snap = loaded.models[name]
+            trained = best[name]
+            rows = vocab_code_lookup(trained.latent.vocabulary
+                                     if name == "itemFactors"
+                                     else trained.vocabulary, snap.vocabulary)
+            check(bool((rows >= 0).all()), f"path 6: {name} entities")
+            want_m = trained.model_matrix().toarray()[rows]
+            check(np.array_equal(snap.matrix.toarray(), want_m),
+                  f"path 6: {name} coefficients not exact")
+        latent = root / "model" / "best" / "random-effect" / "itemFactors"
+        fac = best["itemFactors"]
+        B = np.asarray([r["latentFactor"] for r in read_container(
+            latent / "latent" / "projection-latent-factors.avro")])
+        check(np.array_equal(B, fac.projection_matrix.cpu().double()
+                             .numpy()), "path 6: B not exact")
+        gamma = {r["effectId"]: r["latentFactor"] for r in read_container(
+            latent / "latent" / "gamma-latent-factors.avro")}
+        for coefs, codes in zip(fac.latent.local_coefs,
+                                fac.latent.entity_codes):
+            c = coefs.cpu().double().numpy()[:, :MF_FACTORS]
+            got = np.asarray([gamma[str(fac.latent.vocabulary[k])]
+                              for k in codes])
+            check(np.array_equal(got, c), "path 6: gamma not exact")
+
+        # The scoring driver on the hold-out.
+        log.phases.clear()
+        t0 = time.perf_counter()
+        scored = game_scoring_driver.run([
+            "--input-dirs", str(root / "validate"),
+            "--game-model-input-dir", str(root / "model" / "best"),
+            "--output-dir", str(root / "scores"),
+            "--evaluators", "AUC"])
+        score_s = time.perf_counter() - t0
+        score_phases = dict(log.phases)
+    logging.getLogger("photon_ml_tpu_torch").removeHandler(log)
+
+    best_auc = max(m["AUC"] for m in summary["validationHistory"])
+    auc = scored["metrics"]["AUC"]
+    print(f"path 6 seconds: write {write_s:.2f}, ingest "
+          f"{train_phases['ingest']:.2f}, solve {train_phases['solve']:.2f},"
+          f" finalize {train_phases['finalize']:.2f}, score run "
+          f"{score_s:.2f} (ingest {score_phases['ingest']:.2f}, score "
+          f"{score_phases['score']:.3f}, load {score_phases['load_model']:.2f})"
+          f"; the estimator's decode (in workers beside the driver) "
+          f"waited {decode_wait_s:.2f} after the driver, load_game_model "
+          f"{load_s:.2f}", flush=True)
+    for it in range(CD_ITERATIONS):
+        ms = {u["coordinate"]: round(1e3 * u["seconds"], 1)
+              for u in driver_updates if u["iteration"] == it}
+        print(f"path 6 iteration {it} update ms: {ms}", flush=True)
+    print(f"path 6 final: training AUC {best_auc:.6f} (best of "
+          f"{[round(m['AUC'], 6) for m in summary['validationHistory']]}),"
+          f" scoring driver AUC {auc:.6f} on {scored['num_rows']} rows",
+          flush=True)
+    check(scored["num_rows"] == PATH6_VAL, f"path 6: scoring {scored}")
+    check(abs(auc - best_auc) <= 1e-6,
+          f"path 6: scoring AUC {auc} != training's best {best_auc}")
+    return launches.get("lbfgs", 0), rows6
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1418,13 +1732,22 @@ def main(argv=None) -> int:
           f"objective {result5.objective_history[-1]:.6f}, latent buckets "
           f"{latent_shapes}", flush=True)
 
+    # ------- path 6: the drivers on Avro, config 5 (rows cut) --------------
+    t0 = time.perf_counter()
+    launches6, rows6 = path6(train, val, specs5)
+    latent_shapes6 = [(r["entities"], r["n_pad"], r["d_pad"])
+                      for r in rows6["itemFactors"]]
+    print(f"path 6 latent buckets {latent_shapes6}", flush=True)
+    print(f"path 6: {time.perf_counter() - t0:.1f} s", flush=True)
+
     t0 = time.perf_counter()
     gather_entries = gather_phase()
     print(f"gather phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = [
         kernel_entry("entity_lbfgs[lbfgs] (row 1)", rows1,
-                     launches1.get("lbfgs", 0) + launches5.get("lbfgs", 0)),
+                     launches1.get("lbfgs", 0) + launches5.get("lbfgs", 0)
+                     + launches6),
         kernel_entry("entity_lbfgs[normalization fold] (row 2)",
                      rows2["lbfgs"],
                      sum(n for launches in (launches2, launches3)

@@ -1,0 +1,85 @@
+"""Command-line drivers (port of photon_ml_tpu/cli/; reference
+ml/Driver.scala, ml/cli/game/): the in-core GAME training driver and the
+batch GAME scoring driver.
+
+Both keep every flag of their JAX parsers, so every JAX command line
+parses. A flag that belongs to a later item of ROADMAP queue A (streamed
+ingest and training A4, serving and telemetry A5, multi-GPU A6) raises
+an error naming that item when it is given a value other than its
+default. The helpers here are shared by both drivers.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import time
+
+import torch
+
+from photon_ml_tpu_torch.device import resolve_device
+
+# Later queue items, for the error a flag of one of them raises.
+ITEMS = {
+    "A4": "out-of-core streamed ingest and training",
+    "A5": "the serving stack and telemetry",
+    "A6": "multi-GPU",
+}
+
+
+def add_observability_args(p) -> None:
+    """The JAX parser's shared observability flags (photon_ml_tpu/cli/
+    obs.py:46-80), parsed so that JAX command lines parse; the live
+    observability plane comes with ROADMAP queue A5."""
+    p.add_argument("--obs-port", type=int, default=None, metavar="PORT",
+                   help="live observability plane (ROADMAP A5; raises)")
+    p.add_argument("--flight-events", type=int, default=4096, metavar="N",
+                   help="flight-recorder ring size (ROADMAP A5; raises "
+                        "when not 4096)")
+    p.add_argument("--slo", action="append", default=None, metavar="SPEC",
+                   help="latency/availability objective (ROADMAP A5; "
+                        "raises)")
+
+
+OBSERVABILITY_FLAGS = {
+    "obs_port": ("--obs-port", None, "A5"),
+    "flight_events": ("--flight-events", 4096, "A5"),
+    "slo": ("--slo", None, "A5"),
+}
+
+
+def reject_later_flags(args, later: dict) -> None:
+    """Raise ValueError for the first flag in ``later`` (dest -> (flag,
+    default, item)) whose parsed value is not its default."""
+    for dest, (flag, default, item) in later.items():
+        if getattr(args, dest) != default:
+            raise ValueError(
+                f"{flag} is not ported yet: it comes with ROADMAP queue "
+                f"{item} ({ITEMS[item]})")
+
+
+def resolve_run_device(device, dtype):
+    """(torch.device, dtype) of a driver run: ``device`` as
+    resolve_device gives it (raising without CUDA unless it names the
+    CPU), and ``dtype`` None meaning float64 on the CPU and float32 on
+    the card (the JAX scoring driver's _maybe_enable_cpu_x64 /
+    _scoring_dtype policy, game_scoring_driver.py:152-171)."""
+    dev = resolve_device(device)
+    if dtype is None:
+        dtype = torch.float64 if dev.type == "cpu" else torch.float32
+    return dev, dtype
+
+
+@contextlib.contextmanager
+def phase(logger: logging.Logger, name: str):
+    """Time one driver phase (the JAX drivers' span names: ingest, solve,
+    finalize, load_model, score, ...) and log its seconds, also as the
+    record's ``phase`` and ``seconds`` attributes. On a CUDA run the
+    phase's device work is finished before the clock stops."""
+    t0 = time.perf_counter()
+    yield
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    logger.info("phase %s: %.6f s", name, seconds,
+                extra={"phase": name, "seconds": seconds})

@@ -1,0 +1,247 @@
+"""TrainingExampleAvro ingest: Avro files -> IndexMap + CSR + GameDataset
+(port of photon_ml_tpu/data/avro_reader.py: _avro_paths, iter_records,
+the record helpers and _reject_duplicate_features :22-105,
+build_index_map :108, _GameBatchBuilder :200-284, read_game_dataset
+:323 through its record loop :389-392).
+
+Replaces the reference's AvroDataReader/GLMSuite Spark ingest
+(ml/data/AvroDataReader.scala:53-436, ml/io/GLMSuite.scala:98-139): reads
+records on the host, indexes (name, term) features, injects the intercept
+column, and produces scipy CSR ready for device upload.
+
+Host code only, through the pure-Python codec (io/avro_codec.py). The
+JAX package's block, fast-ingest and parallel routes (:346-390, over its
+C decoder) come with streamed ingest (ROADMAP queue A4); the JAX
+docstring makes them byte-identical to this record loop, so
+``ingest_workers`` is accepted and the read stays in one process.
+``read_labeled_points`` (the GLM driver's reader) comes with A2.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import scipy.sparse as sp
+
+from photon_ml_tpu_torch.data.game_data import GameDataset
+from photon_ml_tpu_torch.data.index_map import IndexMap, feature_key
+from photon_ml_tpu_torch.io.avro_codec import read_container
+
+
+def _avro_paths(path) -> List[Path]:
+    """path: one file/dir, or a list of them (date-range resolution hands
+    the readers a list of daily directories)."""
+    if isinstance(path, (list, tuple)):
+        out: List[Path] = []
+        for p in path:
+            out.extend(_avro_paths(p))
+        return out
+    p = Path(path)
+    if p.is_dir():
+        files = sorted(q for q in p.iterdir() if q.suffix == ".avro")
+        if not files:
+            raise FileNotFoundError(f"no .avro files under {p}")
+        return files
+    return [p]
+
+
+def iter_records(path) -> Iterator[dict]:
+    for f in _avro_paths(path):
+        yield from read_container(f)
+
+
+def _record_label(rec: dict) -> float:
+    """Label under either field-name set: 'label' (TrainingExampleFieldNames)
+    or 'response' (ResponsePredictionFieldNames) — the reference's two Avro
+    input formats (ml/avro/TrainingExampleFieldNames.scala,
+    ResponsePredictionFieldNames.scala, io/FieldNamesType.scala:22).
+    Auto-detected per record instead of a --format-type flag."""
+    v = rec.get("label")
+    if v is None:
+        v = rec.get("response")
+    if v is None:
+        raise ValueError(
+            "record has neither a 'label' nor a 'response' field")
+    return float(v)
+
+
+def _record_features(rec: dict) -> Iterable[dict]:
+    """Feature list, tolerating union-null arrays/entries (Pig-generated
+    schemas wrap everything in [null, X] — e.g. the reference's
+    poisson_test.avro fixture)."""
+    return (f for f in (rec.get("features") or ()) if f is not None)
+
+
+def _reject_duplicate_features(mat: sp.csr_matrix, index_map: IndexMap,
+                               uids: Sequence, shard: str = "") -> None:
+    """Hard-reject records carrying the same (name, term) feature twice,
+    then canonicalize the matrix (sum_duplicates).
+
+    Mirrors the reference's AvroDataReader validation
+    (ml/data/AvroDataReader.scala:306-311: `require(duplicateFeatures
+    .isEmpty, ...)`): the same input must produce the same error, not a
+    silently different model (summing duplicates changes the fit).
+
+    Detection is nearly free on the clean path: duplicates exist iff
+    sum_duplicates shrinks nnz (the pre-call structure must be COPIED —
+    sum_duplicates compacts indices/indptr in place). The O(nnz log nnz)
+    labeling lexsort runs only on the terminal error path.
+    """
+    raw_indices = mat.indices.copy()
+    raw_indptr = mat.indptr.copy()
+    nnz_before = mat.nnz
+    mat.sum_duplicates()
+    if mat.nnz == nnz_before:
+        return
+    row_ids = np.repeat(np.arange(len(raw_indptr) - 1),
+                        np.diff(raw_indptr))
+    order = np.lexsort((raw_indices, row_ids))
+    r = row_ids[order]
+    c = raw_indices[order]
+    dup = (r[1:] == r[:-1]) & (c[1:] == c[:-1])
+    hits = np.nonzero(dup)[0][:5]
+    details = []
+    for i in hits:
+        row, col = int(r[i]), int(c[i])
+        uid = uids[row] if uids is not None and row < len(uids) else None
+        details.append(
+            f"row {row}" + (f" (uid {uid!r})" if uid else "")
+            + f": feature {index_map.get_feature_name(col)!r}")
+    where = f" in feature shard {shard!r}" if shard else ""
+    raise ValueError(
+        f"duplicate (name, term) features detected{where} — the reference "
+        "rejects such records (AvroDataReader.scala:306-311): "
+        + "; ".join(details))
+
+
+def build_index_map(path, add_intercept: bool = True,
+                    selected_features: Optional[set] = None,
+                    ingest_workers=None) -> IndexMap:
+    """Scan pass collecting distinct (name, term) keys — the analog of
+    DefaultIndexMap generation / FeatureIndexingJob. ``selected_features``
+    restricts the map to a whitelist of keys (the reference's
+    createDefaultIndexMapLoader(avroRDD, selectedFeatures)).
+    ``ingest_workers`` is accepted for the JAX signature; the scan runs in
+    this process."""
+    keys = set()
+    for rec in iter_records(path):
+        for f in _record_features(rec):
+            key = feature_key(f["name"], f.get("term") or "")
+            if selected_features is None or key in selected_features:
+                keys.add(key)
+    return IndexMap.from_keys(keys, add_intercept=add_intercept)
+
+
+class _GameBatchBuilder:
+    """Per-record GAME decode state — the ONE copy of the python-path
+    record semantics (label/offset/weight/uid, metadataMap id extraction,
+    per-shard feature + intercept append, duplicate-feature rejection at
+    build), as ``read_game_dataset``'s record loop runs it."""
+
+    def __init__(self, feature_shard_maps: Dict[str, IndexMap],
+                 id_types: Sequence[str], add_intercept: bool):
+        self._maps = feature_shard_maps
+        self._id_types = id_types
+        self._add_intercept = add_intercept
+        self._builders = {s: {"data": [], "indices": [], "indptr": [0]}
+                          for s in feature_shard_maps}
+        self._labels: list = []
+        self._offsets: list = []
+        self._weights: list = []
+        self._uids: list = []
+        self._ids: Dict[str, list] = {t: [] for t in id_types}
+        # Per-record work hoisted out of append(): one
+        # (key->index dict .get, intercept index, column lists) tuple per
+        # shard, so the hot loop is dict lookups + list appends on locals
+        # — no method dispatch, no dict-of-dicts traversal per record.
+        self._shard_ops = []
+        for s, imap in feature_shard_maps.items():
+            b = self._builders[s]
+            self._shard_ops.append(
+                (imap.key_to_index_dict().get,
+                 imap.intercept_index if add_intercept else -1,
+                 b["data"], b["indices"], b["indptr"]))
+        self._id_ops = [(t, self._ids[t]) for t in id_types]
+
+    def __len__(self) -> int:
+        return len(self._labels)
+
+    def append(self, rec: dict) -> None:
+        self._labels.append(_record_label(rec))
+        self._offsets.append(float(rec.get("offset") or 0.0))
+        w = rec.get("weight")
+        self._weights.append(1.0 if w is None else float(w))
+        self._uids.append(rec.get("uid"))
+        metadata = rec.get("metadataMap") or {}
+        for t, lst in self._id_ops:
+            v = metadata.get(t)
+            if v is None:
+                raise ValueError(
+                    f"record is missing id type {t!r} in metadataMap")
+            lst.append(str(v))
+        # Feature keys are built ONCE per record, not once per shard.
+        feats = [(feature_key(f["name"], f.get("term") or ""), f["value"])
+                 for f in _record_features(rec)]
+        for get_index, intercept_idx, data, indices, indptr in \
+                self._shard_ops:
+            for key, value in feats:
+                idx = get_index(key, -1)
+                if idx >= 0:
+                    indices.append(idx)
+                    data.append(float(value))
+            if intercept_idx >= 0:
+                indices.append(intercept_idx)
+                data.append(1.0)
+            indptr.append(len(indices))
+
+    def build(self) -> GameDataset:
+        n = len(self._labels)
+        shards = {}
+        for shard, imap in self._maps.items():
+            b = self._builders[shard]
+            m = sp.csr_matrix(
+                (np.asarray(b["data"]),
+                 np.asarray(b["indices"], np.int64),
+                 np.asarray(b["indptr"], np.int64)), shape=(n, len(imap)))
+            _reject_duplicate_features(m, imap, self._uids, shard)
+            shards[shard] = m
+        return GameDataset.build(
+            responses=np.asarray(self._labels),
+            feature_shards=shards,
+            ids={t: np.asarray(v) for t, v in self._ids.items()},
+            offsets=np.asarray(self._offsets),
+            weights=np.asarray(self._weights),
+            uids=np.asarray([u if u is not None else ""
+                             for u in self._uids]),
+        )
+
+
+def read_game_dataset(
+    path,
+    id_types: Sequence[str],
+    feature_shard_maps: Optional[Dict[str, IndexMap]] = None,
+    add_intercept: bool = True,
+    default_shard: str = "global",
+    ingest_workers=None,
+) -> Tuple[GameDataset, Dict[str, IndexMap]]:
+    """GAME ingest: one feature shard (default: all features) + entity id
+    columns pulled from each record's metadataMap (falling back to uid).
+
+    The reference's richer feature-bag/shard configuration
+    (GameDriver.prepareFeatureMaps) maps onto ``feature_shard_maps``:
+    shard id -> IndexMap restricted to that shard's features.
+
+    ``ingest_workers``: accepted for the JAX signature ("auto"/None or a
+    worker count); the record loop runs in this process, which the JAX
+    package's parallel read matches byte for byte.
+    """
+    if feature_shard_maps is None:
+        feature_shard_maps = {
+            default_shard: build_index_map(path, add_intercept=add_intercept,
+                                           ingest_workers=ingest_workers)}
+    batch = _GameBatchBuilder(feature_shard_maps, id_types, add_intercept)
+    for rec in iter_records(path):
+        batch.append(rec)
+    return batch.build(), feature_shard_maps

@@ -1,8 +1,9 @@
 """GameEstimator: data prep + coordinate construction + grid training
 (port of photon_ml_tpu/estimators/game_estimator.py: FixedEffectSpec :42,
 RandomEffectSpec :58, FactoredRandomEffectSpec :74-83, GameEstimator.fit
-:110 with the factored wiring :124-168, select_best_result :227;
-reference ml/estimators/GameEstimator.scala:51-527).
+:110 with the factored wiring :124-168 and per-combination checkpoints
+:175-191, select_best :193, select_best_result :227; reference
+ml/estimators/GameEstimator.scala:51-527).
 
 ``fit`` builds each random-effect dataset once, then trains one
 coordinate-descent run per combination of per-coordinate configs. A
@@ -14,8 +15,10 @@ reference's per-problem normalization and constraintMap,
 RandomEffectOptimizationProblem.scala:105-125). A factored spec's
 dataset is built with the IDENTITY projector whatever its config says,
 with no Pearson trim and no intercept column, and its coordinate draws
-B from the fit's ``seed``. Feature sharding and checkpoints are not
-ported yet (ROADMAP queue A).
+B from the fit's ``seed``. With ``checkpoint_dir`` each combination
+checkpoints into its own ``combo-<i>/`` there, tagged with its
+configurations, and a rerun resumes each one. Feature sharding is not
+ported yet (ROADMAP queue A6).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import logging
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -126,7 +130,8 @@ class GameEstimator:
 
     def fit(self, data: GameDataset,
             validation_data: Optional[GameDataset] = None,
-            seed: int = 0) -> Results:
+            seed: int = 0, checkpoint_dir=None,
+            checkpoint_interval: int = 1) -> Results:
         """Train one model per per-coordinate config combination."""
         re_datasets = {
             s.name: spec_dataset(data, s, seed, self.dtype, self.device)
@@ -134,8 +139,8 @@ class GameEstimator:
             if isinstance(s, (RandomEffectSpec, FactoredRandomEffectSpec))}
 
         results = []
-        for combo in itertools.product(
-                *[[(s.name, c) for c in s.configs] for s in self.specs]):
+        for combo_index, combo in enumerate(itertools.product(
+                *[[(s.name, c) for c in s.configs] for s in self.specs])):
             configs = dict(combo)
             coords = {}
             for s in self.specs:
@@ -166,11 +171,20 @@ class GameEstimator:
                 coords, self.task_type, validation_data=validation_data,
                 validation_evaluators=self.validation_evaluators,
                 dtype=self.dtype, device=self.device)
-            logger.info("training combo %s",
-                        {k: v.to_string() for k, v in configs.items()})
-            results.append((configs, cd.run(self.num_iterations,
-                                            seed=seed)))
+            tag = {k: v.to_string() for k, v in configs.items()}
+            logger.info("training combo %s", tag)
+            results.append((configs, cd.run(
+                self.num_iterations, seed=seed,
+                checkpoint_dir=(None if checkpoint_dir is None else
+                                Path(checkpoint_dir) / f"combo-{combo_index}"),
+                checkpoint_interval=checkpoint_interval,
+                checkpoint_tag=tag)))
         return results
+
+    def select_best(self, results: Results):
+        """Best combination by the first validation evaluator, else by the
+        training objective (cli/game/training/Driver.selectBestModel)."""
+        return select_best_result(results, self.validation_evaluators)
 
 
 def _config_lambda_key(configs: Dict[str, GLMOptimizationConfiguration]):

@@ -1,11 +1,16 @@
 """Device-side GAME model scoring over a GameDataset (port of
-photon_ml_tpu/models/device_scoring.py: DeviceGameScorer :87-140, fixed,
-random-effect (projected and factored too) and matrix-factorization
-sub-models; loaded snapshots are not ported).
+photon_ml_tpu/models/device_scoring.py: DeviceGameScorer :87-150 and
+:187-191, fixed, random-effect (projected and factored too),
+matrix-factorization and loaded random-effect snapshot sub-models).
 
 The dataset's feature shards and entity-code columns are uploaded once at
 construction; every scoring of an updated model then reuses them. Used by
-coordinate descent's per-iteration validation.
+coordinate descent's per-iteration validation and by the batch scoring
+driver. A loaded snapshot (io/model_io.RandomEffectModelSnapshot) scores
+as the ``random_matrix`` kind: its entity matrix is densified on the
+host and uploaded at each scoring, and one past the densification
+ceiling raises UnsupportedSubModelError at construction. A sub-model of
+any other type raises it too: nothing here scores on the host.
 """
 
 from __future__ import annotations
@@ -80,9 +85,20 @@ class DeviceGameScorer:
                     torch.as_tensor(_mapped_codes(data, t, v), device=dev)
                     for t, v in ((m.row_effect_type, m.row_vocabulary),
                                  (m.col_effect_type, m.col_vocabulary))))
+            elif kernels.is_re_snapshot(m):
+                # Checked here, so an oversize snapshot fails before any
+                # scoring.
+                kernels.check_snapshot_densifiable(m, dtype)
+                feats = features_to_device(
+                    data.feature_shards[m.feature_shard_id], dtype, dev)
+                mapped = torch.as_tensor(_mapped_codes(
+                    data, m.random_effect_type, m.vocabulary), device=dev)
+                self._kinds.append((name, "random_matrix"))
+                self._sdata.append((feats, mapped))
             else:
-                raise TypeError(f"coordinate {name!r}: cannot device-score "
-                                f"{type(m).__name__}")
+                raise kernels.UnsupportedSubModelError(
+                    f"coordinate {name!r}: cannot device-score "
+                    f"{type(m).__name__}")
 
     def score(self, model: GameModel) -> Tensor:
         """Additive score over all sub-models, on the device."""
@@ -98,6 +114,11 @@ class DeviceGameScorer:
                 total = total + kernels.score_mf(
                     *sdata, m.row_factors.to(self.device),
                     m.col_factors.to(self.device), self.dtype)
+            elif kind == "random_matrix":
+                M = torch.as_tensor(
+                    kernels.snapshot_dense_matrix(m, self.dtype),
+                    dtype=self.dtype, device=self.device)
+                total = total + kernels.score_random_with_matrix(*sdata, M)
             else:
                 feats, mapped, block_static, n_codes, d_global = sdata
                 if isinstance(m, FactoredRandomEffectModel):

@@ -62,5 +62,8 @@ class FactoredRandomEffectModel:
     def model_matrix(self):
         return self.latent.model_matrix()
 
+    def to_entity_dict(self):
+        return self.latent.to_entity_dict()
+
     def score_numpy(self, data):
         return self.latent.score_numpy(data)

@@ -1,4 +1,5 @@
-"""Generalized linear models (port of photon_ml_tpu/models/glm.py:25-128;
+"""Generalized linear models (port of photon_ml_tpu/models/glm.py:25-128,
+with model_class_by_name :127 for model files;
 reference ml/supervised/model/GeneralizedLinearModel.scala:30-143)."""
 
 from __future__ import annotations
@@ -101,5 +102,13 @@ _MODEL_BY_TASK = {
 }
 
 
+_MODEL_BY_NAME = {m.__name__: m for m in _MODEL_BY_TASK.values()}
+
+
 def model_for_task(task: TaskType) -> type:
     return _MODEL_BY_TASK[task]
+
+
+def model_class_by_name(name: str) -> type:
+    """The class a model file's ``modelClass`` names."""
+    return _MODEL_BY_NAME[name]

@@ -1,7 +1,7 @@
 """Random-effect model: one small GLM per entity, stored as bucketed local
 coefficient blocks (port of photon_ml_tpu/models/random_effect.py:28-133,
-with the ``projection`` field :38 and ``model_matrix`` :49-70 through
-P^T gamma; reference ml/model/RandomEffectModel.scala:33-168,
+with the ``projection`` field :38, ``model_matrix`` :49-70 through
+P^T gamma and ``to_entity_dict`` :82; reference ml/model/RandomEffectModel.scala:33-168,
 RandomEffectModelInProjectedSpace.scala).
 
 Per-entity coefficients live in each entity's local feature subspace
@@ -14,7 +14,7 @@ host scoring.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -76,6 +76,13 @@ class RandomEffectModel:
             (cat(vals, np.float64), (cat(rows, np.int64),
                                      cat(cols, np.int64))),
             shape=(len(self.vocabulary), self.num_global_features))
+
+    def to_entity_dict(self) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+        """entity name -> (global col indices, values), for persistence."""
+        m = self.model_matrix().tocsr()
+        return {str(name): (m.indices[m.indptr[code]:m.indptr[code + 1]],
+                            m.data[m.indptr[code]:m.indptr[code + 1]])
+                for code, name in enumerate(self.vocabulary)}
 
     def score_numpy(self, data) -> np.ndarray:
         """Host score x_i . coef[entity(i)]; unknown entities score 0."""

@@ -1,5 +1,8 @@
 """Scoring math for fixed, random-effect and matrix-factorization
-sub-models (port of photon_ml_tpu/serving/kernels.py: score_fixed :94,
+sub-models (port of photon_ml_tpu/serving/kernels.py:
+UnsupportedSubModelError :36, is_re_snapshot :50, the densification
+ceiling and check_snapshot_densifiable :62-77, snapshot_dense_matrix
+:80-92, score_fixed :94,
 assemble_re_matrix :99-118 with the projection, score_random_with_matrix
 :121, score_random :132, score_mf :145).
 
@@ -8,19 +11,71 @@ gathers, scatters and small products with no Pallas kernel. The random
 effect assembles an entity -> global-coefficient matrix from the model's
 bucketed local blocks (row ``n_codes`` stays zero for unknown entities;
 a projected or factored model's latent gamma goes through ``gamma @ P``),
-then contracts it row by row against the feature shard. MF scores are
-factor dots with a zero row for unknown entities.
+then contracts it row by row against the feature shard; a loaded
+snapshot (io/model_io.RandomEffectModelSnapshot) arrives as that matrix
+already, densified on the host. MF scores are factor dots with a zero
+row for unknown entities.
+
+A snapshot too large to densify raises UnsupportedSubModelError. The
+JAX scoring driver turns that error into host-numpy scoring; the port
+has no host fallback, so the error ends the run.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
 from photon_ml_tpu_torch.ops.features import CSRFeatures
 
 Tensor = torch.Tensor
+
+
+class UnsupportedSubModelError(TypeError):
+    """A GAME coordinate's sub-model family has no device scoring path,
+    or a snapshot is past the densification ceiling."""
+
+
+def is_re_snapshot(m) -> bool:
+    """Duck-typed io.model_io.RandomEffectModelSnapshot check (the IO
+    layer imports the scorers' callers, so this module may not import
+    model_io)."""
+    return (not isinstance(m, RandomEffectModel)
+            and hasattr(m, "matrix") and hasattr(m, "vocabulary")
+            and hasattr(m, "random_effect_type")
+            and hasattr(m, "feature_shard_id"))
+
+
+# Densification ceiling for loaded entity matrices: past this the dense
+# [n_entities, d_global] table does not belong in host RAM or device
+# memory wholesale.
+SNAPSHOT_DENSIFY_MAX_BYTES = 2 << 30
+
+
+def check_snapshot_densifiable(m, dtype) -> None:
+    """Raise UnsupportedSubModelError when densifying a snapshot's entity
+    matrix in ``dtype`` (a torch dtype) would pass the ceiling."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = (len(m.vocabulary) + 1) * m.matrix.shape[1] * itemsize
+    if nbytes > SNAPSHOT_DENSIFY_MAX_BYTES:
+        raise UnsupportedSubModelError(
+            f"random-effect snapshot {m.random_effect_type!r} would "
+            f"densify to {nbytes / 1e9:.1f} GB "
+            f"({len(m.vocabulary)} entities x {m.matrix.shape[1]} global "
+            "features) — beyond the device-scoring densification ceiling")
+
+
+def snapshot_dense_matrix(m, dtype) -> np.ndarray:
+    """Host dense [n_codes + 1, d_global] entity matrix of a loaded
+    snapshot, float64, with the trailing unknown-entity zero row
+    score_random_with_matrix expects. Checks the ceiling first."""
+    check_snapshot_densifiable(m, dtype)
+    dense = np.zeros((len(m.vocabulary) + 1, m.matrix.shape[1]))
+    dense[:len(m.vocabulary)] = m.matrix.toarray()
+    return dense
 
 
 def score_fixed(feats, coefs: Tensor, dtype) -> Tensor:

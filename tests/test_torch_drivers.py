@@ -1,0 +1,312 @@
+"""The port's GAME training and batch scoring drivers against the JAX
+package's, float64 on the CPU, on data from
+examples/generate_example_data.py's record functions (a few hundred
+rows), with the flags of the two example scripts:
+
+- examples/run_game_training.sh: L-BFGS/L2 fixed effect and per-user
+  effect;
+- examples/run_game_full.sh: TRON fixed effect, elastic-net (OWL-QN)
+  per-user effect, factored per-movie effect, over PalDB feature-index
+  stores written by the JAX package's feature-indexing CLI (plus
+  --save-all-models true, so all/0 is compared too).
+
+The JAX training driver builds its GameEstimator at float32 on every
+platform (photon_ml_tpu/cli/game_training_driver.py:598); here the
+driver module's ``GameEstimator`` name is wrapped to build it at float64,
+so both sides compute in float64. Otherwise the JAX drivers run as the
+JAX package's own driver tests run on the CPU: the random effects take
+the vmapped solves, not the Pallas kernel. The port runs through
+``run(argv, device="cpu")``.
+
+Tolerances (PERF.md §6): objectiveHistory rtol 1e-8, validation AUC
+within 1e-9, equal bestConfigs and convergence summaries, decoded
+coefficient records atol 1e-6; cross-scoring (each driver scores both
+trained models): scores atol 1e-10, AUC 1e-9. The flags of later
+queue items raise an error naming the item.
+"""
+
+import functools
+import importlib.util
+import json
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from photon_ml_tpu.cli import feature_indexing as jax_indexing
+from photon_ml_tpu.cli import game_scoring_driver as jax_scoring
+from photon_ml_tpu.cli import game_training_driver as jax_training
+from photon_ml_tpu.estimators.game_estimator import GameEstimator as JaxGE
+from photon_ml_tpu.io.avro_codec import read_container as jax_read_container
+from photon_ml_tpu_torch.cli import game_scoring_driver, game_training_driver
+from photon_ml_tpu_torch.io import schemas
+from photon_ml_tpu_torch.io.avro_codec import read_container, write_container
+
+REPO = Path(__file__).resolve().parents[1]
+
+TRAINING_FLAGS = [  # examples/run_game_training.sh
+    "--task-type", "LOGISTIC_REGRESSION",
+    "--fixed-effect-data-configurations", "fixed:global",
+    "--fixed-effect-optimization-configurations",
+    "fixed:50,1e-7,1.0,1.0,LBFGS,L2",
+    "--random-effect-data-configurations",
+    "perUser:userId,global,4,-1,-1,-1",
+    "--random-effect-optimization-configurations",
+    "perUser:30,1e-7,1.0,1.0,LBFGS,L2",
+    "--updating-sequence", "fixed,perUser",
+    "--num-iterations", "3",
+    "--evaluators", "AUC,LOGISTIC_LOSS",
+]
+FULL_FLAGS = [  # examples/run_game_full.sh
+    "--task-type", "LOGISTIC_REGRESSION",
+    "--fixed-effect-data-configurations", "fixed:global",
+    "--fixed-effect-optimization-configurations",
+    "fixed:15,1e-5,1.0,1.0,TRON,L2",
+    "--random-effect-data-configurations",
+    "perUser:userId,global,4,-1,-1,-1",
+    "--random-effect-optimization-configurations",
+    "perUser:30,1e-6,0.5,1.0,LBFGS,ELASTIC_NET,0.5",
+    "--factored-random-effect-data-configurations",
+    "perMovie:movieId,global,4,-1,-1,-1,IDENTITY",
+    "--factored-random-effect-optimization-configurations",
+    "perMovie:20,1e-6,1.0,1.0,LBFGS,L2;20,1e-6,1.0,1.0,LBFGS,L2;2,2",
+    "--updating-sequence", "fixed,perUser,perMovie",
+    "--num-iterations", "3",
+    "--evaluators", "AUC,LOGISTIC_LOSS",
+    "--save-all-models", "true",
+]
+
+
+def _generator():
+    spec = importlib.util.spec_from_file_location(
+        "generate_example_data", REPO / "examples" / "generate_example_data.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _write(path: Path, records) -> Path:
+    path.mkdir(parents=True)
+    write_container(path / "part-00000.avro", schemas.TRAINING_EXAMPLE,
+                    records)
+    return path
+
+
+def _train_both(root: Path, flags):
+    """Both training drivers on the same command line; the JAX one with
+    its estimator at float64."""
+    summaries = {"port": game_training_driver.run(
+        [*flags, "--output-dir", str(root / "port")], device="cpu")}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_training, "GameEstimator",
+                   functools.partial(JaxGE, dtype=jnp.float64))
+        summaries["jax"] = jax_training.run(
+            [*flags, "--output-dir", str(root / "jax")])
+    return summaries
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both examples trained by both drivers."""
+    gen = _generator()
+    rng = np.random.default_rng(17)
+    n_users = 24
+    w = rng.normal(0, 1, 5)
+    bias = rng.normal(0, 1.5, n_users)
+    uvecs = rng.normal(0, 0.7, (n_users, 2))
+    ivecs = rng.normal(0, 0.7, (12, 2))
+    out = {}
+
+    root = tmp_path_factory.mktemp("game")
+    train = _write(root / "train", gen.game_records(rng, 300, w, bias))
+    valid = _write(root / "validate", gen.game_records(rng, 150, w, bias))
+    flags = ["--train-input-dirs", str(train),
+             "--validate-input-dirs", str(valid), *TRAINING_FLAGS]
+    out["training"] = dict(root=root, valid=valid,
+                           summary=_train_both(root, flags))
+
+    root = tmp_path_factory.mktemp("game_full")
+    train = _write(root / "train", gen.game_full_records(
+        rng, 400, w, bias, uvecs, ivecs))
+    valid = _write(root / "validate", gen.game_full_records(
+        rng, 150, w, bias, uvecs, ivecs))
+    jax_indexing.run(["--data-path", str(train), "--output-dir",
+                      str(root / "feature-index"), "--format", "paldb",
+                      "--partition-num", "2", "--shard-name", "global"])
+    flags = ["--train-input-dirs", str(train),
+             "--validate-input-dirs", str(valid),
+             "--feature-index-dir", str(root / "feature-index"),
+             *FULL_FLAGS]
+    out["full"] = dict(root=root, valid=valid,
+                       summary=_train_both(root, flags))
+    return out
+
+
+EXAMPLES = ["training", "full"]
+
+
+@pytest.mark.parametrize("example", EXAMPLES)
+def test_metrics_json_matches_jax(runs, example):
+    run = runs[example]
+    port, jax = run["summary"]["port"], run["summary"]["jax"]
+    on_disk = json.loads((run["root"] / "port" / "metrics.json").read_text())
+    assert on_disk == port
+    # Every JAX in-core key but the telemetry blocks (ROADMAP A5).
+    assert set(port) == set(jax) - {"telemetry", "observability"}
+    for key in ("taskType", "numRows", "num_rows", "updatingSequence",
+                "numCombos", "bestConfigs"):
+        assert port[key] == jax[key], key
+    assert set(port["coordinateSeconds"]) == set(jax["coordinateSeconds"])
+    np.testing.assert_allclose(port["objectiveHistory"],
+                               jax["objectiveHistory"], rtol=1e-8, atol=0)
+    assert len(port["validationHistory"]) == 3
+    for mine, theirs in zip(port["validationHistory"],
+                            jax["validationHistory"]):
+        assert set(mine) == set(theirs) == {"AUC", "LOGISTIC_LOSS"}
+        assert abs(mine["AUC"] - theirs["AUC"]) <= 1e-9
+        np.testing.assert_allclose(mine["LOGISTIC_LOSS"],
+                                   theirs["LOGISTIC_LOSS"], rtol=1e-8)
+    assert port["validationHistory"][-1]["AUC"] > 0.7
+
+
+def _tree(d: Path):
+    return sorted(str(p.relative_to(d)) for p in d.rglob("*")
+                  if p.name != "log-message.txt")
+
+
+@pytest.mark.parametrize("example", EXAMPLES)
+def test_model_directory_matches_jax(runs, example):
+    """The same files, the same model-metadata.json (convergence
+    summaries equal, final values rtol 1e-8) and feature indexes."""
+    root = runs[example]["root"]
+    assert _tree(root / "port") == _tree(root / "jax")
+    assert (root / "port" / "best" / "feature-indexes" / "global.json"
+            ).is_file()
+    if example == "full":
+        assert (root / "port" / "all" / "0" / "model-metadata.json"
+                ).is_file()
+    for meta_path in (root / "port").rglob("model-metadata.json"):
+        rel = meta_path.relative_to(root / "port")
+        mine = json.loads(meta_path.read_text())
+        theirs = json.loads((root / "jax" / rel).read_text())
+        assert set(mine) == set(theirs)
+        trackers = mine.pop("optimizationTrackers", {})
+        jtrackers = theirs.pop("optimizationTrackers", {})
+        assert mine == theirs
+        assert set(trackers) == set(jtrackers)
+        for name, updates in trackers.items():
+            for a, b in zip(updates, jtrackers[name], strict=True):
+                assert a["numSolves"] == b["numSolves"]
+                assert a["convergenceReasons"] == b["convergenceReasons"]
+                assert a["iterations"] == b["iterations"]
+                for k in ("mean", "min", "max"):
+                    np.testing.assert_allclose(a["finalValue"][k],
+                                               b["finalValue"][k], rtol=1e-8)
+    for index in (root / "port" / "best" / "feature-indexes").iterdir():
+        assert json.loads(index.read_text()) == json.loads(
+            (root / "jax" / "best" / "feature-indexes" / index.name)
+            .read_text())
+
+
+def _values(path: Path) -> dict:
+    """Decoded records as {(modelId or effectId, name, term): value}."""
+    out = {}
+    for rec in jax_read_container(path):
+        if "latentFactor" in rec:
+            for j, v in enumerate(rec["latentFactor"]):
+                out[(rec["effectId"], j, None)] = v
+            continue
+        assert rec["variances"] is None
+        for m in rec["means"]:
+            out[(rec["modelId"], m["name"], m["term"])] = m["value"]
+    return out
+
+
+@pytest.mark.parametrize("example", EXAMPLES)
+def test_decoded_coefficient_records_match_jax(runs, example):
+    root = runs[example]["root"]
+    files = sorted((root / "port").rglob("*.avro"))
+    assert files
+    for path in files:
+        mine = _values(path)
+        theirs = _values(root / "jax" / path.relative_to(root / "port"))
+        assert set(mine) == set(theirs), path  # equal zero sets
+        keys = sorted(mine, key=str)
+        np.testing.assert_allclose([mine[k] for k in keys],
+                                   [theirs[k] for k in keys], atol=1e-6,
+                                   rtol=0, err_msg=str(path))
+
+
+@pytest.mark.parametrize("example", EXAMPLES)
+def test_cross_scoring(runs, example):
+    """Each scoring driver scores both trained models: per model, the two
+    drivers' scores agree to 1e-10 and their AUCs to 1e-9, and the port
+    scores on the device path."""
+    run = runs[example]
+    root, valid = run["root"], run["valid"]
+    for trained in ("port", "jax"):
+        argv = ["--input-dirs", str(valid),
+                "--game-model-input-dir", str(root / trained / "best"),
+                "--evaluators", "AUC"]
+        mine = game_scoring_driver.run(
+            [*argv, "--output-dir", str(root / f"scored-{trained}-by-port")],
+            device="cpu")
+        theirs = jax_scoring.run(
+            [*argv, "--output-dir", str(root / f"scored-{trained}-by-jax")])
+        assert mine["scoring_path"] == mine["scoringPath"] == "device"
+        assert mine["num_rows"] == theirs["num_rows"] == 150
+        assert set(mine) == set(theirs) - {"telemetry", "observability"}
+        assert abs(mine["metrics"]["AUC"] - theirs["metrics"]["AUC"]) <= 1e-9
+        recs = [list(read_container(root / f"scored-{trained}-by-{who}"
+                                    / "scores" / "part-00000.avro"))
+                for who in ("port", "jax")]
+        assert [r["uid"] for r in recs[0]] == [r["uid"] for r in recs[1]]
+        assert [r["label"] for r in recs[0]] == [r["label"] for r in recs[1]]
+        np.testing.assert_allclose(
+            [r["predictionScore"] for r in recs[0]],
+            [r["predictionScore"] for r in recs[1]], atol=1e-10, rtol=0)
+        if trained == "port":
+            # Scoring the validation data gives the training-time AUC.
+            best = max(m["AUC"] for m in run["summary"]["port"]
+                       ["validationHistory"])
+            assert abs(mine["metrics"]["AUC"] - best) <= 1e-9
+
+
+TRAINING_LATER = [
+    (["--stream-train"], "A4"), (["--hbm-budget", "8K"], "A4"),
+    (["--grid-batched", "on"], "A4"), (["--grid-batched", "off"], "A4"),
+    (["--spill-dtype", "bf16"], "A4"), (["--spill-source", "redecode"], "A4"),
+    (["--feeder", "python"], "A4"), (["--prefetch-batches", "0"], "A4"),
+    (["--distmon"], "A5"), (["--trace-out", "t.json"], "A5"),
+    (["--profile-output-dir", "prof"], "A5"), (["--obs-port", "0"], "A5"),
+    (["--flight-events", "16"], "A5"), (["--slo", "p99:x<=1ms"], "A5"),
+    (["--mesh-devices", "2"], "A6"), (["--mesh-shape", "2x2"], "A6")]
+SCORING_LATER = [
+    (["--stream"], "A5"), (["--serve"], "A5"), (["--listen", "0"], "A5"),
+    (["--adaptive-admission"], "A5"), (["--distmon"], "A5"),
+    (["--trace-out", "t.json"], "A5"), (["--obs-port", "0"], "A5"),
+    (["--flight-events", "16"], "A5"), (["--slo", "p99:x<=1ms"], "A5")]
+
+
+@pytest.mark.parametrize("extra,item", TRAINING_LATER,
+                         ids=[e[0] for e, _ in TRAINING_LATER])
+def test_training_flags_of_later_items_raise(tmp_path, extra, item):
+    argv = ["--train-input-dirs", str(tmp_path / "none"), "--output-dir",
+            str(tmp_path / "out"), *TRAINING_FLAGS, *extra]
+    with pytest.raises(ValueError, match=f"{extra[0]} is not ported yet: "
+                       f"it comes with ROADMAP queue {item}"):
+        game_training_driver.run(argv, device="cpu")
+    assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("extra,item", SCORING_LATER,
+                         ids=[e[0] for e, _ in SCORING_LATER])
+def test_scoring_flags_of_later_items_raise(tmp_path, extra, item):
+    argv = ["--input-dirs", str(tmp_path / "none"), "--game-model-input-dir",
+            str(tmp_path / "model"), "--output-dir", str(tmp_path / "out"),
+            *extra]
+    with pytest.raises(ValueError, match=f"{extra[0]} is not ported yet: "
+                       f"it comes with ROADMAP queue {item}"):
+        game_scoring_driver.run(argv, device="cpu")
+    assert not (tmp_path / "out").exists()

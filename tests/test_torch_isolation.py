@@ -40,7 +40,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 20
     scanned = {p.relative_to(REPO).parts[1] for p in files
                if p.parent != REPO}
-    assert {"projector", "dev_scripts", "ops", "models"} <= scanned
+    assert {"projector", "dev_scripts", "ops", "models", "io", "cli",
+            "utils"} <= scanned
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -67,7 +68,8 @@ def _dataset():
 @pytest.mark.parametrize("entry", [
     "estimator", "fixed_effect_batch", "random_effect_dataset",
     "coordinate", "coordinate_descent", "convert", "features",
-    "gather_experiments", "matrix_factorization"])
+    "gather_experiments", "matrix_factorization", "training_driver",
+    "scoring_driver"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            entry):
     from photon_ml_tpu_torch.algorithm.coordinate_descent import (
@@ -75,6 +77,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
     )
     from photon_ml_tpu_torch.algorithm.coordinates import (
         FixedEffectCoordinate,
+    )
+    from photon_ml_tpu_torch.cli import (
+        game_scoring_driver,
+        game_training_driver,
     )
     from photon_ml_tpu_torch.convert import game_model_from_numpy
     from photon_ml_tpu_torch.data.random_effect import (
@@ -115,6 +121,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         "gather_experiments": lambda: gather_experiments.main(["--check"]),
         "matrix_factorization": lambda: MatrixFactorizationModel.random(
             "u", "i", ["a"], ["b"], num_factors=2),
+        "training_driver": lambda: game_training_driver.run([
+            "--train-input-dirs", "train", "--output-dir", "out",
+            "--task-type", "LOGISTIC_REGRESSION",
+            "--updating-sequence", "fixed"]),
+        "scoring_driver": lambda: game_scoring_driver.run([
+            "--input-dirs", "data", "--game-model-input-dir", "model",
+            "--output-dir", "out"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
