@@ -11,8 +11,8 @@ bench.py's data at its full size (seed 7: 200k rows x 200 fixed features
 with an intercept, 5k users x 25 per-user features, 2k items x 16
 per-item features, both with an intercept in column 0, logistic; a 20%
 hold-out scored for AUC) through photon_ml_tpu_torch's GameEstimator on
-five paths, 3 coordinate-descent iterations each, and path 6 through the
-training and scoring drivers:
+five paths, 3 coordinate-descent iterations each, path 6 through the
+training and scoring drivers and path 7 through the GLM driver:
 
 - path 1, the headline GLMix of bench.py: fixed effect L-BFGS max_iter
   50, tol 1e-7, L2 1; per-user L-BFGS max_iter 20, tol 1e-6, L2 1;
@@ -42,7 +42,7 @@ training and scoring drivers:
 Path 6 runs the drivers a user would call on Avro inputs: the first
 40,000 training and 10,000 hold-out rows of the same data (the one cut,
 rows only: the pure-Python Avro codec costs ~1-2 ms a row, and the
-whole script is held under 200 s), written as
+whole script is held under 300 s), written as
 TrainingExampleAvro by the port's codec in worker processes (features
 g*, u*, i*, userId and itemId in metadataMap) beside three JSON
 feature-index stores (global, user, item); then
@@ -64,6 +64,32 @@ validation AUC of training within 1e-6 (DeviceGameScorer scores on the
 card and raises on a sub-model it cannot score; no host path). It prints
 the write, ingest, solve, finalize and score seconds and each update's
 ms.
+
+Path 7 runs the GLM driver (photon_ml_tpu_torch.cli.glm_driver.run, in
+this process) on path 6's files before they are removed, with the flags
+of examples/run_glm_driver.sh (logistic, LBFGS, λ grid 100,10,1,0.1, L2,
+80 iterations, STANDARDIZATION, variances) plus --diagnostic-mode ALL
+with 4 bootstrap samples and a feature summary, through path 6's
+``global`` index store: bench.py's fixed-effect width, g0..g198 and the
+intercept (the u*/i* features are dropped as unknown, as the
+reference's ingest drops them). Its one cut is path 6's: rows. The
+driver's decoded matrices are kept by wrapping its ``_load`` (no second
+decode). Its checks: the stages INIT..DIAGNOSED and four finite λ;
+train_glm_models on the kept matrix gives the driver's iterations,
+reasons and objectives bit for bit, coefficients on the card;
+best-model/model.avro loads as the best λ's means and variances exactly
+and model.txt has a line per feature; the best λ's validation AUC
+equals evaluate_glm on the loaded model's host scores within 1e-12 and
+beats 0.5; the variances are finite, positive and within rtol 1e-3 of
+the float64 host formula 1 / (diag H + 1e-12) at the same solve-space
+coefficients; model-diagnostic.json has four chapters with every
+section. It launches no kernel of the table (checked). Then the
+full-width phase runs train_glm_models on the training fixed shard
+(160,000 x 200) with the same grid, STANDARDIZATION and variances, with
+float32 and with bfloat16 storage (which must stay bfloat16), printing
+per λ the iterations, seconds and ms per iteration; each λ's bf16
+objective must lie within rtol 2e-3 of float32's
+(docs/F32_PARITY.md:75-77) and every variance be finite and positive.
 
 Then the gather phase runs the port's gather experiment
 (photon_ml_tpu_torch/dev_scripts/gather_experiments.py) at its full
@@ -146,6 +172,7 @@ import math
 import multiprocessing
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
@@ -1383,7 +1410,7 @@ def write_path6_inputs(train, val, root: Path, pool) -> dict:
     return maps
 
 
-def path6(train, val, specs5) -> int:
+def path6(train, val, specs5, root: Path) -> int:
     """Path 6: bench.py's config 5 through the training driver on Avro
     inputs, the model saved and loaded back, then the scoring driver on
     the hold-out. Checks: the entity kernel launched once per bucket and
@@ -1394,10 +1421,9 @@ def path6(train, val, specs5) -> int:
     coefficients exactly; the scoring driver's AUC is the best validation
     AUC of training within 1e-6. (Its ``scoring_path`` is a constant; the
     device path is what DeviceGameScorer, which raises on a sub-model it
-    cannot score, guarantees.) Returns the driver run's entity-kernel
-    launches and the replayed bucket rows."""
-    import tempfile
-
+    cannot score, guarantees.) Its files stay under ``root`` for path 7.
+    Returns the driver run's entity-kernel launches and the replayed
+    bucket rows."""
     import torch
 
     from photon_ml_tpu_torch.cli import (
@@ -1420,10 +1446,8 @@ def path6(train, val, specs5) -> int:
     log = _DriverLog()
     logging.getLogger("photon_ml_tpu_torch").addHandler(log)
     spawn = multiprocessing.get_context("spawn")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_path6_") as tmp, \
-            ProcessPoolExecutor(sum(PATH6_PARTS.values()),
-                                mp_context=spawn) as pool:
-        root = Path(tmp)
+    with ProcessPoolExecutor(sum(PATH6_PARTS.values()),
+                             mp_context=spawn) as pool:
         t0 = time.perf_counter()
         maps = write_path6_inputs(train, val, root, pool)
         write_s = time.perf_counter() - t0
@@ -1560,6 +1584,298 @@ def path6(train, val, specs5) -> int:
     check(abs(auc - best_auc) <= 1e-6,
           f"path 6: scoring AUC {auc} != training's best {best_auc}")
     return launches.get("lbfgs", 0), rows6
+
+
+# examples/run_glm_driver.sh's flags, with every diagnostic (fitting and
+# bootstrap train on the card too); path 7 adds the data, the index store
+# and the output directories.
+GLM_FLAGS = [
+    "--task", "LOGISTIC_REGRESSION", "--format", "AVRO",
+    "--max-num-iterations", "80", "--regularization-weights",
+    "100,10,1,0.1", "--regularization-type", "L2", "--optimizer", "LBFGS",
+    "--normalization-type", "STANDARDIZATION", "--compute-variance", "true",
+    "--diagnostic-mode", "ALL", "--num-bootstrap-samples", "4"]
+GLM_LAMBDAS = [100.0, 10.0, 1.0, 0.1]
+GLM_STAGES = ["INIT", "PREPROCESSED", "TRAINED", "VALIDATED", "DIAGNOSED"]
+DIAGNOSTIC_SECTIONS = ("featureImportance", "fitting", "bootstrap",
+                       "hosmerLemeshow", "predictionErrorIndependence")
+# Variances against the float64 host formula (float32 solve on the card).
+VARIANCE_RTOL = 1e-3
+# bf16 storage's final objective against float32 storage's, per λ
+# (docs/F32_PARITY.md:75-77, tests/test_distributed.py:463-464).
+BF16_OBJECTIVE_RTOL = 2e-3
+
+
+def host_variances(x, off, w, coef, factors, shifts, l2):
+    """1 / (diag H + 1e-12) in float64 numpy at the solve-space ``coef``:
+    x' = (x - shifts) * factors, H = sum_i w_i p_i (1 - p_i) x'_i x'_i^T
+    + l2 I (the logistic loss)."""
+    xs = (x - shifts) * factors
+    z = xs @ coef + off
+    p = 1.0 / (1.0 + np.exp(-z))
+    d = w * p * (1.0 - p)
+    return 1.0 / ((d[:, None] * xs * xs).sum(axis=0) + l2 + 1e-12)
+
+
+def path7(root: Path) -> None:
+    """Path 7: the GLM driver (photon_ml_tpu_torch.cli.glm_driver.run) on
+    path 6's Avro files with run_glm_driver.sh's flags and every
+    diagnostic, at bench.py's fixed-effect width through path 6's
+    ``global`` index store (g0..g198 and the intercept; the u*/i*
+    features are dropped as unknown). The driver's decoded matrices are
+    kept by wrapping its ``_load``. Checks: the stages and the grid; the
+    driver adds no arithmetic (train_glm_models on the same matrix gives
+    its iterations, reasons and objectives bit for bit, coefficients on
+    the card); model.avro and model.txt give the best λ's model exactly;
+    the best λ's validation AUC equals evaluate_glm on the loaded model
+    within 1e-12 and beats 0.5; variances finite, positive and within
+    VARIANCE_RTOL of the float64 host formula; the diagnostics report
+    with its four chapters. No kernel of the table launches."""
+    import torch
+
+    from photon_ml_tpu_torch.cli import glm_driver
+    from photon_ml_tpu_torch.data.normalization import (
+        build_normalization_context,
+    )
+    from photon_ml_tpu_torch.data.stats import BasicStatisticalSummary
+    from photon_ml_tpu_torch.estimators.model_training import (
+        train_glm_models,
+    )
+    from photon_ml_tpu_torch.evaluation.validation import evaluate_glm
+    from photon_ml_tpu_torch.io.avro_codec import read_container
+    from photon_ml_tpu_torch.io.model_io import glm_from_avro_record
+    from photon_ml_tpu_torch.ops import entity_solver, gather
+    from photon_ml_tpu_torch.types import TaskType
+
+    out = root / "glm"
+    loaded = []
+    load = glm_driver._load
+
+    def keep_load(*args, **kwargs):
+        res = load(*args, **kwargs)
+        loaded.append(res)
+        return res
+
+    argv = ["--training-data-directory", str(root / "train"),
+            "--validating-data-directory", str(root / "validate"),
+            "--output-directory", str(out),
+            "--offheap-indexmap-dir", str(root / "feature-index"),
+            "--offheap-indexmap-namespace", "global",
+            "--summarization-output-dir", str(root / "glm-summary"),
+            *GLM_FLAGS]
+    entity_solver.reset_launch_counts()
+    gather.reset_launch_counts()
+    glm_driver._load = keep_load
+    try:
+        t0 = time.perf_counter()
+        summary = glm_driver.run(argv)
+        run_s = time.perf_counter() - t0
+    finally:
+        glm_driver._load = load
+    launched = (entity_solver.entity_lbfgs.launches
+                + gather.onehot_gather.launches
+                + gather.residue_gather.launches)
+    (mat, y, off, w, imap), (vmat, vy, voff, vw, _) = loaded
+    phases = {k: round(v, 3) for k, v in summary["phaseSeconds"].items()}
+    print(f"path 7 cut: rows only, path 6's {mat.shape[0]} training and "
+          f"{vmat.shape[0]} hold-out rows of bench.py's 200,000 at its "
+          f"fixed-effect width {mat.shape[1]} (the pure-Python Avro codec)",
+          flush=True)
+    print(f"path 7 seconds: run {run_s:.2f}, phases {phases}", flush=True)
+    conv = summary["convergence"]
+    for lam in GLM_LAMBDAS:
+        print(f"path 7 lambda {lam:g}: {conv[str(lam)]}", flush=True)
+    check(launched == 0, f"path 7 launched a kernel of the table: "
+          f"{launched}")
+    check(summary["stages"] == GLM_STAGES, f"path 7 stages "
+          f"{summary['stages']}")
+    check(summary["lambdas"] == GLM_LAMBDAS
+          and sorted(conv) == sorted(map(str, GLM_LAMBDAS))
+          and all(math.isfinite(c["finalObjective"]) for c in conv.values()),
+          f"path 7 grid: {summary['lambdas']}, {conv}")
+    check((mat.shape[1], len(imap), imap.intercept_index)
+          == (D_FIXED, D_FIXED, D_FIXED - 1),
+          f"path 7 width {mat.shape} / {len(imap)}")
+
+    # 2. The driver adds no arithmetic.
+    norm = build_normalization_context(
+        "STANDARDIZATION", BasicStatisticalSummary.compute(mat),
+        intercept_id=imap.intercept_index)
+    t0 = time.perf_counter()
+    trained = train_glm_models(
+        mat, y, TaskType.LOGISTIC_REGRESSION, GLM_LAMBDAS,
+        max_iterations=80, offsets=off, weights=w, normalization=norm,
+        compute_variances=True, dtype=torch.float32, device="cuda")
+    lib_s = time.perf_counter() - t0
+    for t in trained:
+        c = conv[str(t.reg_weight)]
+        got = (int(t.result.iterations), t.result.reason_enum().summary,
+               float(t.result.value))
+        check(got == (c["iterations"], c["reason"], c["finalObjective"]),
+              f"path 7 lambda {t.reg_weight}: train_glm_models {got} != the "
+              f"driver's {c}")
+        check(t.model.coefficients.means.is_cuda
+              and t.model.coefficients.variances.is_cuda,
+              "path 7: coefficients not on the card")
+    print(f"path 7 train_glm_models in process: {lib_s:.2f} s, iterations, "
+          "reasons and objectives equal to the driver's bit for bit",
+          flush=True)
+
+    # 3. Save and load are exact.
+    best = {t.reg_weight: t for t in trained}[summary["bestLambda"]]
+    (rec,) = read_container(out / "best-model" / "model.avro")
+    _, model = glm_from_avro_record(rec, imap)
+    means = best.model.coefficients.means.cpu().double()
+    variances = best.model.coefficients.variances.cpu().double()
+    check(torch.equal(model.coefficients.means, means)
+          and torch.equal(model.coefficients.variances, variances),
+          "path 7: model.avro does not give the trained model exactly")
+    lines = (out / "best-model" / "model.txt").read_text().splitlines()
+    check(len(lines) == len(imap) and all(
+        ln.split("\t")[3] == str(summary["bestLambda"]) for ln in lines),
+        "path 7: model.txt")
+
+    # 4. Validation metrics, on the loaded model's host scores.
+    metrics = json.loads((out / "validation-metrics.json").read_text())
+    auc = metrics["metrics"][str(summary["bestLambda"])]["AUC"]
+    want = evaluate_glm(TaskType.LOGISTIC_REGRESSION,
+                        np.asarray(vmat @ model.coefficients.means.numpy())
+                        .ravel(), vy, voff, vw)["AUC"]
+    print(f"path 7 final: best lambda {summary['bestLambda']:g}, AUC "
+          f"{auc:.6f} (evaluate_glm on the loaded model {want:.6f})",
+          flush=True)
+    check(abs(auc - want) <= 1e-12 and auc > 0.5, f"path 7 AUC {auc} vs "
+          f"{want}")
+
+    # 5. Variances against the float64 host formula.
+    x = mat.toarray()
+    factors = norm.factors.double().cpu().numpy()
+    shifts = norm.shifts.double().cpu().numpy()
+    worst = 0.0
+    for t in trained:
+        var = t.model.coefficients.variances.double().cpu().numpy()
+        ref = host_variances(x, off, w, t.result.x.double().cpu().numpy(),
+                             factors, shifts, t.reg_weight)
+        check(bool(np.isfinite(var).all() and (var > 0).all()),
+              f"path 7 lambda {t.reg_weight}: variances not finite positive")
+        err = float(np.max(np.abs(var - ref) / ref))
+        worst = max(worst, err)
+        check(err <= VARIANCE_RTOL, f"path 7 lambda {t.reg_weight}: "
+              f"variances {err:.3g} from the float64 formula")
+    print(f"path 7 variances: worst relative error {worst:.3g} against the "
+          f"float64 host formula (bound {VARIANCE_RTOL})", flush=True)
+
+    # 6. The diagnostics report.
+    report = json.loads((out / "model-diagnostic.json").read_text())
+    check(len(report["models"]) == 4 and all(
+        set(DIAGNOSTIC_SECTIONS) <= set(m) for m in report["models"])
+        and (out / "model-diagnostic.html").stat().st_size > 0,
+        "path 7: model-diagnostic.json lacks a chapter or a section")
+    summarized = list(read_container(root / "glm-summary"
+                                     / "part-00000.avro"))
+    check(len(summarized) == D_FIXED, "path 7: feature summary")
+
+
+def glm_full_width(train) -> None:
+    """train_glm_models on the full training fixed shard (bench.py's data,
+    160,000 x 200, seed 7) with path 7's grid, STANDARDIZATION and
+    variances, once with float32 storage and once with bfloat16 storage
+    (float32 accumulation). Prints the batch build's seconds (host
+    densify and upload), per λ the iterations, seconds (each λ's solve and
+    variances, from the log record the trainer writes after it) and ms
+    per iteration, and the two products' ms on the batch (CUDA events
+    around 20 calls) beside their bound (x read once at its storage
+    width); checks that bf16 stays bf16, that every λ's bf16 objective is
+    within BF16_OBJECTIVE_RTOL of float32's, and that the variances are
+    finite and positive."""
+    import torch
+
+    from photon_ml_tpu_torch.data.normalization import (
+        build_normalization_context,
+    )
+    from photon_ml_tpu_torch.data.stats import BasicStatisticalSummary
+    from photon_ml_tpu_torch.estimators import model_training
+    from photon_ml_tpu_torch.types import TaskType
+
+    mat = train.feature_shards["global"]
+    norm = build_normalization_context(
+        "STANDARDIZATION", BasicStatisticalSummary.compute(mat),
+        intercept_id=D_FIXED - 1)
+
+    class Stamps(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.times = []
+
+        def emit(self, record):
+            self.times.append(record.created)
+
+    log = logging.getLogger(model_training.__name__)
+    log.setLevel(logging.INFO)
+    batches, built = [], []
+    make_batch = model_training.device_batch
+
+    def keep_batch(*args, **kwargs):
+        batches.append(make_batch(*args, **kwargs))
+        torch.cuda.synchronize()
+        built.append(time.time())
+        return batches[-1]
+
+    runs = {}
+    for name, storage in (("float32", None), ("bfloat16", torch.bfloat16)):
+        stamps = Stamps()
+        log.addHandler(stamps)
+        model_training.device_batch = keep_batch
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            trained = model_training.train_glm_models(
+                mat, train.responses, TaskType.LOGISTIC_REGRESSION,
+                GLM_LAMBDAS, max_iterations=80, normalization=norm,
+                compute_variances=True, dtype=torch.float32,
+                storage_dtype=storage, device="cuda")
+        finally:
+            model_training.device_batch = make_batch
+            log.removeHandler(stamps)
+        feats = batches[-1].features
+        stored = feats.x.dtype
+        check(stored == (storage or torch.float32),
+              f"full width {name}: features stored as {stored}")
+        ends = stamps.times[-len(GLM_LAMBDAS):]
+        starts = [built[-1]] + ends[:-1]
+        rows = []
+        for t, s, e in zip(trained, starts, ends):
+            it = int(t.result.iterations)
+            var = t.model.coefficients.variances
+            check(bool(torch.isfinite(var).all() and (var > 0).all()),
+                  f"full width {name} lambda {t.reg_weight}: variances")
+            rows.append({"lambda": t.reg_weight, "iterations": it,
+                         "reason": t.result.reason_enum().name,
+                         "objective": float(t.result.value),
+                         "s": round(e - s, 4),
+                         "ms_per_iteration": round(1e3 * (e - s)
+                                                   / max(it, 1), 3)})
+        runs[name] = rows
+        v = torch.randn(mat.shape[1], device="cuda")
+        u = torch.randn(mat.shape[0], device="cuda")
+        products = {}
+        for op, arg in (("matvec", v), ("rmatvec", u)):
+            fn = getattr(feats, op)
+            fn(arg)
+            products[f"{op}_ms"] = round(cuda_ms(lambda: fn(arg), 20), 5)
+        bound = (feats.x.numel() * feats.x.element_size()) / HBM_BYTES_PER_S
+        products["bound_ms"] = round(1e3 * bound, 5)
+        print(f"glm full width {name} storage ({mat.shape[0]} x "
+              f"{mat.shape[1]}): batch {built[-1] - t0:.3f} s, products "
+              f"{json.dumps(products)}, per lambda " + json.dumps(rows),
+              flush=True)
+    for f32, b16 in zip(runs["float32"], runs["bfloat16"]):
+        rel = abs(b16["objective"] - f32["objective"]) / abs(f32["objective"])
+        check(rel <= BF16_OBJECTIVE_RTOL,
+              f"full width lambda {f32['lambda']}: bf16 objective "
+              f"{b16['objective']} vs float32 {f32['objective']} ({rel:.3g})")
+    print("glm full width: bf16 objectives within "
+          f"{BF16_OBJECTIVE_RTOL} of float32 per lambda", flush=True)
 
 
 def main(argv=None) -> int:
@@ -1732,13 +2048,20 @@ def main(argv=None) -> int:
           f"objective {result5.objective_history[-1]:.6f}, latent buckets "
           f"{latent_shapes}", flush=True)
 
-    # ------- path 6: the drivers on Avro, config 5 (rows cut) --------------
+    # ------- paths 6 and 7: the drivers on Avro (rows cut) -----------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_avro_") as tmp:
+        t0 = time.perf_counter()
+        launches6, rows6 = path6(train, val, specs5, Path(tmp))
+        latent_shapes6 = [(r["entities"], r["n_pad"], r["d_pad"])
+                          for r in rows6["itemFactors"]]
+        print(f"path 6 latent buckets {latent_shapes6}", flush=True)
+        print(f"path 6: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        path7(Path(tmp))
+        print(f"path 7: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    launches6, rows6 = path6(train, val, specs5)
-    latent_shapes6 = [(r["entities"], r["n_pad"], r["d_pad"])
-                      for r in rows6["itemFactors"]]
-    print(f"path 6 latent buckets {latent_shapes6}", flush=True)
-    print(f"path 6: {time.perf_counter() - t0:.1f} s", flush=True)
+    glm_full_width(train)
+    print(f"glm full width: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     gather_entries = gather_phase()

@@ -1,8 +1,9 @@
 """TrainingExampleAvro ingest: Avro files -> IndexMap + CSR + GameDataset
 (port of photon_ml_tpu/data/avro_reader.py: _avro_paths, iter_records,
 the record helpers and _reject_duplicate_features :22-105,
-build_index_map :108, _GameBatchBuilder :200-284, read_game_dataset
-:323 through its record loop :389-392).
+build_index_map :108, read_labeled_points :135-200 through its record
+loop :172-200, _GameBatchBuilder :200-284, read_game_dataset :323
+through its record loop :389-392).
 
 Replaces the reference's AvroDataReader/GLMSuite Spark ingest
 (ml/data/AvroDataReader.scala:53-436, ml/io/GLMSuite.scala:98-139): reads
@@ -14,7 +15,6 @@ JAX package's block, fast-ingest and parallel routes (:346-390, over its
 C decoder) come with streamed ingest (ROADMAP queue A4); the JAX
 docstring makes them byte-identical to this record loop, so
 ``ingest_workers`` is accepted and the read stays in one process.
-``read_labeled_points`` (the GLM driver's reader) comes with A2.
 """
 
 from __future__ import annotations
@@ -133,6 +133,57 @@ def build_index_map(path, add_intercept: bool = True,
                 keys.add(key)
     return IndexMap.from_keys(keys, add_intercept=add_intercept)
 
+
+
+def read_labeled_points(
+    path,
+    index_map: Optional[IndexMap] = None,
+    add_intercept: bool = True,
+    selected_features: Optional[set] = None,
+    ingest_workers=None,
+) -> Tuple[sp.csr_matrix, np.ndarray, np.ndarray, np.ndarray,
+           List[Optional[str]], IndexMap]:
+    """Returns (features, labels, offsets, weights, uids, index_map): the
+    GLM driver's reader.
+
+    Unknown features (absent from a supplied index map) are dropped, like
+    the reference's ingest. ``selected_features`` (keys) restricts columns
+    (GLMSuite selected-features filtering). ``ingest_workers`` is accepted
+    for the JAX signature; the read runs in this process.
+    """
+    if index_map is None:
+        index_map = build_index_map(path, add_intercept=add_intercept,
+                                    selected_features=selected_features)
+    intercept_idx = index_map.intercept_index if add_intercept else -1
+
+    labels, offsets, weights, uids = [], [], [], []
+    data, indices, indptr = [], [], [0]
+    for rec in iter_records(path):
+        labels.append(_record_label(rec))
+        offsets.append(float(rec.get("offset") or 0.0))
+        w = rec.get("weight")
+        weights.append(1.0 if w is None else float(w))
+        uids.append(rec.get("uid"))
+        for f in _record_features(rec):
+            key = feature_key(f["name"], f.get("term") or "")
+            if selected_features is not None and key not in selected_features:
+                continue
+            idx = index_map.get_index(key)
+            if idx >= 0:
+                indices.append(idx)
+                data.append(float(f["value"]))
+        if intercept_idx >= 0:
+            indices.append(intercept_idx)
+            data.append(1.0)
+        indptr.append(len(indices))
+
+    n, d = len(labels), len(index_map)
+    mat = sp.csr_matrix(
+        (np.asarray(data), np.asarray(indices, np.int64),
+         np.asarray(indptr, np.int64)), shape=(n, d))
+    _reject_duplicate_features(mat, index_map, uids)
+    return (mat, np.asarray(labels), np.asarray(offsets),
+            np.asarray(weights), uids, index_map)
 
 class _GameBatchBuilder:
     """Per-record GAME decode state — the ONE copy of the python-path

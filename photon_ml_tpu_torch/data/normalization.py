@@ -38,6 +38,11 @@ class NormalizationContext:
     factors: Optional[Tensor]
     shifts: Optional[Tensor]
     intercept_id: int = -1
+    # The type the vectors were built in (float32 from
+    # build_normalization_context), kept by ``to`` when it widens them: a
+    # product of two context vectors (the Hessian diagonal's squares) is
+    # formed there, as JAX, whose context stays float32, forms it.
+    built_dtype: Optional[torch.dtype] = None
 
     def to(self, device, dtype=None) -> "NormalizationContext":
         """The same context with its vectors on ``device`` (and as
@@ -47,7 +52,20 @@ class NormalizationContext:
             return None if a is None else a.to(device=device, dtype=dtype)
 
         return NormalizationContext(conv(self.factors), conv(self.shifts),
-                                    self.intercept_id)
+                                    self.intercept_id, self.vector_dtype)
+
+    @property
+    def vector_dtype(self) -> Optional[torch.dtype]:
+        """built_dtype, or the vectors' own type."""
+        if self.built_dtype is not None:
+            return self.built_dtype
+        vec = self.factors if self.factors is not None else self.shifts
+        return None if vec is None else vec.dtype
+
+    def square(self, vec: Tensor) -> Tensor:
+        """vec * vec for a context vector, formed in ``vector_dtype``."""
+        v = vec.to(self.vector_dtype)
+        return (v * v).to(vec.dtype)
 
     def effective_coefficients(self, coef: Tensor) -> Tensor:
         return coef * self.factors if self.factors is not None else coef

@@ -1,6 +1,7 @@
 """Model persistence in the reference's on-disk layout (port of
 photon_ml_tpu/io/model_io.py: _coeff_records / _vector_from_records
 :48-74, glm_to_avro_record :77, glm_from_avro_record :90,
+write_text_model :111,
 RandomEffectModelSnapshot :126, save_game_model :171 with the factored
 latent files :230-263, load_game_model :286; reference
 ml/avro/model/ModelProcessingUtils.scala:67-545):
@@ -20,8 +21,9 @@ equal bytes (a container's sync marker is random).
 Coefficients cross the boundary as host numpy: a float32 coefficient
 from the card widens exactly to the Avro double, and a loaded model
 holds float64 tensors on the CPU, which the device scorer moves to its
-device. The GLM driver's text model format (write_text_model) comes with
-the GLM driver (ROADMAP queue A2).
+device. The GLM driver's text model (write_text_model, :111-119) prints
+each coefficient from its host numpy value, as the JAX package does, so
+a float64 run writes the same text.
 """
 
 from __future__ import annotations
@@ -121,6 +123,23 @@ def glm_from_avro_record(rec: dict, index_map: IndexMap
         torch.as_tensor(means),
         None if variances is None else torch.as_tensor(variances))
     return rec["modelId"], cls(coeff)
+
+
+# ---------------------------------------------------------------------------
+# GLM driver text models (ml/util/IOUtils.scala:236-238)
+# ---------------------------------------------------------------------------
+
+
+def write_text_model(path, glm: GeneralizedLinearModel, index_map: IndexMap,
+                     reg_weight: float) -> None:
+    """One line per index-map key, in its order: name, term, coefficient
+    and λ, tab-separated."""
+    means, _ = glm.coefficients.to_numpy()
+    lines = []
+    for key, idx in index_map.key_items():
+        name, term = split_key(key)
+        lines.append(f"{name}\t{term}\t{means[idx]}\t{reg_weight}")
+    Path(path).write_text("\n".join(lines) + "\n")
 
 
 # ---------------------------------------------------------------------------

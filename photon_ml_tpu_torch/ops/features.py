@@ -1,9 +1,14 @@
 """Device-resident feature matrices (port of photon_ml_tpu/ops/features.py:
-DenseFeatures :33, CSRFeatures :106, KroneckerFeatures :177-228,
-features_to_device :1002).
+DenseFeatures :33-103, CSRFeatures :106-174, KroneckerFeatures :177-228,
+features_to_device :1002-1058).
 
 - ``DenseFeatures``: dense ``[n_rows, n_features]``; products are
-  ``torch.matmul``.
+  ``torch.matmul``. ``x`` may be stored in bfloat16
+  (``features_to_device(..., storage_dtype=torch.bfloat16)``): every
+  product then accumulates in the solver type, never in bfloat16, as the
+  JAX ``_acc`` asks (features.py:59-75); ``x`` is widened row chunk by
+  row chunk and multiplied there, and ``v`` and the result are never
+  rounded to bfloat16.
 - ``CSRFeatures``: ``torch.sparse_csr`` (cuSPARSE on the card) for the
   margins, plus the CSR of the transpose for the gradient product. The
   JAX package leaves both products to XLA, outside any Pallas kernel, so
@@ -12,8 +17,11 @@ features_to_device :1002).
   gamma_i of a factored random effect's projection-matrix refit; each
   product is one contraction and the ``[n, k d]`` matrix is never built.
 
-The dense/sparse choice by density is the JAX package's; its
-TPU-specific ELL layouts (features.py:233-930) are not ported.
+The dense/sparse choice by density is the JAX package's. Its ELL
+layouts (features.py:233-930, ``sparse_layout="bucketed_ell"`` and
+``"sort_permute_ell"``) work around the TPU's slow gathers and
+scatter-adds; ``features_to_device`` accepts their names and builds CSR
+for them, whose products cuSPARSE runs on the card.
 """
 
 from __future__ import annotations
@@ -30,19 +38,73 @@ from photon_ml_tpu_torch.device import resolve_device
 Tensor = torch.Tensor
 
 
+# Elements of x widened at a time when it is stored narrower than the
+# accumulation type (64 MiB of float32).
+UPCAST_CHUNK_ELEMENTS = 1 << 24
+
+
 @dataclasses.dataclass(frozen=True)
 class DenseFeatures:
-    """Dense feature matrix x: [n_rows, n_features]."""
+    """Dense feature matrix x: [n_rows, n_features], stored in the solver
+    type or in bfloat16."""
 
     x: Tensor
 
+    @property
+    def num_features(self) -> int:
+        return self.x.shape[-1]
+
+    @staticmethod
+    def _acc(v: Tensor):
+        # Accumulate in the solver type, never in the storage type.
+        return torch.promote_types(v.dtype, torch.float32)
+
+    def _row_chunks(self, acc, square: bool = False):
+        """(start, rows of x in ``acc``, squared there if asked): x itself
+        when stored in ``acc``, else widened UPCAST_CHUNK_ELEMENTS at a
+        time."""
+        n, d = self.x.shape
+        step = n if self.x.dtype == acc else max(
+            1, UPCAST_CHUNK_ELEMENTS // max(1, d))
+        for s in range(0, n, step):
+            xc = self.x[s:s + step].to(acc)
+            yield s, (xc * xc if square else xc)
+
+    def _matvec(self, v: Tensor, square: bool) -> Tensor:
+        acc = self._acc(v)
+        if self.x.dtype == acc and not square:
+            return torch.matmul(self.x, v)
+        out = torch.empty(self.x.shape[0], dtype=acc, device=self.x.device)
+        for s, xc in self._row_chunks(acc, square):
+            out[s:s + xc.shape[0]] = torch.matmul(xc, v)
+        return out
+
+    def _rmatvec(self, u: Tensor, square: bool) -> Tensor:
+        acc = self._acc(u)
+        if self.x.dtype == acc and not square:
+            return torch.matmul(u, self.x)
+        out = None
+        for s, xc in self._row_chunks(acc, square):
+            part = torch.matmul(u[s:s + xc.shape[0]], xc)
+            out = part if out is None else out + part
+        return out
+
     def matvec(self, v: Tensor) -> Tensor:
         """x @ v -> [n_rows]."""
-        return torch.matmul(self.x, v)
+        return self._matvec(v, square=False)
 
     def rmatvec(self, u: Tensor) -> Tensor:
         """x.T @ u -> [n_features]."""
-        return torch.matmul(u, self.x)
+        return self._rmatvec(u, square=False)
+
+    def row_sq_matvec(self, v: Tensor) -> Tensor:
+        """(x*x) @ v, the square formed in the accumulation type."""
+        return self._matvec(v, square=True)
+
+    def sq_rmatvec(self, u: Tensor) -> Tensor:
+        """(x*x).T @ u -> [n_features]: per-feature weighted square sums
+        (the Hessian diagonal's aggregation)."""
+        return self._rmatvec(u, square=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,11 +122,29 @@ class CSRFeatures:
     n_rows: int
     n_features: int
 
+    @property
+    def num_features(self) -> int:
+        return self.n_features
+
     def matvec(self, v: Tensor) -> Tensor:
         return torch.mv(self.csr, v)
 
     def rmatvec(self, u: Tensor) -> Tensor:
         return torch.mv(self.csr_t, u)
+
+    @staticmethod
+    def _squared(csr: Tensor) -> Tensor:
+        """The same sparsity with each value squared."""
+        vals = csr.values()
+        return torch.sparse_csr_tensor(
+            csr.crow_indices(), csr.col_indices(), vals * vals,
+            size=csr.shape)
+
+    def row_sq_matvec(self, v: Tensor) -> Tensor:
+        return torch.mv(self._squared(self.csr), v)
+
+    def sq_rmatvec(self, u: Tensor) -> Tensor:
+        return torch.mv(self._squared(self.csr_t), u)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,16 +218,39 @@ def csr_from_scipy(mat, dtype=torch.float32, device="cuda") -> CSRFeatures:
 DENSE_DENSITY_THRESHOLD = 0.2
 
 
+SPARSE_LAYOUTS = ("csr", "bucketed_ell", "sort_permute_ell")
+
+
 def features_to_device(mat, dtype=torch.float32, device="cuda",
-                       dense_threshold: float = DENSE_DENSITY_THRESHOLD
+                       dense_threshold: float = DENSE_DENSITY_THRESHOLD,
+                       storage_dtype=None, sparse_layout: str = "csr"
                        ) -> FeatureMatrix:
     """Host feature matrix -> device layout, dense at or above
-    ``dense_threshold`` density, CSR below it (features.py:1002)."""
+    ``dense_threshold`` density, CSR below it (features.py:1002).
+
+    ``storage_dtype=torch.bfloat16`` stores DENSE features at half width
+    (products accumulate in the solver type); sparse layouts ignore it,
+    with the JAX package's warning. ``sparse_layout`` is one of
+    SPARSE_LAYOUTS, checked up front as in JAX (:1020-1026); every one
+    builds CSR here."""
+    if sparse_layout not in SPARSE_LAYOUTS:
+        raise ValueError(
+            f"unknown sparse_layout {sparse_layout!r}: expected "
+            "'csr', 'bucketed_ell', or 'sort_permute_ell'")
     dev = resolve_device(device)
+    dense_dt = storage_dtype if storage_dtype is not None else dtype
     if sp.issparse(mat):
         density = mat.nnz / max(1, mat.shape[0] * mat.shape[1])
         if density < dense_threshold:
+            if storage_dtype is not None:
+                import warnings
+
+                warnings.warn(
+                    f"storage_dtype={storage_dtype} ignored: data density "
+                    f"is below the dense threshold ({dense_threshold:.2f}), "
+                    "which selects a sparse layout (sparse layouts are "
+                    "lookup-count-bound, not byte-bound)", stacklevel=2)
             return csr_from_scipy(mat, dtype, dev)
         mat = mat.toarray()
-    return DenseFeatures(torch.as_tensor(np.asarray(mat), dtype=dtype,
+    return DenseFeatures(torch.as_tensor(np.asarray(mat), dtype=dense_dt,
                                          device=dev))

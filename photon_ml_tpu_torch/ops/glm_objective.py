@@ -1,7 +1,8 @@
 """The GLM objective in closed form (port of photon_ml_tpu/ops/
 glm_objective.py: GLMBatch :41, GLMObjective :84, margins :108,
 _jt_product :152, curvature_from_margins :174,
-hessian_vector_from_margins :181, make_tron_hvp :191).
+hessian_vector_from_margins :181, make_tron_hvp :191,
+hessian_diagonal :218-247, coefficient_variances :249-257).
 
     f(c) = sum_i w_i l(z_i, y_i) + l2/2 ||c||^2
     z    = X (c * factor) + offsets - (c * factor) . shift
@@ -137,3 +138,34 @@ class GLMObjective:
         d2 = self.curvature_from_margins(self.margins(x, batch), batch)
         return lambda v: self.hessian_vector_from_margins(v, d2, batch,
                                                           l2_weight)
+
+    def hessian_diagonal(self, coef: Tensor, batch: GLMBatch,
+                         l2_weight=0.0) -> Tensor:
+        """diag(H) = sum_i w_i l''(z_i) x'_i^2 + l2, for coefficient
+        variances (HessianDiagonalAggregator.calcHessianDiagonal). The
+        normalized square x'_j^2 = factor_j^2 (x_j - shift_j)^2 expands
+        into three aggregations, so sparse features stay sparse; factor^2
+        and shift^2 are formed in the context's built type
+        (NormalizationContext.square)."""
+        d = self.curvature_from_margins(self.margins(coef, batch), batch)
+        feats = batch.features
+        out = feats.sq_rmatvec(d)  # sum d_i x_ij^2
+        norm = self.normalization
+        if norm is not None:
+            shifts, factors = norm.shifts, norm.factors
+            if shifts is not None:
+                lin_sum = feats.rmatvec(d)  # sum d_i x_ij
+                total = torch.sum(d)
+                out = (out - 2.0 * shifts * lin_sum
+                       + norm.square(shifts) * total)
+            if factors is not None:
+                out = norm.square(factors) * out
+        return out + l2_weight
+
+    def coefficient_variances(self, coef: Tensor, batch: GLMBatch,
+                              l2_weight=0.0, epsilon: float = 1e-12
+                              ) -> Tensor:
+        """var = 1 / (diag(H) + eps) (GeneralizedLinearOptimizationProblem
+        .scala:39-174, DistributedOptimizationProblem.scala:79-93)."""
+        return 1.0 / (self.hessian_diagonal(coef, batch, l2_weight)
+                      + epsilon)

@@ -22,9 +22,11 @@ import dataclasses
 import enum
 import json
 import math
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from photon_ml_tpu_torch.data.index_map import IndexMap, feature_key
 
 # feature index -> (lower, upper)
 ConstraintMap = Dict[int, Tuple[float, float]]
@@ -251,15 +253,14 @@ class FactoredRandomEffectOptimizationConfiguration:
                    MFOptimizationConfiguration.from_json(d["mf"]))
 
 
-def parse_constraint_string(s: str,
-                            index_map: Mapping[Tuple[str, str], int]
-                            ) -> ConstraintMap:
+def parse_constraint_string(s: str, index_map) -> ConstraintMap:
     """Parse the reference's box-constraint JSON: a list of
     {"name": ..., "term": ..., "lowerBound": ..., "upperBound": ...} with
     "*" wildcards for name and term (a missing bound is unbounded, a
-    missing term is ""). ``index_map`` maps (name, term) to the feature
-    index; keys it lacks are skipped. A {"*", "*"} entry applies to every
-    feature no other entry constrains. Returns {index: (lower, upper)}."""
+    missing term is ""). ``index_map`` is an IndexMap, as the JAX parser
+    takes it, or a mapping of (name, term) to the feature index; keys it
+    lacks are skipped. A {"*", "*"} entry applies to every feature no
+    other entry constrains. Returns {index: (lower, upper)}."""
     out: ConstraintMap = {}
     wildcard_all: Optional[Tuple[float, float]] = None
     for e in json.loads(s):
@@ -277,11 +278,13 @@ def parse_constraint_string(s: str,
                         (term == "*" or kterm == term):
                     out[idx] = (lb, ub)
         else:
-            idx = index_map.get((name, term), -1)
+            idx = (index_map.get_index(feature_key(name, term))
+                   if isinstance(index_map, IndexMap)
+                   else index_map.get((name, term), -1))
             if idx >= 0:
                 out[idx] = (lb, ub)
     if wildcard_all is not None:
-        for idx in index_map.values():
+        for _, idx in index_map.items():
             out.setdefault(idx, wildcard_all)
     return out
 

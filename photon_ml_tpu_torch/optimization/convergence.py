@@ -1,5 +1,7 @@
 """Convergence reasons and optimizer results (port of
-photon_ml_tpu/optimization/convergence.py:143-201).
+photon_ml_tpu/optimization/convergence.py:143-201: ConvergenceReason
+with its summary :151, OptimizerResult with coef_history :184 and
+reason_enum :190).
 
 An optimizer stops when (ml/optimization/Optimizer.scala:156-170)
   - iteration count hits max_iter                   -> MAX_ITERATIONS
@@ -27,6 +29,18 @@ class ConvergenceReason(enum.IntEnum):
     GRADIENT_CONVERGED = 3
     OBJECTIVE_NOT_IMPROVING = 4
 
+    @property
+    def summary(self) -> str:
+        return {
+            ConvergenceReason.NOT_CONVERGED: "not converged",
+            ConvergenceReason.MAX_ITERATIONS: "max iterations reached",
+            ConvergenceReason.FUNCTION_VALUES_CONVERGED:
+                "objective function values converged",
+            ConvergenceReason.GRADIENT_CONVERGED: "gradient converged",
+            ConvergenceReason.OBJECTIVE_NOT_IMPROVING:
+                "objective is not improving",
+        }[self]
+
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerResult:
@@ -52,3 +66,20 @@ class OptimizerResult:
     # [E] int32 tensors for the batched entity solver).
     outer_steps: Optional[Union[int, Tensor]] = None
     cg_steps: Optional[Union[int, Tensor]] = None
+    # Per-iteration coefficient snapshots [max_iter + 1, d] (NaN past
+    # ``iterations``), recorded only when the solver was asked to track
+    # them (the reference's ModelTracker state); None otherwise.
+    coef_history: Optional[Tensor] = None
+
+    def reason_enum(self) -> ConvergenceReason:
+        return ConvergenceReason(int(self.reason))
+
+
+def padded_history(rows, max_iter: int) -> Tensor:
+    """Per-iteration snapshots (scalars or [d] vectors, one per recorded
+    iterate) stacked once into ``[max_iter + 1, ...]``, NaN past the
+    last: the solvers' value, gradient-norm and coefficient histories."""
+    h = torch.stack(rows)
+    pad = torch.full((max_iter + 1 - h.shape[0], *h.shape[1:]),
+                     float("nan"), dtype=h.dtype, device=h.device)
+    return torch.cat([h, pad])

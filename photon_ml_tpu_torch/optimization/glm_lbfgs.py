@@ -27,6 +27,7 @@ from photon_ml_tpu_torch.ops.glm_objective import GLMBatch, GLMObjective
 from photon_ml_tpu_torch.optimization.convergence import (
     ConvergenceReason,
     OptimizerResult,
+    padded_history,
 )
 from photon_ml_tpu_torch.optimization.lbfgs import (
     compact_direction,
@@ -71,9 +72,13 @@ def minimize_lbfgs_glm(
     history_size: int = 10,
     c1: float = 1e-4,
     max_line_search: int = 30,
+    track_coefficients: bool = False,
 ) -> OptimizerResult:
     """Unconstrained L2 GLM solve; defaults mirror the reference
-    (maxIter=100, tol=1e-7, m=10, ml/optimization/LBFGS.scala:152-156)."""
+    (maxIter=100, tol=1e-7, m=10, ml/optimization/LBFGS.scala:152-156).
+    ``track_coefficients`` keeps each recorded iterate (a reference to
+    the device tensor, no host sync) and stacks them once at the end
+    into ``coef_history``; the solve is the same either way."""
     dtype, device = x0.dtype, x0.device
     x = x0
     z = objective.margins(x, batch)
@@ -84,6 +89,7 @@ def minimize_lbfgs_glm(
     hist = empty_history(x.shape[-1], history_size, dtype, device)
 
     values, gnorms = [f], [gnorm0]
+    coefs = [x] if track_coefficients else None
     reason = (int(ConvergenceReason.GRADIENT_CONVERGED)
               if float(gnorm0) <= 0.0 else _NC)
     it = 0
@@ -131,13 +137,15 @@ def minimize_lbfgs_glm(
         hist = select_history(ok, hist_new, hist)
         values.append(f)
         gnorms.append(gnorm_new)
+        if coefs is not None:
+            coefs.append(x)
         reason = int(reason_t)  # the iteration's one host sync
 
-    pad = max_iter + 1 - len(values)
-    nan = torch.full((pad,), float("nan"), dtype=dtype, device=device)
     return OptimizerResult(
         x=x, value=f, grad_norm=torch.linalg.norm(g),
         iterations=torch.tensor(it, dtype=torch.int32),
         reason=torch.tensor(reason, dtype=torch.int32),
-        value_history=torch.cat([torch.stack(values), nan]),
-        grad_norm_history=torch.cat([torch.stack(gnorms), nan]))
+        value_history=padded_history(values, max_iter),
+        grad_norm_history=padded_history(gnorms, max_iter),
+        coef_history=(None if coefs is None
+                      else padded_history(coefs, max_iter)))

@@ -30,6 +30,7 @@ import torch
 from photon_ml_tpu_torch.optimization.convergence import (
     ConvergenceReason,
     OptimizerResult,
+    padded_history,
 )
 
 Tensor = torch.Tensor
@@ -176,11 +177,15 @@ def minimize_lbfgs(
     upper_bounds: Optional[Tensor] = None,
     c1: float = 1e-4,
     max_line_search: int = 30,
+    track_coefficients: bool = False,
 ) -> OptimizerResult:
     """Minimize f(x, *args) from ``x0`` within [lower_bounds,
     upper_bounds] (either may be None: unbounded on that side).
     ``value_and_grad(x, *args)`` returns (value, gradient). Defaults
-    mirror the reference (maxIter=100, tol=1e-7, m=10)."""
+    mirror the reference (maxIter=100, tol=1e-7, m=10).
+    ``track_coefficients`` keeps each recorded iterate (a reference to
+    the device tensor, no host sync) and stacks them once at the end
+    into ``coef_history``; the solve is the same either way."""
     # glm_lbfgs imports this module, so its stop-reason helper is taken
     # at call time.
     from photon_ml_tpu_torch.optimization.glm_lbfgs import _reason
@@ -192,6 +197,7 @@ def minimize_lbfgs(
     f0_scale = torch.clamp_min(torch.abs(f), 1e-30)
     hist = empty_history(x.shape[-1], history_size, dtype, device)
     values, gnorms = [f], [gnorm0]
+    coefs = [x] if track_coefficients else None
     nc = int(ConvergenceReason.NOT_CONVERGED)
     reason = (int(ConvergenceReason.GRADIENT_CONVERGED)
               if float(gnorm0) <= 0.0 else nc)
@@ -218,13 +224,15 @@ def minimize_lbfgs(
             x, f, g, hist = x_new, f_new, g_new, hist_new
         values.append(f)
         gnorms.append(gnorm_new)
+        if coefs is not None:
+            coefs.append(x)
         reason = int(reason_t)  # the iteration's sync
 
-    pad = max_iter + 1 - len(values)
-    nan = torch.full((pad,), float("nan"), dtype=dtype, device=device)
     return OptimizerResult(
         x=x, value=f, grad_norm=torch.linalg.norm(g),
         iterations=torch.tensor(it, dtype=torch.int32),
         reason=torch.tensor(reason, dtype=torch.int32),
-        value_history=torch.cat([torch.stack(values), nan]),
-        grad_norm_history=torch.cat([torch.stack(gnorms), nan]))
+        value_history=padded_history(values, max_iter),
+        grad_norm_history=padded_history(gnorms, max_iter),
+        coef_history=(None if coefs is None
+                      else padded_history(coefs, max_iter)))

@@ -24,6 +24,7 @@ import torch
 from photon_ml_tpu_torch.optimization.convergence import (
     ConvergenceReason,
     OptimizerResult,
+    padded_history,
 )
 from photon_ml_tpu_torch.optimization.glm_lbfgs import _reason
 from photon_ml_tpu_torch.optimization.lbfgs import (
@@ -63,11 +64,15 @@ def minimize_owlqn(
     history_size: int = 10,
     c1: float = 1e-4,
     max_line_search: int = 30,
+    track_coefficients: bool = False,
 ) -> OptimizerResult:
     """Minimize f(x, *args) + l1_weight . |x| from x0. ``value_and_grad``
     returns the smooth part's (value, gradient); ``l1_weight`` is a
     scalar or a per-coordinate vector. Histories hold the full objective
-    and the pseudo-gradient norm."""
+    and the pseudo-gradient norm.
+    ``track_coefficients`` keeps each recorded iterate (a reference to
+    the device tensor, no host sync) and stacks them once at the end
+    into ``coef_history``; the solve is the same either way."""
     dtype, device = x0.dtype, x0.device
     l1 = torch.broadcast_to(torch.as_tensor(l1_weight, dtype=dtype,
                                             device=device), x0.shape)
@@ -83,6 +88,7 @@ def minimize_owlqn(
     f0_scale = torch.clamp_min(torch.abs(f), 1e-30)
     hist = empty_history(x.shape[-1], history_size, dtype, device)
     values, gnorms = [f], [pgnorm0]
+    coefs = [x] if track_coefficients else None
     reason = (int(ConvergenceReason.GRADIENT_CONVERGED)
               if float(pgnorm0) <= 0.0 else _NC)
     it = 0
@@ -112,13 +118,15 @@ def minimize_owlqn(
             x, f, g, pg, hist = x_new, f_new, g_new, pg_new, hist_new
         values.append(f)
         gnorms.append(pgnorm_new)
+        if coefs is not None:
+            coefs.append(x)
         reason = int(reason_t)  # the iteration's sync
 
-    pad = max_iter + 1 - len(values)
-    nan = torch.full((pad,), float("nan"), dtype=dtype, device=device)
     return OptimizerResult(
         x=x, value=f, grad_norm=torch.linalg.norm(pg),
         iterations=torch.tensor(it, dtype=torch.int32),
         reason=torch.tensor(reason, dtype=torch.int32),
-        value_history=torch.cat([torch.stack(values), nan]),
-        grad_norm_history=torch.cat([torch.stack(gnorms), nan]))
+        value_history=padded_history(values, max_iter),
+        grad_norm_history=padded_history(gnorms, max_iter),
+        coef_history=(None if coefs is None
+                      else padded_history(coefs, max_iter)))

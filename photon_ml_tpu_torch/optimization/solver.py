@@ -35,10 +35,12 @@ def solve_glm(
     coef0: Tensor,
     lower_bounds: Optional[Tensor] = None,
     upper_bounds: Optional[Tensor] = None,
+    track_coefficients: bool = False,
 ) -> OptimizerResult:
     """One GLM solve, routed as the JAX ``solve_glm`` routes it.
     ``lower_bounds``/``upper_bounds`` ([d], either may be None) clamp the
-    solve-space coefficients."""
+    solve-space coefficients; ``track_coefficients`` fills the result's
+    ``coef_history``."""
     bounded = lower_bounds is not None or upper_bounds is not None
     l1, l2 = config.l1_weight, config.l2_weight
     if config.optimizer_type == OptimizerType.TRON:
@@ -52,19 +54,23 @@ def solve_glm(
             objective.value_and_grad, coef0, args=(batch, l2),
             max_iter=config.max_iterations, tol=config.tolerance,
             lower_bounds=lower_bounds, upper_bounds=upper_bounds,
-            make_hvp=objective.make_tron_hvp)
+            make_hvp=objective.make_tron_hvp,
+            track_coefficients=track_coefficients)
     if l1 > 0:
         if bounded:
             raise ValueError(
                 "box constraints with L1 regularization are not supported")
         return minimize_owlqn(
             objective.value_and_grad, coef0, args=(batch, l2), l1_weight=l1,
-            max_iter=config.max_iterations, tol=config.tolerance)
+            max_iter=config.max_iterations, tol=config.tolerance,
+            track_coefficients=track_coefficients)
     if not bounded:
         return minimize_lbfgs_glm(
             objective, batch, coef0, l2,
-            max_iter=config.max_iterations, tol=config.tolerance)
+            max_iter=config.max_iterations, tol=config.tolerance,
+            track_coefficients=track_coefficients)
     return minimize_lbfgs(
         objective.value_and_grad, coef0, args=(batch, l2),
         max_iter=config.max_iterations, tol=config.tolerance,
-        lower_bounds=lower_bounds, upper_bounds=upper_bounds)
+        lower_bounds=lower_bounds, upper_bounds=upper_bounds,
+        track_coefficients=track_coefficients)

@@ -29,6 +29,7 @@ import torch
 from photon_ml_tpu_torch.optimization.convergence import (
     ConvergenceReason,
     OptimizerResult,
+    padded_history,
 )
 from photon_ml_tpu_torch.optimization.lbfgs import _project
 
@@ -94,6 +95,7 @@ def minimize_tron(
     lower_bounds: Optional[Tensor] = None,
     upper_bounds: Optional[Tensor] = None,
     make_hvp: Optional[Callable] = None,
+    track_coefficients: bool = False,
 ) -> OptimizerResult:
     """Minimize a twice-differentiable function from ``x0``.
 
@@ -103,7 +105,11 @@ def minimize_tron(
     reference (maxIter=15, tol=1e-5, <=20 CG steps, <=5 improvement
     failures). ``iterations`` counts accepted steps; ``outer_steps`` and
     ``cg_steps`` count every outer iteration and CG step. Either bound
-    may be None (unbounded on that side)."""
+    may be None (unbounded on that side). Only accepted iterates are
+    recorded.
+    ``track_coefficients`` keeps each recorded iterate (a reference to
+    the device tensor, no host sync) and stacks them once at the end
+    into ``coef_history``; the solve is the same either way."""
     if make_hvp is None:
         raise TypeError("minimize_tron needs make_hvp: the port has no "
                         "automatic Hessian-vector product")
@@ -128,6 +134,7 @@ def minimize_tron(
     f0_scale = torch.clamp_min(torch.abs(f), 1e-30)
     delta = gnorm0
     values, gnorms = [f], [gnorm0]
+    coefs = [x] if track_coefficients else None
     reason = (int(ConvergenceReason.GRADIENT_CONVERGED)
               if float(gnorm0) <= 0.0
               else int(ConvergenceReason.NOT_CONVERGED))
@@ -198,6 +205,8 @@ def minimize_tron(
             gnorm = proj_grad_norm(x, g)
             values.append(f)
             gnorms.append(gnorm)
+            if coefs is not None:
+                coefs.append(x)
             if bool(gnorm <= tol * gnorm0):
                 reason = int(ConvergenceReason.GRADIENT_CONVERGED)
             elif bool(f_delta <= tol * f0_scale):
@@ -210,12 +219,12 @@ def minimize_tron(
               and it >= max_iter):
             reason = int(ConvergenceReason.MAX_ITERATIONS)
 
-    pad = max_iter + 1 - len(values)
-    nan = torch.full((pad,), float("nan"), dtype=dtype, device=device)
     return OptimizerResult(
         x=x, value=f, grad_norm=torch.linalg.norm(g),
         iterations=torch.tensor(it, dtype=torch.int32),
         reason=torch.tensor(reason, dtype=torch.int32),
-        value_history=torch.cat([torch.stack(values), nan]),
-        grad_norm_history=torch.cat([torch.stack(gnorms), nan]),
+        value_history=padded_history(values, max_iter),
+        grad_norm_history=padded_history(gnorms, max_iter),
+        coef_history=(None if coefs is None
+                      else padded_history(coefs, max_iter)),
         outer_steps=outer, cg_steps=cg_steps)

@@ -1,4 +1,4 @@
-"""Common enums (port of photon_ml_tpu/types.py:12-40).
+"""Common enums (port of photon_ml_tpu/types.py:12-45).
 
 Mirrors the task-type vocabulary of the reference
 (photon-ml/src/main/scala/com/linkedin/photon/ml/TaskType.scala).
@@ -35,3 +35,11 @@ class NormalizationType(str, enum.Enum):
     SCALE_WITH_STANDARD_DEVIATION = "SCALE_WITH_STANDARD_DEVIATION"
     SCALE_WITH_MAX_MAGNITUDE = "SCALE_WITH_MAX_MAGNITUDE"
     STANDARDIZATION = "STANDARDIZATION"
+
+
+class DataValidationType(str, enum.Enum):
+    """How much input validation to run (reference: ml/DataValidationType.scala)."""
+
+    VALIDATE_FULL = "VALIDATE_FULL"
+    VALIDATE_SAMPLE = "VALIDATE_SAMPLE"
+    VALIDATE_DISABLED = "VALIDATE_DISABLED"

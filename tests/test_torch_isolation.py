@@ -41,7 +41,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     scanned = {p.relative_to(REPO).parts[1] for p in files
                if p.parent != REPO}
     assert {"projector", "dev_scripts", "ops", "models", "io", "cli",
-            "utils"} <= scanned
+            "utils", "diagnostics", "estimators", "evaluation"} <= scanned
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -69,7 +69,7 @@ def _dataset():
     "estimator", "fixed_effect_batch", "random_effect_dataset",
     "coordinate", "coordinate_descent", "convert", "features",
     "gather_experiments", "matrix_factorization", "training_driver",
-    "scoring_driver"])
+    "scoring_driver", "glm_driver", "train_glm_models", "device_batch"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            entry):
     from photon_ml_tpu_torch.algorithm.coordinate_descent import (
@@ -81,6 +81,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
     from photon_ml_tpu_torch.cli import (
         game_scoring_driver,
         game_training_driver,
+        glm_driver,
     )
     from photon_ml_tpu_torch.convert import game_model_from_numpy
     from photon_ml_tpu_torch.data.random_effect import (
@@ -88,6 +89,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         build_random_effect_dataset,
     )
     from photon_ml_tpu_torch.dev_scripts import gather_experiments
+    from photon_ml_tpu_torch.estimators import model_training
     from photon_ml_tpu_torch.estimators.game_estimator import (
         FixedEffectSpec,
         GameEstimator,
@@ -128,6 +130,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         "scoring_driver": lambda: game_scoring_driver.run([
             "--input-dirs", "data", "--game-model-input-dir", "model",
             "--output-dir", "out"]),
+        "glm_driver": lambda: glm_driver.run([
+            "--training-data-directory", "train", "--output-directory",
+            "out", "--task", "LOGISTIC_REGRESSION"]),
+        "train_glm_models": lambda: model_training.train_glm_models(
+            data.feature_shards["g"], data.responses, task, [1.0]),
+        "device_batch": lambda: model_training.device_batch(
+            data.feature_shards["g"], data.responses),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -142,3 +151,23 @@ def test_scorer_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DeviceGameScorer(GameModel({}, TaskType.LOGISTIC_REGRESSION),
                          _dataset())
+
+
+def test_glm_driver_runs_on_the_cpu_only_when_asked(monkeypatch, tmp_path):
+    """device="cpu" trains without CUDA (the CPU tests' route); the
+    default refuses before it reads anything."""
+    from photon_ml_tpu_torch.cli import glm_driver
+
+    _gpu_less(monkeypatch)
+    f = tmp_path / "train" / "data.libsvm"
+    f.parent.mkdir()
+    f.write_text("1 1:0.5 2:1\n0 1:-1 2:0.25\n1 1:2\n0 2:-0.5\n")
+    argv = ["--training-data-directory", str(f.parent),
+            "--output-directory", str(tmp_path / "out"),
+            "--task", "LOGISTIC_REGRESSION", "--format", "LIBSVM",
+            "--max-num-iterations", "3"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        glm_driver.run(argv)
+    assert not (tmp_path / "out").exists()
+    summary = glm_driver.run(argv, device="cpu")
+    assert summary["stages"] == ["INIT", "PREPROCESSED", "TRAINED"]
