@@ -41,8 +41,8 @@ training and scoring drivers and path 7 through the GLM driver:
 
 Path 6 runs the drivers a user would call on Avro inputs: the first
 40,000 training and 10,000 hold-out rows of the same data (the one cut,
-rows only: the pure-Python Avro codec costs ~1-2 ms a row, and the
-whole script is held under 300 s), written as
+rows only: the pure-Python codec writes them at ~1.4 ms a row, and path
+8 trains on them five times), written as
 TrainingExampleAvro by the port's codec in worker processes (features
 g*, u*, i*, userId and itemId in metadataMap) beside three JSON
 feature-index stores (global, user, item); then
@@ -90,6 +90,32 @@ float32 and with bfloat16 storage (which must stay bfloat16), printing
 per λ the iterations, seconds and ms per iteration; each λ's bf16
 objective must lie within rtol 2e-3 of float32's
 (docs/F32_PARITY.md:75-77) and every variance be finite and positive.
+
+Path 8 runs the training driver's --stream-train on path 6's files
+before they are removed (the fixed effect over the ``global`` shard,
+L-BFGS/L2 on a 4-point λ grid with --grid-batched off, --feeder native,
+4,096-row shards) five ways: resident (exact assembly, the one-shot
+estimator), --hbm-budget above the shard's device bytes, at a quarter
+of them with f32 buffer spill, the same with --spill-source redecode,
+and with --spill-dtype bf16; and the one-shot driver on the same flags.
+Its checks: the C decoder decoded every run; evictions where the budget
+forces them; the three f32 spill runs' decoded best models are the same
+records; the resident run's are the one-shot driver's; the bf16 model is
+within the JAX package's bf16 bound of the f32 one; the streamed
+validation AUC equals the batch scoring driver's within 1e-6; the
+deterministic CSR product (kernel row 9, csrc/csr_spmv.cu) launched in
+every spill run. It prints each run's phases and cache counters, and the
+C decoder's and the pure-Python codec's ms a row on one of the files.
+Then the full-width stream phase feeds bench.py's training fixed shard
+(160,000 x 200, CSR float32 with int32 indices, nothing cut) from
+memory in 16,384-row batches into the shard cache and solves streamed
+L-BFGS/L2 with no budget and at a quarter of the shard's device bytes:
+ms per iteration, feature passes per solve, bytes re-uploaded per pass
+and their rate against a pinned copy_, and the two budgets' coefficients
+bit for bit. Row 9 is held against its plain version (torch.mv on the
+same CSR, cuSPARSE on the card) on one of its blocks within 1e-5 of
+sum |a x|, and against itself over 20 calls bit for bit (cuSPARSE's own
+repeatability is printed).
 
 Then the gather phase runs the port's gather experiment
 (photon_ml_tpu_torch/dev_scripts/gather_experiments.py) at its full
@@ -158,7 +184,8 @@ The third line from the end is a JSON record of the kernels (rows 1-8
 of the PERF.md table: L-BFGS, the normalization fold, bounded L-BFGS,
 OWL-QN, TRON and bounded TRON, the one-hot and the residue-class gather,
 each with its launches on the main paths, path 6's among row 1's, times
-and bound), then the
+and bound; and row 9, the deterministic CSR product, with its launches
+in path 8 and the full-width stream phase), then the
 card's name and power limit, and the last line is {"ok": true,
 "device": ...}. It exits non-zero, printing no result, without CUDA or
 when any check fails.
@@ -1306,11 +1333,10 @@ def entity_buckets(tag: str) -> None:
                 print("ab " + json.dumps(row), flush=True)
 
 
-# Path 6's one cut: rows. The pure-Python Avro codec costs ~1.1 ms a row
-# of path 6's wall time (the parallel write, the driver's single-process
-# read of both directories, the scoring read), and that time varied by up
-# to 40% between runs; bench.py's 200,000 rows become 50,000, which keeps
-# the whole script under 200 s at the slowest rate measured.
+# Path 6's one cut: rows. Its files are written by the pure-Python codec
+# (~1.4 ms a row, in worker processes) and read by the C block decoder;
+# path 8 trains on them five times, one of them re-decoding evicted
+# shards on every pass. bench.py's 200,000 rows become 50,000.
 PATH6_TRAIN, PATH6_VAL = 40_000, 10_000
 PATH6_SEQUENCE = "fixed,perUser,perItem,itemFactors"
 
@@ -1439,9 +1465,9 @@ def path6(train, val, specs5, root: Path) -> int:
     from photon_ml_tpu_torch.utils.vocab import vocab_code_lookup
 
     print(f"path 6 cut: rows only, {PATH6_TRAIN} training and {PATH6_VAL} "
-          "hold-out rows of bench.py's 200,000 (the pure-Python Avro "
-          "codec, the script held under 200 s); widths, entities and "
-          "configurations as path 5",
+          "hold-out rows of bench.py's 200,000 (written by the "
+          "pure-Python codec, read by the C block decoder); widths, "
+          "entities and configurations as path 5",
           flush=True)
     log = _DriverLog()
     logging.getLogger("photon_ml_tpu_torch").addHandler(log)
@@ -1679,7 +1705,7 @@ def path7(root: Path) -> None:
     phases = {k: round(v, 3) for k, v in summary["phaseSeconds"].items()}
     print(f"path 7 cut: rows only, path 6's {mat.shape[0]} training and "
           f"{vmat.shape[0]} hold-out rows of bench.py's 200,000 at its "
-          f"fixed-effect width {mat.shape[1]} (the pure-Python Avro codec)",
+          f"fixed-effect width {mat.shape[1]} (read by the C decoder)",
           flush=True)
     print(f"path 7 seconds: run {run_s:.2f}, phases {phases}", flush=True)
     conv = summary["convergence"]
@@ -1878,6 +1904,371 @@ def glm_full_width(train) -> None:
           f"{BF16_OBJECTIVE_RTOL} of float32 per lambda", flush=True)
 
 
+# Path 8: the training driver's --stream-train on path 6's files, the
+# fixed effect over the `global` shard (200 features with the intercept),
+# L-BFGS/L2 on a 4-point grid swept one λ at a time.
+PATH8_GRID = ("fixed:50,1e-7,100,1.0,LBFGS,L2|50,1e-7,10,1.0,LBFGS,L2|"
+              "50,1e-7,1,1.0,LBFGS,L2|50,1e-7,0.1,1.0,LBFGS,L2")
+PATH8_BATCH_ROWS = 4096
+# The JAX package's bound of a bf16-spill model against the f32-spill
+# model, per coefficient (tests/test_cli_drivers.py:826-828).
+BF16_RTOL, BF16_ATOL = 0.1, 5e-3
+# The full-width stream phase: bench.py's training fixed shard in
+# 16,384-row batches.
+STREAM_BATCH_ROWS = 16_384
+FP32_FLOPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
+SPMV_SOURCE = "photon_ml_tpu_torch/csrc/csr_spmv.cu"
+# The product it stands for (no TPU kernel: XLA's gather and segment sum).
+SPMV_REPLACES = "photon_ml_tpu/ops/features.py:137"
+SPMV_RTOL = 1e-5  # of sum |a_k x_k|, float32 against cuSPARSE
+
+
+def _fixed_records(out: Path) -> list:
+    """Decoded coefficient records of a driver run's best fixed effect."""
+    from photon_ml_tpu_torch.io.avro_codec import read_container
+
+    files = sorted((out / "best" / "fixed-effect").rglob("*.avro"))
+    check(files, f"no fixed-effect model under {out}")
+    return [rec for f in files for rec in read_container(f)]
+
+
+def _means(records) -> dict:
+    return {(m["name"], m["term"]): m["value"]
+            for rec in records for m in rec["means"]}
+
+
+def codec_ms_a_row(path: Path) -> dict:
+    """ms a row of the C block decoder and of the pure-Python codec on one
+    Avro file, through the streaming feeder (one batch, no prefetch)."""
+    from photon_ml_tpu_torch.data.block_stream import BlockGameStream
+    from photon_ml_tpu_torch.data.paldb import load_feature_index_maps
+
+    maps = load_feature_index_maps(path.parent.parent / "feature-index")
+    out = {}
+    for feeder in ("native", "python"):
+        stream = BlockGameStream(path, ["userId", "itemId"], maps,
+                                 batch_rows=1 << 40, feeder=feeder,
+                                 prefetch_depth=0)
+        t0 = time.perf_counter()
+        rows = sum(ds.num_rows for ds in stream)
+        out[feeder] = 1e3 * (time.perf_counter() - t0) / rows
+        out["rows"] = rows
+    return out
+
+
+def path8(root: Path) -> int:
+    """Path 8: the training driver with --stream-train on path 6's files
+    (40,000 training and 10,000 hold-out rows, the fixed effect over the
+    200-feature ``global`` shard, L-BFGS/L2 on PATH8_GRID with
+    --grid-batched off, --feeder native, PATH8_BATCH_ROWS-row shards),
+    five ways: resident; --hbm-budget above the shard's device bytes;
+    at about a quarter of them (f32 buffer spill); the same with
+    --spill-source redecode; and --spill-dtype bf16. Checks: the C
+    decoder decoded every run; the budget forced evictions where it is
+    below the shard's bytes; the three f32 spill runs write the same
+    decoded best model; the resident run writes the one-shot driver's
+    model on the same flags bit for bit; the bf16 model is within
+    BF16_RTOL/BF16_ATOL of the f32 one per coefficient; the streamed
+    validation AUC of the best λ equals the batch scoring driver's on
+    that model within 1e-6; the deterministic product launched in every
+    spill run. Returns its launches in the spill runs."""
+    from photon_ml_tpu_torch.cli import (
+        game_scoring_driver,
+        game_training_driver,
+    )
+    from photon_ml_tpu_torch.ops import spmv
+
+    log = _DriverLog()
+    logging.getLogger("photon_ml_tpu_torch").addHandler(log)
+    base = ["--train-input-dirs", str(root / "train"),
+            "--validate-input-dirs", str(root / "validate"),
+            "--feature-index-dir", str(root / "feature-index"),
+            "--task-type", "LOGISTIC_REGRESSION",
+            "--fixed-effect-data-configurations", "fixed:global",
+            "--fixed-effect-optimization-configurations", PATH8_GRID,
+            "--updating-sequence", "fixed",
+            "--evaluators", "AUC,LOGISTIC_LOSS"]
+    stream = ["--stream-train", "--grid-batched", "off", "--feeder",
+              "native", "--batch-rows", str(PATH8_BATCH_ROWS)]
+    runs = {}
+
+    def run(tag, extra):
+        log.phases.clear()
+        spmv.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = game_training_driver.run(
+            [*base, *extra, "--output-dir", str(root / f"p8-{tag}")])
+        seconds = time.perf_counter() - t0
+        launches = spmv.csr_matvec.launches
+        info = summary.get("stream_train") or {}
+        cache = info.get("cache") or {}
+        runs[tag] = dict(summary=summary, launches=launches)
+        print(f"path 8 {tag}: {seconds:.2f} s, phases "
+              f"{ {k: round(v, 3) for k, v in log.phases.items()} }, best "
+              f"{summary['bestConfigs']['fixed']}, validation AUC "
+              f"{[round(m['AUC'], 6) for m in summary['validationHistory']]}"
+              f", decode {(info.get('feeder') or {}).get('decode_path')}, "
+              f"cache { {k: cache.get(k) for k in ('shards', 'hits', 'misses', 'evictions', 'epochs', 'bytes_reuploaded', 'bytes_redecoded', 'peak_device_bytes', 'spill_bytes_host')} }"
+              f", product launches {launches}", flush=True)
+        return summary
+
+    run("oneshot", [])
+    run("resident", stream)
+    hi = run("budget-above", [*stream, "--hbm-budget", "1G"])
+    shard_bytes = hi["stream_train"]["cache"]["device_bytes"]
+    quarter = str(shard_bytes // 4)
+    run("quarter-f32", [*stream, "--hbm-budget", quarter])
+    run("quarter-redecode", [*stream, "--hbm-budget", quarter,
+                             "--spill-source", "redecode"])
+    run("quarter-bf16", [*stream, "--hbm-budget", quarter,
+                         "--spill-dtype", "bf16"])
+    logging.getLogger("photon_ml_tpu_torch").removeHandler(log)
+    print(f"path 8 shard: {shard_bytes} device bytes (CSR and transpose, "
+          f"int32 indices), quarter budget {quarter}", flush=True)
+
+    for tag, r in runs.items():
+        if tag == "oneshot":
+            continue
+        info = r["summary"]["stream_train"]
+        check(info["feeder"]["decode_path"] == "native",
+              f"path 8 {tag}: decode path {info['feeder']}")
+        if tag != "resident":
+            check(r["launches"] > 0, f"path 8 {tag}: the product kernel "
+                  "did not launch")
+    check(runs["budget-above"]["summary"]["stream_train"]["cache"]
+          ["evictions"] == 0, "path 8: the budget above the shard evicted")
+    for tag in ("quarter-f32", "quarter-redecode", "quarter-bf16"):
+        check(runs[tag]["summary"]["stream_train"]["cache"]["evictions"]
+              > 0, f"path 8 {tag}: no eviction")
+    recs = {tag: _fixed_records(root / f"p8-{tag}") for tag in runs}
+    check(recs["budget-above"] == recs["quarter-f32"]
+          == recs["quarter-redecode"],
+          "path 8: the f32 spill runs' models differ")
+    check(recs["resident"] == recs["oneshot"],
+          "path 8: the resident run's model differs from the one-shot "
+          "driver's")
+    ref, got = _means(recs["quarter-f32"]), _means(recs["quarter-bf16"])
+    check(set(ref) == set(got), "path 8: bf16 model features")
+    keys = sorted(ref)
+    a, b = (np.asarray([m[k] for k in keys]) for m in (got, ref))
+    worst = float(np.max(np.abs(a - b) / (BF16_ATOL + BF16_RTOL * np.abs(b))))
+    print(f"path 8 bf16 vs f32 spill model: max |dc| "
+          f"{float(np.max(np.abs(a - b))):.3g}, worst share of the bound "
+          f"{worst:.3g}", flush=True)
+    check(np.allclose(a, b, rtol=BF16_RTOL, atol=BF16_ATOL),
+          "path 8: bf16 model outside its bound")
+    res = runs["resident"]["summary"]
+    best_auc = max(m["AUC"] for m in res["validationHistory"])
+    scored = game_scoring_driver.run([
+        "--input-dirs", str(root / "validate"),
+        "--game-model-input-dir", str(root / "p8-resident" / "best"),
+        "--output-dir", str(root / "p8-scores"), "--evaluators", "AUC"])
+    print(f"path 8 final: streamed validation AUC {best_auc:.6f}, scoring "
+          f"driver AUC {scored['metrics']['AUC']:.6f}", flush=True)
+    check(abs(scored["metrics"]["AUC"] - best_auc) <= 1e-6,
+          f"path 8: scoring AUC {scored['metrics']['AUC']} != streamed "
+          f"validation's {best_auc}")
+    codec = codec_ms_a_row(root / "train" / "part-00000.avro")
+    print(f"path 8 decode of path 6's first training part ({codec['rows']} "
+          f"rows): C block decoder {codec['native']:.4f} ms a row, "
+          f"pure-Python codec {codec['python']:.4f} ms a row", flush=True)
+    return sum(r["launches"] for t, r in runs.items()
+               if t not in ("oneshot", "resident"))
+
+
+class _Batches(list):
+    """A list of GameDatasets with the stream's ``stats``."""
+
+    def stats(self) -> dict:
+        return {"decode_path": "memory", "batches": len(self)}
+
+
+def spmv_entry(block, launches: int) -> dict:
+    """Kernel row 9 on one cached block of the full-width phase: its
+    matvec and rmatvec held against the plain version (torch.mv on the
+    same CSR tensors: cuSPARSE), 20 calls of each compared bit for bit
+    (the kernel must be deterministic; cuSPARSE's result is printed),
+    and timed against the bound of the pair."""
+    import torch
+
+    from photon_ml_tpu_torch.ops import spmv
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    v = torch.randn(block.n_features, generator=g, device="cuda")
+    u = torch.randn(block.n_rows, generator=g, device="cuda")
+    k_mv, k_rmv = block.matvec(v), block.rmatvec(u)
+    p_mv = spmv.csr_matvec_plain(block.crow, block.col, block.values, v,
+                                 block.n_features)
+    p_rmv = spmv.csr_matvec_plain(block.crow_t, block.row_t,
+                                  block.values_t, u, block.n_rows)
+    a_mv = spmv.csr_matvec_plain(block.crow, block.col, block.values.abs(),
+                                 v.abs(), block.n_features)
+    a_rmv = spmv.csr_matvec_plain(block.crow_t, block.row_t,
+                                  block.values_t.abs(), u.abs(),
+                                  block.n_rows)
+    err = max(float((k_mv - p_mv).abs().max()),
+              float((k_rmv - p_rmv).abs().max()))
+    share = max(float(((k_mv - p_mv).abs() / a_mv.clamp_min(1e-30)).max()),
+                float(((k_rmv - p_rmv).abs() / a_rmv.clamp_min(1e-30))
+                      .max()))
+    kernel_bitwise = all(
+        torch.equal(block.matvec(v), k_mv)
+        and torch.equal(block.rmatvec(u), k_rmv) for _ in range(20))
+    plain_bitwise = [all(torch.equal(f(), ref) for _ in range(20))
+                     for f, ref in (
+                         (lambda: spmv.csr_matvec_plain(
+                             block.crow, block.col, block.values, v,
+                             block.n_features), p_mv),
+                         (lambda: spmv.csr_matvec_plain(
+                             block.crow_t, block.row_t, block.values_t, u,
+                             block.n_rows), p_rmv))]
+    spmv.reset_launch_counts()
+
+    def pair():
+        block.matvec(v)
+        block.rmatvec(u)
+
+    def plain_pair():
+        spmv.csr_matvec_plain(block.crow, block.col, block.values, v,
+                              block.n_features)
+        spmv.csr_matvec_plain(block.crow_t, block.row_t, block.values_t, u,
+                              block.n_rows)
+
+    ms = cuda_ms(pair, 20)
+    dev_ms = device_ms(pair)
+    plain = cuda_ms(plain_pair, 20)
+    a_csr = torch.sparse_csr_tensor(block.crow, block.col, block.values,
+                                    size=(block.n_rows, block.n_features))
+    a_csr_t = torch.sparse_csr_tensor(
+        block.crow_t, block.row_t, block.values_t,
+        size=(block.n_features, block.n_rows))
+    library = cuda_ms(lambda: (torch.mv(a_csr, v), torch.mv(a_csr_t, u)),
+                      20)
+    nnz, n, d = block.nnz, block.n_rows, block.n_features
+    bytes_pair = 2 * (8 * nnz + 4 * (n + d)) + 4 * (n + 1) + 4 * (d + 1)
+    bound_bytes = 1e3 * bytes_pair / HBM_BYTES_PER_S
+    bound_ops = 1e3 * 4 * nnz / FP32_FLOPS_PER_S
+    print(f"spmv block {n} x {d} ({nnz} entries): kernel matvec+rmatvec "
+          f"{ms:.4f} ms a pair ({dev_ms:.4f} on the device), plain "
+          f"(torch.mv, cuSPARSE) {plain:.4f}, bound {max(bound_bytes, bound_ops):.4f}"
+          f" (bytes); max abs err {err:.3g}, worst share of "
+          f"{SPMV_RTOL} x sum|a x| {share / SPMV_RTOL:.3g}; 20 calls bit "
+          f"for bit: kernel {kernel_bitwise}, cuSPARSE matvec "
+          f"{plain_bitwise[0]}, rmatvec {plain_bitwise[1]}", flush=True)
+    check(kernel_bitwise, "spmv: the kernel is not deterministic")
+    check(share <= SPMV_RTOL, f"spmv: kernel vs plain {share}")
+    return {
+        "name": "csr_spmv (deterministic CSR product, row 9)",
+        "route": "cuda", "source": SPMV_SOURCE, "replaces": SPMV_REPLACES,
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "device_ms": dev_ms, "plain_ms": plain,
+        "bound_ms": max(bound_bytes, bound_ops),
+        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        "library_ms": library,
+    }
+
+
+def stream_full_width(train) -> tuple:
+    """The full-width stream phase: bench.py's training fixed shard
+    (160,000 x 200, CSR float32 with int32 indices, nothing cut) fed
+    from memory in STREAM_BATCH_ROWS-row batches into DeviceShardCache,
+    then streamed L-BFGS/L2 (path 1's fixed-effect configuration) with
+    no budget and at about 25% of the shard's device bytes. Prints ms
+    per iteration, feature passes per solve (each shard's index set is
+    used once a pass), bytes re-uploaded per pass and one replay
+    epoch's re-upload rate against a pinned copy_ of the same bytes.
+    Checks: the coefficients are the same bits under both budgets.
+    Returns (the deterministic product's launches, a cached block)."""
+    import torch
+
+    from photon_ml_tpu_torch.data.shard_cache import DeviceShardCache
+    from photon_ml_tpu_torch.ops import spmv
+    from photon_ml_tpu_torch.ops.glm_objective import GLMObjective
+    from photon_ml_tpu_torch.ops.losses import loss_for_task
+    from photon_ml_tpu_torch.ops.sharded_objective import ShardedGLMObjective
+    from photon_ml_tpu_torch.optimization.glm_lbfgs import (
+        minimize_lbfgs_glm_streaming,
+    )
+    from photon_ml_tpu_torch.types import TaskType
+
+    n = train.num_rows
+    batches = _Batches(train.subset(np.arange(a, min(a + STREAM_BATCH_ROWS,
+                                                     n)))
+                       for a in range(0, n, STREAM_BATCH_ROWS))
+    obj = GLMObjective(loss_for_task(TaskType.LOGISTIC_REGRESSION))
+    fe_cfg, _ = configs()
+    results, launches, block = {}, 0, None
+    budget = None
+    for tag in ("resident", "quarter"):
+        t0 = time.perf_counter()
+        cache = DeviceShardCache.from_stream(
+            batches, "global", dtype=torch.float32,
+            hbm_budget_bytes=budget, prefetch_depth=2)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        sobj = ShardedGLMObjective(obj, cache)
+        x0 = torch.zeros(cache.n_features, device=cache.device)
+        # One untimed iteration first: the first calls load the kernels.
+        minimize_lbfgs_glm_streaming(sobj, x0, fe_cfg.l2_weight, max_iter=1,
+                                     tol=fe_cfg.tolerance)
+        before = cache.stats()
+        spmv.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = minimize_lbfgs_glm_streaming(
+            sobj, x0, fe_cfg.l2_weight, max_iter=fe_cfg.max_iterations,
+            tol=fe_cfg.tolerance)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        launches += spmv.csr_matvec.launches
+        st = cache.stats()
+        for k in ("hits", "misses", "evictions", "epochs",
+                  "bytes_reuploaded"):
+            st[k] -= before[k]
+        iters = int(res.iterations)
+        passes = st["epochs"]
+        line = (f"stream full width {tag}: {n} x {cache.n_features} in "
+                f"{cache.n_shards} shards, {st['device_bytes']} device "
+                f"bytes (budget {budget}), ingest {ingest_s:.2f} s, "
+                f"{iters} L-BFGS iterations "
+                f"({res.reason_enum().summary}) in {solve_s:.3f} s, "
+                f"{1e3 * solve_s / max(1, iters):.2f} ms per iteration, "
+                f"{passes} feature passes per solve (each shard's index "
+                f"set used {passes} times), hits {st['hits']}, misses "
+                f"{st['misses']}, evictions {st['evictions']}, re-uploaded "
+                f"{st['bytes_reuploaded'] / max(1, passes):.0f} bytes a "
+                f"pass, peak {st['peak_device_bytes']}")
+        if budget is not None:
+            before = cache.stats()["bytes_reuploaded"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in cache.blocks():
+                pass
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t0
+            moved = cache.stats()["bytes_reuploaded"] - before
+            host = torch.empty(max(1, moved), dtype=torch.uint8) \
+                .pin_memory()
+            dev = torch.empty_like(host, device="cuda")
+            pinned_ms = cuda_ms(lambda: dev.copy_(host, non_blocking=True),
+                                3)
+            line += (f"; one replay epoch re-uploads {moved} bytes in "
+                     f"{1e3 * epoch_s:.1f} ms "
+                     f"({moved / epoch_s / 1e9:.2f} GB/s) against a pinned "
+                     f"copy_ of the same bytes {pinned_ms:.2f} ms "
+                     f"({moved / pinned_ms / 1e6:.2f} GB/s)")
+        else:
+            block = cache.entries[0].feats
+            budget = st["device_bytes"] // 4
+        print(line, flush=True)
+        check(bool(torch.isfinite(res.x).all()), f"stream {tag}: non-finite")
+        results[tag] = res.x
+    same = torch.equal(results["resident"], results["quarter"])
+    print(f"stream full width: coefficients bit for bit equal across the "
+          f"two budgets: {same}", flush=True)
+    check(same, "stream full width: the budgets' coefficients differ")
+    return launches, block
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2059,9 +2450,16 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         path7(Path(tmp))
         print(f"path 7: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        launches8 = path8(Path(tmp))
+        print(f"path 8: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     glm_full_width(train)
     print(f"glm full width: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches_stream, block = stream_full_width(train)
+    spmv_row = spmv_entry(block, launches8 + launches_stream)
+    print(f"stream full width: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     gather_entries = gather_phase()
@@ -2087,6 +2485,7 @@ def main(argv=None) -> int:
         kernel_entry("entity_lbfgs[bounded tron] (row 6)", rows4["perItem"],
                      launches4.get("tron+bounded", 0)),
         *gather_entries,
+        spmv_row,
     ]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the paths did not launch: {kernels}")

@@ -2,6 +2,7 @@
 photon_ml_tpu/algorithm/coordinates.py: Coordinate :48,
 FixedEffectCoordinate :122, RandomEffectCoordinate :544,
 _gather_block_normalization :687, _gather_block_bounds :704-721,
+StreamingFixedEffectCoordinate :281-425,
 FactoredRandomEffectCoordinate :978-1120, _solve_factored_block
 :1120-1157, _flatten_factored_static :1159, _flatten_gammas :1176,
 _solve_latent_matrix :1188 (a solve_glm call), _dispatch_pallas_solver
@@ -22,6 +23,10 @@ out) and the penalties are taken there.
   (optimization/solver.py: TRON, OWL-QN, the margin-cached L-BFGS, or
   the projected L-BFGS with bounds), normalization as objective-level
   algebra.
+- StreamingFixedEffectCoordinate: the same GLM solve, accumulated shard
+  by shard over a device shard cache (data/shard_cache.py,
+  ops/sharded_objective.py) by the host-driven streaming L-BFGS or TRON,
+  for training data larger than device memory (``--hbm-budget``).
 - RandomEffectCoordinate: one batched per-entity solve per bucket, mode
   "tron" for a TRON configuration, else "owlqn" when the L1 weight is
   positive, else "lbfgs", with the normalization and the bounds gathered
@@ -167,6 +172,113 @@ class FixedEffectCoordinate(Coordinate):
         if self.normalization is not None:
             coef = self.normalization.model_to_normalized_space(coef)
         return [(coef, self._l1, self._l2)]
+
+
+@dataclasses.dataclass
+class StreamingFixedEffectCoordinate:
+    """Out-of-core fixed-effect solver over a device shard cache — the
+    spill-mode (``--hbm-budget``) counterpart of FixedEffectCoordinate.
+
+    It accumulates (value, gradient, Hessian-vector) shard by shard over a
+    :class:`~photon_ml_tpu_torch.data.shard_cache.DeviceShardCache`
+    (ops/sharded_objective.py) and drives the solve from the host
+    (``minimize_lbfgs_glm_streaming`` / ``minimize_tron_streaming``): the
+    treeAggregate shape of the reference's distributed solve, with
+    device memory as the partition cache tier.
+
+    Scope (enforced, as in JAX): L-BFGS or TRON with L2 only — no
+    L1/OWL-QN, box constraints, normalization context, or down-sampling
+    below 1.0. Those configurations stream-train through the resident
+    assembled path. ``sharded_objective`` shares one objective across a
+    λ grid (the L2 weight is an argument of every pass). ``mesh`` is
+    ROADMAP A6 and raises.
+    """
+
+    name: str
+    cache: object  # DeviceShardCache
+    feature_shard_id: str
+    task_type: TaskType
+    config: GLMOptimizationConfiguration
+    dtype: object = torch.float32
+    sharded_objective: Optional[object] = None
+    mesh: Optional[object] = None
+
+    def __post_init__(self):
+        from photon_ml_tpu_torch.ops.sharded_objective import (
+            ShardedGLMObjective,
+        )
+
+        if self.mesh is not None:
+            raise ValueError("a device mesh folds the streamed solve over "
+                             "several GPUs: ROADMAP A6")
+        if self.config.l1_weight > 0:
+            raise ValueError(
+                "streaming fixed-effect solves support L2 only; "
+                "L1/elastic-net needs the resident (assembled) path")
+        if self.config.down_sampling_rate < 1.0:
+            raise ValueError(
+                "down-sampling is not supported with --hbm-budget "
+                "streaming solves (per-row randomness is defined on the "
+                "full batch); use the resident path")
+        if self.config.optimizer_type not in (OptimizerType.LBFGS,
+                                              OptimizerType.TRON):
+            raise ValueError(
+                f"streaming fixed-effect solves support LBFGS/TRON, got "
+                f"{self.config.optimizer_type}")
+        self._l2 = self.config.l2_weight
+        if self.sharded_objective is not None:
+            if self.sharded_objective.cache is not self.cache:
+                raise ValueError(
+                    "shared sharded_objective must wrap the same cache")
+            self._sharded = self.sharded_objective
+            self._objective = self._sharded.objective
+        else:
+            self._objective = GLMObjective(loss_for_task(self.task_type))
+            self._sharded = ShardedGLMObjective(self._objective, self.cache)
+            # Exposed through the field callers pass back in (a λ grid
+            # shares one objective).
+            self.sharded_objective = self._sharded
+
+    def initialize_model(self) -> FixedEffectModel:
+        glm_cls = model_for_task(self.task_type)
+        return FixedEffectModel(
+            glm_cls(Coefficients.zeros(self.cache.n_features, self.dtype,
+                                       self.cache.device)),
+            self.feature_shard_id)
+
+    def solve(self, model: Optional[FixedEffectModel] = None,
+              margins_out=None
+              ) -> Tuple[FixedEffectModel, OptimizerResult]:
+        """One full-batch GLM solve by streamed accumulation,
+        warm-started from ``model`` when given. ``margins_out`` receives
+        the final per-shard margins."""
+        from photon_ml_tpu_torch.optimization.glm_lbfgs import (
+            minimize_lbfgs_glm_streaming,
+        )
+        from photon_ml_tpu_torch.optimization.tron import (
+            minimize_tron_streaming,
+        )
+
+        if model is None:
+            model = self.initialize_model()
+        coef0 = torch.as_tensor(model.glm.coefficients.means,
+                                dtype=self.dtype, device=self.cache.device)
+        if self.config.optimizer_type == OptimizerType.TRON:
+            if not self._objective.loss.twice_differentiable:
+                raise ValueError(
+                    f"TRON requires a twice-differentiable loss, got "
+                    f"{self._objective.loss.name}")
+            result = minimize_tron_streaming(
+                self._sharded, coef0, self._l2,
+                max_iter=self.config.max_iterations,
+                tol=self.config.tolerance, margins_out=margins_out)
+        else:
+            result = minimize_lbfgs_glm_streaming(
+                self._sharded, coef0, self._l2,
+                max_iter=self.config.max_iterations,
+                tol=self.config.tolerance, margins_out=margins_out)
+        new_glm = model.glm.update_coefficients(Coefficients(result.x))
+        return model.update_model(new_glm), result
 
 
 @dataclasses.dataclass

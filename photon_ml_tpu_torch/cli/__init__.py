@@ -3,10 +3,10 @@ ml/Driver.scala, ml/cli/game/): the in-core GAME training driver and the
 batch GAME scoring driver.
 
 Both keep every flag of their JAX parsers, so every JAX command line
-parses. A flag that belongs to a later item of ROADMAP queue A (streamed
-ingest and training A4, serving and telemetry A5, multi-GPU A6) raises
-an error naming that item when it is given a value other than its
-default. The helpers here are shared by both drivers.
+parses. A flag that belongs to a later item of ROADMAP queue A (the
+second half of streamed training A4b, serving and telemetry A5,
+multi-GPU A6) raises an error naming that item when it is given a value
+other than its default. The helpers here are shared by both drivers.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ from photon_ml_tpu_torch.device import resolve_device
 
 # Later queue items, for the error a flag of one of them raises.
 ITEMS = {
-    "A4": "out-of-core streamed ingest and training",
+    "A4b": "the batched λ grid, parallel ingest and streamed matrix "
+           "factorization",
     "A5": "the serving stack and telemetry",
     "A6": "multi-GPU",
 }
@@ -48,14 +49,20 @@ OBSERVABILITY_FLAGS = {
 }
 
 
+def later_item_error(flag: str, item: str, why: str = "") -> ValueError:
+    """The error of a flag (or flag value) whose path is a later ROADMAP
+    queue item."""
+    return ValueError(f"{flag} is not ported yet: it comes with ROADMAP "
+                      f"queue {item} ({ITEMS[item]})"
+                      + (f": {why}" if why else ""))
+
+
 def reject_later_flags(args, later: dict) -> None:
     """Raise ValueError for the first flag in ``later`` (dest -> (flag,
     default, item)) whose parsed value is not its default."""
     for dest, (flag, default, item) in later.items():
         if getattr(args, dest) != default:
-            raise ValueError(
-                f"{flag} is not ported yet: it comes with ROADMAP queue "
-                f"{item} ({ITEMS[item]})")
+            raise later_item_error(flag, item)
 
 
 def resolve_run_device(device, dtype):

@@ -1,10 +1,10 @@
-"""GAME training driver, in core (port of
+"""GAME training driver, in core and streamed (port of
 photon_ml_tpu/cli/game_training_driver.py: _parse_named :52,
 _positive_int :62, _parse_mesh_shape :69, parse_byte_size :99,
-build_parser :116-310, run :311, _run_training's in-core path :391-612,
-_save_outputs :613-662, _write_summary :663-703; reference
-ml/cli/game/training/Driver.scala:43-298, params from
-ml/estimators/GameParams.scala:40-427).
+build_parser :116-310, run :311, _run_training :391-612, _save_outputs
+:613-662, _write_summary :663-703, _stream_validate_many :704-737,
+_stream_train :824-1158; reference ml/cli/game/training/Driver.scala:
+43-298, params from ml/estimators/GameParams.scala:40-427).
 
 Coordinate mini-DSLs preserved from the reference:
   --fixed-effect-data-configurations   name:featureShardId
@@ -18,12 +18,26 @@ Outputs: <output-dir>/best/ (saved GAME model, model-metadata.json,
 feature-indexes/<shard>.json), all/<i>/ under --save-all-models true,
 metrics.json and log-message.txt.
 
-Every JAX flag parses. The flags of later queue items raise an error that
-names the item: --stream-train, --hbm-budget, --grid-batched other than
-auto, --spill-dtype, --spill-source, --feeder, --prefetch-batches (A4);
---distmon, --trace-out, --profile-output-dir and the observability flags
-(A5); --mesh-devices, --mesh-shape (A6). metrics.json has the JAX
-in-core keys but ``telemetry`` (A5).
+``--stream-train`` (one fixed-effect coordinate) ingests the training
+Avro through the block-streaming C-decoded pipeline in ``--batch-rows``
+batches. Without ``--hbm-budget`` the batches assemble into the one-shot
+device batch and the in-core estimator trains on it (the one-shot
+driver's model, bit for bit); with ``--hbm-budget`` (bytes, as 512M or
+8G) they fill a device shard cache that spills feature blocks beyond
+the budget (``--spill-dtype`` f32|bf16, ``--spill-source``
+buffer|redecode) and the streaming L-BFGS/TRON solves over it.
+``--feeder`` picks the decode path and ``--prefetch-batches`` the
+decode-ahead depth. Validation streams once for every λ of the grid.
+
+Every JAX flag parses. The flags and values of later queue items raise
+an error that names the item: the batched λ grid (``--grid-batched on``,
+and ``auto`` wherever JAX would batch: a batchable grid of more than one
+point under ``--hbm-budget``; ``off`` sweeps one λ at a time) and
+``--stream-train`` of a factored random effect (A4b); --distmon,
+--trace-out, --profile-output-dir and the observability flags (A5);
+--mesh-devices, --mesh-shape (A6). metrics.json has the JAX keys but
+``telemetry`` (A5); its ``stream_train`` block has no ``trace_budgets``
+or ``trace_counts`` (the JAX TracingGuard, ROADMAP A7).
 
 ``run(argv, device="cuda", dtype=None)`` trains on the card and raises
 without CUDA unless the caller passes ``device="cpu"`` (the CPU tests);
@@ -39,10 +53,12 @@ import json
 import sys
 import time
 from pathlib import Path
+from typing import Tuple
 
 from photon_ml_tpu_torch.cli import (
     OBSERVABILITY_FLAGS,
     add_observability_args,
+    later_item_error,
     phase,
     reject_later_flags,
     resolve_run_device,
@@ -64,11 +80,13 @@ from photon_ml_tpu_torch.models.tracking import summarize_trackers
 from photon_ml_tpu_torch.optimization.config import (
     FactoredRandomEffectOptimizationConfiguration,
     GLMOptimizationConfiguration,
+    OptimizerType,
 )
 from photon_ml_tpu_torch.types import TaskType
 from photon_ml_tpu_torch.utils.date_range import resolve_input_dirs
 from photon_ml_tpu_torch.utils.events import (
     EventEmitter,
+    PhotonOptimizationLogEvent,
     TrainingFinishEvent,
     TrainingStartEvent,
 )
@@ -77,13 +95,6 @@ from photon_ml_tpu_torch.utils.logging_utils import setup_photon_logger
 # dest -> (flag, default, ROADMAP queue item): given any other value, the
 # flag raises (cli/__init__.reject_later_flags).
 LATER_FLAGS = {
-    "stream_train": ("--stream-train", False, "A4"),
-    "hbm_budget": ("--hbm-budget", None, "A4"),
-    "grid_batched": ("--grid-batched", "auto", "A4"),
-    "spill_dtype": ("--spill-dtype", "f32", "A4"),
-    "spill_source": ("--spill-source", "buffer", "A4"),
-    "feeder": ("--feeder", "auto", "A4"),
-    "prefetch_batches": ("--prefetch-batches", 2, "A4"),
     "distmon": ("--distmon", False, "A5"),
     "trace_out": ("--trace-out", None, "A5"),
     "profile_output_dir": ("--profile-output-dir", None, "A5"),
@@ -200,32 +211,53 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["true", "false"],
                    help="model-output-mode ALL vs BEST")
     p.add_argument("--stream-train", action="store_true",
-                   help="out-of-core training (ROADMAP A4; raises)")
+                   help="out-of-core training: ingest the training Avro "
+                        "through the block-streaming C-decoded pipeline "
+                        "in --batch-rows batches (host memory stays "
+                        "O(batch)). Without --hbm-budget the batches "
+                        "assemble into the one-shot device batch (the "
+                        "one-shot driver's model); with --hbm-budget the "
+                        "solve streams over a device shard cache with "
+                        "replay-aware spill. One fixed-effect coordinate")
     p.add_argument("--batch-rows", type=_positive_int, default=4096,
-                   help="rows per streamed batch (--stream-train only)")
+                   help="rows per streamed ingest batch (and per cached "
+                        "device shard in --hbm-budget mode)")
     p.add_argument("--hbm-budget", default=None, metavar="BYTES",
                    type=parse_byte_size,
-                   help="device-memory budget (ROADMAP A4; raises)")
+                   help="device-memory budget for cached feature blocks "
+                        "(e.g. 512M, 8G): furthest-next-use shards spill "
+                        "and re-upload overlapped with the accumulate. "
+                        "Selects the sharded streaming solve (L2 "
+                        "LBFGS/TRON only)")
     p.add_argument("--grid-batched", choices=["auto", "on", "off"],
                    default="auto",
-                   help="batched λ-grid sweep (ROADMAP A4; raises when "
-                        "not auto)")
+                   help="batched λ-grid sweep (ROADMAP A4b: 'on', and "
+                        "'auto' where it would batch, raise); 'off' "
+                        "sweeps the grid one λ at a time")
     p.add_argument("--mesh-devices", type=_positive_int, default=None,
                    metavar="N", help="1-D device mesh (ROADMAP A6; raises)")
     p.add_argument("--mesh-shape", type=_parse_mesh_shape, default=None,
                    metavar="RxC", help="2-D device mesh (ROADMAP A6; raises)")
     p.add_argument("--spill-dtype", choices=["f32", "bf16"], default="f32",
-                   help="spill encoding (ROADMAP A4; raises when not f32)")
+                   help="--hbm-budget spill encoding: 'f32' spills the "
+                        "raw triplet (re-uploads are the evicted bytes); "
+                        "'bf16' spills bfloat16 values and delta-coded "
+                        "indices, decoded on the device")
     p.add_argument("--spill-source", choices=["buffer", "redecode"],
                    default="buffer",
-                   help="spill source (ROADMAP A4; raises when not buffer)")
+                   help="where evicted --hbm-budget blocks come back "
+                        "from: 'buffer' re-uploads host spill buffers; "
+                        "'redecode' keeps no host copy and re-decodes "
+                        "the covering Avro blocks")
     p.add_argument("--feeder", choices=["auto", "native", "python"],
                    default="auto",
-                   help="streamed decode path (ROADMAP A4; raises when "
-                        "not auto)")
+                   help="--stream-train decode path: 'native' the C "
+                        "block decoder, 'python' the record loop over "
+                        "the pure-Python codec (byte-identical), 'auto' "
+                        "C where every schema fits")
     p.add_argument("--prefetch-batches", type=int, default=2,
-                   help="decode-ahead depth (ROADMAP A4; raises when "
-                        "not 2)")
+                   help="decode-ahead depth of the --stream-train feeder "
+                        "(and spill re-upload look-ahead); 0 disables")
     p.add_argument("--distmon", action="store_true",
                    help="distribution observability (ROADMAP A5; raises)")
     p.add_argument("--trace-out", default=None, metavar="PATH",
@@ -240,11 +272,116 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _grid_batchable(configs) -> Tuple[bool, str]:
+    """Whether JAX would run this λ grid as one batched streamed solve
+    (port of photon_ml_tpu/algorithm/coordinates.py grid_batchable :426):
+    every point a streamable L2 solve, homogeneous in everything but the
+    regularization weight. Returns ``(ok, why_not)``."""
+    configs = list(configs)
+    if not configs:
+        return False, "empty grid"
+    base = configs[0]
+    if base.optimizer_type not in (OptimizerType.LBFGS, OptimizerType.TRON):
+        return False, (f"streaming grid solves support LBFGS/TRON, got "
+                       f"{base.optimizer_type}")
+    for cfg in configs:
+        if cfg.l1_weight > 0:
+            return False, ("L1/elastic-net grid points need the "
+                           "resident path")
+        if cfg.down_sampling_rate < 1.0:
+            return False, ("down-sampling is not supported by streamed "
+                           "solves")
+        if (cfg.optimizer_type != base.optimizer_type
+                or cfg.max_iterations != base.max_iterations
+                or cfg.tolerance != base.tolerance):
+            return False, (
+                "grid points must share optimizer type, max_iterations "
+                "and tolerance to batch — only the regularization "
+                "weight may vary across rows")
+    return True, ""
+
+
+def _check_flags(args) -> None:
+    """The JAX driver's flag checks that need no data (_run_training
+    :458-505), then the paths of later queue items: run before anything
+    is written."""
+    if args.mesh_shape is not None and args.mesh_devices is not None:
+        raise ValueError(
+            "--mesh-shape and --mesh-devices are two spellings of the "
+            "same mesh (--mesh-devices N == --mesh-shape Nx1); pass one")
+    if args.grid_batched != "auto" and not args.stream_train:
+        raise ValueError(
+            "--grid-batched applies to the --stream-train λ-grid "
+            "sweep; pass --stream-train (the one-shot estimator "
+            "trains the grid one combination at a time)")
+    if args.grid_batched == "on" and args.hbm_budget is None:
+        raise ValueError(
+            "--grid-batched on requires --hbm-budget: the batched "
+            "sweep runs over the sharded shard-cache solve (the "
+            "resident assembled path reuses the fused one-shot "
+            "solvers, which already share the device batch across "
+            "the grid)")
+    if args.spill_dtype != "f32" and args.hbm_budget is None:
+        raise ValueError(
+            "--spill-dtype applies to --hbm-budget spill buffers; pass "
+            "--stream-train --hbm-budget (the resident assembled path "
+            "never spills)")
+    if args.spill_source != "buffer" and args.hbm_budget is None:
+        raise ValueError(
+            "--spill-source applies to --hbm-budget eviction; pass "
+            "--stream-train --hbm-budget (the resident assembled path "
+            "never evicts)")
+    if args.spill_source == "redecode" and args.spill_dtype != "f32":
+        raise ValueError(
+            "--spill-dtype bf16 compresses host spill buffers, but "
+            "--spill-source redecode keeps none — the combination "
+            "would silently train as f32; pick one")
+    reject_later_flags(args, LATER_FLAGS)
+    if not args.stream_train:
+        return
+    fe_data = _parse_named(args.fixed_effect_data_configurations,
+                           "fixed-effect data config")
+    fre_data = _parse_named(
+        args.factored_random_effect_data_configurations,
+        "factored-random-effect data config")
+    sequence = [s.strip() for s in args.updating_sequence.split(",")]
+    if args.random_effect_data_configurations or len(sequence) != 1 \
+            or (sequence[0] not in fe_data
+                and sequence[0] not in fre_data):
+        raise ValueError(
+            "--stream-train supports exactly one fixed-effect "
+            "or factored-random-effect coordinate (plain random "
+            "effects need entity grouping over the full dataset); "
+            f"got sequence {sequence}")
+    if sequence[0] in fre_data:
+        raise later_item_error("--stream-train", "A4b",
+                               "a factored-random-effect coordinate "
+                               "streams as matrix factorization")
+    if args.hbm_budget is None:
+        return
+    table = _parse_named(args.fixed_effect_optimization_configurations,
+                         "fixed-effect optimization config")
+    grid = [GLMOptimizationConfiguration.parse(part)
+            for part in table.get(sequence[0], "").split("|") if part]
+    batchable, why_not = _grid_batchable(grid)
+    if args.grid_batched == "on" and not batchable:
+        raise ValueError(
+            f"--grid-batched on: λ-grid is not batchable: {why_not}")
+    if args.grid_batched == "on":
+        raise later_item_error("--grid-batched on", "A4b")
+    if args.grid_batched == "auto" and batchable and len(grid) > 1:
+        raise later_item_error(
+            "--grid-batched auto", "A4b",
+            f"JAX batches this {len(grid)}-point λ grid under "
+            "--hbm-budget; pass --grid-batched off to sweep it one λ at "
+            "a time")
+
+
 def run(argv=None, *, device="cuda", dtype=None) -> dict:
     """Train and save; returns the metrics.json summary."""
     dev, dtype = resolve_run_device(device, dtype)
     args = build_parser().parse_args(argv)
-    reject_later_flags(args, LATER_FLAGS)
+    _check_flags(args)
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     logger = setup_photon_logger(out_dir)
@@ -257,12 +394,13 @@ def run(argv=None, *, device="cuda", dtype=None) -> dict:
                 emitter.register_listener_by_name(cp.strip())
         emitter.send_event(TrainingStartEvent(args.job_name))
         (sequence, results, best_configs, best_result, shard_maps,
-         num_rows) = _run_training(args, logger, task, dev, dtype)
+         num_rows, stream_info) = _run_training(args, logger, task, dev,
+                                                dtype, emitter)
         _save_outputs(args, out_dir, logger, sequence, results,
                       best_configs, best_result, shard_maps)
         summary = _write_summary(out_dir, logger, task, sequence, t0,
                                  results, best_configs, best_result,
-                                 num_rows)
+                                 num_rows, stream_info)
         emitter.send_event(
             TrainingFinishEvent(args.job_name, summary["totalSeconds"]))
         return summary
@@ -270,9 +408,9 @@ def run(argv=None, *, device="cuda", dtype=None) -> dict:
         emitter.clear_listeners()
 
 
-def _run_training(args, logger, task, device, dtype):
-    """Config parse + in-core train; returns what the save and summary
-    need."""
+def _run_training(args, logger, task, device, dtype, emitter):
+    """Config parse + train (the in-core estimator or --stream-train);
+    returns what the save and summary need."""
     fe_data = _parse_named(args.fixed_effect_data_configurations,
                            "fixed-effect data config")
     fe_opt = _parse_named(args.fixed_effect_optimization_configurations,
@@ -327,6 +465,14 @@ def _run_training(args, logger, task, device, dtype):
 
     evaluators = [build_evaluator(s.strip())
                   for s in (args.evaluators or "").split(",") if s.strip()]
+
+    if args.stream_train:
+        (results, best_configs, best_result, shard_maps, num_rows,
+         stream_info) = _stream_train(
+            args, logger, task, fe_data, fe_opt, sequence, train_inputs,
+            evaluators, preloaded_maps, opt_grid, emitter, device, dtype)
+        return (sequence, results, best_configs, best_result, shard_maps,
+                num_rows, stream_info)
 
     logger.info("reading training data from %s", train_inputs)
     with phase(logger, "ingest"):
@@ -401,7 +547,234 @@ def _run_training(args, logger, task, device, dtype):
             checkpoint_interval=args.checkpoint_interval)
     best_configs, best_result = estimator.select_best(results)
     return (sequence, results, best_configs, best_result, shard_maps,
-            int(data.num_rows))
+            int(data.num_rows), None)
+
+
+def _stream_validate_many(game_models, args, shard_maps, evaluators,
+                          logger, device, dtype):
+    """Bounded-memory validation of ALL grid models in ONE decode pass:
+    the validation container streams once (`BlockGameStream`,
+    `--batch-rows` batches) and every model's scorer scores each decoded
+    batch, keeping ONLY the evaluation columns
+    (`StreamedEvalAccumulator`) — never features. An empty validation
+    input gives empty metric maps."""
+    from photon_ml_tpu_torch.data.block_stream import BlockGameStream
+    from photon_ml_tpu_torch.evaluation.validation import (
+        StreamedEvalAccumulator,
+    )
+    from photon_ml_tpu_torch.serving.engine import StreamingGameScorer
+
+    validate_inputs = resolve_input_dirs(
+        args.validate_input_dirs,
+        date_range=args.validate_date_range,
+        date_range_days_ago=args.validate_date_range_days_ago)
+    id_types = sorted({ev.id_type for ev in evaluators
+                       if getattr(ev, "id_type", None)})
+    engines = [StreamingGameScorer(m, dtype=dtype, device=device)
+               for m in game_models]
+    accs = [StreamedEvalAccumulator(id_types) for _ in game_models]
+    stream = BlockGameStream(
+        validate_inputs, id_types=id_types, feature_shard_maps=shard_maps,
+        batch_rows=args.batch_rows, feeder=args.feeder,
+        prefetch_depth=max(0, args.prefetch_batches))
+    for ds in stream:
+        for engine, acc in zip(engines, accs):
+            acc.add(ds, engine.score(ds))
+    metrics = [acc.metrics(evaluators) for acc in accs]
+    logger.info("streamed validation (%d rows, %s feeder, %d models): %s",
+                stream.rows, stream.decode_path, len(engines), metrics)
+    return metrics
+
+
+def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
+                  train_inputs, evaluators, preloaded_maps, opt_grid,
+                  emitter, device, dtype):
+    """Out-of-core training (--stream-train): block-streamed ingest (host
+    memory O(batch_rows)) into either
+
+    - the one-shot device batch, assembled exactly, and the in-core
+      estimator (no --hbm-budget; the one-shot driver's model), or
+    - a DeviceShardCache and the streaming solve over it, one λ at a time
+      (--hbm-budget; deterministic partials, so resident and
+      eviction-forced runs write the same model).
+
+    Validation (when asked for) streams through the scorer in both
+    modes."""
+    from photon_ml_tpu_torch.algorithm.coordinate_descent import (
+        CoordinateDescentResult,
+    )
+    from photon_ml_tpu_torch.algorithm.coordinates import (
+        StreamingFixedEffectCoordinate,
+    )
+    from photon_ml_tpu_torch.data.avro_reader import build_index_map
+    from photon_ml_tpu_torch.data.block_stream import (
+        BlockGameStream,
+        BlockRandomAccess,
+    )
+    from photon_ml_tpu_torch.data.shard_cache import (
+        DeviceShardCache,
+        assemble_fixed_effect_batch,
+    )
+    from photon_ml_tpu_torch.estimators.game_estimator import (
+        select_best_result,
+    )
+    from photon_ml_tpu_torch.models.game_model import GameModel
+
+    name = sequence[0]
+    shard = fe_data[name]
+    grid = opt_grid(fe_opt, name,
+                    "--fixed-effect-optimization-configurations")
+    if preloaded_maps is not None:
+        if shard not in preloaded_maps:
+            raise ValueError(
+                f"fixed-effect coordinate {name!r} references unknown "
+                f"feature shard {shard!r} "
+                f"(have {sorted(preloaded_maps)})")
+        shard_maps = {shard: preloaded_maps[shard]}
+    else:
+        logger.info("building feature index for shard %r from %s",
+                    shard, train_inputs)
+        with phase(logger, "build_index"):
+            shard_maps = {shard: build_index_map(
+                train_inputs, ingest_workers=args.ingest_workers)}
+
+    def make_stream():
+        return BlockGameStream(
+            train_inputs, id_types=[], feature_shard_maps=shard_maps,
+            batch_rows=args.batch_rows, feeder=args.feeder,
+            prefetch_depth=max(0, args.prefetch_batches))
+
+    budget = args.hbm_budget  # parsed to bytes by argparse
+    if args.checkpoint_dir and budget is not None:
+        logger.warning("--checkpoint-dir is not supported with "
+                       "--hbm-budget streaming solves; ignoring")
+
+    if budget is None:
+        # -- resident: exact assembly + the one-shot estimator ------------
+        logger.info("stream-train (resident): assembling %r from %s in "
+                    "%d-row batches", shard, train_inputs, args.batch_rows)
+        with phase(logger, "ingest"):
+            data = assemble_fixed_effect_batch(make_stream(), shard,
+                                               dtype=dtype, device=device)
+        estimator = GameEstimator(
+            task_type=task,
+            coordinate_specs=[FixedEffectSpec(
+                name=name, feature_shard_id=shard, configs=grid)],
+            num_iterations=args.num_iterations,
+            validation_evaluators=evaluators, dtype=dtype, device=device)
+        with phase(logger, "solve"):
+            results = estimator.fit(
+                data, validation_data=None,
+                checkpoint_dir=(Path(args.checkpoint_dir)
+                                if args.checkpoint_dir else None),
+                checkpoint_interval=args.checkpoint_interval)
+        num_rows = data.num_rows
+        stream_info = {
+            "mode": "resident-assembled",
+            "batch_rows": args.batch_rows,
+            "hbm_budget_bytes": None,
+            "mesh_devices": None,
+            "mesh_shape": None,
+            "spill_dtype": None,  # nothing spills on the resident path
+            "spill_source": None,
+            "feeder": dict(data.ingest_stats),
+            "cache": None,
+            "grid_batched": False,
+            "grid_points": len(grid),
+        }
+    else:
+        # -- spill: sharded streaming accumulate over the device cache ----
+        logger.info("stream-train (spill, hbm budget %d bytes, spill "
+                    "%s/%s): caching %r from %s in %d-row shards", budget,
+                    args.spill_dtype, args.spill_source, shard,
+                    train_inputs, args.batch_rows)
+        fetcher = None
+        if args.spill_source == "redecode":
+            # Misses re-decode their covering container blocks by global
+            # row range instead of re-uploading host spill buffers.
+            fetcher = BlockRandomAccess(
+                train_inputs, id_types=[], feature_shard_maps=shard_maps,
+                feeder=args.feeder)
+        with phase(logger, "ingest"):
+            cache = DeviceShardCache.from_stream(
+                make_stream(), shard, dtype=dtype, hbm_budget_bytes=budget,
+                prefetch_depth=max(0, args.prefetch_batches),
+                spill_dtype=args.spill_dtype,
+                spill_source=args.spill_source, redecode_fetch=fetcher,
+                device=device)
+        results = []
+        shared = None
+        batchable, why_not = _grid_batchable(grid)
+        if len(grid) > 1 and not batchable:
+            logger.info("λ-grid sweeps sequentially (%s)", why_not)
+        with phase(logger, "solve"):
+            for cfg in grid:
+                coord = StreamingFixedEffectCoordinate(
+                    name=name, cache=cache, feature_shard_id=shard,
+                    task_type=task, config=cfg, dtype=dtype,
+                    sharded_objective=shared)
+                shared = coord.sharded_objective
+                t0 = time.perf_counter()
+                model, trackers, obj_hist = None, [], []
+                for _ in range(args.num_iterations):
+                    model, res = coord.solve(model)
+                    trackers.append(res)
+                    obj_hist.append(float(res.value))
+                gm = GameModel({name: model}, task)
+                results.append(({name: cfg}, CoordinateDescentResult(
+                    model=gm, objective_history=obj_hist,
+                    validation_history=[], best_model=gm,
+                    best_metric=None, trackers={name: trackers},
+                    updates=[],
+                    timings={name: time.perf_counter() - t0})))
+        num_rows = cache.n_rows
+        stream_info = {
+            "mode": "spill",
+            "batch_rows": args.batch_rows,
+            "hbm_budget_bytes": budget,
+            "mesh_devices": None,
+            "mesh_shape": None,
+            "spill_dtype": args.spill_dtype,
+            "spill_source": args.spill_source,
+            "feeder": cache.ingest_stats,
+            "cache": cache.stats(),
+            "grid_batched": False,
+            "grid_points": len(grid),
+        }
+        if fetcher is not None:
+            stream_info["redecode"] = {
+                "decode_path": fetcher.decode_path,
+                "payload_bytes_read": fetcher.payload_bytes_read,
+                "blocks_decoded": fetcher.blocks_decoded,
+                "rows_fetched": fetcher.rows_fetched,
+            }
+
+    if args.validate_input_dirs and evaluators:
+        with phase(logger, "validate"):
+            all_metrics = _stream_validate_many(
+                [res.model for _, res in results], args, shard_maps,
+                evaluators, logger, device, dtype)
+        for (_, res), metrics in zip(results, all_metrics):
+            res.validation_history.append(metrics)
+
+    # Per-λ optimization events, as the GLM driver emits per model.
+    for configs, res in results:
+        cfg = configs[name]
+        trk = list(res.trackers.get(name) or [])
+        last = trk[-1] if trk else None
+        emitter.send_event(PhotonOptimizationLogEvent(
+            reg_weight=cfg.regularization_weight,
+            iterations=(int(last.iterations) if last is not None else 0),
+            converged_reason=(last.reason_enum().summary
+                              if last is not None else "unknown"),
+            final_value=(float(last.value) if last is not None
+                         else float("nan")),
+            metrics=(res.validation_history[-1]
+                     if res.validation_history else None)))
+
+    best_configs, best_result = select_best_result(results, evaluators)
+    return (results, best_configs, best_result, shard_maps, num_rows,
+            stream_info)
 
 
 def _save_outputs(args, out_dir, logger, sequence, results,
@@ -443,8 +816,9 @@ def _save_outputs(args, out_dir, logger, sequence, results,
 
 
 def _write_summary(out_dir, logger, task, sequence, t0, results,
-                   best_configs, best_result, num_rows) -> dict:
-    """metrics.json: the JAX in-core keys but ``telemetry`` (A5)."""
+                   best_configs, best_result, num_rows, stream_info) -> dict:
+    """metrics.json: the JAX keys but ``telemetry`` (A5), with the
+    ``stream_train`` block of a --stream-train run."""
     wall = time.perf_counter() - t0
     summary = {
         "taskType": task.value,
@@ -459,6 +833,8 @@ def _write_summary(out_dir, logger, task, sequence, t0, results,
         "totalSeconds": wall,
         "total_seconds": wall,
     }
+    if stream_info is not None:
+        summary["stream_train"] = stream_info
     (out_dir / "metrics.json").write_text(json.dumps(summary, indent=2))
     logger.info("GAME training done in %.1fs", summary["totalSeconds"])
     return summary

@@ -1,20 +1,23 @@
 """TrainingExampleAvro ingest: Avro files -> IndexMap + CSR + GameDataset
 (port of photon_ml_tpu/data/avro_reader.py: _avro_paths, iter_records,
 the record helpers and _reject_duplicate_features :22-105,
-build_index_map :108, read_labeled_points :135-200 through its record
-loop :172-200, _GameBatchBuilder :200-284, read_game_dataset :323
-through its record loop :389-392).
+build_index_map :108, read_labeled_points :135-200, _GameBatchBuilder
+:200-284, read_game_dataset :323-392).
 
 Replaces the reference's AvroDataReader/GLMSuite Spark ingest
 (ml/data/AvroDataReader.scala:53-436, ml/io/GLMSuite.scala:98-139): reads
 records on the host, indexes (name, term) features, injects the intercept
 column, and produces scipy CSR ready for device upload.
 
-Host code only, through the pure-Python codec (io/avro_codec.py). The
-JAX package's block, fast-ingest and parallel routes (:346-390, over its
-C decoder) come with streamed ingest (ROADMAP queue A4); the JAX
-docstring makes them byte-identical to this record loop, so
-``ingest_workers`` is accepted and the read stays in one process.
+Host code only. The routes are the JAX package's: ``read_game_dataset``
+reads through the C block decoder (data/block_stream.py), and
+``build_index_map`` and ``read_labeled_points`` through ``fast_ingest``
+(data/fast_ingest.py), each falling back to the record loop only when a
+file's schema does not fit the training layout; every route gives the
+record loop's arrays byte for byte. The JAX package's parallel route
+(an ``ingest_workers`` count of 2 or more, data/parallel_ingest.py) is
+ROADMAP A4b: ``ingest_workers`` is accepted and the read stays in one
+process.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import scipy.sparse as sp
 
+from photon_ml_tpu_torch.data.fast_ingest import fast_ingest
 from photon_ml_tpu_torch.data.game_data import GameDataset
 from photon_ml_tpu_torch.data.index_map import IndexMap, feature_key
 from photon_ml_tpu_torch.io.avro_codec import read_container
@@ -47,9 +51,11 @@ def _avro_paths(path) -> List[Path]:
     return [p]
 
 
-def iter_records(path) -> Iterator[dict]:
+def iter_records(path, native: bool = True) -> Iterator[dict]:
+    """Every record of the files, decoded by the C decoder or, with
+    ``native=False``, the pure-Python codec."""
     for f in _avro_paths(path):
-        yield from read_container(f)
+        yield from read_container(f, native=native)
 
 
 def _record_label(rec: dict) -> float:
@@ -123,8 +129,15 @@ def build_index_map(path, add_intercept: bool = True,
     DefaultIndexMap generation / FeatureIndexingJob. ``selected_features``
     restricts the map to a whitelist of keys (the reference's
     createDefaultIndexMapLoader(avroRDD, selectedFeatures)).
-    ``ingest_workers`` is accepted for the JAX signature; the scan runs in
-    this process."""
+    ``ingest_workers``: see read_labeled_points."""
+    fast = fast_ingest(_avro_paths(path), {}, {}, collect_keys=True,
+                       workers=ingest_workers)
+    if fast is not None:
+        keys = fast.collected_keys
+        if selected_features is not None:
+            keys &= selected_features
+        return IndexMap.from_keys(keys, add_intercept=add_intercept)
+
     keys = set()
     for rec in iter_records(path):
         for f in _record_features(rec):
@@ -132,7 +145,6 @@ def build_index_map(path, add_intercept: bool = True,
             if selected_features is None or key in selected_features:
                 keys.add(key)
     return IndexMap.from_keys(keys, add_intercept=add_intercept)
-
 
 
 def read_labeled_points(
@@ -149,12 +161,24 @@ def read_labeled_points(
     Unknown features (absent from a supplied index map) are dropped, like
     the reference's ingest. ``selected_features`` (keys) restricts columns
     (GLMSuite selected-features filtering). ``ingest_workers`` is accepted
-    for the JAX signature; the read runs in this process.
+    with the JAX meaning; the read runs in this process.
     """
     if index_map is None:
         index_map = build_index_map(path, add_intercept=add_intercept,
-                                    selected_features=selected_features)
+                                    selected_features=selected_features,
+                                    ingest_workers=ingest_workers)
     intercept_idx = index_map.intercept_index if add_intercept else -1
+
+    fast = fast_ingest(
+        _avro_paths(path), {"m": index_map}, {"m": intercept_idx},
+        restrict_keys=selected_features, workers=ingest_workers)
+    if fast is not None:
+        data_, idx_, indptr_ = fast.shards["m"]
+        mat = sp.csr_matrix((data_, idx_, indptr_),
+                            shape=(len(fast.labels), len(index_map)))
+        _reject_duplicate_features(mat, index_map, fast.uids)
+        return (mat, fast.labels, fast.offsets, fast.weights, fast.uids,
+                index_map)
 
     labels, offsets, weights, uids = [], [], [], []
     data, indices, indptr = [], [], [0]
@@ -184,6 +208,7 @@ def read_labeled_points(
     _reject_duplicate_features(mat, index_map, uids)
     return (mat, np.asarray(labels), np.asarray(offsets),
             np.asarray(weights), uids, index_map)
+
 
 class _GameBatchBuilder:
     """Per-record GAME decode state — the ONE copy of the python-path
@@ -284,14 +309,48 @@ def read_game_dataset(
     (GameDriver.prepareFeatureMaps) maps onto ``feature_shard_maps``:
     shard id -> IndexMap restricted to that shard's features.
 
-    ``ingest_workers``: accepted for the JAX signature ("auto"/None or a
-    worker count); the record loop runs in this process, which the JAX
-    package's parallel read matches byte for byte.
+    ``ingest_workers``: accepted with the JAX meaning ("auto"/None or a
+    worker count); the read runs in this process through the C block
+    decoder, which the JAX package's parallel read matches byte for byte.
     """
     if feature_shard_maps is None:
         feature_shard_maps = {
             default_shard: build_index_map(path, add_intercept=add_intercept,
                                            ingest_workers=ingest_workers)}
+    from photon_ml_tpu_torch.data.block_stream import (
+        read_game_dataset_via_blocks,
+    )
+
+    block_ds = read_game_dataset_via_blocks(
+        path, id_types, feature_shard_maps, add_intercept)
+    if block_ds is not None:
+        return block_ds, feature_shard_maps
+
+    fast = fast_ingest(
+        _avro_paths(path), feature_shard_maps,
+        {s: (m.intercept_index if add_intercept else -1)
+         for s, m in feature_shard_maps.items()},
+        id_types=id_types, workers=ingest_workers)
+    if fast is not None:
+        n = len(fast.labels)
+        shards = {}
+        for shard, imap in feature_shard_maps.items():
+            data_, idx_, indptr_ = fast.shards[shard]
+            m = sp.csr_matrix((data_, idx_, indptr_),
+                              shape=(n, len(imap)))
+            _reject_duplicate_features(m, imap, fast.uids, shard)
+            shards[shard] = m
+        data = GameDataset.build(
+            responses=fast.labels,
+            feature_shards=shards,
+            ids=fast.ids,
+            offsets=fast.offsets,
+            weights=fast.weights,
+            uids=np.asarray([u if u is not None else ""
+                             for u in fast.uids]),
+        )
+        return data, feature_shard_maps
+
     batch = _GameBatchBuilder(feature_shard_maps, id_types, add_intercept)
     for rec in iter_records(path):
         batch.append(rec)

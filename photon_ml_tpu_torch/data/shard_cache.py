@@ -1,0 +1,760 @@
+"""Device-resident shard cache for out-of-core streaming training (port of
+photon_ml_tpu/data/shard_cache.py: SpillBlock, encode_spill,
+_decode_spill_impl, restore_spilled_features :157-320,
+StreamedFixedEffectData, assemble_fixed_effect_batch :324-440, and the
+single-device DeviceShardCache :535-1150).
+
+A `BlockGameStream` is consumed ONCE, batch by batch, and its rows land
+on the device in one of two regimes:
+
+- **exact assembly** (`assemble_fixed_effect_batch`): each batch's CSR
+  slice uploads as it decodes (host residency stays O(batch_rows)) and
+  the device pieces concatenate into the batch that
+  `GameDataset.fixed_effect_batch` builds from a one-shot read, tensor
+  for tensor (CSR cuts are row-contiguous, so values and column ids are
+  literal slices of the one-shot arrays; casts are elementwise; the
+  transpose is ordered as scipy orders it). The in-core solvers then run
+  on the assembled batch, so ``--stream-train`` writes the one-shot
+  driver's model while never holding more than a batch of rows on the
+  host.
+
+- **shard cache** (`DeviceShardCache`): each batch becomes a `CSRBlock`
+  (ops/spmv.py: the CSR and its transpose, int32 indices, unpadded: the
+  port's products need no static shapes) kept on the device, with the
+  row-space columns (labels, offsets, weights) ALWAYS resident and an
+  explicit ``hbm_budget_bytes`` that spills FEATURE blocks (Belady's
+  furthest-next-use eviction on the cyclic shard order, not LRU).
+  Solver iterations after the first replay cached blocks instead of
+  re-decoding Avro; spilled blocks re-upload through `HostPrefetcher`
+  and `chunked_device_put`, so the upload of shard k+1 overlaps the
+  accumulate of shard k.
+
+The budget binds the bytes the port really holds on the device for a
+block, its transpose included (``CSRBlock.nbytes``, about 16 bytes an
+entry in float32), where the JAX package counts its padded
+float32/int32/int32 triplet (12 bytes an entry). Hits, misses and
+evictions at the same budget therefore differ from the JAX package's;
+the models do not.
+
+The spill tier has two knobs:
+
+- ``spill_dtype`` — ``"f32"`` (default) keeps the raw triplet at the
+  cache's type (values, int32 column and row ids): re-uploads are the
+  evicted bytes. ``"bf16"`` spills values as bfloat16 and the indices
+  DELTA-ENCODED to u8/u16 (`encode_spill`; either stream falls back to
+  raw int32 when a delta overflows or is negative). The restore decodes
+  ON THE DEVICE with torch ops (an integer cumsum, a running max and a
+  widening: exact), so the solver sees blocks of the cache's type.
+  Values are quantized ONCE AT INGEST — never-evicted blocks take the
+  same bf16 round trip — so a bf16 replay is deterministic and
+  residency-independent, only less precise than the f32-spill model.
+- ``spill_source`` — ``"buffer"`` (default) re-uploads host spill
+  buffers; ``"redecode"`` keeps NO host copy: a miss re-decodes the Avro
+  container blocks that produced the batch through a
+  `BlockRandomAccess` row-range fetch (byte-identical to the ingest-time
+  batch), inside the `blocks()` prefetch thread.
+
+The JAX module's mesh placement (``devices=``) and column blocks
+(``col_blocks > 1``) are ROADMAP A6: passing them raises. The registry
+counters of the JAX module are ROADMAP A5; ``stats()`` carries the same
+numbers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.data.device_feed import (
+    HostPrefetcher,
+    chunked_device_put,
+)
+from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.ops.features import (
+    DENSE_DENSITY_THRESHOLD,
+    CSRFeatures,
+    DenseFeatures,
+)
+from photon_ml_tpu_torch.ops.glm_objective import GLMBatch
+from photon_ml_tpu_torch.ops.spmv import CSRBlock, block_from_triplet
+
+Tensor = torch.Tensor
+
+SPILL_DTYPES = ("f32", "bf16")
+SPILL_SOURCES = ("buffer", "redecode")
+
+_NUMPY_OF = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _row_ids_i32(indptr: np.ndarray, offset: int = 0) -> np.ndarray:
+    n = len(indptr) - 1
+    return (np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+            + offset).astype(np.int32)
+
+
+def _reject_mesh(devices, col_blocks) -> None:
+    if devices is not None and len(devices) > 1:
+        raise ValueError("devices= places shards over a device mesh: "
+                         "multi-GPU training is ROADMAP A6")
+    if int(col_blocks) != 1:
+        raise ValueError("col_blocks > 1 splits the coefficient dimension "
+                         "over a 2-D device mesh: ROADMAP A6")
+
+
+def _check_spill_options(spill_dtype: str, spill_source: str) -> None:
+    if spill_dtype not in SPILL_DTYPES:
+        raise ValueError(
+            f"spill_dtype must be one of {SPILL_DTYPES}, got "
+            f"{spill_dtype!r}")
+    if spill_source not in SPILL_SOURCES:
+        raise ValueError(
+            f"spill_source must be one of {SPILL_SOURCES}, got "
+            f"{spill_source!r}")
+    if spill_source == "redecode" and spill_dtype != "f32":
+        raise ValueError(
+            f"spill_dtype={spill_dtype!r} compresses host spill "
+            "buffers, but spill_source='redecode' keeps none — the "
+            "combination would silently train as f32 while "
+            "reporting bf16; pick one")
+
+
+# ---------------------------------------------------------------------------
+# Spill codecs: compressed host buffers + on-device restore
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SpillBlock:
+    """Host spill record of one evicted feature block (unpadded: entry
+    k < nnz of each array is the block's k-th entry). Encodings per
+    ``dtype_tag``:
+
+    - ``"f32"``: the raw triplet — ``enc_values`` in the cache's type,
+      ``enc_cols``/``enc_rows`` int32. Restore re-uploads them verbatim.
+    - ``"bf16"``: ``enc_values`` the bit patterns (uint16) of the
+      bfloat16 round-to-nearest-even of the values; ``enc_cols`` u8/u16
+      per-row delta codes (absolute column at each row start, positive
+      within-row diffs after); ``enc_rows`` u8/u16 non-negative diffs of
+      the non-decreasing row ids. Either index stream falls back to raw
+      int32 when a delta overflows u16 or is negative.
+
+    The ``enc_*`` fields are consumed only by
+    :func:`restore_spilled_features`.
+    """
+
+    nnz: int
+    enc_values: np.ndarray
+    enc_cols: np.ndarray
+    enc_rows: np.ndarray
+    dtype_tag: str  # "f32" | "bf16"
+
+    @property
+    def nbytes(self) -> int:
+        return (self.enc_values.nbytes + self.enc_cols.nbytes
+                + self.enc_rows.nbytes)
+
+
+def _shrink_deltas(deltas: np.ndarray, raw: np.ndarray) -> np.ndarray:
+    """The narrowest unsigned code that holds every delta; the RAW int32
+    ids when a delta is negative or exceeds u16 (decode then skips the
+    cumulative reconstruction)."""
+    lo = int(deltas.min()) if len(deltas) else 0
+    hi = int(deltas.max()) if len(deltas) else 0
+    if lo < 0 or hi > np.iinfo(np.uint16).max:
+        return raw.astype(np.int32)
+    code = np.uint8 if hi <= np.iinfo(np.uint8).max else np.uint16
+    return deltas.astype(code)
+
+
+def bf16_bits(values: np.ndarray) -> np.ndarray:
+    """uint16 bit patterns of the bfloat16 round-to-nearest-even of
+    ``values``."""
+    t = torch.from_numpy(np.ascontiguousarray(values)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def encode_spill(values: np.ndarray, cols: np.ndarray, rows: np.ndarray,
+                 nnz: int, spill_dtype: str) -> SpillBlock:
+    """Triplet -> host spill record (see SpillBlock). ``values/cols/rows``
+    are the block's arrays (``cols``/``rows`` int32, local row ids);
+    ``nnz`` is their entry count. The f32 tag stores them as they are."""
+    if spill_dtype not in SPILL_DTYPES:
+        raise ValueError(
+            f"spill_dtype must be one of {SPILL_DTYPES}, got "
+            f"{spill_dtype!r}")
+    if spill_dtype == "f32":
+        return SpillBlock(nnz=nnz, enc_values=values, enc_cols=cols,
+                          enc_rows=rows, dtype_tag="f32")
+    c = cols[:nnz].astype(np.int64)
+    r = rows[:nnz].astype(np.int64)
+    cd = c.copy()
+    cd[1:] -= c[:-1]
+    if nnz:
+        # Absolute column at each row start (the first entry is one).
+        starts = np.empty(nnz, bool)
+        starts[0] = True
+        starts[1:] = r[1:] != r[:-1]
+        cd[starts] = c[starts]
+    rd = r.copy()
+    rd[1:] -= r[:-1]
+    return SpillBlock(
+        nnz=nnz, enc_values=bf16_bits(values[:nnz]),
+        enc_cols=_shrink_deltas(cd, cols[:nnz]),
+        enc_rows=_shrink_deltas(rd, rows[:nnz]),
+        dtype_tag="bf16")
+
+
+def decode_spill(values: Tensor, col_codes: Tensor, row_codes: Tensor,
+                 dtype, cols_raw: bool = False, rows_raw: bool = False
+                 ) -> tuple:
+    """Device-side bf16 spill decode (port of _decode_spill_impl :249):
+    widen the bfloat16 values (``values``: their bits as int16) to
+    ``dtype`` and un-delta the index streams (``*_codes``: the u8/u16
+    codes widened to int64, or the raw ids where ``*_raw``), with torch
+    ops on the tensors' device. Every step is exact (a widening, integer
+    cumsums and a running max), so the result is the same bits on every
+    call."""
+    vals = values.view(torch.bfloat16).to(dtype)
+    rows = row_codes if rows_raw else torch.cumsum(row_codes, 0)
+    if cols_raw:
+        cols = col_codes
+    else:
+        d = col_codes
+        cum = torch.cumsum(d, 0)
+        start = torch.ones_like(rows, dtype=torch.bool)
+        start[1:] = rows[1:] != rows[:-1]
+        base = cum - d  # prefix sum before each element
+        # Bases at row starts are non-decreasing (deltas >= 0), so a
+        # running max carries each row's re-base forward.
+        if len(base):
+            corr = torch.cummax(
+                torch.where(start, base, torch.zeros_like(base)), 0).values
+            cols = cum - corr
+        else:
+            cols = cum
+    return vals, cols.to(torch.int32), rows.to(torch.int32)
+
+
+def _upload_codes(a: np.ndarray, device) -> Tensor:
+    """An index stream on the device as int64: u8 and u16 codes travel at
+    their own width (u16 as its int16 bits) and widen there."""
+    if a.dtype == np.uint16:
+        return chunked_device_put(a.view(np.int16), device=device).to(
+            torch.int64) & 0xFFFF
+    return chunked_device_put(a, device=device).to(torch.int64)
+
+
+def restore_spilled_features(spill: SpillBlock, n_rows: int,
+                             n_features: int, device,
+                             dtype=torch.float32) -> CSRBlock:
+    """The ONE spill -> device path: re-upload the record and rebuild the
+    block in ``dtype``. f32 spill re-uploads the evicted bytes verbatim;
+    bf16 spill uploads the encodings and decodes them on the device
+    (`decode_spill`)."""
+    if spill.dtype_tag == "f32":
+        return block_from_triplet(
+            chunked_device_put(spill.enc_values, device=device),
+            chunked_device_put(spill.enc_cols, device=device),
+            chunked_device_put(spill.enc_rows, device=device), n_rows,
+            n_features)
+    vals, cols, rows = decode_spill(
+        chunked_device_put(spill.enc_values.view(np.int16), device=device),
+        _upload_codes(spill.enc_cols, device),
+        _upload_codes(spill.enc_rows, device), dtype,
+        cols_raw=spill.enc_cols.dtype == np.int32,
+        rows_raw=spill.enc_rows.dtype == np.int32)
+    return block_from_triplet(vals, cols, rows, n_rows, n_features)
+
+
+# ---------------------------------------------------------------------------
+# Exact assembly: streamed ingest -> the one-shot device batch, bit for bit
+# ---------------------------------------------------------------------------
+
+
+class StreamedFixedEffectData:
+    """Stand-in for the GameDataset a FixedEffectCoordinate consumes: the
+    feature batch is already assembled on the device from a stream, so
+    `fixed_effect_batch` hands it back instead of uploading host CSR. It
+    has exactly the surface the fixed-effect training path touches
+    (`num_rows`, `feature_shards[...].shape`, the row columns
+    `responses`/`offsets`/`weights`, `fixed_effect_batch`)."""
+
+    class _ShapeOnly:
+        def __init__(self, shape):
+            self.shape = shape
+
+    def __init__(self, shard_id: str, batch: GLMBatch, n_rows: int, d: int,
+                 ingest_stats: dict):
+        self._shard_id = shard_id
+        self._batch = batch
+        self._n_rows = int(n_rows)
+        self.feature_shards = {shard_id: self._ShapeOnly((n_rows, d))}
+        # Device columns of the solver type: the consumer's
+        # torch.as_tensor(col, dtype, device) is then the tensor itself,
+        # equal to the one-shot float64 -> dtype cast.
+        self.responses = batch.labels
+        self.offsets = batch.offsets
+        self.weights = batch.weights
+        self.ingest_stats = dict(ingest_stats)
+
+    @property
+    def num_rows(self) -> int:
+        return self._n_rows
+
+    def fixed_effect_batch(self, shard_id: str, dtype=None, device=None,
+                           extra_offsets=None) -> GLMBatch:
+        """The assembled batch (``device`` is accepted for
+        GameDataset's signature: the batch is where it was assembled)."""
+        if shard_id != self._shard_id:
+            raise KeyError(
+                f"streamed ingest assembled shard {self._shard_id!r}, "
+                f"coordinate asked for {shard_id!r}")
+        if dtype is not None and dtype != self._batch.labels.dtype:
+            raise ValueError(
+                f"streamed batch was assembled as "
+                f"{self._batch.labels.dtype}, asked for {dtype}")
+        if extra_offsets is None:
+            return self._batch
+        return self._batch.with_offsets(
+            self._batch.offsets + torch.as_tensor(
+                extra_offsets, dtype=self._batch.offsets.dtype,
+                device=self._batch.offsets.device))
+
+
+def _crow_from_lengths(lengths: Tensor) -> Tensor:
+    crow = torch.zeros(lengths.shape[0] + 1, dtype=torch.int64,
+                       device=lengths.device)
+    crow[1:] = torch.cumsum(lengths, 0)
+    return crow
+
+
+def assemble_fixed_effect_batch(
+    stream, shard_id: str, dtype=torch.float32, device="cuda",
+    dense_threshold: float = DENSE_DENSITY_THRESHOLD,
+) -> StreamedFixedEffectData:
+    """Consume a BlockGameStream into ONE device GLMBatch, tensor for
+    tensor equal to ``read_game_dataset(...)[0].fixed_effect_batch(
+    shard_id, dtype, device)``.
+
+    Host residency is O(batch_rows): each decoded batch's arrays upload
+    and are dropped before the next batch decodes. The dense-vs-CSR
+    layout is decided from the GLOBAL density after the stream ends, as
+    `features_to_device` decides it on the full matrix."""
+    dev = resolve_device(device)
+    vals_p, cols_p, lens_p = [], [], []
+    lab_p, off_p, wgt_p = [], [], []
+    n_rows = 0
+    nnz = 0
+    d = None
+    for ds in stream:
+        mat = ds.feature_shards[shard_id].tocsr()
+        d = mat.shape[1]
+        if ds.num_rows == 0:
+            continue
+        vals_p.append(chunked_device_put(mat.data, dtype, dev))
+        cols_p.append(chunked_device_put(mat.indices.astype(np.int64),
+                                         device=dev))
+        lens_p.append(chunked_device_put(np.diff(mat.indptr).astype(
+            np.int64), device=dev))
+        lab_p.append(chunked_device_put(ds.responses, dtype, dev))
+        off_p.append(chunked_device_put(ds.offsets, dtype, dev))
+        wgt_p.append(chunked_device_put(ds.weights, dtype, dev))
+        n_rows += ds.num_rows
+        nnz += mat.nnz
+    if n_rows == 0:
+        raise ValueError("stream yielded no rows to assemble")
+
+    def cat(parts):
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    values, col_ids, lengths = cat(vals_p), cat(cols_p), cat(lens_p)
+    row_ids = torch.repeat_interleave(
+        torch.arange(n_rows, dtype=torch.int64, device=dev), lengths)
+    density = nnz / max(1, n_rows * d)
+    if density >= dense_threshold:
+        # The one-shot path densifies before upload; scattering the CSR
+        # pieces into zeros gives the same array (no duplicates, and the
+        # float64 -> dtype cast already happened elementwise).
+        x = torch.zeros((n_rows, d), dtype=dtype, device=dev)
+        x[row_ids, col_ids] = values
+        feats = DenseFeatures(x)
+    else:
+        # csr_from_scipy's arrays: the CSR, and its transpose ordered by
+        # column then row (scipy's csr.T.tocsr()).
+        order = torch.argsort(col_ids, stable=True)
+        feats = CSRFeatures(
+            csr=torch.sparse_csr_tensor(
+                _crow_from_lengths(lengths), col_ids, values,
+                size=(n_rows, d), check_invariants=True),
+            csr_t=torch.sparse_csr_tensor(
+                _crow_from_lengths(torch.bincount(col_ids, minlength=d)),
+                row_ids[order], values[order], size=(d, n_rows),
+                check_invariants=True),
+            values=values, col_ids=col_ids, row_ids=row_ids,
+            n_rows=n_rows, n_features=int(d))
+    batch = GLMBatch(features=feats, labels=cat(lab_p), offsets=cat(off_p),
+                     weights=cat(wgt_p))
+    stats = dict(stream.stats())
+    stats.update({"assembled_rows": n_rows, "assembled_nnz": nnz,
+                  "density": density,
+                  "layout": type(feats).__name__})
+    return StreamedFixedEffectData(shard_id, batch, n_rows, int(d), stats)
+
+
+# ---------------------------------------------------------------------------
+# The shard cache: device blocks, replay-aware spill, prefetch
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CachedShard:
+    """One streamed batch on the device. Row-space columns (labels,
+    offsets, weights) are ALWAYS resident — keeping them is what makes
+    the margin-cached line search feature-pass-free. The feature block
+    (``feats``) is the evictable part; ``spill`` is the host record it
+    restores from (None in the ``redecode`` tier, where a miss re-decodes
+    the source Avro rows instead)."""
+
+    index: int
+    n_rows: int
+    nnz: int
+    row_offset: int  # first global row id
+    labels: Tensor
+    offsets: Tensor
+    weights: Tensor
+    spill: Optional[SpillBlock]
+    feature_bytes: int  # CSRBlock.nbytes while resident
+    feats: Optional[CSRBlock] = None  # None = spilled
+
+    @property
+    def spill_bytes(self) -> int:
+        return 0 if self.spill is None else self.spill.nbytes
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidentBlock:
+    """A shard handed out by `DeviceShardCache.blocks()`: a SNAPSHOT
+    holding its own reference to the feature block, so a later eviction
+    (which only drops the cache's reference) never pulls it from under
+    an accumulate."""
+
+    index: int
+    n_rows: int
+    feats: CSRBlock
+    labels: Tensor
+    offsets: Tensor
+    weights: Tensor
+
+
+class DeviceShardCache:
+    """Device cache of feature blocks over a streamed ingest.
+
+    Built once from a `BlockGameStream` (`from_stream`); every solver
+    pass then replays `blocks()` in FIXED shard order — the accumulation
+    order is part of the numeric contract, so resident, spilled and
+    re-uploaded replays give the same partials (re-uploaded bytes are
+    the evicted bytes, and the product is deterministic).
+
+    ``hbm_budget_bytes`` bounds the feature bytes resident on the
+    device; None means unbounded (fully resident, spill buffers freed).
+    The budget is enforced DURING ingest (evict-as-you-go, so the ingest
+    peak is O(budget)) and on every re-upload. Eviction is Belady's rule
+    for the known cyclic replay: the victim is the resident block whose
+    next use is FURTHEST in the cyclic order from the block in hand.
+    Plain LRU degenerates to a 0% hit rate here (with n shards and room
+    for n-1, the least-recently-used block is always the next one
+    needed). The in-hand block is never evicted, so one block can exceed
+    a too-small budget.
+    """
+
+    def __init__(self, entries: List[CachedShard], n_rows: int,
+                 n_features: int, dtype=torch.float32,
+                 hbm_budget_bytes: Optional[int] = None,
+                 prefetch_depth: int = 2,
+                 ingest_stats: Optional[dict] = None,
+                 devices: Optional[List] = None,
+                 spill_dtype: str = "f32",
+                 spill_source: str = "buffer",
+                 shard_id: Optional[str] = None,
+                 redecode_fetch: Optional[Callable] = None,
+                 col_blocks: int = 1, device="cuda"):
+        _reject_mesh(devices, col_blocks)
+        _check_spill_options(spill_dtype, spill_source)
+        if spill_source == "redecode" and hbm_budget_bytes is not None \
+                and redecode_fetch is None:
+            raise ValueError(
+                "spill_source='redecode' needs a redecode_fetch "
+                "callable (BlockRandomAccess.fetch_rows) to re-decode "
+                "evicted blocks from")
+        self._entries = entries
+        self.n_rows = int(n_rows)
+        self.n_features = int(n_features)
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.hbm_budget_bytes = hbm_budget_bytes
+        self.prefetch_depth = max(0, int(prefetch_depth))
+        self.ingest_stats = dict(ingest_stats or {})
+        self.spill_dtype = spill_dtype
+        self.spill_source = spill_source
+        self._shard_id = shard_id
+        self._redecode_fetch = redecode_fetch
+        self._stats = {"hits": 0, "misses": 0, "evictions": 0,
+                       "bytes_reuploaded": 0, "epochs": 0,
+                       "spill_bytes_written": 0, "redecodes": 0,
+                       "bytes_redecoded": 0}
+        self._device_bytes = sum(e.feature_bytes for e in entries
+                                 if e.feats is not None)
+        self.peak_device_bytes = self._device_bytes
+        if hbm_budget_bytes is None:
+            for e in entries:
+                e.spill = None
+
+    @property
+    def spill_bytes_host(self) -> int:
+        """Host bytes retained by spill records: O(dataset) for
+        ``buffer`` spill (f32, or about a third for bf16), 0 for
+        ``redecode``. Constant after ingest."""
+        return sum(e.spill_bytes for e in self._entries)
+
+    @property
+    def device_bytes(self) -> int:
+        """Feature bytes resident on the device."""
+        return self._device_bytes
+
+    # -- construction ------------------------------------------------------
+
+    @classmethod
+    def from_stream(cls, stream, shard_id: str, dtype=torch.float32,
+                    hbm_budget_bytes: Optional[int] = None,
+                    prefetch_depth: int = 2,
+                    devices: Optional[List] = None,
+                    spill_dtype: str = "f32",
+                    spill_source: str = "buffer",
+                    redecode_fetch: Optional[Callable] = None,
+                    col_blocks: int = 1, device="cuda"
+                    ) -> "DeviceShardCache":
+        """Ingest pass: decode (prefetched, by the stream) -> block ->
+        upload. With an ``hbm_budget`` the budget is enforced AS blocks
+        upload — the most recently ingested block spills first (its next
+        use, at the start of the first replay, is the furthest away), so
+        the ingest peak stays O(budget + one block) and the resident set
+        ends as a PREFIX of the shard order."""
+        _reject_mesh(devices, col_blocks)
+        _check_spill_options(spill_dtype, spill_source)
+        dev = resolve_device(device)
+        np_dtype = _NUMPY_OF[dtype]
+        keep_buffers = (hbm_budget_bytes is not None
+                        and spill_source == "buffer")
+        entries: List[CachedShard] = []
+        n_rows = 0
+        d = None
+        device_bytes = 0
+        peak_bytes = 0
+        evictions = 0
+        spill_written = 0
+        for ds in stream:
+            if ds.num_rows == 0:
+                continue
+            mat = ds.feature_shards[shard_id].tocsr()
+            d = mat.shape[1]
+            values = mat.data.astype(np_dtype)
+            cols = mat.indices.astype(np.int32)
+            rows = _row_ids_i32(mat.indptr)
+            spill = None
+            if keep_buffers:
+                spill = encode_spill(values, cols, rows, int(mat.nnz),
+                                     spill_dtype)
+                spill_written += spill.nbytes
+            if spill is not None and spill.dtype_tag != "f32":
+                # Lossy spill encodings quantize AT INGEST: every block
+                # takes the same encode -> restore round trip whether or
+                # not it ever spills, so bf16 replays stay deterministic
+                # and residency-independent.
+                feats = restore_spilled_features(spill, ds.num_rows, d, dev,
+                                                 dtype)
+            else:
+                feats = block_from_triplet(
+                    chunked_device_put(values, device=dev),
+                    chunked_device_put(cols, device=dev),
+                    chunked_device_put(rows, device=dev), ds.num_rows, d)
+
+            def col(x):
+                return chunked_device_put(np.asarray(x), dtype, dev)
+
+            e = CachedShard(
+                index=len(entries), n_rows=ds.num_rows, nnz=int(mat.nnz),
+                row_offset=n_rows, labels=col(ds.responses),
+                offsets=col(ds.offsets), weights=col(ds.weights),
+                spill=spill, feature_bytes=feats.nbytes, feats=feats)
+            entries.append(e)
+            n_rows += ds.num_rows
+            device_bytes += e.feature_bytes
+            peak_bytes = max(peak_bytes, device_bytes)
+            if hbm_budget_bytes is not None:
+                # Evict-as-you-go, most recent first (keep the prefix),
+                # never the block just uploaded.
+                for victim in reversed(entries[:-1]):
+                    if device_bytes <= hbm_budget_bytes:
+                        break
+                    if victim.feats is not None:
+                        victim.feats = None
+                        device_bytes -= victim.feature_bytes
+                        evictions += 1
+        if not entries:
+            raise ValueError("stream yielded no rows to cache")
+        cache = cls(entries, n_rows, int(d), dtype,
+                    hbm_budget_bytes=hbm_budget_bytes,
+                    prefetch_depth=prefetch_depth,
+                    ingest_stats=stream.stats(),
+                    spill_dtype=spill_dtype, spill_source=spill_source,
+                    shard_id=shard_id, redecode_fetch=redecode_fetch,
+                    device=dev)
+        cache._stats["evictions"] += evictions
+        cache._stats["spill_bytes_written"] += spill_written
+        cache.peak_device_bytes = max(cache.peak_device_bytes, peak_bytes)
+        if hbm_budget_bytes is not None:
+            # The final block stayed pinned during ingest; settle to the
+            # budget with the replay-aware rule (next use = shard 0).
+            cache._enforce_budget(pinned=-1)
+        return cache
+
+    # -- residency management ----------------------------------------------
+
+    @property
+    def n_shards(self) -> int:
+        return len(self._entries)
+
+    @property
+    def entries(self) -> List[CachedShard]:
+        return list(self._entries)
+
+    def _enforce_budget(self, pinned: int) -> None:
+        """Evict until within budget. Victim = the resident block whose
+        next use is FURTHEST in the fixed cyclic replay order from the
+        block in hand (`pinned`; -1 = before an epoch, i.e. next use
+        starts at shard 0)."""
+        budget = self.hbm_budget_bytes
+        if budget is None or self._device_bytes <= budget:
+            return
+        n = len(self._entries)
+        cur = pinned if pinned >= 0 else 0
+        resident = [e for e in self._entries
+                    if e.feats is not None and e.index != pinned]
+        # descending cyclic distance (j - cur) mod n: furthest next use
+        # first.
+        resident.sort(key=lambda e: -((e.index - cur) % n))
+        while self._device_bytes > budget and resident:
+            victim = resident.pop(0)
+            victim.feats = None
+            self._device_bytes -= victim.feature_bytes
+            self._stats["evictions"] += 1
+
+    def _redecode(self, e: CachedShard) -> CSRBlock:
+        """redecode-tier miss: re-decode the block's source rows through
+        the random-access block fetch and re-upload. The fetched batch is
+        byte-identical to the ingest-time batch (deterministic block
+        cut), so the block — hence every partial — is the resident
+        replay's."""
+        fetch = self._redecode_fetch
+        before = getattr(fetch, "payload_bytes_read", None)
+        ds = fetch(e.row_offset, e.n_rows)
+        mat = ds.feature_shards[self._shard_id].tocsr()
+        if mat.shape[0] != e.n_rows or int(mat.nnz) != e.nnz:
+            raise RuntimeError(
+                f"re-decoded shard {e.index} does not match the "
+                f"ingested block: got {mat.shape[0]} rows/{mat.nnz} "
+                f"nnz, cached {e.n_rows}/{e.nnz} — the input "
+                "changed under the cache")
+        spill = SpillBlock(
+            nnz=e.nnz, enc_values=mat.data.astype(_NUMPY_OF[self.dtype]),
+            enc_cols=mat.indices.astype(np.int32),
+            enc_rows=_row_ids_i32(mat.indptr), dtype_tag="f32")
+        self._stats["redecodes"] += 1
+        after = getattr(fetch, "payload_bytes_read", None)
+        self._stats["bytes_redecoded"] += (
+            after - before if before is not None and after is not None
+            else e.feature_bytes)
+        return restore_spilled_features(spill, e.n_rows, self.n_features,
+                                        self.device, self.dtype)
+
+    def ensure(self, index: int) -> ResidentBlock:
+        """A resident snapshot of the block, restored on a miss: buffer
+        spill re-uploads (and decodes) the host record, the redecode
+        tier re-decodes the source Avro rows."""
+        e = self._entries[index]
+        if e.feats is None:
+            self._stats["misses"] += 1
+            if e.spill is not None:
+                reupload = e.spill.nbytes
+            elif self._redecode_fetch is not None:
+                # The re-decoded triplet that uploads.
+                reupload = e.nnz * (np.dtype(_NUMPY_OF[self.dtype]).itemsize
+                                    + 8)
+            else:
+                raise RuntimeError(
+                    f"shard {index} was evicted but has no spill "
+                    "buffers (cache built without an hbm budget)")
+            self._stats["bytes_reuploaded"] += reupload
+            self._device_bytes += e.feature_bytes
+            self.peak_device_bytes = max(self.peak_device_bytes,
+                                         self._device_bytes)
+            if e.spill is not None:
+                e.feats = restore_spilled_features(
+                    e.spill, e.n_rows, self.n_features, self.device,
+                    self.dtype)
+            else:
+                e.feats = self._redecode(e)
+            self._enforce_budget(pinned=index)
+        else:
+            self._stats["hits"] += 1
+        return ResidentBlock(index=e.index, n_rows=e.n_rows, feats=e.feats,
+                             labels=e.labels, offsets=e.offsets,
+                             weights=e.weights)
+
+    def blocks(self, prefetch_depth: Optional[int] = None
+               ) -> Iterator[ResidentBlock]:
+        """One replay epoch in fixed shard order. With a prefetch depth
+        > 0 and a budget, the restores run on a background thread
+        (`HostPrefetcher`), so the upload of shard k+1 overlaps the
+        consumer's accumulate of shard k; resident epochs yield straight
+        from the device."""
+        self._stats["epochs"] += 1
+        depth = (self.prefetch_depth if prefetch_depth is None
+                 else max(0, int(prefetch_depth)))
+
+        def gen():
+            for i in range(len(self._entries)):
+                yield self.ensure(i)
+
+        if depth < 1 or self.hbm_budget_bytes is None:
+            yield from gen()
+            return
+        yield from HostPrefetcher(gen(), depth)
+
+    def stats(self) -> Dict:
+        s = dict(self._stats)
+        s.update({
+            "shards": self.n_shards,
+            "rows": self.n_rows,
+            # The port's blocks are unpadded: each its own (rows, nnz).
+            "bucket_shapes": sorted({(e.n_rows, e.nnz)
+                                     for e in self._entries}),
+            "hbm_budget_bytes": self.hbm_budget_bytes,
+            "device_bytes": self.device_bytes,
+            "peak_device_bytes": self.peak_device_bytes,
+            "spill_dtype": self.spill_dtype,
+            "spill_source": self.spill_source,
+            "spill_bytes_host": self.spill_bytes_host,
+            "resident_shards": sum(1 for e in self._entries
+                                   if e.feats is not None),
+            "mesh_devices": None,
+            "col_blocks": 1,
+            "col_block_size": None,
+            "per_device_bytes": [self.device_bytes],
+            "per_device_resident_shards": [
+                sum(1 for e in self._entries if e.feats is not None)],
+        })
+        return s

@@ -1,8 +1,8 @@
 """Full GLM validation metric map (a copy of
 photon_ml_tpu/evaluation/validation.py:1-101, host numpy in both
 packages; reference: ml/Evaluation.scala:31-194 — the Spark-MLlib-backed
-metric bundle the GLM driver logs per λ). ``StreamedEvalAccumulator``
-(:104-148) comes with streamed training (ROADMAP queue A4)."""
+metric bundle the GLM driver logs per λ), and StreamedEvalAccumulator
+:104-148, the streamed validation of ``--stream-train``."""
 
 from __future__ import annotations
 
@@ -103,3 +103,47 @@ def evaluate_glm(task: TaskType, scores, labels, offsets=None, weights=None,
         out["AIC"] = 2.0 * num_coefficients - 2.0 * out["LOG_LIKELIHOOD"]
     return out
 
+
+
+class StreamedEvalAccumulator:
+    """Bounded-memory evaluation over a streamed scoring pipeline: per
+    scored batch, retain ONLY the evaluation columns (scores, labels,
+    offsets, weights, and the entity-id names the requested id types
+    need) — never features — then evaluate once at the end."""
+
+    def __init__(self, id_types=()):
+        self.id_types = tuple(id_types)
+        self._scores: list = []
+        self._responses: list = []
+        self._offsets: list = []
+        self._weights: list = []
+        self._ids = {t: [] for t in self.id_types}
+        self.rows = 0
+
+    def add(self, dataset, scores) -> None:
+        self._scores.append(np.asarray(scores))
+        self._responses.append(dataset.responses)
+        self._offsets.append(dataset.offsets)
+        self._weights.append(dataset.weights)
+        for t in self.id_types:
+            col = dataset.id_columns[t]
+            self._ids[t].append(col.vocabulary[col.codes])
+        self.rows += dataset.num_rows
+
+    def metrics(self, evaluators) -> Dict[str, float]:
+        """Metric map from the accumulated columns; {} when the stream
+        yielded no rows (an empty validation input degrades to empty
+        metrics, not a crash after a long training run)."""
+        if not evaluators or not self._responses:
+            return {}
+        from photon_ml_tpu_torch.data.game_data import GameDataset
+
+        eval_data = GameDataset.build(
+            responses=np.concatenate(self._responses),
+            feature_shards={},
+            ids={t: np.concatenate(v) for t, v in self._ids.items()},
+            offsets=np.concatenate(self._offsets),
+            weights=np.concatenate(self._weights))
+        scores_all = np.concatenate(self._scores)
+        return {ev.name: ev.evaluate_dataset(scores_all, eval_data)
+                for ev in evaluators}

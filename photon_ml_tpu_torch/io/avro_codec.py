@@ -1,11 +1,15 @@
-"""Minimal pure-Python Avro: binary encoding + object container files
-(a copy of photon_ml_tpu/io/avro_codec.py's pure-Python path: Schema,
-write_datum/read_datum :1-247 and the container files :359-478). The
-JAX package's native hook (:251-356, compile_schema_program and
-_native_decoder over its C block decoder) and iter_raw_blocks (:426,
-which feeds that decoder) are left out: the C decoder comes to the port
-with streamed ingest (ROADMAP queue A4), so read_container here always
-decodes with read_datum.
+"""Minimal Avro: binary encoding + object container files (a copy of
+photon_ml_tpu/io/avro_codec.py: Schema, write_datum/read_datum :1-247,
+the native hook :251-356 — compile_schema_program, which flattens a
+schema into the C decoder's opcode program, and _native_decoder — and
+the container files :359-478 with iter_raw_blocks :426).
+
+``read_container`` decodes each block with the C decoder
+(native/_avro_native.c ``decode_block``) when the schema compiles to a
+program, as the JAX package does, and with the pure-Python
+``read_datum`` when it does not or when the caller passes
+``native=False`` (the ``--feeder python`` route). The C decoder is
+built at first use; a failed build raises, it never quietly falls back.
 
 The runtime image has no avro/fastavro; the reference's entire IO surface is
 Avro (photon-avro-schemas/src/main/avro/*.avsc, ml/avro/AvroIOUtils.scala),
@@ -28,8 +32,9 @@ import io
 import json
 import os
 import struct
+import sys
 import zlib
-from typing import Any, Dict, Iterable, Iterator, List
+from typing import Any, Dict, Iterable, Iterator, List, Optional
 
 MAGIC = b"Obj\x01"
 DEFAULT_SYNC_INTERVAL = 16 * 1024
@@ -254,6 +259,116 @@ def read_datum(src: io.BytesIO, schema: Any) -> Any:
 
 
 # ---------------------------------------------------------------------------
+# Native fast path: schema -> flat int64 program for the C decoder
+# (native/_avro_native.c). Recursive records have no program; their
+# containers decode with read_datum.
+# ---------------------------------------------------------------------------
+
+_PRIMITIVE_OPS = {"null": 0, "boolean": 1, "int": 2, "long": 2,
+                  "float": 3, "double": 4, "bytes": 5, "string": 6}
+
+
+class _SchemaProgram:
+    def __init__(self, prog, root: int, strings: tuple):
+        self.prog = prog.tobytes()  # int64 array buffer
+        self.root = root
+        self.strings = strings
+
+
+def compile_schema_program(schema: Any) -> Optional[_SchemaProgram]:
+    """Flatten a resolved schema into the C decoder's opcode array.
+    Returns None for shapes the native decoder doesn't handle (recursive
+    records) — callers then use the pure-python path."""
+    from array import array
+
+    prog = array("q")
+    strings: List[str] = []
+    string_ids: Dict[str, int] = {}
+    in_progress: set = set()
+
+    def intern(s: str) -> int:
+        if s not in string_ids:
+            string_ids[s] = len(strings)
+            strings.append(sys.intern(s))
+        return string_ids[s]
+
+    def emit(node: Any) -> Optional[int]:
+        t = node if isinstance(node, str) else (
+            node.get("type") if isinstance(node, dict) else None)
+        if isinstance(node, list):
+            children = [emit(b) for b in node]
+            if any(c is None for c in children):
+                return None
+            idx = len(prog)
+            prog.append(9)
+            prog.append(len(children))
+            prog.extend(children)
+            return idx
+        if isinstance(t, str) and t in _PRIMITIVE_OPS and (
+                isinstance(node, str) or set(node) <= {"type", "logicalType",
+                                                       "name", "namespace"}):
+            idx = len(prog)
+            prog.append(_PRIMITIVE_OPS[t])
+            return idx
+        if not isinstance(node, dict):
+            return None
+        if t == "fixed":
+            idx = len(prog)
+            prog.extend([7, int(node["size"])])
+            return idx
+        if t == "enum":
+            syms = [intern(s) for s in node["symbols"]]
+            idx = len(prog)
+            prog.extend([8, len(syms)])
+            prog.extend(syms)
+            return idx
+        if t == "array":
+            child = emit(node["items"])
+            if child is None:
+                return None
+            idx = len(prog)
+            prog.extend([10, child])
+            return idx
+        if t == "map":
+            child = emit(node["values"])
+            if child is None:
+                return None
+            idx = len(prog)
+            prog.extend([11, child])
+            return idx
+        if t == "record":
+            key = id(node)
+            if key in in_progress:
+                return None  # recursive schema: native path unsupported
+            in_progress.add(key)
+            fields = []
+            for f in node["fields"]:
+                child = emit(f["type"])
+                if child is None:
+                    in_progress.discard(key)
+                    return None
+                fields.append((intern(f["name"]), child))
+            in_progress.discard(key)
+            idx = len(prog)
+            prog.extend([12, len(fields)])
+            for name_id, child in fields:
+                prog.extend([name_id, child])
+            return idx
+        return None
+
+    root = emit(schema)
+    if root is None:
+        return None
+    return _SchemaProgram(prog, root, tuple(strings))
+
+
+def _native_decoder():
+    from photon_ml_tpu_torch.native import load_avro_native
+
+    return load_avro_native()
+
+
+# ---------------------------------------------------------------------------
 # Object container files
 # ---------------------------------------------------------------------------
 
@@ -320,7 +435,9 @@ def _read_header(f, path):
     return schema, codec, sync
 
 
-def read_container(path: str | os.PathLike) -> Iterator[Any]:
+def iter_raw_blocks(path: str | os.PathLike):
+    """Yield (schema, decompressed_payload, record_count) per block — the
+    entry point for block-level native decoders (data/fast_ingest.py)."""
     with open(path, "rb") as f:
         schema, codec, sync = _read_header(f, path)
         while True:
@@ -333,9 +450,37 @@ def read_container(path: str | os.PathLike) -> Iterator[Any]:
             payload = f.read(size)
             if codec == "deflate":
                 payload = zlib.decompress(payload, -15)
-            src = io.BytesIO(payload)
-            for _ in range(count):
-                yield read_datum(src, schema.root)
+            yield schema, payload, count
+            if f.read(16) != sync:
+                raise ValueError(f"{path}: sync marker mismatch")
+
+
+def read_container(path: str | os.PathLike,
+                   native: bool = True) -> Iterator[Any]:
+    """The container's records, decoded by the C decoder (``native``,
+    when the schema compiles to a program) or by ``read_datum``."""
+    with open(path, "rb") as f:
+        schema, codec, sync = _read_header(f, path)
+        program = compile_schema_program(schema.root) if native else None
+        decoder = _native_decoder() if program is not None else None
+        while True:
+            first = f.read(1)
+            if not first:
+                return
+            f.seek(-1, 1)
+            count = _read_long(f)  # type: ignore[arg-type]
+            size = _read_long(f)  # type: ignore[arg-type]
+            payload = f.read(size)
+            if codec == "deflate":
+                payload = zlib.decompress(payload, -15)
+            if decoder is not None:
+                yield from decoder.decode_block(
+                    payload, count, program.prog, program.root,
+                    program.strings)
+            else:
+                src = io.BytesIO(payload)
+                for _ in range(count):
+                    yield read_datum(src, schema.root)
             if f.read(16) != sync:
                 raise ValueError(f"{path}: sync marker mismatch")
 

@@ -48,6 +48,7 @@ KERNEL_SOURCES: Dict[str, KernelSources] = {
         headers=("entity_lbfgs.cuh",)),
     "gather": KernelSources(
         units=("gather_onehot.cu", "gather_residue.cu"), headers=()),
+    "csr_spmv": KernelSources(units=("csr_spmv.cu",), headers=()),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

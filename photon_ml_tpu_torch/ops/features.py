@@ -12,7 +12,10 @@ features_to_device :1002-1058).
 - ``CSRFeatures``: ``torch.sparse_csr`` (cuSPARSE on the card) for the
   margins, plus the CSR of the transpose for the gradient product. The
   JAX package leaves both products to XLA, outside any Pallas kernel, so
-  a library product is the port of them.
+  a library product is the port of them. cuSPARSE's product was not
+  bitwise repeatable for the transpose's long rows on the H100
+  (PERF.md); the streamed path's shard blocks (data/shard_cache.py)
+  multiply with ops/spmv.py's deterministic kernel instead.
 - ``KroneckerFeatures``: the lazy row-wise Kronecker product x_i (x)
   gamma_i of a factored random effect's projection-matrix refit; each
   product is one contraction and the ``[n, k d]`` matrix is never built.

@@ -1,7 +1,9 @@
 """Convergence reasons and optimizer results (port of
 photon_ml_tpu/optimization/convergence.py:143-201: ConvergenceReason
 with its summary :151, OptimizerResult with coef_history :184 and
-reason_enum :190).
+reason_enum :190; the streaming solvers' divergence watchdog
+check_solver_finite and SolverDivergedError :71-140, without the trace
+context and λ-grid provenance of ROADMAP A5 and A4b).
 
 An optimizer stops when (ml/optimization/Optimizer.scala:156-170)
   - iteration count hits max_iter                   -> MAX_ITERATIONS
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 from typing import Optional, Union
 
 import torch
@@ -83,3 +86,32 @@ def padded_history(rows, max_iter: int) -> Tensor:
     pad = torch.full((max_iter + 1 - h.shape[0], *h.shape[1:]),
                      float("nan"), dtype=h.dtype, device=h.device)
     return torch.cat([h, pad])
+
+
+class SolverDivergedError(RuntimeError):
+    """A host-driven streaming solver observed a non-finite loss or
+    gradient norm: the divergence watchdog's typed fault, naming the
+    solver, the outer iteration and the offending values."""
+
+    def __init__(self, solver: str, iteration: int, value, grad_norm):
+        super().__init__(
+            f"{solver} diverged at outer iteration {iteration}: "
+            f"value={value!r}, grad_norm={grad_norm!r} (non-finite). "
+            "Typical causes: learning-rate/regularization far off scale, "
+            "corrupt feature values, or an overflowing loss")
+        self.solver = solver
+        self.iteration = int(iteration)
+        self.value = value
+        self.grad_norm = grad_norm
+
+
+def check_solver_finite(solver: str, iteration: int, value,
+                        grad_norm) -> None:
+    """Raise :class:`SolverDivergedError` when the loss or gradient norm
+    went non-finite. ``value``/``grad_norm`` are host scalars the
+    streamed outer loops already hold for their convergence compares, so
+    the check adds no device sync."""
+    v, g = float(value), float(grad_norm)
+    if math.isfinite(v) and math.isfinite(g):
+        return
+    raise SolverDivergedError(solver, iteration, v, g)

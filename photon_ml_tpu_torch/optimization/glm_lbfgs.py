@@ -1,6 +1,7 @@
 """GLM L-BFGS with a margin-cached line search (port of
 photon_ml_tpu/optimization/glm_lbfgs.py: _minimize_lbfgs_glm_impl :83,
-minimize_lbfgs_glm :810).
+minimize_lbfgs_glm :810, and the out-of-core
+minimize_lbfgs_glm_streaming :241-500 over a ShardedGLMObjective).
 
 Margins are affine in the coefficients, so along a direction p
 
@@ -21,12 +22,14 @@ all ``max_line_search + 1`` candidates t_k = t0 * 0.5^k are priced in one
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch.ops.glm_objective import GLMBatch, GLMObjective
 from photon_ml_tpu_torch.optimization.convergence import (
     ConvergenceReason,
     OptimizerResult,
+    check_solver_finite,
     padded_history,
 )
 from photon_ml_tpu_torch.optimization.lbfgs import (
@@ -147,5 +150,161 @@ def minimize_lbfgs_glm(
         reason=torch.tensor(reason, dtype=torch.int32),
         value_history=padded_history(values, max_iter),
         grad_norm_history=padded_history(gnorms, max_iter),
+        coef_history=(None if coefs is None
+                      else padded_history(coefs, max_iter)))
+
+
+def _host(v: Tensor):
+    """0-d numpy scalar in the solve type: host-side convergence
+    arithmetic stays in the solver's precision (a Python-float compare
+    would widen float32 to float64 and could flip a boundary
+    decision)."""
+    return v.detach().cpu().numpy()[()]
+
+
+def _stream_direction(g: Tensor, hist, x: Tensor):
+    """Search direction + the line-search dot products ([d]-space only),
+    as the in-core solver forms them."""
+    direction = compact_direction(g, hist)
+    direction = torch.where(torch.dot(direction, g) >= 0, -g, direction)
+    return (direction, torch.dot(x, x), torch.dot(x, direction),
+            torch.dot(direction, direction), torch.dot(g, direction))
+
+
+def minimize_lbfgs_glm_streaming(
+    sharded_objective,
+    x0: Tensor,
+    l2_weight: float,
+    *,
+    max_iter: int = 100,
+    tol: float = 1e-7,
+    history_size: int = 10,
+    c1: float = 1e-4,
+    max_line_search: int = 30,
+    track_coefficients: bool = False,
+    margins_out=None,
+) -> OptimizerResult:
+    """Out-of-core L-BFGS: the outer iteration runs on the host,
+    streaming each feature pass through a ShardedGLMObjective
+    (ops/sharded_objective.py) whose shard cache replays device-resident
+    blocks, spilling and re-uploading under a device-memory budget.
+
+    Semantics follow the JAX solver step for step — margins cached per
+    shard (row-space, always resident), ONE matvec pass for the whole
+    line search, one rmatvec pass for the accepted gradient, the same
+    convergence reasons — so each iteration costs exactly 2 feature
+    passes. The first 8 candidate steps are priced in one row-space pass
+    and the rest, rarely needed, one at a time, as in JAX. The
+    accumulation order is the fixed shard order, so results are
+    deterministic and independent of cache residency. The Armijo sweep
+    and the margin update touch no feature block: no re-upload, no
+    re-decode.
+
+    Every outer iteration checks the host loss and gradient norm and
+    raises ``SolverDivergedError`` when either went non-finite.
+    ``margins_out`` (a caller-owned list) is replaced with the final
+    per-shard margins. The JAX ``trace_ctx`` and ``convergence_ring``
+    hooks are ROADMAP A5."""
+    sobj = sharded_objective
+    x = x0
+    dtype, device = x.dtype, x.device
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
+    l2 = float(l2_weight)
+    d = x.shape[-1]
+    n_batched = min(max_line_search + 1, 8)
+    powers = torch.pow(torch.tensor(0.5, dtype=dtype, device=device),
+                       torch.arange(n_batched, dtype=dtype, device=device))
+    shrink = torch.tensor(0.5, dtype=dtype, device=device)
+
+    tol_s = np_dtype.type(tol)
+    z_list, f, g = sobj.margins_value_grad(x, l2)
+    f_h = _host(f)
+    gnorm = _host(torch.linalg.norm(g))
+    check_solver_finite("streaming-lbfgs", 0, f_h, gnorm)
+    gnorm0 = gnorm
+    f0_scale = np.maximum(np.abs(f_h), np_dtype.type(1e-30))
+    hist = empty_history(d, history_size, dtype, device)
+
+    value_hist = np.full(max_iter + 1, np.nan, np_dtype)
+    gnorm_hist = np.full(max_iter + 1, np.nan, np_dtype)
+    value_hist[0], gnorm_hist[0] = f_h, gnorm
+    coefs = [x] if track_coefficients else None
+
+    reason = (ConvergenceReason.GRADIENT_CONVERGED if gnorm0 <= 0.0
+              else ConvergenceReason.NOT_CONVERGED)
+    it = 0
+    while reason == ConvergenceReason.NOT_CONVERGED:
+        direction, xx, xp, pp, gp = _stream_direction(g, hist, x)
+        zp_list = sobj.margin_direction_list(direction)
+
+        init_step = torch.where(
+            hist.count == 0, 1.0 / torch.clamp_min(torch.sqrt(pp), 1.0),
+            torch.ones((), dtype=dtype, device=device))
+        ts = init_step * powers
+        thresholds = f + c1 * ts * gp
+        f_trials = sobj.trial_values(
+            z_list, zp_list, ts, xx + 2.0 * ts * xp + ts * ts * pp, l2)
+        ft_host = f_trials.cpu().numpy()
+        armijo = np.logical_and(ft_host <= thresholds.cpu().numpy(),
+                                np.isfinite(ft_host))
+        ok = bool(armijo.any())
+        idx = int(np.argmax(armijo))  # first True
+        t_acc, f_new = ts[idx], f_trials[idx]
+
+        k = n_batched
+        t_tail = ts[-1]
+        while not ok and k < max_line_search + 1:
+            # Sequential tail past the batched block: rare (0.5^8).
+            t_tail = t_tail * shrink
+            t1 = t_tail[None]
+            f_t = sobj.trial_values(z_list, zp_list, t1,
+                                    xx + 2.0 * t1 * xp + t1 * t1 * pp,
+                                    l2)[0]
+            f_t_h = _host(f_t)
+            if f_t_h <= _host(f + c1 * t_tail * gp) and np.isfinite(f_t_h):
+                ok, t_acc, f_new = True, t_tail, f_t
+                break
+            k += 1
+
+        it += 1  # the in-core solver counts failed-line-search steps too
+        if not ok:
+            reason = ConvergenceReason.OBJECTIVE_NOT_IMPROVING
+            if it <= max_iter:
+                value_hist[it], gnorm_hist[it] = f_h, gnorm
+                if coefs is not None:
+                    coefs.append(x)
+            break
+
+        x_new = x + t_acc * direction
+        z_new = sobj.update_margins(z_list, t_acc, zp_list)
+        g_new = sobj.grad_from_margins_list(x_new, z_new, l2)
+        hist = update_history(hist, x_new - x, g_new - g)
+
+        gnorm_new = _host(torch.linalg.norm(g_new))
+        f_new_h = _host(f_new)
+        check_solver_finite("streaming-lbfgs", it, f_new_h, gnorm_new)
+        f_delta = np.abs(f_h - f_new_h)
+        x, z_list, f, g = x_new, z_new, f_new, g_new
+        f_h, gnorm = f_new_h, gnorm_new
+        value_hist[it], gnorm_hist[it] = f_h, gnorm
+        if coefs is not None:
+            coefs.append(x)
+
+        if gnorm_new <= tol_s * gnorm0:
+            reason = ConvergenceReason.GRADIENT_CONVERGED
+        elif f_delta <= tol_s * f0_scale:
+            reason = ConvergenceReason.FUNCTION_VALUES_CONVERGED
+        elif it >= max_iter:
+            reason = ConvergenceReason.MAX_ITERATIONS
+
+    if margins_out is not None:
+        margins_out[:] = z_list
+    return OptimizerResult(
+        x=x, value=f,
+        grad_norm=torch.tensor(gnorm, dtype=dtype),
+        iterations=torch.tensor(it, dtype=torch.int32),
+        reason=torch.tensor(int(reason), dtype=torch.int32),
+        value_history=torch.from_numpy(value_hist),
+        grad_norm_history=torch.from_numpy(gnorm_hist),
         coef_history=(None if coefs is None
                       else padded_history(coefs, max_iter)))

@@ -16,19 +16,25 @@ projected first; stationarity is the projected-gradient norm
 bound with the gradient pushing outward (within 1e-12) are frozen, so CG
 runs in the free subspace; the trial is P(x + s), and the predicted
 reduction is the quadratic model on the realized step, with one more
-Hessian-vector product. The streaming and batched-grid variants
-(tron.py:293-751) wait for ROADMAP queue A item 12.
+Hessian-vector product.
+
+``minimize_tron_streaming`` is the out-of-core variant (tron.py:293-522:
+_stream_cg_step, _stream_tr_update and the host outer loop) over a
+ShardedGLMObjective; the batched λ-grid variant (tron.py:541-751) is
+ROADMAP A4b.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch.optimization.convergence import (
     ConvergenceReason,
     OptimizerResult,
+    check_solver_finite,
     padded_history,
 )
 from photon_ml_tpu_torch.optimization.lbfgs import _project
@@ -225,6 +231,191 @@ def minimize_tron(
         reason=torch.tensor(reason, dtype=torch.int32),
         value_history=padded_history(values, max_iter),
         grad_norm_history=padded_history(gnorms, max_iter),
+        coef_history=(None if coefs is None
+                      else padded_history(coefs, max_iter)),
+        outer_steps=outer, cg_steps=cg_steps)
+
+
+def _host(v: Tensor):
+    """0-d numpy scalar in the solve type (see glm_lbfgs._host)."""
+    return v.detach().cpu().numpy()[()]
+
+
+def _stream_cg_step(s, r, d_vec, rtr, hd, delta, stop_norm):
+    """One Steihaug-Toint CG step given the (streamed) Hessian product:
+    the body of `_truncated_cg`; the streaming driver makes the loop
+    decisions on the host."""
+    one = torch.ones((), dtype=s.dtype, device=s.device)
+    dhd = torch.dot(d_vec, hd)
+    alpha = rtr / torch.where(dhd > 0, dhd, one)
+    s_try = s + alpha * d_vec
+    crossed = (torch.linalg.norm(s_try) > delta) | (dhd <= 0)
+
+    std = torch.dot(s, d_vec)
+    dd = torch.dot(d_vec, d_vec)
+    ss = torch.dot(s, s)
+    gap = torch.clamp_min(delta * delta - ss, 0.0)
+    rad = torch.sqrt(torch.clamp_min(std * std + dd * gap, 0.0))
+    safe_dd = torch.clamp_min(dd, 1e-30)
+    tau = torch.where(std >= 0, gap / torch.clamp_min(std + rad, 1e-30),
+                      (rad - std) / safe_dd)
+
+    step = torch.where(crossed, tau, alpha)
+    s_new = s + step * d_vec
+    r_new = r - step * hd
+    rtr_new = torch.dot(r_new, r_new)
+    beta = rtr_new / torch.clamp_min(rtr, 1e-30)
+    d_new = r_new + beta * d_vec
+    done = crossed | (torch.sqrt(rtr_new) <= stop_norm)
+    return s_new, r_new, d_new, rtr_new, done
+
+
+def _stream_tr_update(f, f_new, g, s, r, delta, first: bool):
+    """Trust-region bookkeeping for one outer step: the LIBLINEAR radius
+    interpolation of the unbounded in-core solver."""
+    dtype, device = g.dtype, g.device
+
+    def scalar(v):
+        return torch.tensor(v, dtype=dtype, device=device)
+
+    sigma1, sigma2, sigma3 = scalar(_SIGMA1), scalar(_SIGMA2), scalar(_SIGMA3)
+    gs = torch.dot(g, s)
+    prered = -0.5 * (gs - torch.dot(s, r))
+    actred = f - f_new
+    snorm = torch.linalg.norm(s)
+    if first:
+        delta = torch.minimum(delta, snorm)
+
+    denom = f_new - f - gs
+    alpha = torch.where(
+        denom <= 0, sigma3,
+        torch.maximum(sigma1, -0.5 * (gs / torch.clamp_min(denom, 1e-30))))
+    alpha_s = alpha * snorm
+    delta = torch.where(
+        actred < _ETA0 * prered,
+        torch.minimum(torch.maximum(alpha, sigma1) * snorm, sigma2 * delta),
+        torch.where(
+            actred < _ETA1 * prered,
+            torch.maximum(sigma1 * delta,
+                          torch.minimum(alpha_s, sigma2 * delta)),
+            torch.where(
+                actred < _ETA2 * prered,
+                torch.maximum(sigma1 * delta,
+                              torch.minimum(alpha_s, sigma3 * delta)),
+                torch.maximum(delta,
+                              torch.minimum(alpha_s, sigma3 * delta)))))
+    accept = (actred > _ETA0 * prered) & torch.isfinite(f_new)
+    return delta, accept
+
+
+def minimize_tron_streaming(
+    sharded_objective,
+    x0: Tensor,
+    l2_weight: float,
+    *,
+    max_iter: int = 15,
+    tol: float = 1e-5,
+    max_cg: int = 20,
+    max_improvement_failures: int = 5,
+    track_coefficients: bool = False,
+    margins_out=None,
+) -> OptimizerResult:
+    """Out-of-core TRON: the outer trust-region loop runs on the host;
+    each value/gradient evaluation and each inner-CG Hessian-vector
+    product is a streaming pass over the shard cache (margins and
+    curvature computed once per outer iteration, as
+    ``GLMObjective.make_tron_hvp`` does; each CG product costs one matvec
+    and one rmatvec per shard). No box constraints (the resident path
+    has them). Accumulation order is the fixed shard order:
+    deterministic and residency-independent. An outer iteration with k
+    CG steps costs k + 2 feature passes.
+
+    The loss and gradient norm of every ACCEPTED step are checked on the
+    host (``SolverDivergedError`` when non-finite); a rejected trial with
+    a non-finite value only shrinks the trust region, as in the in-core
+    solver. ``margins_out`` (a caller-owned list) is replaced with the
+    final per-shard margins. The JAX ``trace_ctx`` and
+    ``convergence_ring`` hooks are ROADMAP A5."""
+    sobj = sharded_objective
+    x = x0
+    dtype = x.dtype
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
+    l2 = float(l2_weight)
+
+    tol_s = np_dtype.type(tol)
+    z_list, f, g = sobj.margins_value_grad(x, l2)
+    f_h = _host(f)
+    gnorm = _host(torch.linalg.norm(g))
+    check_solver_finite("streaming-tron", 0, f_h, gnorm)
+    gnorm0 = gnorm
+    f0_scale = np.maximum(np.abs(f_h), np_dtype.type(1e-30))
+    delta = torch.linalg.norm(g)
+
+    value_hist = np.full(max_iter + 1, np.nan, np_dtype)
+    gnorm_hist = np.full(max_iter + 1, np.nan, np_dtype)
+    value_hist[0], gnorm_hist[0] = f_h, gnorm
+    coefs = [x] if track_coefficients else None
+
+    reason = (ConvergenceReason.GRADIENT_CONVERGED if gnorm0 <= 0.0
+              else ConvergenceReason.NOT_CONVERGED)
+    it = fails = outer = cg_steps = 0
+    first = True
+    while reason == ConvergenceReason.NOT_CONVERGED:
+        d2_list = sobj.curvature_list(z_list)
+
+        # -- truncated CG (streamed Hv per step) --------------------------
+        s = torch.zeros_like(g)
+        r = -g
+        d_vec = -g
+        rtr = torch.dot(r, r)
+        stop_norm = _CG_XI * torch.linalg.norm(g)
+        cg_done = bool(torch.linalg.norm(r) <= stop_norm)
+        k = 0
+        while not cg_done and k < max_cg:
+            hd = sobj.hessian_vector(d_vec, d2_list, l2)
+            s, r, d_vec, rtr, done = _stream_cg_step(
+                s, r, d_vec, rtr, hd, delta, stop_norm)
+            cg_done = bool(done)
+            k += 1
+        cg_steps += k
+        outer += 1
+
+        x_try = x + s
+        z_try, f_new, g_new = sobj.margins_value_grad(x_try, l2)
+        delta, accept_t = _stream_tr_update(f, f_new, g, s, r, delta, first)
+        first = False
+
+        if bool(accept_t):
+            it += 1
+            fails = 0
+            x, z_list, g = x_try, z_try, g_new
+            f_new_h = _host(f_new)
+            f_delta = np.abs(f_h - f_new_h)
+            f, f_h = f_new, f_new_h
+            gnorm = _host(torch.linalg.norm(g))
+            check_solver_finite("streaming-tron", it, f_h, gnorm)
+            value_hist[it], gnorm_hist[it] = f_h, gnorm
+            if coefs is not None:
+                coefs.append(x)
+            if gnorm <= tol_s * gnorm0:
+                reason = ConvergenceReason.GRADIENT_CONVERGED
+            elif f_delta <= tol_s * f0_scale:
+                reason = ConvergenceReason.FUNCTION_VALUES_CONVERGED
+            elif it >= max_iter:
+                reason = ConvergenceReason.MAX_ITERATIONS
+        else:
+            fails += 1
+            if fails > max_improvement_failures:
+                reason = ConvergenceReason.OBJECTIVE_NOT_IMPROVING
+
+    if margins_out is not None:
+        margins_out[:] = z_list
+    return OptimizerResult(
+        x=x, value=f, grad_norm=torch.tensor(gnorm, dtype=dtype),
+        iterations=torch.tensor(it, dtype=torch.int32),
+        reason=torch.tensor(int(reason), dtype=torch.int32),
+        value_history=torch.from_numpy(value_hist),
+        grad_norm_history=torch.from_numpy(gnorm_hist),
         coef_history=(None if coefs is None
                       else padded_history(coefs, max_iter)),
         outer_steps=outer, cg_steps=cg_steps)

@@ -22,7 +22,8 @@ Tolerances (PERF.md §6): objectiveHistory rtol 1e-8, validation AUC
 within 1e-9, equal bestConfigs and convergence summaries, decoded
 coefficient records atol 1e-6; cross-scoring (each driver scores both
 trained models): scores atol 1e-10, AUC 1e-9. The flags of later
-queue items raise an error naming the item.
+queue items raise an error naming the item; the ported --stream-train
+flags, each with a flag of a later item, raise naming that item.
 """
 
 import functools
@@ -273,15 +274,43 @@ def test_cross_scoring(runs, example):
             assert abs(mine["metrics"]["AUC"] - best) <= 1e-9
 
 
+# --stream-train and its flags are ported (streamed ingest and training,
+# ROADMAP A4); each of those entries keeps its first flag and adds what
+# still belongs to a later item, which must raise naming it (the named
+# flag, third).
+_STREAM_FE = ["--stream-train", "--random-effect-data-configurations",
+              "--updating-sequence", "fixed"]
+_GRID2 = ["--fixed-effect-optimization-configurations",
+          "fixed:50,1e-7,1.0,1.0,LBFGS,L2|50,1e-7,10.0,1.0,LBFGS,L2"]
 TRAINING_LATER = [
-    (["--stream-train"], "A4"), (["--hbm-budget", "8K"], "A4"),
-    (["--grid-batched", "on"], "A4"), (["--grid-batched", "off"], "A4"),
-    (["--spill-dtype", "bf16"], "A4"), (["--spill-source", "redecode"], "A4"),
-    (["--feeder", "python"], "A4"), (["--prefetch-batches", "0"], "A4"),
-    (["--distmon"], "A5"), (["--trace-out", "t.json"], "A5"),
-    (["--profile-output-dir", "prof"], "A5"), (["--obs-port", "0"], "A5"),
-    (["--flight-events", "16"], "A5"), (["--slo", "p99:x<=1ms"], "A5"),
-    (["--mesh-devices", "2"], "A6"), (["--mesh-shape", "2x2"], "A6")]
+    (["--stream-train", "--factored-random-effect-data-configurations",
+      "mf:userId,global,4,-1,-1,-1,IDENTITY",
+      "--factored-random-effect-optimization-configurations",
+      "mf:20,1e-6,1.0,1.0,LBFGS,L2;20,1e-6,1.0,1.0,LBFGS,L2;1,2",
+      "--random-effect-data-configurations", "--updating-sequence", "mf"],
+     "A4b", "--stream-train"),
+    (["--hbm-budget", "8K", *_STREAM_FE, *_GRID2], "A4b",
+     "--grid-batched auto"),
+    (["--grid-batched", "on", "--hbm-budget", "8K", *_STREAM_FE], "A4b",
+     "--grid-batched on"),
+    (["--grid-batched", "off", "--hbm-budget", "8K", *_STREAM_FE,
+      "--mesh-devices", "2"], "A6", "--mesh-devices"),
+    (["--spill-dtype", "bf16", "--hbm-budget", "8K", *_STREAM_FE,
+      "--distmon"], "A5", "--distmon"),
+    (["--spill-source", "redecode", "--hbm-budget", "8K", *_STREAM_FE,
+      "--mesh-shape", "2x2"], "A6", "--mesh-shape"),
+    (["--feeder", "python", *_STREAM_FE, "--trace-out", "t.json"], "A5",
+     "--trace-out"),
+    (["--prefetch-batches", "0", *_STREAM_FE, "--profile-output-dir",
+      "prof"], "A5", "--profile-output-dir"),
+    (["--distmon"], "A5", "--distmon"),
+    (["--trace-out", "t.json"], "A5", "--trace-out"),
+    (["--profile-output-dir", "prof"], "A5", "--profile-output-dir"),
+    (["--obs-port", "0"], "A5", "--obs-port"),
+    (["--flight-events", "16"], "A5", "--flight-events"),
+    (["--slo", "p99:x<=1ms"], "A5", "--slo"),
+    (["--mesh-devices", "2"], "A6", "--mesh-devices"),
+    (["--mesh-shape", "2x2"], "A6", "--mesh-shape")]
 SCORING_LATER = [
     (["--stream"], "A5"), (["--serve"], "A5"), (["--listen", "0"], "A5"),
     (["--adaptive-admission"], "A5"), (["--distmon"], "A5"),
@@ -289,12 +318,12 @@ SCORING_LATER = [
     (["--flight-events", "16"], "A5"), (["--slo", "p99:x<=1ms"], "A5")]
 
 
-@pytest.mark.parametrize("extra,item", TRAINING_LATER,
-                         ids=[e[0] for e, _ in TRAINING_LATER])
-def test_training_flags_of_later_items_raise(tmp_path, extra, item):
+@pytest.mark.parametrize("extra,item,named", TRAINING_LATER,
+                         ids=[e[0] for e, _, _ in TRAINING_LATER])
+def test_training_flags_of_later_items_raise(tmp_path, extra, item, named):
     argv = ["--train-input-dirs", str(tmp_path / "none"), "--output-dir",
             str(tmp_path / "out"), *TRAINING_FLAGS, *extra]
-    with pytest.raises(ValueError, match=f"{extra[0]} is not ported yet: "
+    with pytest.raises(ValueError, match=f"{named} is not ported yet: "
                        f"it comes with ROADMAP queue {item}"):
         game_training_driver.run(argv, device="cpu")
     assert not (tmp_path / "out").exists()

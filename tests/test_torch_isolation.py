@@ -41,7 +41,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     scanned = {p.relative_to(REPO).parts[1] for p in files
                if p.parent != REPO}
     assert {"projector", "dev_scripts", "ops", "models", "io", "cli",
-            "utils", "diagnostics", "estimators", "evaluation"} <= scanned
+            "utils", "diagnostics", "estimators", "evaluation", "native",
+            "serving", "data", "optimization", "algorithm"} <= scanned
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -69,7 +70,9 @@ def _dataset():
     "estimator", "fixed_effect_batch", "random_effect_dataset",
     "coordinate", "coordinate_descent", "convert", "features",
     "gather_experiments", "matrix_factorization", "training_driver",
-    "scoring_driver", "glm_driver", "train_glm_models", "device_batch"])
+    "scoring_driver", "glm_driver", "train_glm_models", "device_batch",
+    "stream_training_driver", "shard_cache", "assemble_fixed_effect_batch",
+    "chunked_device_put", "streaming_scorer"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            entry):
     from photon_ml_tpu_torch.algorithm.coordinate_descent import (
@@ -88,12 +91,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         RandomEffectDataConfiguration,
         build_random_effect_dataset,
     )
+    from photon_ml_tpu_torch.data.device_feed import chunked_device_put
+    from photon_ml_tpu_torch.data.shard_cache import (
+        DeviceShardCache,
+        assemble_fixed_effect_batch,
+    )
     from photon_ml_tpu_torch.dev_scripts import gather_experiments
     from photon_ml_tpu_torch.estimators import model_training
     from photon_ml_tpu_torch.estimators.game_estimator import (
         FixedEffectSpec,
         GameEstimator,
     )
+    from photon_ml_tpu_torch.models.game_model import GameModel
     from photon_ml_tpu_torch.models.matrix_factorization import (
         MatrixFactorizationModel,
     )
@@ -101,6 +110,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
     from photon_ml_tpu_torch.optimization.config import (
         GLMOptimizationConfiguration,
     )
+    from photon_ml_tpu_torch.serving.engine import StreamingGameScorer
     from photon_ml_tpu_torch.types import TaskType
 
     _gpu_less(monkeypatch)
@@ -137,6 +147,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
             data.feature_shards["g"], data.responses, task, [1.0]),
         "device_batch": lambda: model_training.device_batch(
             data.feature_shards["g"], data.responses),
+        "stream_training_driver": lambda: game_training_driver.run([
+            "--train-input-dirs", "train", "--output-dir", "out",
+            "--task-type", "LOGISTIC_REGRESSION",
+            "--fixed-effect-data-configurations", "fixed:g",
+            "--updating-sequence", "fixed", "--stream-train",
+            "--hbm-budget", "8K"]),
+        "shard_cache": lambda: DeviceShardCache.from_stream([data], "g"),
+        "assemble_fixed_effect_batch": lambda: assemble_fixed_effect_batch(
+            [data], "g"),
+        "chunked_device_put": lambda: chunked_device_put(data.responses),
+        "streaming_scorer": lambda: StreamingGameScorer(
+            GameModel({}, task)),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -1,0 +1,183 @@
+"""Streamed training on the card: the C Avro decoder's build on the GPU
+host, the deterministic CSR product (csrc/csr_spmv.cu) against its plain
+version (torch.mv on the same CSR, rtol 1e-5 of sum |a x| in float32,
+1e-12 in float64) and bit for bit against itself over 20 calls, a cached
+shard's partials bit for bit over 20 calls, spill and re-upload through
+pinned staging buffers and the side stream (every re-uploaded block the
+evicted bytes), and a streamed L-BFGS model bit-identical across
+residency, and bf16 spill as deterministic.
+
+Marked ``cuda``: skips without a GPU. This file imports neither jax nor
+the JAX package, so it runs on a GPU host that has only PyTorch:
+
+    python -m pytest --noconftest -q tests/test_torch_stream_cuda.py
+"""
+
+import threading
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from photon_ml_tpu_torch import native
+from photon_ml_tpu_torch.data.device_feed import chunked_device_put
+from photon_ml_tpu_torch.data.game_data import GameDataset
+from photon_ml_tpu_torch.data.shard_cache import DeviceShardCache
+from photon_ml_tpu_torch.ops import spmv
+from photon_ml_tpu_torch.ops.glm_objective import GLMObjective
+from photon_ml_tpu_torch.ops.losses import loss_for_task
+from photon_ml_tpu_torch.ops.sharded_objective import ShardedGLMObjective
+from photon_ml_tpu_torch.optimization.glm_lbfgs import (
+    minimize_lbfgs_glm_streaming,
+)
+from photon_ml_tpu_torch.types import TaskType
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def _join_prefetch_threads():
+    yield
+    for t in threading.enumerate():
+        if t.name == "host-prefetch":
+            t.join(timeout=10)
+            assert not t.is_alive(), "a prefetch thread did not end"
+
+
+class _Stream(list):
+    def stats(self):
+        return {"decode_path": "memory"}
+
+
+def _problem(n=3000, d=60, density=0.2, seed=0):
+    rng = np.random.default_rng(seed)
+    X = sp.random(n, d, density=density, random_state=seed, format="csr")
+    X.data[:] = rng.normal(0, 1, X.nnz)
+    y = (rng.random(n) < 0.5).astype(float)
+    return X, y
+
+
+def _stream(X, y, rows):
+    return _Stream(GameDataset.build(responses=y[s:s + rows],
+                                     feature_shards={"g": X[s:s + rows]})
+                   for s in range(0, X.shape[0], rows))
+
+
+@pytest.mark.cuda
+def test_native_decoder_builds_on_the_gpu_host(cuda_device):
+    mod = native.load_avro_native()
+    assert hasattr(mod, "decode_training_block")
+    assert native.library_path().exists()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("shape", [(5000, 40, 0.3), (300, 2000, 0.01),
+                                   (40, 70000, 0.05), (7, 9, 0.0)])
+def test_spmv_kernel_matches_plain_and_is_deterministic(cuda_device, dtype,
+                                                        rtol, shape):
+    """Short rows (a warp a row), long rows (a block a row) and empty
+    rows; the transpose's long rows too."""
+    n, d, density = shape
+    X, _ = _problem(n, d, density)
+    rows = np.repeat(np.arange(n), np.diff(X.indptr))
+    block = spmv.block_from_triplet(
+        torch.as_tensor(X.data, dtype=dtype, device=cuda_device),
+        torch.as_tensor(X.indices, device=cuda_device),
+        torch.as_tensor(rows, device=cuda_device), n, d)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    v = torch.randn(d, generator=g, device=cuda_device, dtype=dtype)
+    u = torch.randn(n, generator=g, device=cuda_device, dtype=dtype)
+    spmv.reset_launch_counts()
+    got = (block.matvec(v), block.rmatvec(u))
+    assert spmv.csr_matvec.launches == 2
+    plain = (spmv.csr_matvec_plain(block.crow, block.col, block.values, v,
+                                   d),
+             spmv.csr_matvec_plain(block.crow_t, block.row_t,
+                                   block.values_t, u, n))
+    scale = (spmv.csr_matvec_plain(block.crow, block.col,
+                                   block.values.abs(), v.abs(), d),
+             spmv.csr_matvec_plain(block.crow_t, block.row_t,
+                                   block.values_t.abs(), u.abs(), n))
+    for k, p, s in zip(got, plain, scale):
+        assert bool(((k - p).abs() <= rtol * s + 1e-30).all())
+    for _ in range(20):
+        assert torch.equal(block.matvec(v), got[0])
+        assert torch.equal(block.rmatvec(u), got[1])
+
+
+@pytest.mark.cuda
+def test_cached_shard_partials_bitwise_over_20_calls(cuda_device):
+    X, y = _problem(20000, 200, 1.0)
+    cache = DeviceShardCache.from_stream(_stream(X, y, 16384), "g",
+                                         device=cuda_device)
+    sobj = ShardedGLMObjective(
+        GLMObjective(loss_for_task(TaskType.LOGISTIC_REGRESSION)), cache)
+    coef = torch.linspace(-0.1, 0.1, 200, device=cuda_device)
+    f0, g0 = sobj.value_and_grad(coef, 1.0)
+    for _ in range(20):
+        f, g = sobj.value_and_grad(coef, 1.0)
+        assert torch.equal(f, f0) and torch.equal(g, g0)
+
+
+@pytest.mark.cuda
+def test_spill_and_reupload_through_pinned_staging(cuda_device):
+    """Uploads go through pinned staging buffers on a side stream: chunked
+    uploads equal one upload, and every re-uploaded block (prefetched on
+    the producer thread) is the evicted block, tensor for tensor."""
+    a = np.random.default_rng(2).normal(size=(1000, 7))
+    for chunk in (8 * 7 * 3, 1 << 20):
+        got = chunked_device_put(a, torch.float32, cuda_device,
+                                 chunk_bytes=chunk)
+        assert torch.equal(got.cpu(), torch.as_tensor(a, dtype=torch.float32))
+    X, y = _problem()
+    resident = DeviceShardCache.from_stream(_stream(X, y, 500), "g",
+                                            device=cuda_device)
+    budget = 2 * max(e.feature_bytes for e in resident.entries)
+    for spill_dtype in ("f32", "bf16"):
+        spilled = DeviceShardCache.from_stream(
+            _stream(X, y, 500), "g", hbm_budget_bytes=budget,
+            spill_dtype=spill_dtype, device=cuda_device)
+        for _ in range(2):
+            for b, ref in zip(spilled.blocks(prefetch_depth=2),
+                              resident.entries):
+                for name in ("crow", "col", "crow_t", "row_t"):
+                    assert torch.equal(getattr(b.feats, name),
+                                       getattr(ref.feats, name))
+                want = ref.feats.values
+                if spill_dtype == "bf16":
+                    want = want.to(torch.bfloat16).float()
+                assert torch.equal(b.feats.values, want)
+        s = spilled.stats()
+        assert s["misses"] > 0
+        assert s["hits"] + s["misses"] == s["epochs"] * spilled.n_shards
+        assert s["peak_device_bytes"] <= budget + max(
+            e.feature_bytes for e in spilled.entries)
+
+
+@pytest.mark.cuda
+def test_streamed_model_identical_across_residency_on_the_card(cuda_device):
+    X, y = _problem(6000, 80, 0.25, seed=4)
+    obj = GLMObjective(loss_for_task(TaskType.LOGISTIC_REGRESSION))
+
+    def solve(**kw):
+        cache = DeviceShardCache.from_stream(_stream(X, y, 1024), "g",
+                                             device=cuda_device, **kw)
+        return minimize_lbfgs_glm_streaming(
+            ShardedGLMObjective(obj, cache),
+            torch.zeros(80, device=cuda_device), 1.0, max_iter=30).x
+
+    resident = solve()
+    assert torch.equal(solve(hbm_budget_bytes=1, prefetch_depth=0),
+                       resident)
+    assert torch.equal(solve(hbm_budget_bytes=600_000, prefetch_depth=2),
+                       resident)
+    assert torch.equal(solve(hbm_budget_bytes=1, spill_dtype="bf16"),
+                       solve(hbm_budget_bytes=10 << 20, spill_dtype="bf16"))
