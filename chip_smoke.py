@@ -96,8 +96,10 @@ before they are removed (the fixed effect over the ``global`` shard,
 L-BFGS/L2 on a 4-point λ grid with --grid-batched off, --feeder native,
 4,096-row shards) five ways: resident (exact assembly, the one-shot
 estimator), --hbm-budget above the shard's device bytes, at a quarter
-of them with f32 buffer spill, the same with --spill-source redecode,
-and with --spill-dtype bf16; and the one-shot driver on the same flags.
+of them with f32 buffer spill, the same with --spill-source redecode on
+two λ (the quarter run's best and the grid's first: a cut of depth,
+since the redecode run re-decodes every miss), and with --spill-dtype
+bf16; and the one-shot driver on the same flags.
 Its checks: the C decoder decoded every run; evictions where the budget
 forces them; the three f32 spill runs' decoded best models are the same
 records; the resident run's are the one-shot driver's; the bf16 model is
@@ -116,6 +118,38 @@ bit for bit. Row 9 is held against its plain version (torch.mv on the
 same CSR, cuSPARSE on the card) on one of its blocks within 1e-5 of
 sum |a x|, and against itself over 20 calls bit for bit (cuSPARSE's own
 repeatability is printed).
+
+Path 9 (the second half of streamed training) runs the training driver
+on path 6's files three ways. Grid: path 8's quarter-budget f32 run
+with --grid-batched on (all four λ advance per feature pass); it must
+select path 8's sequential best λ with fewer feature passes and fewer
+bytes re-uploaded. Ingest: path 6's one-shot flags with
+--ingest-workers 4 against 1 (worker processes that import no torch);
+the decoded arrays and the trained models must be the same bytes, and
+the ingest seconds of both and of path 7's GLM driver at auto are
+printed. MF: --stream-train of the itemFactors coordinate alone (config
+5's MF, k = 4, 2,000 items, its 20-iteration refit of B, nothing cut)
+under LINEAR_REGRESSION with no budget, a
+16K budget that evicts factor shards, that budget with bf16 spill and
+with redecode spill; the no-budget, f32 and redecode factors must be the
+same bits and bf16 within 5% of the largest factor value (the JAX
+package's bound). Kernel row 10 (csrc/csr_spmm.cu, the deterministic
+CSR x panel product) launches in the grid and MF runs, and is held at
+the shapes MF gave it (the normal equations' entity x row CSR with its
+[rows, 20] panel, three column tiles; the feature block with B^T and
+its transpose) against its plain version and column by column against
+row 9. Then the grid
+full-width phase solves the full-width stream phase's shard (160,000 x
+200 from memory) by batched L-BFGS at G = 4 and 8 against the
+sequential sweep of the same λ, with no budget and at 25% (ms per
+iteration, feature passes, bytes re-uploaded, the same selected λ),
+reports whether a G > 1 lane's value and gradient are the scalar
+path's bits, and holds row 10 against its plain version
+(torch.sparse.mm) within 1e-5 of sum |a x|, column by column against row
+9 bit for bit and itself over 20 calls, timed at n = 4 and 8 against n
+calls of row 9, cuSPARSE's SpMM and its bound. Last, 20 calls bit for
+bit each: the batched ridge solve of streamed MF (torch.linalg.solve on
+[2048, 4, 4]) and the in-core CSRFeatures' four products (row 9).
 
 Then the gather phase runs the port's gather experiment
 (photon_ml_tpu_torch/dev_scripts/gather_experiments.py) at its full
@@ -184,8 +218,9 @@ The third line from the end is a JSON record of the kernels (rows 1-8
 of the PERF.md table: L-BFGS, the normalization fold, bounded L-BFGS,
 OWL-QN, TRON and bounded TRON, the one-hot and the residue-class gather,
 each with its launches on the main paths, path 6's among row 1's, times
-and bound; and row 9, the deterministic CSR product, with its launches
-in path 8 and the full-width stream phase), then the
+and bound; row 9, the deterministic CSR product, with its launches in
+path 8 and the full-width stream phase; row 10, the CSR x panel
+product, with its launches in path 9 and the grid phase), then the
 card's name and power limit, and the last line is {"ok": true,
 "device": ...}. It exits non-zero, printing no result, without CUDA or
 when any check fails.
@@ -193,6 +228,7 @@ when any check fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
@@ -1436,6 +1472,36 @@ def write_path6_inputs(train, val, root: Path, pool) -> dict:
     return maps
 
 
+PATH6_RE_CFG = "20,1e-6,1.0,1.0,LBFGS,L2"
+PATH6_MF_DATA = "itemFactors:itemId,item,1,-1,-1,-1,IDENTITY"
+PATH6_MF_OPT = (f"itemFactors:{PATH6_RE_CFG};{PATH6_RE_CFG};"
+                f"{MF_ITERATIONS},{MF_FACTORS}")
+
+
+def path6_argv(root: Path) -> list:
+    """The training driver's flags of path 6 (bench.py's config 5 on the
+    Avro files under ``root``), without --output-dir."""
+    return [
+        "--train-input-dirs", str(root / "train"),
+        "--validate-input-dirs", str(root / "validate"),
+        "--feature-index-dir", str(root / "feature-index"),
+        "--task-type", "LOGISTIC_REGRESSION",
+        "--fixed-effect-data-configurations", "fixed:global",
+        "--fixed-effect-optimization-configurations",
+        "fixed:50,1e-7,1.0,1.0,LBFGS,L2",
+        "--random-effect-data-configurations",
+        "perUser:userId,user,1,-1,-1,-1",
+        "perItem:itemId,item,1,-1,-1,-1",
+        "--random-effect-optimization-configurations",
+        f"perUser:{PATH6_RE_CFG}", f"perItem:{PATH6_RE_CFG}",
+        "--factored-random-effect-data-configurations", PATH6_MF_DATA,
+        "--factored-random-effect-optimization-configurations",
+        PATH6_MF_OPT,
+        "--updating-sequence", PATH6_SEQUENCE,
+        "--num-iterations", str(CD_ITERATIONS),
+        "--evaluators", "AUC,LOGISTIC_LOSS"]
+
+
 def path6(train, val, specs5, root: Path) -> int:
     """Path 6: bench.py's config 5 through the training driver on Avro
     inputs, the model saved and loaded back, then the scoring driver on
@@ -1481,28 +1547,7 @@ def path6(train, val, specs5, root: Path) -> int:
         # while the driver runs here.
         decoded = [pool.submit(_decode, root / tag, root / "feature-index")
                    for tag in ("train", "validate")]
-        re_cfg = "20,1e-6,1.0,1.0,LBFGS,L2"
-        argv = [
-            "--train-input-dirs", str(root / "train"),
-            "--validate-input-dirs", str(root / "validate"),
-            "--feature-index-dir", str(root / "feature-index"),
-            "--output-dir", str(root / "model"),
-            "--task-type", "LOGISTIC_REGRESSION",
-            "--fixed-effect-data-configurations", "fixed:global",
-            "--fixed-effect-optimization-configurations",
-            "fixed:50,1e-7,1.0,1.0,LBFGS,L2",
-            "--random-effect-data-configurations",
-            "perUser:userId,user,1,-1,-1,-1",
-            "perItem:itemId,item,1,-1,-1,-1",
-            "--random-effect-optimization-configurations",
-            f"perUser:{re_cfg}", f"perItem:{re_cfg}",
-            "--factored-random-effect-data-configurations",
-            "itemFactors:itemId,item,1,-1,-1,-1,IDENTITY",
-            "--factored-random-effect-optimization-configurations",
-            f"itemFactors:{re_cfg};{re_cfg};{MF_ITERATIONS},{MF_FACTORS}",
-            "--updating-sequence", PATH6_SEQUENCE,
-            "--num-iterations", str(CD_ITERATIONS),
-            "--evaluators", "AUC,LOGISTIC_LOSS"]
+        argv = [*path6_argv(root), "--output-dir", str(root / "model")]
         # ---- the main path: counts set to 0 just before, read just after --
         entity_solver.reset_launch_counts()
         summary = game_training_driver.run(argv)
@@ -1643,7 +1688,7 @@ def host_variances(x, off, w, coef, factors, shifts, l2):
     return 1.0 / ((d[:, None] * xs * xs).sum(axis=0) + l2 + 1e-12)
 
 
-def path7(root: Path) -> None:
+def path7(root: Path) -> dict:
     """Path 7: the GLM driver (photon_ml_tpu_torch.cli.glm_driver.run) on
     path 6's Avro files with run_glm_driver.sh's flags and every
     diagnostic, at bench.py's fixed-effect width through path 6's
@@ -1800,6 +1845,7 @@ def path7(root: Path) -> None:
     summarized = list(read_container(root / "glm-summary"
                                      / "part-00000.avro"))
     check(len(summarized) == D_FIXED, "path 7: feature summary")
+    return summary["phaseSeconds"]
 
 
 def glm_full_width(train) -> None:
@@ -1956,14 +2002,16 @@ def codec_ms_a_row(path: Path) -> dict:
     return out
 
 
-def path8(root: Path) -> int:
+def path8(root: Path) -> tuple:
     """Path 8: the training driver with --stream-train on path 6's files
     (40,000 training and 10,000 hold-out rows, the fixed effect over the
     200-feature ``global`` shard, L-BFGS/L2 on PATH8_GRID with
     --grid-batched off, --feeder native, PATH8_BATCH_ROWS-row shards),
     five ways: resident; --hbm-budget above the shard's device bytes;
     at about a quarter of them (f32 buffer spill); the same with
-    --spill-source redecode; and --spill-dtype bf16. Checks: the C
+    --spill-source redecode on two λ of the grid, the quarter run's best
+    and the first (a cut of depth: the redecode run re-decodes every
+    miss); and --spill-dtype bf16. Checks: the C
     decoder decoded every run; the budget forced evictions where it is
     below the shard's bytes; the three f32 spill runs write the same
     decoded best model; the resident run writes the one-shot driver's
@@ -1971,7 +2019,9 @@ def path8(root: Path) -> int:
     BF16_RTOL/BF16_ATOL of the f32 one per coefficient; the streamed
     validation AUC of the best λ equals the batch scoring driver's on
     that model within 1e-6; the deterministic product launched in every
-    spill run. Returns its launches in the spill runs."""
+    spill run. Returns its launches in the spill runs, and the quarter
+    budget and the quarter f32 run's summary (path 9 holds the batched
+    grid against it)."""
     from photon_ml_tpu_torch.cli import (
         game_scoring_driver,
         game_training_driver,
@@ -1985,19 +2035,19 @@ def path8(root: Path) -> int:
             "--feature-index-dir", str(root / "feature-index"),
             "--task-type", "LOGISTIC_REGRESSION",
             "--fixed-effect-data-configurations", "fixed:global",
-            "--fixed-effect-optimization-configurations", PATH8_GRID,
             "--updating-sequence", "fixed",
             "--evaluators", "AUC,LOGISTIC_LOSS"]
     stream = ["--stream-train", "--grid-batched", "off", "--feeder",
               "native", "--batch-rows", str(PATH8_BATCH_ROWS)]
     runs = {}
 
-    def run(tag, extra):
+    def run(tag, extra, grid=PATH8_GRID):
         log.phases.clear()
         spmv.reset_launch_counts()
         t0 = time.perf_counter()
         summary = game_training_driver.run(
-            [*base, *extra, "--output-dir", str(root / f"p8-{tag}")])
+            [*base, "--fixed-effect-optimization-configurations", grid,
+             *extra, "--output-dir", str(root / f"p8-{tag}")])
         seconds = time.perf_counter() - t0
         launches = spmv.csr_matvec.launches
         info = summary.get("stream_train") or {}
@@ -2017,9 +2067,12 @@ def path8(root: Path) -> int:
     hi = run("budget-above", [*stream, "--hbm-budget", "1G"])
     shard_bytes = hi["stream_train"]["cache"]["device_bytes"]
     quarter = str(shard_bytes // 4)
-    run("quarter-f32", [*stream, "--hbm-budget", quarter])
+    q = run("quarter-f32", [*stream, "--hbm-budget", quarter])
+    best = q["bestConfigs"]["fixed"]
+    first = PATH8_GRID.split(":", 1)[1].split("|")[0]
+    two = "fixed:" + "|".join(dict.fromkeys([first, best]))
     run("quarter-redecode", [*stream, "--hbm-budget", quarter,
-                             "--spill-source", "redecode"])
+                             "--spill-source", "redecode"], grid=two)
     run("quarter-bf16", [*stream, "--hbm-budget", quarter,
                          "--spill-dtype", "bf16"])
     logging.getLogger("photon_ml_tpu_torch").removeHandler(log)
@@ -2044,6 +2097,9 @@ def path8(root: Path) -> int:
     check(recs["budget-above"] == recs["quarter-f32"]
           == recs["quarter-redecode"],
           "path 8: the f32 spill runs' models differ")
+    check(runs["quarter-redecode"]["summary"]["bestConfigs"]
+          == runs["quarter-f32"]["summary"]["bestConfigs"],
+          "path 8: the redecode run selected another λ")
     check(recs["resident"] == recs["oneshot"],
           "path 8: the resident run's model differs from the one-shot "
           "driver's")
@@ -2072,8 +2128,10 @@ def path8(root: Path) -> int:
     print(f"path 8 decode of path 6's first training part ({codec['rows']} "
           f"rows): C block decoder {codec['native']:.4f} ms a row, "
           f"pure-Python codec {codec['python']:.4f} ms a row", flush=True)
-    return sum(r["launches"] for t, r in runs.items()
-               if t not in ("oneshot", "resident"))
+    launches = sum(r["launches"] for t, r in runs.items()
+                   if t not in ("oneshot", "resident"))
+    return launches, {"quarter": quarter,
+                      "quarter-f32": runs["quarter-f32"]["summary"]}
 
 
 class _Batches(list):
@@ -2269,6 +2327,527 @@ def stream_full_width(train) -> tuple:
     return launches, block
 
 
+# ---------------------------------------------------------------------------
+# Path 9 and the grid full-width phase: the second half of streamed
+# training (the batched λ grid, parallel ingest, streamed MF) and row 10.
+# ---------------------------------------------------------------------------
+
+SPMM_SOURCE = "photon_ml_tpu_torch/csrc/csr_spmm.cu"
+# The products it stands for (no TPU kernel: the vmapped gather and
+# segment sum of the grid kit, and MF's projections and normal equations).
+SPMM_REPLACES = "photon_ml_tpu/ops/sharded_objective.py:612"
+PATH9_MF_BUDGET = "16K"  # below the factor tables' bytes: evictions
+PATH9_INGEST_WORKERS = 4
+# The JAX package's bound of a bf16 factor train against f32
+# (tests/test_mf_alternating.py:193-197): max |d| <= 0.05 max |f32|.
+MF_BF16_SHARE = 0.05
+GRID_WIDTHS = (4, 8)
+
+
+def _avro_records(out: Path) -> list:
+    """Decoded records of every Avro file under a run's best model."""
+    from photon_ml_tpu_torch.io.avro_codec import read_container
+
+    files = sorted((out / "best").rglob("*.avro"))
+    check(files, f"no model under {out}")
+    return [list(read_container(f)) for f in files]
+
+
+def _floats(obj) -> list:
+    """Every float of decoded records, in order."""
+    if isinstance(obj, float):
+        return [obj]
+    if isinstance(obj, dict):
+        return [v for k in sorted(obj) for v in _floats(obj[k])]
+    if isinstance(obj, (list, tuple)):
+        return [v for x in obj for v in _floats(x)]
+    return []
+
+
+def path9(root: Path, p8: dict, glm_phases: dict) -> int:
+    """Path 9, on path 6's files: the training driver three ways.
+
+    - Grid: path 8's --stream-train run (the fixed effect over
+      ``global``, L-BFGS/L2, path 8's four λ) with --grid-batched on at
+      path 8's quarter budget (f32 buffer spill). Checks: path 8's
+      sequential run's bestConfigs; fewer feature passes and bytes
+      re-uploaded than that run; row 10 launched.
+    - Ingest: path 6's one-shot training flags with --ingest-workers
+      PATH9_INGEST_WORKERS against 1. Checks: the decoded arrays
+      (read_game_dataset, both counts) and the trained models are the
+      same bytes.
+    - MF: --stream-train of the itemFactors coordinate alone (config 5's
+      MF, k = 4, 2,000 items, its 20-iteration refit of B) under
+      LINEAR_REGRESSION, with no budget,
+      PATH9_MF_BUDGET (evictions), that budget with bf16 spill and with
+      redecode spill. Checks: no-budget, f32 and redecode factors the
+      same bits; bf16 within MF_BF16_SHARE; evictions; row 10 launched.
+      Row 10 is then held (hold_spmm) at the shapes MF gave it in the
+      no-budget run: the first batch's entity x row CSR of ones with
+      its [rows, k^2 + k] normal-equation panel, the batch's feature
+      block with B^T, and its transpose with a [rows, k] panel.
+
+    Returns row 10's launches in its runs (counted from 0 just before
+    each run, read just after) and the largest error of the MF checks."""
+    from photon_ml_tpu_torch.cli import game_training_driver
+    from photon_ml_tpu_torch.data.avro_reader import read_game_dataset
+    from photon_ml_tpu_torch.data.paldb import load_feature_index_maps
+    from photon_ml_tpu_torch.ops import spmv
+
+    log = _DriverLog()
+    logging.getLogger("photon_ml_tpu_torch").addHandler(log)
+    launches10 = 0
+
+    def run(tag, argv):
+        nonlocal launches10
+        log.phases.clear()
+        spmv.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = game_training_driver.run(
+            [*argv, "--output-dir", str(root / f"p9-{tag}")])
+        seconds = time.perf_counter() - t0
+        mm, mv = spmv.csr_matmul.launches, spmv.csr_matvec.launches
+        launches10 += mm
+        info = summary.get("stream_train") or {}
+        cache = info.get("cache") or {}
+        print(f"path 9 {tag}: {seconds:.2f} s, phases "
+              f"{ {k: round(v, 3) for k, v in log.phases.items()} }, best "
+              f"{summary['bestConfigs']}, cache "
+              f"{ {k: cache.get(k) for k in ('shards', 'hits', 'misses', 'evictions', 'epochs', 'bytes_reuploaded', 'redecodes', 'peak_device_bytes', 'spill_bytes_host')} }"
+              f", row 10 launches {mm}, row 9 launches {mv}", flush=True)
+        return summary, mm, dict(log.phases)
+
+    # -- grid ---------------------------------------------------------------
+    seq = p8["quarter-f32"]
+    grid, mm, _ = run("grid", [
+        "--train-input-dirs", str(root / "train"),
+        "--validate-input-dirs", str(root / "validate"),
+        "--feature-index-dir", str(root / "feature-index"),
+        "--task-type", "LOGISTIC_REGRESSION",
+        "--fixed-effect-data-configurations", "fixed:global",
+        "--fixed-effect-optimization-configurations", PATH8_GRID,
+        "--updating-sequence", "fixed", "--evaluators", "AUC,LOGISTIC_LOSS",
+        "--stream-train", "--grid-batched", "on", "--feeder", "native",
+        "--batch-rows", str(PATH8_BATCH_ROWS), "--hbm-budget", p8["quarter"]])
+    g_info, s_info = grid["stream_train"], seq["stream_train"]
+    g_cache, s_cache = g_info["cache"], s_info["cache"]
+    print(f"path 9 grid against path 8's sequential quarter-f32 run: "
+          f"feature passes {g_cache['epochs']} against {s_cache['epochs']}, "
+          f"bytes re-uploaded {g_cache['bytes_reuploaded']} against "
+          f"{s_cache['bytes_reuploaded']}", flush=True)
+    check(g_info["grid_batched"] is True, "path 9: the grid did not batch")
+    check(grid["bestConfigs"] == seq["bestConfigs"],
+          f"path 9: grid best {grid['bestConfigs']} != sequential "
+          f"{seq['bestConfigs']}")
+    check(g_cache["epochs"] < s_cache["epochs"]
+          and g_cache["bytes_reuploaded"] < s_cache["bytes_reuploaded"],
+          "path 9: the grid did not cut feature passes and re-uploads")
+    check(mm > 0, "path 9 grid: row 10 did not launch")
+
+    # -- ingest ---------------------------------------------------------------
+    maps = load_feature_index_maps(root / "feature-index")
+    decoded = {}
+    for workers in (1, PATH9_INGEST_WORKERS):
+        t0 = time.perf_counter()
+        ds, _ = read_game_dataset(root / "train", ["itemId", "userId"],
+                                  feature_shard_maps=maps,
+                                  ingest_workers=workers)
+        decoded[workers] = (ds, time.perf_counter() - t0)
+    a, b = decoded[1][0], decoded[PATH9_INGEST_WORKERS][0]
+    same = (a.responses.tobytes() == b.responses.tobytes()
+            and a.offsets.tobytes() == b.offsets.tobytes()
+            and a.weights.tobytes() == b.weights.tobytes()
+            and all(a.feature_shards[s].data.tobytes()
+                    == b.feature_shards[s].data.tobytes()
+                    and a.feature_shards[s].indices.astype(np.int64)
+                    .tobytes() == b.feature_shards[s].indices
+                    .astype(np.int64).tobytes()
+                    and a.feature_shards[s].indptr.astype(np.int64)
+                    .tobytes() == b.feature_shards[s].indptr
+                    .astype(np.int64).tobytes()
+                    for s in a.feature_shards)
+            and all(np.array_equal(a.id_columns[t].codes,
+                                   b.id_columns[t].codes)
+                    and list(a.id_columns[t].vocabulary)
+                    == list(b.id_columns[t].vocabulary)
+                    for t in a.id_columns))
+    print(f"path 9 ingest of the training files: 1 process "
+          f"{decoded[1][1]:.3f} s, {PATH9_INGEST_WORKERS} workers "
+          f"{decoded[PATH9_INGEST_WORKERS][1]:.3f} s, arrays byte-identical "
+          f"{same}", flush=True)
+    check(same, "path 9: the pool's arrays differ from one process's")
+    phases = {}
+    for workers in (1, PATH9_INGEST_WORKERS):
+        _, _, phases[workers] = run(f"ingest-{workers}", [
+            *path6_argv(root), "--ingest-workers", str(workers)])
+    print(f"path 9 driver ingest seconds: --ingest-workers 1 "
+          f"{phases[1].get('ingest', 0.0):.3f}, {PATH9_INGEST_WORKERS} "
+          f"{phases[PATH9_INGEST_WORKERS].get('ingest', 0.0):.3f}; path 7's "
+          f"GLM driver at auto: preprocess "
+          f"{glm_phases.get('preprocess', float('nan')):.3f}", flush=True)
+    check(_avro_records(root / "p9-ingest-1")
+          == _avro_records(root / f"p9-ingest-{PATH9_INGEST_WORKERS}"),
+          "path 9: the models differ across --ingest-workers")
+
+    # -- streamed MF ------------------------------------------------------
+    mf = ["--train-input-dirs", str(root / "train"),
+          "--validate-input-dirs", str(root / "validate"),
+          "--feature-index-dir", str(root / "feature-index"),
+          "--task-type", "LINEAR_REGRESSION",
+          "--factored-random-effect-data-configurations", PATH6_MF_DATA,
+          "--factored-random-effect-optimization-configurations",
+          PATH6_MF_OPT, "--updating-sequence", "itemFactors",
+          "--evaluators", "RMSE", "--stream-train", "--batch-rows",
+          str(PATH8_BATCH_ROWS)]
+    budget = ["--hbm-budget", PATH9_MF_BUDGET]
+    mf_runs = {}
+    for tag, extra in (("mf-none", []), ("mf-f32", budget),
+                       ("mf-bf16", [*budget, "--spill-dtype", "bf16"]),
+                       ("mf-redecode", [*budget, "--spill-source",
+                                        "redecode"])):
+        kept = {}
+        with mf_operands(kept):
+            mf_runs[tag], mm, _ = run(tag, [*mf, *extra])
+        if tag == "mf-none":
+            mf_err = hold_mf_shapes(kept)
+        check(mm > 0, f"path 9 {tag}: row 10 did not launch")
+        rmse = mf_runs[tag]["validationHistory"][0]["RMSE"]
+        check(math.isfinite(rmse), f"path 9 {tag}: RMSE {rmse}")
+    for tag in ("mf-f32", "mf-bf16", "mf-redecode"):
+        check(mf_runs[tag]["stream_train"]["cache"]["evictions"] > 0,
+              f"path 9 {tag}: no eviction")
+    recs = {tag: _avro_records(root / f"p9-{tag}") for tag in mf_runs}
+    check(recs["mf-none"] == recs["mf-f32"] == recs["mf-redecode"],
+          "path 9: the MF factors differ across residency")
+    ref = np.asarray(_floats(recs["mf-f32"]))
+    got = np.asarray(_floats(recs["mf-bf16"]))
+    share = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+    print(f"path 9 MF: {ref.size} model values; bf16 against f32 max |d| "
+          f"{share:.3g} of max |f32| (bound {MF_BF16_SHARE}); plan "
+          f"{mf_runs['mf-none']['stream_train']['plan']}", flush=True)
+    check(ref.shape == got.shape and share <= MF_BF16_SHARE,
+          "path 9: bf16 factors outside their bound")
+    logging.getLogger("photon_ml_tpu_torch").removeHandler(log)
+    return launches10, mf_err
+
+
+@contextlib.contextmanager
+def mf_operands(kept: dict):
+    """Keeps, in ``kept``, the operands of the first call at streamed
+    MF's two row-10 sites: the normal equations' segment sum
+    (``normals``: crow, col, val, panel, n_cols) and V = X B^T
+    (``features``: block, B). Each wrapper calls straight through, so
+    the run and its launch counts are unchanged."""
+    from photon_ml_tpu_torch.ops import mf_alternating as mfa
+
+    seg, v_of = mfa.csr_matmul, mfa.StreamedMFObjective._v_of
+
+    def seg_kept(crow, col, val, x, n_cols):
+        kept.setdefault("normals", (crow, col, val, x, n_cols))
+        return seg(crow, col, val, x, n_cols)
+
+    def v_of_kept(block, B):
+        kept.setdefault("features", (block, B))
+        return v_of(block, B)
+
+    mfa.csr_matmul = seg_kept
+    mfa.StreamedMFObjective._v_of = staticmethod(v_of_kept)
+    try:
+        yield kept
+    finally:
+        mfa.csr_matmul = seg
+        mfa.StreamedMFObjective._v_of = staticmethod(v_of)
+
+
+def hold_mf_shapes(kept: dict) -> float:
+    """Row 10 at streamed MF's shapes (mf_operands), each product held
+    by hold_spmm within SPMV_RTOL of sum |a x| and column by column
+    against row 9. Returns the largest abs error."""
+    import torch
+
+    check("normals" in kept and "features" in kept,
+          "path 9: streamed MF did not reach row 10's call sites")
+    block, B = kept["features"]
+    g = torch.Generator(device="cuda").manual_seed(9)
+    u = torch.randn((block.n_rows, B.shape[0]), generator=g, device="cuda",
+                    dtype=B.dtype)
+    crow, col, val, panel, n_cols = kept["normals"]
+    errs = []
+    for what, args in (
+            (f"normal equations, {crow.shape[0] - 1} entities x {n_cols} "
+             f"rows with a [{n_cols}, {panel.shape[1]}] panel",
+             (crow, col, val, panel, n_cols)),
+            (f"V = X B^T, X {block.n_rows} x {block.n_features} "
+             f"({block.nnz} entries), n = {B.shape[0]}",
+             (block.crow, block.col, block.values, B.T.contiguous(),
+              block.n_features)),
+            (f"X^T (u g), n = {B.shape[0]}",
+             (block.crow_t, block.row_t, block.values_t, u, block.n_rows))):
+        _, err, share, columns = hold_spmm(*args)
+        errs.append(err)
+        print(f"path 9 MF row 10 at {what}: max abs err {err:.3g}, worst "
+              f"share of {SPMV_RTOL} x sum|a x| {share / SPMV_RTOL:.3g}; "
+              f"columns bit for bit = row 9: {columns}", flush=True)
+        check(columns, f"path 9 MF {what}: a column differs from row 9")
+        check(share <= SPMV_RTOL, f"path 9 MF {what}: kernel vs plain "
+              f"{share}")
+    return max(errs)
+
+
+def grid_full_width(train) -> tuple:
+    """The grid full-width phase: bench.py's training fixed shard
+    (160,000 x 200, nothing cut) from memory in STREAM_BATCH_ROWS-row
+    batches, batched L-BFGS/L2 (path 1's fixed-effect configuration) at
+    G in GRID_WIDTHS against the sequential sweep of the same λ, with
+    no budget and at about 25% of the shard's device bytes. Prints ms
+    per iteration, feature passes per sweep and bytes re-uploaded.
+    Checks: each sweep selects the same λ both ways. Reports whether a
+    G > 1 lane's value and gradient are the scalar path's bits. Returns
+    row 10's launches and a cached block."""
+    import torch
+
+    from photon_ml_tpu_torch.data.shard_cache import DeviceShardCache
+    from photon_ml_tpu_torch.ops import spmv
+    from photon_ml_tpu_torch.ops.glm_objective import GLMObjective
+    from photon_ml_tpu_torch.ops.losses import loss_for_task
+    from photon_ml_tpu_torch.ops.sharded_objective import ShardedGLMObjective
+    from photon_ml_tpu_torch.optimization.glm_lbfgs import (
+        minimize_lbfgs_glm_grid_streaming,
+        minimize_lbfgs_glm_streaming,
+    )
+    from photon_ml_tpu_torch.types import TaskType
+
+    n = train.num_rows
+    batches = _Batches(train.subset(np.arange(a, min(a + STREAM_BATCH_ROWS,
+                                                     n)))
+                       for a in range(0, n, STREAM_BATCH_ROWS))
+    obj = GLMObjective(loss_for_task(TaskType.LOGISTIC_REGRESSION))
+    fe_cfg, _ = configs()
+    launches, block, budget = 0, None, None
+    for tag in ("resident", "quarter"):
+        cache = DeviceShardCache.from_stream(
+            batches, "global", dtype=torch.float32, hbm_budget_bytes=budget,
+            prefetch_depth=2)
+        sobj = ShardedGLMObjective(obj, cache)
+        d = cache.n_features
+        if block is None:
+            block = cache.entries[0].feats
+            budget = cache.stats()["device_bytes"] // 4
+        for G in GRID_WIDTHS:
+            l2s = [float(v) for v in np.geomspace(0.1, 100.0, G)]
+            x0s = torch.zeros((G, d), device=cache.device)
+            # One untimed iteration of each first: the first calls load.
+            minimize_lbfgs_glm_grid_streaming(sobj, x0s, l2s, max_iter=1)
+            out = {}
+            for mode in ("grid", "sequential"):
+                before = cache.stats()
+                spmv.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if mode == "grid":
+                    res = minimize_lbfgs_glm_grid_streaming(
+                        sobj, x0s, l2s, max_iter=fe_cfg.max_iterations,
+                        tol=fe_cfg.tolerance)
+                else:
+                    res = [minimize_lbfgs_glm_streaming(
+                        sobj, x0s[0], l2, max_iter=fe_cfg.max_iterations,
+                        tol=fe_cfg.tolerance) for l2 in l2s]
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                if mode == "grid":
+                    launches += spmv.csr_matmul.launches
+                st = cache.stats()
+                iters = [int(r.iterations) for r in res]
+                out[mode] = dict(
+                    secs=secs, iters=iters,
+                    passes=st["epochs"] - before["epochs"],
+                    moved=st["bytes_reuploaded"] - before["bytes_reuploaded"],
+                    best=int(np.argmin([float(r.value) for r in res])))
+                check(all(bool(torch.isfinite(r.x).all()) for r in res),
+                      f"grid full width {tag} G={G} {mode}: non-finite")
+            gr, sq = out["grid"], out["sequential"]
+            print(f"grid full width {tag} G={G} (λ {l2s}, budget {budget if tag == 'quarter' else None}): "
+                  f"batched {gr['secs']:.3f} s, {gr['passes']} feature passes, "
+                  f"{1e3 * gr['secs'] / max(1, max(gr['iters'])):.2f} ms per "
+                  f"outer iteration, iterations {gr['iters']}, re-uploaded "
+                  f"{gr['moved']} bytes; sequential {sq['secs']:.3f} s, "
+                  f"{sq['passes']} passes, "
+                  f"{1e3 * sq['secs'] / max(1, sum(sq['iters'])):.2f} ms per "
+                  f"iteration, iterations {sq['iters']}, re-uploaded "
+                  f"{sq['moved']} bytes; row 10 launches {launches}",
+                  flush=True)
+            check(gr["best"] == sq["best"],
+                  f"grid full width {tag} G={G}: selection differs")
+        if tag == "resident":
+            # Is a G > 1 lane the scalar path's bits? (A finding.)
+            G = GRID_WIDTHS[0]
+            g = torch.Generator(device="cuda").manual_seed(5)
+            xs = 0.01 * torch.randn((G, d), generator=g, device="cuda")
+            l2s = torch.full((G,), 1.0, device="cuda")
+            _, fg, gg = sobj.grid_margins_value_grad(xs, l2s)
+            lanes = []
+            for i in range(G):
+                _, f1, g1 = sobj.margins_value_grad(xs[i].contiguous(), 1.0)
+                lanes.append((bool(torch.equal(fg[i], f1)),
+                              bool(torch.equal(gg[i], g1))))
+            print(f"grid full width: G={G} lanes against the scalar "
+                  f"path, (value, gradient) bit for bit: {lanes}",
+                  flush=True)
+    return launches, block
+
+
+def hold_spmm(crow, col, val, x, n_cols: int) -> tuple:
+    """Row 10 on (A, X) held against its plain version (torch.sparse.mm
+    on the same CSR) and, column by column, against row 9. Returns the
+    product, the max abs error, the worst error as a share of sum |a x|,
+    and whether every column is the bits of csr_matvec on that column."""
+    import torch
+
+    from photon_ml_tpu_torch.ops import spmv
+
+    k = spmv.csr_matmul(crow, col, val, x, n_cols)
+    diff = (k - spmv.csr_matmul_plain(crow, col, val, x, n_cols)).abs()
+    scale = spmv.csr_matmul_plain(crow, col, val.abs(), x.abs(), n_cols)
+    err = float(diff.max()) if diff.numel() else 0.0
+    share = (float((diff / scale.clamp_min(1e-30)).max()) if diff.numel()
+             else 0.0)
+    columns = all(torch.equal(k[:, j], spmv.csr_matvec(
+        crow, col, val, x[:, j].contiguous(), n_cols))
+        for j in range(x.shape[1]))
+    return k, err, share, columns
+
+
+def spmm_entry(block, launches: int, mf_err: float) -> dict:
+    """Kernel row 10 on one cached block of the full-width phase: X V
+    and X^T U for panels of n in (4, 8) columns held against the plain
+    version within SPMV_RTOL of sum |a x|, every column bit for bit
+    against row 9 on that column, 20 calls bit for bit; call and device
+    ms against n calls of row 9, torch.sparse.mm (cuSPARSE SpMM) and the
+    bound. ``mf_err`` is the largest error of path 9's checks at streamed
+    MF's shapes, folded into the row's max_abs_err."""
+    import torch
+
+    from photon_ml_tpu_torch.ops import spmv
+
+    nnz, rows, d = block.nnz, block.n_rows, block.n_features
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for n in (4, 8):
+        v = torch.randn((d, n), generator=g, device="cuda")
+        u = torch.randn((rows, n), generator=g, device="cuda")
+        k_mv, err_mv, share_mv, col_mv = hold_spmm(
+            block.crow, block.col, block.values, v, d)
+        k_rmv, err_rmv, share_rmv, col_rmv = hold_spmm(
+            block.crow_t, block.row_t, block.values_t, u, rows)
+        err, share = max(err_mv, err_rmv), max(share_mv, share_rmv)
+        columns = col_mv and col_rmv
+        repeat = all(torch.equal(block.matmat(v), k_mv)
+                     and torch.equal(block.rmatmat(u), k_rmv)
+                     for _ in range(20))
+        vs = [v[:, j].contiguous() for j in range(n)]
+        us = [u[:, j].contiguous() for j in range(n)]
+
+        def pair():
+            block.matmat(v)
+            block.rmatmat(u)
+
+        def row9():
+            for j in range(n):
+                block.matvec(vs[j])
+                block.rmatvec(us[j])
+
+        def plain_pair():
+            spmv.csr_matmul_plain(block.crow, block.col, block.values, v, d)
+            spmv.csr_matmul_plain(block.crow_t, block.row_t, block.values_t,
+                                  u, rows)
+
+        a_csr = torch.sparse_csr_tensor(block.crow, block.col, block.values,
+                                        size=(rows, d))
+        a_csr_t = torch.sparse_csr_tensor(block.crow_t, block.row_t,
+                                          block.values_t, size=(d, rows))
+        ms, dev_ms = cuda_ms(pair, 20), device_ms(pair)
+        r9_ms, r9_dev = cuda_ms(row9, 20), device_ms(row9)
+        plain = cuda_ms(plain_pair, 20)
+        library = cuda_ms(lambda: (torch.sparse.mm(a_csr, v),
+                                   torch.sparse.mm(a_csr_t, u)), 20)
+        # Each product reads its CSR once (values, indices, offsets) and
+        # its panel once, and writes its output once: the panel's rows
+        # are gathered many times but stay in L2, as row 9's vector does.
+        bytes_pair = (2 * 8 * nnz + 4 * (rows + 1) + 4 * (d + 1)
+                      + 4 * n * 2 * (rows + d))
+        bound_bytes = 1e3 * bytes_pair / HBM_BYTES_PER_S
+        bound_ops = 1e3 * 4 * n * nnz / FP32_FLOPS_PER_S
+        out[n] = dict(err=err, ms=ms, dev_ms=dev_ms, plain=plain,
+                      library=library, bound_bytes=bound_bytes,
+                      bound_ops=bound_ops)
+        bound = max(bound_bytes, bound_ops)
+        print(f"spmm block {rows} x {d} ({nnz} entries), n = {n}: kernel "
+              f"X V + X^T U {ms:.4f} ms a pair ({dev_ms:.4f} on the device), "
+              f"{n} row-9 pairs {r9_ms:.4f} ({r9_dev:.4f}), plain "
+              f"(torch.sparse.mm) {plain:.4f}, library (cuSPARSE SpMM) "
+              f"{library:.4f}, bound {bound:.4f} "
+              f"({'bytes' if bound_bytes >= bound_ops else 'operations'}; "
+              f"device time {dev_ms / bound:.2f}x the bound); max abs err "
+              f"{err:.3g}, worst share of {SPMV_RTOL} x sum|a x| "
+              f"{share / SPMV_RTOL:.3g}; columns bit for bit = row 9: "
+              f"{columns}; 20 calls bit for bit: {repeat}", flush=True)
+        check(columns, f"spmm n={n}: a column differs from row 9")
+        check(repeat, f"spmm n={n}: the kernel is not deterministic")
+        check(share <= SPMV_RTOL, f"spmm n={n}: kernel vs plain {share}")
+    m = out[8]
+    return {
+        "name": "csr_spmm (deterministic CSR x panel, row 10)",
+        "route": "cuda", "source": SPMM_SOURCE, "replaces": SPMM_REPLACES,
+        "launches": launches,
+        "max_abs_err": max(mf_err, *(o["err"] for o in out.values())),
+        "ms": m["ms"], "device_ms": m["dev_ms"], "plain_ms": m["plain"],
+        "bound_ms": max(m["bound_bytes"], m["bound_ops"]),
+        "bound_by": ("bytes" if m["bound_bytes"] >= m["bound_ops"]
+                     else "operations"),
+        "library_ms": m["library"],
+    }
+
+
+def repeatability_checks(train) -> None:
+    """The batched ridge solve of streamed MF (torch.linalg.solve on
+    [u, k, k], config 5's k = 4 over 2,048 entities, float32 and
+    float64) and the in-core CSRFeatures' four products (bench.py's
+    training fixed shard as CSR on the card, through row 9), each 20
+    calls bit for bit."""
+    import torch
+
+    from photon_ml_tpu_torch.ops.features import csr_from_scipy
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    solves = {}
+    for dtype in (torch.float32, torch.float64):
+        v = torch.randn((2048, 20, MF_FACTORS), generator=g, device="cuda",
+                        dtype=dtype)
+        a = torch.einsum("uni,unj->uij", v, v) + torch.eye(
+            MF_FACTORS, device="cuda", dtype=dtype)
+        b = torch.randn((2048, MF_FACTORS, 1), generator=g, device="cuda",
+                        dtype=dtype)
+        first = torch.linalg.solve(a, b)
+        solves[str(dtype)[6:]] = all(
+            torch.equal(torch.linalg.solve(a, b), first) for _ in range(20))
+    feats = csr_from_scipy(train.feature_shards["global"], device="cuda")
+    x = torch.randn(feats.n_features, generator=g, device="cuda")
+    u = torch.randn(feats.n_rows, generator=g, device="cuda")
+    products = {}
+    for name, call in (("matvec", lambda: feats.matvec(x)),
+                       ("rmatvec", lambda: feats.rmatvec(u)),
+                       ("row_sq_matvec", lambda: feats.row_sq_matvec(x)),
+                       ("sq_rmatvec", lambda: feats.sq_rmatvec(u))):
+        first = call()
+        products[name] = all(torch.equal(call(), first) for _ in range(20))
+    print(f"repeatability, 20 calls bit for bit: batched ridge solve "
+          f"[2048, {MF_FACTORS}, {MF_FACTORS}] {solves}; in-core CSR "
+          f"products ({feats.n_rows} x {feats.n_features}, row 9) "
+          f"{products}", flush=True)
+    check(all(solves.values()), "the batched solve does not repeat")
+    check(all(products.values()), "an in-core CSR product does not repeat")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2448,11 +3027,14 @@ def main(argv=None) -> int:
         print(f"path 6 latent buckets {latent_shapes6}", flush=True)
         print(f"path 6: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        path7(Path(tmp))
+        glm_phases = path7(Path(tmp))
         print(f"path 7: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        launches8 = path8(Path(tmp))
+        launches8, p8 = path8(Path(tmp))
         print(f"path 8: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        launches9, mf_err = path9(Path(tmp), p8, glm_phases)
+        print(f"path 9: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     glm_full_width(train)
     print(f"glm full width: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2460,6 +3042,11 @@ def main(argv=None) -> int:
     launches_stream, block = stream_full_width(train)
     spmv_row = spmv_entry(block, launches8 + launches_stream)
     print(f"stream full width: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches_grid, block = grid_full_width(train)
+    spmm_row = spmm_entry(block, launches9 + launches_grid, mf_err)
+    repeatability_checks(train)
+    print(f"grid full width: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     gather_entries = gather_phase()
@@ -2486,6 +3073,7 @@ def main(argv=None) -> int:
                      launches4.get("tron+bounded", 0)),
         *gather_entries,
         spmv_row,
+        spmm_row,
     ]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the paths did not launch: {kernels}")

@@ -2,7 +2,9 @@
 photon_ml_tpu/algorithm/coordinates.py: Coordinate :48,
 FixedEffectCoordinate :122, RandomEffectCoordinate :544,
 _gather_block_normalization :687, _gather_block_bounds :704-721,
-StreamingFixedEffectCoordinate :281-425,
+StreamingFixedEffectCoordinate :281-425, grid_batchable :426-460,
+solve_fixed_effect_grid :461-543,
+StreamingFactoredRandomEffectCoordinate :739-970,
 FactoredRandomEffectCoordinate :978-1120, _solve_factored_block
 :1120-1157, _flatten_factored_static :1159, _flatten_gammas :1176,
 _solve_latent_matrix :1188 (a solve_glm call), _dispatch_pallas_solver
@@ -27,6 +29,10 @@ out) and the penalties are taken there.
   by shard over a device shard cache (data/shard_cache.py,
   ops/sharded_objective.py) by the host-driven streaming L-BFGS or TRON,
   for training data larger than device memory (``--hbm-budget``).
+- StreamingFactoredRandomEffectCoordinate: matrix factorization for
+  factor tables larger than device memory: streamed ridge ALS for the
+  factors (ops/mf_alternating.py, data/factor_cache.py) and the streaming
+  L-BFGS for the projection B.
 - RandomEffectCoordinate: one batched per-entity solve per bucket, mode
   "tron" for a TRON configuration, else "owlqn" when the L1 weight is
   positive, else "lbfgs", with the normalization and the bounds gathered
@@ -50,6 +56,8 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import List, Optional, Tuple
+
+import numpy as np
 
 import torch
 
@@ -279,6 +287,282 @@ class StreamingFixedEffectCoordinate:
                 tol=self.config.tolerance, margins_out=margins_out)
         new_glm = model.glm.update_coefficients(Coefficients(result.x))
         return model.update_model(new_glm), result
+
+
+def grid_batchable(configs) -> Tuple[bool, str]:
+    """Can this λ grid run as ONE batched streamed solve
+    (:func:`solve_fixed_effect_grid`)? True only when every point is a
+    streamable L2 solve and the points differ in nothing but the
+    regularization weight (the batched solvers share one candidate
+    schedule or trust-region recipe across rows). Returns
+    ``(ok, why_not)``."""
+    configs = list(configs)
+    if not configs:
+        return False, "empty grid"
+    base = configs[0]
+    if base.optimizer_type not in (OptimizerType.LBFGS, OptimizerType.TRON):
+        return False, (f"streaming grid solves support LBFGS/TRON, got "
+                       f"{base.optimizer_type}")
+    for cfg in configs:
+        if cfg.l1_weight > 0:
+            return False, ("L1/elastic-net grid points need the "
+                           "resident path")
+        if cfg.down_sampling_rate < 1.0:
+            return False, ("down-sampling is not supported by streamed "
+                           "solves")
+        if (cfg.optimizer_type != base.optimizer_type
+                or cfg.max_iterations != base.max_iterations
+                or cfg.tolerance != base.tolerance):
+            return False, (
+                "grid points must share optimizer type, max_iterations "
+                "and tolerance to batch — only the regularization "
+                "weight may vary across rows")
+    return True, ""
+
+
+def solve_fixed_effect_grid(coordinate: StreamingFixedEffectCoordinate,
+                            configs, models=None, margins_out=None
+                            ) -> List[Tuple[FixedEffectModel,
+                                            OptimizerResult]]:
+    """Solve a whole λ grid in ONE batched streamed sweep: coefficients
+    stack to ``[G, d]`` and every feature pass of the grid solver
+    (glm_lbfgs.minimize_lbfgs_glm_grid_streaming /
+    tron.minimize_tron_grid_streaming) advances all G points, so a sweep
+    costs the slowest row's passes instead of the sum over rows.
+
+    ``coordinate`` supplies the cache, objective and task; ``configs``
+    is the grid (ValueError with the reason when not
+    :func:`grid_batchable`); ``models`` warm-starts per row (entries may
+    be None); ``margins_out`` receives the ``[G, rows]`` per-shard
+    margins. Returns the row-aligned ``(model, result)`` pairs that G
+    sequential ``coordinate.solve`` calls produce; G = 1 is the scalar
+    streamed solve, bit for bit."""
+    from photon_ml_tpu_torch.optimization.glm_lbfgs import (
+        minimize_lbfgs_glm_grid_streaming,
+    )
+    from photon_ml_tpu_torch.optimization.tron import (
+        minimize_tron_grid_streaming,
+    )
+
+    configs = list(configs)
+    ok, why = grid_batchable(configs)
+    if not ok:
+        raise ValueError(f"λ-grid is not batchable: {why}")
+    G = len(configs)
+    if models is None:
+        models = [None] * G
+    if len(models) != G:
+        raise ValueError(
+            f"models must be row-aligned with the grid (G={G}), got "
+            f"{len(models)}")
+    models = [m if m is not None else coordinate.initialize_model()
+              for m in models]
+    device = coordinate.cache.device
+    x0s = torch.stack([torch.as_tensor(m.glm.coefficients.means,
+                                       dtype=coordinate.dtype,
+                                       device=device) for m in models])
+    l2s = [cfg.l2_weight for cfg in configs]
+    base = configs[0]
+    if base.optimizer_type == OptimizerType.TRON:
+        if not coordinate._objective.loss.twice_differentiable:
+            raise ValueError(
+                f"TRON requires a twice-differentiable loss, got "
+                f"{coordinate._objective.loss.name}")
+        results = minimize_tron_grid_streaming(
+            coordinate._sharded, x0s, l2s, max_iter=base.max_iterations,
+            tol=base.tolerance, margins_out=margins_out)
+    else:
+        results = minimize_lbfgs_glm_grid_streaming(
+            coordinate._sharded, x0s, l2s, max_iter=base.max_iterations,
+            tol=base.tolerance, margins_out=margins_out)
+    return [(m.update_model(m.glm.update_coefficients(
+        Coefficients(r.x))), r) for m, r in zip(models, results)]
+
+
+@dataclasses.dataclass
+class StreamingFactoredRandomEffectCoordinate:
+    """Out-of-core factored random effect (matrix factorization), the
+    streamed counterpart of :class:`FactoredRandomEffectCoordinate`:
+    factor tables live in a budgeted ``DeviceFactorCache`` (power-of-two
+    observation-count shards, replay-aware eviction, f32 / bf16 /
+    redecode spill), observations stream through ``make_stream``
+    batches re-decoded per feature pass, the γ half-step is exact
+    streamed ridge ALS and the refit of B is
+    ``minimize_lbfgs_glm_streaming`` over ops/mf_alternating.py's
+    ``StreamedMFObjective``.
+
+    Scope (enforced, as in JAX): LINEAR_REGRESSION (the alternating
+    half-steps are least squares), L2 only with a γ ridge above zero, no
+    down-sampling, L-BFGS refits of B. ``solve(model,
+    residual_scores=...)`` folds the other coordinates' scores into the
+    offsets; ``score(model)`` returns raw margins γᵀ B x. Each sweep's
+    refit is checked by the divergence watchdog. ``mf_objective`` shares
+    one built objective (plan, factor cache) across λ-grid points with
+    the same ``num_factors``. The JAX per-sweep trace contexts are
+    ROADMAP A5."""
+
+    name: str
+    make_stream: object  # () -> iterable of GameDataset batches
+    feature_shard_id: str
+    random_effect_type: str
+    task_type: TaskType
+    config: GLMOptimizationConfiguration  # the per-entity γ ridge
+    latent_config: GLMOptimizationConfiguration  # the refit of B
+    mf_config: MFOptimizationConfiguration
+    n_features: Optional[int] = None  # settled by the planning pass
+    hbm_budget_bytes: Optional[int] = None
+    spill_dtype: str = "f32"
+    spill_source: str = "buffer"
+    entities_per_shard: int = 512
+    seed: int = 7
+    mf_objective: Optional[object] = None  # a shared StreamedMFObjective
+    random_access: Optional[object] = None  # BlockRandomAccess hook
+    dtype: object = torch.float32
+    device: object = "cuda"
+
+    def __post_init__(self):
+        if self.task_type != TaskType.LINEAR_REGRESSION:
+            raise ValueError(
+                "streamed MF alternating least squares is defined for "
+                "LINEAR_REGRESSION (squared loss); other tasks train "
+                "through the in-core FactoredRandomEffectCoordinate")
+        if self.config.l1_weight > 0 or self.latent_config.l1_weight > 0:
+            raise ValueError(
+                "streamed MF supports L2 only; L1/elastic-net factors "
+                "need the in-core path")
+        if self.config.l2_weight <= 0:
+            raise ValueError(
+                "streamed MF needs a strictly positive gamma L2 weight "
+                "(the per-entity ridge normal equations are singular at "
+                "λ₂ = 0 for low-observation entities)")
+        if self.config.down_sampling_rate < 1.0 \
+                or self.latent_config.down_sampling_rate < 1.0:
+            raise ValueError(
+                "down-sampling is not supported with streamed MF "
+                "solves; use the in-core path")
+        if self.latent_config.optimizer_type != OptimizerType.LBFGS:
+            raise ValueError(
+                f"streamed MF latent refits support LBFGS, got "
+                f"{self.latent_config.optimizer_type}")
+        self.device = resolve_device(self.device)
+        self._l2 = self.config.l2_weight
+        self._ll2 = self.latent_config.l2_weight
+        k = self.mf_config.num_factors
+        if self.mf_objective is not None:
+            if self.mf_objective.k != k:
+                raise ValueError(
+                    f"shared mf_objective was built for num_factors="
+                    f"{self.mf_objective.k}, coordinate asks for {k}")
+            self._obj = self.mf_objective
+        else:
+            from photon_ml_tpu_torch.data.factor_cache import (
+                DeviceFactorCache,
+                count_stream_entities,
+                plan_factors,
+            )
+            from photon_ml_tpu_torch.ops.mf_alternating import (
+                StreamedMFObjective,
+            )
+
+            vocab, counts, n_rows, d_by_shard = count_stream_entities(
+                self.make_stream(), self.random_effect_type)
+            if self.feature_shard_id not in d_by_shard:
+                raise KeyError(
+                    f"stream carries no feature shard "
+                    f"{self.feature_shard_id!r} (have {sorted(d_by_shard)})")
+            d = d_by_shard[self.feature_shard_id]
+            if self.n_features is not None and self.n_features != d:
+                raise ValueError(
+                    f"stream decodes {d} features for shard "
+                    f"{self.feature_shard_id!r}, coordinate expected "
+                    f"{self.n_features}")
+            plan = plan_factors(vocab, counts,
+                                entities_per_shard=self.entities_per_shard)
+            cache = DeviceFactorCache(
+                plan, k, hbm_budget_bytes=self.hbm_budget_bytes,
+                spill_dtype=self.spill_dtype,
+                spill_source=self.spill_source, dtype=self.dtype,
+                device=self.device)
+            self._obj = StreamedMFObjective(
+                self.make_stream, self.feature_shard_id,
+                self.random_effect_type, plan, cache, d,
+                loss_for_task(self.task_type),
+                random_access=self.random_access, dtype=self.dtype,
+                device=self.device)
+            self._obj.n_rows = n_rows
+            self.mf_objective = self._obj
+        self.n_features = self._obj.d
+
+    @property
+    def cache(self):
+        return self._obj.cache
+
+    @property
+    def plan(self):
+        return self._obj.plan
+
+    def initialize_model(self) -> FactoredRandomEffectModel:
+        """Zero factors and the in-core coordinate's seeded Gaussian B0."""
+        k, d = self.mf_config.num_factors, self.n_features
+        plan = self._obj.plan
+        b0 = ProjectionMatrix.gaussian(k, d, intercept_col=None,
+                                       seed=self.seed)
+        latent = RandomEffectModel(
+            random_effect_type=self.random_effect_type,
+            feature_shard_id=self.feature_shard_id,
+            local_coefs=[torch.zeros((s.n_entities, k), dtype=self.dtype,
+                                     device=self.device)
+                         for s in plan.shards],
+            feat_idx=[torch.arange(k, dtype=torch.int32,
+                                   device=self.device).repeat(
+                                       s.n_entities, 1)
+                      for s in plan.shards],
+            entity_codes=[s.codes.astype(np.int32) for s in plan.shards],
+            vocabulary=plan.vocabulary, num_global_features=d,
+            projection=torch.as_tensor(b0.matrix, dtype=self.dtype,
+                                       device=self.device))
+        return FactoredRandomEffectModel(latent, self.mf_config)
+
+    def solve(self, model: Optional[FactoredRandomEffectModel] = None,
+              residual_scores=None):
+        """``mf_config.max_iterations`` alternating sweeps (a streamed
+        ridge γ pass, then a streamed L-BFGS refit of B), B warm-started
+        from ``model``. Returns ``(model, trackers)``, one
+        OptimizerResult per sweep."""
+        from photon_ml_tpu_torch.optimization.convergence import (
+            check_solver_finite,
+        )
+        from photon_ml_tpu_torch.optimization.glm_lbfgs import (
+            minimize_lbfgs_glm_streaming,
+        )
+
+        if model is None:
+            model = self.initialize_model()
+        b_mat = torch.as_tensor(model.projection_matrix, dtype=self.dtype,
+                                device=self.device)
+        self._obj.set_residual(residual_scores)
+        trackers = []
+        for sweep in range(self.mf_config.max_iterations):
+            self._obj.gamma_pass(b_mat, self._l2)
+            result = minimize_lbfgs_glm_streaming(
+                self._obj, b_mat.reshape(-1), self._ll2,
+                max_iter=self.latent_config.max_iterations,
+                tol=self.latent_config.tolerance)
+            b_mat = result.x.reshape(b_mat.shape)
+            # The refit checks its own iterations; this catches a NaN
+            # that rode the factor tables into it, under the MF label.
+            check_solver_finite("streaming-mf-alternating", sweep,
+                                float(result.value),
+                                float(result.grad_norm))
+            trackers.append(result)
+        return (model.with_update(self._obj.factor_tables(), b_mat),
+                trackers)
+
+    def score(self, model: FactoredRandomEffectModel) -> Tensor:
+        """Raw margins γᵀ B x per row (offsets excluded), scoring the
+        model's own factor tables in one streamed pass."""
+        return torch.as_tensor(self._obj.score_pass(
+            model.projection_matrix, tables=model.latent.local_coefs))
 
 
 @dataclasses.dataclass

@@ -3,10 +3,9 @@ ml/Driver.scala, ml/cli/game/): the in-core GAME training driver and the
 batch GAME scoring driver.
 
 Both keep every flag of their JAX parsers, so every JAX command line
-parses. A flag that belongs to a later item of ROADMAP queue A (the
-second half of streamed training A4b, serving and telemetry A5,
-multi-GPU A6) raises an error naming that item when it is given a value
-other than its default. The helpers here are shared by both drivers.
+parses. A flag that belongs to a later item of ROADMAP queue A (serving
+and telemetry A5, multi-GPU A6) raises an error naming that item when it
+is given a value other than its default. The helpers here are shared by both drivers.
 """
 
 from __future__ import annotations
@@ -21,8 +20,6 @@ from photon_ml_tpu_torch.device import resolve_device
 
 # Later queue items, for the error a flag of one of them raises.
 ITEMS = {
-    "A4b": "the batched λ grid, parallel ingest and streamed matrix "
-           "factorization",
     "A5": "the serving stack and telemetry",
     "A6": "multi-GPU",
 }

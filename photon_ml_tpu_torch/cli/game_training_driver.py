@@ -3,7 +3,8 @@ photon_ml_tpu/cli/game_training_driver.py: _parse_named :52,
 _positive_int :62, _parse_mesh_shape :69, parse_byte_size :99,
 build_parser :116-310, run :311, _run_training :391-612, _save_outputs
 :613-662, _write_summary :663-703, _stream_validate_many :704-737,
-_stream_train :824-1158; reference ml/cli/game/training/Driver.scala:
+_solve_grid_batched :739-822, _stream_train :824-1158,
+_stream_train_mf :1161-1403; reference ml/cli/game/training/Driver.scala:
 43-298, params from ml/estimators/GameParams.scala:40-427).
 
 Coordinate mini-DSLs preserved from the reference:
@@ -29,15 +30,22 @@ buffer|redecode) and the streaming L-BFGS/TRON solves over it.
 ``--feeder`` picks the decode path and ``--prefetch-batches`` the
 decode-ahead depth. Validation streams once for every λ of the grid.
 
-Every JAX flag parses. The flags and values of later queue items raise
-an error that names the item: the batched λ grid (``--grid-batched on``,
-and ``auto`` wherever JAX would batch: a batchable grid of more than one
-point under ``--hbm-budget``; ``off`` sweeps one λ at a time) and
-``--stream-train`` of a factored random effect (A4b); --distmon,
---trace-out, --profile-output-dir and the observability flags (A5);
---mesh-devices, --mesh-shape (A6). metrics.json has the JAX keys but
-``telemetry`` (A5); its ``stream_train`` block has no ``trace_budgets``
-or ``trace_counts`` (the JAX TracingGuard, ROADMAP A7).
+Under ``--hbm-budget`` a batchable λ grid of more than one point
+(``--grid-batched auto``, the default) or any batchable grid
+(``--grid-batched on``) trains as ONE batched sweep
+(``_solve_grid_batched``: every feature pass advances all G points);
+``off`` sweeps one λ at a time. ``--stream-train`` of a factored random
+effect trains as streamed matrix factorization (``_stream_train_mf``:
+alternating ridge γ passes and streamed L-BFGS refits of B, the factor
+tables in a budgeted device cache). ``--ingest-workers`` N >= 2 decodes
+in a process pool (data/parallel_ingest.py).
+
+Every JAX flag parses. The flags of later queue items raise an error
+that names the item: --distmon, --trace-out, --profile-output-dir and the
+observability flags (A5); --mesh-devices, --mesh-shape (A6).
+metrics.json has the JAX keys but ``telemetry`` (A5); its
+``stream_train`` block has no ``trace_budgets`` or ``trace_counts`` (the
+JAX TracingGuard, ROADMAP A7).
 
 ``run(argv, device="cuda", dtype=None)`` trains on the card and raises
 without CUDA unless the caller passes ``device="cpu"`` (the CPU tests);
@@ -53,12 +61,11 @@ import json
 import sys
 import time
 from pathlib import Path
-from typing import Tuple
 
+from photon_ml_tpu_torch.algorithm.coordinates import grid_batchable
 from photon_ml_tpu_torch.cli import (
     OBSERVABILITY_FLAGS,
     add_observability_args,
-    later_item_error,
     phase,
     reject_later_flags,
     resolve_run_device,
@@ -80,7 +87,6 @@ from photon_ml_tpu_torch.models.tracking import summarize_trackers
 from photon_ml_tpu_torch.optimization.config import (
     FactoredRandomEffectOptimizationConfiguration,
     GLMOptimizationConfiguration,
-    OptimizerType,
 )
 from photon_ml_tpu_torch.types import TaskType
 from photon_ml_tpu_torch.utils.date_range import resolve_input_dirs
@@ -198,8 +204,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="extra entity id columns to read from metadataMap "
                         "(defaults to the random-effect types)")
     p.add_argument("--ingest-workers", default="auto",
-                   help="accepted for the JAX command line; the Avro "
-                        "decode runs in this process")
+                   help="Avro decode workers: 'auto' (usable cores, the "
+                        "pool only for large inputs) or a count; 1 decodes "
+                        "in this process")
     p.add_argument("--feature-index-dir", default=None,
                    help="pre-built feature index stores keyed by shard id: "
                         "the reference's partitioned PalDB stores "
@@ -231,8 +238,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "LBFGS/TRON only)")
     p.add_argument("--grid-batched", choices=["auto", "on", "off"],
                    default="auto",
-                   help="batched λ-grid sweep (ROADMAP A4b: 'on', and "
-                        "'auto' where it would batch, raise); 'off' "
+                   help="batch the λ₂ grid into ONE streamed sweep "
+                        "(--stream-train --hbm-budget): every feature "
+                        "pass advances all G grid points. 'auto' batches "
+                        "a batchable grid of more than one point; 'off' "
                         "sweeps the grid one λ at a time")
     p.add_argument("--mesh-devices", type=_positive_int, default=None,
                    metavar="N", help="1-D device mesh (ROADMAP A6; raises)")
@@ -270,35 +279,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "registered by name (utils/events.py)")
     add_observability_args(p)
     return p
-
-
-def _grid_batchable(configs) -> Tuple[bool, str]:
-    """Whether JAX would run this λ grid as one batched streamed solve
-    (port of photon_ml_tpu/algorithm/coordinates.py grid_batchable :426):
-    every point a streamable L2 solve, homogeneous in everything but the
-    regularization weight. Returns ``(ok, why_not)``."""
-    configs = list(configs)
-    if not configs:
-        return False, "empty grid"
-    base = configs[0]
-    if base.optimizer_type not in (OptimizerType.LBFGS, OptimizerType.TRON):
-        return False, (f"streaming grid solves support LBFGS/TRON, got "
-                       f"{base.optimizer_type}")
-    for cfg in configs:
-        if cfg.l1_weight > 0:
-            return False, ("L1/elastic-net grid points need the "
-                           "resident path")
-        if cfg.down_sampling_rate < 1.0:
-            return False, ("down-sampling is not supported by streamed "
-                           "solves")
-        if (cfg.optimizer_type != base.optimizer_type
-                or cfg.max_iterations != base.max_iterations
-                or cfg.tolerance != base.tolerance):
-            return False, (
-                "grid points must share optimizer type, max_iterations "
-                "and tolerance to batch — only the regularization "
-                "weight may vary across rows")
-    return True, ""
 
 
 def _check_flags(args) -> None:
@@ -353,28 +333,16 @@ def _check_flags(args) -> None:
             "or factored-random-effect coordinate (plain random "
             "effects need entity grouping over the full dataset); "
             f"got sequence {sequence}")
-    if sequence[0] in fre_data:
-        raise later_item_error("--stream-train", "A4b",
-                               "a factored-random-effect coordinate "
-                               "streams as matrix factorization")
-    if args.hbm_budget is None:
+    if sequence[0] in fre_data or args.hbm_budget is None:
         return
     table = _parse_named(args.fixed_effect_optimization_configurations,
                          "fixed-effect optimization config")
     grid = [GLMOptimizationConfiguration.parse(part)
             for part in table.get(sequence[0], "").split("|") if part]
-    batchable, why_not = _grid_batchable(grid)
+    batchable, why_not = grid_batchable(grid)
     if args.grid_batched == "on" and not batchable:
         raise ValueError(
             f"--grid-batched on: λ-grid is not batchable: {why_not}")
-    if args.grid_batched == "on":
-        raise later_item_error("--grid-batched on", "A4b")
-    if args.grid_batched == "auto" and batchable and len(grid) > 1:
-        raise later_item_error(
-            "--grid-batched auto", "A4b",
-            f"JAX batches this {len(grid)}-point λ grid under "
-            "--hbm-budget; pass --grid-batched off to sweep it one λ at "
-            "a time")
 
 
 def run(argv=None, *, device="cuda", dtype=None) -> dict:
@@ -466,6 +434,13 @@ def _run_training(args, logger, task, device, dtype, emitter):
     evaluators = [build_evaluator(s.strip())
                   for s in (args.evaluators or "").split(",") if s.strip()]
 
+    if args.stream_train and sequence[0] in fre_data:
+        (results, best_configs, best_result, shard_maps, num_rows,
+         stream_info) = _stream_train_mf(
+            args, logger, task, fre_data, fre_opt, sequence, train_inputs,
+            evaluators, preloaded_maps, emitter, device, dtype)
+        return (sequence, results, best_configs, best_result, shard_maps,
+                num_rows, stream_info)
     if args.stream_train:
         (results, best_configs, best_result, shard_maps, num_rows,
          stream_info) = _stream_train(
@@ -568,8 +543,14 @@ def _stream_validate_many(game_models, args, shard_maps, evaluators,
         args.validate_input_dirs,
         date_range=args.validate_date_range,
         date_range_days_ago=args.validate_date_range_days_ago)
+    # The models' entity columns too: the JAX driver reads only the
+    # evaluators' and fails on a streamed factored model's validation
+    # (ROADMAP §C).
     id_types = sorted({ev.id_type for ev in evaluators
-                       if getattr(ev, "id_type", None)})
+                       if getattr(ev, "id_type", None)}
+                      | {m.random_effect_type for gm in game_models
+                         for m in gm.models.values()
+                         if getattr(m, "random_effect_type", None)})
     engines = [StreamingGameScorer(m, dtype=dtype, device=device)
                for m in game_models]
     accs = [StreamedEvalAccumulator(id_types) for _ in game_models]
@@ -584,6 +565,51 @@ def _stream_validate_many(game_models, args, shard_maps, evaluators,
     logger.info("streamed validation (%d rows, %s feeder, %d models): %s",
                 stream.rows, stream.decode_path, len(engines), metrics)
     return metrics
+
+
+def _solve_grid_batched(args, logger, name, shard, task, grid, cache,
+                        dtype):
+    """--grid-batched sweep: ONE StreamingFixedEffectCoordinate hosts the
+    whole λ grid and ``solve_fixed_effect_grid`` advances all G points
+    per feature pass over the shard cache. Returns the (configs,
+    CoordinateDescentResult) pairs the sequential sweep builds, every
+    point with the sweep's shared wall time, and the shared sharded
+    objective."""
+    from photon_ml_tpu_torch.algorithm.coordinate_descent import (
+        CoordinateDescentResult,
+    )
+    from photon_ml_tpu_torch.algorithm.coordinates import (
+        StreamingFixedEffectCoordinate,
+        solve_fixed_effect_grid,
+    )
+    from photon_ml_tpu_torch.models.game_model import GameModel
+
+    G = len(grid)
+    logger.info("λ-grid sweep batched: %d points advance per feature "
+                "pass (--grid-batched %s)", G, args.grid_batched)
+    coord = StreamingFixedEffectCoordinate(
+        name=name, cache=cache, feature_shard_id=shard, task_type=task,
+        config=grid[0], dtype=dtype)
+    t0 = time.perf_counter()
+    models = None
+    trackers_per = [[] for _ in grid]
+    obj_hist_per = [[] for _ in grid]
+    for _ in range(args.num_iterations):
+        pairs = solve_fixed_effect_grid(coord, grid, models=models)
+        models = [m for m, _ in pairs]
+        for gi, (_, res) in enumerate(pairs):
+            trackers_per[gi].append(res)
+            obj_hist_per[gi].append(float(res.value))
+    elapsed = time.perf_counter() - t0
+    results = []
+    for gi, cfg in enumerate(grid):
+        gm = GameModel({name: models[gi]}, task)
+        results.append(({name: cfg}, CoordinateDescentResult(
+            model=gm, objective_history=obj_hist_per[gi],
+            validation_history=[], best_model=gm, best_metric=None,
+            trackers={name: trackers_per[gi]}, updates=[],
+            timings={name: elapsed})))
+    return results, coord.sharded_objective
 
 
 def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
@@ -704,11 +730,17 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
                 device=device)
         results = []
         shared = None
-        batchable, why_not = _grid_batchable(grid)
-        if len(grid) > 1 and not batchable:
+        batchable, why_not = grid_batchable(grid)
+        use_batched = batchable and (
+            args.grid_batched == "on"
+            or (args.grid_batched == "auto" and len(grid) > 1))
+        if args.grid_batched == "auto" and len(grid) > 1 and not batchable:
             logger.info("λ-grid sweeps sequentially (%s)", why_not)
         with phase(logger, "solve"):
-            for cfg in grid:
+            if use_batched:
+                results, shared = _solve_grid_batched(
+                    args, logger, name, shard, task, grid, cache, dtype)
+            for cfg in (() if use_batched else grid):
                 coord = StreamingFixedEffectCoordinate(
                     name=name, cache=cache, feature_shard_id=shard,
                     task_type=task, config=cfg, dtype=dtype,
@@ -738,7 +770,7 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
             "spill_source": args.spill_source,
             "feeder": cache.ingest_stats,
             "cache": cache.stats(),
-            "grid_batched": False,
+            "grid_batched": use_batched,
             "grid_points": len(grid),
         }
         if fetcher is not None:
@@ -774,6 +806,176 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
 
     best_configs, best_result = select_best_result(results, evaluators)
     return (results, best_configs, best_result, shard_maps, num_rows,
+            stream_info)
+
+
+def _stream_train_mf(args, logger, task, fre_data, fre_opt, sequence,
+                     train_inputs, evaluators, preloaded_maps, emitter,
+                     device, dtype):
+    """Out-of-core matrix factorization (--stream-train of a factored
+    random effect; port of the JAX driver's _stream_train_mf
+    :1161-1403): observations stream through ``BlockGameStream``,
+    re-decoded every feature pass; the factor tables live in a budgeted
+    ``DeviceFactorCache`` (--hbm-budget, --spill-dtype, --spill-source);
+    each alternating sweep is a streamed ridge γ pass and a streamed
+    L-BFGS refit of B. λ-grid points with the same num_factors share one
+    objective. The JAX trace contexts, /statusz provider and --distmon
+    hooks are ROADMAP A5."""
+    from photon_ml_tpu_torch.algorithm.coordinate_descent import (
+        CoordinateDescentResult,
+    )
+    from photon_ml_tpu_torch.algorithm.coordinates import (
+        StreamingFactoredRandomEffectCoordinate,
+    )
+    from photon_ml_tpu_torch.data.avro_reader import build_index_map
+    from photon_ml_tpu_torch.data.block_stream import (
+        BlockGameStream,
+        BlockRandomAccess,
+    )
+    from photon_ml_tpu_torch.estimators.game_estimator import (
+        select_best_result,
+    )
+    from photon_ml_tpu_torch.models.game_model import GameModel
+
+    name = sequence[0]
+    data_cfg = fre_data[name]
+    shard = data_cfg.feature_shard_id
+    re_type = data_cfg.random_effect_type
+    if name not in fre_opt:
+        raise ValueError(
+            f"coordinate {name!r} has no optimization configuration — "
+            "pass it via "
+            "--factored-random-effect-optimization-configurations")
+    grid = [FactoredRandomEffectOptimizationConfiguration.parse(part)
+            for part in fre_opt[name].split("|")]
+    if preloaded_maps is not None:
+        if shard not in preloaded_maps:
+            raise ValueError(
+                f"factored coordinate {name!r} references unknown "
+                f"feature shard {shard!r} (have {sorted(preloaded_maps)})")
+        shard_maps = {shard: preloaded_maps[shard]}
+    else:
+        logger.info("building feature index for shard %r from %s",
+                    shard, train_inputs)
+        with phase(logger, "build_index"):
+            shard_maps = {shard: build_index_map(
+                train_inputs, ingest_workers=args.ingest_workers)}
+
+    streams = []
+
+    def make_stream():
+        s = BlockGameStream(
+            train_inputs, id_types=[re_type], feature_shard_maps=shard_maps,
+            batch_rows=args.batch_rows, feeder=args.feeder,
+            prefetch_depth=max(0, args.prefetch_batches))
+        streams[:] = [s]
+        return s
+
+    budget = args.hbm_budget
+    if args.checkpoint_dir:
+        logger.warning("--checkpoint-dir is not supported with "
+                       "--stream-train MF coordinates; ignoring")
+    fetcher = None
+    if budget is not None and args.spill_source == "redecode":
+        # Factor-shard misses re-derive from the covering observation
+        # batches, re-decoded by global row range.
+        fetcher = BlockRandomAccess(
+            train_inputs, id_types=[re_type], feature_shard_maps=shard_maps,
+            feeder=args.feeder)
+    logger.info(
+        "stream-train (mf%s): %r over %r entities from %s in %d-row "
+        "batches", "" if budget is None else
+        f", hbm budget {budget} bytes, spill {args.spill_dtype}/"
+        f"{args.spill_source}", name, re_type, train_inputs,
+        args.batch_rows)
+
+    shared = {}  # num_factors -> StreamedMFObjective
+    results = []
+    with phase(logger, "solve"):
+        for cfg in grid:
+            coord = StreamingFactoredRandomEffectCoordinate(
+                name=name, make_stream=make_stream, feature_shard_id=shard,
+                random_effect_type=re_type, task_type=task,
+                config=cfg.random_effect, latent_config=cfg.latent_factor,
+                mf_config=cfg.mf,
+                # seed 0: GameEstimator.fit's default, so B0 is the
+                # in-core driver's.
+                seed=0, hbm_budget_bytes=budget,
+                spill_dtype=(args.spill_dtype if budget is not None
+                             else "f32"),
+                spill_source=(args.spill_source if budget is not None
+                              else "buffer"),
+                mf_objective=shared.get(cfg.mf.num_factors),
+                random_access=fetcher, dtype=dtype, device=device)
+            shared[cfg.mf.num_factors] = coord.mf_objective
+            t0 = time.perf_counter()
+            model, trackers, obj_hist = None, [], []
+            for _ in range(args.num_iterations):
+                model, sweep_trackers = coord.solve(model)
+                trackers.extend(sweep_trackers)
+                obj_hist.append(float(sweep_trackers[-1].value))
+            gm = GameModel({name: model}, task)
+            results.append(({name: cfg}, CoordinateDescentResult(
+                model=gm, objective_history=obj_hist,
+                validation_history=[], best_model=gm, best_metric=None,
+                trackers={name: trackers}, updates=[],
+                timings={name: time.perf_counter() - t0})))
+
+    first = next(iter(shared.values()))
+    stream_info = {
+        "mode": "mf-stream",
+        "batch_rows": args.batch_rows,
+        "hbm_budget_bytes": budget,
+        "mesh_devices": None,
+        "mesh_shape": None,
+        "spill_dtype": args.spill_dtype if budget is not None else None,
+        "spill_source": (args.spill_source if budget is not None
+                         else None),
+        "feeder": streams[0].stats() if streams else None,
+        "cache": first.cache.stats(),
+        "plan": {
+            "entities": first.plan.num_entities,
+            "shards": first.plan.n_shards,
+            "obs_bucket_histogram": {
+                str(k): v for k, v in sorted(
+                    first.plan.obs_bucket_histogram().items())},
+        },
+    }
+    if len(shared) > 1:
+        stream_info["cache_by_num_factors"] = {
+            str(k): o.cache.stats() for k, o in sorted(shared.items())}
+    if fetcher is not None:
+        stream_info["redecode"] = {
+            "decode_path": fetcher.decode_path,
+            "payload_bytes_read": fetcher.payload_bytes_read,
+            "blocks_decoded": fetcher.blocks_decoded,
+            "rows_fetched": fetcher.rows_fetched,
+        }
+
+    if args.validate_input_dirs and evaluators:
+        with phase(logger, "validate"):
+            all_metrics = _stream_validate_many(
+                [res.model for _, res in results], args, shard_maps,
+                evaluators, logger, device, dtype)
+        for (_, res), metrics in zip(results, all_metrics):
+            res.validation_history.append(metrics)
+
+    for configs, res in results:
+        cfg = configs[name]
+        trk = list(res.trackers.get(name) or [])
+        last = trk[-1] if trk else None
+        emitter.send_event(PhotonOptimizationLogEvent(
+            reg_weight=cfg.random_effect.regularization_weight,
+            iterations=(int(last.iterations) if last is not None else 0),
+            converged_reason=(last.reason_enum().summary
+                              if last is not None else "unknown"),
+            final_value=(float(last.value) if last is not None
+                         else float("nan")),
+            metrics=(res.validation_history[-1]
+                     if res.validation_history else None)))
+
+    best_configs, best_result = select_best_result(results, evaluators)
+    return (results, best_configs, best_result, shard_maps, first.n_rows,
             stream_info)
 
 

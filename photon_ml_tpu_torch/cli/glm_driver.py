@@ -13,8 +13,9 @@ Outputs under --output-directory:
 
 Every JAX flag parses with its default. ``--dtype`` picks the solver type
 (float32 by default, as in JAX). ``--profile-output-dir`` raises an error
-naming ROADMAP queue A5 (the profiler); ``--ingest-workers`` is accepted
-and the Avro read stays in one process (A4). Training, variances and the
+naming ROADMAP queue A5 (the profiler); ``--ingest-workers`` N >= 2 (and
+``auto`` on a large input) decodes the Avro in a process pool
+(data/parallel_ingest.py). Training, variances and the
 diagnostics' re-fits solve on the device; validation scores and the
 diagnostics' scoring are host numpy (``vmat @ means``), as in JAX.
 
@@ -114,8 +115,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--coefficient-box-constraints", default=None,
                    help="JSON constraint string (GLMSuite format)")
     p.add_argument("--ingest-workers", default="auto",
-                   help="accepted for the JAX command line; the Avro read "
-                        "runs in one process (parallel ingest: ROADMAP A4)")
+                   help="Avro decode workers: 'auto' (usable cores, the "
+                        "pool only for large inputs) or a count; 1 decodes "
+                        "in this process")
     p.add_argument("--offheap-indexmap-dir", default=None,
                    help="pre-built feature index stores (the reference's "
                         "partitioned PalDB paldb-partition-<ns>-<N>.dat "

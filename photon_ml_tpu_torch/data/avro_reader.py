@@ -14,10 +14,9 @@ reads through the C block decoder (data/block_stream.py), and
 ``build_index_map`` and ``read_labeled_points`` through ``fast_ingest``
 (data/fast_ingest.py), each falling back to the record loop only when a
 file's schema does not fit the training layout; every route gives the
-record loop's arrays byte for byte. The JAX package's parallel route
-(an ``ingest_workers`` count of 2 or more, data/parallel_ingest.py) is
-ROADMAP A4b: ``ingest_workers`` is accepted and the read stays in one
-process.
+record loop's arrays byte for byte. An ``ingest_workers`` count of 2 or
+more (``auto``: the usable cores) goes through ``fast_ingest`` to the
+process pool of data/parallel_ingest.py (avro_reader.py:346-368).
 """
 
 from __future__ import annotations
@@ -160,8 +159,9 @@ def read_labeled_points(
 
     Unknown features (absent from a supplied index map) are dropped, like
     the reference's ingest. ``selected_features`` (keys) restricts columns
-    (GLMSuite selected-features filtering). ``ingest_workers`` is accepted
-    with the JAX meaning; the read runs in this process.
+    (GLMSuite selected-features filtering). ``ingest_workers``: "auto"/None
+    (the usable cores) or a count; 2 or more decode in a process pool
+    (data/parallel_ingest.py), byte-identical to one process.
     """
     if index_map is None:
         index_map = build_index_map(path, add_intercept=add_intercept,
@@ -309,22 +309,27 @@ def read_game_dataset(
     (GameDriver.prepareFeatureMaps) maps onto ``feature_shard_maps``:
     shard id -> IndexMap restricted to that shard's features.
 
-    ``ingest_workers``: accepted with the JAX meaning ("auto"/None or a
-    worker count); the read runs in this process through the C block
-    decoder, which the JAX package's parallel read matches byte for byte.
+    ``ingest_workers``: a read the pool does not take (one worker, or
+    "auto" below ``MIN_PARALLEL_BYTES``) goes through the C block decoder
+    (data/block_stream.py); 2 or more workers ("auto": the usable cores
+    on a large input) through ``fast_ingest``'s process pool, byte for
+    byte the same dataset.
     """
     if feature_shard_maps is None:
         feature_shard_maps = {
             default_shard: build_index_map(path, add_intercept=add_intercept,
                                            ingest_workers=ingest_workers)}
-    from photon_ml_tpu_torch.data.block_stream import (
-        read_game_dataset_via_blocks,
-    )
+    from photon_ml_tpu_torch.data.parallel_ingest import pool_applies
 
-    block_ds = read_game_dataset_via_blocks(
-        path, id_types, feature_shard_maps, add_intercept)
-    if block_ds is not None:
-        return block_ds, feature_shard_maps
+    if not pool_applies(_avro_paths(path), ingest_workers):
+        from photon_ml_tpu_torch.data.block_stream import (
+            read_game_dataset_via_blocks,
+        )
+
+        block_ds = read_game_dataset_via_blocks(
+            path, id_types, feature_shard_maps, add_intercept)
+        if block_ds is not None:
+            return block_ds, feature_shard_maps
 
     fast = fast_ingest(
         _avro_paths(path), feature_shard_maps,

@@ -16,17 +16,15 @@ writes metadataMap before weight/offset; this codebase after — both work).
 Anything that doesn't fit the expected shapes returns None and callers fall
 back to the record-at-a-time path.
 
-The JAX module hands a ``workers`` count of 2 or more to its process-pool
-decode (data/parallel_ingest.py :196-207), whose output is byte-identical
-to this route by that module's contract; the port decodes in this process
-for every count and logs it (parallel ingest is ROADMAP A4b).
+A ``workers`` count of 2 or more, and "auto" on a host of several cores
+for at least ``MIN_PARALLEL_BYTES`` of input, goes to the process-pool
+decode of data/parallel_ingest.py (fast_ingest.py:186-207), whose output
+is byte-identical to this route by that module's contract.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import logging
-import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,8 +35,6 @@ from photon_ml_tpu_torch.io.avro_codec import (
     iter_raw_blocks,
 )
 from photon_ml_tpu_torch.native import load_avro_native
-
-logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -177,15 +173,6 @@ class FastIngestResult:
     collected_keys: Optional[set]
 
 
-def resolve_ingest_workers(workers) -> int:
-    """The worker count a JAX caller's ``workers`` names ("auto"/None/0:
-    the usable cores; an int as given), which the JAX package decodes in
-    that many processes."""
-    if workers in (None, "auto", 0, "0"):
-        return max(1, len(os.sched_getaffinity(0)))
-    return max(1, int(workers))
-
-
 def fast_ingest(
     paths: Sequence,
     shard_maps: Dict[str, IndexMap],
@@ -203,15 +190,26 @@ def fast_ingest(
     ``restrict_keys``: selected-features whitelist (lookups happen against
     the restricted dict).
 
-    ``workers``: accepted with the JAX meaning and decoded in this process
-    (byte-identical to the JAX package's parallel route); a count above
-    one is logged.
+    ``workers``: "auto"/None resolves to the usable core count; 2 or more
+    decode block-range shards in a process pool (data/parallel_ingest.py)
+    with byte-identical output (values and row order); 1 forces this
+    single-process path. The pool declines on inputs too small to
+    amortize it in ``auto`` mode, and this path then runs.
     """
+    from photon_ml_tpu_torch.data.parallel_ingest import (
+        parallel_fast_ingest,
+        resolve_ingest_workers,
+    )
+
+    native = load_avro_native()
     n_workers = resolve_ingest_workers(workers)
     if n_workers > 1:
-        logger.info("ingest: %d workers requested; decoding in one process "
-                    "(parallel ingest is ROADMAP A4b)", n_workers)
-    native = load_avro_native()
+        result = parallel_fast_ingest(
+            paths, shard_maps, intercepts, id_types=id_types,
+            collect_keys=collect_keys, restrict_keys=restrict_keys,
+            workers=n_workers, auto=workers in (None, "auto", 0))
+        if result is not None:
+            return result
 
     shard_names = list(shard_maps)
     dicts = []

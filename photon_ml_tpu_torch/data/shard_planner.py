@@ -1,6 +1,7 @@
-"""Block index of Avro container files (port of
-photon_ml_tpu/data/shard_planner.py: BlockSpan :37, FileBlockIndex :48,
-scan_container_blocks :90, read_block :147, scan_paths :234).
+"""Block index of Avro container files and its shards for a process pool
+(port of photon_ml_tpu/data/shard_planner.py: BlockSpan :37,
+FileBlockIndex :48, IngestShard :67-88, scan_container_blocks :90,
+read_block :147, plan_shards :192-231, scan_paths :234).
 
 An Avro object container file is a header followed by independent blocks
 (count varint, byte-size varint, payload, 16-byte sync marker). Blocks are
@@ -11,15 +12,18 @@ two varints per block (payloads are seeked over), so it costs O(blocks)
 seeks, not O(bytes).
 
 ``data/block_stream.py`` walks the index in order, cutting decoded rows
-into bounded batches, and fetches row ranges from it at random. The JAX
-module's planning half (IngestShard, plan_shards: byte-balanced block
-runs for a process pool) comes with parallel ingest (ROADMAP A4b).
+into bounded batches, and fetches row ranges from it at random;
+``plan_shards`` cuts it into byte-balanced block runs, which
+``data/parallel_ingest.py``'s workers decode.
+
+This module imports neither torch nor numpy: the ingest workers load it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import zlib
 from pathlib import Path
 from typing import Any, List, Sequence
@@ -47,6 +51,38 @@ class FileBlockIndex:
     sync: bytes  # 16-byte sync marker
     schema_json: Any  # writer schema (parsed JSON), for layout compilation
     blocks: List[BlockSpan]
+
+    @property
+    def num_rows(self) -> int:
+        return sum(b.count for b in self.blocks)
+
+    @property
+    def num_bytes(self) -> int:
+        return sum(b.payload_bytes for b in self.blocks)
+
+
+@dataclasses.dataclass(frozen=True)
+class IngestShard:
+    """A consecutive block run of one file, assigned to one worker.
+
+    ``seq`` is the global assembly position: results concatenated in seq
+    order are byte-identical to a single-process scan of the same paths.
+    """
+
+    seq: int
+    path: str
+    codec: str
+    sync: bytes
+    offset: int  # file position of the first block's count varint
+    num_blocks: int
+    num_rows: int
+    num_bytes: int
+
+    def label(self) -> str:
+        """Human-readable shard name for error messages."""
+        return (f"{os.path.basename(self.path)}"
+                f"[@{self.offset}, {self.num_blocks} blocks, "
+                f"{self.num_rows} rows]")
 
 
 def scan_container_blocks(path) -> FileBlockIndex:
@@ -141,6 +177,39 @@ def read_block(f, codec: str, sync: bytes, path: str,
                 f"{path}: corrupt deflate payload in block{where}: "
                 f"{e}") from e
     return count, payload
+
+
+def plan_shards(indexes: Sequence[FileBlockIndex],
+                num_shards: int) -> List[IngestShard]:
+    """Group consecutive blocks into ~``num_shards`` byte-balanced shards.
+
+    File order and block order are kept (seq numbers follow the scan
+    order). Shards never cross a file boundary, so each has one schema,
+    codec and sync marker; a file below the byte target still gets its
+    own shard, so there may be up to ``num_shards + len(indexes)``
+    shards and never fewer than the non-empty files.
+    """
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    total_bytes = sum(ix.num_bytes for ix in indexes)
+    target = max(1, -(-total_bytes // num_shards))  # ceil
+
+    shards: List[IngestShard] = []
+    for ix in indexes:
+        run: List[BlockSpan] = []
+        run_bytes = 0
+        for i, b in enumerate(ix.blocks):
+            run.append(b)
+            run_bytes += b.payload_bytes
+            if run_bytes >= target or i == len(ix.blocks) - 1:
+                shards.append(IngestShard(
+                    seq=len(shards), path=ix.path, codec=ix.codec,
+                    sync=ix.sync, offset=run[0].offset,
+                    num_blocks=len(run),
+                    num_rows=sum(r.count for r in run),
+                    num_bytes=run_bytes))
+                run, run_bytes = [], 0
+    return shards
 
 
 def scan_paths(paths: Sequence) -> List[FileBlockIndex]:

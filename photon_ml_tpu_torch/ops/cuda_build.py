@@ -49,6 +49,7 @@ KERNEL_SOURCES: Dict[str, KernelSources] = {
     "gather": KernelSources(
         units=("gather_onehot.cu", "gather_residue.cu"), headers=()),
     "csr_spmv": KernelSources(units=("csr_spmv.cu",), headers=()),
+    "csr_spmm": KernelSources(units=("csr_spmm.cu",), headers=()),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -9,13 +9,14 @@ features_to_device :1002-1058).
   JAX ``_acc`` asks (features.py:59-75); ``x`` is widened row chunk by
   row chunk and multiplied there, and ``v`` and the result are never
   rounded to bfloat16.
-- ``CSRFeatures``: ``torch.sparse_csr`` (cuSPARSE on the card) for the
-  margins, plus the CSR of the transpose for the gradient product. The
-  JAX package leaves both products to XLA, outside any Pallas kernel, so
-  a library product is the port of them. cuSPARSE's product was not
-  bitwise repeatable for the transpose's long rows on the H100
-  (PERF.md); the streamed path's shard blocks (data/shard_cache.py)
-  multiply with ops/spmv.py's deterministic kernel instead.
+- ``CSRFeatures``: the CSR of the matrix for the margins, plus the CSR
+  of its transpose for the gradient product. On the card both, and their
+  squared-value variants, go through ops/spmv.py's deterministic kernel
+  (``csr_matvec``, int32 offsets and indices, which ``CSRFeatures`` keeps
+  on the card), as the streamed path's shard blocks do: the JAX
+  package's products are a gather and a segment sum that repeat their
+  bits, and cuSPARSE's SpMV did not for the transpose's long rows on the
+  H100 (PERF.md). On the CPU they are ``torch.mv`` on the sparse tensor.
 - ``KroneckerFeatures``: the lazy row-wise Kronecker product x_i (x)
   gamma_i of a factored random effect's projection-matrix refit; each
   product is one contraction and the ``[n, k d]`` matrix is never built.
@@ -24,7 +25,7 @@ The dense/sparse choice by density is the JAX package's. Its ELL
 layouts (features.py:233-930, ``sparse_layout="bucketed_ell"`` and
 ``"sort_permute_ell"``) work around the TPU's slow gathers and
 scatter-adds; ``features_to_device`` accepts their names and builds CSR
-for them, whose products cuSPARSE runs on the card.
+for them.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import scipy.sparse as sp
 import torch
 
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.ops.spmv import csr_matvec
 
 Tensor = torch.Tensor
 
@@ -125,29 +127,47 @@ class CSRFeatures:
     n_rows: int
     n_features: int
 
+    def __post_init__(self):
+        # The kernel takes int32 offsets and indices: convert once, here.
+        if self.csr.device.type == "cuda":
+            for name in ("csr", "csr_t"):
+                m = getattr(self, name)
+                if m.crow_indices().dtype != torch.int32:
+                    object.__setattr__(self, name, torch.sparse_csr_tensor(
+                        m.crow_indices().to(torch.int32),
+                        m.col_indices().to(torch.int32), m.values(),
+                        size=m.shape, check_invariants=False))
+
     @property
     def num_features(self) -> int:
         return self.n_features
 
+    @staticmethod
+    def _mv(csr: Tensor, v: Tensor, square: bool = False) -> Tensor:
+        """csr @ v (each value squared first when asked): the
+        deterministic kernel on the card, torch.mv on the CPU."""
+        vals = csr.values()
+        if square:
+            vals = vals * vals
+        if csr.device.type == "cuda":
+            return csr_matvec(csr.crow_indices(), csr.col_indices(), vals,
+                              v, csr.shape[1])
+        if square:
+            csr = torch.sparse_csr_tensor(
+                csr.crow_indices(), csr.col_indices(), vals, size=csr.shape)
+        return torch.mv(csr, v)
+
     def matvec(self, v: Tensor) -> Tensor:
-        return torch.mv(self.csr, v)
+        return self._mv(self.csr, v)
 
     def rmatvec(self, u: Tensor) -> Tensor:
-        return torch.mv(self.csr_t, u)
-
-    @staticmethod
-    def _squared(csr: Tensor) -> Tensor:
-        """The same sparsity with each value squared."""
-        vals = csr.values()
-        return torch.sparse_csr_tensor(
-            csr.crow_indices(), csr.col_indices(), vals * vals,
-            size=csr.shape)
+        return self._mv(self.csr_t, u)
 
     def row_sq_matvec(self, v: Tensor) -> Tensor:
-        return torch.mv(self._squared(self.csr), v)
+        return self._mv(self.csr, v, square=True)
 
     def sq_rmatvec(self, u: Tensor) -> Tensor:
-        return torch.mv(self._squared(self.csr_t), u)
+        return self._mv(self.csr_t, u, square=True)
 
 
 @dataclasses.dataclass(frozen=True)

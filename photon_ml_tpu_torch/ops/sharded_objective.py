@@ -33,12 +33,24 @@ applies the factor/shift chain ONCE at the apex (the algebra
 ``GLMObjective._jt_product`` applies per batch; for a single shard the
 two are the same bits).
 
+The batched λ grid (port of _build_grid_kit :612-700,
+_build_grid_norm_kit :798-810 and the grid passes :1342-1575; the JAX
+kits are jitted closures built by _ensure_grid_kits :812-836, the
+port's are methods): coefficients ``[G, d]``, margins, directional
+margins and curvature ``[G, rows]`` per shard, λ row ``[G]``. One feature
+pass serves every lane: each cached block is read once a pass and
+multiplied with the G-column panel of coefficients or margins through
+ops/spmv.py ``csr_matmul`` (row 10), whose column j is the bits of the
+scalar path's ``csr_matvec`` on the card. The masked margin ``axpy``
+keeps frozen rows bit for bit (``where`` on t != 0, never a + 0 b).
+``grid_passes`` counts the grid's feature passes.
+
 Not ported here: the 1-D and 2-D mesh folds, ``combine="local"`` and the
-row and column kits (ROADMAP A6), the batched λ-grid kits (ROADMAP
-A4b), the JAX ``TracingGuard`` trace budgets (``trace_budgets``,
+row and column kits, scalar and grid, which only a mesh builds (ROADMAP
+A6), and the JAX
+``TracingGuard`` trace budgets (``trace_budgets``,
 ``assert_trace_budget``; ROADMAP A7 — the port compiles nothing per
-shape) and ``host_scores_from_margins`` (the ``--distmon`` sketches,
-ROADMAP A5). Passing ``mesh`` raises naming A6.
+shape). Passing ``mesh`` raises naming A6.
 """
 
 from __future__ import annotations
@@ -74,6 +86,7 @@ class ShardedGLMObjective:
                              "devices: multi-GPU training is ROADMAP A6")
         self.objective = objective
         self.cache = cache
+        self.grid_passes = 0
 
     # -- per-shard partials (the JAX single-device kit) ---------------------
 
@@ -201,3 +214,166 @@ class ShardedGLMObjective:
             acc = _fold(acc, (e.feats.rmatvec(t), torch.sum(t)))
         r_raw, su = acc
         return self._finish_grad(r_raw, su, vec, l2)
+
+    def host_scores_from_margins(self, z_list: Sequence[Tensor]):
+        """Host training scores (offsets taken back out) in the fixed
+        shard order, i.e. the original row order, from a solver's final
+        per-shard margins: no scoring feature pass."""
+        import numpy as np
+
+        if len(z_list) != len(self.cache.entries):
+            raise ValueError(
+                f"margin list has {len(z_list)} shards, cache has "
+                f"{len(self.cache.entries)} — not this objective's "
+                "margins?")
+        parts = [(z - e.offsets).detach().cpu().numpy()[:e.n_rows]
+                 for e, z in zip(self.cache.entries, z_list)]
+        return np.concatenate(parts) if parts else np.zeros(0)
+
+    # -- the batched λ grid: per-shard grid partials ----------------------
+
+    def _grid_norm_prep(self, coefs: Tensor):
+        """Per-row (effective coefficients, margin shift [G, 1])."""
+        norm = self.objective.normalization
+        if norm is None:
+            return coefs, None
+        eff = torch.stack([norm.effective_coefficients(c) for c in coefs])
+        shift = torch.stack([norm.margin_shift(c) for c in coefs])
+        return eff, shift[:, None]
+
+    def _grid_margins(self, e, coefs: Tensor) -> Tensor:
+        """[G, rows] margins X c_g + offsets (+ shift_g): the scalar
+        ``GLMObjective.margins`` per lane, the product through row 10."""
+        eff, shift = self._grid_norm_prep(coefs)
+        z = e.feats.matmat(eff.T.contiguous()).T + e.offsets[None, :]
+        return z if shift is None else z + shift
+
+    def _grid_rmatmat(self, e, u: Tensor) -> Tensor:
+        """[G, d] X^T u_g for [G, rows] lanes, through row 10."""
+        return e.feats.rmatmat(u.T.contiguous()).T
+
+    def _grid_init(self, e, coefs: Tensor):
+        loss = self.objective.loss
+        z = self._grid_margins(e, coefs)
+        val = torch.sum(e.weights[None, :] * loss.loss(z, e.labels[None, :]),
+                        dim=-1)
+        u = e.weights[None, :] * loss.d1(z, e.labels[None, :])
+        return z, (val, self._grid_rmatmat(e, u), torch.sum(u, dim=-1))
+
+    def _grid_direction(self, e, directions: Tensor) -> Tensor:
+        """margins(p) - offsets per lane, as margin_direction writes it."""
+        return self._grid_margins(e, directions) - e.offsets[None, :]
+
+    def _grid_trial(self, z, zp, labels, weights, ts):
+        """[G, K] weighted-loss sums at z_g + t_gk zp_g."""
+        z_t = z[:, None, :] + ts[:, :, None] * zp[:, None, :]
+        return (torch.sum(weights[None, None, :] * self.objective.loss.loss(
+            z_t, labels[None, None, :]), dim=-1),)
+
+    def _grid_grad(self, e, z):
+        u = e.weights[None, :] * self.objective.loss.d1(z, e.labels[None, :])
+        return self._grid_rmatmat(e, u), torch.sum(u, dim=-1)
+
+    def _grid_hvp(self, e, d2, vecs):
+        t = d2 * self._grid_direction(e, vecs)
+        return self._grid_rmatmat(e, t), torch.sum(t, dim=-1)
+
+    @staticmethod
+    def _grid_axpy(a: Tensor, t: Tensor, b: Tensor) -> Tensor:
+        # Frozen rows carry t == 0 and must keep their margins bit for
+        # bit: a + 0*b is not an identity (-0.0 + 0.0 is +0.0, and a
+        # non-finite b would poison the row), so mask.
+        return torch.where((t != 0.0)[:, None], a + t[:, None] * b, a)
+
+    def _grid_finish_grad(self, g_raw: Tensor, su: Tensor, coefs: Tensor,
+                          l2s: Tensor) -> Tensor:
+        """Per-row normalization chain + L2 at the apex."""
+        norm = self.objective.normalization
+        r = g_raw
+        if norm is not None:
+            if norm.shifts is not None:
+                r = r - su[:, None] * norm.shifts[None, :]
+            if norm.factors is not None:
+                r = r * norm.factors[None, :]
+        return r + l2s[:, None] * coefs
+
+    # -- grid passes ---------------------------------------------------------
+
+    def grid_margins_value_grad(self, coefs: Tensor, l2s: Tensor
+                                ) -> Tuple[List[Tensor], Tensor, Tensor]:
+        """One feature pass for every grid row: per-shard [G, rows]
+        margins, [G] values and [G, d] gradients."""
+        self.grid_passes += 1
+        z_list: List[Tensor] = []
+        acc = None
+        for e in self.cache.blocks():
+            self._require_restored(e)
+            z, part = self._grid_init(e, coefs)
+            z_list.append(z)
+            acc = _fold(acc, part)
+        val, g_raw, su = acc
+        f = val + 0.5 * l2s * torch.sum(coefs * coefs, dim=-1)
+        return z_list, f, self._grid_finish_grad(g_raw, su, coefs, l2s)
+
+    def grid_margin_direction_list(self, directions: Tensor) -> List[Tensor]:
+        """Per-shard [G, rows] directional margins: one feature pass."""
+        self.grid_passes += 1
+        out: List[Tensor] = []
+        for e in self.cache.blocks():
+            self._require_restored(e)
+            out.append(self._grid_direction(e, directions))
+        return out
+
+    def grid_trial_values(self, z_list: Sequence[Tensor],
+                          zp_list: Sequence[Tensor], ts: Tensor,
+                          coef_sq: Tensor, l2s: Tensor) -> Tensor:
+        """[G, K] objective values at per-row step candidates ts [G, K]:
+        row-space only, no feature pass."""
+        acc = None
+        for e, z, zp in zip(self.cache.entries, z_list, zp_list):
+            acc = _fold(acc, self._grid_trial(z, zp, e.labels, e.weights,
+                                              ts))
+        return acc[0] + 0.5 * l2s[:, None] * coef_sq
+
+    def grid_update_margins(self, z_list: Sequence[Tensor], t: Tensor,
+                            zp_list: Sequence[Tensor]) -> List[Tensor]:
+        """z + t*zp per shard with a per-row step [G]; rows with t == 0
+        keep their margins bit for bit."""
+        return [self._grid_axpy(z, t, zp) for z, zp in zip(z_list, zp_list)]
+
+    def grid_grad_from_margins_list(self, coefs: Tensor,
+                                    z_list: Sequence[Tensor],
+                                    l2s: Tensor) -> Tensor:
+        """[G, d] gradients from cached [G, rows] margins: one pass."""
+        self.grid_passes += 1
+        acc = None
+        for e, z in zip(self.cache.blocks(), z_list):
+            self._require_restored(e)
+            acc = _fold(acc, self._grid_grad(e, z))
+        g_raw, su = acc
+        return self._grid_finish_grad(g_raw, su, coefs, l2s)
+
+    def grid_curvature_list(self, z_list: Sequence[Tensor]) -> List[Tensor]:
+        """Per-shard [G, rows] curvature: row-space, no feature pass."""
+        d2 = self.objective.loss.d2
+        return [e.weights[None, :] * d2(z, e.labels[None, :])
+                for e, z in zip(self.cache.entries, z_list)]
+
+    def grid_hessian_vector(self, vecs: Tensor, d2_list: Sequence[Tensor],
+                            l2s: Tensor) -> Tensor:
+        """[G, d] H_g v_g with per-row curvature: one pass serves every
+        row's CG iterate."""
+        self.grid_passes += 1
+        acc = None
+        for e, d2 in zip(self.cache.blocks(), d2_list):
+            self._require_restored(e)
+            acc = _fold(acc, self._grid_hvp(e, d2, vecs))
+        r_raw, su = acc
+        return self._grid_finish_grad(r_raw, su, vecs, l2s)
+
+    @staticmethod
+    def grid_row_margins(z_list: Sequence[Tensor], row: int
+                         ) -> List[Tensor]:
+        """One grid row's per-shard margins, scalar-shaped (for
+        ``host_scores_from_margins``)."""
+        return [z[row] for z in z_list]

@@ -2,8 +2,8 @@
 photon_ml_tpu/optimization/convergence.py:143-201: ConvergenceReason
 with its summary :151, OptimizerResult with coef_history :184 and
 reason_enum :190; the streaming solvers' divergence watchdog
-check_solver_finite and SolverDivergedError :71-140, without the trace
-context and λ-grid provenance of ROADMAP A5 and A4b).
+check_solver_finite and SolverDivergedError :71-140 with the batched λ
+grid's per-row provenance, without the trace context of ROADMAP A5).
 
 An optimizer stops when (ml/optimization/Optimizer.scala:156-170)
   - iteration count hits max_iter                   -> MAX_ITERATIONS
@@ -91,11 +91,22 @@ def padded_history(rows, max_iter: int) -> Tensor:
 class SolverDivergedError(RuntimeError):
     """A host-driven streaming solver observed a non-finite loss or
     gradient norm: the divergence watchdog's typed fault, naming the
-    solver, the outer iteration and the offending values."""
+    solver, the outer iteration and the offending values. The batched λ
+    grid names the one row that diverged (``grid_row``) and its λ
+    (``lam``); the other rows' masks are untouched by the check."""
 
-    def __init__(self, solver: str, iteration: int, value, grad_norm):
+    def __init__(self, solver: str, iteration: int, value, grad_norm,
+                 lam=None, grid_row=None):
+        where = ""
+        if grid_row is not None:
+            where = f" [grid row {int(grid_row)}"
+            if lam is not None:
+                where += f", l2={float(lam)!r}"
+            where += "]"
+        elif lam is not None:
+            where = f" [l2={float(lam)!r}]"
         super().__init__(
-            f"{solver} diverged at outer iteration {iteration}: "
+            f"{solver} diverged at outer iteration {iteration}{where}: "
             f"value={value!r}, grad_norm={grad_norm!r} (non-finite). "
             "Typical causes: learning-rate/regularization far off scale, "
             "corrupt feature values, or an overflowing loss")
@@ -103,15 +114,19 @@ class SolverDivergedError(RuntimeError):
         self.iteration = int(iteration)
         self.value = value
         self.grad_norm = grad_norm
+        self.lam = None if lam is None else float(lam)
+        self.grid_row = None if grid_row is None else int(grid_row)
 
 
-def check_solver_finite(solver: str, iteration: int, value,
-                        grad_norm) -> None:
+def check_solver_finite(solver: str, iteration: int, value, grad_norm, *,
+                        lam=None, grid_row=None) -> None:
     """Raise :class:`SolverDivergedError` when the loss or gradient norm
     went non-finite. ``value``/``grad_norm`` are host scalars the
     streamed outer loops already hold for their convergence compares, so
-    the check adds no device sync."""
+    the check adds no device sync. The grid solvers pass ``lam`` and
+    ``grid_row``."""
     v, g = float(value), float(grad_norm)
     if math.isfinite(v) and math.isfinite(g):
         return
-    raise SolverDivergedError(solver, iteration, v, g)
+    raise SolverDivergedError(solver, iteration, v, g, lam=lam,
+                              grid_row=grid_row)

@@ -1,7 +1,9 @@
 """GLM L-BFGS with a margin-cached line search (port of
 photon_ml_tpu/optimization/glm_lbfgs.py: _minimize_lbfgs_glm_impl :83,
-minimize_lbfgs_glm :810, and the out-of-core
-minimize_lbfgs_glm_streaming :241-500 over a ShardedGLMObjective).
+minimize_lbfgs_glm :810, the out-of-core
+minimize_lbfgs_glm_streaming :241-500 over a ShardedGLMObjective, and
+the batched λ grid minimize_lbfgs_glm_grid_streaming :502-809 with its
+helpers _grid_direction ... _grid_update_history).
 
 Margins are affine in the coefficients, so along a direction p
 
@@ -33,6 +35,7 @@ from photon_ml_tpu_torch.optimization.convergence import (
     padded_history,
 )
 from photon_ml_tpu_torch.optimization.lbfgs import (
+    LBFGSHistory,
     compact_direction,
     empty_history,
     select_history,
@@ -308,3 +311,255 @@ def minimize_lbfgs_glm_streaming(
         grad_norm_history=torch.from_numpy(gnorm_hist),
         coef_history=(None if coefs is None
                       else padded_history(coefs, max_iter)))
+
+
+# -- the batched λ grid --------------------------------------------------
+#
+# JAX vmaps the scalar bodies over the grid axis; the port applies them
+# lane by lane and stacks, so each lane's [d]-space arithmetic is the
+# scalar solver's, bit for bit.
+
+
+def _hist_row(hist: LBFGSHistory, i: int) -> LBFGSHistory:
+    return LBFGSHistory(*(f[i] for f in hist))
+
+
+def _stack_hists(rows) -> LBFGSHistory:
+    return LBFGSHistory(*(torch.stack(f) for f in zip(*rows)))
+
+
+def _grid_direction(g: Tensor, hist: LBFGSHistory, x: Tensor):
+    """Per-row search directions and line-search dot products."""
+    rows = [_stream_direction(g[i], _hist_row(hist, i), x[i])
+            for i in range(g.shape[0])]
+    return tuple(torch.stack(f) for f in zip(*rows))
+
+
+def _grid_candidates(first: Tensor, pp: Tensor, f: Tensor, gp: Tensor,
+                     powers: Tensor, c1: float):
+    """[G, K] Armijo candidates and thresholds, per grid row."""
+    one = torch.ones((), dtype=pp.dtype, device=pp.device)
+    init_step = torch.where(first, 1.0 / torch.clamp_min(torch.sqrt(pp),
+                                                         1.0), one)
+    ts = init_step[:, None] * powers[None, :]
+    return ts, f[:, None] + c1 * ts * gp[:, None]
+
+
+def _grid_coef_sq(xx, xp, pp, ts):
+    return xx[:, None] + 2.0 * ts * xp[:, None] + ts * ts * pp[:, None]
+
+
+def _grid_axpy_masked(a: Tensor, t: Tensor, b: Tensor) -> Tensor:
+    """Per-row a + t*b; rows with t == 0 stay bit for bit (masked, not
+    added)."""
+    return torch.where((t != 0.0)[:, None], a + t[:, None] * b, a)
+
+
+def _grid_select_rows(mask: Tensor, a, b):
+    """Row select: rows where ``mask`` take ``a``, else ``b`` (a tensor
+    or an LBFGSHistory)."""
+    if isinstance(a, LBFGSHistory):
+        return LBFGSHistory(*(_grid_select_rows(mask, x, y)
+                              for x, y in zip(a, b)))
+    m = mask.reshape(mask.shape + (1,) * (a.dim() - 1))
+    return torch.where(m, a, b)
+
+
+def _grid_update_history(hist: LBFGSHistory, x_new, x, g_new, g,
+                         moved: Tensor) -> LBFGSHistory:
+    """Cautious history update per row, applied only to rows that moved
+    (a failed line search leaves its row's history alone)."""
+    new = _stack_hists([update_history(_hist_row(hist, i),
+                                       x_new[i] - x[i], g_new[i] - g[i])
+                        for i in range(x.shape[0])])
+    return _grid_select_rows(moved, new, hist)
+
+
+def minimize_lbfgs_glm_grid_streaming(
+    sharded_objective,
+    x0s: Tensor,
+    l2_weights,
+    *,
+    max_iter: int = 100,
+    tol: float = 1e-7,
+    history_size: int = 10,
+    c1: float = 1e-4,
+    max_line_search: int = 30,
+    track_coefficients: bool = False,
+    margins_out=None,
+):
+    """Batched λ-grid streaming L-BFGS: one set of feature passes per
+    outer iteration advances all G grid points (coefficients ``[G, d]``,
+    per-shard margins ``[G, rows]``, λ row ``l2_weights`` ``[G]``).
+    Returns G :class:`OptimizerResult`, row-aligned with the inputs.
+
+    Row state lives on the host as numpy masks: a converged or failed row
+    is frozen by forcing its accepted step to 0 and selecting its
+    previous state by row masks. Each outer iteration costs 2 feature
+    passes whatever G, and the loop ends when every row is done, so a
+    sweep costs the slowest row's passes. G = 1 delegates to
+    :func:`minimize_lbfgs_glm_streaming` outright (the bitwise gate).
+    For G > 1 each row follows the scalar iteration's semantics (same
+    candidates, same convergence order and thresholds in the same type).
+    A non-finite loss or gradient norm in one row raises
+    ``SolverDivergedError`` naming that row and its λ.
+
+    ``margins_out`` receives the final per-shard ``[G, rows]`` margins
+    (``ShardedGLMObjective.grid_row_margins`` slices one row out). The
+    JAX ``trace_ctxs`` and ``convergence_rings`` are ROADMAP A5."""
+    sobj = sharded_objective
+    x = x0s
+    if x.dim() != 2:
+        raise ValueError(
+            f"x0s must be [G, d] (one coefficient row per grid point), "
+            f"got shape {tuple(x.shape)}")
+    G, d = x.shape
+    dtype, device = x.dtype, x.device
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
+    l2s = torch.as_tensor(np.asarray(l2_weights, np_dtype), device=device)
+    if l2s.shape != (G,):
+        raise ValueError(
+            f"l2_weights must be [G]={G} (one λ per grid row), got "
+            f"shape {tuple(l2s.shape)}")
+
+    if G == 1:
+        # Bitwise gate: the 1-row grid IS the scalar streamed solver.
+        holder = [] if margins_out is not None else None
+        res = minimize_lbfgs_glm_streaming(
+            sobj, x[0], float(l2s[0]), max_iter=max_iter, tol=tol,
+            history_size=history_size, c1=c1,
+            max_line_search=max_line_search,
+            track_coefficients=track_coefficients, margins_out=holder)
+        if margins_out is not None:
+            margins_out[:] = [z[None] for z in holder]
+        return [res]
+
+    tol_s = np_dtype.type(tol)
+    c1_np = np_dtype.type(c1)
+    l2_h = l2s.cpu().numpy()
+    n_batched = min(max_line_search + 1, 8)
+    powers = torch.pow(torch.tensor(0.5, dtype=dtype, device=device),
+                       torch.arange(n_batched, dtype=dtype, device=device))
+
+    z_list, f, g = sobj.grid_margins_value_grad(x, l2s)
+    f_h = f.cpu().numpy()
+    gnorm = torch.linalg.norm(g, dim=-1).cpu().numpy()
+    for gi in range(G):
+        check_solver_finite("streaming-lbfgs-grid", 0, f_h[gi], gnorm[gi],
+                            lam=l2_h[gi], grid_row=gi)
+    gnorm0 = gnorm.copy()
+    f0_scale = np.maximum(np.abs(f_h), np_dtype.type(1e-30))
+    hist = _stack_hists([empty_history(d, history_size, dtype, device)] * G)
+
+    value_hist = np.full((G, max_iter + 1), np.nan, np_dtype)
+    gnorm_hist = np.full((G, max_iter + 1), np.nan, np_dtype)
+    value_hist[:, 0], gnorm_hist[:, 0] = f_h, gnorm
+    coef_hist = (np.full((G, max_iter + 1, d), np.nan, np_dtype)
+                 if track_coefficients else None)
+    if coef_hist is not None:
+        coef_hist[:, 0] = x.cpu().numpy()
+
+    reasons = [ConvergenceReason.GRADIENT_CONVERGED if gnorm0[gi] <= 0.0
+               else ConvergenceReason.NOT_CONVERGED for gi in range(G)]
+    active = np.array([r == ConvergenceReason.NOT_CONVERGED
+                       for r in reasons])
+    its = np.zeros(G, np.int64)
+    rows = np.arange(G)
+
+    while active.any():
+        dirs, xx, xp, pp, gp = _grid_direction(g, hist, x)
+        zp_list = sobj.grid_margin_direction_list(dirs)
+
+        first = hist.count == 0
+        ts, thresholds = _grid_candidates(
+            first, pp, torch.as_tensor(f_h, device=device), gp, powers, c1)
+        f_trials = sobj.grid_trial_values(
+            z_list, zp_list, ts, _grid_coef_sq(xx, xp, pp, ts), l2s)
+        ft = f_trials.cpu().numpy()
+        armijo = np.logical_and(ft <= thresholds.cpu().numpy(),
+                                np.isfinite(ft))
+        ok = armijo.any(axis=1)
+        idx = np.argmax(armijo, axis=1)
+        ts_h = ts.cpu().numpy()
+        t_np = np.where(ok & active, ts_h[rows, idx], np_dtype.type(0.0))
+        f_new_h = np.where(ok, ft[rows, idx], f_h)
+
+        searching = active & ~ok
+        k = n_batched
+        t_tail = ts_h[:, -1].copy()
+        gp_h = gp.cpu().numpy()
+        while searching.any() and k < max_line_search + 1:
+            # Sequential tail past the batched block: rare (0.5^8).
+            t_tail = t_tail * np_dtype.type(0.5)
+            tsd = torch.as_tensor(
+                np.where(searching, t_tail, np_dtype.type(0.0))[:, None],
+                device=device)
+            f_t_h = sobj.grid_trial_values(
+                z_list, zp_list, tsd, _grid_coef_sq(xx, xp, pp, tsd),
+                l2s).cpu().numpy()[:, 0]
+            thr_t = f_h + c1_np * t_tail * gp_h
+            hit = searching & (f_t_h <= thr_t) & np.isfinite(f_t_h)
+            t_np = np.where(hit, t_tail, t_np)
+            f_new_h = np.where(hit, f_t_h, f_new_h)
+            ok |= hit
+            searching &= ~hit
+            k += 1
+
+        its[active] += 1  # failed searches count, like the scalar solver
+        moved = ok & active
+        failed = active & ~ok
+        for gi in np.flatnonzero(failed):
+            reasons[gi] = ConvergenceReason.OBJECTIVE_NOT_IMPROVING
+            if its[gi] <= max_iter:
+                value_hist[gi, its[gi]] = f_h[gi]
+                gnorm_hist[gi, its[gi]] = gnorm[gi]
+                if coef_hist is not None:
+                    coef_hist[gi, its[gi]] = x[gi].cpu().numpy()
+        active &= ok
+
+        if moved.any():
+            t_dev = torch.as_tensor(t_np, device=device)
+            moved_dev = torch.as_tensor(moved, device=device)
+            x_new = _grid_axpy_masked(x, t_dev, dirs)
+            z_new = sobj.grid_update_margins(z_list, t_dev, zp_list)
+            g_full = sobj.grid_grad_from_margins_list(x_new, z_new, l2s)
+            g_new = _grid_select_rows(moved_dev, g_full, g)
+            hist = _grid_update_history(hist, x_new, x, g_new, g,
+                                        moved_dev)
+            gnorm_new = torch.linalg.norm(g_new, dim=-1).cpu().numpy()
+            x, z_list, g = x_new, z_new, g_new
+            f_delta = np.abs(f_h - f_new_h)
+            f_h = np.where(moved, f_new_h, f_h)
+            gnorm = np.where(moved, gnorm_new, gnorm)
+
+            for gi in np.flatnonzero(moved):
+                check_solver_finite("streaming-lbfgs-grid", int(its[gi]),
+                                    f_h[gi], gnorm[gi], lam=l2_h[gi],
+                                    grid_row=gi)
+                value_hist[gi, its[gi]] = f_h[gi]
+                gnorm_hist[gi, its[gi]] = gnorm[gi]
+                if coef_hist is not None:
+                    coef_hist[gi, its[gi]] = x[gi].cpu().numpy()
+                if gnorm[gi] <= tol_s * gnorm0[gi]:
+                    reasons[gi] = ConvergenceReason.GRADIENT_CONVERGED
+                elif f_delta[gi] <= tol_s * f0_scale[gi]:
+                    reasons[gi] = ConvergenceReason.FUNCTION_VALUES_CONVERGED
+                elif its[gi] >= max_iter:
+                    reasons[gi] = ConvergenceReason.MAX_ITERATIONS
+                if reasons[gi] != ConvergenceReason.NOT_CONVERGED:
+                    active[gi] = False
+
+    if margins_out is not None:
+        margins_out[:] = z_list
+    return [
+        OptimizerResult(
+            x=x[gi], value=torch.tensor(f_h[gi], dtype=dtype),
+            grad_norm=torch.tensor(gnorm[gi], dtype=dtype),
+            iterations=torch.tensor(int(its[gi]), dtype=torch.int32),
+            reason=torch.tensor(int(reasons[gi]), dtype=torch.int32),
+            value_history=torch.from_numpy(value_hist[gi].copy()),
+            grad_norm_history=torch.from_numpy(gnorm_hist[gi].copy()),
+            coef_history=(None if coef_hist is None
+                          else torch.from_numpy(coef_hist[gi].copy())))
+        for gi in range(G)
+    ]

@@ -20,8 +20,9 @@ Hessian-vector product.
 
 ``minimize_tron_streaming`` is the out-of-core variant (tron.py:293-522:
 _stream_cg_step, _stream_tr_update and the host outer loop) over a
-ShardedGLMObjective; the batched λ-grid variant (tron.py:541-751) is
-ROADMAP A4b.
+ShardedGLMObjective; ``minimize_tron_grid_streaming`` the batched λ-grid
+variant (tron.py:524-754: _grid_cg_step, _grid_tr_update and the masked
+host loop).
 """
 
 from __future__ import annotations
@@ -419,3 +420,200 @@ def minimize_tron_streaming(
         coef_history=(None if coefs is None
                       else padded_history(coefs, max_iter)),
         outer_steps=outer, cg_steps=cg_steps)
+
+
+def _grid_cg_step(s, r, d_vec, rtr, hd, delta, stop_norm):
+    """Per-row Steihaug-Toint CG step: `_stream_cg_step` on each lane
+    (JAX vmaps it), stacked."""
+    rows = [_stream_cg_step(s[i], r[i], d_vec[i], rtr[i], hd[i], delta[i],
+                            stop_norm[i]) for i in range(s.shape[0])]
+    return tuple(torch.stack(f) for f in zip(*rows))
+
+
+def _grid_tr_update(f, f_new, g, s, r, delta, first: bool):
+    """Per-row LIBLINEAR trust-region update (``first`` shared by all
+    rows: the before-first-step clamp)."""
+    rows = [_stream_tr_update(f[i], f_new[i], g[i], s[i], r[i], delta[i],
+                              first) for i in range(g.shape[0])]
+    return tuple(torch.stack(f) for f in zip(*rows))
+
+
+def minimize_tron_grid_streaming(
+    sharded_objective,
+    x0s: Tensor,
+    l2_weights,
+    *,
+    max_iter: int = 15,
+    tol: float = 1e-5,
+    max_cg: int = 20,
+    max_improvement_failures: int = 5,
+    track_coefficients: bool = False,
+    margins_out=None,
+):
+    """Batched λ-grid streaming TRON: one curvature pass, one shared CG
+    (each Hessian-vector feature pass serves every grid row's iterate)
+    and one trial pass advance all G trust-region solves per outer
+    iteration. Coefficients ``[G, d]``, margins and curvature
+    ``[G, rows]`` per shard, λ row ``[G]``; returns G
+    :class:`OptimizerResult`, row-aligned.
+
+    Per-row CG done-masks freeze a row's (s, r, d, rtr) at its own
+    Steihaug-Toint stop, and the inner loop runs until every active row
+    is done or ``max_cg``. Accept/reject, improvement-failure budgets
+    and reasons are per row (host masks); finished rows keep their state
+    bit for bit through row selects. G = 1 delegates to
+    :func:`minimize_tron_streaming` (the bitwise gate). Only accepted
+    states are watchdog-checked; a non-finite accepted row raises
+    ``SolverDivergedError`` naming that row and its λ. The JAX
+    ``trace_ctxs`` and ``convergence_rings`` are ROADMAP A5."""
+    from photon_ml_tpu_torch.optimization.glm_lbfgs import (
+        _grid_select_rows,
+    )
+
+    sobj = sharded_objective
+    x = x0s
+    if x.dim() != 2:
+        raise ValueError(
+            f"x0s must be [G, d] (one coefficient row per grid point), "
+            f"got shape {tuple(x.shape)}")
+    G, d = x.shape
+    dtype, device = x.dtype, x.device
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
+    l2s = torch.as_tensor(np.asarray(l2_weights, np_dtype), device=device)
+    if l2s.shape != (G,):
+        raise ValueError(
+            f"l2_weights must be [G]={G} (one λ per grid row), got "
+            f"shape {tuple(l2s.shape)}")
+
+    if G == 1:
+        # Bitwise gate: the 1-row grid IS the scalar streamed solver.
+        holder = [] if margins_out is not None else None
+        res = minimize_tron_streaming(
+            sobj, x[0], float(l2s[0]), max_iter=max_iter, tol=tol,
+            max_cg=max_cg,
+            max_improvement_failures=max_improvement_failures,
+            track_coefficients=track_coefficients, margins_out=holder)
+        if margins_out is not None:
+            margins_out[:] = [z[None] for z in holder]
+        return [res]
+
+    tol_s = np_dtype.type(tol)
+    l2_h = l2s.cpu().numpy()
+    z_list, f, g = sobj.grid_margins_value_grad(x, l2s)
+    f_h = f.cpu().numpy()
+    gnorm = torch.linalg.norm(g, dim=-1).cpu().numpy()
+    for gi in range(G):
+        check_solver_finite("streaming-tron-grid", 0, f_h[gi], gnorm[gi],
+                            lam=l2_h[gi], grid_row=gi)
+    gnorm0 = gnorm.copy()
+    f0_scale = np.maximum(np.abs(f_h), np_dtype.type(1e-30))
+    delta = torch.as_tensor(gnorm0, device=device)
+
+    value_hist = np.full((G, max_iter + 1), np.nan, np_dtype)
+    gnorm_hist = np.full((G, max_iter + 1), np.nan, np_dtype)
+    value_hist[:, 0], gnorm_hist[:, 0] = f_h, gnorm
+    coef_hist = (np.full((G, max_iter + 1, d), np.nan, np_dtype)
+                 if track_coefficients else None)
+    if coef_hist is not None:
+        coef_hist[:, 0] = x.cpu().numpy()
+
+    reasons = [ConvergenceReason.GRADIENT_CONVERGED if gnorm0[gi] <= 0.0
+               else ConvergenceReason.NOT_CONVERGED for gi in range(G)]
+    active = np.array([r == ConvergenceReason.NOT_CONVERGED
+                       for r in reasons])
+    its = np.zeros(G, np.int64)
+    fails = np.zeros(G, np.int64)
+    first = True
+    outer = cg_steps = 0
+
+    while active.any():
+        d2_list = sobj.grid_curvature_list(z_list)
+
+        # -- per-row truncated CG: one shared Hvp feature pass per step;
+        # rows past their own stop are frozen by row masks.
+        s = torch.zeros_like(g)
+        r = -g
+        d_vec = -g
+        rtr = torch.sum(r * r, dim=-1)
+        stop_norm = _CG_XI * torch.linalg.norm(g, dim=-1)
+        cg_done = ((torch.linalg.norm(r, dim=-1) <= stop_norm).cpu().numpy()
+                   | ~active)
+        k = 0
+        while not cg_done.all() and k < max_cg:
+            hd = sobj.grid_hessian_vector(d_vec, d2_list, l2s)
+            s2, r2, d2v, rtr2, done_dev = _grid_cg_step(
+                s, r, d_vec, rtr, hd, delta, stop_norm)
+            run = torch.as_tensor(~cg_done, device=device)
+            s = _grid_select_rows(run, s2, s)
+            r = _grid_select_rows(run, r2, r)
+            d_vec = _grid_select_rows(run, d2v, d_vec)
+            rtr = torch.where(run, rtr2, rtr)
+            cg_done |= (~cg_done) & done_dev.cpu().numpy()
+            k += 1
+        cg_steps += k
+        outer += 1
+
+        active_dev = torch.as_tensor(active, device=device)
+        x_try = _grid_select_rows(active_dev, x + s, x)
+        z_try, f_new, g_new = sobj.grid_margins_value_grad(x_try, l2s)
+        delta_new, accept_dev = _grid_tr_update(
+            torch.as_tensor(f_h, device=device), f_new, g, s, r, delta,
+            first)
+        first = False
+        delta = torch.where(active_dev, delta_new, delta)
+        accept = accept_dev.cpu().numpy() & active
+
+        if accept.any():
+            acc_dev = torch.as_tensor(accept, device=device)
+            x = _grid_select_rows(acc_dev, x_try, x)
+            g = _grid_select_rows(acc_dev, g_new, g)
+            z_list = [torch.where(acc_dev[:, None], zt, z)
+                      for zt, z in zip(z_try, z_list)]
+            f_new_h = f_new.cpu().numpy()
+            gnorm_new = torch.linalg.norm(g, dim=-1).cpu().numpy()
+            f_delta = np.abs(f_h - f_new_h)
+            f_h = np.where(accept, f_new_h, f_h)
+            gnorm = np.where(accept, gnorm_new, gnorm)
+            its[accept] += 1
+            fails[accept] = 0
+            for gi in np.flatnonzero(accept):
+                # Watchdog on accepted rows only: a rejected non-finite
+                # trial is normal trust-region behaviour.
+                check_solver_finite("streaming-tron-grid", int(its[gi]),
+                                    f_h[gi], gnorm[gi], lam=l2_h[gi],
+                                    grid_row=gi)
+                value_hist[gi, its[gi]] = f_h[gi]
+                gnorm_hist[gi, its[gi]] = gnorm[gi]
+                if coef_hist is not None:
+                    coef_hist[gi, its[gi]] = x[gi].cpu().numpy()
+                if gnorm[gi] <= tol_s * gnorm0[gi]:
+                    reasons[gi] = ConvergenceReason.GRADIENT_CONVERGED
+                elif f_delta[gi] <= tol_s * f0_scale[gi]:
+                    reasons[gi] = ConvergenceReason.FUNCTION_VALUES_CONVERGED
+                elif its[gi] >= max_iter:
+                    reasons[gi] = ConvergenceReason.MAX_ITERATIONS
+                if reasons[gi] != ConvergenceReason.NOT_CONVERGED:
+                    active[gi] = False
+
+        rejected = active & ~accept
+        fails[rejected] += 1
+        for gi in np.flatnonzero(rejected):
+            if fails[gi] > max_improvement_failures:
+                reasons[gi] = ConvergenceReason.OBJECTIVE_NOT_IMPROVING
+                active[gi] = False
+
+    if margins_out is not None:
+        margins_out[:] = z_list
+    return [
+        OptimizerResult(
+            x=x[gi], value=torch.tensor(f_h[gi], dtype=dtype),
+            grad_norm=torch.tensor(gnorm[gi], dtype=dtype),
+            iterations=torch.tensor(int(its[gi]), dtype=torch.int32),
+            reason=torch.tensor(int(reasons[gi]), dtype=torch.int32),
+            value_history=torch.from_numpy(value_hist[gi].copy()),
+            grad_norm_history=torch.from_numpy(gnorm_hist[gi].copy()),
+            coef_history=(None if coef_hist is None
+                          else torch.from_numpy(coef_hist[gi].copy())),
+            outer_steps=outer, cg_steps=cg_steps)
+        for gi in range(G)
+    ]

@@ -275,9 +275,10 @@ def test_cross_scoring(runs, example):
 
 
 # --stream-train and its flags are ported (streamed ingest and training,
-# ROADMAP A4); each of those entries keeps its first flag and adds what
-# still belongs to a later item, which must raise naming it (the named
-# flag, third).
+# the batched λ grid and streamed matrix factorization, ROADMAP A4 and
+# A4b); each of those entries keeps its first flag and adds what still
+# belongs to a later item, which must raise naming it (the named flag,
+# third).
 _STREAM_FE = ["--stream-train", "--random-effect-data-configurations",
               "--updating-sequence", "fixed"]
 _GRID2 = ["--fixed-effect-optimization-configurations",
@@ -287,12 +288,12 @@ TRAINING_LATER = [
       "mf:userId,global,4,-1,-1,-1,IDENTITY",
       "--factored-random-effect-optimization-configurations",
       "mf:20,1e-6,1.0,1.0,LBFGS,L2;20,1e-6,1.0,1.0,LBFGS,L2;1,2",
-      "--random-effect-data-configurations", "--updating-sequence", "mf"],
-     "A4b", "--stream-train"),
-    (["--hbm-budget", "8K", *_STREAM_FE, *_GRID2], "A4b",
-     "--grid-batched auto"),
-    (["--grid-batched", "on", "--hbm-budget", "8K", *_STREAM_FE], "A4b",
-     "--grid-batched on"),
+      "--random-effect-data-configurations", "--updating-sequence", "mf",
+      "--distmon"], "A5", "--distmon"),
+    (["--hbm-budget", "8K", *_STREAM_FE, *_GRID2, "--mesh-devices", "2"],
+     "A6", "--mesh-devices"),
+    (["--grid-batched", "on", "--hbm-budget", "8K", *_STREAM_FE,
+      "--trace-out", "t.json"], "A5", "--trace-out"),
     (["--grid-batched", "off", "--hbm-budget", "8K", *_STREAM_FE,
       "--mesh-devices", "2"], "A6", "--mesh-devices"),
     (["--spill-dtype", "bf16", "--hbm-budget", "8K", *_STREAM_FE,

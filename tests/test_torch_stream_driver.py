@@ -228,17 +228,27 @@ def test_metrics_stream_train_block_has_jax_keys(runs):
         runs["jax-spill"]["stream_train"]["cache"])
 
 
+# The batched grid and streamed MF run (tests/test_torch_stream_grid.py,
+# test_torch_stream_mf.py); with a flag of a later item they raise
+# naming that item. The ids are the names these cases had while the
+# grid and streamed MF themselves raised naming A4b, kept so that each
+# case's record goes on under one name: what a case now asserts is its
+# `named` flag and its `item`.
 @pytest.mark.parametrize("extra,named,item", [
-    (["--grid-batched", "on", *SPILL], "--grid-batched on", "A4b"),
-    (["--grid-batched", "auto", *SPILL], "--grid-batched auto", "A4b"),
+    (["--grid-batched", "on", *SPILL, "--distmon"], "--distmon", "A5"),
+    (["--grid-batched", "auto", *SPILL, "--mesh-devices", "2"],
+     "--mesh-devices", "A6"),
     (["--factored-random-effect-data-configurations",
       "mf:userId,global,1,-1,-1,-1,IDENTITY",
       "--factored-random-effect-optimization-configurations",
       "mf:20,1e-6,1.0,1.0,LBFGS,L2;20,1e-6,1.0,1.0,LBFGS,L2;1,2",
-      "--updating-sequence", "mf"], "--stream-train", "A4b"),
+      "--updating-sequence", "mf", "--trace-out", "t.json"],
+     "--trace-out", "A5"),
     (["--distmon"], "--distmon", "A5"),
     ([*SPILL, "--mesh-devices", "2"], "--mesh-devices", "A6"),
-])
+], ids=["extra0---grid-batched on-A4b", "extra1---grid-batched auto-A4b",
+        "extra2---stream-train-A4b", "extra3---distmon-A5",
+        "extra4---mesh-devices-A6"])
 def test_unported_stream_flags_raise_naming_item(runs, tmp_path, extra,
                                                  named, item):
     with pytest.raises(ValueError, match=f"{named} is not ported yet: it "
