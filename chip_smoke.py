@@ -97,9 +97,9 @@ L-BFGS/L2 on a 4-point λ grid with --grid-batched off, --feeder native,
 4,096-row shards) five ways: resident (exact assembly, the one-shot
 estimator), --hbm-budget above the shard's device bytes, at a quarter
 of them with f32 buffer spill, the same with --spill-source redecode on
-two λ (the quarter run's best and the grid's first: a cut of depth,
-since the redecode run re-decodes every miss), and with --spill-dtype
-bf16; and the one-shot driver on the same flags.
+one λ (the quarter run's best: a cut of depth, since the redecode run
+re-decodes every miss), and with --spill-dtype bf16; and the one-shot
+driver on the same flags.
 Its checks: the C decoder decoded every run; evictions where the budget
 forces them; the three f32 spill runs' decoded best models are the same
 records; the resident run's are the one-shot driver's; the bf16 model is
@@ -117,7 +117,8 @@ and their rate against a pinned copy_, and the two budgets' coefficients
 bit for bit. Row 9 is held against its plain version (torch.mv on the
 same CSR, cuSPARSE on the card) on one of its blocks within 1e-5 of
 sum |a x|, and against itself over 20 calls bit for bit (cuSPARSE's own
-repeatability is printed).
+repeatability is printed); its matvec+rmatvec pair is timed (call and
+device ms) beside torch.mv's, with the host ms of each call.
 
 Path 9 (the second half of streamed training) runs the training driver
 on path 6's files three ways. Grid: path 8's quarter-budget f32 run
@@ -136,9 +137,10 @@ same bits and bf16 within 5% of the largest factor value (the JAX
 package's bound). Kernel row 10 (csrc/csr_spmm.cu, the deterministic
 CSR x panel product) launches in the grid and MF runs, and is held at
 the shapes MF gave it (the normal equations' entity x row CSR with its
-[rows, 20] panel, three column tiles; the feature block with B^T and
-its transpose) against its plain version and column by column against
-row 9. Then the grid
+[rows, 20] panel, one column tile; the feature block with B^T and its
+transpose) against its plain version and column by column against row
+9, each product's call and device ms printed beside its bound. Then the
+grid
 full-width phase solves the full-width stream phase's shard (160,000 x
 200 from memory) by batched L-BFGS at G = 4 and 8 against the
 sequential sweep of the same λ, with no budget and at 25% (ms per
@@ -147,9 +149,14 @@ reports whether a G > 1 lane's value and gradient are the scalar
 path's bits, and holds row 10 against its plain version
 (torch.sparse.mm) within 1e-5 of sum |a x|, column by column against row
 9 bit for bit and itself over 20 calls, timed at n = 4 and 8 against n
-calls of row 9, cuSPARSE's SpMM and its bound. Last, 20 calls bit for
-bit each: the batched ridge solve of streamed MF (torch.linalg.solve on
-[2048, 4, 4]) and the in-core CSRFeatures' four products (row 9).
+calls of row 9, cuSPARSE's SpMM and its bound. The order contract of
+rows 9 and 10 (csrc/csr_order.cuh: a row's additions depend on its own
+length only) is checked: a row of 3, L - 1, L, L + 1 and 3L + 5 entries
+(L the chunk) first in one CSR and last in another gives the same bits
+in both, the contract's (spmv.csr_order_reference), in row 9 and in row
+10 at n = 4 and 20. Last, 20 calls bit for bit each: the batched ridge
+solve of streamed MF (torch.linalg.solve on [2048, 4, 4]) and the
+in-core CSRFeatures' four products (row 9).
 
 Then the gather phase runs the port's gather experiment
 (photon_ml_tpu_torch/dev_scripts/gather_experiments.py) at its full
@@ -220,7 +227,8 @@ OWL-QN, TRON and bounded TRON, the one-hot and the residue-class gather,
 each with its launches on the main paths, path 6's among row 1's, times
 and bound; row 9, the deterministic CSR product, with its launches in
 path 8 and the full-width stream phase; row 10, the CSR x panel
-product, with its launches in path 9 and the grid phase), then the
+product, with its launches in path 9 and the grid phase and its times
+at MF's shapes), then the
 card's name and power limit, and the last line is {"ok": true,
 "device": ...}. It exits non-zero, printing no result, without CUDA or
 when any check fails.
@@ -2009,9 +2017,9 @@ def path8(root: Path) -> tuple:
     --grid-batched off, --feeder native, PATH8_BATCH_ROWS-row shards),
     five ways: resident; --hbm-budget above the shard's device bytes;
     at about a quarter of them (f32 buffer spill); the same with
-    --spill-source redecode on two λ of the grid, the quarter run's best
-    and the first (a cut of depth: the redecode run re-decodes every
-    miss); and --spill-dtype bf16. Checks: the C
+    --spill-source redecode on one λ of the grid, the quarter run's best
+    (a cut of depth: the redecode run re-decodes every miss); and
+    --spill-dtype bf16. Checks: the C
     decoder decoded every run; the budget forced evictions where it is
     below the shard's bytes; the three f32 spill runs write the same
     decoded best model; the resident run writes the one-shot driver's
@@ -2069,10 +2077,9 @@ def path8(root: Path) -> tuple:
     quarter = str(shard_bytes // 4)
     q = run("quarter-f32", [*stream, "--hbm-budget", quarter])
     best = q["bestConfigs"]["fixed"]
-    first = PATH8_GRID.split(":", 1)[1].split("|")[0]
-    two = "fixed:" + "|".join(dict.fromkeys([first, best]))
     run("quarter-redecode", [*stream, "--hbm-budget", quarter,
-                             "--spill-source", "redecode"], grid=two)
+                             "--spill-source", "redecode"],
+        grid="fixed:" + best)
     run("quarter-bf16", [*stream, "--hbm-budget", quarter,
                          "--spill-dtype", "bf16"])
     logging.getLogger("photon_ml_tpu_torch").removeHandler(log)
@@ -2194,6 +2201,8 @@ def spmv_entry(block, launches: int) -> dict:
 
     ms = cuda_ms(pair, 20)
     dev_ms = device_ms(pair)
+    host = {"matvec": host_ms(lambda: block.matvec(v)),
+            "rmatvec": host_ms(lambda: block.rmatvec(u))}
     plain = cuda_ms(plain_pair, 20)
     a_csr = torch.sparse_csr_tensor(block.crow, block.col, block.values,
                                     size=(block.n_rows, block.n_features))
@@ -2207,7 +2216,9 @@ def spmv_entry(block, launches: int) -> dict:
     bound_bytes = 1e3 * bytes_pair / HBM_BYTES_PER_S
     bound_ops = 1e3 * 4 * nnz / FP32_FLOPS_PER_S
     print(f"spmv block {n} x {d} ({nnz} entries): kernel matvec+rmatvec "
-          f"{ms:.4f} ms a pair ({dev_ms:.4f} on the device), plain "
+          f"{ms:.4f} ms a pair ({dev_ms:.4f} on the device; host "
+          f"{host['matvec']:.4f} ms a matvec call, {host['rmatvec']:.4f} an "
+          f"rmatvec call), plain "
           f"(torch.mv, cuSPARSE) {plain:.4f}, bound {max(bound_bytes, bound_ops):.4f}"
           f" (bytes); max abs err {err:.3g}, worst share of "
           f"{SPMV_RTOL} x sum|a x| {share / SPMV_RTOL:.3g}; 20 calls bit "
@@ -2219,7 +2230,7 @@ def spmv_entry(block, launches: int) -> dict:
         "name": "csr_spmv (deterministic CSR product, row 9)",
         "route": "cuda", "source": SPMV_SOURCE, "replaces": SPMV_REPLACES,
         "launches": launches, "max_abs_err": err, "ms": ms,
-        "device_ms": dev_ms, "plain_ms": plain,
+        "device_ms": dev_ms, "host_ms": host, "plain_ms": plain,
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         "library_ms": library,
@@ -2388,7 +2399,8 @@ def path9(root: Path, p8: dict, glm_phases: dict) -> int:
       block with B^T, and its transpose with a [rows, k] panel.
 
     Returns row 10's launches in its runs (counted from 0 just before
-    each run, read just after) and the largest error of the MF checks."""
+    each run, read just after) and hold_mf_shapes' result (the largest
+    error of the MF checks, the products' times and bounds)."""
     from photon_ml_tpu_torch.cli import game_training_driver
     from photon_ml_tpu_torch.data.avro_reader import read_game_dataset
     from photon_ml_tpu_torch.data.paldb import load_feature_index_maps
@@ -2509,7 +2521,7 @@ def path9(root: Path, p8: dict, glm_phases: dict) -> int:
         with mf_operands(kept):
             mf_runs[tag], mm, _ = run(tag, [*mf, *extra])
         if tag == "mf-none":
-            mf_err = hold_mf_shapes(kept)
+            mf_held = hold_mf_shapes(kept)
         check(mm > 0, f"path 9 {tag}: row 10 did not launch")
         rmse = mf_runs[tag]["validationHistory"][0]["RMSE"]
         check(math.isfinite(rmse), f"path 9 {tag}: RMSE {rmse}")
@@ -2528,7 +2540,7 @@ def path9(root: Path, p8: dict, glm_phases: dict) -> int:
     check(ref.shape == got.shape and share <= MF_BF16_SHARE,
           "path 9: bf16 factors outside their bound")
     logging.getLogger("photon_ml_tpu_torch").removeHandler(log)
-    return launches10, mf_err
+    return launches10, mf_held
 
 
 @contextlib.contextmanager
@@ -2559,11 +2571,27 @@ def mf_operands(kept: dict):
         mfa.StreamedMFObjective._v_of = staticmethod(v_of)
 
 
-def hold_mf_shapes(kept: dict) -> float:
+def spmm_bound(rows: int, n_cols: int, nnz: int, n: int,
+               itemsize: int) -> tuple:
+    """The least ms of Y = A X on the H100 and what bounds it: the CSR
+    read once (values, column indices, offsets), the panel read once, Y
+    written once, against 2 n nnz operations at the float32 rate."""
+    nbytes = (nnz * (itemsize + 4) + 4 * (rows + 1)
+              + itemsize * n * (n_cols + rows))
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * 2 * n * nnz / FP32_FLOPS_PER_S
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def hold_mf_shapes(kept: dict) -> tuple:
     """Row 10 at streamed MF's shapes (mf_operands), each product held
     by hold_spmm within SPMV_RTOL of sum |a x| and column by column
-    against row 9. Returns the largest abs error."""
+    against row 9, and timed: call and device ms against its bound.
+    Returns the largest abs error and one dict per product."""
     import torch
+
+    from photon_ml_tpu_torch.ops import spmv
 
     check("normals" in kept and "features" in kept,
           "path 9: streamed MF did not reach row 10's call sites")
@@ -2572,26 +2600,40 @@ def hold_mf_shapes(kept: dict) -> float:
     u = torch.randn((block.n_rows, B.shape[0]), generator=g, device="cuda",
                     dtype=B.dtype)
     crow, col, val, panel, n_cols = kept["normals"]
-    errs = []
-    for what, args in (
-            (f"normal equations, {crow.shape[0] - 1} entities x {n_cols} "
-             f"rows with a [{n_cols}, {panel.shape[1]}] panel",
+    errs, shapes = [], []
+    for name, what, args in (
+            ("normal equations",
+             f"{crow.shape[0] - 1} entities x {n_cols} rows with a "
+             f"[{n_cols}, {panel.shape[1]}] panel",
              (crow, col, val, panel, n_cols)),
-            (f"V = X B^T, X {block.n_rows} x {block.n_features} "
-             f"({block.nnz} entries), n = {B.shape[0]}",
+            ("V = X B^T",
+             f"X {block.n_rows} x {block.n_features} ({block.nnz} "
+             f"entries), n = {B.shape[0]}",
              (block.crow, block.col, block.values, B.T.contiguous(),
               block.n_features)),
-            (f"X^T (u g), n = {B.shape[0]}",
+            ("X^T (u g)", f"n = {B.shape[0]}",
              (block.crow_t, block.row_t, block.values_t, u, block.n_rows))):
         _, err, share, columns = hold_spmm(*args)
         errs.append(err)
-        print(f"path 9 MF row 10 at {what}: max abs err {err:.3g}, worst "
-              f"share of {SPMV_RTOL} x sum|a x| {share / SPMV_RTOL:.3g}; "
-              f"columns bit for bit = row 9: {columns}", flush=True)
-        check(columns, f"path 9 MF {what}: a column differs from row 9")
-        check(share <= SPMV_RTOL, f"path 9 MF {what}: kernel vs plain "
+        a_crow, a_col, a_val, x, nc = args
+        ms = cuda_ms(lambda: spmv.csr_matmul(*args), 20)
+        dev_ms = device_ms(lambda: spmv.csr_matmul(*args))
+        bound, by = spmm_bound(a_crow.shape[0] - 1, nc, a_col.shape[0],
+                               x.shape[1], a_val.element_size())
+        shapes.append(dict(product=name, rows=a_crow.shape[0] - 1,
+                           n_cols=nc, nnz=a_col.shape[0], n=x.shape[1],
+                           ms=ms, device_ms=dev_ms, bound_ms=bound,
+                           bound_by=by))
+        print(f"path 9 MF row 10 at {name}, {what}: max abs err {err:.3g}, "
+              f"worst share of {SPMV_RTOL} x sum|a x| "
+              f"{share / SPMV_RTOL:.3g}; columns bit for bit = row 9: "
+              f"{columns}; call {ms:.4f} ms ({dev_ms:.4f} on the device), "
+              f"bound {bound:.4f} ({by}; device time {dev_ms / bound:.2f}x "
+              f"the bound)", flush=True)
+        check(columns, f"path 9 MF {name}: a column differs from row 9")
+        check(share <= SPMV_RTOL, f"path 9 MF {name}: kernel vs plain "
               f"{share}")
-    return max(errs)
+    return max(errs), shapes
 
 
 def grid_full_width(train) -> tuple:
@@ -2717,14 +2759,15 @@ def hold_spmm(crow, col, val, x, n_cols: int) -> tuple:
     return k, err, share, columns
 
 
-def spmm_entry(block, launches: int, mf_err: float) -> dict:
+def spmm_entry(block, launches: int, mf_held: tuple) -> dict:
     """Kernel row 10 on one cached block of the full-width phase: X V
     and X^T U for panels of n in (4, 8) columns held against the plain
     version within SPMV_RTOL of sum |a x|, every column bit for bit
     against row 9 on that column, 20 calls bit for bit; call and device
     ms against n calls of row 9, torch.sparse.mm (cuSPARSE SpMM) and the
-    bound. ``mf_err`` is the largest error of path 9's checks at streamed
-    MF's shapes, folded into the row's max_abs_err."""
+    bound. ``mf_held`` is hold_mf_shapes' result at streamed MF's
+    shapes: its largest error is folded into the row's max_abs_err, and
+    its times and bounds are printed and kept under ``mf_shapes``."""
     import torch
 
     from photon_ml_tpu_torch.ops import spmv
@@ -2794,18 +2837,81 @@ def spmm_entry(block, launches: int, mf_err: float) -> dict:
         check(columns, f"spmm n={n}: a column differs from row 9")
         check(repeat, f"spmm n={n}: the kernel is not deterministic")
         check(share <= SPMV_RTOL, f"spmm n={n}: kernel vs plain {share}")
+    for sh in mf_held[1]:
+        print(f"spmm MF shape {sh['product']} ({sh['rows']} x "
+              f"{sh['n_cols']}, {sh['nnz']} entries, n = {sh['n']}): call "
+              f"{sh['ms']:.4f} ms, device {sh['device_ms']:.4f}, bound "
+              f"{sh['bound_ms']:.4f} ({sh['bound_by']}; bound / device "
+              f"{sh['bound_ms'] / sh['device_ms']:.1%})", flush=True)
     m = out[8]
     return {
         "name": "csr_spmm (deterministic CSR x panel, row 10)",
         "route": "cuda", "source": SPMM_SOURCE, "replaces": SPMM_REPLACES,
         "launches": launches,
-        "max_abs_err": max(mf_err, *(o["err"] for o in out.values())),
+        "max_abs_err": max(mf_held[0], *(o["err"] for o in out.values())),
         "ms": m["ms"], "device_ms": m["dev_ms"], "plain_ms": m["plain"],
         "bound_ms": max(m["bound_bytes"], m["bound_ops"]),
         "bound_by": ("bytes" if m["bound_bytes"] >= m["bound_ops"]
                      else "operations"),
-        "library_ms": m["library"],
+        "library_ms": m["library"], "mf_shapes": mf_held[1],
     }
+
+
+def order_contract_check() -> None:
+    """The kernels' order contract (csrc/csr_order.cuh): a row of 3,
+    L - 1, L, L + 1 and 3L + 5 entries (L the chunk), first in one CSR
+    and last in another with other neighbours, gives the same bits in
+    both, in row 9 and in row 10 (n = 4 and 20), and those bits are the
+    contract's (spmv.csr_order_reference)."""
+    import torch
+
+    from photon_ml_tpu_torch.ops import spmv
+
+    chunk = spmv.chunk_entries()
+    n_cols = 4 * chunk
+    rng = np.random.default_rng(11)
+
+    def csr(lengths, fixed, where):
+        crow = np.zeros(len(lengths) + 1, np.int32)
+        crow[1:] = np.cumsum(lengths)
+        cols, vals = [], []
+        for i, m in enumerate(lengths):
+            if i == where:
+                cols.append(fixed[0])
+                vals.append(fixed[1])
+            else:
+                cols.append(np.sort(rng.choice(n_cols, m, replace=False)))
+                vals.append(rng.normal(size=m))
+        return crow, np.concatenate(cols).astype(np.int32), \
+            np.concatenate(vals).astype(np.float32)
+
+    x = rng.normal(size=(n_cols, 20)).astype(np.float32)
+    results = {}
+    for m in (3, chunk - 1, chunk, chunk + 1, 3 * chunk + 5):
+        row = (np.sort(rng.choice(n_cols, m, replace=False)),
+               rng.normal(size=m))
+        first = csr([m, 5, 2 * chunk, 40], row, 0)
+        last = csr([7, 3 * chunk, 1, m], row, 3)
+        want = spmv.csr_order_reference(*first, x, chunk)[0]
+        same = True
+        for cols in (1, 4, 20):
+            got = []
+            for parts, at in ((first, 0), (last, -1)):
+                t = [torch.as_tensor(a, device="cuda") for a in parts]
+                xx = torch.as_tensor(x[:, :cols], device="cuda").contiguous()
+                if cols == 1:
+                    y = spmv.csr_matvec(*t, xx[:, 0].contiguous(),
+                                        n_cols)[:, None]
+                else:
+                    y = spmv.csr_matmul(*t, xx, n_cols)
+                got.append(y[at].cpu().numpy())
+            same &= bool(np.array_equal(got[0], got[1])
+                         and np.array_equal(got[0], want[:cols]))
+        results[m] = same
+    print(f"order contract (chunk {chunk}): a row first in one CSR and last "
+          f"in another gives the same bits, the contract's, in row 9 and "
+          f"row 10 (n = 4, 20), by row length: {results}", flush=True)
+    check(all(results.values()), f"order contract broken: {results}")
 
 
 def repeatability_checks(train) -> None:
@@ -3033,7 +3139,7 @@ def main(argv=None) -> int:
         launches8, p8 = path8(Path(tmp))
         print(f"path 8: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        launches9, mf_err = path9(Path(tmp), p8, glm_phases)
+        launches9, mf_held = path9(Path(tmp), p8, glm_phases)
         print(f"path 9: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     glm_full_width(train)
@@ -3044,7 +3150,8 @@ def main(argv=None) -> int:
     print(f"stream full width: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches_grid, block = grid_full_width(train)
-    spmm_row = spmm_entry(block, launches9 + launches_grid, mf_err)
+    spmm_row = spmm_entry(block, launches9 + launches_grid, mf_held)
+    order_contract_check()
     repeatability_checks(train)
     print(f"grid full width: {time.perf_counter() - t0:.1f} s", flush=True)
 

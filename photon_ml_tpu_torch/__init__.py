@@ -12,9 +12,10 @@ The per-entity solve runs as a hand-written CUDA kernel
 (``csrc/entity_lbfgs.cu``), and the gather experiment's two kernels as
 ``csrc/gather_onehot.cu`` and ``csrc/gather_residue.cu``, the sparse
 fixed effect's products as ``csrc/csr_spmv.cu`` (a CSR product whose
-additions run in a fixed order) and the batched λ grid's and streamed
-matrix factorization's panel products as ``csrc/csr_spmm.cu`` (the same
-order, column by column), on CUDA tensors; on CPU tensors each runs as
+additions run in an order fixed by each row's own length,
+``csrc/csr_order.cuh``) and the batched λ grid's and streamed matrix
+factorization's panel products as ``csrc/csr_spmm.cu`` (the same kernel
+and order, column by column), on CUDA tensors; on CPU tensors each runs as
 its plain PyTorch version. Avro decodes through a copy of the JAX
 package's C decoder (``native/``), built at first use, in this process
 or in ``python -m photon_ml_tpu_torch.data.parallel_ingest`` workers

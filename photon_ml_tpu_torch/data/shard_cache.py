@@ -325,7 +325,7 @@ class StreamedFixedEffectData:
 
 
 def _crow_from_lengths(lengths: Tensor) -> Tensor:
-    crow = torch.zeros(lengths.shape[0] + 1, dtype=torch.int64,
+    crow = torch.zeros(lengths.shape[0] + 1, dtype=torch.int32,
                        device=lengths.device)
     crow[1:] = torch.cumsum(lengths, 0)
     return crow
@@ -383,16 +383,16 @@ def assemble_fixed_effect_batch(
         feats = DenseFeatures(x)
     else:
         # csr_from_scipy's arrays: the CSR, and its transpose ordered by
-        # column then row (scipy's csr.T.tocsr()).
+        # column then row (scipy's csr.T.tocsr()), int32 indices.
         order = torch.argsort(col_ids, stable=True)
         feats = CSRFeatures(
             csr=torch.sparse_csr_tensor(
-                _crow_from_lengths(lengths), col_ids, values,
+                _crow_from_lengths(lengths), col_ids.to(torch.int32), values,
                 size=(n_rows, d), check_invariants=True),
             csr_t=torch.sparse_csr_tensor(
                 _crow_from_lengths(torch.bincount(col_ids, minlength=d)),
-                row_ids[order], values[order], size=(d, n_rows),
-                check_invariants=True),
+                row_ids[order].to(torch.int32), values[order],
+                size=(d, n_rows), check_invariants=True),
             values=values, col_ids=col_ids, row_ids=row_ids,
             n_rows=n_rows, n_features=int(d))
     batch = GLMBatch(features=feats, labels=cat(lab_p), offsets=cat(off_p),

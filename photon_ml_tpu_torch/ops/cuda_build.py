@@ -48,8 +48,10 @@ KERNEL_SOURCES: Dict[str, KernelSources] = {
         headers=("entity_lbfgs.cuh",)),
     "gather": KernelSources(
         units=("gather_onehot.cu", "gather_residue.cu"), headers=()),
-    "csr_spmv": KernelSources(units=("csr_spmv.cu",), headers=()),
-    "csr_spmm": KernelSources(units=("csr_spmm.cu",), headers=()),
+    "csr_spmv": KernelSources(units=("csr_spmv.cu",),
+                              headers=("csr_order.cuh",)),
+    "csr_spmm": KernelSources(units=("csr_spmm.cu", "csr_spmm_f64.cu"),
+                              headers=("csr_order.cuh", "csr_spmm.cuh")),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

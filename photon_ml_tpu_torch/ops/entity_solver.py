@@ -392,7 +392,9 @@ def _tron_plain(loss: PointwiseLoss, x: Tensor, y: Tensor, off: Tensor,
     """Mode "tron" of ``entity_lbfgs_plain`` (the Pallas ``_make_tron_kernel``
     body :655-828) on folded ``x`` and a projected ``c``, all in the
     compute type: outer trips and CG steps batched over entities with
-    per-entity masks, one host sync per trip and per CG step."""
+    per-entity masks, one host sync per trip and per CG step. Every sum
+    is taken in the kernel's order (``_lane_sum``, ``_row_products``,
+    ``_col_products``), so that on the card both round alike."""
     E = x.shape[0]
     dev, dt = x.device, x.dtype
     i32 = torch.int32
@@ -402,20 +404,22 @@ def _tron_plain(loss: PointwiseLoss, x: Tensor, y: Tensor, off: Tensor,
     def code(reason):
         return torch.full((E,), int(reason), dtype=i32, device=dev)
 
+    def sq(v):
+        return _lane_sum(v * v)
+
     def margins(v):
-        return torch.sum(x * v[:, None, :], dim=-1) + off
+        return _row_products(x, v) + off
 
     def value_from(zz, cc):
-        return torch.sum(w * loss.loss(zz, y), dim=-1) + 0.5 * l2 * _sq(cc)
+        return _lane_sum(w * loss.loss(zz, y)) + 0.5 * l2 * sq(cc)
 
     def grad_from(cc, zz):
-        u = w * loss.d1(zz, y)
-        return l2 * cc + torch.sum(x * u[:, :, None], dim=1)
+        return _col_products(x, w * loss.d1(zz, y), l2 * cc)
 
     def stat_norm(cc, gg):
         if not bounded:
-            return torch.sqrt(_sq(gg))
-        return torch.sqrt(_sq(cc - _project(cc - gg, lo, hi)))
+            return torch.sqrt(sq(gg))
+        return torch.sqrt(sq(cc - _project(cc - gg, lo, hi)))
 
     def zero_nonfinite(a):
         return torch.where(torch.isfinite(a), a, torch.zeros_like(a))
@@ -440,8 +444,7 @@ def _tron_plain(loss: PointwiseLoss, x: Tensor, y: Tensor, off: Tensor,
         d2w = w * loss.d2(z, y)  # curvature once per trip
 
         def hvp(v):
-            u = d2w * torch.sum(x * v[:, None, :], dim=-1)
-            return l2 * v + torch.sum(x * u[:, :, None], dim=1)
+            return _col_products(x, d2w * _row_products(x, v), l2 * v)
 
         if bounded:
             # Coordinates pinned at a bound with the gradient pushing
@@ -458,7 +461,7 @@ def _tron_plain(loss: PointwiseLoss, x: Tensor, y: Tensor, off: Tensor,
             g_cg, hvp_cg = g, hvp
 
         # Steihaug-Toint truncated CG; entities that stop keep their state.
-        gg = _sq(g_cg)
+        gg = sq(g_cg)
         stop_norm = TRON_CG_XI * torch.sqrt(gg)
         s = torch.zeros_like(g_cg)
         rres, dvec, rtr = -g_cg, -g_cg, gg
@@ -466,13 +469,13 @@ def _tron_plain(loss: PointwiseLoss, x: Tensor, y: Tensor, off: Tensor,
         kk = 0
         while kk < TRON_MAX_CG and not bool(torch.all(done)):
             hd = hvp_cg(dvec)
-            dhd = torch.sum(dvec * hd, dim=-1)
+            dhd = _lane_sum(dvec * hd)
             alpha = rtr / torch.where(dhd > 0, dhd, torch.ones_like(dhd))
             s_try = s + alpha[:, None] * dvec
-            crossed = (_sq(s_try) > delta * delta) | (dhd <= 0)
-            std = torch.sum(s * dvec, dim=-1)
-            dd = _sq(dvec)
-            ss = _sq(s)
+            crossed = (sq(s_try) > delta * delta) | (dhd <= 0)
+            std = _lane_sum(s * dvec)
+            dd = sq(dvec)
+            ss = sq(s)
             gap = torch.clamp_min(delta * delta - ss, 0.0)
             rad = torch.sqrt(torch.clamp_min(std * std + dd * gap, 0.0))
             tau = torch.where(std >= 0,
@@ -481,7 +484,7 @@ def _tron_plain(loss: PointwiseLoss, x: Tensor, y: Tensor, off: Tensor,
             step = torch.where(crossed, tau, alpha)
             s_new = s + step[:, None] * dvec
             r_new = rres - step[:, None] * hd
-            rtr_new = _sq(r_new)
+            rtr_new = sq(r_new)
             beta = rtr_new / torch.clamp_min(rtr, 1e-30)
             d_new = r_new + beta[:, None] * dvec
             done_new = crossed | (torch.sqrt(rtr_new) <= stop_norm)
@@ -502,13 +505,13 @@ def _tron_plain(loss: PointwiseLoss, x: Tensor, y: Tensor, off: Tensor,
         z_try = margins(c_try)
         f_new = value_from(z_try, c_try)
         g_new = grad_from(c_try, z_try)
-        gs = torch.sum(g * s_real, dim=-1)
+        gs = _lane_sum(g * s_real)
         if bounded:
-            prered = -(gs + 0.5 * torch.sum(s_real * hvp(s_real), dim=-1))
+            prered = -(gs + 0.5 * _lane_sum(s_real * hvp(s_real)))
         else:
-            prered = -0.5 * (gs - torch.sum(s * rres, dim=-1))
+            prered = -0.5 * (gs - _lane_sum(s * rres))
         actred = f - f_new
-        snorm = torch.sqrt(_sq(s_real))
+        snorm = torch.sqrt(sq(s_real))
         delta_n = torch.where(first, torch.minimum(delta, snorm), delta)
         denom = f_new - f - gs
         alpha_i = torch.where(
@@ -579,6 +582,58 @@ def _tron_plain(loss: PointwiseLoss, x: Tensor, y: Tensor, off: Tensor,
 
 def _sq(v: Tensor) -> Tensor:
     return torch.sum(v * v, dim=-1)
+
+
+# The kernel's reduction orders (csrc/entity_lbfgs.cuh), which the plain
+# TRON follows so that both round every sum alike: at a bounded optimum
+# the accept test actred > eta0 prered compares two values of rounding
+# size, and torch's own reduction trees flipped it for 14 of 20,000
+# entities on the H100.
+
+
+def _in_order(p: Tensor, dim: int, init: Optional[Tensor] = None
+              ) -> Tensor:
+    """The sum of p along ``dim`` with its entries added in order to init
+    (0 when None): a loop of adds, or, for float64 on the CPU, the last
+    prefix of one cumsum (whose CPU scan adds in that order, in
+    float64)."""
+    if p.device.type == "cpu" and p.dtype == torch.float64:
+        if init is not None:
+            p = torch.cat([init.unsqueeze(dim), p], dim)
+        return torch.cumsum(p, dim).select(dim, -1)
+    acc = torch.zeros_like(p.select(dim, 0)) if init is None else init
+    for i in range(p.shape[dim]):
+        acc = acc + p.select(dim, i)
+    return acc
+
+
+def _lane_sum(v: Tensor) -> Tensor:
+    """Sum over the last axis as a warp sums it: entry i goes to lane
+    i mod 32, each lane adds its entries in order from 0, then an xor
+    butterfly adds the 32 lanes (offsets 16, 8, 4, 2, 1). Rows over the
+    warp's lanes sum so (``warp_sums``), and so do coordinates over its
+    first C lanes (``coord_sums``): C >= d up to 32, and the butterfly's
+    steps past C only add the zeros of the idle lanes."""
+    n = v.shape[-1]
+    k = -(-n // 32)
+    if k * 32 != n:
+        v = torch.nn.functional.pad(v, (0, k * 32 - n))
+    acc = _in_order(v.reshape(*v.shape[:-1], k, 32), -2)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc[..., :o] + acc[..., o:2 * o]
+    return acc[..., 0]
+
+
+def _row_products(x: Tensor, v: Tensor) -> Tensor:
+    """[E, r] = x [E, r, d] times v [E, d], each row's coordinates added
+    in order from 0 (``tron_rows``)."""
+    return _in_order(x * v[:, None, :], -1)
+
+
+def _col_products(x: Tensor, u: Tensor, init: Tensor) -> Tensor:
+    """[E, d] = init + x [E, r, d]^T u [E, r], each coordinate's rows
+    added in order to its init (``xt_col``)."""
+    return _in_order(x * u[:, :, None], 1, init)
 
 
 def _box(lower: Optional[Tensor], upper: Optional[Tensor], like: Tensor

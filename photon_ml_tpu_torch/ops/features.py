@@ -10,13 +10,15 @@ features_to_device :1002-1058).
   row chunk and multiplied there, and ``v`` and the result are never
   rounded to bfloat16.
 - ``CSRFeatures``: the CSR of the matrix for the margins, plus the CSR
-  of its transpose for the gradient product. On the card both, and their
-  squared-value variants, go through ops/spmv.py's deterministic kernel
-  (``csr_matvec``, int32 offsets and indices, which ``CSRFeatures`` keeps
-  on the card), as the streamed path's shard blocks do: the JAX
-  package's products are a gather and a segment sum that repeat their
-  bits, and cuSPARSE's SpMV did not for the transpose's long rows on the
-  H100 (PERF.md). On the CPU they are ``torch.mv`` on the sparse tensor.
+  of its transpose for the gradient product, int32 offsets and indices.
+  On the card both, and their squared-value variants, go through
+  ops/spmv.py's deterministic kernel, as the streamed path's shard blocks
+  do: the JAX package's products are a gather and a segment sum that
+  repeat their bits, and cuSPARSE's SpMV did not for the transpose's long
+  rows on the H100 (PERF.md). Both CSRs are checked once, when the
+  features are built (``spmv.CSROperand``: int32, one device,
+  contiguous), so a product checks only its vector. On the CPU they are
+  ``torch.mv`` on the sparse tensor.
 - ``KroneckerFeatures``: the lazy row-wise Kronecker product x_i (x)
   gamma_i of a factored random effect's projection-matrix refit; each
   product is one contraction and the ``[n, k d]`` matrix is never built.
@@ -38,7 +40,7 @@ import scipy.sparse as sp
 import torch
 
 from photon_ml_tpu_torch.device import resolve_device
-from photon_ml_tpu_torch.ops.spmv import csr_matvec
+from photon_ml_tpu_torch.ops.spmv import CSROperand
 
 Tensor = torch.Tensor
 
@@ -115,9 +117,10 @@ class DenseFeatures:
 @dataclasses.dataclass(frozen=True)
 class CSRFeatures:
     """Sparse feature matrix as CSR (``csr``) plus the CSR of its
-    transpose (``csr_t``), so both products are row-major sparse
-    matrix-vector products. ``row_ids``/``col_ids``/``values`` are the
-    expanded-CSR triplet the random-effect scorer gathers through."""
+    transpose (``csr_t``), int32 offsets and indices, so both products
+    are row-major sparse matrix-vector products. ``row_ids``/``col_ids``/
+    ``values`` are the expanded-CSR triplet the random-effect scorer
+    gathers through."""
 
     csr: Tensor
     csr_t: Tensor
@@ -126,48 +129,36 @@ class CSRFeatures:
     row_ids: Tensor
     n_rows: int
     n_features: int
+    _ops: tuple = dataclasses.field(init=False, repr=False, compare=False)
 
     def __post_init__(self):
-        # The kernel takes int32 offsets and indices: convert once, here.
-        if self.csr.device.type == "cuda":
-            for name in ("csr", "csr_t"):
-                m = getattr(self, name)
-                if m.crow_indices().dtype != torch.int32:
-                    object.__setattr__(self, name, torch.sparse_csr_tensor(
-                        m.crow_indices().to(torch.int32),
-                        m.col_indices().to(torch.int32), m.values(),
-                        size=m.shape, check_invariants=False))
+        object.__setattr__(self, "_ops", tuple(
+            CSROperand(m.crow_indices(), m.col_indices(), m.values(),
+                       m.shape[1]) for m in (self.csr, self.csr_t)))
 
     @property
     def num_features(self) -> int:
         return self.n_features
 
-    @staticmethod
-    def _mv(csr: Tensor, v: Tensor, square: bool = False) -> Tensor:
-        """csr @ v (each value squared first when asked): the
-        deterministic kernel on the card, torch.mv on the CPU."""
-        vals = csr.values()
+    def _mv(self, which: int, v: Tensor, square: bool = False) -> Tensor:
+        """csr (0) or csr_t (1) @ v, each value squared first when asked:
+        the deterministic kernel on the card, torch.mv on the CPU."""
+        op = self._ops[which]
         if square:
-            vals = vals * vals
-        if csr.device.type == "cuda":
-            return csr_matvec(csr.crow_indices(), csr.col_indices(), vals,
-                              v, csr.shape[1])
-        if square:
-            csr = torch.sparse_csr_tensor(
-                csr.crow_indices(), csr.col_indices(), vals, size=csr.shape)
-        return torch.mv(csr, v)
+            op = op.with_values(op.val * op.val)
+        return op.matvec(v)
 
     def matvec(self, v: Tensor) -> Tensor:
-        return self._mv(self.csr, v)
+        return self._mv(0, v)
 
     def rmatvec(self, u: Tensor) -> Tensor:
-        return self._mv(self.csr_t, u)
+        return self._mv(1, u)
 
     def row_sq_matvec(self, v: Tensor) -> Tensor:
-        return self._mv(self.csr, v, square=True)
+        return self._mv(0, v, square=True)
 
     def sq_rmatvec(self, u: Tensor) -> Tensor:
-        return self._mv(self.csr_t, u, square=True)
+        return self._mv(1, u, square=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,8 +208,8 @@ def _csr_tensor(mat: sp.csr_matrix, dtype, device) -> Tensor:
     mat = mat.tocsr()
     mat.sort_indices()
     return torch.sparse_csr_tensor(
-        torch.as_tensor(mat.indptr, dtype=torch.int64),
-        torch.as_tensor(mat.indices, dtype=torch.int64),
+        torch.as_tensor(mat.indptr, dtype=torch.int32),
+        torch.as_tensor(mat.indices, dtype=torch.int32),
         torch.as_tensor(mat.data, dtype=dtype),
         size=mat.shape, device=device, check_invariants=True)
 

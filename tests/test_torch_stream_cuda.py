@@ -1,11 +1,14 @@
 """Streamed training on the card: the C Avro decoder's build on the GPU
 host, the deterministic CSR product (csrc/csr_spmv.cu) against its plain
 version (torch.mv on the same CSR, rtol 1e-5 of sum |a x| in float32,
-1e-12 in float64) and bit for bit against itself over 20 calls, a cached
-shard's partials bit for bit over 20 calls, spill and re-upload through
-pinned staging buffers and the side stream (every re-uploaded block the
-evicted bytes), and a streamed L-BFGS model bit-identical across
-residency, and bf16 spill as deterministic.
+1e-12 in float64) and bit for bit against itself over 20 calls, against
+the order contract (spmv.csr_order_reference, bit for bit) at rows of 0
+to 3 kChunk + 5 entries with unaligned arrays, a row's bits whatever its
+neighbours, a call captured in a CUDA graph equal to an eager one, a
+cached shard's partials bit for bit over 20 calls, spill and re-upload
+through pinned staging buffers and the side stream (every re-uploaded
+block the evicted bytes), and a streamed L-BFGS model bit-identical
+across residency, and bf16 spill as deterministic.
 
 Marked ``cuda``: skips without a GPU. This file imports neither jax nor
 the JAX package, so it runs on a GPU host that has only PyTorch:
@@ -83,8 +86,8 @@ def test_native_decoder_builds_on_the_gpu_host(cuda_device):
                                    (40, 70000, 0.05), (7, 9, 0.0)])
 def test_spmv_kernel_matches_plain_and_is_deterministic(cuda_device, dtype,
                                                         rtol, shape):
-    """Short rows (a warp a row), long rows (a block a row) and empty
-    rows; the transpose's long rows too."""
+    """Short rows (lane groups under a warp), long rows (chunks over
+    warps) and empty rows; the transpose's long rows too."""
     n, d, density = shape
     X, _ = _problem(n, d, density)
     rows = np.repeat(np.arange(n), np.diff(X.indptr))
@@ -111,6 +114,114 @@ def test_spmv_kernel_matches_plain_and_is_deterministic(cuda_device, dtype,
     for _ in range(20):
         assert torch.equal(block.matvec(v), got[0])
         assert torch.equal(block.rmatvec(u), got[1])
+
+
+def _lengths_csr(lengths, n_cols, dtype, dev, seed, offset=0):
+    """A CSR whose rows have the given lengths (distinct sorted columns),
+    its col and val views starting ``offset`` entries into larger
+    buffers (offset 1: pointers off 16-byte alignment)."""
+    rng = np.random.default_rng(seed)
+    crow = np.zeros(len(lengths) + 1, np.int32)
+    crow[1:] = np.cumsum(lengths)
+    col = np.concatenate(
+        [np.sort(rng.choice(n_cols, m, replace=False)) for m in lengths]
+        + [np.zeros(0, int)]).astype(np.int32)
+    val = rng.normal(0, 1, col.shape[0])
+    col_buf = torch.zeros(offset + col.shape[0], dtype=torch.int32,
+                          device=dev)
+    val_buf = torch.zeros(offset + col.shape[0], dtype=dtype, device=dev)
+    col_buf[offset:] = torch.as_tensor(col, device=dev)
+    val_buf[offset:] = torch.as_tensor(val, dtype=dtype, device=dev)
+    return (torch.as_tensor(crow, device=dev), col_buf[offset:],
+            val_buf[offset:])
+
+
+def _contract_lengths(chunk, seed):
+    """Rows of 0, 1, 2, 31, 33, L - 1, L, L + 1 and 3L + 5 entries (L the
+    chunk) among rows of random lengths, shuffled."""
+    rng = np.random.default_rng(seed)
+    lengths = [0, 1, 2, 31, 33, chunk - 1, chunk, chunk + 1, 3 * chunk + 5]
+    lengths += [int(m) for m in rng.integers(0, 300, 60)]
+    rng.shuffle(lengths)
+    return lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_spmv_rows_follow_the_order_contract(cuda_device, dtype, rtol,
+                                             offset):
+    """Every row's bits are the order contract's (numpy, in the same
+    type), within rtol of sum |a x| of the plain version, over 20 calls;
+    offset 1 starts col, val and x off 16-byte alignment."""
+    chunk = spmv.chunk_entries()
+    n_cols = 4 * chunk
+    crow, col, val = _lengths_csr(_contract_lengths(chunk, 5), n_cols,
+                                  dtype, cuda_device, 6, offset)
+    x_buf = torch.randn(offset + n_cols, dtype=dtype, device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(7))
+    x = x_buf[offset:]
+    spmv.reset_launch_counts()
+    got = spmv.csr_matvec(crow, col, val, x, n_cols)
+    assert spmv.csr_matvec.launches == 1
+    want = spmv.csr_order_reference(crow.cpu(), col.cpu(), val.cpu(),
+                                    x.cpu(), chunk)
+    assert np.array_equal(got.cpu().numpy(), want)
+    plain = spmv.csr_matvec_plain(crow, col, val, x, n_cols)
+    scale = spmv.csr_matvec_plain(crow, col, val.abs(), x.abs(), n_cols)
+    assert bool(((got - plain).abs() <= rtol * scale + 1e-30).all())
+    for _ in range(20):
+        assert torch.equal(spmv.csr_matvec(crow, col, val, x, n_cols), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spmv_row_bits_do_not_depend_on_neighbours(cuda_device, dtype):
+    """The order contract: a row of 3, L - 1, L, L + 1 and 3L + 5
+    entries, first in one CSR and last in another with other neighbours,
+    gives the same bits in both."""
+    chunk = spmv.chunk_entries()
+    n_cols = 4 * chunk
+    g = torch.Generator(cuda_device).manual_seed(8)
+    x = torch.randn(n_cols, dtype=dtype, device=cuda_device, generator=g)
+    for m in (3, chunk - 1, chunk, chunk + 1, 3 * chunk + 5):
+        crow, col, val = _lengths_csr([m], n_cols, dtype, cuda_device, m)
+        alone = spmv.csr_matvec(crow, col, val, x, n_cols)
+        for lengths, at in (([m, 5, 2 * chunk, 40], 0),
+                            ([7, 3 * chunk, 1, m], -1)):
+            c2, col2, val2 = _lengths_csr(lengths, n_cols, dtype,
+                                          cuda_device, m + len(lengths))
+            b = int(c2[at].item()) if at == 0 else int(c2[-2].item())
+            col2[b:b + m], val2[b:b + m] = col, val
+            got = spmv.csr_matvec(c2, col2, val2, x, n_cols)
+            assert torch.equal(got[:1] if at == 0 else got[-1:], alone), m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spmv_in_a_cuda_graph_equals_eager(cuda_device, dtype):
+    """A block's matvec and rmatvec (long transpose rows: chunk sums and
+    counters) captured in a CUDA graph and replayed give the eager bits."""
+    X, _ = _problem(5000, 40, 0.5)
+    rows = np.repeat(np.arange(5000), np.diff(X.indptr))
+    block = spmv.block_from_triplet(
+        torch.as_tensor(X.data, dtype=dtype, device=cuda_device),
+        torch.as_tensor(X.indices, device=cuda_device),
+        torch.as_tensor(rows, device=cuda_device), 5000, 40)
+    g = torch.Generator(cuda_device).manual_seed(9)
+    v = torch.randn(40, generator=g, device=cuda_device, dtype=dtype)
+    u = torch.randn(5000, generator=g, device=cuda_device, dtype=dtype)
+    eager = (block.matvec(v), block.rmatvec(u))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = (block.matvec(v), block.rmatvec(u))
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], eager[0])
+        assert torch.equal(out[1], eager[1])
 
 
 @pytest.mark.cuda
