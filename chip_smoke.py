@@ -158,6 +158,25 @@ in both, the contract's (spmv.csr_order_reference), in row 9 and in row
 solve of streamed MF (torch.linalg.solve on [2048, 4, 4]) and the
 in-core CSRFeatures' four products (row 9).
 
+Path 10 serves path 6's saved model (config 5 at full width, loaded
+from the reference's model files) on its 10,000 hold-out rows through
+the scoring driver's in-process serving paths (serving/engine.py,
+serving/frontend.py): --stream with 4,096-row batches, --serve with
+one-row requests (16 requesters, 2 ms coalesce windows) and --serve
+with 8-row requests. Each bucket shape is one CUDA graph: the row-9
+fixed-effect product, the random effects' row sums through row 9 and
+the MF dots, captured once and replayed per dispatch. Its checks: each
+run's scores within 2 gamma_n S of path 6's batch scores a row (n the
+row's products, S the sum of their absolute values, u = 2^-24: the
+bound on two float32 summation orders), its AUC within 1e-6 of the
+batch run's, the front-end's admitted == completed and no request
+rejected, failed or cancelled, graphs built == the distinct bucket
+shapes dispatched, each captured once, every bucket's replay bit for
+bit its eager function, and the three runs' scores bit for bit equal
+for every row whatever was coalesced with it. It prints rows a second,
+dispatches, padding waste, graphs and per bucket the ms of a replayed
+against an eager dispatch.
+
 Then the gather phase runs the port's gather experiment
 (photon_ml_tpu_torch/dev_scripts/gather_experiments.py) at its full
 width, m = 12,000,000 lookups into d = 2,000,000 coefficients: w[idx],
@@ -226,7 +245,9 @@ of the PERF.md table: L-BFGS, the normalization fold, bounded L-BFGS,
 OWL-QN, TRON and bounded TRON, the one-hot and the residue-class gather,
 each with its launches on the main paths, path 6's among row 1's, times
 and bound; row 9, the deterministic CSR product, with its launches in
-path 8 and the full-width stream phase; row 10, the CSR x panel
+path 8 and the full-width stream phase and the launches path 10's bucket
+graphs executed (wrapper calls, less those recorded at capture, plus
+replays times the launches a graph holds); row 10, the CSR x panel
 product, with its launches in path 9 and the grid phase and its times
 at MF's shapes), then the
 card's name and power limit, and the last line is {"ok": true,
@@ -2857,6 +2878,219 @@ def spmm_entry(block, launches: int, mf_held: tuple) -> dict:
     }
 
 
+PATH10_RUNS = (
+    ("stream", ["--stream", "--batch-rows", "4096"]),
+    ("serve 1", ["--serve", "--request-rows", "1", "--serve-concurrency",
+                 "16", "--coalesce-ms", "2"]),
+    ("serve 8", ["--serve", "--request-rows", "8"]),
+)
+UNIT_ROUNDOFF_F32 = 2.0 ** -24
+
+
+def _scores_by_uid(path: Path) -> dict:
+    from photon_ml_tpu_torch.io.avro_codec import read_container
+
+    return {r["uid"]: r["predictionScore"]
+            for r in read_container(path / "scores" / "part-00000.avro")}
+
+
+def score_bounds(root: Path) -> dict:
+    """uid -> (n, S): the number of products in a hold-out row's margin
+    (every sub-model's features of the row) and the sum of their
+    absolute values, in float64, from the saved model and the decoded
+    hold-out files. Two float32 sums of the same n products in two
+    orders differ by at most 2 gamma_n S (gamma_n = n u / (1 - n u), u =
+    2^-24; Higham, Accuracy and Stability, 3.1), the tolerance path 10
+    holds each served score to against the batch path's."""
+    from photon_ml_tpu_torch.data.avro_reader import read_game_dataset
+    from photon_ml_tpu_torch.data.paldb import load_feature_index_maps
+    from photon_ml_tpu_torch.io.model_io import load_game_model
+    from photon_ml_tpu_torch.models.fixed_effect import FixedEffectModel
+    from photon_ml_tpu_torch.utils.vocab import vocab_code_lookup
+
+    model_dir = root / "model" / "best"
+    maps = load_feature_index_maps(model_dir / "feature-indexes")
+    model = load_game_model(model_dir, maps)
+    id_types = sorted({m.random_effect_type for m in model.models.values()
+                       if hasattr(m, "random_effect_type")})
+    data, _ = read_game_dataset(root / "validate", id_types, maps)
+    n = np.zeros(data.num_rows)
+    total = np.zeros(data.num_rows)
+    for m in model.models.values():
+        x = abs(data.feature_shards[m.feature_shard_id].tocsr())
+        n += np.diff(x.indptr)
+        if isinstance(m, FixedEffectModel):
+            w = np.abs(m.glm.coefficients.means.cpu().double().numpy())
+            total += x @ w
+            continue
+        col = data.id_columns[m.random_effect_type]
+        rows = vocab_code_lookup(m.vocabulary, col.vocabulary)[col.codes]
+        dense = np.vstack([abs(m.matrix).toarray(),
+                           np.zeros(m.matrix.shape[1])])
+        total += np.asarray(x.multiply(dense[rows]).sum(axis=1)).ravel()
+    return {str(u): (k, t) for u, k, t in zip(data.uids, n, total)}
+
+
+def path10(root: Path) -> int:
+    """Path 10: in-process serving of path 6's saved model (config 5 at
+    full width: 200 fixed features, 5,000 users x 25, 2,000 items x 16,
+    the factored itemFactors effect at k = 4, each loaded as the
+    reference's model files) on its 10,000 hold-out rows, through the
+    scoring driver three times (PATH10_RUNS): --stream with 4,096-row
+    batches, --serve with one-row requests from 16 requesters in 2 ms
+    coalesce windows, and --serve with 8-row requests. The only cut is
+    path 6's, rows. Checks: each run's scores against path 6's batch
+    scores within 2 gamma_n S a row (``score_bounds``); its AUC within
+    1e-6 of the batch run's; the front-end admitted == completed and
+    rejected == failed == cancelled == 0; graphs captured == the
+    distinct bucket shapes the run dispatched, each captured once; every
+    bucket's graph replay bit for bit its eager scoring function on the
+    same inputs; the three runs' scores bit for bit the same for every
+    row, whatever was coalesced with it. Prints rows a second, dispatches,
+    padding waste, graphs, and per bucket the ms of a dispatch replayed
+    against the eager function. Returns the row-9 launches the runs
+    executed (wrapper calls, less those recorded at capture, plus graph
+    replays times the launches captured per graph)."""
+    import json as _json
+
+    import torch
+
+    from photon_ml_tpu_torch.cli import game_scoring_driver
+    from photon_ml_tpu_torch.ops import spmv
+    from photon_ml_tpu_torch.serving import engine as serving_engine
+    from photon_ml_tpu_torch.serving import frontend as serving_frontend
+
+    t_path = time.perf_counter()
+    card = card_line()
+    batch = _scores_by_uid(root / "scores")
+    batch_auc = _json.loads((root / "scores" / "metrics.json")
+                            .read_text())["metrics"]["AUC"]
+    bounds = score_bounds(root)
+    base = ["--input-dirs", str(root / "validate"),
+            "--game-model-input-dir", str(root / "model" / "best"),
+            "--evaluators", "AUC"]
+
+    class Kept(serving_engine.StreamingGameScorer):
+        """The driver's engines, each with the bucket shapes it
+        dispatched."""
+
+        made = []
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.shapes_used = set()
+            Kept.made.append(self)
+
+        def _dispatch(self, key, payload):
+            self.shapes_used.add(key)
+            return super()._dispatch(key, payload)
+
+    log = _DriverLog()
+    logging.getLogger("photon_ml_tpu_torch").addHandler(log)
+    originals = (serving_engine.StreamingGameScorer,
+                 serving_frontend.StreamingGameScorer)
+    serving_engine.StreamingGameScorer = Kept
+    serving_frontend.StreamingGameScorer = Kept
+    launches = 0
+    served = {}
+    try:
+        for tag, flags in PATH10_RUNS:
+            Kept.made.clear()
+            log.phases.clear()
+            out = root / f"p10-{tag.replace(' ', '-')}"
+            # ---- the main path: counts set to 0 just before, read after --
+            spmv.reset_launch_counts()
+            t0 = time.perf_counter()
+            summary = game_scoring_driver.run(
+                [*base, *flags, "--output-dir", str(out)])
+            seconds = time.perf_counter() - t0
+            run_launches = spmv.csr_matvec.launches
+            # ----------------------------------------------------------------
+            launches += run_launches
+            (eng,) = Kept.made
+            replayed = sum(ex.replays * ex.launches_per_replay
+                           for ex in eng.buckets().values())
+            st = eng.stats()
+            scores = _scores_by_uid(out)
+            served[tag] = scores
+            check(set(scores) == set(batch) and len(scores) == PATH6_VAL,
+                  f"path 10 {tag}: rows {len(scores)}")
+            ratio, worst = 0.0, 0.0
+            for uid, s in scores.items():
+                k, total = bounds[uid]
+                gamma = k * UNIT_ROUNDOFF_F32 / (1 - k * UNIT_ROUNDOFF_F32)
+                diff = abs(s - batch[uid])
+                worst = max(worst, diff)
+                ratio = max(ratio, diff / max(2 * gamma * total, 1e-300))
+            auc = summary["metrics"]["AUC"]
+            rows_s = summary["num_rows"] / log.phases["score"]
+            print(f"path 10 {tag}: {summary['num_rows']} rows in "
+                  f"{seconds:.2f} s (score phase {log.phases['score']:.3f} s,"
+                  f" {rows_s:.0f} rows a second; phases "
+                  f"{ {k: round(v, 3) for k, v in log.phases.items()} }), "
+                  f"dispatches {st['dispatches']}, padding waste rows "
+                  f"{st['padding_waste_rows']:.4f} nnz "
+                  f"{st['padding_waste_nnz']:.4f}, graphs built "
+                  f"{st['compilations']} for shapes "
+                  f"{sorted(eng.shapes_used)}; row-9 launches {run_launches}"
+                  f" ({replayed} in graph replays); scores vs path 6's "
+                  f"batch: max |diff| {worst:.3g}, worst share of 2 gamma_n"
+                  f" S {ratio:.3g}; AUC {auc:.6f} (batch {batch_auc:.6f}); "
+                  f"card {card}", flush=True)
+            check(ratio <= 1.0, f"path 10 {tag}: scores off the batch "
+                  f"path's by {ratio} of 2 gamma_n S")
+            check(abs(auc - batch_auc) <= 1e-6,
+                  f"path 10 {tag}: AUC {auc} != batch {batch_auc}")
+            if "frontend" in summary:
+                fe = summary["frontend"]
+                print(f"path 10 {tag} frontend: requests "
+                      f"{summary['num_requests']}, admitted {fe['admitted']},"
+                      f" completed {fe['completed']}, rejected "
+                      f"{fe['rejected']}, failed {fe['failed']}, cancelled "
+                      f"{fe['cancelled']}, coalesced groups "
+                      f"{fe['coalesced_groups']}; card {card}", flush=True)
+                check(fe["admitted"] == fe["completed"]
+                      == summary["num_requests"]
+                      and fe["rejected"] == fe["failed"] == fe["cancelled"]
+                      == 0, f"path 10 {tag}: frontend {fe}")
+            buckets = eng.buckets()
+            check(set(buckets) == eng.shapes_used
+                  and st["compilations"] == len(eng.shapes_used),
+                  f"path 10 {tag}: graphs {sorted(buckets)} for shapes "
+                  f"{sorted(eng.shapes_used)}")
+            eng.cache.assert_max_retraces(max_total=len(buckets), per_fn=1)
+            for shape, ex in sorted(buckets.items()):
+                host, ev = ex.run()
+                ev.synchronize()
+                check(ex.graph is not None and ex.traces == 1
+                      and torch.equal(host, ex.eager().cpu()),
+                      f"path 10 {tag}: bucket {shape} replay != eager")
+                pinned = torch.empty(ex.rows_b, pin_memory=True)
+
+                def eager_dispatch():
+                    pinned.copy_(ex.eager(), non_blocking=True)
+
+                graph_ms = cuda_ms(ex.run, 20)
+                eager_ms = cuda_ms(eager_dispatch, 20)
+                print(f"path 10 {tag} bucket {shape}: replays "
+                      f"{ex.replays}, launches a replay "
+                      f"{ex.launches_per_replay}, a dispatch {graph_ms:.4f} "
+                      f"ms replayed against {eager_ms:.4f} ms eager; card "
+                      f"{card}", flush=True)
+    finally:
+        serving_engine.StreamingGameScorer = originals[0]
+        serving_frontend.StreamingGameScorer = originals[1]
+        logging.getLogger("photon_ml_tpu_torch").removeHandler(log)
+    first = served[PATH10_RUNS[0][0]]
+    same = {tag: all(s[u] == first[u] for u in first)
+            for tag, s in served.items()}
+    print(f"path 10 scores bit for bit the same as --stream's: {same}; "
+          f"path {time.perf_counter() - t_path:.1f} s; card {card}",
+          flush=True)
+    check(all(same.values()), f"path 10: served scores differ: {same}")
+    return launches
+
+
 def order_contract_check() -> None:
     """The kernels' order contract (csrc/csr_order.cuh): a row of 3,
     L - 1, L, L + 1 and 3L + 5 entries (L the chunk), first in one CSR
@@ -3141,12 +3375,15 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         launches9, mf_held = path9(Path(tmp), p8, glm_phases)
         print(f"path 9: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        launches10 = path10(Path(tmp))
+        print(f"path 10: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     glm_full_width(train)
     print(f"glm full width: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches_stream, block = stream_full_width(train)
-    spmv_row = spmv_entry(block, launches8 + launches_stream)
+    spmv_row = spmv_entry(block, launches8 + launches_stream + launches10)
     print(f"stream full width: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches_grid, block = grid_full_width(train)

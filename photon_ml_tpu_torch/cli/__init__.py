@@ -21,6 +21,9 @@ from photon_ml_tpu_torch.device import resolve_device
 # Later queue items, for the error a flag of one of them raises.
 ITEMS = {
     "A5": "the serving stack and telemetry",
+    "A5b": "the telemetry core",
+    "A5c": "the observability plane and drift monitoring",
+    "A5d": "network serving",
     "A6": "multi-GPU",
 }
 

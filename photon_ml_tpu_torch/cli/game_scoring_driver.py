@@ -1,25 +1,38 @@
-"""GAME scoring driver, batch path (port of
-photon_ml_tpu/cli/game_scoring_driver.py: build_parser :48-150, run :197,
-the legacy aliases :264-278, _run_scoring's default branch :280-373;
-reference ml/cli/game/scoring/Driver.scala:36-265): load a saved GAME
-model, score a dataset on the card, write ScoringResultAvro records to
-<output-dir>/scores/part-00000.avro, optionally evaluate, and write
-metrics.json.
+"""GAME scoring driver (port of photon_ml_tpu/cli/game_scoring_driver.py:
+build_parser :48-150, run :197, the legacy aliases :264-278, _run_scoring
+:280-373 with its --stream/--serve flag checks :284-300, _run_stream
+:393-471, _run_serve :474-576; reference ml/cli/game/scoring/
+Driver.scala:36-265): load a saved GAME model, score a dataset on the
+card, write ScoringResultAvro records to <output-dir>/scores/
+part-00000.avro, optionally evaluate, and write metrics.json.
 
-The whole input is read into one GameDataset and scored by
-``DeviceGameScorer`` (fixed effects, loaded random-effect snapshots and
-MF models). The JAX driver falls back to host numpy when its scorer
-refuses a sub-model; the port does not: a sub-model the scorer refuses
-(or a snapshot too large to densify) ends the run with its error.
-``scoring_path`` is the constant "device", kept for the JAX metrics.json
-keys; the guarantee is the scorer's raising, not this key.
+Three execution shapes, as in JAX:
 
-Every JAX flag parses. --stream, --serve, --listen, --adaptive-admission,
---distmon, --trace-out and the observability flags raise an error naming
-ROADMAP queue A5 (the serving stack and telemetry); the flags that only
-shape those paths (--batch-rows, --feeder, --serve-concurrency, ...) are
-accepted and unused, as in the JAX batch path. metrics.json has the JAX
-batch keys but ``telemetry`` (A5).
+- default: the whole input is read into one GameDataset and scored by
+  ``DeviceGameScorer``; ``scoring_path`` "device";
+- ``--stream --batch-rows N``: the input streams through the serving
+  engine (serving/engine.py ``score_container_stream``): the model
+  uploaded once, batches padded to bucket shapes, each bucket one CUDA
+  graph, the decode of batch k+1 (the block stream's prefetch thread)
+  overlapping the dispatch of batch k; ``scoring_path``
+  "streaming-engine", with ``num_batches``, ``batch_rows``, ``feeder``
+  and ``engine`` in metrics.json;
+- ``--serve``: the decoded input is cut into ``--request-rows``-row
+  requests that ``--serve-concurrency`` closed-loop requesters replay
+  through the async front-end (serving/frontend.py), which coalesces
+  each ``--coalesce-ms`` window into shared bucket dispatches;
+  ``scoring_path`` "async-frontend", with ``num_requests``,
+  ``request_rows``, ``coalesce_window_ms``, ``concurrency`` and
+  ``frontend``.
+
+The JAX driver falls back to host numpy when its batch scorer refuses a
+sub-model; the port does not: a sub-model the scorer refuses (or a
+snapshot too large to densify) ends the run with its error, and with
+``SystemExit`` on the --stream and --serve paths, as JAX's --stream does.
+
+Every JAX flag parses. --listen and --adaptive-admission raise naming
+ROADMAP A5d, --distmon A5c, --trace-out A5b, the observability flags A5;
+metrics.json has the JAX keys but ``telemetry`` and ``observability``.
 
 ``run(argv, device="cuda", dtype=None)`` scores on the card and raises
 without CUDA unless the caller passes ``device="cpu"``; ``dtype`` None
@@ -56,12 +69,10 @@ from photon_ml_tpu_torch.utils.date_range import resolve_input_dirs
 from photon_ml_tpu_torch.utils.logging_utils import setup_photon_logger
 
 LATER_FLAGS = {
-    "stream": ("--stream", False, "A5"),
-    "serve": ("--serve", False, "A5"),
-    "listen": ("--listen", None, "A5"),
-    "adaptive_admission": ("--adaptive-admission", False, "A5"),
-    "distmon": ("--distmon", False, "A5"),
-    "trace_out": ("--trace-out", None, "A5"),
+    "listen": ("--listen", None, "A5d"),
+    "adaptive_admission": ("--adaptive-admission", False, "A5d"),
+    "distmon": ("--distmon", False, "A5c"),
+    "trace_out": ("--trace-out", None, "A5b"),
     **OBSERVABILITY_FLAGS,
 }
 
@@ -83,7 +94,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--evaluators", default=None)
     p.add_argument("--id-types", default=None)
     p.add_argument("--stream", action="store_true",
-                   help="streamed scoring (ROADMAP A5; raises)")
+                   help="bounded-memory streamed scoring through the "
+                        "serving engine")
     p.add_argument("--batch-rows", type=int, default=4096,
                    help="rows per streamed batch (--stream only)")
     p.add_argument("--feeder", choices=["auto", "native", "python"],
@@ -91,8 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefetch-batches", type=int, default=2,
                    help="--stream decode-ahead depth")
     p.add_argument("--serve", action="store_true",
-                   help="request replay through the serving front-end "
-                        "(ROADMAP A5; raises)")
+                   help="concurrent request replay through the async "
+                        "serving front-end")
     p.add_argument("--serve-concurrency", type=int, default=16,
                    help="--serve requesters")
     p.add_argument("--coalesce-ms", type=float, default=2.0,
@@ -102,15 +114,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-pending", type=int, default=1024,
                    help="--serve admission bound")
     p.add_argument("--listen", default=None, metavar="ADDR",
-                   help="network serving (ROADMAP A5; raises)")
+                   help="network serving (ROADMAP A5d; raises)")
     p.add_argument("--serve-seconds", type=float, default=None,
                    metavar="S", help="--listen lifetime")
     p.add_argument("--adaptive-admission", action="store_true",
-                   help="SLO-adaptive admission (ROADMAP A5; raises)")
+                   help="SLO-adaptive admission (ROADMAP A5d; raises)")
     p.add_argument("--distmon", action="store_true",
-                   help="score drift monitoring (ROADMAP A5; raises)")
+                   help="score drift monitoring (ROADMAP A5c; raises)")
     p.add_argument("--trace-out", default=None, metavar="PATH",
-                   help="pipeline trace (ROADMAP A5; raises)")
+                   help="pipeline trace (ROADMAP A5b; raises)")
     add_observability_args(p)
     return p
 
@@ -150,6 +162,11 @@ def _apply_legacy_aliases(summary: dict) -> dict:
 
 
 def _run_scoring(args, out_dir, logger, device, dtype) -> dict:
+    # Flag contradictions fail before the model loads.
+    if args.stream and args.serve:
+        raise SystemExit("--stream and --serve are mutually exclusive: "
+                         "--stream is the bounded-memory bulk path, "
+                         "--serve the concurrent-request replay harness")
     model_dir = Path(args.game_model_input_dir)
     index_dir = Path(args.feature_index_dir) if args.feature_index_dir else \
         model_dir / "feature-indexes"
@@ -177,6 +194,12 @@ def _run_scoring(args, out_dir, logger, device, dtype) -> dict:
         scores_dir.mkdir(exist_ok=True)
         scores_path = scores_dir / "part-00000.avro"
 
+    if args.serve:
+        return _run_serve(args, inputs, id_types, shard_maps, model,
+                          evaluators, scores_path, logger, device, dtype)
+    if args.stream:
+        return _run_stream(args, inputs, id_types, shard_maps, model,
+                           evaluators, scores_path, logger, device, dtype)
     with phase(logger, "ingest"):
         data, _ = read_game_dataset(inputs, id_types=id_types,
                                     feature_shard_maps=shard_maps)
@@ -201,6 +224,150 @@ def _run_scoring(args, out_dir, logger, device, dtype) -> dict:
         "num_rows": int(data.num_rows),
         "metrics": metrics,
         "scoring_path": "device",
+    }
+
+
+def _records(datasets_and_scores, counters, acc):
+    """ScoringResultAvro records of (dataset, scores) pairs, counting rows
+    and feeding the evaluation accumulator as they pass; uids default to
+    the running row number."""
+    uid_base = 0
+    for ds, scores in datasets_and_scores:
+        counters["rows"] += ds.num_rows
+        counters["batches"] += 1
+        if acc is not None:
+            acc.add(ds, scores)
+        uids = ds.uids if ds.uids is not None else np.asarray(
+            [str(uid_base + i) for i in range(ds.num_rows)])
+        uid_base += ds.num_rows
+        for u, s, o, lab in zip(uids, scores, ds.offsets, ds.responses):
+            yield {"uid": str(u), "predictionScore": float(s + o),
+                   "label": float(lab), "metadataMap": None}
+
+
+def _run_stream(args, inputs, id_types, shard_maps, model, evaluators,
+                scores_path, logger, device, dtype) -> dict:
+    """Bounded-memory scoring through the decode -> upload -> dispatch
+    pipeline (``score_container_stream``), writing records per batch.
+    Only the evaluation columns accumulate across batches (when
+    evaluators are asked for), never features."""
+    from photon_ml_tpu_torch.evaluation.validation import (
+        StreamedEvalAccumulator,
+    )
+    from photon_ml_tpu_torch.serving import (
+        StreamingGameScorer,
+        UnsupportedSubModelError,
+    )
+
+    try:
+        with phase(logger, "setup_engine"):
+            engine = StreamingGameScorer(model, dtype=dtype, device=device)
+    except UnsupportedSubModelError as e:
+        raise SystemExit(
+            f"--stream requires a device-scorable model: {e}") from e
+    try:
+        with phase(logger, "setup_stream"):
+            scored = engine.score_container_stream(
+                inputs, id_types=id_types, feature_shard_maps=shard_maps,
+                batch_rows=args.batch_rows, feeder=args.feeder,
+                prefetch_depth=args.prefetch_batches)
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from e
+    logger.info("streamed scoring: %s feeder, prefetch depth %d",
+                scored.stream.decode_path, scored.stream.prefetch_depth)
+    counters = {"rows": 0, "batches": 0}
+    acc = StreamedEvalAccumulator(id_types) if evaluators else None
+    with phase(logger, "score"):
+        write_container(scores_path, schemas.SCORING_RESULT,
+                        _records(scored, counters, acc))
+    logger.info("scored %d rows in %d streamed batches (batch-rows=%d)",
+                counters["rows"], counters["batches"], args.batch_rows)
+    with phase(logger, "evaluate"):
+        metrics = acc.metrics(evaluators) if acc is not None else {}
+    return {
+        "num_rows": counters["rows"],
+        "metrics": metrics,
+        "scoring_path": "streaming-engine",
+        "num_batches": counters["batches"],
+        "batch_rows": args.batch_rows,
+        "feeder": scored.stream.stats(),
+        "engine": engine.stats(),
+    }
+
+
+def _run_serve(args, inputs, id_types, shard_maps, model, evaluators,
+               scores_path, logger, device, dtype) -> dict:
+    """Concurrent-request replay through the async front-end: the decoded
+    input cut into ``--request-rows``-row requests, ``--serve-concurrency``
+    closed-loop requesters, each ``--coalesce-ms`` window coalesced into
+    shared bucket dispatches. Holds the requests and their scores in
+    memory: it exercises the serving shape, not the bounded-memory
+    one."""
+    from photon_ml_tpu_torch.data.avro_reader import (
+        iter_game_dataset_batches,
+    )
+    from photon_ml_tpu_torch.evaluation.validation import (
+        StreamedEvalAccumulator,
+    )
+    from photon_ml_tpu_torch.serving import (
+        FrontendConfig,
+        ServingFrontend,
+        UnsupportedSubModelError,
+    )
+
+    if args.request_rows < 1:
+        raise SystemExit("--request-rows must be >= 1")
+    try:
+        with phase(logger, "setup_engine"):
+            frontend = ServingFrontend(
+                {"default": model}, dtype=dtype, device=device,
+                config=FrontendConfig(
+                    coalesce_window_s=args.coalesce_ms / 1e3,
+                    max_pending=max(args.max_pending,
+                                    args.serve_concurrency)))
+    except UnsupportedSubModelError as e:
+        raise SystemExit(
+            f"--serve requires a device-scorable model: {e}") from e
+    with phase(logger, "ingest"):
+        requests = []
+        for ds in iter_game_dataset_batches(
+                inputs, id_types=id_types, feature_shard_maps=shard_maps,
+                batch_rows=args.batch_rows, feeder=args.feeder,
+                prefetch_depth=args.prefetch_batches):
+            for a in range(0, ds.num_rows, args.request_rows):
+                requests.append(ds.subset(np.arange(
+                    a, min(a + args.request_rows, ds.num_rows))))
+    logger.info("serving replay: %d requests (%d rows each), "
+                "concurrency %d, coalesce window %.1f ms",
+                len(requests), args.request_rows, args.serve_concurrency,
+                args.coalesce_ms)
+    with phase(logger, "score"):
+        results, info = frontend.replay(
+            requests, concurrency=args.serve_concurrency)
+    if info["shed"]:
+        raise RuntimeError(f"--serve: {info['shed']} requests shed, which "
+                           "a closed-loop replay with max_pending >= "
+                           "concurrency cannot do")
+    if info["errors"]:
+        raise SystemExit(
+            f"--serve: {info['errors']} requests failed "
+            "(see log; scores would be incomplete)")
+    acc = StreamedEvalAccumulator(id_types) if evaluators else None
+    counters = {"rows": 0, "batches": 0}
+    with phase(logger, "write_scores"):
+        write_container(scores_path, schemas.SCORING_RESULT,
+                        _records(zip(requests, results), counters, acc))
+    with phase(logger, "evaluate"):
+        metrics = acc.metrics(evaluators) if acc is not None else {}
+    return {
+        "num_rows": counters["rows"],
+        "metrics": metrics,
+        "scoring_path": "async-frontend",
+        "num_requests": len(requests),
+        "request_rows": args.request_rows,
+        "coalesce_window_ms": args.coalesce_ms,
+        "concurrency": args.serve_concurrency,
+        "frontend": frontend.stats(),
     }
 
 

@@ -2,7 +2,8 @@
 (port of photon_ml_tpu/data/avro_reader.py: _avro_paths, iter_records,
 the record helpers and _reject_duplicate_features :22-105,
 build_index_map :108, read_labeled_points :135-200, _GameBatchBuilder
-:200-284, read_game_dataset :323-392).
+:200-284, iter_game_dataset_batches :287-319, read_game_dataset
+:323-392).
 
 Replaces the reference's AvroDataReader/GLMSuite Spark ingest
 (ml/data/AvroDataReader.scala:53-436, ml/io/GLMSuite.scala:98-139): reads
@@ -292,6 +293,31 @@ class _GameBatchBuilder:
             uids=np.asarray([u if u is not None else ""
                              for u in self._uids]),
         )
+
+
+def iter_game_dataset_batches(
+    path,
+    id_types: Sequence[str],
+    feature_shard_maps: Dict[str, IndexMap],
+    batch_rows: int,
+    add_intercept: bool = True,
+    feeder: str = "auto",
+    prefetch_depth: int = 0,
+) -> Iterator[GameDataset]:
+    """Streaming GAME ingest: GameDatasets of <= ``batch_rows`` rows
+    through ``block_stream.BlockGameStream`` (the C block decoder, or
+    the byte-identical record loop with ``feeder="python"``), so only
+    O(batch_rows x (prefetch_depth + 2)) rows are resident on the host.
+    Each batch's entity vocabularies are its own: consumers joining
+    against a model vocabulary map through entity names, as the serving
+    engine does. ``prefetch_depth`` > 0 decodes ahead on a background
+    thread."""
+    from photon_ml_tpu_torch.data.block_stream import BlockGameStream
+
+    yield from BlockGameStream(
+        path, id_types=id_types, feature_shard_maps=feature_shard_maps,
+        batch_rows=batch_rows, add_intercept=add_intercept,
+        feeder=feeder, prefetch_depth=prefetch_depth)
 
 
 def read_game_dataset(

@@ -1,6 +1,6 @@
 """Device-resident feature matrices (port of photon_ml_tpu/ops/features.py:
 DenseFeatures :33-103, CSRFeatures :106-174, KroneckerFeatures :177-228,
-features_to_device :1002-1058).
+padded_csr_arrays :969-997, features_to_device :1002-1058).
 
 - ``DenseFeatures``: dense ``[n_rows, n_features]``; products are
   ``torch.matmul``. ``x`` may be stored in bfloat16
@@ -227,6 +227,55 @@ def csr_from_scipy(mat, dtype=torch.float32, device="cuda") -> CSRFeatures:
         col_ids=torch.as_tensor(csr.indices.astype(np.int64), device=dev),
         row_ids=torch.as_tensor(rows, device=dev),
         n_rows=int(csr.shape[0]), n_features=int(csr.shape[1]))
+
+
+def _host_csr(mat, n_rows_pad: int, nnz_pad: int) -> sp.csr_matrix:
+    csr = mat.tocsr() if sp.issparse(mat) else sp.csr_matrix(mat)
+    if csr.shape[0] > n_rows_pad:
+        raise ValueError(f"{csr.shape[0]} rows > n_rows_pad={n_rows_pad}")
+    if csr.nnz > nnz_pad:
+        raise ValueError(f"nnz={csr.nnz} > nnz_pad={nnz_pad}")
+    return csr
+
+
+def padded_csr_arrays(mat, n_rows_pad: int, nnz_pad: int,
+                      value_dtype=np.float32):
+    """Host CSR -> the padded expanded-CSR triplet ``(values[nnz_pad],
+    col_ids[nnz_pad], row_ids[nnz_pad])`` (numpy; port of
+    photon_ml_tpu/ops/features.py:969-997, the same arrays bit for bit).
+    Pad entries carry value 0 at (row 0, col 0); rows in
+    [mat.shape[0], n_rows_pad) have no entries."""
+    csr = _host_csr(mat, n_rows_pad, nnz_pad)
+    values = np.zeros(nnz_pad, dtype=value_dtype)
+    col_ids = np.zeros(nnz_pad, dtype=np.int32)
+    row_ids = np.zeros(nnz_pad, dtype=np.int32)
+    values[:csr.nnz] = csr.data
+    col_ids[:csr.nnz] = csr.indices
+    row_ids[:csr.nnz] = np.repeat(
+        np.arange(csr.shape[0], dtype=np.int32), np.diff(csr.indptr))
+    return values, col_ids, row_ids
+
+
+def padded_csr(mat, n_rows_pad: int, nnz_pad: int, value_dtype=np.float32):
+    """Host CSR -> the bucket's padded CSR ``(crow[n_rows_pad + 1],
+    col[nnz_pad], val[nnz_pad])`` (int32 indices, numpy) for the
+    deterministic product (ops/spmv.py).
+
+    Unlike ``padded_csr_arrays``, whose pads sit at (row 0, col 0), no
+    row holds a pad entry: rows from mat.shape[0] on are empty
+    (``crow[n:] = nnz``) and the entries past ``crow[n_rows_pad]`` are
+    zeros that no row reads. A pad in row 0 would lengthen it and, under
+    the kernel's order contract (a row's additions depend on its own
+    length), change its sum; so a row's bits here depend only on its own
+    entries, whatever shares its bucket."""
+    csr = _host_csr(mat, n_rows_pad, nnz_pad)
+    crow = np.full(n_rows_pad + 1, csr.nnz, dtype=np.int32)
+    crow[:csr.shape[0] + 1] = csr.indptr
+    col = np.zeros(nnz_pad, dtype=np.int32)
+    val = np.zeros(nnz_pad, dtype=value_dtype)
+    col[:csr.nnz] = csr.indices
+    val[:csr.nnz] = csr.data
+    return crow, col, val
 
 
 DENSE_DENSITY_THRESHOLD = 0.2

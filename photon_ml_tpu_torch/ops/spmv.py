@@ -7,7 +7,10 @@ its plain PyTorch version (``torch.mv`` on a sparse CSR tensor) for
 tensors on the CPU, and a raise for anything else. It stands for the
 products of the JAX package's CSRFeatures (photon_ml_tpu/ops/features.py:
 137-145: a gather and a segment sum that XLA compiles outside any Pallas
-kernel). ``csr_matvec.launches`` counts kernel launches.
+kernel). ``csr_matvec.launches`` counts kernel launches; a product
+recorded into a CUDA graph launches nothing then and counts in
+``csr_matvec.recorded`` instead (whoever replays the graph counts its
+launches).
 
 ``csr_matmul`` is Y = A X for the same CSR and a dense row-major panel X
 of n columns (row 10): the CUDA kernel ``csrc/csr_spmm.cu`` on the card,
@@ -15,7 +18,8 @@ of n columns (row 10): the CUDA kernel ``csrc/csr_spmm.cu`` on the card,
 grid (ops/sharded_objective.py) multiplies G coefficient or margin lanes
 through it, and the streamed matrix factorization (ops/mf_alternating.py)
 its k-wide projections and its per-entity normal equations.
-``csr_matmul.launches`` counts its launches.
+``csr_matmul.launches`` and ``.recorded`` count its launches and
+captures alike.
 
 Both kernels are ``csrc/csr_order.cuh``'s, and keep its order contract:
 the order of every addition of a row depends only on the row's own length
@@ -237,7 +241,7 @@ class CSROperand:
             return torch.mv(self._plain, x)
         y = torch.empty(self.rows, dtype=self.val.dtype, device=self.device)
         if self._launch(False, x, y, 1):
-            csr_matvec.launches += 1
+            _count(csr_matvec)
         return y
 
     def matmat(self, x: Tensor) -> Tensor:
@@ -255,7 +259,7 @@ class CSROperand:
         y = torch.empty((self.rows, n), dtype=self.val.dtype,
                         device=self.device)
         if self._launch(True, x, y, n):
-            csr_matmul.launches += 1
+            _count(csr_matmul)
         return y
 
     def _launch(self, panel: bool, x: Tensor, y: Tensor, n: int) -> bool:
@@ -305,6 +309,15 @@ class CSROperand:
         return self._calls[n]
 
 
+def _count(product) -> None:
+    """One call of ``product``'s kernel: a launch, or, on a stream that
+    is capturing a CUDA graph, a launch recorded into the graph."""
+    if torch.cuda.is_current_stream_capturing():
+        product.recorded += 1
+    else:
+        product.launches += 1
+
+
 def _checked(crow: Tensor, col: Tensor, val: Tensor, x: Tensor,
              n_cols: int) -> CSROperand:
     """The operand of one product given as tensors, after the checks both
@@ -339,12 +352,11 @@ def csr_matmul(crow: Tensor, col: Tensor, val: Tensor, x: Tensor,
 
 
 def reset_launch_counts() -> None:
-    csr_matvec.launches = 0
-    csr_matmul.launches = 0
+    for product in (csr_matvec, csr_matmul):
+        product.launches = product.recorded = 0
 
 
-csr_matvec.launches = 0
-csr_matmul.launches = 0
+reset_launch_counts()
 
 
 def _crow(ids: Tensor, n: int) -> Tensor:

@@ -1,38 +1,726 @@
-"""Scoring of arbitrary GameDatasets against one frozen GameModel (port of
-photon_ml_tpu/serving/engine.py: StreamingGameScorer, its construction
-:175- and ``score(data)`` :557).
+"""Streaming GAME scoring engine: a frozen device-resident model, varying
+request data, static-shape bucket dispatch through captured CUDA graphs
+(port of photon_ml_tpu/serving/engine.py: ExecutableCache :69-118,
+_SubSpec :120, _StreamScoring :131, _HostRequest :148, _vstack_csr :157,
+StreamingGameScorer :175-769 without its telemetry).
 
-Streamed validation (``--stream-train``) scores each decoded batch
-against every model of the λ grid. A batch's entity vocabularies are its
-own, and the scorer joins them to the model's by entity NAME, as the
-device scorer does (models/device_scoring.py). The JAX engine's bucket
-ladder, executable cache, dispatch pipelining, micro-batching and
-per-model metrics are ROADMAP A5.
+The inverse of ``DeviceGameScorer`` (which freezes one dataset and
+varies the model): the model's parameters are uploaded once at
+construction and stay on the device (fixed-effect coefficient vectors,
+random-effect entity matrices assembled once, MF factor tables). Every
+request ships only its own payload: padded CSR feature blocks and mapped
+entity codes.
+
+- **bucket ladder** (buckets.py): request shapes quantize to powers of
+  two. Each bucket shape gets one ``BucketExecutable`` held in the
+  engine's own ``ExecutableCache``: static device inputs (per feature
+  shard the bucket's CSR, and the entries' row ids where a random effect
+  reads the shard; per sub-model the mapped codes), the bucket's scoring
+  function over them and, on the card, the CUDA graph captured from it
+  with its static output. A dispatch copies the request's payload into
+  the static inputs (one pinned buffer, one copy), replays the graph and
+  copies the output to a pinned host buffer, all on the caller's current
+  stream, so a later dispatch of the same bucket cannot overwrite inputs
+  or output an earlier one still needs. On the CPU the entry runs the
+  eager function over its static inputs.
+- **micro-batching**: ``score_many`` packs small requests into one
+  dispatch and scatters results back per request;
+- **pipelining**: ``score_stream`` keeps ``pipeline_depth`` dispatches in
+  flight (``InFlightWindow``), so the host featureization of batch k+1
+  overlaps the device work of batch k.
+
+The bucket's scoring function, in this order: fixed-effect margins by
+the CSR forward product (kernel row 9 on the card, ops/spmv.py; no
+transpose is built), random effects by ``kernels.score_random_rows`` (the
+same product summing x_ij M[entity(i), j]), MF by
+``kernels.score_mf_rows``. Every addition of a row then depends on its
+own entries only, so a served row gives the same bits whatever shares its
+bucket and whatever the bucket's shape. No fallback: a bucket whose
+graph fails to capture or replay raises.
+
+A captured graph holds its parameters' addresses, so each engine owns
+its cache, keyed by bucket shape, where JAX's same-structure engines
+share executables through one cache (ROADMAP §C lists this). Engines
+may share a :class:`TracingGuard`, which keeps each bucket's build count
+but not the bucket, so a dropped engine frees its parameters, buffers
+and graphs.
+
+Padded rows cannot leak: padded rows have no CSR entries, padded code
+slots carry -1 (the unknown-entity zero row), and results are sliced to
+the real row count before they leave the engine. The JAX engine's spans,
+registry metrics, executable profiler and score monitor are ROADMAP A5b
+and A5c; ``stats()`` has every other key of JAX's.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from collections import deque
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+
 import numpy as np
+import scipy.sparse as sp
 import torch
 
+from photon_ml_tpu_torch.data.device_feed import (
+    InFlightWindow,
+    chunked_device_put,
+)
 from photon_ml_tpu_torch.device import resolve_device
-from photon_ml_tpu_torch.models.device_scoring import DeviceGameScorer
+from photon_ml_tpu_torch.models.fixed_effect import FixedEffectModel
 from photon_ml_tpu_torch.models.game_model import GameModel
+from photon_ml_tpu_torch.models.matrix_factorization import (
+    MatrixFactorizationModel,
+)
+from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
+from photon_ml_tpu_torch.ops import spmv
+from photon_ml_tpu_torch.ops.features import padded_csr
+from photon_ml_tpu_torch.serving import kernels
+from photon_ml_tpu_torch.serving.buckets import BucketLadder
+from photon_ml_tpu_torch.utils.tracing_guard import BuildCount, TracingGuard
+from photon_ml_tpu_torch.utils.vocab import SortedVocab
+
+Tensor = torch.Tensor
+
+class ExecutableCache:
+    """Explicit bucket cache: key -> ``BucketExecutable``, with an honest
+    build counter (``compilations``: entries ever built). Every built
+    entry registers with a :class:`TracingGuard`, so the build-count
+    invariants are assertable: ``assert_max_retraces(max_total=N)`` bounds
+    the executables ever built and their captures, an evicted and rebuilt
+    bucket staying in the guard's totals under a fresh generation name.
+    One engine's: its keys are bucket shapes. ``label`` prefixes the
+    guard's names (the front-end's model name), and ``total_traces`` is
+    the guard's, which engines may share."""
+
+    def __init__(self, guard: Optional[TracingGuard] = None,
+                 label: Optional[str] = None):
+        self._entries: Dict[Tuple, object] = {}
+        self.compilations = 0
+        self.guard = guard if guard is not None else TracingGuard()
+        self._prefix = f"bucket:{label}:" if label else "bucket:"
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def keys(self):
+        return self._entries.keys()
+
+    def items(self):
+        return self._entries.items()
+
+    def get_or_build(self, key: Tuple, build):
+        fn = self._entries.get(key)
+        if fn is None:
+            fn = self._entries[key] = build()
+            self.compilations += 1
+            self.guard.track(f"{self._prefix}{key!r}", fn)
+        return fn
+
+    def total_traces(self) -> int:
+        """Builds across every executable ever built (evicted included);
+        equals ``compilations`` exactly when each bucket built once."""
+        return self.guard.total_traces()
+
+    def assert_max_retraces(self, max_total: Optional[int] = None,
+                            per_fn: Optional[int] = None) -> None:
+        self.guard.assert_max_retraces(max_total=max_total, per_fn=per_fn)
+
+
+@dataclasses.dataclass(frozen=True)
+class _SubSpec:
+    """Static per-sub-model serving structure (params live separately)."""
+
+    name: str
+    kind: str  # "fixed" | "random" | "mf"
+    shard_id: Optional[str]  # feature shard consumed (None for mf)
+    effect_types: Tuple[str, ...]  # id columns consumed ((), 1, or 2)
+    vocabs: Tuple[SortedVocab, ...]  # model vocab per effect type
+
+
+class _StreamScoring:
+    """Iterator of (dataset, scores) pairs from ``score_container_stream``,
+    carrying the underlying feeder (``.stream``)."""
+
+    def __init__(self, it, stream):
+        self._it = it
+        self.stream = stream
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._it)
+
+
+@dataclasses.dataclass
+class _HostRequest:
+    """One featureized request: host-side, unpadded."""
+
+    n_rows: int
+    shards: Dict[str, sp.csr_matrix]
+    codes: Tuple[Tuple[np.ndarray, ...], ...]  # per sub, per effect type
+
+
+def _vstack_csr(mats: List[sp.csr_matrix]) -> sp.csr_matrix:
+    """Row-stack same-width CSRs by direct triplet concatenation (what
+    ``sp.vstack(mats, format="csr")`` gives, without its per-block
+    re-validation)."""
+    indptr_parts = [np.zeros(1, mats[0].indptr.dtype)]
+    off = 0
+    for m in mats:
+        indptr_parts.append(m.indptr[1:] + off)
+        off += m.nnz
+    return sp.csr_matrix(
+        (np.concatenate([m.data for m in mats]),
+         np.concatenate([m.indices for m in mats]),
+         np.concatenate(indptr_parts)),
+        shape=(sum(m.shape[0] for m in mats), mats[0].shape[1]))
+
+
+_ALIGN = 16  # bytes: every static input starts on a 16-byte boundary
+
+
+class BucketExecutable:
+    """One bucket shape of one engine: its static inputs, its scoring
+    function over them and, on the card, the CUDA graph captured from
+    that function with its static output.
+
+    The static inputs are views of one device byte buffer, so a dispatch
+    stages the whole payload in one pinned host buffer and uploads it in
+    one copy. Building runs the function once eagerly (which also makes
+    the CSR operands' per-width state, which cannot be made inside a
+    capture) and then captures it; ``traces`` counts captures on the card
+    and builds of the eager function on the CPU, in ``builds``, the
+    counter the TracingGuard keeps. ``replays`` counts graph replays;
+    ``launches_per_replay`` is the row-9 launches one replay runs, which
+    each replay adds to ``spmv.csr_matvec.launches``."""
+
+    def __init__(self, engine: "StreamingGameScorer", rows_b: int,
+                 nnz_by_shard: Tuple[int, ...]):
+        dev, dt = engine.device, engine.dtype
+        self.device = dev
+        self.rows_b = rows_b
+        self.builds = BuildCount()
+        self.replays = 0
+        self.launches_per_replay = 0
+        np_dt = engine.np_dtype
+        nnz = dict(zip(engine.shard_order, nnz_by_shard))
+        layout = []  # (name, np dtype, length)
+        for sid in engine.shard_order:
+            layout += [(("crow", sid), np.int32, rows_b + 1),
+                       (("col", sid), np.int32, nnz[sid]),
+                       (("val", sid), np_dt, nnz[sid])]
+            if sid in engine._re_shards:
+                layout.append((("rid", sid), np.int32, nnz[sid]))
+        for i, spec in enumerate(engine._subs):
+            for j in range(len(spec.effect_types)):
+                layout.append((("codes", i, j), np.int32, rows_b))
+        self._slots = {}
+        off = 0
+        for name, ndt, n in layout:
+            nbytes = n * np.dtype(ndt).itemsize
+            self._slots[name] = (off, ndt, n)
+            off += -(-nbytes // _ALIGN) * _ALIGN
+        self.nbytes = max(off, _ALIGN)
+        self._buf = torch.zeros(self.nbytes, dtype=torch.uint8, device=dev)
+        views = {}
+        for name, (o, ndt, n) in self._slots.items():
+            tdt = torch.from_numpy(np.empty(0, ndt)).dtype
+            views[name] = self._buf[o:o + n * np.dtype(ndt).itemsize].view(
+                tdt)
+
+        ops, re_ops, prods, ones = {}, {}, {}, {}
+        for sid in engine.shard_order:
+            ops[sid] = spmv.CSROperand(views["crow", sid], views["col", sid],
+                                       views["val", sid],
+                                       engine._shards[sid])
+        for i, spec in enumerate(engine._subs):
+            if spec.kind != "random":
+                continue
+            sid = spec.shard_id
+            prods[i] = torch.zeros(nnz[sid], dtype=dt, device=dev)
+            re_ops[i] = spmv.CSROperand(views["crow", sid],
+                                        views["col", sid], prods[i],
+                                        engine._shards[sid])
+            ones[i] = torch.ones(engine._shards[sid], dtype=dt, device=dev)
+        subs, params = engine._subs, engine._params
+
+        def score_bucket() -> Tensor:
+            total = torch.zeros(rows_b, dtype=dt, device=dev)
+            for i, (spec, p) in enumerate(zip(subs, params)):
+                if spec.kind == "fixed":
+                    total = total + kernels.score_fixed(ops[spec.shard_id],
+                                                        p, dt)
+                elif spec.kind == "random":
+                    sid = spec.shard_id
+                    total = total + kernels.score_random_rows(
+                        re_ops[i], prods[i], views["val", sid],
+                        views["rid", sid], views["codes", i, 0], p, ones[i])
+                else:
+                    total = total + kernels.score_mf_rows(
+                        views["codes", i, 0], views["codes", i, 1], p[0],
+                        p[1], dt)
+            return total
+
+        self.eager = score_bucket
+        self.graph = None
+        self.out = None
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                score_bucket()  # makes the operands' state; all-empty rows
+                graph = torch.cuda.CUDAGraph()
+                before = spmv.csr_matvec.recorded
+                # thread_local: another thread's CUDA calls (a prefetch
+                # thread's pinned allocation, a second engine's upload)
+                # may not invalidate this capture.
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    self.out = score_bucket()
+                self.launches_per_replay = (spmv.csr_matvec.recorded
+                                            - before)
+            self.graph = graph
+        self.builds.traces += 1
+
+    @property
+    def traces(self) -> int:
+        return self.builds.traces
+
+    def stage(self, host: Dict) -> None:
+        """Write one payload (name -> host array of the slot's length)
+        into the static inputs: on the card through one pinned buffer and
+        one copy on the current stream (the caching host allocator keeps
+        the buffer until that copy is done), on the CPU in place."""
+        if self.device.type == "cuda":
+            staging = torch.empty(self.nbytes, dtype=torch.uint8,
+                                  pin_memory=True)
+        else:
+            staging = self._buf
+        hv = staging.numpy()
+        for name, arr in host.items():
+            o, ndt, n = self._slots[name]
+            hv[o:o + n * np.dtype(ndt).itemsize].view(ndt)[:] = arr
+        if staging is not self._buf:
+            self._buf.copy_(staging, non_blocking=True)
+
+    def run(self) -> Tuple[Tensor, Optional[object]]:
+        """Score the staged payload: (host scores [rows_b], the CUDA event
+        behind their copy, or None on the CPU)."""
+        if self.graph is None:
+            return self.eager(), None
+        self.graph.replay()
+        self.replays += 1
+        spmv.csr_matvec.launches += self.launches_per_replay
+        host = torch.empty(self.rows_b, dtype=self.out.dtype,
+                           pin_memory=True)
+        host.copy_(self.out, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
 
 
 class StreamingGameScorer:
-    """Scores GameDatasets against ONE GameModel on ``device``, in
-    ``dtype`` (float32 on the card; float64 for the CPU parity tests)."""
+    """Scores arbitrary GameDatasets against ONE frozen GameModel.
+
+    ``dtype`` is the compute and result type (float32 on the card;
+    float64 for the CPU parity tests). Construction uploads and
+    assembles all model state; no per-request work touches model
+    parameters again. The engine owns its bucket cache (``cache``);
+    engines that share ``tracing_guard`` (the front-end's) count their
+    builds in one place. ``device`` defaults to the card and raises
+    without CUDA unless it is ``"cpu"``."""
 
     def __init__(self, model: GameModel, dtype=torch.float32,
-                 device="cuda"):
-        self.model = model
-        self.dtype = dtype
+                 ladder: Optional[BucketLadder] = None,
+                 pipeline_depth: int = 2,
+                 tracing_guard: Optional[TracingGuard] = None,
+                 metrics_label: Optional[str] = None, device="cuda"):
         self.device = resolve_device(device)
+        self.dtype = dtype
+        self.np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+        self.ladder = ladder if ladder is not None else BucketLadder()
+        self.pipeline_depth = max(1, pipeline_depth)
+        self._subs: List[_SubSpec] = []
+        self._params: List = []  # on the device, aligned with _subs
+        self._shards: Dict[str, int] = {}  # shard id -> n_features
+        self._stats = {"dispatches": 0, "requests": 0, "rows_scored": 0,
+                       "rows_padded": 0, "nnz_scored": 0, "nnz_padded": 0}
+        self.cache = ExecutableCache(guard=tracing_guard,
+                                     label=metrics_label)
+        # The per-model registry mirrors of JAX (serving.model.<label>.*)
+        # are ROADMAP A5b; the label is kept and reported in stats().
+        self.metrics_label = metrics_label
+
+        dev, dt = self.device, dtype
+        for name, m in model.models.items():
+            re_model: Optional[RandomEffectModel] = None
+            if isinstance(m, RandomEffectModel):
+                re_model = m
+            elif isinstance(getattr(m, "latent", None), RandomEffectModel):
+                re_model = m.latent  # FactoredRandomEffectModel
+
+            if kernels.is_re_snapshot(m):
+                # A loaded random effect: its entity matrix is already
+                # assembled in global space (plus the unknown row).
+                dense = kernels.snapshot_dense_matrix(m, dt)
+                self._register_shard(name, m.feature_shard_id,
+                                     dense.shape[1])
+                self._subs.append(_SubSpec(
+                    name, "random", m.feature_shard_id,
+                    (m.random_effect_type,),
+                    (SortedVocab.build(m.vocabulary),)))
+                self._params.append(chunked_device_put(dense, dt, dev))
+                continue
+
+            if isinstance(m, FixedEffectModel):
+                w = chunked_device_put(
+                    torch.as_tensor(m.glm.coefficients.means).cpu(), dt,
+                    dev)
+                self._register_shard(name, m.feature_shard_id, w.shape[0])
+                self._subs.append(_SubSpec(name, "fixed",
+                                           m.feature_shard_id, (), ()))
+                self._params.append(w)
+            elif re_model is not None:
+                self._register_shard(name, re_model.feature_shard_id,
+                                     re_model.num_global_features)
+                block_static = tuple(
+                    (torch.as_tensor(np.asarray(codes, np.int64),
+                                     device=dev), fidx.to(dev))
+                    for codes, fidx in zip(re_model.entity_codes,
+                                           re_model.feat_idx))
+                coefs = tuple(c.to(dev) for c in re_model.local_coefs)
+                proj = (None if re_model.projection is None
+                        else re_model.projection.to(dev))
+                # Assembled once: the serving model is frozen.
+                M = kernels.assemble_re_matrix(
+                    block_static, coefs, proj, len(re_model.vocabulary),
+                    re_model.num_global_features, dt).contiguous()
+                self._subs.append(_SubSpec(
+                    name, "random", re_model.feature_shard_id,
+                    (re_model.random_effect_type,),
+                    (SortedVocab.build(re_model.vocabulary),)))
+                self._params.append(M)
+            elif isinstance(m, MatrixFactorizationModel):
+                self._subs.append(_SubSpec(
+                    name, "mf", None,
+                    (m.row_effect_type, m.col_effect_type),
+                    (SortedVocab.build(m.row_vocabulary),
+                     SortedVocab.build(m.col_vocabulary))))
+                self._params.append(tuple(
+                    chunked_device_put(torch.as_tensor(f).cpu(), dt, dev)
+                    for f in (m.row_factors, m.col_factors)))
+            else:
+                raise kernels.UnsupportedSubModelError(
+                    f"coordinate {name!r}: cannot device-score "
+                    f"{type(m).__name__}")
+        self._params = tuple(self._params)
+        self._shard_order = tuple(self._shards)
+        self._re_shards = {s.shard_id for s in self._subs
+                           if s.kind == "random"}
+        # Request-vocab join memo, keyed by (sub, effect, id(vocab)); each
+        # entry keeps its vocab array, so the id is never recycled while
+        # the entry lives (GameDataset.subset shares the vocabulary).
+        self._join_memo: Dict[Tuple[int, int, int],
+                              Tuple[np.ndarray, np.ndarray]] = {}
+
+    def _register_shard(self, name: str, shard_id: str, d: int) -> None:
+        prev = self._shards.setdefault(shard_id, int(d))
+        if prev != d:
+            raise ValueError(
+                f"coordinate {name!r} expects shard {shard_id!r} with "
+                f"{d} features but another coordinate registered {prev}")
+
+    # -- host-side featureization -----------------------------------------
+
+    def _featureize(self, data) -> _HostRequest:
+        """GameDataset rows -> per-shard CSR + per-sub mapped model codes
+        (the host half of a request, overlappable with device work)."""
+        shards = {}
+        for sid, d in self._shards.items():
+            mat = data.feature_shards.get(sid)
+            if mat is None:
+                raise KeyError(f"request is missing feature shard {sid!r} "
+                               f"(has {sorted(data.feature_shards)})")
+            csr = mat.tocsr()
+            if csr.shape[1] != d:
+                raise ValueError(
+                    f"shard {sid!r}: request has {csr.shape[1]} features, "
+                    f"model expects {d}")
+            shards[sid] = csr
+        codes = []
+        for i, spec in enumerate(self._subs):
+            per_effect = []
+            for j, (etype, vocab) in enumerate(zip(spec.effect_types,
+                                                   spec.vocabs)):
+                col = data.id_columns.get(etype)
+                if col is None:
+                    raise KeyError(
+                        f"request is missing id column {etype!r} "
+                        f"(has {sorted(data.id_columns)})")
+                memo_key = (i, j, id(col.vocabulary))
+                ent = self._join_memo.get(memo_key)
+                if ent is None or ent[0] is not col.vocabulary:
+                    if len(self._join_memo) >= 64:  # serving sees few
+                        self._join_memo.clear()     # vocabularies
+                    lookup = vocab.codes_of(
+                        col.vocabulary).astype(np.int32)
+                    self._join_memo[memo_key] = (col.vocabulary, lookup)
+                else:
+                    lookup = ent[1]
+                per_effect.append(lookup[col.codes])
+            codes.append(tuple(per_effect))
+        return _HostRequest(int(data.num_rows), shards, tuple(codes))
+
+    def _assemble(self, group: List[_HostRequest]):
+        """Pack a group of requests into one padded bucket batch: (cache
+        key, host payload {static input name: array}, per-request row
+        splits)."""
+        n_total = sum(r.n_rows for r in group)
+        rows_b = self.ladder.rows_bucket(n_total)
+        payload = {}
+        nnz_buckets = []
+        nnz_total = 0
+        for sid in self._shard_order:
+            mats = [r.shards[sid] for r in group]
+            csr = mats[0] if len(mats) == 1 else _vstack_csr(mats)
+            nnz_b = self.ladder.nnz_bucket(csr.nnz, rows_b)
+            crow, col, val = padded_csr(csr, rows_b, nnz_b,
+                                        value_dtype=self.np_dtype)
+            payload["crow", sid] = crow
+            payload["col", sid] = col
+            payload["val", sid] = val
+            if sid in self._re_shards:  # entries' rows, to gather M by
+                rid = np.zeros(nnz_b, np.int32)
+                rid[:csr.nnz] = np.repeat(
+                    np.arange(csr.shape[0], dtype=np.int32),
+                    np.diff(csr.indptr))
+                payload["rid", sid] = rid
+            nnz_buckets.append(nnz_b)
+            nnz_total += int(csr.nnz)
+        for i, spec in enumerate(self._subs):
+            for j in range(len(spec.effect_types)):
+                padded = np.full(rows_b, -1, np.int32)
+                off = 0
+                for r in group:
+                    padded[off:off + r.n_rows] = r.codes[i][j]
+                    off += r.n_rows
+                payload["codes", i, j] = padded
+        key = (rows_b, tuple(nnz_buckets))
+        splits = np.cumsum([r.n_rows for r in group])[:-1]
+        self._stats["requests"] += len(group)
+        self._stats["rows_scored"] += n_total
+        self._stats["rows_padded"] += rows_b
+        self._stats["nnz_scored"] += nnz_total
+        self._stats["nnz_padded"] += sum(nnz_buckets)
+        return key, payload, splits
+
+    # -- device dispatch ---------------------------------------------------
+
+    def _dispatch(self, key, payload):
+        """Stage one padded batch and run its bucket (asynchronous on the
+        card): (host scores [rows_b], the event behind them or None)."""
+        ex = self.cache.get_or_build(
+            key, lambda: BucketExecutable(self, *key))
+        self._stats["dispatches"] += 1
+        if self.device.type != "cuda":
+            ex.stage(payload)
+            return ex.run()
+        with torch.cuda.device(self.device):
+            ex.stage(payload)
+            return ex.run()
+
+    #: _stats keys rolled back by :meth:`rollback_stats`: request and row
+    #: accounting and its padding companions, not ``dispatches`` (a
+    #: discarded partial dispatch still ran on the device).
+    _ROLLBACK_KEYS = ("requests", "rows_scored", "rows_padded",
+                      "nnz_scored", "nnz_padded")
+
+    def stats_checkpoint(self) -> Dict[str, int]:
+        """Snapshot of the request-accounting stats, for
+        :meth:`rollback_stats` after a failed ``score_many`` attempt."""
+        return {k: self._stats[k] for k in self._ROLLBACK_KEYS}
+
+    def rollback_stats(self, checkpoint: Dict[str, int]) -> None:
+        """Un-count a failed ``score_many`` attempt, so requests and
+        rows_scored count each served request once even when the
+        front-end's fault isolation re-scores a window solo. Caller
+        contract: one mutator (the front-end's dispatch thread), the
+        checkpoint taken just before the attempt."""
+        for k in self._ROLLBACK_KEYS:
+            self._stats[k] = checkpoint[k]
+
+    # -- public scoring API ------------------------------------------------
+
+    def _split(self, data) -> List:
+        """Oversized requests split into ladder-sized row slices."""
+        n = data.num_rows
+        if n <= self.ladder.max_rows:
+            return [data]
+        return [data.subset(np.arange(a, min(a + self.ladder.max_rows, n)))
+                for a in range(0, n, self.ladder.max_rows)]
+
+    def _push(self, win: InFlightWindow, item, launched):
+        out, ev = launched
+        return win.push((out, *item), ready=ev if ev is not None else out)
 
     def score(self, data) -> np.ndarray:
-        """Host [n_rows] model margins of one dataset (no offsets: the
-        GameModel.score contract)."""
-        scorer = DeviceGameScorer(self.model, data, dtype=self.dtype,
-                                  device=self.device)
-        return scorer.score(self.model).cpu().numpy()
+        """Score one request dataset: host [n_rows] model margins (no
+        offsets, the GameModel.score contract). Oversized requests split
+        and pipeline through ``score_stream``."""
+        return next(self.score_stream([data]))
+
+    def score_many(self, datasets) -> List[np.ndarray]:
+        """Micro-batch a list of small requests: consecutive requests
+        pack into shared dispatches (combined rows <= ladder.max_rows),
+        results scatter back per request. Dispatches are pipelined."""
+        datasets = list(datasets)
+        results: List[Optional[np.ndarray]] = [None] * len(datasets)
+        groups: List[List[int]] = []
+        rows = 0
+        for i, ds in enumerate(datasets):
+            n = ds.num_rows
+            if n == 0:
+                results[i] = np.zeros(0, self.np_dtype)
+                continue
+            if n > self.ladder.max_rows:
+                groups.append([i])  # handled via score() (splitting)
+                continue
+            if groups and rows + n <= self.ladder.max_rows \
+                    and datasets[groups[-1][-1]].num_rows \
+                    <= self.ladder.max_rows:
+                groups[-1].append(i)
+                rows += n
+            else:
+                groups.append([i])
+                rows = n
+        win = InFlightWindow(self.pipeline_depth)
+
+        def settle(done):
+            out, idxs, splits = done
+            n_real = sum(datasets[i].num_rows for i in idxs)
+            host = out.numpy()[:n_real].copy()
+            for idx, chunk in zip(idxs, np.split(host, splits)):
+                results[idx] = chunk
+
+        for g in groups:
+            if len(g) == 1 and datasets[g[0]].num_rows \
+                    > self.ladder.max_rows:
+                results[g[0]] = self.score(datasets[g[0]])
+                continue
+            reqs = [self._featureize(datasets[i]) for i in g]
+            key, payload, splits = self._assemble(reqs)
+            done = self._push(win, (g, splits),
+                              self._dispatch(key, payload))
+            if done is not None:
+                settle(done)
+        for done in win.drain():
+            settle(done)
+        return results
+
+    def score_stream(self, datasets: Iterable) -> Iterator[np.ndarray]:
+        """Pipelined scoring of a stream of request datasets: one score
+        vector per input, in order, with up to ``pipeline_depth``
+        dispatches in flight."""
+        win = InFlightWindow(self.pipeline_depth)
+        pending: List[np.ndarray] = []
+
+        def settle(done):
+            out, n_real, last = done
+            pending.append(out.numpy()[:n_real].copy())
+            if not last:  # not the dataset's last piece
+                return None
+            res = (pending[0] if len(pending) == 1
+                   else np.concatenate(pending))
+            pending.clear()
+            return res
+
+        for ds in datasets:
+            if ds.num_rows == 0:
+                # Flush in-flight work so output order is preserved.
+                for done in win.drain():
+                    res = settle(done)
+                    if res is not None:
+                        yield res
+                yield np.zeros(0, self.np_dtype)
+                continue
+            pieces = self._split(ds)
+            for pi, piece in enumerate(pieces):
+                req = self._featureize(piece)
+                key, payload, _ = self._assemble([req])
+                done = self._push(
+                    win, (piece.num_rows, pi == len(pieces) - 1),
+                    self._dispatch(key, payload))
+                if done is not None:
+                    res = settle(done)
+                    if res is not None:
+                        yield res
+        for done in win.drain():
+            res = settle(done)
+            if res is not None:
+                yield res
+
+    def score_container_stream(self, path, id_types, feature_shard_maps,
+                               batch_rows: int = 4096,
+                               add_intercept: bool = True,
+                               feeder: str = "auto",
+                               prefetch_depth: int = 2):
+        """Streamed scoring of Avro container input: ``(dataset,
+        scores)`` per decoded batch, in input order. The block-stream
+        feeder (data/block_stream.py) decodes batch k+1 on its prefetch
+        thread while ``score_stream`` keeps batch k's dispatch in flight;
+        host residency is bounded by ``prefetch_depth + 2`` decoded
+        batches plus ``pipeline_depth`` in flight. The iterator's
+        ``.stream`` is the ``BlockGameStream``."""
+        from photon_ml_tpu_torch.data.block_stream import BlockGameStream
+
+        stream = BlockGameStream(
+            path, id_types=id_types,
+            feature_shard_maps=feature_shard_maps, batch_rows=batch_rows,
+            add_intercept=add_intercept, feeder=feeder,
+            prefetch_depth=prefetch_depth)
+
+        def run():
+            held: deque = deque()  # batches whose dispatch is in flight
+
+            def feed():
+                for ds in stream:
+                    held.append(ds)
+                    yield ds
+
+            for scores in self.score_stream(feed()):
+                yield held.popleft(), scores
+
+        return _StreamScoring(run(), stream)
+
+    # -- introspection -----------------------------------------------------
+
+    @property
+    def shard_order(self) -> Tuple[str, ...]:
+        """Feature-shard order used in bucket keys (registration order)."""
+        return self._shard_order
+
+    def buckets(self) -> Dict[Tuple, BucketExecutable]:
+        """This engine's bucket executables by bucket shape."""
+        return dict(self.cache.items())
+
+    def cache_info(self) -> dict:
+        return {"entries": len(self.cache),
+                "compilations": self.cache.compilations,
+                "traces": self.cache.total_traces(),
+                "bucket_shapes": sorted(self.cache.keys())}
+
+    def stats(self) -> dict:
+        """Engine counters, snake_case (JAX's keys). The telemetry-fed
+        ``request_latency_seconds`` and ``profiler`` (and, with a score
+        monitor, ``score_distribution``) come with ROADMAP A5b and A5c."""
+        s = dict(self._stats)
+        s["padding_waste_rows"] = (
+            1.0 - s["rows_scored"] / s["rows_padded"]
+            if s["rows_padded"] else 0.0)
+        s["padding_waste_nnz"] = (
+            1.0 - s["nnz_scored"] / s["nnz_padded"]
+            if s["nnz_padded"] else 0.0)
+        s.update(self.cache_info())
+        if self.metrics_label:
+            s["metrics_label"] = self.metrics_label
+        return s

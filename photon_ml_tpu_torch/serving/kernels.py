@@ -16,6 +16,17 @@ snapshot (io/model_io.RandomEffectModelSnapshot) arrives as that matrix
 already, densified on the host. MF scores are factor dots with a zero
 row for unknown entities.
 
+The serving engine (serving/engine.py) scores a bucket with
+``score_random_rows`` and ``score_mf_rows``: the same contraction and
+factor dots, summed so that a row's bits depend only on its own entries.
+``score_random_with_matrix`` sums through ``index_add_``, which is an
+atomic add on the card, so a row's bits there could depend on its
+bucket-mates and change from call to call (JAX's segment_sum repeats its
+bits); ``score_random_rows`` takes the row sums of the products through
+the deterministic CSR product (kernel row 9) against a vector of ones,
+exact products by 1, so each row keeps that kernel's order contract.
+``score_mf_rows`` adds the k factor products in order.
+
 A snapshot too large to densify raises UnsupportedSubModelError. The
 JAX scoring driver turns that error into host-numpy scoring; the port
 has no host fallback, so the error ends the run.
@@ -30,6 +41,7 @@ import torch
 
 from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
 from photon_ml_tpu_torch.ops.features import CSRFeatures
+from photon_ml_tpu_torch.ops.spmv import CSROperand
 
 Tensor = torch.Tensor
 
@@ -117,6 +129,19 @@ def score_random_with_matrix(feats, mapped: Tensor, M: Tensor) -> Tensor:
     return torch.einsum("nd,nd->n", feats.x, M[rows])
 
 
+def score_random_rows(op: CSROperand, prod: Tensor, values: Tensor,
+                      row_ids: Tensor, mapped: Tensor, M: Tensor,
+                      ones: Tensor) -> Tensor:
+    """``score_random_with_matrix`` of a CSR feature block, row by row in
+    the CSR product's order: ``op`` is the block's CSR with ``prod`` as
+    its values, ``values`` and ``row_ids`` its entries' feature values
+    and rows, ``ones`` [n_cols] of M's type. ``prod`` is written with
+    x_ij * M[entity(i), j] and the rows summed by ``op.matvec(ones)``."""
+    rows = torch.where(mapped >= 0, mapped, M.shape[0] - 1)
+    torch.mul(values, M[rows[row_ids], op.col], out=prod)
+    return op.matvec(ones)
+
+
 def score_random(feats, mapped: Tensor,
                  block_static: Sequence[Tuple[Tensor, Tensor]],
                  coefs: Sequence[Tensor], proj: Optional[Tensor],
@@ -141,3 +166,20 @@ def score_mf(row_mapped: Tensor, col_mapped: Tensor, row_factors: Tensor,
     cc = torch.where(col_mapped >= 0, col_mapped.long(),
                      torch.full_like(col_mapped.long(), cf.shape[0] - 1))
     return torch.sum(rf[rr] * cf[cc], dim=-1)
+
+
+def score_mf_rows(row_mapped: Tensor, col_mapped: Tensor,
+                  row_factors: Tensor, col_factors: Tensor, dtype) -> Tensor:
+    """``score_mf`` with the k products of a row added in order, so a
+    row's bits do not depend on how many rows share its call."""
+    rf, cf = row_factors.to(dtype), col_factors.to(dtype)
+    k = rf.shape[-1]
+    rf = torch.cat([rf, rf.new_zeros((1, k))])
+    cf = torch.cat([cf, cf.new_zeros((1, k))])
+    rr = torch.where(row_mapped >= 0, row_mapped, rf.shape[0] - 1)
+    cc = torch.where(col_mapped >= 0, col_mapped, cf.shape[0] - 1)
+    prod = rf[rr] * cf[cc]
+    total = prod[:, 0]
+    for j in range(1, k):
+        total = total + prod[:, j]
+    return total

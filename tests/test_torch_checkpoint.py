@@ -51,6 +51,7 @@ from photon_ml_tpu_torch.optimization.config import (
 )
 from photon_ml_tpu_torch.types import TaskType
 from photon_ml_tpu_torch.utils import checkpoint as ckpt
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 FE_CFG = "30,1e-7,1.0,0.5,LBFGS,L2"  # down-sampling rate 0.5
 RE_CFG = "20,1e-6,1.0,1.0,LBFGS,L2"

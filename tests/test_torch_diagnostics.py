@@ -32,6 +32,7 @@ from photon_ml_tpu_torch.evaluation import validation
 from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.models.glm import LogisticRegressionModel
 from photon_ml_tpu_torch.types import DataValidationType, TaskType
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 RTOL = 1e-12
 

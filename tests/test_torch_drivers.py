@@ -21,9 +21,11 @@ the vmapped solves, not the Pallas kernel. The port runs through
 Tolerances (PERF.md §6): objectiveHistory rtol 1e-8, validation AUC
 within 1e-9, equal bestConfigs and convergence summaries, decoded
 coefficient records atol 1e-6; cross-scoring (each driver scores both
-trained models): scores atol 1e-10, AUC 1e-9. The flags of later
-queue items raise an error naming the item; the ported --stream-train
-flags, each with a flag of a later item, raise naming that item.
+trained models): scores atol 1e-10, AUC 1e-9; --stream and --serve
+(each driver scoring the port-trained models): scores allclose 1e-12,
+the same metrics, equal shared summary keys. The flags of later queue
+items raise an error naming the item; the ported --stream-train flags,
+each with a flag of a later item, raise naming that item.
 """
 
 import functools
@@ -43,6 +45,7 @@ from photon_ml_tpu.io.avro_codec import read_container as jax_read_container
 from photon_ml_tpu_torch.cli import game_scoring_driver, game_training_driver
 from photon_ml_tpu_torch.io import schemas
 from photon_ml_tpu_torch.io.avro_codec import read_container, write_container
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -313,7 +316,7 @@ TRAINING_LATER = [
     (["--mesh-devices", "2"], "A6", "--mesh-devices"),
     (["--mesh-shape", "2x2"], "A6", "--mesh-shape")]
 SCORING_LATER = [
-    (["--stream"], "A5"), (["--serve"], "A5"), (["--listen", "0"], "A5"),
+    (["--listen", "0"], "A5"),
     (["--adaptive-admission"], "A5"), (["--distmon"], "A5"),
     (["--trace-out", "t.json"], "A5"), (["--obs-port", "0"], "A5"),
     (["--flight-events", "16"], "A5"), (["--slo", "p99:x<=1ms"], "A5")]
@@ -340,3 +343,111 @@ def test_scoring_flags_of_later_items_raise(tmp_path, extra, item):
                        f"it comes with ROADMAP queue {item}"):
         game_scoring_driver.run(argv, device="cpu")
     assert not (tmp_path / "out").exists()
+
+
+STREAMED = {"stream": ["--stream", "--batch-rows", "64"],
+            "serve": ["--serve", "--request-rows", "3", "--batch-rows", "64",
+                      "--coalesce-ms", "1"]}
+# metrics.json keys of each path whose values are the same in both
+# drivers (nested: the sub-keys compared).
+SHARED = {
+    "stream": {"num_rows": None, "scoring_path": None, "num_batches": None,
+               "batch_rows": None,
+               "feeder": ("decode_path", "prefetch_depth", "batches",
+                          "rows"),
+               "engine": ("dispatches", "requests", "rows_scored",
+                          "rows_padded", "nnz_scored", "nnz_padded",
+                          "padding_waste_rows", "padding_waste_nnz",
+                          "entries", "compilations", "traces",
+                          "bucket_shapes")},
+    "serve": {"num_rows": None, "scoring_path": None, "num_requests": None,
+              "request_rows": None, "coalesce_window_ms": None,
+              "concurrency": None,
+              "frontend": ("models", "admitted", "rejected", "completed",
+                           "failed", "cancelled", "model_swaps",
+                           "isolation_splits", "pending", "max_pending",
+                           "max_pending_per_model", "coalesce_window_s",
+                           "max_group_rows")},
+}
+
+
+def _scores(path: Path):
+    return [(r["uid"], r["label"], r["predictionScore"])
+            for r in read_container(path / "scores" / "part-00000.avro")]
+
+
+@pytest.mark.parametrize("mode", list(STREAMED))
+@pytest.mark.parametrize("example", EXAMPLES)
+def test_streamed_and_served_scoring_match_jax(runs, example, mode):
+    """--stream and --serve through both scoring drivers on the port's
+    trained model: the records' scores allclose 1e-12 and in the batch
+    order, the same metrics, the shared summary keys equal; and the
+    scores are the batch path's (test_cross_scoring) within 1e-12."""
+    run = runs[example]
+    root = run["root"]
+    argv = ["--input-dirs", str(run["valid"]),
+            "--game-model-input-dir", str(root / "port" / "best"),
+            "--evaluators", "AUC", *STREAMED[mode]]
+    mine = game_scoring_driver.run(
+        [*argv, "--output-dir", str(root / f"{mode}-by-port")],
+        device="cpu")
+    theirs = jax_scoring.run(
+        [*argv, "--output-dir", str(root / f"{mode}-by-jax")])
+    assert set(mine) == set(theirs) - {"telemetry", "observability"}
+    assert mine["num_rows"] == 150
+    assert abs(mine["metrics"]["AUC"] - theirs["metrics"]["AUC"]) <= 1e-12
+    for key, sub in SHARED[mode].items():
+        if sub is None:
+            assert mine[key] == theirs[key], key
+        else:
+            for k in sub:
+                assert mine[key][k] == theirs[key][k], (key, k)
+    recs = [_scores(root / f"{mode}-by-{who}") for who in ("port", "jax")]
+    assert [r[:2] for r in recs[0]] == [r[:2] for r in recs[1]]
+    np.testing.assert_allclose([r[2] for r in recs[0]],
+                               [r[2] for r in recs[1]], rtol=1e-12,
+                               atol=1e-12)
+    batch = root / "port-batch-scores"
+    if not batch.exists():
+        game_scoring_driver.run(
+            ["--input-dirs", str(run["valid"]), "--game-model-input-dir",
+             str(root / "port" / "best"), "--output-dir", str(batch)],
+            device="cpu")
+    np.testing.assert_allclose([r[2] for r in recs[0]],
+                               [r[2] for r in _scores(batch)], rtol=1e-12,
+                               atol=1e-12)
+    if mode == "serve":
+        fe = mine["frontend"]
+        assert fe["admitted"] == fe["completed"] == mine["num_requests"]
+        assert fe["engines"]["default"]["requests"] == mine["num_requests"]
+
+
+def test_stream_and_serve_are_exclusive(tmp_path):
+    argv = ["--input-dirs", str(tmp_path / "none"), "--game-model-input-dir",
+            str(tmp_path / "model"), "--output-dir", str(tmp_path / "out"),
+            "--stream", "--serve"]
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        game_scoring_driver.run(argv, device="cpu")
+
+
+@pytest.mark.parametrize("mode", list(STREAMED))
+def test_unscorable_model_ends_streamed_runs(runs, monkeypatch, tmp_path,
+                                             mode):
+    """A sub-model the engine cannot score ends --stream and --serve with
+    SystemExit, as JAX's --stream does: no host fallback."""
+    from photon_ml_tpu_torch.models.game_model import GameModel
+    from photon_ml_tpu_torch.types import TaskType
+
+    class Exotic:
+        pass
+
+    monkeypatch.setattr(
+        game_scoring_driver, "load_game_model",
+        lambda *a, **k: GameModel({"weird": Exotic()},
+                                  TaskType.LOGISTIC_REGRESSION))
+    run = runs["training"]
+    argv = ["--input-dirs", str(run["valid"]), "--game-model-input-dir",
+            str(run["root"] / "port" / "best"), "--output-dir",
+            str(tmp_path / "out"), *STREAMED[mode]]
+    with pytest.raises(SystemExit, match="device-scorable model"):
+        game_scoring_driver.run(argv, device="cpu")

@@ -21,6 +21,7 @@ from photon_ml_tpu_torch.ops import entity_solver
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.optimization.convergence import ConvergenceReason
 from photon_ml_tpu_torch.types import TaskType
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

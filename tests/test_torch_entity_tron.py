@@ -29,6 +29,7 @@ from photon_ml_tpu.types import TaskType as JaxTaskType
 from photon_ml_tpu_torch.ops import entity_solver
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.types import TaskType
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 E, R, D = 8, 6, 4
 CASES = {

@@ -48,6 +48,7 @@ from photon_ml_tpu_torch.evaluation.evaluators import (
 )
 from photon_ml_tpu_torch.optimization import config
 from photon_ml_tpu_torch.types import TaskType
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 TRON_CFG = "15,1e-5,1.0,1.0,TRON,L2"
 FE_CFG = "50,1e-7,1.0,1.0,LBFGS,L2"

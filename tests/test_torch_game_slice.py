@@ -54,6 +54,7 @@ from photon_ml_tpu_torch.optimization.config import (
 )
 from photon_ml_tpu_torch.ops import entity_solver
 from photon_ml_tpu_torch.types import TaskType
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 FE_CFG = "50,1e-7,1.0,1.0,LBFGS,L2"
 RE_CFG = "20,1e-6,1.0,1.0,LBFGS,L2"

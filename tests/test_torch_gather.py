@@ -30,6 +30,7 @@ import torch
 from dev_scripts import gather_experiments as jax_gather
 from photon_ml_tpu_torch.dev_scripts import gather_experiments
 from photon_ml_tpu_torch.ops import gather
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 SIZES = [(3_000, 4_096), (5_000, 6 * 2048 + 17)]
 RESIDUE_SIZES = [(3_000, 4_096), (4_096, 128 * 57), (500, 128 * 8)]

@@ -22,6 +22,7 @@ import torch
 from photon_ml_tpu_torch.ops import entity_solver, gather
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.types import TaskType
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

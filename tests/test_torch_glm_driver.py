@@ -30,6 +30,7 @@ from photon_ml_tpu_torch.cli import glm_driver
 from photon_ml_tpu_torch.data.index_map import IndexMap
 from photon_ml_tpu_torch.io import schemas
 from photon_ml_tpu_torch.io.avro_codec import read_container, write_container
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -26,6 +26,7 @@ from photon_ml_tpu_torch.optimization.lbfgs import (
     two_loop_direction,
 )
 from photon_ml_tpu_torch.optimization.solver import solve_glm
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 
 def _problem(seed=5, n=400, d=12):

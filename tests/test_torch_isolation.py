@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -72,7 +73,8 @@ def _dataset():
     "gather_experiments", "matrix_factorization", "training_driver",
     "scoring_driver", "glm_driver", "train_glm_models", "device_batch",
     "stream_training_driver", "shard_cache", "assemble_fixed_effect_batch",
-    "chunked_device_put", "streaming_scorer"])
+    "chunked_device_put", "streaming_scorer", "serving_frontend",
+    "stream_scoring_driver", "serve_scoring_driver"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            entry):
     from photon_ml_tpu_torch.algorithm.coordinate_descent import (
@@ -111,6 +113,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         GLMOptimizationConfiguration,
     )
     from photon_ml_tpu_torch.serving.engine import StreamingGameScorer
+    from photon_ml_tpu_torch.serving.frontend import ServingFrontend
     from photon_ml_tpu_torch.types import TaskType
 
     _gpu_less(monkeypatch)
@@ -159,6 +162,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         "chunked_device_put": lambda: chunked_device_put(data.responses),
         "streaming_scorer": lambda: StreamingGameScorer(
             GameModel({}, task)),
+        "serving_frontend": lambda: ServingFrontend(
+            {"default": GameModel({}, task)}),
+        "stream_scoring_driver": lambda: game_scoring_driver.run([
+            "--input-dirs", "data", "--game-model-input-dir", "model",
+            "--output-dir", "out", "--stream"]),
+        "serve_scoring_driver": lambda: game_scoring_driver.run([
+            "--input-dirs", "data", "--game-model-input-dir", "model",
+            "--output-dir", "out", "--serve"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

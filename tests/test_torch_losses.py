@@ -11,6 +11,7 @@ from photon_ml_tpu.ops import losses as jax_losses
 from photon_ml_tpu.types import TaskType as JaxTaskType
 from photon_ml_tpu_torch.ops import losses
 from photon_ml_tpu_torch.types import TaskType
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 Z = np.concatenate([np.linspace(-40.0, 40.0, 161),
                     [-1e3, -300.0, -1.0, -1e-8, 0.0, 1e-8, 0.5, 1.0, 300.0,

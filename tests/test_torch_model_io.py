@@ -65,6 +65,7 @@ from photon_ml_tpu_torch.models.device_scoring import DeviceGameScorer
 from photon_ml_tpu_torch.models.game_model import GameModel
 from photon_ml_tpu_torch.serving import kernels
 from photon_ml_tpu_torch.types import TaskType
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 D_GLOBAL, D_USER, D_ITEM, K = 6, 4, 5, 3
 N_USERS, N_ITEMS = 9, 7

@@ -45,6 +45,7 @@ from photon_ml_tpu_torch.ops.glm_objective import GLMObjective, make_batch
 from photon_ml_tpu_torch.ops.losses import LogisticLoss
 from photon_ml_tpu_torch.optimization import config
 from photon_ml_tpu_torch.types import TaskType
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 LAMBDAS = [10.0, 0.1, 1.0]  # not sorted: results come back in this order
 

@@ -34,6 +34,7 @@ from photon_ml_tpu_torch.ops.features import DenseFeatures, features_to_device
 from photon_ml_tpu_torch.ops.glm_objective import GLMObjective, make_batch
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.types import NormalizationType, TaskType
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 
 def _matrix(seed=31, n=60, d=7, sparse=False):

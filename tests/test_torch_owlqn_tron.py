@@ -35,6 +35,7 @@ from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.optimization import config
 from photon_ml_tpu_torch.optimization.solver import solve_glm
 from photon_ml_tpu_torch.types import TaskType
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 
 def _problem(task, seed, n=300, d=10, scale=1.0):

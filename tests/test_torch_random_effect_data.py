@@ -12,6 +12,7 @@ from photon_ml_tpu.data import game_data as jax_game_data
 from photon_ml_tpu.data import random_effect as jax_re
 from photon_ml_tpu.data import sampling as jax_sampling
 from photon_ml_tpu_torch.data import game_data, random_effect, sampling
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 
 def _columns(seed=21, n=300, d=10, n_users=23):

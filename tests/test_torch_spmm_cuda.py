@@ -25,6 +25,7 @@ import torch
 
 from photon_ml_tpu_torch.ops import spmv
 from photon_ml_tpu_torch.ops.features import csr_from_scipy
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

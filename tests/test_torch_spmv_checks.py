@@ -18,6 +18,7 @@ import torch
 
 from photon_ml_tpu_torch.ops import spmv
 from photon_ml_tpu_torch.ops.features import CSRFeatures, csr_from_scipy
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 
 def _block(n=40, d=12, density=0.3, dtype=torch.float64, seed=0):

@@ -27,6 +27,7 @@ from photon_ml_tpu_torch.data.shard_cache import (
     restore_spilled_features,
 )
 from photon_ml_tpu_torch.ops.features import CSRFeatures
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 F64 = torch.float64
 

@@ -35,6 +35,7 @@ from photon_ml_tpu_torch.optimization.glm_lbfgs import (
     minimize_lbfgs_glm_streaming,
 )
 from photon_ml_tpu_torch.types import TaskType
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -37,6 +37,7 @@ from photon_ml_tpu_torch.io.avro_codec import (
     read_container,
     write_container,
 )
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 N_ROWS = 1000
 

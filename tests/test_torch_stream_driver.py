@@ -40,6 +40,7 @@ from photon_ml_tpu.estimators.game_estimator import GameEstimator as JaxGE
 from photon_ml_tpu_torch.cli import game_training_driver
 from photon_ml_tpu_torch.io import schemas
 from photon_ml_tpu_torch.io.avro_codec import read_container, write_container
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 GRID = ("fixed:50,1e-7,0.1,1.0,LBFGS,L2|50,1e-7,1.0,1.0,LBFGS,L2|"

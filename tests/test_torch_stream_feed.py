@@ -23,6 +23,7 @@ from photon_ml_tpu_torch.data.device_feed import (
     OverlappedUploader,
     chunked_device_put,
 )
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 JOIN_S = 10.0
 

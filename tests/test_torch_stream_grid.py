@@ -76,6 +76,7 @@ from photon_ml_tpu_torch.types import TaskType
 from photon_ml_tpu_torch.cli import game_training_driver
 from tests import test_torch_stream_driver as sd
 from tests.test_torch_stream_objective import FakeStream
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 F64 = torch.float64
 

@@ -67,6 +67,7 @@ from photon_ml_tpu_torch.optimization.convergence import (
     SolverDivergedError,
 )
 from photon_ml_tpu_torch.types import TaskType
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 F64 = torch.float64
 REPO = Path(__file__).resolve().parents[1]

@@ -59,6 +59,7 @@ from photon_ml_tpu_torch.optimization.tron import (
     minimize_tron_streaming,
 )
 from photon_ml_tpu_torch.types import TaskType
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 F64 = torch.float64
 L2 = 0.7
