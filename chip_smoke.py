@@ -63,7 +63,17 @@ gamma and B) exactly; the scoring driver's AUC equals the best
 validation AUC of training within 1e-6 (DeviceGameScorer scores on the
 card and raises on a sub-model it cannot score; no host path). It prints
 the write, ingest, solve, finalize and score seconds and each update's
-ms.
+ms. Every driver run of paths 6-10 runs with telemetry on (as every
+driver run does); path 6's training run also takes --trace-out and
+--profile-output-dir, and its checks add: the telemetry block's stages
+(driver, ingest, solve, finalize) and an attributed wall fraction of at
+least 0.9, the Chrome trace parsed with one named track a thread, and
+the torch.profiler trace of the solve (CPU and CUDA activity) holding
+one entity-kernel event per launch the wrapper counted. From that trace
+it prints the solve's device busy share (the union of kernel, memcpy
+and memset intervals over the profiled window), its idle share, the
+three largest idle gaps with the host operations under them, and the
+device ms by kernel name.
 
 Path 7 runs the GLM driver (photon_ml_tpu_torch.cli.glm_driver.run, in
 this process) on path 6's files before they are removed, with the flags
@@ -106,7 +116,9 @@ records; the resident run's are the one-shot driver's; the bf16 model is
 within the JAX package's bf16 bound of the f32 one; the streamed
 validation AUC equals the batch scoring driver's within 1e-6; the
 deterministic CSR product (kernel row 9, csrc/csr_spmv.cu) launched in
-every spill run. It prints each run's phases and cache counters, and the
+every spill run; the registry's shard-cache counters (hits, misses,
+evictions, bytes re-uploaded and re-decoded) equal each cached run's
+``stream_train.cache`` block. It prints each run's phases and cache counters, and the
 C decoder's and the pure-Python codec's ms a row on one of the files.
 Then the full-width stream phase feeds bench.py's training fixed shard
 (160,000 x 200, CSR float32 with int32 indices, nothing cut) from
@@ -173,9 +185,17 @@ batch run's, the front-end's admitted == completed and no request
 rejected, failed or cancelled, graphs built == the distinct bucket
 shapes dispatched, each captured once, every bucket's replay bit for
 bit its eager function, and the three runs' scores bit for bit equal
-for every row whatever was coalesced with it. It prints rows a second,
-dispatches, padding waste, graphs and per bucket the ms of a replayed
-against an eager dispatch.
+for every row whatever was coalesced with it; the executable profiler
+counted every dispatch; the front-end's registry counter of completed
+requests equals its admitted and completed ones; the one-row run's
+--trace-out passes the telemetry checks. It prints rows a second,
+dispatches, padding waste, graphs, per bucket the ms of a replayed
+against an eager dispatch, the profiler's table (per rows bucket:
+dispatches, mean and max dispatch-to-settle ms, est. FLOP/s) and the
+served request latency and queue wait P50/P95/P99. Last, the one-row
+requests are replayed through a front-end outside the driver with
+telemetry off and on in turns (off, on, on, off): rows a second each,
+and the scores must be the same bytes.
 
 Then the gather phase runs the port's gather experiment
 (photon_ml_tpu_torch/dev_scripts/gather_experiments.py) at its full
@@ -1531,6 +1551,120 @@ def path6_argv(root: Path) -> list:
         "--evaluators", "AUC,LOGISTIC_LOSS"]
 
 
+#: Chrome-trace categories of device activity in torch.profiler's export.
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+#: Stage names every GAME training driver run opens (the root span and
+#: its phases; JAX's names).
+TRAINING_STAGES = {"driver", "ingest", "solve", "finalize"}
+
+
+def telemetry_checks(tag: str, summary: dict, trace_path: Path,
+                     stages: set) -> dict:
+    """A driver run's telemetry: metrics.json's ``telemetry`` block holds
+    ``stages`` and attributes at least 0.9 of the run's wall time (the
+    share JAX documents, docs/OBSERVABILITY.md:150-157); its
+    ``--trace-out`` Chrome trace parses, with one named track a thread.
+    Returns the trace's span names by track."""
+    tel = summary["telemetry"]
+    att = tel["stage_attribution"]
+    frac = tel["attributed_wall_frac"]
+    doc = json.loads(trace_path.read_text())
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    tracks = {e["tid"]: e["args"]["name"] for e in doc["traceEvents"]
+              if e["ph"] == "M" and e["name"] == "thread_name"}
+    by_track = {tracks.get(t, t): sorted({e["name"] for e in spans
+                                          if e["tid"] == t})
+                for t in sorted({e["tid"] for e in spans})}
+    print(f"{tag} telemetry: stages {sorted(att)}, attributed wall "
+          f"{tel['attributed_wall_seconds']:.3f} of {tel['wall_seconds']:.3f}"
+          f" s ({frac:.4f}); trace {trace_path.stat().st_size} bytes, "
+          f"{len(spans)} spans on {len(tracks)} tracks {by_track}; "
+          f"flight recorder {summary['observability']['flight_recorder']}",
+          flush=True)
+    check(stages <= set(att), f"{tag}: stages {sorted(att)} lack "
+          f"{sorted(stages - set(att))}")
+    check(frac >= 0.9, f"{tag}: attributed wall fraction {frac}")
+    check(set(tracks) == {e["tid"] for e in spans} and "driver"
+          in tracks.values(), f"{tag}: trace tracks {tracks}")
+    return by_track
+
+
+def device_activity(trace_path: Path, card: str) -> dict:
+    """The profiled window of a torch.profiler trace (utils/profiling.py,
+    CPU and CUDA activity): its device busy share (the union of kernel,
+    memcpy and memset intervals over the window, from the first to the
+    last event of any kind), the idle share, the three largest idle gaps
+    with what the host was doing in each: the operations that cover the
+    gap's midpoint (outermost and innermost ``cpu_op``, and the CUDA
+    runtime call if one is under way) or, where none does (Python
+    between operations), the last operation to end before the midpoint
+    and the first to start after it; and the device time by kernel
+    name."""
+    doc = json.loads(trace_path.read_text())
+    events = [e for e in doc["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+    dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") in DEVICE_CATEGORIES)
+    merged = []
+    for a, b in dev:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    busy = sum(b - a for a, b in merged)
+    edges = [lo] + [x for ab in merged for x in ab] + [hi]
+    gaps = sorted(((edges[i + 1] - edges[i], edges[i])
+                   for i in range(0, len(edges), 2)
+                   if edges[i + 1] > edges[i]), reverse=True)[:3]
+    host = [e for e in events if e.get("cat") in ("cpu_op", "cuda_runtime")]
+
+    def under(t: float, cat: str) -> list:
+        return sorted((e for e in host if e["cat"] == cat
+                       and e["ts"] <= t <= e["ts"] + e["dur"]),
+                      key=lambda e: -e["dur"])
+
+    cpu_ops = [e for e in host if e["cat"] == "cpu_op"]
+    gap_rows = []
+    for dur, start in gaps:
+        mid = start + dur / 2
+        ops = under(mid, "cpu_op")
+        rt = under(mid, "cuda_runtime")
+        ended = [e for e in cpu_ops if e["ts"] + e["dur"] <= mid]
+        starts = [e for e in cpu_ops if e["ts"] >= mid]
+        gap_rows.append({
+            "ms": dur / 1e3, "at_ms": (start - lo) / 1e3,
+            "outer_op": ops[0]["name"] if ops else None,
+            "inner_op": ops[-1]["name"] if ops else None,
+            "runtime": rt[-1]["name"] if rt else None,
+            "op_before": (max(ended, key=lambda e: e["ts"] + e["dur"])
+                          ["name"] if ended else None),
+            "op_after": (min(starts, key=lambda e: e["ts"])["name"]
+                         if starts else None)})
+    by_kernel = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) + e["dur"]
+    window = hi - lo
+    out = {"window_ms": window / 1e3, "busy_ms": busy / 1e3,
+           "busy_share": busy / window, "idle_share": 1 - busy / window,
+           "device_events": len(dev), "gaps": gap_rows,
+           "kernel_ms": {k: v / 1e3 for k, v in sorted(
+               by_kernel.items(), key=lambda kv: -kv[1])},
+           "kernel_events": [e["name"] for e in events
+                             if e.get("cat") == "kernel"]}
+    top = dict(list(out["kernel_ms"].items())[:5])
+    print(f"profile {trace_path.name}: window {out['window_ms']:.1f} ms, "
+          f"device busy {out['busy_ms']:.1f} ms (share "
+          f"{out['busy_share']:.4f}, idle {out['idle_share']:.4f}) over "
+          f"{len(dev)} kernel/memcpy/memset events; largest idle gaps "
+          f"{gap_rows}; device ms by kernel (top 5) "
+          f"{ {k[:60]: round(v, 3) for k, v in top.items()} }; card {card}",
+          flush=True)
+    return out
+
+
 def path6(train, val, specs5, root: Path) -> int:
     """Path 6: bench.py's config 5 through the training driver on Avro
     inputs, the model saved and loaded back, then the scoring driver on
@@ -1542,7 +1676,13 @@ def path6(train, val, specs5, root: Path) -> int:
     coefficients exactly; the scoring driver's AUC is the best validation
     AUC of training within 1e-6. (Its ``scoring_path`` is a constant; the
     device path is what DeviceGameScorer, which raises on a sub-model it
-    cannot score, guarantees.) Its files stay under ``root`` for path 7.
+    cannot score, guarantees.) The training run takes ``--trace-out`` and
+    ``--profile-output-dir``, and the estimator's run has telemetry off,
+    so the bit-for-bit history also shows that telemetry moves no bit;
+    its telemetry block and trace pass ``telemetry_checks``, and the
+    profiler trace of the solve holds as many entity-kernel events as the
+    wrapper counted, and gives the solve's device busy share
+    (``device_activity``). Its files stay under ``root`` for path 7.
     Returns the driver run's entity-kernel launches and the replayed
     bucket rows."""
     import torch
@@ -1576,14 +1716,36 @@ def path6(train, val, specs5, root: Path) -> int:
         # while the driver runs here.
         decoded = [pool.submit(_decode, root / tag, root / "feature-index")
                    for tag in ("train", "validate")]
-        argv = [*path6_argv(root), "--output-dir", str(root / "model")]
+        argv = [*path6_argv(root), "--output-dir", str(root / "model"),
+                "--trace-out", str(root / "path6-trace.json"),
+                "--profile-output-dir", str(root / "path6-profile")]
         # ---- the main path: counts set to 0 just before, read just after --
         entity_solver.reset_launch_counts()
+        t0 = time.perf_counter()
         summary = game_training_driver.run(argv)
+        driver_s = time.perf_counter() - t0
         launches = dict(entity_solver.entity_lbfgs.variants)
         # ----------------------------------------------------------------
         train_phases = dict(log.phases)
         driver_updates = list(log.updates)
+        card = card_line()
+        telemetry_checks("path 6", summary, root / "path6-trace.json",
+                         TRAINING_STAGES)
+        (prof,) = sorted((root / "path6-profile").glob("*.json"))
+        t0 = time.perf_counter()
+        act = device_activity(prof, card)
+        entity_events = sum(1 for name in act["kernel_events"]
+                            if "entity_lbfgs_kernel" in name)
+        print(f"path 6 profiler: the driver run {driver_s:.2f} s with the "
+              f"solve profiled ({train_phases['solve']:.2f} s), trace "
+              f"{prof.stat().st_size} bytes, read in "
+              f"{time.perf_counter() - t0:.2f} s; entity kernel events "
+              f"{entity_events}, wrapper launches {launches}; solve device "
+              f"busy share {act['busy_share']:.4f}, idle share "
+              f"{act['idle_share']:.4f}; card {card}", flush=True)
+        check(entity_events == sum(launches.values()),
+              f"path 6: the profile holds {entity_events} entity-kernel "
+              f"events, the wrapper counted {launches}")
 
         # The estimator on the decoded data, in this process.
         t0 = time.perf_counter()
@@ -2048,7 +2210,9 @@ def path8(root: Path) -> tuple:
     BF16_RTOL/BF16_ATOL of the f32 one per coefficient; the streamed
     validation AUC of the best λ equals the batch scoring driver's on
     that model within 1e-6; the deterministic product launched in every
-    spill run. Returns its launches in the spill runs, and the quarter
+    spill run; in every cached run the registry's ``data.shard_cache.*``
+    counters of metrics.json's ``telemetry`` block equal its
+    ``stream_train.cache`` block (SHARD_CACHE_KEYS). Returns its launches in the spill runs, and the quarter
     budget and the quarter f32 run's summary (path 9 holds the batched
     grid against it)."""
     from photon_ml_tpu_torch.cli import (
@@ -2082,6 +2246,13 @@ def path8(root: Path) -> tuple:
         info = summary.get("stream_train") or {}
         cache = info.get("cache") or {}
         runs[tag] = dict(summary=summary, launches=launches)
+        counters = summary["telemetry"]["metrics"]["counters"]
+        registry = {k: counters.get(f"data.shard_cache.{k}")
+                    for k in SHARD_CACHE_KEYS}
+        if cache:
+            print(f"path 8 {tag} registry: {registry}", flush=True)
+            check(registry == {k: cache[k] for k in SHARD_CACHE_KEYS},
+                  f"path 8 {tag}: registry {registry} != cache {cache}")
         print(f"path 8 {tag}: {seconds:.2f} s, phases "
               f"{ {k: round(v, 3) for k, v in log.phases.items()} }, best "
               f"{summary['bestConfigs']['fixed']}, validation AUC "
@@ -2160,6 +2331,11 @@ def path8(root: Path) -> tuple:
                    if t not in ("oneshot", "resident"))
     return launches, {"quarter": quarter,
                       "quarter-f32": runs["quarter-f32"]["summary"]}
+
+
+#: The shard cache's counters that the registry mirrors (path 8).
+SHARD_CACHE_KEYS = ("hits", "misses", "evictions", "bytes_reuploaded",
+                    "bytes_redecoded")
 
 
 class _Batches(list):
@@ -2884,6 +3060,8 @@ PATH10_RUNS = (
                  "16", "--coalesce-ms", "2"]),
     ("serve 8", ["--serve", "--request-rows", "8"]),
 )
+#: The path-10 run that takes --trace-out.
+TELEMETRY_RUN = "serve 1"
 UNIT_ROUNDOFF_F32 = 2.0 ** -24
 
 
@@ -2946,11 +3124,18 @@ def path10(root: Path) -> int:
     distinct bucket shapes the run dispatched, each captured once; every
     bucket's graph replay bit for bit its eager scoring function on the
     same inputs; the three runs' scores bit for bit the same for every
-    row, whatever was coalesced with it. Prints rows a second, dispatches,
-    padding waste, graphs, and per bucket the ms of a dispatch replayed
-    against the eager function. Returns the row-9 launches the runs
-    executed (wrapper calls, less those recorded at capture, plus graph
-    replays times the launches captured per graph)."""
+    row, whatever was coalesced with it; the executable profiler counted
+    every dispatch of the engine; the front-end's registry counter
+    ``serving.frontend.completed`` equals its admitted and completed
+    requests; the one-row run's ``--trace-out`` (TELEMETRY_RUN) passes
+    ``telemetry_checks``. Prints rows a second, dispatches, padding
+    waste, graphs, per bucket the ms of a dispatch replayed against the
+    eager function, the profiler's table (per rows bucket: dispatches,
+    mean and max dispatch-to-settle ms, est. FLOP/s) and the served
+    request latency and queue wait P50/P95/P99. Then
+    ``telemetry_cost``. Returns the row-9 launches the runs executed
+    (wrapper calls, less those recorded at capture, plus graph replays
+    times the launches captured per graph)."""
     import json as _json
 
     import torch
@@ -2998,6 +3183,9 @@ def path10(root: Path) -> int:
             Kept.made.clear()
             log.phases.clear()
             out = root / f"p10-{tag.replace(' ', '-')}"
+            trace = out.with_name(out.name + "-trace.json")
+            if tag == TELEMETRY_RUN:
+                flags = [*flags, "--trace-out", str(trace)]
             # ---- the main path: counts set to 0 just before, read after --
             spmv.reset_launch_counts()
             t0 = time.perf_counter()
@@ -3041,18 +3229,45 @@ def path10(root: Path) -> int:
                   f"path's by {ratio} of 2 gamma_n S")
             check(abs(auc - batch_auc) <= 1e-6,
                   f"path 10 {tag}: AUC {auc} != batch {batch_auc}")
+            profiler = (summary["frontend"]["cache"]["profiler"]
+                        if "frontend" in summary else st["profiler"])
+            table = {rb: {"dispatches": r["dispatches"],
+                          "mean_ms": round(1e3 * r["mean_s"], 4),
+                          "max_ms": round(1e3 * r["max_s"], 4),
+                          "est_flops_per_sec": r.get("est_flops_per_sec")}
+                     for rb, r in profiler["dispatch"].items()}
+            builds = {k: (round(b["lower_s"], 4), round(b["first_call_s"], 4))
+                      for k, b in profiler["builds"].items()}
+            print(f"path 10 {tag} profiler: dispatch-to-settle by rows "
+                  f"bucket {table}; builds (lower_s, first_call_s) "
+                  f"{builds}; card {card}", flush=True)
+            check(sum(r["dispatches"] for r in table.values())
+                  == st["dispatches"], f"path 10 {tag}: the profiler "
+                  f"counted {table}, the engine {st['dispatches']}")
             if "frontend" in summary:
                 fe = summary["frontend"]
+                completed = summary["telemetry"]["metrics"]["counters"].get(
+                    "serving.frontend.completed")
+                pct = {k: {q: (None if fe[k][q] is None
+                               else round(1e3 * fe[k][q], 4))
+                           for q in ("p50", "p95", "p99")}
+                       for k in ("request_latency_seconds",
+                                 "queue_wait_seconds")}
                 print(f"path 10 {tag} frontend: requests "
                       f"{summary['num_requests']}, admitted {fe['admitted']},"
-                      f" completed {fe['completed']}, rejected "
-                      f"{fe['rejected']}, failed {fe['failed']}, cancelled "
-                      f"{fe['cancelled']}, coalesced groups "
-                      f"{fe['coalesced_groups']}; card {card}", flush=True)
-                check(fe["admitted"] == fe["completed"]
+                      f" completed {fe['completed']} (registry "
+                      f"{completed}), rejected {fe['rejected']}, failed "
+                      f"{fe['failed']}, cancelled {fe['cancelled']}, "
+                      f"coalesced groups {fe['coalesced_groups']}; ms "
+                      f"{pct}; card {card}", flush=True)
+                check(fe["admitted"] == fe["completed"] == completed
                       == summary["num_requests"]
                       and fe["rejected"] == fe["failed"] == fe["cancelled"]
                       == 0, f"path 10 {tag}: frontend {fe}")
+            if tag == TELEMETRY_RUN:
+                telemetry_checks(f"path 10 {tag}", summary, trace,
+                                 {"driver", "score", "coalesce",
+                                  "dispatch", "scatter"})
             buckets = eng.buckets()
             check(set(buckets) == eng.shapes_used
                   and st["compilations"] == len(eng.shapes_used),
@@ -3088,7 +3303,67 @@ def path10(root: Path) -> int:
           f"path {time.perf_counter() - t_path:.1f} s; card {card}",
           flush=True)
     check(all(same.values()), f"path 10: served scores differ: {same}")
+    telemetry_cost(root, card)
     return launches
+
+
+def telemetry_cost(root: Path, card: str) -> None:
+    """Path 10's one-row serving outside the driver (which always runs
+    with telemetry on): the same 10,000 one-row requests replayed through
+    a front-end of the loaded model by 16 requesters in 2 ms windows with
+    telemetry off and on, in turns (off, on, on, off), each replay timed
+    on the host clock (its futures settle after the events behind their
+    copies); every replay's scores must be the same bytes."""
+    import torch
+
+    from photon_ml_tpu_torch import telemetry
+    from photon_ml_tpu_torch.data.avro_reader import (
+        iter_game_dataset_batches,
+    )
+    from photon_ml_tpu_torch.data.paldb import load_feature_index_maps
+    from photon_ml_tpu_torch.io.model_io import load_game_model
+    from photon_ml_tpu_torch.serving import FrontendConfig, ServingFrontend
+
+    model_dir = root / "model" / "best"
+    maps = load_feature_index_maps(model_dir / "feature-indexes")
+    model = load_game_model(model_dir, maps)
+    meta = json.loads((model_dir / "model-metadata.json").read_text())
+    id_types = sorted({c["randomEffectType"] for c in meta["coordinates"]
+                       if c["kind"] == "random"}
+                      | {c[k] for c in meta["coordinates"] if c["kind"] == "mf"
+                         for k in ("rowEffectType", "colEffectType")})
+    requests = [ds.subset(np.arange(a, a + 1))
+                for ds in iter_game_dataset_batches(
+                    root / "validate", id_types=id_types,
+                    feature_shard_maps=maps, batch_rows=4096)
+                for a in range(ds.num_rows)]
+    rates, outs = [], []
+    for on in (False, True, True, False):
+        telemetry.reset()
+        if on:
+            telemetry.enable()
+        fe = ServingFrontend({"default": model}, dtype=torch.float32,
+                             config=FrontendConfig(coalesce_window_s=0.002,
+                                                   max_pending=1024))
+        try:
+            t0 = time.perf_counter()
+            results, info = fe.replay(requests, concurrency=16)
+            seconds = time.perf_counter() - t0
+        finally:
+            telemetry.disable()
+        check(info["shed"] == info["errors"] == 0, f"telemetry cost: {info}")
+        rates.append((on, len(requests) / seconds))
+        outs.append(b"".join(r.tobytes() for r in results))
+        del fe
+    same = all(o == outs[0] for o in outs)
+    on_r = [r for o, r in rates if o]
+    off_r = [r for o, r in rates if not o]
+    print(f"path 10 telemetry cost: one-row replays, rows a second in turns "
+          f"{[(('on' if o else 'off'), round(r, 1)) for o, r in rates]}; "
+          f"mean on {np.mean(on_r):.1f} against off {np.mean(off_r):.1f} "
+          f"({np.mean(on_r) / np.mean(off_r) - 1:+.3%}); scores the same "
+          f"bytes off and on: {same}; card {card}", flush=True)
+    check(same, "telemetry cost: scores differ with telemetry on and off")
 
 
 def order_contract_check() -> None:

@@ -4,7 +4,8 @@ FixedEffectCoordinate :122, RandomEffectCoordinate :544,
 _gather_block_normalization :687, _gather_block_bounds :704-721,
 StreamingFixedEffectCoordinate :281-425, grid_batchable :426-460,
 solve_fixed_effect_grid :461-543,
-StreamingFactoredRandomEffectCoordinate :739-970,
+StreamingFactoredRandomEffectCoordinate :739-970 with its ``factor_plan``
+span :841 and per-sweep trace contexts :915-972,
 FactoredRandomEffectCoordinate :978-1120, _solve_factored_block
 :1120-1157, _flatten_factored_static :1159, _flatten_gammas :1176,
 _solve_latent_matrix :1188 (a solve_glm call), _dispatch_pallas_solver
@@ -61,6 +62,7 @@ import numpy as np
 
 import torch
 
+from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.data.game_data import GameDataset
 from photon_ml_tpu_torch.data.normalization import (
     NormalizationContext,
@@ -255,11 +257,14 @@ class StreamingFixedEffectCoordinate:
             self.feature_shard_id)
 
     def solve(self, model: Optional[FixedEffectModel] = None,
-              margins_out=None
+              trace_ctx=None, margins_out=None
               ) -> Tuple[FixedEffectModel, OptimizerResult]:
         """One full-batch GLM solve by streamed accumulation,
-        warm-started from ``model`` when given. ``margins_out`` receives
-        the final per-shard margins."""
+        warm-started from ``model`` when given. ``trace_ctx`` is the
+        solve's trace context (telemetry/tracectx.py; the streaming
+        driver mints one per λ), threaded into the solver for its
+        per-iteration events and divergence tagging. ``margins_out``
+        receives the final per-shard margins."""
         from photon_ml_tpu_torch.optimization.glm_lbfgs import (
             minimize_lbfgs_glm_streaming,
         )
@@ -279,12 +284,14 @@ class StreamingFixedEffectCoordinate:
             result = minimize_tron_streaming(
                 self._sharded, coef0, self._l2,
                 max_iter=self.config.max_iterations,
-                tol=self.config.tolerance, margins_out=margins_out)
+                tol=self.config.tolerance, trace_ctx=trace_ctx,
+                margins_out=margins_out)
         else:
             result = minimize_lbfgs_glm_streaming(
                 self._sharded, coef0, self._l2,
                 max_iter=self.config.max_iterations,
-                tol=self.config.tolerance, margins_out=margins_out)
+                tol=self.config.tolerance, trace_ctx=trace_ctx,
+                margins_out=margins_out)
         new_glm = model.glm.update_coefficients(Coefficients(result.x))
         return model.update_model(new_glm), result
 
@@ -321,7 +328,8 @@ def grid_batchable(configs) -> Tuple[bool, str]:
 
 
 def solve_fixed_effect_grid(coordinate: StreamingFixedEffectCoordinate,
-                            configs, models=None, margins_out=None
+                            configs, models=None, trace_ctxs=None,
+                            margins_out=None
                             ) -> List[Tuple[FixedEffectModel,
                                             OptimizerResult]]:
     """Solve a whole λ grid in ONE batched streamed sweep: coefficients
@@ -333,8 +341,9 @@ def solve_fixed_effect_grid(coordinate: StreamingFixedEffectCoordinate,
     ``coordinate`` supplies the cache, objective and task; ``configs``
     is the grid (ValueError with the reason when not
     :func:`grid_batchable`); ``models`` warm-starts per row (entries may
-    be None); ``margins_out`` receives the ``[G, rows]`` per-shard
-    margins. Returns the row-aligned ``(model, result)`` pairs that G
+    be None); ``trace_ctxs`` (row-aligned, entries may be None) thread
+    into the grid solver; ``margins_out`` receives the ``[G, rows]``
+    per-shard margins. Returns the row-aligned ``(model, result)`` pairs that G
     sequential ``coordinate.solve`` calls produce; G = 1 is the scalar
     streamed solve, bit for bit."""
     from photon_ml_tpu_torch.optimization.glm_lbfgs import (
@@ -370,11 +379,13 @@ def solve_fixed_effect_grid(coordinate: StreamingFixedEffectCoordinate,
                 f"{coordinate._objective.loss.name}")
         results = minimize_tron_grid_streaming(
             coordinate._sharded, x0s, l2s, max_iter=base.max_iterations,
-            tol=base.tolerance, margins_out=margins_out)
+            tol=base.tolerance, trace_ctxs=trace_ctxs,
+            margins_out=margins_out)
     else:
         results = minimize_lbfgs_glm_grid_streaming(
             coordinate._sharded, x0s, l2s, max_iter=base.max_iterations,
-            tol=base.tolerance, margins_out=margins_out)
+            tol=base.tolerance, trace_ctxs=trace_ctxs,
+            margins_out=margins_out)
     return [(m.update_model(m.glm.update_coefficients(
         Coefficients(r.x))), r) for m, r in zip(models, results)]
 
@@ -398,8 +409,8 @@ class StreamingFactoredRandomEffectCoordinate:
     offsets; ``score(model)`` returns raw margins γᵀ B x. Each sweep's
     refit is checked by the divergence watchdog. ``mf_objective`` shares
     one built objective (plan, factor cache) across λ-grid points with
-    the same ``num_factors``. The JAX per-sweep trace contexts are
-    ROADMAP A5."""
+    the same ``num_factors``. Each sweep mints its own trace context
+    (``mf_sweep``), which the refit's iterations and the watchdog tag."""
 
     name: str
     make_stream: object  # () -> iterable of GameDataset batches
@@ -464,8 +475,9 @@ class StreamingFactoredRandomEffectCoordinate:
                 StreamedMFObjective,
             )
 
-            vocab, counts, n_rows, d_by_shard = count_stream_entities(
-                self.make_stream(), self.random_effect_type)
+            with telemetry.span("factor_plan"):
+                vocab, counts, n_rows, d_by_shard = count_stream_entities(
+                    self.make_stream(), self.random_effect_type)
             if self.feature_shard_id not in d_by_shard:
                 raise KeyError(
                     f"stream carries no feature shard "
@@ -524,11 +536,12 @@ class StreamingFactoredRandomEffectCoordinate:
         return FactoredRandomEffectModel(latent, self.mf_config)
 
     def solve(self, model: Optional[FactoredRandomEffectModel] = None,
-              residual_scores=None):
+              residual_scores=None, trace_ctx=None):
         """``mf_config.max_iterations`` alternating sweeps (a streamed
         ridge γ pass, then a streamed L-BFGS refit of B), B warm-started
         from ``model``. Returns ``(model, trackers)``, one
-        OptimizerResult per sweep."""
+        OptimizerResult per sweep. ``trace_ctx`` (the λ's solve context)
+        gets an ``mf_sweep`` event a sweep."""
         from photon_ml_tpu_torch.optimization.convergence import (
             check_solver_finite,
         )
@@ -543,17 +556,28 @@ class StreamingFactoredRandomEffectCoordinate:
         self._obj.set_residual(residual_scores)
         trackers = []
         for sweep in range(self.mf_config.max_iterations):
+            # One trace context a sweep: a divergence fault carries the
+            # sweep's trace_id into the flight dump.
+            ctx = telemetry.mint("mf_sweep")
+            ctx.annotate(coordinate=self.name, sweep=sweep,
+                         num_factors=self.mf_config.num_factors,
+                         reg_weight=self.config.regularization_weight)
+            if trace_ctx is not None:
+                trace_ctx.event("mf_sweep")
+            ctx.event("gamma_pass")
             self._obj.gamma_pass(b_mat, self._l2)
+            ctx.event("latent_refit")
             result = minimize_lbfgs_glm_streaming(
                 self._obj, b_mat.reshape(-1), self._ll2,
                 max_iter=self.latent_config.max_iterations,
-                tol=self.latent_config.tolerance)
+                tol=self.latent_config.tolerance, trace_ctx=ctx)
             b_mat = result.x.reshape(b_mat.shape)
             # The refit checks its own iterations; this catches a NaN
             # that rode the factor tables into it, under the MF label.
             check_solver_finite("streaming-mf-alternating", sweep,
                                 float(result.value),
-                                float(result.grad_norm))
+                                float(result.grad_norm), ctx)
+            ctx.finish("ok")
             trackers.append(result)
         return (model.with_update(self._obj.factor_tables(), b_mat),
                 trackers)

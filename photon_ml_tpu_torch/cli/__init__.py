@@ -2,10 +2,12 @@
 ml/Driver.scala, ml/cli/game/): the in-core GAME training driver and the
 batch GAME scoring driver.
 
-Both keep every flag of their JAX parsers, so every JAX command line
-parses. A flag that belongs to a later item of ROADMAP queue A (serving
-and telemetry A5, multi-GPU A6) raises an error naming that item when it
-is given a value other than its default. The helpers here are shared by both drivers.
+They keep every flag of their JAX parsers, so every JAX command line
+parses. A flag that belongs to a later item of ROADMAP queue A (the
+observability plane A5c, network serving A5d, multi-GPU A6) raises an
+error naming that item when it is given a value other than its default.
+The helpers here are shared by the drivers; ``obs.py`` holds the flight
+recorder's wiring.
 """
 
 from __future__ import annotations
@@ -17,35 +19,13 @@ import time
 import torch
 
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.telemetry import span
 
 # Later queue items, for the error a flag of one of them raises.
 ITEMS = {
-    "A5": "the serving stack and telemetry",
-    "A5b": "the telemetry core",
     "A5c": "the observability plane and drift monitoring",
     "A5d": "network serving",
     "A6": "multi-GPU",
-}
-
-
-def add_observability_args(p) -> None:
-    """The JAX parser's shared observability flags (photon_ml_tpu/cli/
-    obs.py:46-80), parsed so that JAX command lines parse; the live
-    observability plane comes with ROADMAP queue A5."""
-    p.add_argument("--obs-port", type=int, default=None, metavar="PORT",
-                   help="live observability plane (ROADMAP A5; raises)")
-    p.add_argument("--flight-events", type=int, default=4096, metavar="N",
-                   help="flight-recorder ring size (ROADMAP A5; raises "
-                        "when not 4096)")
-    p.add_argument("--slo", action="append", default=None, metavar="SPEC",
-                   help="latency/availability objective (ROADMAP A5; "
-                        "raises)")
-
-
-OBSERVABILITY_FLAGS = {
-    "obs_port": ("--obs-port", None, "A5"),
-    "flight_events": ("--flight-events", 4096, "A5"),
-    "slo": ("--slo", None, "A5"),
 }
 
 
@@ -79,14 +59,16 @@ def resolve_run_device(device, dtype):
 
 @contextlib.contextmanager
 def phase(logger: logging.Logger, name: str):
-    """Time one driver phase (the JAX drivers' span names: ingest, solve,
-    finalize, load_model, score, ...) and log its seconds, also as the
-    record's ``phase`` and ``seconds`` attributes. On a CUDA run the
-    phase's device work is finished before the clock stops."""
+    """One driver phase: the telemetry span the JAX drivers open under
+    that name (ingest, solve, finalize, load_model, score, ...), with its
+    seconds logged, also as the record's ``phase`` and ``seconds``
+    attributes. On a CUDA run the phase's device work is finished before
+    the span and the clock stop."""
     t0 = time.perf_counter()
-    yield
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+    with span(name):
+        yield
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     logger.info("phase %s: %.6f s", name, seconds,
                 extra={"phase": name, "seconds": seconds})

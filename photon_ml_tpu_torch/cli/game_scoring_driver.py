@@ -1,5 +1,6 @@
 """GAME scoring driver (port of photon_ml_tpu/cli/game_scoring_driver.py:
-build_parser :48-150, run :197, the legacy aliases :264-278, _run_scoring
+build_parser :48-150, run :197-261 with its telemetry and flight
+recorder, the legacy aliases :264-278, _run_scoring
 :280-373 with its --stream/--serve flag checks :284-300, _run_stream
 :393-471, _run_serve :474-576; reference ml/cli/game/scoring/
 Driver.scala:36-265): load a saved GAME model, score a dataset on the
@@ -30,9 +31,14 @@ sub-model; the port does not: a sub-model the scorer refuses (or a
 snapshot too large to densify) ends the run with its error, and with
 ``SystemExit`` on the --stream and --serve paths, as JAX's --stream does.
 
+Telemetry, as in JAX: the run resets and enables the process's
+telemetry, opens the root ``driver`` span and the phase spans, arms the
+flight recorder (``--flight-events``), writes a Chrome trace under
+``--trace-out`` and metrics.json's ``telemetry`` and ``observability``
+blocks.
+
 Every JAX flag parses. --listen and --adaptive-admission raise naming
-ROADMAP A5d, --distmon A5c, --trace-out A5b, the observability flags A5;
-metrics.json has the JAX keys but ``telemetry`` and ``observability``.
+ROADMAP A5d, --distmon, --obs-port and --slo A5c.
 
 ``run(argv, device="cuda", dtype=None)`` scores on the card and raises
 without CUDA unless the caller passes ``device="cpu"``; ``dtype`` None
@@ -51,12 +57,16 @@ from pathlib import Path
 
 import numpy as np
 
+from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.cli import (
-    OBSERVABILITY_FLAGS,
-    add_observability_args,
     phase,
     reject_later_flags,
     resolve_run_device,
+)
+from photon_ml_tpu_torch.cli.obs import (
+    OBSERVABILITY_FLAGS,
+    DriverObservability,
+    add_observability_args,
 )
 from photon_ml_tpu_torch.data.avro_reader import read_game_dataset
 from photon_ml_tpu_torch.data.paldb import load_feature_index_maps
@@ -72,7 +82,6 @@ LATER_FLAGS = {
     "listen": ("--listen", None, "A5d"),
     "adaptive_admission": ("--adaptive-admission", False, "A5d"),
     "distmon": ("--distmon", False, "A5c"),
-    "trace_out": ("--trace-out", None, "A5b"),
     **OBSERVABILITY_FLAGS,
 }
 
@@ -122,7 +131,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--distmon", action="store_true",
                    help="score drift monitoring (ROADMAP A5c; raises)")
     p.add_argument("--trace-out", default=None, metavar="PATH",
-                   help="pipeline trace (ROADMAP A5b; raises)")
+                   help="write a Chrome trace-event JSON of the run's "
+                        "pipeline spans (one track a thread; load in "
+                        "Perfetto)")
     add_observability_args(p)
     return p
 
@@ -136,12 +147,39 @@ def run(argv=None, *, device="cuda", dtype=None) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     logger = setup_photon_logger(out_dir)
     t0 = time.perf_counter()
-    summary = _run_scoring(args, out_dir, logger, dev, dtype)
-    summary["total_seconds"] = time.perf_counter() - t0
-    _apply_legacy_aliases(summary)
-    (out_dir / "metrics.json").write_text(json.dumps(summary, indent=2))
-    logger.info("scoring done: %s", summary["metrics"])
-    return summary
+    # Per-run telemetry: phase spans and the registry snapshot in
+    # metrics.json (and --trace-out).
+    telemetry.reset()
+    telemetry.enable(trace=bool(args.trace_out))
+    obs = None
+    try:
+        obs = DriverObservability(args, out_dir).start()
+        # Root span: imports, logging and the glue between the named
+        # phases land in its self time.
+        with telemetry.span("driver"):
+            summary = _run_scoring(args, out_dir, logger, dev, dtype)
+        wall = time.perf_counter() - t0
+        summary["total_seconds"] = wall
+        _apply_legacy_aliases(summary)
+        obs.finish(summary)
+        summary["telemetry"] = telemetry.attribution_summary(wall)
+        if args.trace_out:
+            telemetry.export_chrome_trace(args.trace_out)
+            logger.info("pipeline trace written to %s (load in Perfetto)",
+                        args.trace_out)
+        (out_dir / "metrics.json").write_text(json.dumps(summary, indent=2))
+        logger.info("scoring done: %s", summary["metrics"])
+        return summary
+    except BaseException as e:
+        # The spans have unwound: the flight ring's last events cover
+        # the failing stage.
+        if obs is not None:
+            obs.dump_fault(e, logger)
+        raise
+    finally:
+        if obs is not None:
+            obs.stop()
+        telemetry.disable()
 
 
 # snake_case canonical -> camelCase alias, as the JAX driver writes both.

@@ -1,7 +1,8 @@
 """GAME training driver, in core and streamed (port of
 photon_ml_tpu/cli/game_training_driver.py: _parse_named :52,
 _positive_int :62, _parse_mesh_shape :69, parse_byte_size :99,
-build_parser :116-310, run :311, _run_training :391-612, _save_outputs
+build_parser :116-310, run :311-389 with its telemetry and flight
+recorder, _run_training :391-612, _save_outputs
 :613-662, _write_summary :663-703, _stream_validate_many :704-737,
 _solve_grid_batched :739-822, _stream_train :824-1158,
 _stream_train_mf :1161-1403; reference ml/cli/game/training/Driver.scala:
@@ -40,12 +41,21 @@ alternating ridge γ passes and streamed L-BFGS refits of B, the factor
 tables in a budgeted device cache). ``--ingest-workers`` N >= 2 decodes
 in a process pool (data/parallel_ingest.py).
 
+Telemetry, as in JAX: the run resets and enables the process's
+telemetry (span events recorded only under ``--trace-out``, which
+writes a Chrome trace), opens the root ``driver`` span and the phase
+spans, arms the flight recorder (``--flight-events``, default 4096;
+``<output-dir>/flight.json`` on a fault or SIGTERM), mints one trace
+context per λ of a streamed solve, and writes metrics.json's
+``telemetry`` and ``observability`` blocks. ``--profile-output-dir``
+wraps the solve (in core) or the whole streamed training in a
+``torch.profiler`` trace (utils/profiling.py).
+
 Every JAX flag parses. The flags of later queue items raise an error
-that names the item: --distmon, --trace-out, --profile-output-dir and the
-observability flags (A5); --mesh-devices, --mesh-shape (A6).
-metrics.json has the JAX keys but ``telemetry`` (A5); its
-``stream_train`` block has no ``trace_budgets`` or ``trace_counts`` (the
-JAX TracingGuard, ROADMAP A7).
+that names the item: --distmon, --obs-port, --slo (A5c);
+--mesh-devices, --mesh-shape (A6). The ``stream_train`` block of
+metrics.json has no ``trace_budgets`` or ``trace_counts`` (the JAX
+TracingGuard, ROADMAP A7).
 
 ``run(argv, device="cuda", dtype=None)`` trains on the card and raises
 without CUDA unless the caller passes ``device="cpu"`` (the CPU tests);
@@ -62,13 +72,17 @@ import sys
 import time
 from pathlib import Path
 
+from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.algorithm.coordinates import grid_batchable
 from photon_ml_tpu_torch.cli import (
-    OBSERVABILITY_FLAGS,
-    add_observability_args,
     phase,
     reject_later_flags,
     resolve_run_device,
+)
+from photon_ml_tpu_torch.cli.obs import (
+    OBSERVABILITY_FLAGS,
+    DriverObservability,
+    add_observability_args,
 )
 from photon_ml_tpu_torch.data.avro_reader import read_game_dataset
 from photon_ml_tpu_torch.data.paldb import load_feature_index_maps
@@ -97,13 +111,12 @@ from photon_ml_tpu_torch.utils.events import (
     TrainingStartEvent,
 )
 from photon_ml_tpu_torch.utils.logging_utils import setup_photon_logger
+from photon_ml_tpu_torch.utils.profiling import maybe_trace
 
 # dest -> (flag, default, ROADMAP queue item): given any other value, the
 # flag raises (cli/__init__.reject_later_flags).
 LATER_FLAGS = {
-    "distmon": ("--distmon", False, "A5"),
-    "trace_out": ("--trace-out", None, "A5"),
-    "profile_output_dir": ("--profile-output-dir", None, "A5"),
+    "distmon": ("--distmon", False, "A5c"),
     **OBSERVABILITY_FLAGS,
     "mesh_devices": ("--mesh-devices", None, "A6"),
     "mesh_shape": ("--mesh-shape", None, "A6"),
@@ -213,7 +226,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(paldb-partition-<shard>-<N>.dat) or <shard>.json "
                         "stores; replaces the Avro-scan index pass")
     p.add_argument("--profile-output-dir", default=None,
-                   help="profiler trace (ROADMAP A5; raises)")
+                   help="write a torch.profiler trace of training here "
+                        "(Chrome trace JSON; CUDA activity on the card)")
     p.add_argument("--save-all-models", default="false",
                    choices=["true", "false"],
                    help="model-output-mode ALL vs BEST")
@@ -268,9 +282,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decode-ahead depth of the --stream-train feeder "
                         "(and spill re-upload look-ahead); 0 disables")
     p.add_argument("--distmon", action="store_true",
-                   help="distribution observability (ROADMAP A5; raises)")
+                   help="distribution observability (ROADMAP A5c; "
+                        "raises)")
     p.add_argument("--trace-out", default=None, metavar="PATH",
-                   help="pipeline trace (ROADMAP A5; raises)")
+                   help="write a Chrome trace-event JSON of the run's "
+                        "pipeline spans (one track a thread; load in "
+                        "Perfetto)")
     p.add_argument("--job-name", default="photon-game-training",
                    help="job name carried on Training{Start,Finish} "
                         "events")
@@ -355,25 +372,43 @@ def run(argv=None, *, device="cuda", dtype=None) -> dict:
     logger = setup_photon_logger(out_dir)
     task = TaskType(args.task_type)
     t0 = time.perf_counter()
+    # The driver owns this process's telemetry: per-run metrics and
+    # stage spans land in metrics.json (and --trace-out).
+    telemetry.reset()
+    telemetry.enable(trace=bool(args.trace_out))
+    obs = None
     emitter = EventEmitter()
     try:
+        obs = DriverObservability(args, out_dir).start()
         for cp in (args.event_listeners or "").split(","):
             if cp.strip():
                 emitter.register_listener_by_name(cp.strip())
         emitter.send_event(TrainingStartEvent(args.job_name))
-        (sequence, results, best_configs, best_result, shard_maps,
-         num_rows, stream_info) = _run_training(args, logger, task, dev,
-                                                dtype, emitter)
-        _save_outputs(args, out_dir, logger, sequence, results,
-                      best_configs, best_result, shard_maps)
-        summary = _write_summary(out_dir, logger, task, sequence, t0,
-                                 results, best_configs, best_result,
-                                 num_rows, stream_info)
+        # Root span: the glue between the named phases lands in its
+        # self time, so the stage table sums to the whole run.
+        with telemetry.span("driver"):
+            (sequence, results, best_configs, best_result, shard_maps,
+             num_rows, stream_info) = _run_training(args, logger, task,
+                                                    dev, dtype, emitter)
+            _save_outputs(args, out_dir, logger, sequence, results,
+                          best_configs, best_result, shard_maps)
+        summary = _write_summary(args, out_dir, logger, task, sequence,
+                                 t0, results, best_configs, best_result,
+                                 num_rows, stream_info, obs)
         emitter.send_event(
             TrainingFinishEvent(args.job_name, summary["totalSeconds"]))
         return summary
+    except BaseException as e:
+        # The phase spans have unwound: the flight ring's last events
+        # cover the failing stage.
+        if obs is not None:
+            obs.dump_fault(e, logger)
+        raise
     finally:
         emitter.clear_listeners()
+        if obs is not None:
+            obs.stop()
+        telemetry.disable()
 
 
 def _run_training(args, logger, task, device, dtype, emitter):
@@ -434,18 +469,20 @@ def _run_training(args, logger, task, device, dtype, emitter):
     evaluators = [build_evaluator(s.strip())
                   for s in (args.evaluators or "").split(",") if s.strip()]
 
-    if args.stream_train and sequence[0] in fre_data:
-        (results, best_configs, best_result, shard_maps, num_rows,
-         stream_info) = _stream_train_mf(
-            args, logger, task, fre_data, fre_opt, sequence, train_inputs,
-            evaluators, preloaded_maps, emitter, device, dtype)
-        return (sequence, results, best_configs, best_result, shard_maps,
-                num_rows, stream_info)
     if args.stream_train:
-        (results, best_configs, best_result, shard_maps, num_rows,
-         stream_info) = _stream_train(
-            args, logger, task, fe_data, fe_opt, sequence, train_inputs,
-            evaluators, preloaded_maps, opt_grid, emitter, device, dtype)
+        with maybe_trace(args.profile_output_dir, device):
+            if sequence[0] in fre_data:
+                (results, best_configs, best_result, shard_maps, num_rows,
+                 stream_info) = _stream_train_mf(
+                    args, logger, task, fre_data, fre_opt, sequence,
+                    train_inputs, evaluators, preloaded_maps, emitter,
+                    device, dtype)
+            else:
+                (results, best_configs, best_result, shard_maps, num_rows,
+                 stream_info) = _stream_train(
+                    args, logger, task, fe_data, fe_opt, sequence,
+                    train_inputs, evaluators, preloaded_maps, opt_grid,
+                    emitter, device, dtype)
         return (sequence, results, best_configs, best_result, shard_maps,
                 num_rows, stream_info)
 
@@ -514,7 +551,8 @@ def _run_training(args, logger, task, device, dtype, emitter):
         task_type=task, coordinate_specs=specs,
         num_iterations=args.num_iterations,
         validation_evaluators=evaluators, dtype=dtype, device=device)
-    with phase(logger, "solve"):
+    with maybe_trace(args.profile_output_dir, device), \
+            phase(logger, "solve"):
         results = estimator.fit(
             data, validation_data=validation,
             checkpoint_dir=(Path(args.checkpoint_dir)
@@ -591,11 +629,22 @@ def _solve_grid_batched(args, logger, name, shard, task, grid, cache,
         name=name, cache=cache, feature_shard_id=shard, task_type=task,
         config=grid[0], dtype=dtype)
     t0 = time.perf_counter()
+    # One trace context per grid point, as the sequential sweep mints
+    # them: a row's divergence fault carries its own trace id.
+    ctxs = []
+    for gi, cfg in enumerate(grid):
+        ctx = telemetry.mint("solve")
+        ctx.annotate(coordinate=name,
+                     reg_weight=cfg.regularization_weight,
+                     optimizer=str(cfg.optimizer_type),
+                     grid_row=gi, grid_width=G)
+        ctxs.append(ctx)
     models = None
     trackers_per = [[] for _ in grid]
     obj_hist_per = [[] for _ in grid]
     for _ in range(args.num_iterations):
-        pairs = solve_fixed_effect_grid(coord, grid, models=models)
+        pairs = solve_fixed_effect_grid(coord, grid, models=models,
+                                        trace_ctxs=ctxs)
         models = [m for m, _ in pairs]
         for gi, (_, res) in enumerate(pairs):
             trackers_per[gi].append(res)
@@ -603,6 +652,10 @@ def _solve_grid_batched(args, logger, name, shard, task, grid, cache,
     elapsed = time.perf_counter() - t0
     results = []
     for gi, cfg in enumerate(grid):
+        ctxs[gi].annotate(
+            iterations=int(trackers_per[gi][-1].iterations),
+            reason=trackers_per[gi][-1].reason_enum().summary)
+        ctxs[gi].finish("ok")
         gm = GameModel({name: models[gi]}, task)
         results.append(({name: cfg}, CoordinateDescentResult(
             model=gm, objective_history=obj_hist_per[gi],
@@ -688,12 +741,21 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
                 name=name, feature_shard_id=shard, configs=grid)],
             num_iterations=args.num_iterations,
             validation_evaluators=evaluators, dtype=dtype, device=device)
+        # One trace context per grid point spanning the shared fit.
+        ctxs = [telemetry.mint("solve") for _ in grid]
+        for ctx, cfg in zip(ctxs, grid):
+            ctx.annotate(coordinate=name, mode="resident",
+                         reg_weight=cfg.regularization_weight,
+                         optimizer=str(cfg.optimizer_type),
+                         grid_points=len(grid))
         with phase(logger, "solve"):
             results = estimator.fit(
                 data, validation_data=None,
                 checkpoint_dir=(Path(args.checkpoint_dir)
                                 if args.checkpoint_dir else None),
                 checkpoint_interval=args.checkpoint_interval)
+        for ctx in ctxs:
+            ctx.finish("ok")
         num_rows = data.num_rows
         stream_info = {
             "mode": "resident-assembled",
@@ -748,10 +810,20 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
                 shared = coord.sharded_objective
                 t0 = time.perf_counter()
                 model, trackers, obj_hist = None, [], []
+                # One trace context per λ: the solve's identity across
+                # its outer iterations; a divergence fault carries it.
+                ctx = telemetry.mint("solve")
+                ctx.annotate(coordinate=name,
+                             reg_weight=cfg.regularization_weight,
+                             optimizer=str(cfg.optimizer_type))
                 for _ in range(args.num_iterations):
-                    model, res = coord.solve(model)
+                    model, res = coord.solve(model, trace_ctx=ctx)
                     trackers.append(res)
                     obj_hist.append(float(res.value))
+                ctx.annotate(
+                    iterations=int(trackers[-1].iterations),
+                    reason=trackers[-1].reason_enum().summary)
+                ctx.finish("ok")
                 gm = GameModel({name: model}, task)
                 results.append(({name: cfg}, CoordinateDescentResult(
                     model=gm, objective_history=obj_hist,
@@ -819,8 +891,8 @@ def _stream_train_mf(args, logger, task, fre_data, fre_opt, sequence,
     ``DeviceFactorCache`` (--hbm-budget, --spill-dtype, --spill-source);
     each alternating sweep is a streamed ridge γ pass and a streamed
     L-BFGS refit of B. λ-grid points with the same num_factors share one
-    objective. The JAX trace contexts, /statusz provider and --distmon
-    hooks are ROADMAP A5."""
+    objective. Each λ mints a trace context; the JAX live status
+    provider and --distmon hooks are ROADMAP A5c."""
     from photon_ml_tpu_torch.algorithm.coordinate_descent import (
         CoordinateDescentResult,
     )
@@ -910,10 +982,19 @@ def _stream_train_mf(args, logger, task, fre_data, fre_opt, sequence,
             shared[cfg.mf.num_factors] = coord.mf_objective
             t0 = time.perf_counter()
             model, trackers, obj_hist = None, [], []
+            ctx = telemetry.mint("solve")
+            ctx.annotate(coordinate=name,
+                         reg_weight=cfg.random_effect.regularization_weight,
+                         num_factors=cfg.mf.num_factors,
+                         mf_sweeps=cfg.mf.max_iterations)
             for _ in range(args.num_iterations):
-                model, sweep_trackers = coord.solve(model)
+                model, sweep_trackers = coord.solve(model, trace_ctx=ctx)
                 trackers.extend(sweep_trackers)
                 obj_hist.append(float(sweep_trackers[-1].value))
+            ctx.annotate(
+                iterations=int(trackers[-1].iterations),
+                reason=trackers[-1].reason_enum().summary)
+            ctx.finish("ok")
             gm = GameModel({name: model}, task)
             results.append(({name: cfg}, CoordinateDescentResult(
                 model=gm, objective_history=obj_hist,
@@ -1017,10 +1098,13 @@ def _save_outputs(args, out_dir, logger, sequence, results,
                             k: v.to_json() for k, v in configs.items()}})
 
 
-def _write_summary(out_dir, logger, task, sequence, t0, results,
-                   best_configs, best_result, num_rows, stream_info) -> dict:
-    """metrics.json: the JAX keys but ``telemetry`` (A5), with the
-    ``stream_train`` block of a --stream-train run."""
+def _write_summary(args, out_dir, logger, task, sequence, t0, results,
+                   best_configs, best_result, num_rows, stream_info,
+                   obs) -> dict:
+    """metrics.json (the JAX keys; the ``stream_train`` block of a
+    --stream-train run) and the --trace-out export. Runs after the root
+    ``driver`` span closed, so the telemetry block includes its self
+    time."""
     wall = time.perf_counter() - t0
     summary = {
         "taskType": task.value,
@@ -1037,6 +1121,12 @@ def _write_summary(out_dir, logger, task, sequence, t0, results,
     }
     if stream_info is not None:
         summary["stream_train"] = stream_info
+    obs.finish(summary)
+    summary["telemetry"] = telemetry.attribution_summary(wall)
+    if args.trace_out:
+        telemetry.export_chrome_trace(args.trace_out)
+        logger.info("pipeline trace written to %s (load in Perfetto)",
+                    args.trace_out)
     (out_dir / "metrics.json").write_text(json.dumps(summary, indent=2))
     logger.info("GAME training done in %.1fs", summary["totalSeconds"])
     return summary

@@ -12,8 +12,9 @@ Outputs under --output-directory:
   summary.json, model-diagnostic.{json,html} under a diagnostic mode
 
 Every JAX flag parses with its default. ``--dtype`` picks the solver type
-(float32 by default, as in JAX). ``--profile-output-dir`` raises an error
-naming ROADMAP queue A5 (the profiler); ``--ingest-workers`` N >= 2 (and
+(float32 by default, as in JAX). ``--profile-output-dir`` writes a
+``torch.profiler`` trace of the train phase there (utils/profiling.py;
+CUDA activity on the card); ``--ingest-workers`` N >= 2 (and
 ``auto`` on a large input) decodes the Avro in a process pool
 (data/parallel_ingest.py). Training, variances and the
 diagnostics' re-fits solve on the device; validation scores and the
@@ -36,7 +37,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.cli import reject_later_flags
 from photon_ml_tpu_torch.data.avro_reader import read_labeled_points
 from photon_ml_tpu_torch.data.index_map import IdentityIndexMap, IndexMap
 from photon_ml_tpu_torch.data.libsvm import read_libsvm
@@ -78,14 +78,10 @@ from photon_ml_tpu_torch.utils.events import (
     TrainingStartEvent,
 )
 from photon_ml_tpu_torch.utils.logging_utils import setup_photon_logger
+from photon_ml_tpu_torch.utils.profiling import maybe_trace
 from photon_ml_tpu_torch.utils.timer import PhaseTimer
 
 STAGES = ["INIT", "PREPROCESSED", "TRAINED", "VALIDATED", "DIAGNOSED"]
-
-# The flag of a later queue item, which raises when given.
-LATER_FLAGS = {
-    "profile_output_dir": ("--profile-output-dir", None, "A5"),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -157,8 +153,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "bandwidth-bound fixed-effect solve; see "
                         "docs/F32_PARITY.md for the precision bounds")
     p.add_argument("--profile-output-dir", default=None,
-                   help="profiler trace of the train phase (ROADMAP A5; "
-                        "raises)")
+                   help="write a torch.profiler trace of the train phase "
+                        "here (Chrome trace JSON; CUDA activity on the "
+                        "card)")
     return p
 
 
@@ -343,7 +340,6 @@ def run(argv=None, *, device="cuda") -> dict:
     content."""
     dev = resolve_device(device)
     args = build_parser().parse_args(argv)
-    reject_later_flags(args, LATER_FLAGS)
     out_dir = Path(args.output_directory)
     out_dir.mkdir(parents=True, exist_ok=True)
     logger = setup_photon_logger(out_dir)
@@ -431,7 +427,7 @@ def run(argv=None, *, device="cuda") -> dict:
     reg_ctx = RegularizationContext(
         RegularizationType(args.regularization_type),
         args.elastic_net_alpha)
-    with timer.time("train"):
+    with timer.time("train"), maybe_trace(args.profile_output_dir, dev):
         trained = train_glm_models(
             mat, y, task,
             regularization_weights=lambdas,

@@ -21,8 +21,9 @@ read_game_dataset_via_blocks :526).
 The JAX module falls back to the record loop when the extension is
 unbuilt; here the C decoder is built at first use and a failed build
 raises. ``feeder="auto"`` takes the C path whenever every file's schema
-fits the training layout, the record loop otherwise. The JAX telemetry
-spans (``decode``) are ROADMAP A5; ``decode_seconds`` is kept.
+fits the training layout, the record loop otherwise. Each batch's
+production is one ``decode`` span (JAX :292), on the prefetch thread's
+track under prefetch; ``decode_seconds`` accumulates either way.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import scipy.sparse as sp
 
+from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.data.avro_reader import (
     _avro_paths,
     _GameBatchBuilder,
@@ -271,7 +273,8 @@ class BlockGameStream:
         ``decode_seconds`` (on the producer thread under prefetch)."""
         while True:
             t0 = time.perf_counter()
-            ds = next(src, None)
+            with telemetry.span("decode"):
+                ds = next(src, None)
             self.decode_seconds += time.perf_counter() - t0
             if ds is None:
                 return

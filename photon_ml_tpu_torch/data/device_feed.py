@@ -1,6 +1,7 @@
 """Chunked, overlapped host->device upload and bounded host prefetch
 (port of photon_ml_tpu/data/device_feed.py: chunked_device_put :49,
-InFlightWindow :126, HostPrefetcher :177, OverlappedUploader :252).
+InFlightWindow :126, HostPrefetcher :177, OverlappedUploader :252, with
+their telemetry spans :38, :73, :161, :172, :239).
 
 ``chunked_device_put`` uploads a host array (numpy, or scipy sparse rows
 densified chunk by chunk) in leading-axis chunks of at most
@@ -22,8 +23,10 @@ dual: a background thread runs an iterator ahead of its consumer,
 holding at most ``depth`` finished items. ``OverlappedUploader`` is the
 push-style variant for producers that emit chunks over time.
 
-The JAX telemetry spans (``h2d``, ``device_wait``, ``prefetch_wait``)
-are ROADMAP A5.
+Telemetry: a ``chunked_device_put`` call is one ``h2d`` span; the
+waits a window already makes are ``device_wait`` spans (the place
+device execution meets the host: no sync is added to time it), and a
+consumer blocked on its prefetcher is a ``prefetch_wait`` span.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.telemetry import span
 
 # Default per-transfer cap (the JAX package's): big enough that
 # per-copy overhead stays negligible.
@@ -56,7 +60,13 @@ def chunked_device_put(x, dtype=None, device="cuda",
     """Upload ``x`` (numpy, a torch CPU tensor, or scipy sparse, whose
     row chunks are densified one at a time) as one tensor on ``device``
     equal to ``torch.as_tensor(x, dtype)`` there; ``dtype`` None keeps
-    x's type. At most ``depth`` chunk copies are in flight."""
+    x's type. At most ``depth`` chunk copies are in flight. The call is
+    one ``h2d`` span."""
+    with span("h2d"):
+        return _chunked_device_put(x, dtype, device, chunk_bytes, depth)
+
+
+def _chunked_device_put(x, dtype, device, chunk_bytes, depth):
     import scipy.sparse as sp
 
     dev = resolve_device(device)
@@ -148,8 +158,11 @@ class InFlightWindow:
         self._q.append((item, _record(item if ready is None else ready)))
         if len(self._q) >= self._depth:
             old_item, ev = self._q.popleft()
-            if ev is not None:
-                ev.synchronize()
+            # The one place device execution meets the host: this wait
+            # bounds the window anyway, so the span adds no sync.
+            with span("device_wait"):
+                if ev is not None:
+                    ev.synchronize()
             return old_item
         return None
 
@@ -157,8 +170,9 @@ class InFlightWindow:
         """Yield the remaining items oldest-first, waiting on each."""
         while self._q:
             item, ev = self._q.popleft()
-            if ev is not None:
-                ev.synchronize()
+            with span("device_wait"):
+                if ev is not None:
+                    ev.synchronize()
             yield item
 
 
@@ -223,7 +237,10 @@ class HostPrefetcher:
         t.start()
         try:
             while True:
-                kind, val = q.get()
+                # The consumer blocked on the producer: the feeder-bound
+                # share of a stall (its dual is device_wait).
+                with span("prefetch_wait"):
+                    kind, val = q.get()
                 if kind == "done":
                     break
                 if kind == "err":

@@ -33,8 +33,10 @@ from the observations through the solver's hook: the γ solve is an exact
 ridge solve, a pure function of (observations, B), so the re-derived
 bytes are the evicted ones. bf16 with redecode is rejected.
 
-The JAX module's gauges and counters (telemetry) are ROADMAP A5; the
-cache's ``stats()`` carries the same counts.
+The registry metrics ``data.factor_cache.*`` (JAX :66-81) mirror the
+cache's ``stats()`` while telemetry is on; a spill restore is a
+``factor_reupload`` span and a re-derivation a ``factor_redecode`` span
+(JAX :488, :494).
 """
 
 from __future__ import annotations
@@ -45,10 +47,24 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import telemetry
+
 Tensor = torch.Tensor
 
 FACTOR_SPILL_DTYPES = ("f32", "bf16")
 FACTOR_SPILL_SOURCES = ("buffer", "redecode")
+
+# Registry mirrors of the per-instance ``_stats`` (no-ops while
+# telemetry is off); the JAX package's names.
+_M_HITS = telemetry.counter("data.factor_cache.hits")
+_M_MISSES = telemetry.counter("data.factor_cache.misses")
+_M_EVICTIONS = telemetry.counter("data.factor_cache.evictions")
+_M_REUPLOAD_BYTES = telemetry.counter("data.factor_cache.bytes_reuploaded")
+_M_SPILL_WRITTEN = telemetry.counter("data.factor_cache.spill_bytes_written")
+_M_REDECODES = telemetry.counter("data.factor_cache.redecodes")
+_G_DEVICE_BYTES = telemetry.gauge("data.factor_cache.device_bytes")
+_G_PEAK_BYTES = telemetry.gauge("data.factor_cache.peak_device_bytes")
+_G_SPILL_HOST = telemetry.gauge("data.factor_cache.spill_bytes_host")
 
 
 def next_pow2(n: int) -> int:
@@ -302,6 +318,7 @@ class DeviceFactorCache:
                        "redecodes": 0}
         self.device_bytes = 0
         self.peak_device_bytes = 0
+        _G_SPILL_HOST.set(0)
 
     def set_redecode(self, fn: Optional[Callable]) -> None:
         self._redecode = fn
@@ -331,6 +348,8 @@ class DeviceFactorCache:
         self.device_bytes += e.factor_bytes
         self.peak_device_bytes = max(self.peak_device_bytes,
                                      self.device_bytes)
+        _G_PEAK_BYTES.set(self.peak_device_bytes)
+        _G_DEVICE_BYTES.set(self.device_bytes)
         e.gamma = gamma
 
     def write(self, index: int, gamma: Tensor) -> Tensor:
@@ -346,7 +365,9 @@ class DeviceFactorCache:
         if e.gamma is not None:
             self.device_bytes -= e.factor_bytes
         self._resident(e, gamma)
-        e.spill = None  # superseded by this write
+        if e.spill is not None:
+            e.spill = None  # superseded by this write
+            _G_SPILL_HOST.set(self.spill_bytes_host)
         e.written = True
         self._enforce_budget(pinned=index)
         return gamma
@@ -362,16 +383,21 @@ class DeviceFactorCache:
                 "pass before reading factors")
         if e.gamma is not None:
             self._stats["hits"] += 1
+            _M_HITS.inc()
             return e.gamma
         self._stats["misses"] += 1
+        _M_MISSES.inc()
         if e.spill is not None:
             reupload = e.spill.nbytes
-            gamma = restore_spilled_factors(e.spill, self.dtype,
-                                            self.device)
+            with telemetry.span("factor_reupload"):
+                gamma = restore_spilled_factors(e.spill, self.dtype,
+                                                self.device)
         elif self._redecode is not None:
             reupload = e.factor_bytes
             self._stats["redecodes"] += 1
-            gamma = self._redecode(index).to(self.device, self.dtype)
+            _M_REDECODES.inc()
+            with telemetry.span("factor_redecode"):
+                gamma = self._redecode(index).to(self.device, self.dtype)
             self._check_shape(index, gamma, "redecode")
         else:
             raise RuntimeError(
@@ -379,6 +405,7 @@ class DeviceFactorCache:
                 "record and no redecode hook (cache built without an "
                 "hbm budget?)")
         self._stats["bytes_reuploaded"] += reupload
+        _M_REUPLOAD_BYTES.inc(reupload)
         self._resident(e, gamma)
         self._enforce_budget(pinned=index)
         return e.gamma
@@ -402,9 +429,13 @@ class DeviceFactorCache:
                 victim.spill = encode_factor_spill(victim.gamma,
                                                    self.spill_dtype)
                 self._stats["spill_bytes_written"] += victim.spill.nbytes
+                _M_SPILL_WRITTEN.inc(victim.spill.nbytes)
             victim.gamma = None
             self.device_bytes -= victim.factor_bytes
             self._stats["evictions"] += 1
+            _M_EVICTIONS.inc()
+        _G_DEVICE_BYTES.set(self.device_bytes)
+        _G_SPILL_HOST.set(self.spill_bytes_host)
 
     def stats(self) -> Dict:
         s = dict(self._stats)

@@ -18,6 +18,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from photon_ml_tpu_torch.data.device_feed import chunked_device_put
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.ops.features import (
     DENSE_DENSITY_THRESHOLD,
@@ -97,7 +98,8 @@ class GameDataset:
         dense_threshold: float = DENSE_DENSITY_THRESHOLD,
     ) -> GLMBatch:
         """One feature shard as a device GLMBatch
-        (ml/data/FixedEffectDataSet.scala:29-103)."""
+        (ml/data/FixedEffectDataSet.scala:29-103). The columns ride the
+        chunked uploader, as in JAX (an ``h2d`` span each)."""
         dev = resolve_device(device)
         feats = features_to_device(self.feature_shards[shard_id], dtype,
                                    dev, dense_threshold)
@@ -105,7 +107,7 @@ class GameDataset:
                else self.offsets + extra_offsets)
 
         def col(a):
-            return torch.as_tensor(a, dtype=dtype, device=dev)
+            return chunked_device_put(a, dtype, dev)
 
         return GLMBatch(features=feats, labels=col(self.responses),
                         offsets=col(off), weights=col(self.weights))

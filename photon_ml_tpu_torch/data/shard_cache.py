@@ -2,7 +2,8 @@
 photon_ml_tpu/data/shard_cache.py: SpillBlock, encode_spill,
 _decode_spill_impl, restore_spilled_features :157-320,
 StreamedFixedEffectData, assemble_fixed_effect_batch :324-440, and the
-single-device DeviceShardCache :535-1150).
+single-device DeviceShardCache :535-1150, with its registry mirrors
+:125-139 and spans :762, :946, :1039).
 
 A `BlockGameStream` is consumed ONCE, batch by batch, and its rows land
 on the device in one of two regimes:
@@ -56,8 +57,9 @@ The spill tier has two knobs:
 
 The JAX module's mesh placement (``devices=``) and column blocks
 (``col_blocks > 1``) are ROADMAP A6: passing them raises. The registry
-counters of the JAX module are ROADMAP A5; ``stats()`` carries the same
-numbers.
+metrics ``data.shard_cache.*`` mirror ``stats()`` (while telemetry is
+on); each block's ingest upload is a ``shard_upload`` span, a buffer
+restore ``shard_reupload`` and a re-decode ``shard_redecode``.
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.data.device_feed import (
     HostPrefetcher,
     chunked_device_put,
@@ -80,6 +83,20 @@ from photon_ml_tpu_torch.ops.features import (
 )
 from photon_ml_tpu_torch.ops.glm_objective import GLMBatch
 from photon_ml_tpu_torch.ops.spmv import CSRBlock, block_from_triplet
+
+# Registry mirrors of the per-instance ``_stats`` (no-ops while
+# telemetry is off); the JAX package's names.
+_M_HITS = telemetry.counter("data.shard_cache.hits")
+_M_MISSES = telemetry.counter("data.shard_cache.misses")
+_M_EVICTIONS = telemetry.counter("data.shard_cache.evictions")
+_M_REUPLOAD_BYTES = telemetry.counter("data.shard_cache.bytes_reuploaded")
+_M_SPILL_WRITTEN = telemetry.counter("data.shard_cache.spill_bytes_written")
+_M_REDECODE_BYTES = telemetry.counter("data.shard_cache.bytes_redecoded")
+_M_EPOCHS = telemetry.counter("data.shard_cache.epochs")
+_G_DEVICE_BYTES = telemetry.gauge("data.shard_cache.device_bytes")
+_G_PEAK_BYTES = telemetry.gauge("data.shard_cache.peak_device_bytes")
+# Host-side spill residency (stream_train.cache.spill_bytes_host).
+_G_SPILL_HOST = telemetry.gauge("data.shard_cache.spill_bytes_host")
 
 Tensor = torch.Tensor
 
@@ -511,6 +528,7 @@ class DeviceShardCache:
         if hbm_budget_bytes is None:
             for e in entries:
                 e.spill = None
+        _G_SPILL_HOST.set(self.spill_bytes_host)
 
     @property
     def spill_bytes_host(self) -> int:
@@ -556,53 +574,58 @@ class DeviceShardCache:
         evictions = 0
         spill_written = 0
         for ds in stream:
-            if ds.num_rows == 0:
-                continue
-            mat = ds.feature_shards[shard_id].tocsr()
-            d = mat.shape[1]
-            values = mat.data.astype(np_dtype)
-            cols = mat.indices.astype(np.int32)
-            rows = _row_ids_i32(mat.indptr)
-            spill = None
-            if keep_buffers:
-                spill = encode_spill(values, cols, rows, int(mat.nnz),
-                                     spill_dtype)
-                spill_written += spill.nbytes
-            if spill is not None and spill.dtype_tag != "f32":
-                # Lossy spill encodings quantize AT INGEST: every block
-                # takes the same encode -> restore round trip whether or
-                # not it ever spills, so bf16 replays stay deterministic
-                # and residency-independent.
-                feats = restore_spilled_features(spill, ds.num_rows, d, dev,
-                                                 dtype)
-            else:
-                feats = block_from_triplet(
-                    chunked_device_put(values, device=dev),
-                    chunked_device_put(cols, device=dev),
-                    chunked_device_put(rows, device=dev), ds.num_rows, d)
+            with telemetry.span("shard_upload"):
+                if ds.num_rows == 0:
+                    continue
+                mat = ds.feature_shards[shard_id].tocsr()
+                d = mat.shape[1]
+                values = mat.data.astype(np_dtype)
+                cols = mat.indices.astype(np.int32)
+                rows = _row_ids_i32(mat.indptr)
+                spill = None
+                if keep_buffers:
+                    spill = encode_spill(values, cols, rows, int(mat.nnz),
+                                         spill_dtype)
+                    spill_written += spill.nbytes
+                    _M_SPILL_WRITTEN.inc(spill.nbytes)
+                if spill is not None and spill.dtype_tag != "f32":
+                    # Lossy spill encodings quantize AT INGEST: every
+                    # block takes the same encode -> restore round trip
+                    # whether or not it ever spills, so bf16 replays stay
+                    # deterministic and residency-independent.
+                    feats = restore_spilled_features(spill, ds.num_rows, d,
+                                                     dev, dtype)
+                else:
+                    feats = block_from_triplet(
+                        chunked_device_put(values, device=dev),
+                        chunked_device_put(cols, device=dev),
+                        chunked_device_put(rows, device=dev), ds.num_rows,
+                        d)
 
-            def col(x):
-                return chunked_device_put(np.asarray(x), dtype, dev)
+                def col(x):
+                    return chunked_device_put(np.asarray(x), dtype, dev)
 
-            e = CachedShard(
-                index=len(entries), n_rows=ds.num_rows, nnz=int(mat.nnz),
-                row_offset=n_rows, labels=col(ds.responses),
-                offsets=col(ds.offsets), weights=col(ds.weights),
-                spill=spill, feature_bytes=feats.nbytes, feats=feats)
-            entries.append(e)
-            n_rows += ds.num_rows
-            device_bytes += e.feature_bytes
-            peak_bytes = max(peak_bytes, device_bytes)
-            if hbm_budget_bytes is not None:
-                # Evict-as-you-go, most recent first (keep the prefix),
-                # never the block just uploaded.
-                for victim in reversed(entries[:-1]):
-                    if device_bytes <= hbm_budget_bytes:
-                        break
-                    if victim.feats is not None:
-                        victim.feats = None
-                        device_bytes -= victim.feature_bytes
-                        evictions += 1
+                e = CachedShard(
+                    index=len(entries), n_rows=ds.num_rows,
+                    nnz=int(mat.nnz), row_offset=n_rows,
+                    labels=col(ds.responses), offsets=col(ds.offsets),
+                    weights=col(ds.weights),
+                    spill=spill, feature_bytes=feats.nbytes, feats=feats)
+                entries.append(e)
+                n_rows += ds.num_rows
+                device_bytes += e.feature_bytes
+                peak_bytes = max(peak_bytes, device_bytes)
+                if hbm_budget_bytes is not None:
+                    # Evict-as-you-go, most recent first (keep the
+                    # prefix), never the block just uploaded.
+                    for victim in reversed(entries[:-1]):
+                        if device_bytes <= hbm_budget_bytes:
+                            break
+                        if victim.feats is not None:
+                            victim.feats = None
+                            device_bytes -= victim.feature_bytes
+                            evictions += 1
+                            _M_EVICTIONS.inc()
         if not entries:
             raise ValueError("stream yielded no rows to cache")
         cache = cls(entries, n_rows, int(d), dtype,
@@ -619,6 +642,9 @@ class DeviceShardCache:
             # The final block stayed pinned during ingest; settle to the
             # budget with the replay-aware rule (next use = shard 0).
             cache._enforce_budget(pinned=-1)
+        # Residency gauges even when nothing evicts.
+        _G_DEVICE_BYTES.set(cache.device_bytes)
+        _G_PEAK_BYTES.set(cache.peak_device_bytes)
         return cache
 
     # -- residency management ----------------------------------------------
@@ -651,6 +677,8 @@ class DeviceShardCache:
             victim.feats = None
             self._device_bytes -= victim.feature_bytes
             self._stats["evictions"] += 1
+            _M_EVICTIONS.inc()
+        _G_DEVICE_BYTES.set(self._device_bytes)
 
     def _redecode(self, e: CachedShard) -> CSRBlock:
         """redecode-tier miss: re-decode the block's source rows through
@@ -660,23 +688,26 @@ class DeviceShardCache:
         replay's."""
         fetch = self._redecode_fetch
         before = getattr(fetch, "payload_bytes_read", None)
-        ds = fetch(e.row_offset, e.n_rows)
-        mat = ds.feature_shards[self._shard_id].tocsr()
-        if mat.shape[0] != e.n_rows or int(mat.nnz) != e.nnz:
-            raise RuntimeError(
-                f"re-decoded shard {e.index} does not match the "
-                f"ingested block: got {mat.shape[0]} rows/{mat.nnz} "
-                f"nnz, cached {e.n_rows}/{e.nnz} — the input "
-                "changed under the cache")
-        spill = SpillBlock(
-            nnz=e.nnz, enc_values=mat.data.astype(_NUMPY_OF[self.dtype]),
-            enc_cols=mat.indices.astype(np.int32),
-            enc_rows=_row_ids_i32(mat.indptr), dtype_tag="f32")
+        with telemetry.span("shard_redecode"):
+            ds = fetch(e.row_offset, e.n_rows)
+            mat = ds.feature_shards[self._shard_id].tocsr()
+            if mat.shape[0] != e.n_rows or int(mat.nnz) != e.nnz:
+                raise RuntimeError(
+                    f"re-decoded shard {e.index} does not match the "
+                    f"ingested block: got {mat.shape[0]} rows/{mat.nnz} "
+                    f"nnz, cached {e.n_rows}/{e.nnz} — the input "
+                    "changed under the cache")
+            spill = SpillBlock(
+                nnz=e.nnz,
+                enc_values=mat.data.astype(_NUMPY_OF[self.dtype]),
+                enc_cols=mat.indices.astype(np.int32),
+                enc_rows=_row_ids_i32(mat.indptr), dtype_tag="f32")
         self._stats["redecodes"] += 1
         after = getattr(fetch, "payload_bytes_read", None)
-        self._stats["bytes_redecoded"] += (
-            after - before if before is not None and after is not None
-            else e.feature_bytes)
+        redecoded = (after - before if before is not None
+                     and after is not None else e.feature_bytes)
+        self._stats["bytes_redecoded"] += redecoded
+        _M_REDECODE_BYTES.inc(redecoded)
         return restore_spilled_features(spill, e.n_rows, self.n_features,
                                         self.device, self.dtype)
 
@@ -687,6 +718,7 @@ class DeviceShardCache:
         e = self._entries[index]
         if e.feats is None:
             self._stats["misses"] += 1
+            _M_MISSES.inc()
             if e.spill is not None:
                 reupload = e.spill.nbytes
             elif self._redecode_fetch is not None:
@@ -698,18 +730,22 @@ class DeviceShardCache:
                     f"shard {index} was evicted but has no spill "
                     "buffers (cache built without an hbm budget)")
             self._stats["bytes_reuploaded"] += reupload
+            _M_REUPLOAD_BYTES.inc(reupload)
             self._device_bytes += e.feature_bytes
             self.peak_device_bytes = max(self.peak_device_bytes,
                                          self._device_bytes)
+            _G_PEAK_BYTES.set(self.peak_device_bytes)
             if e.spill is not None:
-                e.feats = restore_spilled_features(
-                    e.spill, e.n_rows, self.n_features, self.device,
-                    self.dtype)
+                with telemetry.span("shard_reupload"):
+                    e.feats = restore_spilled_features(
+                        e.spill, e.n_rows, self.n_features, self.device,
+                        self.dtype)
             else:
                 e.feats = self._redecode(e)
             self._enforce_budget(pinned=index)
         else:
             self._stats["hits"] += 1
+            _M_HITS.inc()
         return ResidentBlock(index=e.index, n_rows=e.n_rows, feats=e.feats,
                              labels=e.labels, offsets=e.offsets,
                              weights=e.weights)
@@ -722,6 +758,7 @@ class DeviceShardCache:
         consumer's accumulate of shard k; resident epochs yield straight
         from the device."""
         self._stats["epochs"] += 1
+        _M_EPOCHS.inc()
         depth = (self.prefetch_depth if prefetch_depth is None
                  else max(0, int(prefetch_depth)))
 

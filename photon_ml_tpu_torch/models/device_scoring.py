@@ -20,6 +20,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.data.device_feed import chunked_device_put
 from photon_ml_tpu_torch.data.game_data import GameDataset
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.models.fixed_effect import FixedEffectModel
@@ -115,9 +116,9 @@ class DeviceGameScorer:
                     *sdata, m.row_factors.to(self.device),
                     m.col_factors.to(self.device), self.dtype)
             elif kind == "random_matrix":
-                M = torch.as_tensor(
+                M = chunked_device_put(
                     kernels.snapshot_dense_matrix(m, self.dtype),
-                    dtype=self.dtype, device=self.device)
+                    self.dtype, self.device)
                 total = total + kernels.score_random_with_matrix(*sdata, M)
             else:
                 feats, mapped, block_static, n_codes, d_global = sdata

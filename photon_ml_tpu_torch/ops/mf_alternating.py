@@ -42,7 +42,9 @@ feeder and prefetch depth; bf16 rounds the factors once at write.
 Batches are not padded: each keeps its true row and entry counts, so no
 reduction runs over padding. The JAX ``TracingGuard`` budgets
 (``trace_budgets``, ``assert_trace_budget``) have no counterpart until
-ROADMAP A7: the port compiles nothing per shape.
+ROADMAP A7: the port compiles nothing per shape. Every pass over the
+observations is one ``accumulate`` span and each shard's ridge solve and
+commit a ``factor_solve`` span (JAX :463-475, :577-678).
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ from photon_ml_tpu_torch.data.factor_cache import (
 )
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 from photon_ml_tpu_torch.ops.spmv import block_from_triplet, csr_matmul
+from photon_ml_tpu_torch.telemetry import span
 
 Tensor = torch.Tensor
 
@@ -301,19 +304,22 @@ class StreamedMFObjective:
         (batched ridge solve -> cache write -> row-space scatter)."""
         B = torch.as_tensor(B, dtype=self.dtype, device=self.device)
         tabs: Dict[int, tuple] = {}
-        for geom, block in self._feature_pass():
-            a_u, b_u = self._normals(geom, block, self._offsets(geom), B)
-            self._add_normals(geom, a_u, b_u, tabs, only_shard=None)
+        with span("accumulate"):
+            for geom, block in self._feature_pass():
+                a_u, b_u = self._normals(geom, block, self._offsets(geom),
+                                         B)
+                self._add_normals(geom, a_u, b_u, tabs, only_shard=None)
         self._B_sweep, self._l2_sweep = B, float(l2_gamma)
         if self.cache.spill_source == "redecode":
             self.cache.set_redecode(self._redecode_gamma)
         for spec in self.plan.shards:
-            gamma = self.cache.write(spec.index, self._solve_shard(
-                spec, tabs.get(spec.index), self._l2_sweep))
-            # The cache's copy (rounded at write in a bf16 train) feeds
-            # both the model and the refit's row gather.
-            rows, slots = self._shard_rows[spec.index]
-            self._G[rows] = gamma[slots]
+            with span("factor_solve"):
+                gamma = self.cache.write(spec.index, self._solve_shard(
+                    spec, tabs.get(spec.index), self._l2_sweep))
+                # The cache's copy (rounded at write in a bf16 train)
+                # feeds both the model and the refit's row gather.
+                rows, slots = self._shard_rows[spec.index]
+                self._G[rows] = gamma[slots]
 
     def _add_normals(self, geom: _BatchGeom, a_u: Tensor, b_u: Tensor,
                      tabs: Dict, only_shard: Optional[int]) -> None:
@@ -374,16 +380,18 @@ class StreamedMFObjective:
         B = coef.reshape(self.k, self.d)
         z_list: List[Tensor] = []
         acc = None
-        for geom, block in self._feature_pass():
-            g_rows = self._g_rows(self._G, geom)
-            z = (torch.sum(self._v_of(block, B) * g_rows, dim=-1)
-                 + self._offsets(geom))
-            val = torch.sum(geom.weights * self.loss.loss(z, geom.labels))
-            u = geom.weights * self.loss.d1(z, geom.labels)
-            part = (val, self._u_grad(block, u, g_rows))
-            z_list.append(z)
-            acc = part if acc is None else (acc[0] + part[0],
-                                            acc[1] + part[1])
+        with span("accumulate"):
+            for geom, block in self._feature_pass():
+                g_rows = self._g_rows(self._G, geom)
+                z = (torch.sum(self._v_of(block, B) * g_rows, dim=-1)
+                     + self._offsets(geom))
+                val = torch.sum(geom.weights
+                                * self.loss.loss(z, geom.labels))
+                u = geom.weights * self.loss.d1(z, geom.labels)
+                part = (val, self._u_grad(block, u, g_rows))
+                z_list.append(z)
+                acc = part if acc is None else (acc[0] + part[0],
+                                                acc[1] + part[1])
         val, g = acc
         f = val + 0.5 * l2 * torch.dot(coef, coef)
         return z_list, f, g.reshape(-1) + l2 * coef
@@ -394,19 +402,21 @@ class StreamedMFObjective:
 
     def margin_direction_list(self, direction: Tensor) -> List[Tensor]:
         d_mat = direction.reshape(self.k, self.d)
-        return [torch.sum(self._v_of(block, d_mat)
-                          * self._g_rows(self._G, geom), dim=-1)
-                for geom, block in self._feature_pass()]
+        with span("accumulate"):
+            return [torch.sum(self._v_of(block, d_mat)
+                              * self._g_rows(self._G, geom), dim=-1)
+                    for geom, block in self._feature_pass()]
 
     def trial_values(self, z_list: Sequence[Tensor],
                      zp_list: Sequence[Tensor], ts: Tensor, coef_sq, l2):
         """Row-space only: the Armijo sweep costs no feature pass."""
         acc = None
-        for geom, z, zp in zip(self._geoms, z_list, zp_list):
-            z_t = z[None, :] + ts[:, None] * zp[None, :]
-            part = torch.sum(geom.weights[None, :] * self.loss.loss(
-                z_t, geom.labels[None, :]), dim=-1)
-            acc = part if acc is None else acc + part
+        with span("accumulate"):
+            for geom, z, zp in zip(self._geoms, z_list, zp_list):
+                z_t = z[None, :] + ts[:, None] * zp[None, :]
+                part = torch.sum(geom.weights[None, :] * self.loss.loss(
+                    z_t, geom.labels[None, :]), dim=-1)
+                acc = part if acc is None else acc + part
         return acc + 0.5 * l2 * coef_sq
 
     def update_margins(self, z_list: Sequence[Tensor], t,
@@ -416,10 +426,11 @@ class StreamedMFObjective:
     def grad_from_margins_list(self, coef: Tensor,
                                z_list: Sequence[Tensor], l2) -> Tensor:
         acc = None
-        for (geom, block), z in zip(self._feature_pass(), z_list):
-            u = geom.weights * self.loss.d1(z, geom.labels)
-            part = self._u_grad(block, u, self._g_rows(self._G, geom))
-            acc = part if acc is None else acc + part
+        with span("accumulate"):
+            for (geom, block), z in zip(self._feature_pass(), z_list):
+                u = geom.weights * self.loss.d1(z, geom.labels)
+                part = self._u_grad(block, u, self._g_rows(self._G, geom))
+                acc = part if acc is None else acc + part
         return acc.reshape(-1) + l2 * coef
 
     # -- scoring ---------------------------------------------------------------
@@ -454,11 +465,12 @@ class StreamedMFObjective:
         B = torch.as_tensor(B, dtype=self.dtype, device=self.device)
         g = self._G if tables is None else self.gather_from_tables(tables)
         out = np.zeros(self.n_rows, np.dtype(str(self.dtype)[6:]))
-        for geom, block in self._feature_pass():
-            z = torch.sum(self._v_of(block, B) * self._g_rows(g, geom),
-                          dim=-1)
-            out[geom.row_offset:geom.row_offset + geom.n_rows] = \
-                z.cpu().numpy()
+        with span("accumulate"):
+            for geom, block in self._feature_pass():
+                z = torch.sum(self._v_of(block, B) * self._g_rows(g, geom),
+                              dim=-1)
+                out[geom.row_offset:geom.row_offset + geom.n_rows] = \
+                    z.cpu().numpy()
         return out
 
     def factor_tables(self) -> List[Tensor]:

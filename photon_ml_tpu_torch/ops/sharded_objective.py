@@ -43,7 +43,11 @@ multiplied with the G-column panel of coefficients or margins through
 ops/spmv.py ``csr_matmul`` (row 10), whose column j is the bits of the
 scalar path's ``csr_matvec`` on the card. The masked margin ``axpy``
 keeps frozen rows bit for bit (``where`` on t != 0, never a + 0 b).
-``grid_passes`` counts the grid's feature passes.
+``grid_passes`` counts the grid's feature passes, mirrored into the
+registry counter ``training.grid.feature_passes`` (JAX :153). Every
+feature pass is one ``accumulate`` span (JAX :1122): launches are
+asynchronous, so its self time is enqueue plus what the cache makes it
+wait for (``shard_reupload`` and ``prefetch_wait`` nest inside).
 
 Not ported here: the 1-D and 2-D mesh folds, ``combine="local"`` and the
 row and column kits, scalar and grid, which only a mesh builds (ROADMAP
@@ -59,9 +63,14 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.ops.glm_objective import GLMBatch, GLMObjective
+from photon_ml_tpu_torch.telemetry import span
 
 Tensor = torch.Tensor
+
+#: One batched-grid feature pass (the registry twin of ``grid_passes``).
+_M_GRID_PASSES = telemetry.counter("training.grid.feature_passes")
 
 
 def _fold(acc, part):
@@ -141,11 +150,12 @@ class ShardedGLMObjective:
         row-space state), the objective value and the gradient."""
         z_list: List[Tensor] = []
         acc = None
-        for e in self.cache.blocks():
-            self._require_restored(e)
-            z, part = self._init(e, coef)
-            z_list.append(z)
-            acc = _fold(acc, part)
+        with span("accumulate"):
+            for e in self.cache.blocks():
+                self._require_restored(e)
+                z, part = self._init(e, coef)
+                z_list.append(z)
+                acc = _fold(acc, part)
         val, g_raw, su = acc
         f = val + 0.5 * l2 * torch.dot(coef, coef)
         return z_list, f, self._finish_grad(g_raw, su, coef, l2)
@@ -157,11 +167,12 @@ class ShardedGLMObjective:
     def margin_direction_list(self, direction: Tensor) -> List[Tensor]:
         """Per-shard directional margins (one feature pass)."""
         out: List[Tensor] = []
-        for e in self.cache.blocks():
-            self._require_restored(e)
-            out.append(self.objective.margin_direction(
-                direction, GLMBatch(e.feats, e.labels, e.offsets,
-                                    e.weights)))
+        with span("accumulate"):
+            for e in self.cache.blocks():
+                self._require_restored(e)
+                out.append(self.objective.margin_direction(
+                    direction, GLMBatch(e.feats, e.labels, e.offsets,
+                                        e.weights)))
         return out
 
     def trial_values(self, z_list: Sequence[Tensor],
@@ -186,10 +197,11 @@ class ShardedGLMObjective:
         """Gradient given cached margins: one rmatvec pass."""
         loss = self.objective.loss
         acc = None
-        for e, z in zip(self.cache.blocks(), z_list):
-            self._require_restored(e)
-            u = e.weights * loss.d1(z, e.labels)
-            acc = _fold(acc, (e.feats.rmatvec(u), torch.sum(u)))
+        with span("accumulate"):
+            for e, z in zip(self.cache.blocks(), z_list):
+                self._require_restored(e)
+                u = e.weights * loss.d1(z, e.labels)
+                acc = _fold(acc, (e.feats.rmatvec(u), torch.sum(u)))
         g_raw, su = acc
         return self._finish_grad(g_raw, su, coef, l2)
 
@@ -206,12 +218,13 @@ class ShardedGLMObjective:
         per shard (the streaming form of
         GLMObjective.hessian_vector_from_margins)."""
         acc = None
-        for e, d2 in zip(self.cache.blocks(), d2_list):
-            self._require_restored(e)
-            jv = self.objective.margin_direction(
-                vec, GLMBatch(e.feats, e.labels, e.offsets, e.weights))
-            t = d2 * jv
-            acc = _fold(acc, (e.feats.rmatvec(t), torch.sum(t)))
+        with span("accumulate"):
+            for e, d2 in zip(self.cache.blocks(), d2_list):
+                self._require_restored(e)
+                jv = self.objective.margin_direction(
+                    vec, GLMBatch(e.feats, e.labels, e.offsets, e.weights))
+                t = d2 * jv
+                acc = _fold(acc, (e.feats.rmatvec(t), torch.sum(t)))
         r_raw, su = acc
         return self._finish_grad(r_raw, su, vec, l2)
 
@@ -304,13 +317,15 @@ class ShardedGLMObjective:
         """One feature pass for every grid row: per-shard [G, rows]
         margins, [G] values and [G, d] gradients."""
         self.grid_passes += 1
+        _M_GRID_PASSES.inc()
         z_list: List[Tensor] = []
         acc = None
-        for e in self.cache.blocks():
-            self._require_restored(e)
-            z, part = self._grid_init(e, coefs)
-            z_list.append(z)
-            acc = _fold(acc, part)
+        with span("accumulate"):
+            for e in self.cache.blocks():
+                self._require_restored(e)
+                z, part = self._grid_init(e, coefs)
+                z_list.append(z)
+                acc = _fold(acc, part)
         val, g_raw, su = acc
         f = val + 0.5 * l2s * torch.sum(coefs * coefs, dim=-1)
         return z_list, f, self._grid_finish_grad(g_raw, su, coefs, l2s)
@@ -318,10 +333,12 @@ class ShardedGLMObjective:
     def grid_margin_direction_list(self, directions: Tensor) -> List[Tensor]:
         """Per-shard [G, rows] directional margins: one feature pass."""
         self.grid_passes += 1
+        _M_GRID_PASSES.inc()
         out: List[Tensor] = []
-        for e in self.cache.blocks():
-            self._require_restored(e)
-            out.append(self._grid_direction(e, directions))
+        with span("accumulate"):
+            for e in self.cache.blocks():
+                self._require_restored(e)
+                out.append(self._grid_direction(e, directions))
         return out
 
     def grid_trial_values(self, z_list: Sequence[Tensor],
@@ -346,10 +363,12 @@ class ShardedGLMObjective:
                                     l2s: Tensor) -> Tensor:
         """[G, d] gradients from cached [G, rows] margins: one pass."""
         self.grid_passes += 1
+        _M_GRID_PASSES.inc()
         acc = None
-        for e, z in zip(self.cache.blocks(), z_list):
-            self._require_restored(e)
-            acc = _fold(acc, self._grid_grad(e, z))
+        with span("accumulate"):
+            for e, z in zip(self.cache.blocks(), z_list):
+                self._require_restored(e)
+                acc = _fold(acc, self._grid_grad(e, z))
         g_raw, su = acc
         return self._grid_finish_grad(g_raw, su, coefs, l2s)
 
@@ -364,10 +383,12 @@ class ShardedGLMObjective:
         """[G, d] H_g v_g with per-row curvature: one pass serves every
         row's CG iterate."""
         self.grid_passes += 1
+        _M_GRID_PASSES.inc()
         acc = None
-        for e, d2 in zip(self.cache.blocks(), d2_list):
-            self._require_restored(e)
-            acc = _fold(acc, self._grid_hvp(e, d2, vecs))
+        with span("accumulate"):
+            for e, d2 in zip(self.cache.blocks(), d2_list):
+                self._require_restored(e)
+                acc = _fold(acc, self._grid_hvp(e, d2, vecs))
         r_raw, su = acc
         return self._grid_finish_grad(r_raw, su, vecs, l2s)
 

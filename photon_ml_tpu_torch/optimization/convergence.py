@@ -3,7 +3,8 @@ photon_ml_tpu/optimization/convergence.py:143-201: ConvergenceReason
 with its summary :151, OptimizerResult with coef_history :184 and
 reason_enum :190; the streaming solvers' divergence watchdog
 check_solver_finite and SolverDivergedError :71-140 with the batched λ
-grid's per-row provenance, without the trace context of ROADMAP A5).
+grid's per-row provenance and the solve's trace context; the
+``ConvergenceRing`` of ``--distmon`` is ROADMAP A5c).
 
 An optimizer stops when (ml/optimization/Optimizer.scala:156-170)
   - iteration count hits max_iter                   -> MAX_ITERATIONS
@@ -91,12 +92,14 @@ def padded_history(rows, max_iter: int) -> Tensor:
 class SolverDivergedError(RuntimeError):
     """A host-driven streaming solver observed a non-finite loss or
     gradient norm: the divergence watchdog's typed fault, naming the
-    solver, the outer iteration and the offending values. The batched λ
-    grid names the one row that diverged (``grid_row``) and its λ
-    (``lam``); the other rows' masks are untouched by the check."""
+    solver, the outer iteration, the offending values and the solve's
+    ``trace_id`` (telemetry/tracectx.py), so the driver's flight dump is
+    tagged with it. The batched λ grid names the one row that diverged
+    (``grid_row``) and its λ (``lam``); the other rows' masks are
+    untouched by the check."""
 
     def __init__(self, solver: str, iteration: int, value, grad_norm,
-                 lam=None, grid_row=None):
+                 trace_id=None, lam=None, grid_row=None):
         where = ""
         if grid_row is not None:
             where = f" [grid row {int(grid_row)}"
@@ -109,24 +112,39 @@ class SolverDivergedError(RuntimeError):
             f"{solver} diverged at outer iteration {iteration}{where}: "
             f"value={value!r}, grad_norm={grad_norm!r} (non-finite). "
             "Typical causes: learning-rate/regularization far off scale, "
-            "corrupt feature values, or an overflowing loss")
+            "corrupt feature values, or an overflowing loss; see the "
+            "flight dump for the solve's last stages"
+            + (f" (trace {trace_id})" if trace_id else ""))
         self.solver = solver
         self.iteration = int(iteration)
         self.value = value
         self.grad_norm = grad_norm
+        self.trace_id = trace_id
         self.lam = None if lam is None else float(lam)
         self.grid_row = None if grid_row is None else int(grid_row)
 
 
-def check_solver_finite(solver: str, iteration: int, value, grad_norm, *,
-                        lam=None, grid_row=None) -> None:
+def check_solver_finite(solver: str, iteration: int, value, grad_norm,
+                        trace_ctx=None, *, lam=None,
+                        grid_row=None) -> None:
     """Raise :class:`SolverDivergedError` when the loss or gradient norm
     went non-finite. ``value``/``grad_norm`` are host scalars the
     streamed outer loops already hold for their convergence compares, so
-    the check adds no device sync. The grid solvers pass ``lam`` and
-    ``grid_row``."""
+    the check adds no device sync. ``trace_ctx``, the solve's trace
+    context, is finished as ``diverged`` (tail-kept) and its id rides on
+    the fault. The grid solvers pass ``lam`` and ``grid_row``."""
     v, g = float(value), float(grad_norm)
     if math.isfinite(v) and math.isfinite(g):
         return
-    raise SolverDivergedError(solver, iteration, v, g, lam=lam,
-                              grid_row=grid_row)
+    trace_id = None
+    if trace_ctx is not None:
+        trace_id = trace_ctx.trace_id
+        trace_ctx.annotate(solver=solver, iteration=int(iteration),
+                           value=v, grad_norm=g)
+        if lam is not None:
+            trace_ctx.annotate(reg_weight=float(lam))
+        if grid_row is not None:
+            trace_ctx.annotate(grid_row=int(grid_row))
+        trace_ctx.finish("diverged")
+    raise SolverDivergedError(solver, iteration, v, g, trace_id=trace_id,
+                              lam=lam, grid_row=grid_row)

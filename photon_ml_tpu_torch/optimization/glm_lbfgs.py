@@ -3,7 +3,8 @@ photon_ml_tpu/optimization/glm_lbfgs.py: _minimize_lbfgs_glm_impl :83,
 minimize_lbfgs_glm :810, the out-of-core
 minimize_lbfgs_glm_streaming :241-500 over a ShardedGLMObjective, and
 the batched λ grid minimize_lbfgs_glm_grid_streaming :502-809 with its
-helpers _grid_direction ... _grid_update_history).
+helpers _grid_direction ... _grid_update_history; the streamed solvers'
+telemetry :55-62, :404-409, :690).
 
 Margins are affine in the coefficients, so along a direction p
 
@@ -27,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.ops.glm_objective import GLMBatch, GLMObjective
 from photon_ml_tpu_torch.optimization.convergence import (
     ConvergenceReason,
@@ -45,6 +47,14 @@ from photon_ml_tpu_torch.optimization.lbfgs import (
 Tensor = torch.Tensor
 
 _NC = int(ConvergenceReason.NOT_CONVERGED)
+
+# Per-outer-iteration telemetry of the streamed solvers, shared with
+# tron.py (no-ops while telemetry is off): one streamed iteration's
+# wall time, read at the host sync the iteration already ends with.
+_H_ITERATION = telemetry.histogram("training.iteration_seconds")
+_M_ITERATIONS = telemetry.counter("training.solver_iterations")
+# Grid points still iterating in a batched λ sweep.
+_G_GRID_ACTIVE = telemetry.gauge("training.grid.active_points")
 
 
 def _reason(ok, gnorm_new, gnorm0, f_delta, f0_scale, it_new: int,
@@ -185,6 +195,7 @@ def minimize_lbfgs_glm_streaming(
     c1: float = 1e-4,
     max_line_search: int = 30,
     track_coefficients: bool = False,
+    trace_ctx=None,
     margins_out=None,
 ) -> OptimizerResult:
     """Out-of-core L-BFGS: the outer iteration runs on the host,
@@ -205,9 +216,13 @@ def minimize_lbfgs_glm_streaming(
 
     Every outer iteration checks the host loss and gradient norm and
     raises ``SolverDivergedError`` when either went non-finite.
-    ``margins_out`` (a caller-owned list) is replaced with the final
-    per-shard margins. The JAX ``trace_ctx`` and ``convergence_ring``
-    hooks are ROADMAP A5."""
+    ``trace_ctx`` (one telemetry ``TraceContext`` per solve, or None)
+    gets a ``solver_step`` event per outer iteration, and its id rides on
+    the divergence fault; each outer iteration is a ``solver_step`` span
+    feeding ``training.iteration_seconds`` and
+    ``training.solver_iterations``. ``margins_out`` (a caller-owned list)
+    is replaced with the final per-shard margins. The JAX
+    ``convergence_ring`` of ``--distmon`` is ROADMAP A5c."""
     sobj = sharded_objective
     x = x0
     dtype, device = x.dtype, x.device
@@ -223,7 +238,7 @@ def minimize_lbfgs_glm_streaming(
     z_list, f, g = sobj.margins_value_grad(x, l2)
     f_h = _host(f)
     gnorm = _host(torch.linalg.norm(g))
-    check_solver_finite("streaming-lbfgs", 0, f_h, gnorm)
+    check_solver_finite("streaming-lbfgs", 0, f_h, gnorm, trace_ctx)
     gnorm0 = gnorm
     f0_scale = np.maximum(np.abs(f_h), np_dtype.type(1e-30))
     hist = empty_history(d, history_size, dtype, device)
@@ -237,68 +252,73 @@ def minimize_lbfgs_glm_streaming(
               else ConvergenceReason.NOT_CONVERGED)
     it = 0
     while reason == ConvergenceReason.NOT_CONVERGED:
-        direction, xx, xp, pp, gp = _stream_direction(g, hist, x)
-        zp_list = sobj.margin_direction_list(direction)
+        with telemetry.timed_span("solver_step", histogram=_H_ITERATION,
+                                  counter=_M_ITERATIONS):
+            if trace_ctx is not None:
+                trace_ctx.event("solver_step")
+            direction, xx, xp, pp, gp = _stream_direction(g, hist, x)
+            zp_list = sobj.margin_direction_list(direction)
 
-        init_step = torch.where(
-            hist.count == 0, 1.0 / torch.clamp_min(torch.sqrt(pp), 1.0),
-            torch.ones((), dtype=dtype, device=device))
-        ts = init_step * powers
-        thresholds = f + c1 * ts * gp
-        f_trials = sobj.trial_values(
-            z_list, zp_list, ts, xx + 2.0 * ts * xp + ts * ts * pp, l2)
-        ft_host = f_trials.cpu().numpy()
-        armijo = np.logical_and(ft_host <= thresholds.cpu().numpy(),
-                                np.isfinite(ft_host))
-        ok = bool(armijo.any())
-        idx = int(np.argmax(armijo))  # first True
-        t_acc, f_new = ts[idx], f_trials[idx]
+            init_step = torch.where(
+                hist.count == 0, 1.0 / torch.clamp_min(torch.sqrt(pp), 1.0),
+                torch.ones((), dtype=dtype, device=device))
+            ts = init_step * powers
+            thresholds = f + c1 * ts * gp
+            f_trials = sobj.trial_values(
+                z_list, zp_list, ts, xx + 2.0 * ts * xp + ts * ts * pp, l2)
+            ft_host = f_trials.cpu().numpy()
+            armijo = np.logical_and(ft_host <= thresholds.cpu().numpy(),
+                                    np.isfinite(ft_host))
+            ok = bool(armijo.any())
+            idx = int(np.argmax(armijo))  # first True
+            t_acc, f_new = ts[idx], f_trials[idx]
 
-        k = n_batched
-        t_tail = ts[-1]
-        while not ok and k < max_line_search + 1:
-            # Sequential tail past the batched block: rare (0.5^8).
-            t_tail = t_tail * shrink
-            t1 = t_tail[None]
-            f_t = sobj.trial_values(z_list, zp_list, t1,
-                                    xx + 2.0 * t1 * xp + t1 * t1 * pp,
-                                    l2)[0]
-            f_t_h = _host(f_t)
-            if f_t_h <= _host(f + c1 * t_tail * gp) and np.isfinite(f_t_h):
-                ok, t_acc, f_new = True, t_tail, f_t
+            k = n_batched
+            t_tail = ts[-1]
+            while not ok and k < max_line_search + 1:
+                # Sequential tail past the batched block: rare (0.5^8).
+                t_tail = t_tail * shrink
+                t1 = t_tail[None]
+                f_t = sobj.trial_values(z_list, zp_list, t1,
+                                        xx + 2.0 * t1 * xp + t1 * t1 * pp,
+                                        l2)[0]
+                f_t_h = _host(f_t)
+                if f_t_h <= _host(f + c1 * t_tail * gp) and np.isfinite(f_t_h):
+                    ok, t_acc, f_new = True, t_tail, f_t
+                    break
+                k += 1
+
+            it += 1  # the in-core solver counts failed-line-search steps too
+            if not ok:
+                reason = ConvergenceReason.OBJECTIVE_NOT_IMPROVING
+                if it <= max_iter:
+                    value_hist[it], gnorm_hist[it] = f_h, gnorm
+                    if coefs is not None:
+                        coefs.append(x)
                 break
-            k += 1
 
-        it += 1  # the in-core solver counts failed-line-search steps too
-        if not ok:
-            reason = ConvergenceReason.OBJECTIVE_NOT_IMPROVING
-            if it <= max_iter:
-                value_hist[it], gnorm_hist[it] = f_h, gnorm
-                if coefs is not None:
-                    coefs.append(x)
-            break
+            x_new = x + t_acc * direction
+            z_new = sobj.update_margins(z_list, t_acc, zp_list)
+            g_new = sobj.grad_from_margins_list(x_new, z_new, l2)
+            hist = update_history(hist, x_new - x, g_new - g)
 
-        x_new = x + t_acc * direction
-        z_new = sobj.update_margins(z_list, t_acc, zp_list)
-        g_new = sobj.grad_from_margins_list(x_new, z_new, l2)
-        hist = update_history(hist, x_new - x, g_new - g)
+            gnorm_new = _host(torch.linalg.norm(g_new))
+            f_new_h = _host(f_new)
+            check_solver_finite("streaming-lbfgs", it, f_new_h, gnorm_new,
+                                trace_ctx)
+            f_delta = np.abs(f_h - f_new_h)
+            x, z_list, f, g = x_new, z_new, f_new, g_new
+            f_h, gnorm = f_new_h, gnorm_new
+            value_hist[it], gnorm_hist[it] = f_h, gnorm
+            if coefs is not None:
+                coefs.append(x)
 
-        gnorm_new = _host(torch.linalg.norm(g_new))
-        f_new_h = _host(f_new)
-        check_solver_finite("streaming-lbfgs", it, f_new_h, gnorm_new)
-        f_delta = np.abs(f_h - f_new_h)
-        x, z_list, f, g = x_new, z_new, f_new, g_new
-        f_h, gnorm = f_new_h, gnorm_new
-        value_hist[it], gnorm_hist[it] = f_h, gnorm
-        if coefs is not None:
-            coefs.append(x)
-
-        if gnorm_new <= tol_s * gnorm0:
-            reason = ConvergenceReason.GRADIENT_CONVERGED
-        elif f_delta <= tol_s * f0_scale:
-            reason = ConvergenceReason.FUNCTION_VALUES_CONVERGED
-        elif it >= max_iter:
-            reason = ConvergenceReason.MAX_ITERATIONS
+            if gnorm_new <= tol_s * gnorm0:
+                reason = ConvergenceReason.GRADIENT_CONVERGED
+            elif f_delta <= tol_s * f0_scale:
+                reason = ConvergenceReason.FUNCTION_VALUES_CONVERGED
+            elif it >= max_iter:
+                reason = ConvergenceReason.MAX_ITERATIONS
 
     if margins_out is not None:
         margins_out[:] = z_list
@@ -386,6 +406,7 @@ def minimize_lbfgs_glm_grid_streaming(
     c1: float = 1e-4,
     max_line_search: int = 30,
     track_coefficients: bool = False,
+    trace_ctxs=None,
     margins_out=None,
 ):
     """Batched λ-grid streaming L-BFGS: one set of feature passes per
@@ -404,9 +425,13 @@ def minimize_lbfgs_glm_grid_streaming(
     A non-finite loss or gradient norm in one row raises
     ``SolverDivergedError`` naming that row and its λ.
 
+    ``trace_ctxs`` (row-aligned, entries may be None) gets each active
+    row's ``solver_step`` events and tags its divergence fault; each
+    outer iteration is one ``solver_step`` span, and the gauge
+    ``training.grid.active_points`` counts the rows still iterating.
     ``margins_out`` receives the final per-shard ``[G, rows]`` margins
     (``ShardedGLMObjective.grid_row_margins`` slices one row out). The
-    JAX ``trace_ctxs`` and ``convergence_rings`` are ROADMAP A5."""
+    JAX ``convergence_rings`` are ROADMAP A5c."""
     sobj = sharded_objective
     x = x0s
     if x.dim() != 2:
@@ -421,6 +446,11 @@ def minimize_lbfgs_glm_grid_streaming(
         raise ValueError(
             f"l2_weights must be [G]={G} (one λ per grid row), got "
             f"shape {tuple(l2s.shape)}")
+    ctxs = list(trace_ctxs) if trace_ctxs is not None else [None] * G
+    if len(ctxs) != G:
+        raise ValueError(
+            f"trace_ctxs must be row-aligned with the grid (G={G}), got "
+            f"{len(ctxs)}")
 
     if G == 1:
         # Bitwise gate: the 1-row grid IS the scalar streamed solver.
@@ -429,7 +459,8 @@ def minimize_lbfgs_glm_grid_streaming(
             sobj, x[0], float(l2s[0]), max_iter=max_iter, tol=tol,
             history_size=history_size, c1=c1,
             max_line_search=max_line_search,
-            track_coefficients=track_coefficients, margins_out=holder)
+            track_coefficients=track_coefficients, trace_ctx=ctxs[0],
+            margins_out=holder)
         if margins_out is not None:
             margins_out[:] = [z[None] for z in holder]
         return [res]
@@ -446,7 +477,7 @@ def minimize_lbfgs_glm_grid_streaming(
     gnorm = torch.linalg.norm(g, dim=-1).cpu().numpy()
     for gi in range(G):
         check_solver_finite("streaming-lbfgs-grid", 0, f_h[gi], gnorm[gi],
-                            lam=l2_h[gi], grid_row=gi)
+                            ctxs[gi], lam=l2_h[gi], grid_row=gi)
     gnorm0 = gnorm.copy()
     f0_scale = np.maximum(np.abs(f_h), np_dtype.type(1e-30))
     hist = _stack_hists([empty_history(d, history_size, dtype, device)] * G)
@@ -467,87 +498,94 @@ def minimize_lbfgs_glm_grid_streaming(
     rows = np.arange(G)
 
     while active.any():
-        dirs, xx, xp, pp, gp = _grid_direction(g, hist, x)
-        zp_list = sobj.grid_margin_direction_list(dirs)
+        with telemetry.timed_span("solver_step", histogram=_H_ITERATION,
+                                  counter=_M_ITERATIONS):
+            _G_GRID_ACTIVE.set(int(active.sum()))
+            for gi in np.flatnonzero(active):
+                if ctxs[gi] is not None:
+                    ctxs[gi].event("solver_step")
+            dirs, xx, xp, pp, gp = _grid_direction(g, hist, x)
+            zp_list = sobj.grid_margin_direction_list(dirs)
 
-        first = hist.count == 0
-        ts, thresholds = _grid_candidates(
-            first, pp, torch.as_tensor(f_h, device=device), gp, powers, c1)
-        f_trials = sobj.grid_trial_values(
-            z_list, zp_list, ts, _grid_coef_sq(xx, xp, pp, ts), l2s)
-        ft = f_trials.cpu().numpy()
-        armijo = np.logical_and(ft <= thresholds.cpu().numpy(),
-                                np.isfinite(ft))
-        ok = armijo.any(axis=1)
-        idx = np.argmax(armijo, axis=1)
-        ts_h = ts.cpu().numpy()
-        t_np = np.where(ok & active, ts_h[rows, idx], np_dtype.type(0.0))
-        f_new_h = np.where(ok, ft[rows, idx], f_h)
+            first = hist.count == 0
+            ts, thresholds = _grid_candidates(
+                first, pp, torch.as_tensor(f_h, device=device), gp, powers, c1)
+            f_trials = sobj.grid_trial_values(
+                z_list, zp_list, ts, _grid_coef_sq(xx, xp, pp, ts), l2s)
+            ft = f_trials.cpu().numpy()
+            armijo = np.logical_and(ft <= thresholds.cpu().numpy(),
+                                    np.isfinite(ft))
+            ok = armijo.any(axis=1)
+            idx = np.argmax(armijo, axis=1)
+            ts_h = ts.cpu().numpy()
+            t_np = np.where(ok & active, ts_h[rows, idx], np_dtype.type(0.0))
+            f_new_h = np.where(ok, ft[rows, idx], f_h)
 
-        searching = active & ~ok
-        k = n_batched
-        t_tail = ts_h[:, -1].copy()
-        gp_h = gp.cpu().numpy()
-        while searching.any() and k < max_line_search + 1:
-            # Sequential tail past the batched block: rare (0.5^8).
-            t_tail = t_tail * np_dtype.type(0.5)
-            tsd = torch.as_tensor(
-                np.where(searching, t_tail, np_dtype.type(0.0))[:, None],
-                device=device)
-            f_t_h = sobj.grid_trial_values(
-                z_list, zp_list, tsd, _grid_coef_sq(xx, xp, pp, tsd),
-                l2s).cpu().numpy()[:, 0]
-            thr_t = f_h + c1_np * t_tail * gp_h
-            hit = searching & (f_t_h <= thr_t) & np.isfinite(f_t_h)
-            t_np = np.where(hit, t_tail, t_np)
-            f_new_h = np.where(hit, f_t_h, f_new_h)
-            ok |= hit
-            searching &= ~hit
-            k += 1
+            searching = active & ~ok
+            k = n_batched
+            t_tail = ts_h[:, -1].copy()
+            gp_h = gp.cpu().numpy()
+            while searching.any() and k < max_line_search + 1:
+                # Sequential tail past the batched block: rare (0.5^8).
+                t_tail = t_tail * np_dtype.type(0.5)
+                tsd = torch.as_tensor(
+                    np.where(searching, t_tail, np_dtype.type(0.0))[:, None],
+                    device=device)
+                f_t_h = sobj.grid_trial_values(
+                    z_list, zp_list, tsd, _grid_coef_sq(xx, xp, pp, tsd),
+                    l2s).cpu().numpy()[:, 0]
+                thr_t = f_h + c1_np * t_tail * gp_h
+                hit = searching & (f_t_h <= thr_t) & np.isfinite(f_t_h)
+                t_np = np.where(hit, t_tail, t_np)
+                f_new_h = np.where(hit, f_t_h, f_new_h)
+                ok |= hit
+                searching &= ~hit
+                k += 1
 
-        its[active] += 1  # failed searches count, like the scalar solver
-        moved = ok & active
-        failed = active & ~ok
-        for gi in np.flatnonzero(failed):
-            reasons[gi] = ConvergenceReason.OBJECTIVE_NOT_IMPROVING
-            if its[gi] <= max_iter:
-                value_hist[gi, its[gi]] = f_h[gi]
-                gnorm_hist[gi, its[gi]] = gnorm[gi]
-                if coef_hist is not None:
-                    coef_hist[gi, its[gi]] = x[gi].cpu().numpy()
-        active &= ok
+            its[active] += 1  # failed searches count, like the scalar solver
+            moved = ok & active
+            failed = active & ~ok
+            for gi in np.flatnonzero(failed):
+                reasons[gi] = ConvergenceReason.OBJECTIVE_NOT_IMPROVING
+                if its[gi] <= max_iter:
+                    value_hist[gi, its[gi]] = f_h[gi]
+                    gnorm_hist[gi, its[gi]] = gnorm[gi]
+                    if coef_hist is not None:
+                        coef_hist[gi, its[gi]] = x[gi].cpu().numpy()
+            active &= ok
 
-        if moved.any():
-            t_dev = torch.as_tensor(t_np, device=device)
-            moved_dev = torch.as_tensor(moved, device=device)
-            x_new = _grid_axpy_masked(x, t_dev, dirs)
-            z_new = sobj.grid_update_margins(z_list, t_dev, zp_list)
-            g_full = sobj.grid_grad_from_margins_list(x_new, z_new, l2s)
-            g_new = _grid_select_rows(moved_dev, g_full, g)
-            hist = _grid_update_history(hist, x_new, x, g_new, g,
-                                        moved_dev)
-            gnorm_new = torch.linalg.norm(g_new, dim=-1).cpu().numpy()
-            x, z_list, g = x_new, z_new, g_new
-            f_delta = np.abs(f_h - f_new_h)
-            f_h = np.where(moved, f_new_h, f_h)
-            gnorm = np.where(moved, gnorm_new, gnorm)
+            if moved.any():
+                t_dev = torch.as_tensor(t_np, device=device)
+                moved_dev = torch.as_tensor(moved, device=device)
+                x_new = _grid_axpy_masked(x, t_dev, dirs)
+                z_new = sobj.grid_update_margins(z_list, t_dev, zp_list)
+                g_full = sobj.grid_grad_from_margins_list(x_new, z_new, l2s)
+                g_new = _grid_select_rows(moved_dev, g_full, g)
+                hist = _grid_update_history(hist, x_new, x, g_new, g,
+                                            moved_dev)
+                gnorm_new = torch.linalg.norm(g_new, dim=-1).cpu().numpy()
+                x, z_list, g = x_new, z_new, g_new
+                f_delta = np.abs(f_h - f_new_h)
+                f_h = np.where(moved, f_new_h, f_h)
+                gnorm = np.where(moved, gnorm_new, gnorm)
 
-            for gi in np.flatnonzero(moved):
-                check_solver_finite("streaming-lbfgs-grid", int(its[gi]),
-                                    f_h[gi], gnorm[gi], lam=l2_h[gi],
-                                    grid_row=gi)
-                value_hist[gi, its[gi]] = f_h[gi]
-                gnorm_hist[gi, its[gi]] = gnorm[gi]
-                if coef_hist is not None:
-                    coef_hist[gi, its[gi]] = x[gi].cpu().numpy()
-                if gnorm[gi] <= tol_s * gnorm0[gi]:
-                    reasons[gi] = ConvergenceReason.GRADIENT_CONVERGED
-                elif f_delta[gi] <= tol_s * f0_scale[gi]:
-                    reasons[gi] = ConvergenceReason.FUNCTION_VALUES_CONVERGED
-                elif its[gi] >= max_iter:
-                    reasons[gi] = ConvergenceReason.MAX_ITERATIONS
-                if reasons[gi] != ConvergenceReason.NOT_CONVERGED:
-                    active[gi] = False
+                for gi in np.flatnonzero(moved):
+                    check_solver_finite("streaming-lbfgs-grid", int(its[gi]),
+                                        f_h[gi], gnorm[gi], ctxs[gi],
+                                        lam=l2_h[gi], grid_row=gi)
+                    value_hist[gi, its[gi]] = f_h[gi]
+                    gnorm_hist[gi, its[gi]] = gnorm[gi]
+                    if coef_hist is not None:
+                        coef_hist[gi, its[gi]] = x[gi].cpu().numpy()
+                    if gnorm[gi] <= tol_s * gnorm0[gi]:
+                        reasons[gi] = ConvergenceReason.GRADIENT_CONVERGED
+                    elif f_delta[gi] <= tol_s * f0_scale[gi]:
+                        reasons[gi] = (
+                            ConvergenceReason.FUNCTION_VALUES_CONVERGED)
+                    elif its[gi] >= max_iter:
+                        reasons[gi] = ConvergenceReason.MAX_ITERATIONS
+                    if reasons[gi] != ConvergenceReason.NOT_CONVERGED:
+                        active[gi] = False
 
     if margins_out is not None:
         margins_out[:] = z_list

@@ -22,7 +22,8 @@ Hessian-vector product.
 _stream_cg_step, _stream_tr_update and the host outer loop) over a
 ShardedGLMObjective; ``minimize_tron_grid_streaming`` the batched λ-grid
 variant (tron.py:524-754: _grid_cg_step, _grid_tr_update and the masked
-host loop).
+host loop), with the streamed solvers' telemetry (:34-40, :450-455,
+:648).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.optimization.convergence import (
     ConvergenceReason,
     OptimizerResult,
@@ -45,6 +47,13 @@ Tensor = torch.Tensor
 _ETA0, _ETA1, _ETA2 = 1e-4, 0.25, 0.75
 _SIGMA1, _SIGMA2, _SIGMA3 = 0.25, 0.5, 4.0
 _CG_XI = 0.1  # inner CG stops at ||r|| <= xi ||g||
+
+# The streamed solvers' per-outer-iteration telemetry, shared with the
+# streaming L-BFGS (glm_lbfgs.py; the registry hands both the same
+# objects).
+_H_ITERATION = telemetry.histogram("training.iteration_seconds")
+_M_ITERATIONS = telemetry.counter("training.solver_iterations")
+_G_GRID_ACTIVE = telemetry.gauge("training.grid.active_points")
 
 
 def _truncated_cg(hvp: Callable[[Tensor], Tensor], g: Tensor, delta: Tensor,
@@ -319,6 +328,7 @@ def minimize_tron_streaming(
     max_cg: int = 20,
     max_improvement_failures: int = 5,
     track_coefficients: bool = False,
+    trace_ctx=None,
     margins_out=None,
 ) -> OptimizerResult:
     """Out-of-core TRON: the outer trust-region loop runs on the host;
@@ -334,9 +344,11 @@ def minimize_tron_streaming(
     The loss and gradient norm of every ACCEPTED step are checked on the
     host (``SolverDivergedError`` when non-finite); a rejected trial with
     a non-finite value only shrinks the trust region, as in the in-core
-    solver. ``margins_out`` (a caller-owned list) is replaced with the
-    final per-shard margins. The JAX ``trace_ctx`` and
-    ``convergence_ring`` hooks are ROADMAP A5."""
+    solver. ``trace_ctx`` and the ``solver_step`` span of each outer
+    iteration (CG and trial included) are as in
+    ``minimize_lbfgs_glm_streaming``. ``margins_out`` (a caller-owned
+    list) is replaced with the final per-shard margins. The JAX
+    ``convergence_ring`` of ``--distmon`` is ROADMAP A5c."""
     sobj = sharded_objective
     x = x0
     dtype = x.dtype
@@ -347,7 +359,7 @@ def minimize_tron_streaming(
     z_list, f, g = sobj.margins_value_grad(x, l2)
     f_h = _host(f)
     gnorm = _host(torch.linalg.norm(g))
-    check_solver_finite("streaming-tron", 0, f_h, gnorm)
+    check_solver_finite("streaming-tron", 0, f_h, gnorm, trace_ctx)
     gnorm0 = gnorm
     f0_scale = np.maximum(np.abs(f_h), np_dtype.type(1e-30))
     delta = torch.linalg.norm(g)
@@ -362,52 +374,58 @@ def minimize_tron_streaming(
     it = fails = outer = cg_steps = 0
     first = True
     while reason == ConvergenceReason.NOT_CONVERGED:
-        d2_list = sobj.curvature_list(z_list)
+        with telemetry.timed_span("solver_step", histogram=_H_ITERATION,
+                                  counter=_M_ITERATIONS):
+            if trace_ctx is not None:
+                trace_ctx.event("solver_step")
+            d2_list = sobj.curvature_list(z_list)
 
-        # -- truncated CG (streamed Hv per step) --------------------------
-        s = torch.zeros_like(g)
-        r = -g
-        d_vec = -g
-        rtr = torch.dot(r, r)
-        stop_norm = _CG_XI * torch.linalg.norm(g)
-        cg_done = bool(torch.linalg.norm(r) <= stop_norm)
-        k = 0
-        while not cg_done and k < max_cg:
-            hd = sobj.hessian_vector(d_vec, d2_list, l2)
-            s, r, d_vec, rtr, done = _stream_cg_step(
-                s, r, d_vec, rtr, hd, delta, stop_norm)
-            cg_done = bool(done)
-            k += 1
-        cg_steps += k
-        outer += 1
+            # -- truncated CG (streamed Hv per step) --------------------------
+            s = torch.zeros_like(g)
+            r = -g
+            d_vec = -g
+            rtr = torch.dot(r, r)
+            stop_norm = _CG_XI * torch.linalg.norm(g)
+            cg_done = bool(torch.linalg.norm(r) <= stop_norm)
+            k = 0
+            while not cg_done and k < max_cg:
+                hd = sobj.hessian_vector(d_vec, d2_list, l2)
+                s, r, d_vec, rtr, done = _stream_cg_step(
+                    s, r, d_vec, rtr, hd, delta, stop_norm)
+                cg_done = bool(done)
+                k += 1
+            cg_steps += k
+            outer += 1
 
-        x_try = x + s
-        z_try, f_new, g_new = sobj.margins_value_grad(x_try, l2)
-        delta, accept_t = _stream_tr_update(f, f_new, g, s, r, delta, first)
-        first = False
+            x_try = x + s
+            z_try, f_new, g_new = sobj.margins_value_grad(x_try, l2)
+            delta, accept_t = _stream_tr_update(f, f_new, g, s, r, delta,
+                                                first)
+            first = False
 
-        if bool(accept_t):
-            it += 1
-            fails = 0
-            x, z_list, g = x_try, z_try, g_new
-            f_new_h = _host(f_new)
-            f_delta = np.abs(f_h - f_new_h)
-            f, f_h = f_new, f_new_h
-            gnorm = _host(torch.linalg.norm(g))
-            check_solver_finite("streaming-tron", it, f_h, gnorm)
-            value_hist[it], gnorm_hist[it] = f_h, gnorm
-            if coefs is not None:
-                coefs.append(x)
-            if gnorm <= tol_s * gnorm0:
-                reason = ConvergenceReason.GRADIENT_CONVERGED
-            elif f_delta <= tol_s * f0_scale:
-                reason = ConvergenceReason.FUNCTION_VALUES_CONVERGED
-            elif it >= max_iter:
-                reason = ConvergenceReason.MAX_ITERATIONS
-        else:
-            fails += 1
-            if fails > max_improvement_failures:
-                reason = ConvergenceReason.OBJECTIVE_NOT_IMPROVING
+            if bool(accept_t):
+                it += 1
+                fails = 0
+                x, z_list, g = x_try, z_try, g_new
+                f_new_h = _host(f_new)
+                f_delta = np.abs(f_h - f_new_h)
+                f, f_h = f_new, f_new_h
+                gnorm = _host(torch.linalg.norm(g))
+                check_solver_finite("streaming-tron", it, f_h, gnorm,
+                                    trace_ctx)
+                value_hist[it], gnorm_hist[it] = f_h, gnorm
+                if coefs is not None:
+                    coefs.append(x)
+                if gnorm <= tol_s * gnorm0:
+                    reason = ConvergenceReason.GRADIENT_CONVERGED
+                elif f_delta <= tol_s * f0_scale:
+                    reason = ConvergenceReason.FUNCTION_VALUES_CONVERGED
+                elif it >= max_iter:
+                    reason = ConvergenceReason.MAX_ITERATIONS
+            else:
+                fails += 1
+                if fails > max_improvement_failures:
+                    reason = ConvergenceReason.OBJECTIVE_NOT_IMPROVING
 
     if margins_out is not None:
         margins_out[:] = z_list
@@ -448,6 +466,7 @@ def minimize_tron_grid_streaming(
     max_cg: int = 20,
     max_improvement_failures: int = 5,
     track_coefficients: bool = False,
+    trace_ctxs=None,
     margins_out=None,
 ):
     """Batched λ-grid streaming TRON: one curvature pass, one shared CG
@@ -464,8 +483,10 @@ def minimize_tron_grid_streaming(
     bit for bit through row selects. G = 1 delegates to
     :func:`minimize_tron_streaming` (the bitwise gate). Only accepted
     states are watchdog-checked; a non-finite accepted row raises
-    ``SolverDivergedError`` naming that row and its λ. The JAX
-    ``trace_ctxs`` and ``convergence_rings`` are ROADMAP A5."""
+    ``SolverDivergedError`` naming that row and its λ, tagged with
+    ``trace_ctxs[row]`` (row-aligned, entries may be None; each active
+    row gets its ``solver_step`` events). The JAX ``convergence_rings``
+    are ROADMAP A5c."""
     from photon_ml_tpu_torch.optimization.glm_lbfgs import (
         _grid_select_rows,
     )
@@ -484,6 +505,11 @@ def minimize_tron_grid_streaming(
         raise ValueError(
             f"l2_weights must be [G]={G} (one λ per grid row), got "
             f"shape {tuple(l2s.shape)}")
+    ctxs = list(trace_ctxs) if trace_ctxs is not None else [None] * G
+    if len(ctxs) != G:
+        raise ValueError(
+            f"trace_ctxs must be row-aligned with the grid (G={G}), got "
+            f"{len(ctxs)}")
 
     if G == 1:
         # Bitwise gate: the 1-row grid IS the scalar streamed solver.
@@ -492,7 +518,8 @@ def minimize_tron_grid_streaming(
             sobj, x[0], float(l2s[0]), max_iter=max_iter, tol=tol,
             max_cg=max_cg,
             max_improvement_failures=max_improvement_failures,
-            track_coefficients=track_coefficients, margins_out=holder)
+            track_coefficients=track_coefficients, trace_ctx=ctxs[0],
+            margins_out=holder)
         if margins_out is not None:
             margins_out[:] = [z[None] for z in holder]
         return [res]
@@ -504,7 +531,7 @@ def minimize_tron_grid_streaming(
     gnorm = torch.linalg.norm(g, dim=-1).cpu().numpy()
     for gi in range(G):
         check_solver_finite("streaming-tron-grid", 0, f_h[gi], gnorm[gi],
-                            lam=l2_h[gi], grid_row=gi)
+                            ctxs[gi], lam=l2_h[gi], grid_row=gi)
     gnorm0 = gnorm.copy()
     f0_scale = np.maximum(np.abs(f_h), np_dtype.type(1e-30))
     delta = torch.as_tensor(gnorm0, device=device)
@@ -527,80 +554,87 @@ def minimize_tron_grid_streaming(
     outer = cg_steps = 0
 
     while active.any():
-        d2_list = sobj.grid_curvature_list(z_list)
+        with telemetry.timed_span("solver_step", histogram=_H_ITERATION,
+                                  counter=_M_ITERATIONS):
+            _G_GRID_ACTIVE.set(int(active.sum()))
+            for gi in np.flatnonzero(active):
+                if ctxs[gi] is not None:
+                    ctxs[gi].event("solver_step")
+            d2_list = sobj.grid_curvature_list(z_list)
 
-        # -- per-row truncated CG: one shared Hvp feature pass per step;
-        # rows past their own stop are frozen by row masks.
-        s = torch.zeros_like(g)
-        r = -g
-        d_vec = -g
-        rtr = torch.sum(r * r, dim=-1)
-        stop_norm = _CG_XI * torch.linalg.norm(g, dim=-1)
-        cg_done = ((torch.linalg.norm(r, dim=-1) <= stop_norm).cpu().numpy()
-                   | ~active)
-        k = 0
-        while not cg_done.all() and k < max_cg:
-            hd = sobj.grid_hessian_vector(d_vec, d2_list, l2s)
-            s2, r2, d2v, rtr2, done_dev = _grid_cg_step(
-                s, r, d_vec, rtr, hd, delta, stop_norm)
-            run = torch.as_tensor(~cg_done, device=device)
-            s = _grid_select_rows(run, s2, s)
-            r = _grid_select_rows(run, r2, r)
-            d_vec = _grid_select_rows(run, d2v, d_vec)
-            rtr = torch.where(run, rtr2, rtr)
-            cg_done |= (~cg_done) & done_dev.cpu().numpy()
-            k += 1
-        cg_steps += k
-        outer += 1
+            # -- per-row truncated CG: one shared Hvp feature pass per
+            # step; rows past their own stop are frozen by row masks.
+            s = torch.zeros_like(g)
+            r = -g
+            d_vec = -g
+            rtr = torch.sum(r * r, dim=-1)
+            stop_norm = _CG_XI * torch.linalg.norm(g, dim=-1)
+            cg_done = ((torch.linalg.norm(r, dim=-1) <= stop_norm)
+                       .cpu().numpy() | ~active)
+            k = 0
+            while not cg_done.all() and k < max_cg:
+                hd = sobj.grid_hessian_vector(d_vec, d2_list, l2s)
+                s2, r2, d2v, rtr2, done_dev = _grid_cg_step(
+                    s, r, d_vec, rtr, hd, delta, stop_norm)
+                run = torch.as_tensor(~cg_done, device=device)
+                s = _grid_select_rows(run, s2, s)
+                r = _grid_select_rows(run, r2, r)
+                d_vec = _grid_select_rows(run, d2v, d_vec)
+                rtr = torch.where(run, rtr2, rtr)
+                cg_done |= (~cg_done) & done_dev.cpu().numpy()
+                k += 1
+            cg_steps += k
+            outer += 1
 
-        active_dev = torch.as_tensor(active, device=device)
-        x_try = _grid_select_rows(active_dev, x + s, x)
-        z_try, f_new, g_new = sobj.grid_margins_value_grad(x_try, l2s)
-        delta_new, accept_dev = _grid_tr_update(
-            torch.as_tensor(f_h, device=device), f_new, g, s, r, delta,
-            first)
-        first = False
-        delta = torch.where(active_dev, delta_new, delta)
-        accept = accept_dev.cpu().numpy() & active
+            active_dev = torch.as_tensor(active, device=device)
+            x_try = _grid_select_rows(active_dev, x + s, x)
+            z_try, f_new, g_new = sobj.grid_margins_value_grad(x_try, l2s)
+            delta_new, accept_dev = _grid_tr_update(
+                torch.as_tensor(f_h, device=device), f_new, g, s, r, delta,
+                first)
+            first = False
+            delta = torch.where(active_dev, delta_new, delta)
+            accept = accept_dev.cpu().numpy() & active
 
-        if accept.any():
-            acc_dev = torch.as_tensor(accept, device=device)
-            x = _grid_select_rows(acc_dev, x_try, x)
-            g = _grid_select_rows(acc_dev, g_new, g)
-            z_list = [torch.where(acc_dev[:, None], zt, z)
-                      for zt, z in zip(z_try, z_list)]
-            f_new_h = f_new.cpu().numpy()
-            gnorm_new = torch.linalg.norm(g, dim=-1).cpu().numpy()
-            f_delta = np.abs(f_h - f_new_h)
-            f_h = np.where(accept, f_new_h, f_h)
-            gnorm = np.where(accept, gnorm_new, gnorm)
-            its[accept] += 1
-            fails[accept] = 0
-            for gi in np.flatnonzero(accept):
-                # Watchdog on accepted rows only: a rejected non-finite
-                # trial is normal trust-region behaviour.
-                check_solver_finite("streaming-tron-grid", int(its[gi]),
-                                    f_h[gi], gnorm[gi], lam=l2_h[gi],
-                                    grid_row=gi)
-                value_hist[gi, its[gi]] = f_h[gi]
-                gnorm_hist[gi, its[gi]] = gnorm[gi]
-                if coef_hist is not None:
-                    coef_hist[gi, its[gi]] = x[gi].cpu().numpy()
-                if gnorm[gi] <= tol_s * gnorm0[gi]:
-                    reasons[gi] = ConvergenceReason.GRADIENT_CONVERGED
-                elif f_delta[gi] <= tol_s * f0_scale[gi]:
-                    reasons[gi] = ConvergenceReason.FUNCTION_VALUES_CONVERGED
-                elif its[gi] >= max_iter:
-                    reasons[gi] = ConvergenceReason.MAX_ITERATIONS
-                if reasons[gi] != ConvergenceReason.NOT_CONVERGED:
+            if accept.any():
+                acc_dev = torch.as_tensor(accept, device=device)
+                x = _grid_select_rows(acc_dev, x_try, x)
+                g = _grid_select_rows(acc_dev, g_new, g)
+                z_list = [torch.where(acc_dev[:, None], zt, z)
+                          for zt, z in zip(z_try, z_list)]
+                f_new_h = f_new.cpu().numpy()
+                gnorm_new = torch.linalg.norm(g, dim=-1).cpu().numpy()
+                f_delta = np.abs(f_h - f_new_h)
+                f_h = np.where(accept, f_new_h, f_h)
+                gnorm = np.where(accept, gnorm_new, gnorm)
+                its[accept] += 1
+                fails[accept] = 0
+                for gi in np.flatnonzero(accept):
+                    # Watchdog on accepted rows only: a rejected non-finite
+                    # trial is normal trust-region behaviour.
+                    check_solver_finite("streaming-tron-grid", int(its[gi]),
+                                        f_h[gi], gnorm[gi], ctxs[gi],
+                                        lam=l2_h[gi], grid_row=gi)
+                    value_hist[gi, its[gi]] = f_h[gi]
+                    gnorm_hist[gi, its[gi]] = gnorm[gi]
+                    if coef_hist is not None:
+                        coef_hist[gi, its[gi]] = x[gi].cpu().numpy()
+                    if gnorm[gi] <= tol_s * gnorm0[gi]:
+                        reasons[gi] = ConvergenceReason.GRADIENT_CONVERGED
+                    elif f_delta[gi] <= tol_s * f0_scale[gi]:
+                        reasons[gi] = (
+                            ConvergenceReason.FUNCTION_VALUES_CONVERGED)
+                    elif its[gi] >= max_iter:
+                        reasons[gi] = ConvergenceReason.MAX_ITERATIONS
+                    if reasons[gi] != ConvergenceReason.NOT_CONVERGED:
+                        active[gi] = False
+
+            rejected = active & ~accept
+            fails[rejected] += 1
+            for gi in np.flatnonzero(rejected):
+                if fails[gi] > max_improvement_failures:
+                    reasons[gi] = ConvergenceReason.OBJECTIVE_NOT_IMPROVING
                     active[gi] = False
-
-        rejected = active & ~accept
-        fails[rejected] += 1
-        for gi in np.flatnonzero(rejected):
-            if fails[gi] > max_improvement_failures:
-                reasons[gi] = ConvergenceReason.OBJECTIVE_NOT_IMPROVING
-                active[gi] = False
 
     if margins_out is not None:
         margins_out[:] = z_list

@@ -1,8 +1,9 @@
 """Streaming GAME scoring engine: a frozen device-resident model, varying
 request data, static-shape bucket dispatch through captured CUDA graphs
-(port of photon_ml_tpu/serving/engine.py: ExecutableCache :69-118,
-_SubSpec :120, _StreamScoring :131, _HostRequest :148, _vstack_csr :157,
-StreamingGameScorer :175-769 without its telemetry).
+(port of photon_ml_tpu/serving/engine.py: the registry metrics :57-66,
+ExecutableCache :69-118 with its profiler, _SubSpec :120, _StreamScoring
+:131, _HostRequest :148, _vstack_csr :157, StreamingGameScorer :175-769;
+its score monitor is ROADMAP A5c).
 
 The inverse of ``DeviceGameScorer`` (which freezes one dataset and
 varies the model): the model's parameters are uploaded once at
@@ -47,14 +48,25 @@ and graphs.
 
 Padded rows cannot leak: padded rows have no CSR entries, padded code
 slots carry -1 (the unknown-entity zero row), and results are sliced to
-the real row count before they leave the engine. The JAX engine's spans,
-registry metrics, executable profiler and score monitor are ROADMAP A5b
-and A5c; ``stats()`` has every other key of JAX's.
+the real row count before they leave the engine.
+
+Telemetry, as in JAX: the spans ``featureize``, ``assemble`` and
+``dispatch`` (upload and replay enqueue; the device time shows as
+``device_wait`` where the window waits), the registry counters
+``serving.requests``, ``serving.dispatches``, ``serving.rows_scored`` and
+the histogram ``serving.request_latency_seconds`` (featureization to
+settled result), mirrored per model under ``serving.model.<label>.*``
+when the engine has a ``metrics_label``, and the cache's
+:class:`~photon_ml_tpu_torch.telemetry.ExecutableProfiler` (build and
+first-replay wall per bucket, dispatch-to-settle per rows bucket, read
+where the window already waits). ``stats()`` has JAX's keys but the
+score monitor's ``score_distribution`` (ROADMAP A5c).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
@@ -62,6 +74,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.data.device_feed import (
     InFlightWindow,
     chunked_device_put,
@@ -77,10 +90,20 @@ from photon_ml_tpu_torch.ops import spmv
 from photon_ml_tpu_torch.ops.features import padded_csr
 from photon_ml_tpu_torch.serving import kernels
 from photon_ml_tpu_torch.serving.buckets import BucketLadder
+from photon_ml_tpu_torch.telemetry import span
 from photon_ml_tpu_torch.utils.tracing_guard import BuildCount, TracingGuard
 from photon_ml_tpu_torch.utils.vocab import SortedVocab
 
 Tensor = torch.Tensor
+
+# Process-wide registry mirrors of the engines' ``_stats`` (no-ops while
+# telemetry is off; they sum across live engines, whose own numbers stay
+# on ``stats()``).
+_M_REQUESTS = telemetry.counter("serving.requests")
+_M_DISPATCHES = telemetry.counter("serving.dispatches")
+_M_ROWS_SCORED = telemetry.counter("serving.rows_scored")
+_H_REQUEST_LATENCY = telemetry.histogram(
+    "serving.request_latency_seconds")
 
 class ExecutableCache:
     """Explicit bucket cache: key -> ``BucketExecutable``, with an honest
@@ -91,13 +114,18 @@ class ExecutableCache:
     bucket staying in the guard's totals under a fresh generation name.
     One engine's: its keys are bucket shapes. ``label`` prefixes the
     guard's names (the front-end's model name), and ``total_traces`` is
-    the guard's, which engines may share."""
+    the guard's, which engines may share. ``profiler`` (the front-end's
+    shared :class:`ExecutableProfiler`, or the cache's own) records each
+    build and dispatch under the bucket's guard name."""
 
     def __init__(self, guard: Optional[TracingGuard] = None,
-                 label: Optional[str] = None):
+                 label: Optional[str] = None,
+                 profiler: Optional[telemetry.ExecutableProfiler] = None):
         self._entries: Dict[Tuple, object] = {}
         self.compilations = 0
         self.guard = guard if guard is not None else TracingGuard()
+        self.profiler = (profiler if profiler is not None
+                         else telemetry.ExecutableProfiler())
         self._prefix = f"bucket:{label}:" if label else "bucket:"
 
     def __len__(self) -> int:
@@ -109,12 +137,16 @@ class ExecutableCache:
     def items(self):
         return self._entries.items()
 
+    def name_of(self, key: Tuple) -> str:
+        """The bucket's name in the guard and the profiler."""
+        return f"{self._prefix}{key!r}"
+
     def get_or_build(self, key: Tuple, build):
         fn = self._entries.get(key)
         if fn is None:
             fn = self._entries[key] = build()
             self.compilations += 1
-            self.guard.track(f"{self._prefix}{key!r}", fn)
+            self.guard.track(self.name_of(key), fn)
         return fn
 
     def total_traces(self) -> int:
@@ -326,15 +358,19 @@ class StreamingGameScorer:
     float64 for the CPU parity tests). Construction uploads and
     assembles all model state; no per-request work touches model
     parameters again. The engine owns its bucket cache (``cache``);
-    engines that share ``tracing_guard`` (the front-end's) count their
-    builds in one place. ``device`` defaults to the card and raises
-    without CUDA unless it is ``"cpu"``."""
+    engines that share ``tracing_guard`` and ``profiler`` (the
+    front-end's) count their builds and dispatches in one place.
+    ``metrics_label`` mirrors the serving metrics per model. ``device``
+    defaults to the card and raises without CUDA unless it is
+    ``"cpu"``."""
 
     def __init__(self, model: GameModel, dtype=torch.float32,
                  ladder: Optional[BucketLadder] = None,
                  pipeline_depth: int = 2,
                  tracing_guard: Optional[TracingGuard] = None,
-                 metrics_label: Optional[str] = None, device="cuda"):
+                 metrics_label: Optional[str] = None,
+                 profiler: Optional[telemetry.ExecutableProfiler] = None,
+                 device="cuda"):
         self.device = resolve_device(device)
         self.dtype = dtype
         self.np_dtype = torch.empty((), dtype=dtype).numpy().dtype
@@ -346,10 +382,23 @@ class StreamingGameScorer:
         self._stats = {"dispatches": 0, "requests": 0, "rows_scored": 0,
                        "rows_padded": 0, "nnz_scored": 0, "nnz_padded": 0}
         self.cache = ExecutableCache(guard=tracing_guard,
-                                     label=metrics_label)
-        # The per-model registry mirrors of JAX (serving.model.<label>.*)
-        # are ROADMAP A5b; the label is kept and reported in stats().
+                                     label=metrics_label, profiler=profiler)
+        # Per-model registry metrics (serving.model.<label>.*): with
+        # several engines resident, the process-wide serving.* metrics sum
+        # across models, so a labelled engine also mirrors into its own
+        # family and stats() reports its own latency histogram.
         self.metrics_label = metrics_label
+        if metrics_label:
+            pre = f"serving.model.{metrics_label}."
+            self._m_requests = telemetry.counter(pre + "requests")
+            self._m_dispatches = telemetry.counter(pre + "dispatches")
+            self._m_rows_scored = telemetry.counter(pre + "rows_scored")
+            self._h_latency = telemetry.histogram(
+                pre + "request_latency_seconds")
+        else:
+            self._m_requests = self._m_dispatches = None
+            self._m_rows_scored = None
+            self._h_latency = None
 
         dev, dt = self.device, dtype
         for name, m in model.models.items():
@@ -509,6 +558,11 @@ class StreamingGameScorer:
         splits = np.cumsum([r.n_rows for r in group])[:-1]
         self._stats["requests"] += len(group)
         self._stats["rows_scored"] += n_total
+        _M_REQUESTS.inc(len(group))
+        _M_ROWS_SCORED.inc(n_total)
+        if self._m_requests is not None:
+            self._m_requests.inc(len(group))
+            self._m_rows_scored.inc(n_total)
         self._stats["rows_padded"] += rows_b
         self._stats["nnz_scored"] += nnz_total
         self._stats["nnz_padded"] += sum(nnz_buckets)
@@ -516,18 +570,64 @@ class StreamingGameScorer:
 
     # -- device dispatch ---------------------------------------------------
 
+    def _bucket_cost(self, rows_b: int, nnz_by_shard: Tuple[int, ...]
+                     ) -> Dict[str, float]:
+        """Static FLOPs and bytes of one dispatch of a bucket, reckoned
+        from its padded shapes: each row-9 product at the count of
+        chip_smoke.py's ``spmv_entry`` (2 nnz operations; values and
+        column ids, row pointers, the vector and the result once); a
+        random effect adds its nnz products x_ij M[entity(i), j] (one
+        operation, one row id and one gathered M entry each); an MF term
+        2k operations and 2k gathered factors a row."""
+        isz = np.dtype(self.np_dtype).itemsize
+        nnz = dict(zip(self._shard_order, nnz_by_shard))
+        flops = bytes_ = 0.0
+        for spec, p in zip(self._subs, self._params):
+            if spec.kind == "mf":
+                k = p[0].shape[1]
+                flops += 2 * k * rows_b
+                bytes_ += rows_b * (8 + 2 * k * isz)
+                continue
+            n, d = nnz[spec.shard_id], self._shards[spec.shard_id]
+            flops += 2 * n
+            bytes_ += (isz + 4) * n + 4 * (rows_b + 1) + isz * (d + rows_b)
+            if spec.kind == "random":
+                flops += n
+                bytes_ += (4 + isz) * n + 4 * rows_b
+        return {"flops": flops, "bytes_accessed": bytes_}
+
     def _dispatch(self, key, payload):
         """Stage one padded batch and run its bucket (asynchronous on the
-        card): (host scores [rows_b], the event behind them or None)."""
-        ex = self.cache.get_or_build(
-            key, lambda: BucketExecutable(self, *key))
-        self._stats["dispatches"] += 1
-        if self.device.type != "cuda":
-            ex.stage(payload)
-            return ex.run()
-        with torch.cuda.device(self.device):
-            ex.stage(payload)
-            return ex.run()
+        card): (host scores [rows_b], the event behind them or None). The
+        ``dispatch`` span measures upload and enqueue; a build (cache
+        miss) feeds the profiler its wall time and static cost, and the
+        first run's wall time, with no sync added."""
+        with span("dispatch"):
+            before = self.cache.compilations
+            t0 = time.perf_counter()
+            ex = self.cache.get_or_build(
+                key, lambda: BucketExecutable(self, *key))
+            self._stats["dispatches"] += 1
+            _M_DISPATCHES.inc()
+            if self._m_dispatches is not None:
+                self._m_dispatches.inc()
+            built = self.cache.compilations != before
+            if built:
+                self.cache.profiler.profile_build(
+                    self.cache.name_of(key), time.perf_counter() - t0,
+                    rows_bucket=key[0], **self._bucket_cost(*key))
+            t1 = time.perf_counter()
+            if self.device.type != "cuda":
+                ex.stage(payload)
+                out = ex.run()
+            else:
+                with torch.cuda.device(self.device):
+                    ex.stage(payload)
+                    out = ex.run()
+            if built:
+                self.cache.profiler.record_first_call(
+                    self.cache.name_of(key), time.perf_counter() - t1)
+            return out
 
     #: _stats keys rolled back by :meth:`rollback_stats`: request and row
     #: accounting and its padding companions, not ``dispatches`` (a
@@ -541,13 +641,33 @@ class StreamingGameScorer:
         return {k: self._stats[k] for k in self._ROLLBACK_KEYS}
 
     def rollback_stats(self, checkpoint: Dict[str, int]) -> None:
-        """Un-count a failed ``score_many`` attempt, so requests and
-        rows_scored count each served request once even when the
-        front-end's fault isolation re-scores a window solo. Caller
+        """Un-count a failed ``score_many`` attempt, in the engine's
+        stats and their registry twins (global and per model), so
+        requests and rows_scored count each served request once even when
+        the front-end's fault isolation re-scores a window solo. Caller
         contract: one mutator (the front-end's dispatch thread), the
-        checkpoint taken just before the attempt."""
+        checkpoint taken just before the attempt. Latency histograms are
+        not rolled back: a settled sub-group really waited that long."""
+        d_req = self._stats["requests"] - checkpoint["requests"]
+        d_rows = self._stats["rows_scored"] - checkpoint["rows_scored"]
         for k in self._ROLLBACK_KEYS:
             self._stats[k] = checkpoint[k]
+        if d_req:
+            _M_REQUESTS.inc(-d_req)
+            if self._m_requests is not None:
+                self._m_requests.inc(-d_req)
+        if d_rows:
+            _M_ROWS_SCORED.inc(-d_rows)
+            if self._m_rows_scored is not None:
+                self._m_rows_scored.inc(-d_rows)
+
+    def _observe_latency(self, seconds: float, n: int = 1) -> None:
+        """``n`` requests settled at one latency (a coalesced group
+        shares its dispatch): the process-wide histogram and, for a
+        labelled engine, its per-model twin, one lock a group."""
+        _H_REQUEST_LATENCY.observe(seconds, n=n)
+        if self._h_latency is not None:
+            self._h_latency.observe(seconds, n=n)
 
     # -- public scoring API ------------------------------------------------
 
@@ -596,21 +716,33 @@ class StreamingGameScorer:
         win = InFlightWindow(self.pipeline_depth)
 
         def settle(done):
-            out, idxs, splits = done
+            out, idxs, splits, t_start, rows_b, t_disp = done
             n_real = sum(datasets[i].num_rows for i in idxs)
             host = out.numpy()[:n_real].copy()
+            now = time.perf_counter()
             for idx, chunk in zip(idxs, np.split(host, splits)):
                 results[idx] = chunk
+            # One shared dispatch: every request of the group waited the
+            # same time from featureization to its settled result.
+            self._observe_latency(now - t_start, n=len(idxs))
+            # Dispatch-to-settle per rows bucket, where the window has
+            # already waited on the dispatch's event.
+            self.cache.profiler.record_dispatch(rows_b, now - t_disp,
+                                                n_real)
 
         for g in groups:
             if len(g) == 1 and datasets[g[0]].num_rows \
                     > self.ladder.max_rows:
                 results[g[0]] = self.score(datasets[g[0]])
                 continue
-            reqs = [self._featureize(datasets[i]) for i in g]
-            key, payload, splits = self._assemble(reqs)
-            done = self._push(win, (g, splits),
-                              self._dispatch(key, payload))
+            t_start = time.perf_counter()
+            with span("featureize"):
+                reqs = [self._featureize(datasets[i]) for i in g]
+            with span("assemble"):
+                key, payload, splits = self._assemble(reqs)
+            launched = self._dispatch(key, payload)
+            done = self._push(win, (g, splits, t_start, key[0],
+                                    time.perf_counter()), launched)
             if done is not None:
                 settle(done)
         for done in win.drain():
@@ -625,16 +757,21 @@ class StreamingGameScorer:
         pending: List[np.ndarray] = []
 
         def settle(done):
-            out, n_real, last = done
+            out, n_real, t_start, rows_b, t_disp = done
             pending.append(out.numpy()[:n_real].copy())
-            if not last:  # not the dataset's last piece
+            now = time.perf_counter()
+            self.cache.profiler.record_dispatch(rows_b, now - t_disp,
+                                                n_real)
+            if t_start is None:  # not the dataset's last piece
                 return None
+            self._observe_latency(now - t_start)
             res = (pending[0] if len(pending) == 1
                    else np.concatenate(pending))
             pending.clear()
             return res
 
         for ds in datasets:
+            t_req = time.perf_counter()
             if ds.num_rows == 0:
                 # Flush in-flight work so output order is preserved.
                 for done in win.drain():
@@ -645,11 +782,15 @@ class StreamingGameScorer:
                 continue
             pieces = self._split(ds)
             for pi, piece in enumerate(pieces):
-                req = self._featureize(piece)
-                key, payload, _ = self._assemble([req])
+                with span("featureize"):
+                    req = self._featureize(piece)
+                with span("assemble"):
+                    key, payload, _ = self._assemble([req])
+                launched = self._dispatch(key, payload)
                 done = self._push(
-                    win, (piece.num_rows, pi == len(pieces) - 1),
-                    self._dispatch(key, payload))
+                    win, (piece.num_rows,
+                          t_req if pi == len(pieces) - 1 else None,
+                          key[0], time.perf_counter()), launched)
                 if done is not None:
                     res = settle(done)
                     if res is not None:
@@ -710,9 +851,14 @@ class StreamingGameScorer:
                 "bucket_shapes": sorted(self.cache.keys())}
 
     def stats(self) -> dict:
-        """Engine counters, snake_case (JAX's keys). The telemetry-fed
-        ``request_latency_seconds`` and ``profiler`` (and, with a score
-        monitor, ``score_distribution``) come with ROADMAP A5b and A5c."""
+        """Engine counters, snake_case (JAX's keys; the score monitor's
+        ``score_distribution`` is ROADMAP A5c). ``request_latency_seconds``
+        reads this engine's per-model histogram when it has a
+        ``metrics_label``, else the process-wide one (which sums across
+        live engines; populated only while telemetry is enabled). An
+        unlabelled engine reports its cache's ``profiler`` table; a
+        labelled one is a front-end's, whose ``stats()["cache"]`` carries
+        the shared table once."""
         s = dict(self._stats)
         s["padding_waste_rows"] = (
             1.0 - s["rows_scored"] / s["rows_padded"]
@@ -723,4 +869,9 @@ class StreamingGameScorer:
         s.update(self.cache_info())
         if self.metrics_label:
             s["metrics_label"] = self.metrics_label
+        else:
+            s["profiler"] = self.cache.profiler.table()
+        h = (self._h_latency if self._h_latency is not None
+             else _H_REQUEST_LATENCY)
+        s["request_latency_seconds"] = h.snapshot()
         return s

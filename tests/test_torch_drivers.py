@@ -23,9 +23,14 @@ within 1e-9, equal bestConfigs and convergence summaries, decoded
 coefficient records atol 1e-6; cross-scoring (each driver scores both
 trained models): scores atol 1e-10, AUC 1e-9; --stream and --serve
 (each driver scoring the port-trained models): scores allclose 1e-12,
-the same metrics, equal shared summary keys. The flags of later queue
-items raise an error naming the item; the ported --stream-train flags,
-each with a flag of a later item, raise naming that item.
+the same metrics, equal shared summary keys. Every summary has JAX's
+full key set, ``telemetry`` and ``observability`` included; the
+training runs take --trace-out, and their stage names, the metrics they
+moved and their trace's span names are JAX's. The telemetry flags
+(--trace-out, --profile-output-dir, --flight-events) run and leave
+their output; the flags of later queue items raise an error naming the
+item, and the ported --stream-train flags, each with a flag of a later
+item, raise naming that item.
 """
 
 import functools
@@ -98,15 +103,18 @@ def _write(path: Path, records) -> Path:
 
 
 def _train_both(root: Path, flags):
-    """Both training drivers on the same command line; the JAX one with
-    its estimator at float64."""
+    """Both training drivers on the same command line, each writing its
+    --trace-out beside its output directory; the JAX one with its
+    estimator at float64."""
     summaries = {"port": game_training_driver.run(
-        [*flags, "--output-dir", str(root / "port")], device="cpu")}
+        [*flags, "--output-dir", str(root / "port"),
+         "--trace-out", str(root / "port-trace.json")], device="cpu")}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_training, "GameEstimator",
                    functools.partial(JaxGE, dtype=jnp.float64))
         summaries["jax"] = jax_training.run(
-            [*flags, "--output-dir", str(root / "jax")])
+            [*flags, "--output-dir", str(root / "jax"),
+             "--trace-out", str(root / "jax-trace.json")])
     return summaries
 
 
@@ -150,14 +158,50 @@ def runs(tmp_path_factory):
 EXAMPLES = ["training", "full"]
 
 
+def _moved(tel: dict) -> set:
+    """The registry metrics a run moved (counters and gauges off zero,
+    histograms observed)."""
+    m = tel["metrics"]
+    return ({k for k, v in m["counters"].items() if v}
+            | {k for k, v in m["gauges"].items() if v}
+            | {k for k, h in m["histograms"].items() if h["count"]})
+
+
+def _span_names(trace: Path) -> set:
+    return {e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+            if e["ph"] == "X"}
+
+
+# The port's one-shot read decodes through the C block decoder (a
+# ``decode`` span) at a size where the JAX driver's "auto" ingest takes
+# its fast_ingest path, which opens none (data/parallel_ingest.py).
+ONE_SHOT_DECODE = {"decode"}
+
+
 @pytest.mark.parametrize("example", EXAMPLES)
 def test_metrics_json_matches_jax(runs, example):
     run = runs[example]
     port, jax = run["summary"]["port"], run["summary"]["jax"]
     on_disk = json.loads((run["root"] / "port" / "metrics.json").read_text())
     assert on_disk == port
-    # Every JAX in-core key but the telemetry blocks (ROADMAP A5).
-    assert set(port) == set(jax) - {"telemetry", "observability"}
+    assert set(port) == set(jax)
+    mine, theirs = port["telemetry"], jax["telemetry"]
+    assert set(mine) == set(theirs)
+    assert set(mine["stage_attribution"]) - ONE_SHOT_DECODE == set(
+        theirs["stage_attribution"]) - ONE_SHOT_DECODE
+    assert {"driver", "ingest", "solve", "finalize"} <= set(
+        mine["stage_attribution"])
+    assert _moved(mine) == _moved(theirs)
+    assert mine["attributed_wall_frac"] >= 0.9
+    root = run["root"]
+    assert _span_names(root / "port-trace.json") - ONE_SHOT_DECODE == (
+        _span_names(root / "jax-trace.json") - ONE_SHOT_DECODE)
+    obs, jobs = port["observability"], jax["observability"]
+    assert set(obs) == set(jobs)
+    assert obs["server"] is jobs["server"] is None
+    assert obs["flight_path"] is jobs["flight_path"] is None
+    assert set(obs["flight_recorder"]) == set(jobs["flight_recorder"])
+    assert obs["trace_tail"] == jobs["trace_tail"]
     for key in ("taskType", "numRows", "num_rows", "updatingSequence",
                 "numCombos", "bestConfigs"):
         assert port[key] == jax[key], key
@@ -260,7 +304,8 @@ def test_cross_scoring(runs, example):
             [*argv, "--output-dir", str(root / f"scored-{trained}-by-jax")])
         assert mine["scoring_path"] == mine["scoringPath"] == "device"
         assert mine["num_rows"] == theirs["num_rows"] == 150
-        assert set(mine) == set(theirs) - {"telemetry", "observability"}
+        assert set(mine) == set(theirs)
+        assert set(mine["observability"]) == set(theirs["observability"])
         assert abs(mine["metrics"]["AUC"] - theirs["metrics"]["AUC"]) <= 1e-9
         recs = [list(read_container(root / f"scored-{trained}-by-{who}"
                                     / "scores" / "part-00000.avro"))
@@ -292,34 +337,62 @@ TRAINING_LATER = [
       "--factored-random-effect-optimization-configurations",
       "mf:20,1e-6,1.0,1.0,LBFGS,L2;20,1e-6,1.0,1.0,LBFGS,L2;1,2",
       "--random-effect-data-configurations", "--updating-sequence", "mf",
-      "--distmon"], "A5", "--distmon"),
+      "--distmon"], "A5c", "--distmon"),
     (["--hbm-budget", "8K", *_STREAM_FE, *_GRID2, "--mesh-devices", "2"],
      "A6", "--mesh-devices"),
-    (["--grid-batched", "on", "--hbm-budget", "8K", *_STREAM_FE,
-      "--trace-out", "t.json"], "A5", "--trace-out"),
     (["--grid-batched", "off", "--hbm-budget", "8K", *_STREAM_FE,
       "--mesh-devices", "2"], "A6", "--mesh-devices"),
     (["--spill-dtype", "bf16", "--hbm-budget", "8K", *_STREAM_FE,
-      "--distmon"], "A5", "--distmon"),
+      "--distmon"], "A5c", "--distmon"),
     (["--spill-source", "redecode", "--hbm-budget", "8K", *_STREAM_FE,
       "--mesh-shape", "2x2"], "A6", "--mesh-shape"),
-    (["--feeder", "python", *_STREAM_FE, "--trace-out", "t.json"], "A5",
-     "--trace-out"),
-    (["--prefetch-batches", "0", *_STREAM_FE, "--profile-output-dir",
-      "prof"], "A5", "--profile-output-dir"),
-    (["--distmon"], "A5", "--distmon"),
-    (["--trace-out", "t.json"], "A5", "--trace-out"),
-    (["--profile-output-dir", "prof"], "A5", "--profile-output-dir"),
-    (["--obs-port", "0"], "A5", "--obs-port"),
-    (["--flight-events", "16"], "A5", "--flight-events"),
-    (["--slo", "p99:x<=1ms"], "A5", "--slo"),
+    (["--distmon"], "A5c", "--distmon"),
+    (["--obs-port", "0"], "A5c", "--obs-port"),
+    (["--slo", "p99:x<=1ms"], "A5c", "--slo"),
     (["--mesh-devices", "2"], "A6", "--mesh-devices"),
     (["--mesh-shape", "2x2"], "A6", "--mesh-shape")]
 SCORING_LATER = [
-    (["--listen", "0"], "A5"),
-    (["--adaptive-admission"], "A5"), (["--distmon"], "A5"),
-    (["--trace-out", "t.json"], "A5"), (["--obs-port", "0"], "A5"),
-    (["--flight-events", "16"], "A5"), (["--slo", "p99:x<=1ms"], "A5")]
+    (["--listen", "0"], "A5d"),
+    (["--adaptive-admission"], "A5d"), (["--distmon"], "A5c"),
+    (["--obs-port", "0"], "A5c"), (["--slo", "p99:x<=1ms"], "A5c")]
+# The telemetry flags, ported here (ROADMAP A5b): the cases of the lists
+# above that named them, each now run (one coordinate-descent iteration)
+# with its output checked (what, below).
+TRAINING_TELEMETRY = [
+    (["--grid-batched", "on", "--hbm-budget", "8K", *_STREAM_FE,
+      "--trace-out", "t.json"], "trace"),
+    (["--feeder", "python", *_STREAM_FE, "--trace-out", "t.json"],
+     "trace"),
+    (["--prefetch-batches", "0", *_STREAM_FE, "--profile-output-dir",
+      "prof"], "profile"),
+    (["--trace-out", "t.json"], "trace"),
+    (["--profile-output-dir", "prof"], "profile"),
+    (["--flight-events", "16"], "flight")]
+SCORING_TELEMETRY = [(["--trace-out", "t.json"], "trace"),
+                     (["--flight-events", "16"], "flight")]
+
+
+def _check_telemetry_output(summary: dict, argv, what: str):
+    """A telemetry flag's output: the Chrome trace parses with its
+    driver track; the profile directory holds a host trace of the run;
+    the flight recorder's ring has the asked capacity."""
+    if what == "trace":
+        doc = json.loads(Path(argv[argv.index("--trace-out") + 1])
+                         .read_text())
+        names = {e["args"]["name"] for e in doc["traceEvents"]
+                 if e["ph"] == "M"}
+        assert "driver" in names
+        assert "driver" in {e["name"] for e in doc["traceEvents"]
+                            if e["ph"] == "X"}
+    elif what == "profile":
+        prof = Path(argv[argv.index("--profile-output-dir") + 1])
+        (trace,) = prof.glob("torch_trace_*.json")
+        events = json.loads(trace.read_text())["traceEvents"]
+        assert any(e.get("cat") == "cpu_op" for e in events)
+    else:
+        assert summary["observability"]["flight_recorder"][
+            "ring_capacity"] == 16
+    assert "driver" in summary["telemetry"]["stage_attribution"]
 
 
 @pytest.mark.parametrize("extra,item,named", TRAINING_LATER,
@@ -343,6 +416,32 @@ def test_scoring_flags_of_later_items_raise(tmp_path, extra, item):
                        f"it comes with ROADMAP queue {item}"):
         game_scoring_driver.run(argv, device="cpu")
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("extra,what", TRAINING_TELEMETRY,
+                         ids=[e[0] for e, _ in TRAINING_TELEMETRY])
+def test_training_telemetry_flags_run(runs, tmp_path, extra, what):
+    root = runs["training"]["root"]
+    out = tmp_path / "out"
+    rel = [str(out / a) if a in ("t.json", "prof") else a for a in extra]
+    summary = game_training_driver.run(
+        ["--train-input-dirs", str(root / "train"), "--output-dir",
+         str(out), *TRAINING_FLAGS, "--num-iterations", "1", *rel],
+        device="cpu")
+    _check_telemetry_output(summary, rel, what)
+
+
+@pytest.mark.parametrize("extra,what", SCORING_TELEMETRY,
+                         ids=[e[0] for e, _ in SCORING_TELEMETRY])
+def test_scoring_telemetry_flags_run(runs, tmp_path, extra, what):
+    root = runs["training"]["root"]
+    out = tmp_path / "out"
+    rel = [str(out / a) if a == "t.json" else a for a in extra]
+    summary = game_scoring_driver.run(
+        ["--input-dirs", str(runs["training"]["valid"]),
+         "--game-model-input-dir", str(root / "port" / "best"),
+         "--output-dir", str(out), *rel], device="cpu")
+    _check_telemetry_output(summary, rel, what)
 
 
 STREAMED = {"stream": ["--stream", "--batch-rows", "64"],
@@ -393,7 +492,10 @@ def test_streamed_and_served_scoring_match_jax(runs, example, mode):
         device="cpu")
     theirs = jax_scoring.run(
         [*argv, "--output-dir", str(root / f"{mode}-by-jax")])
-    assert set(mine) == set(theirs) - {"telemetry", "observability"}
+    assert set(mine) == set(theirs)
+    block = "engine" if mode == "stream" else "frontend"
+    assert set(mine[block]) == set(theirs[block])
+    assert _moved(mine["telemetry"]) == _moved(theirs["telemetry"])
     assert mine["num_rows"] == 150
     assert abs(mine["metrics"]["AUC"] - theirs["metrics"]["AUC"]) <= 1e-12
     for key, sub in SHARED[mode].items():

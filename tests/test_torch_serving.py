@@ -66,8 +66,6 @@ from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 JDT, DT = jnp.float64, torch.float64
 LADDER = dict(min_rows=8, max_rows=64)
 RTOL = ATOL = 1e-12
-# JAX's stats() keys that are telemetry (ROADMAP A5b).
-TELEMETRY_KEYS = {"request_latency_seconds", "profiler"}
 
 
 def _columns(rng, n=60, d=6, n_users=7, n_items=5, user_names=None):
@@ -191,17 +189,25 @@ def assert_scores(got, jax_got, pair=None, models=None):
 
 
 CACHE_KEYS = {"entries", "compilations", "traces", "bucket_shapes"}
+# The stats() keys telemetry fills: the process-wide histogram and the
+# per-run profiler, compared by their own keys.
+TELEMETRY_KEYS = {"request_latency_seconds", "profiler"}
 
 
 def assert_same_counters(eng, jeng):
-    """Equal non-telemetry stats; the cache's keys only when the JAX
-    engine has a cache of its own."""
+    """JAX's stats() keys in full, equal counters (the cache's only when
+    the JAX engine has a cache of its own), and the telemetry keys' own
+    keys: the latency histogram's snapshot and the profiler's table."""
     mine, theirs = eng.stats(), jeng.stats()
-    assert set(mine) == set(theirs) - TELEMETRY_KEYS
+    assert set(mine) == set(theirs)
     own_cache = jeng.cache is not _JAX_CACHE
-    for key in mine:
+    for key in set(mine) - TELEMETRY_KEYS:
         if own_cache or key not in CACHE_KEYS:
             assert mine[key] == theirs[key], key
+    assert set(mine["request_latency_seconds"]) == set(
+        theirs["request_latency_seconds"])
+    if "profiler" in mine:
+        assert set(mine["profiler"]) == set(theirs["profiler"])
 
 
 @pytest.fixture(scope="module")

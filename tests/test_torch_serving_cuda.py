@@ -375,3 +375,28 @@ def test_hot_swaps_free_the_displaced_engines(cuda_device):
     assert allocated[2] <= allocated[0] and allocated[3] <= allocated[1], \
         allocated
     assert fe.stats()["cache"]["compilations"] >= 5
+
+
+@pytest.mark.cuda
+def test_profiler_rows_count_the_replays(cuda_device):
+    """The executable profiler's row of each rows bucket counts that
+    bucket's graph replays (one a dispatch), builds record their static
+    cost, and dispatch-to-settle times are positive."""
+    eng = engine(model("all"))
+    sizes = [3, 3, 40, 7, 120, 40, 3]
+    for i, n in enumerate(sizes):
+        eng.score(request(700 + i, n))
+    table = eng.stats()["profiler"]
+    replays = {}
+    for (rows_b, _), ex in eng.buckets().items():
+        replays[rows_b] = replays.get(rows_b, 0) + ex.replays
+    assert {int(k[1:]): r["dispatches"]
+            for k, r in table["dispatch"].items()} == replays
+    assert sum(replays.values()) == len(sizes) == eng.stats()["dispatches"]
+    assert len(table["builds"]) == len(eng.buckets())
+    for b in table["builds"].values():
+        assert b["lower_s"] > 0 and b["first_call_s"] > 0
+        assert b["flops"] > 0 and b["bytes_accessed"] > 0
+    for r in table["dispatch"].values():
+        assert 0 < r["min_s"] <= r["mean_s"] <= r["max_s"]
+        assert r["est_flops_per_sec"] > 0

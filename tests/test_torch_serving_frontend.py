@@ -356,8 +356,13 @@ def test_tenancy_routes_models_and_shares_one_cache(ref):
     for eng in (eng_a, eng_b):
         shapes = set(eng.buckets())
         assert eng.stats()["dispatches"] >= len(shapes) >= 1
-    assert fe.stats()["cache"] == {"entries": built, "compilations": built,
-                                   "traces": built}
+    cache = fe.stats()["cache"]
+    assert {k: cache[k] for k in ("entries", "compilations", "traces")} == {
+        "entries": built, "compilations": built, "traces": built}
+    # The engines' shared profiler saw each build once, under its model.
+    builds = cache["profiler"]["builds"]
+    assert len(builds) == built
+    assert {name.split(":")[1] for name in builds} == {"a", "b"}
 
 
 def test_per_model_stats_do_not_cross_contaminate(ref):
@@ -466,8 +471,10 @@ def test_swap_unknown_model_and_duplicate_add(ref):
 
 
 def test_stats_keys_are_jax_keys_but_telemetry(ref):
-    """The port's stats() has every key of JAX's front-end but the
-    telemetry histograms (and the cache's profiler), ROADMAP A5b."""
+    """The port's stats() has every key of JAX's front-end, the
+    telemetry histograms and the cache's profiler included since the
+    telemetry core (ROADMAP A5b): the histograms' snapshots and the
+    profiler's table carry JAX's keys too."""
     fe = frontend({"default": ref.model().t})
     jfe = JaxFrontend({"default": ref.model().j}, dtype=ts.JDT,
                       ladder=JaxLadder(**LADDER),
@@ -476,7 +483,11 @@ def test_stats_keys_are_jax_keys_but_telemetry(ref):
     mine, theirs = fe.stats(), jfe.stats()
     telemetry = {"queue_wait_seconds", "request_latency_seconds",
                  "coalesce_group_requests"}
-    assert set(mine) == set(theirs) - telemetry
-    assert set(mine["cache"]) == set(theirs["cache"]) - {"profiler"}
-    for key in set(mine) - {"cache", "engines"}:
+    assert set(mine) == set(theirs)
+    assert set(mine["cache"]) == set(theirs["cache"])
+    assert set(mine["cache"]["profiler"]) == set(
+        theirs["cache"]["profiler"])
+    for key in telemetry:
+        assert set(mine[key]) == set(theirs[key]), key
+    for key in set(mine) - {"cache", "engines"} - telemetry:
         assert mine[key] == theirs[key], key

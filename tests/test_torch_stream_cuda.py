@@ -16,6 +16,7 @@ the JAX package, so it runs on a GPU host that has only PyTorch:
     python -m pytest --noconftest -q tests/test_torch_stream_cuda.py
 """
 
+import json
 import threading
 
 import numpy as np
@@ -293,3 +294,80 @@ def test_streamed_model_identical_across_residency_on_the_card(cuda_device):
                        resident)
     assert torch.equal(solve(hbm_budget_bytes=1, spill_dtype="bf16"),
                        solve(hbm_budget_bytes=10 << 20, spill_dtype="bf16"))
+
+
+@pytest.mark.cuda
+def test_maybe_trace_records_row9_and_entity_kernel(cuda_device, tmp_path):
+    """utils/profiling.maybe_trace on the card records the port's
+    ctypes-launched kernels as kernel events under their own names: one
+    for each launch of row 9 and of the entity kernel."""
+    from photon_ml_tpu_torch.ops import entity_solver
+    from photon_ml_tpu_torch.utils.profiling import maybe_trace
+
+    X, y = _problem(2000, 40, 0.2, seed=7)
+    cache = DeviceShardCache.from_stream(_stream(X, y, 2000), "g",
+                                         device=cuda_device)
+    block = next(iter(cache.blocks())).feats
+    v = torch.ones(40, device=cuda_device)
+    rng = np.random.default_rng(3)
+    e, r, d = 64, 12, 5
+    x = rng.normal(0, 1, (e, r, d))
+    args = [torch.as_tensor(np.asarray(a, np.float32), device=cuda_device)
+            for a in (x, rng.random((e, r)) < 0.5, np.zeros((e, r)),
+                      np.ones((e, r)), np.zeros((e, d)))]
+    loss = loss_for_task(TaskType.LOGISTIC_REGRESSION)
+    block.matvec(v)  # first products make their per-width state
+    entity_solver.entity_lbfgs(loss, *args, 1.0, max_iter=5)
+    torch.cuda.synchronize()
+    spmv.reset_launch_counts()
+    entity_solver.reset_launch_counts()
+    with maybe_trace(tmp_path, cuda_device) as path:
+        for _ in range(3):
+            block.matvec(v)
+        entity_solver.entity_lbfgs(loss, *args, 1.0, max_iter=5)
+        torch.cuda.synchronize()
+    events = [ev for ev in json.loads(path.read_text())["traceEvents"]
+              if ev.get("cat") == "kernel"]
+    names = [ev["name"] for ev in events]
+    assert sum("csr_kernel" in n for n in names) == \
+        spmv.csr_matvec.launches == 3
+    assert sum("entity_lbfgs_kernel" in n for n in names) == \
+        entity_solver.entity_lbfgs.launches == 1
+
+
+@pytest.mark.cuda
+def test_streamed_solve_bytes_do_not_depend_on_telemetry(cuda_device):
+    """A streamed L-BFGS solve over a spilling cache on the card, with
+    telemetry off and on (spans, metrics, a trace context and a flight
+    recorder): the same coefficient and history bytes."""
+    from photon_ml_tpu_torch import telemetry
+    from photon_ml_tpu_torch.telemetry import FlightRecorder
+
+    X, y = _problem(6000, 80, 0.25, seed=5)
+    obj = GLMObjective(loss_for_task(TaskType.LOGISTIC_REGRESSION))
+
+    def solve(ctx=None):
+        cache = DeviceShardCache.from_stream(
+            _stream(X, y, 1024), "g", device=cuda_device,
+            hbm_budget_bytes=600_000, prefetch_depth=2)
+        res = minimize_lbfgs_glm_streaming(
+            ShardedGLMObjective(obj, cache),
+            torch.zeros(80, device=cuda_device), 1.0, max_iter=30,
+            trace_ctx=ctx)
+        return res.x.cpu().numpy().tobytes(), \
+            res.value_history.numpy().tobytes()
+
+    off = solve()
+    telemetry.reset()
+    telemetry.enable(trace=True)
+    rec = FlightRecorder(max_events=256).install()
+    try:
+        on = solve(telemetry.mint("solve"))
+        counters = telemetry.snapshot()["counters"]
+    finally:
+        rec.uninstall()
+        telemetry.disable()
+        telemetry.reset()
+    assert on == off
+    assert counters["training.solver_iterations"] > 0
+    assert counters["data.shard_cache.misses"] > 0

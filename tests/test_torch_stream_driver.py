@@ -23,6 +23,7 @@ item. Every prefetch thread is joined with a timeout of its own.
 """
 
 import functools
+import json
 import importlib.util
 import threading
 from pathlib import Path
@@ -220,8 +221,9 @@ def test_metrics_stream_train_block_has_jax_keys(runs):
         jax = runs[f"jax-{mode}"]["stream_train"]
         # The JAX TracingGuard's budgets and counts are ROADMAP A7.
         assert set(mine) == set(jax) - {"trace_budgets", "trace_counts"}
-        assert set(runs[mode]) == set(runs[f"jax-{mode}"]) - {
-            "telemetry", "observability"}
+        assert set(runs[mode]) == set(runs[f"jax-{mode}"])
+        assert set(runs[mode]["telemetry"]) == set(
+            runs[f"jax-{mode}"]["telemetry"])
         for key in ("mode", "batch_rows", "hbm_budget_bytes", "spill_dtype",
                     "spill_source", "grid_batched", "grid_points"):
             assert mine[key] == jax[key], key
@@ -234,22 +236,17 @@ def test_metrics_stream_train_block_has_jax_keys(runs):
 # naming that item. The ids are the names these cases had while the
 # grid and streamed MF themselves raised naming A4b, kept so that each
 # case's record goes on under one name: what a case now asserts is its
-# `named` flag and its `item`.
+# `named` flag and its `item` (--distmon's item is A5c since the
+# telemetry core came, ROADMAP A5b). The case that named --trace-out
+# runs it (test_streamed_mf_trace_out_runs).
 @pytest.mark.parametrize("extra,named,item", [
-    (["--grid-batched", "on", *SPILL, "--distmon"], "--distmon", "A5"),
+    (["--grid-batched", "on", *SPILL, "--distmon"], "--distmon", "A5c"),
     (["--grid-batched", "auto", *SPILL, "--mesh-devices", "2"],
      "--mesh-devices", "A6"),
-    (["--factored-random-effect-data-configurations",
-      "mf:userId,global,1,-1,-1,-1,IDENTITY",
-      "--factored-random-effect-optimization-configurations",
-      "mf:20,1e-6,1.0,1.0,LBFGS,L2;20,1e-6,1.0,1.0,LBFGS,L2;1,2",
-      "--updating-sequence", "mf", "--trace-out", "t.json"],
-     "--trace-out", "A5"),
-    (["--distmon"], "--distmon", "A5"),
+    (["--distmon"], "--distmon", "A5c"),
     ([*SPILL, "--mesh-devices", "2"], "--mesh-devices", "A6"),
 ], ids=["extra0---grid-batched on-A4b", "extra1---grid-batched auto-A4b",
-        "extra2---stream-train-A4b", "extra3---distmon-A5",
-        "extra4---mesh-devices-A6"])
+        "extra3---distmon-A5", "extra4---mesh-devices-A6"])
 def test_unported_stream_flags_raise_naming_item(runs, tmp_path, extra,
                                                  named, item):
     with pytest.raises(ValueError, match=f"{named} is not ported yet: it "
@@ -258,6 +255,29 @@ def test_unported_stream_flags_raise_naming_item(runs, tmp_path, extra,
             [*runs["data"], *BASE, *extra, "--output-dir",
              str(tmp_path / "out")], device="cpu")
     assert not (tmp_path / "out").exists()
+
+
+def test_streamed_mf_trace_out_runs(runs, tmp_path):
+    """Streamed matrix factorization with --trace-out (the case that
+    raised naming the item until the telemetry core): the trace holds
+    the MF spans, and each λ minted a kept solve trace."""
+    out = tmp_path / "out"
+    summary = game_training_driver.run(
+        [*runs["data"], *BASE,
+         "--factored-random-effect-data-configurations",
+         "mf:userId,global,1,-1,-1,-1,IDENTITY",
+         "--factored-random-effect-optimization-configurations",
+         "mf:20,1e-6,1.0,1.0,LBFGS,L2;20,1e-6,1.0,1.0,LBFGS,L2;1,2",
+         "--updating-sequence", "mf", "--task-type", "LINEAR_REGRESSION",
+         "--trace-out", str(tmp_path / "t.json"), "--output-dir",
+         str(out)], device="cpu")
+    doc = json.loads((tmp_path / "t.json").read_text())
+    names = {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
+    assert {"driver", "solve", "factor_plan", "accumulate", "factor_solve",
+            "solver_step", "decode"} <= names
+    tail = summary["observability"]["trace_tail"]
+    assert tail["seen"] >= 2  # the λ's solve and its sweep
+    assert summary["telemetry"]["attributed_wall_frac"] >= 0.9
 
 
 def test_jax_checks_of_spill_flags_and_no_cpu_fallback(runs, tmp_path,
