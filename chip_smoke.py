@@ -108,8 +108,9 @@ L-BFGS/L2 on a 4-point λ grid with --grid-batched off, --feeder native,
 estimator), --hbm-budget above the shard's device bytes, at a quarter
 of them with f32 buffer spill, the same with --spill-source redecode on
 one λ (the quarter run's best: a cut of depth, since the redecode run
-re-decodes every miss), and with --spill-dtype bf16; and the one-shot
-driver on the same flags.
+re-decodes every miss), and with --spill-dtype bf16, each with
+--distmon; the one-shot driver on the same flags; and the budget-above
+run without --distmon.
 Its checks: the C decoder decoded every run; evictions where the budget
 forces them; the three f32 spill runs' decoded best models are the same
 records; the resident run's are the one-shot driver's; the bf16 model is
@@ -118,8 +119,16 @@ validation AUC equals the batch scoring driver's within 1e-6; the
 deterministic CSR product (kernel row 9, csrc/csr_spmv.cu) launched in
 every spill run; the registry's shard-cache counters (hits, misses,
 evictions, bytes re-uploaded and re-decoded) equal each cached run's
-``stream_train.cache`` block. It prints each run's phases and cache counters, and the
-C decoder's and the pure-Python codec's ms a row on one of the files.
+``stream_train.cache`` block; --distmon moves no model bit (the plain
+budget-above run's records are the f32 spill runs'); the five runs'
+``data_quality.state_sha256`` is one value, over 40,000 rows; the spill
+runs' convergence rings carry steps and the resident run's come from
+the solver history; every best model carries reference label and score
+sketches of 40,000 rows, the f32 runs' score medians within 5% of each
+other.
+It prints each run's phases and cache counters, its distribution
+summary, and the C decoder's and the pure-Python codec's ms a row on
+one of the files.
 Then the full-width stream phase feeds bench.py's training fixed shard
 (160,000 x 200, CSR float32 with int32 indices, nothing cut) from
 memory in 16,384-row batches into the shard cache and solves streamed
@@ -133,42 +142,42 @@ repeatability is printed); its matvec+rmatvec pair is timed (call and
 device ms) beside torch.mv's, with the host ms of each call.
 
 Path 9 (the second half of streamed training) runs the training driver
-on path 6's files three ways. Grid: path 8's quarter-budget f32 run
-with --grid-batched on (all four λ advance per feature pass); it must
-select path 8's sequential best λ with fewer feature passes and fewer
-bytes re-uploaded. Ingest: path 6's one-shot flags with
---ingest-workers 4 against 1 (worker processes that import no torch);
-the decoded arrays and the trained models must be the same bytes, and
-the ingest seconds of both and of path 7's GLM driver at auto are
-printed. MF: --stream-train of the itemFactors coordinate alone (config
-5's MF, k = 4, 2,000 items, its 20-iteration refit of B, nothing cut)
-under LINEAR_REGRESSION with no budget, a
-16K budget that evicts factor shards, that budget with bf16 spill and
-with redecode spill; the no-budget, f32 and redecode factors must be the
-same bits and bf16 within 5% of the largest factor value (the JAX
-package's bound). Kernel row 10 (csrc/csr_spmm.cu, the deterministic
-CSR x panel product) launches in the grid and MF runs, and is held at
-the shapes MF gave it (the normal equations' entity x row CSR with its
-[rows, 20] panel, one column tile; the feature block with B^T and its
-transpose) against its plain version and column by column against row
-9, each product's call and device ms printed beside its bound. Then the
-grid
-full-width phase solves the full-width stream phase's shard (160,000 x
-200 from memory) by batched L-BFGS at G = 4 and 8 against the
-sequential sweep of the same λ, with no budget and at 25% (ms per
-iteration, feature passes, bytes re-uploaded, the same selected λ),
-reports whether a G > 1 lane's value and gradient are the scalar
-path's bits, and holds row 10 against its plain version
-(torch.sparse.mm) within 1e-5 of sum |a x|, column by column against row
-9 bit for bit and itself over 20 calls, timed at n = 4 and 8 against n
-calls of row 9, cuSPARSE's SpMM and its bound. The order contract of
-rows 9 and 10 (csrc/csr_order.cuh: a row's additions depend on its own
-length only) is checked: a row of 3, L - 1, L, L + 1 and 3L + 5 entries
-(L the chunk) first in one CSR and last in another gives the same bits
-in both, the contract's (spmv.csr_order_reference), in row 9 and in row
-10 at n = 4 and 20. Last, 20 calls bit for bit each: the batched ridge
-solve of streamed MF (torch.linalg.solve on [2048, 4, 4]) and the
-in-core CSRFeatures' four products (row 9).
+on path 6's files three ways. Grid: path 8's quarter-budget f32 run with
+--grid-batched on (all four λ advance per feature pass); it must select
+path 8's sequential best λ with fewer feature passes and fewer bytes
+re-uploaded. Ingest: path 6's one-shot flags with --ingest-workers 4
+against 1 (worker processes that import no torch); the decoded arrays
+and the trained models must be the same bytes, and the ingest seconds of
+both and of path 7's GLM driver at auto are printed. MF: --stream-train
+of the itemFactors coordinate alone (config 5's MF, k = 4, 2,000 items,
+its 20-iteration refit of B, nothing cut) under LINEAR_REGRESSION with
+no budget, a 16K budget that evicts factor shards, that budget with bf16
+spill and with redecode spill; the no-budget, f32 and redecode factors
+must be the same bits and bf16 within 5% of the largest factor value
+(the JAX package's bound); the no-budget run takes --distmon, whose
+monitor must count the 40,000 rows once (one observed pass), sum its
+itemId heavy hitters over them, and write a label-only reference. Kernel
+row 10 (csrc/csr_spmm.cu, the deterministic CSR x panel product)
+launches in the grid and MF runs, and is held at the shapes MF gave it
+(the normal equations' entity x row CSR with its [rows, 20] panel, one
+column tile; the feature block with B^T and its transpose) against its
+plain version and column by column against row 9, each product's call
+and device ms printed beside its bound. Then the grid full-width phase
+solves the full-width stream phase's shard (160,000 x 200 from memory)
+by batched L-BFGS at G = 4 and 8 against the sequential sweep of the
+same λ, with no budget and at 25% (ms per iteration, feature passes,
+bytes re-uploaded, the same selected λ), reports whether a G > 1 lane's
+value and gradient are the scalar path's bits, and holds row 10 against
+its plain version (torch.sparse.mm) within 1e-5 of sum |a x|, column by
+column against row 9 bit for bit and itself over 20 calls, timed at n =
+4 and 8 against n calls of row 9, cuSPARSE's SpMM and its bound. The
+order contract of rows 9 and 10 (csrc/csr_order.cuh: a row's additions
+depend on its own length only) is checked: a row of 3, L - 1, L, L + 1
+and 3L + 5 entries (L the chunk) first in one CSR and last in another
+gives the same bits in both, the contract's (spmv.csr_order_reference),
+in row 9 and in row 10 at n = 4 and 20. Last, 20 calls bit for bit each:
+the batched ridge solve of streamed MF (torch.linalg.solve on [2048, 4,
+4]) and the in-core CSRFeatures' four products (row 9).
 
 Path 10 serves path 6's saved model (config 5 at full width, loaded
 from the reference's model files) on its 10,000 hold-out rows through
@@ -196,6 +205,24 @@ served request latency and queue wait P50/P95/P99. Last, the one-row
 requests are replayed through a front-end outside the driver with
 telemetry off and on in turns (off, on, on, off): rows a second each,
 and the scores must be the same bytes.
+
+Path 11 serves path 8's resident best model (trained with --distmon, so
+it carries reference distributions) on path 6's 10,000 hold-out rows
+and on a shifted copy (the global shard's values x4, written through
+the port's codec): --serve --distmon with 8-row requests, 16
+requesters, 2 ms windows, --obs-port 0, a drift SLO (PSI <= 0.25) and
+a P99 latency SLO (<= 50 ms) on both inputs, then --stream --distmon on
+the shifted one. A thread scrapes each run's live plane (/readyz,
+/metrics, /distz) and an in-process fleet aggregator polls its
+/snapshotz. Its checks: PSI < 0.1 unchanged and > 0.25 shifted; the
+drift SLO compliant, then violated; the served and streamed shifted
+score quantile sketches the same state bit for bit; 10,000 rows in
+``score_distribution``; legal Prometheus names, front-end counters
+with ``_total``, live /distz scores, and the aggregator's merged
+serving counters equal to the run's metrics.json. Last, the 8-row
+requests are replayed outside the driver with the score monitor off
+and on in turns (off, on, on, off): rows a second each, the same
+score bytes.
 
 Then the gather phase runs the port's gather experiment
 (photon_ml_tpu_torch/dev_scripts/gather_experiments.py) at its full
@@ -267,7 +294,8 @@ each with its launches on the main paths, path 6's among row 1's, times
 and bound; row 9, the deterministic CSR product, with its launches in
 path 8 and the full-width stream phase and the launches path 10's bucket
 graphs executed (wrapper calls, less those recorded at capture, plus
-replays times the launches a graph holds); row 10, the CSR x panel
+replays times the launches a graph holds), with path 11's; row 10, the
+CSR x panel
 product, with its launches in path 9 and the grid phase and its times
 at MF's shapes), then the
 card's name and power limit, and the last line is {"ok": true,
@@ -2212,9 +2240,25 @@ def path8(root: Path) -> tuple:
     that model within 1e-6; the deterministic product launched in every
     spill run; in every cached run the registry's ``data.shard_cache.*``
     counters of metrics.json's ``telemetry`` block equal its
-    ``stream_train.cache`` block (SHARD_CACHE_KEYS). Returns its launches in the spill runs, and the quarter
-    budget and the quarter f32 run's summary (path 9 holds the batched
-    grid against it)."""
+    ``stream_train.cache`` block (SHARD_CACHE_KEYS).
+
+    The five --stream-train runs take --distmon (the one-shot run cannot:
+    the flag rides the streamed decode), and a sixth, the budget-above
+    run without it, shows that --distmon moves no model bit (its records
+    equal the f32 spill runs'). Checks (``distmon_checks``): the
+    ``data_quality.state_sha256`` is the same in all five (the monitor
+    sees each decoded batch before the cache picks its storage type or
+    re-decodes); it counted the 40,000 training rows; the spill runs'
+    rings carry a step and the resident run's come from the solver
+    history (no step); every run's best model-metadata.json carries
+    ``referenceDistributions`` with label and score sketches of 40,000
+    rows; the resident scores (one row-9 product of the assembled batch)
+    and the f32 spill runs' (the solver's final margins) have medians
+    within 5% of each other (the bf16 run trains another model).
+
+    Returns its launches in the spill runs, and the quarter budget and
+    the quarter f32 run's summary (path 9 holds the batched grid against
+    it)."""
     from photon_ml_tpu_torch.cli import (
         game_scoring_driver,
         game_training_driver,
@@ -2263,16 +2307,18 @@ def path8(root: Path) -> tuple:
         return summary
 
     run("oneshot", [])
-    run("resident", stream)
-    hi = run("budget-above", [*stream, "--hbm-budget", "1G"])
+    monitored = [*stream, "--distmon"]
+    run("resident", monitored)
+    hi = run("budget-above", [*monitored, "--hbm-budget", "1G"])
+    run("budget-above-plain", [*stream, "--hbm-budget", "1G"])
     shard_bytes = hi["stream_train"]["cache"]["device_bytes"]
     quarter = str(shard_bytes // 4)
-    q = run("quarter-f32", [*stream, "--hbm-budget", quarter])
+    q = run("quarter-f32", [*monitored, "--hbm-budget", quarter])
     best = q["bestConfigs"]["fixed"]
-    run("quarter-redecode", [*stream, "--hbm-budget", quarter,
+    run("quarter-redecode", [*monitored, "--hbm-budget", quarter,
                              "--spill-source", "redecode"],
         grid="fixed:" + best)
-    run("quarter-bf16", [*stream, "--hbm-budget", quarter,
+    run("quarter-bf16", [*monitored, "--hbm-budget", quarter,
                          "--spill-dtype", "bf16"])
     logging.getLogger("photon_ml_tpu_torch").removeHandler(log)
     print(f"path 8 shard: {shard_bytes} device bytes (CSR and transpose, "
@@ -2296,6 +2342,9 @@ def path8(root: Path) -> tuple:
     check(recs["budget-above"] == recs["quarter-f32"]
           == recs["quarter-redecode"],
           "path 8: the f32 spill runs' models differ")
+    check(recs["budget-above-plain"] == recs["budget-above"],
+          "path 8: --distmon moved a model bit")
+    distmon_checks(root, runs)
     check(runs["quarter-redecode"]["summary"]["bestConfigs"]
           == runs["quarter-f32"]["summary"]["bestConfigs"],
           "path 8: the redecode run selected another λ")
@@ -2328,9 +2377,59 @@ def path8(root: Path) -> tuple:
           f"rows): C block decoder {codec['native']:.4f} ms a row, "
           f"pure-Python codec {codec['python']:.4f} ms a row", flush=True)
     launches = sum(r["launches"] for t, r in runs.items()
-                   if t not in ("oneshot", "resident"))
+                   if t not in ("oneshot", "resident", "budget-above-plain"))
     return launches, {"quarter": quarter,
                       "quarter-f32": runs["quarter-f32"]["summary"]}
+
+
+#: Path 8's --distmon runs (the one-shot run and the plain budget-above
+#: run take no --distmon).
+PATH8_DISTMON = ("resident", "budget-above", "quarter-f32",
+                 "quarter-redecode", "quarter-bf16")
+#: JAX's tolerance between the two training-score surfaces, one product
+#: against the solver's margins (tests/test_distmon.py:378-389).
+SCORE_MEDIAN_RTOL = 0.05
+
+
+def distmon_checks(root: Path, runs: dict) -> None:
+    """Path 8's --distmon checks (``path8``'s docstring)."""
+    from photon_ml_tpu_torch.telemetry.sketches import QuantileSketch
+
+    dq = {tag: runs[tag]["summary"]["data_quality"] for tag in PATH8_DISTMON}
+    hashes = {tag: d["state_sha256"] for tag, d in dq.items()}
+    medians = {}
+    for tag, d in dq.items():
+        ref = json.loads((root / f"p8-{tag}" / "best"
+                          / "model-metadata.json").read_text())[
+            "referenceDistributions"]
+        label = QuantileSketch.from_state(ref["label"])
+        score = QuantileSketch.from_state(ref["score"])
+        medians[tag] = score.quantile(0.5)
+        steps = [e["step"] for ring in d["convergence"].values()
+                 for e in ring["tail"][1:]]
+        from_history = all(s is None for s in steps)
+        print(f"path 8 {tag} distmon: rows {d['rows']}, batches "
+              f"{d['batches']}, state_sha256 {d['state_sha256'][:16]}, "
+              f"label mean {d['columns']['label']['moments']['mean']:.6f}, "
+              f"feature values {d['feature_shards']['global']['moments']['count']}"
+              f", rings {len(d['convergence'])} "
+              f"({'from history' if from_history else 'live, with steps'})"
+              f", reference label/score rows {label.count}/{score.count}, "
+              f"score median {medians[tag]:.6f}", flush=True)
+        check(d["rows"] == PATH6_TRAIN and label.count == score.count
+              == PATH6_TRAIN, f"path 8 {tag}: distmon counted {d['rows']}")
+        check(steps and from_history == (tag == "resident"),
+              f"path 8 {tag}: ring steps {steps[:4]}")
+    check(len(set(hashes.values())) == 1,
+          f"path 8: data_quality.state_sha256 differs: {hashes}")
+    # The f32 runs' two surfaces; the bf16 run trains another model.
+    base = medians["budget-above"]
+    worst = max(abs(medians[tag] - base) / abs(base)
+                for tag in ("resident", "quarter-f32", "quarter-redecode"))
+    print(f"path 8 distmon: one state_sha256 across {len(hashes)} runs; "
+          f"the f32 runs' score medians within {worst:.3g} of the "
+          f"budget-above run's (bound {SCORE_MEDIAN_RTOL})", flush=True)
+    check(worst <= SCORE_MEDIAN_RTOL, f"path 8: score medians {medians}")
 
 
 #: The shard cache's counters that the registry mirrors (path 8).
@@ -2588,8 +2687,12 @@ def path9(root: Path, p8: dict, glm_phases: dict) -> int:
       MF, k = 4, 2,000 items, its 20-iteration refit of B) under
       LINEAR_REGRESSION, with no budget,
       PATH9_MF_BUDGET (evictions), that budget with bf16 spill and with
-      redecode spill. Checks: no-budget, f32 and redecode factors the
-      same bits; bf16 within MF_BF16_SHARE; evictions; row 10 launched.
+      redecode spill. The no-budget run takes --distmon. Checks:
+      no-budget (with --distmon), f32 and redecode factors the same
+      bits; bf16 within MF_BF16_SHARE; evictions; row 10 launched; the
+      monitor observed one pass (40,000 rows, not one a feature pass),
+      its itemId heavy hitters summed over the 40,000 rows, and the
+      model's reference holds the label only.
       Row 10 is then held (hold_spmm) at the shapes MF gave it in the
       no-budget run: the first batch's entity x row CSR of ones with
       its [rows, k^2 + k] normal-equation panel, the batch's feature
@@ -2710,7 +2813,7 @@ def path9(root: Path, p8: dict, glm_phases: dict) -> int:
           str(PATH8_BATCH_ROWS)]
     budget = ["--hbm-budget", PATH9_MF_BUDGET]
     mf_runs = {}
-    for tag, extra in (("mf-none", []), ("mf-f32", budget),
+    for tag, extra in (("mf-none", ["--distmon"]), ("mf-f32", budget),
                        ("mf-bf16", [*budget, "--spill-dtype", "bf16"]),
                        ("mf-redecode", [*budget, "--spill-source",
                                         "redecode"])):
@@ -2719,6 +2822,7 @@ def path9(root: Path, p8: dict, glm_phases: dict) -> int:
             mf_runs[tag], mm, _ = run(tag, [*mf, *extra])
         if tag == "mf-none":
             mf_held = hold_mf_shapes(kept)
+            mf_distmon_checks(root, mf_runs[tag])
         check(mm > 0, f"path 9 {tag}: row 10 did not launch")
         rmse = mf_runs[tag]["validationHistory"][0]["RMSE"]
         check(math.isfinite(rmse), f"path 9 {tag}: RMSE {rmse}")
@@ -2738,6 +2842,26 @@ def path9(root: Path, p8: dict, glm_phases: dict) -> int:
           "path 9: bf16 factors outside their bound")
     logging.getLogger("photon_ml_tpu_torch").removeHandler(log)
     return launches10, mf_held
+
+
+def mf_distmon_checks(root: Path, summary: dict) -> None:
+    """Path 9's --distmon MF checks (``path9``'s docstring)."""
+    dq = summary["data_quality"]
+    ref = json.loads((root / "p9-mf-none" / "best"
+                      / "model-metadata.json").read_text())[
+        "referenceDistributions"]
+    ent = dq["entities"]
+    print(f"path 9 mf-none distmon: rows {dq['rows']}, batches "
+          f"{dq['batches']}, label rows "
+          f"{dq['columns']['label']['moments']['count']}, heavy hitters "
+          f"{ {k: (v['total'], len(v['top'])) for k, v in ent.items()} }, "
+          f"reference keys {sorted(ref)}", flush=True)
+    check(dq["rows"] == dq["columns"]["label"]["moments"]["count"]
+          == PATH6_TRAIN, f"path 9 MF distmon rows {dq['rows']}")
+    check(set(ent) == {"itemId"} and ent["itemId"]["total"] == PATH6_TRAIN,
+          f"path 9 MF distmon entities {ent}")
+    check("score" not in ref and ref["rows"] == PATH6_TRAIN,
+          f"path 9 MF reference {sorted(ref)}")
 
 
 @contextlib.contextmanager
@@ -3366,6 +3490,317 @@ def telemetry_cost(root: Path, card: str) -> None:
     check(same, "telemetry cost: scores differ with telemetry on and off")
 
 
+# ---------------------------------------------------------------------------
+# Path 11: drift serving at full width (the observability plane, --distmon,
+# --obs-port and --slo).
+# ---------------------------------------------------------------------------
+
+#: JAX's test_serve_drift_acceptance shift: the global shard's values x4.
+PATH11_SCALE = 4.0
+PATH11_SLOS = ("drift=value:serving.model.default.score_drift_psi<=0.25",
+               "p99:serving.frontend.request_latency_seconds<=50ms")
+PATH11_SERVE = ["--serve", "--distmon", "--request-rows", "8",
+                "--serve-concurrency", "16", "--coalesce-ms", "2",
+                "--obs-port", "0"]
+#: The front-end's and engine's counters the fleet view must carry (the
+#: engine's alone, the last three, on --stream).
+PATH11_COUNTERS = ("serving.frontend.admitted", "serving.frontend.completed",
+                   "serving.requests", "serving.rows_scored",
+                   "serving.dispatches")
+
+
+def write_shifted_holdout(val, root: Path) -> None:
+    """Path 6's hold-out rows again, the global shard's values times
+    PATH11_SCALE (user and item features, labels and ids unchanged),
+    through the port's codec in PATH6_PARTS["validate"] spawned
+    workers, under ``root / "shifted"``."""
+    n, parts = PATH6_VAL, PATH6_PARTS["validate"]
+    (root / "shifted").mkdir()
+    dense = {s: val.feature_shards[s][:n].toarray()[:, PATH6_COLS[s]]
+             for s in PATH6_NAMES}
+    dense["global"] = dense["global"] * PATH11_SCALE
+    names = {t: val.id_columns[t].vocabulary[val.id_columns[t].codes[:n]]
+             for t in ("userId", "itemId")}
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(parts, mp_context=spawn) as pool:
+        jobs = []
+        for k, rows in enumerate(np.array_split(np.arange(n), parts)):
+            sl = slice(rows[0], rows[-1] + 1)
+            jobs.append(pool.submit(
+                _write_part, root / "shifted" / f"part-{k:05d}.avro",
+                {s: v[sl] for s, v in dense.items()}, val.responses[sl],
+                names["userId"][sl], names["itemId"][sl], "validate",
+                rows[0]))
+        for job in jobs:
+            job.result()
+
+
+def watch_plane(out_dir: Path, results: dict, stop) -> None:
+    """A scraper and a fleet aggregator over a live driver's plane (run
+    in a thread beside it): wait for ``out_dir/obs_port``, then poll
+    /readyz, /metrics and /distz, and a FleetAggregator's /snapshotz
+    poll, until the driver's server goes away. Keeps the last bodies,
+    every /metrics sample name, the largest /distz score count seen and
+    the aggregator's merged counters and sketch states."""
+    import re
+    import urllib.error
+    import urllib.request
+
+    from photon_ml_tpu_torch.telemetry import read_obs_descriptor
+    from photon_ml_tpu_torch.telemetry.federation import FleetAggregator
+
+    name_re = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+    port_file = out_dir / "obs_port"
+    deadline = time.monotonic() + 120
+    while not port_file.exists():
+        if stop.is_set() or time.monotonic() > deadline:
+            results["error"] = "obs_port never appeared"
+            return
+        time.sleep(0.005)
+    port = read_obs_descriptor(port_file)["port"]
+    agg = FleetAggregator(peer_dirs=[out_dir], interval_s=0.05,
+                          timeout_s=10.0)
+    names, bad = set(), set()
+    try:
+        while not stop.is_set():
+            # The aggregator alone reads /snapshotz, from the first
+            # moment, so the driver's final-scrape handshake waits for
+            # its last poll.
+            agg.poll_once()
+            view = agg.view()
+            if any(s["has_snapshot"] for s in agg.peer_staleness().values()):
+                results["fleet"] = view.registry.snapshot()["counters"]
+                results["sketches"] = view.sketches
+            try:
+                for route in ("/readyz", "/metrics", "/distz"):
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}{route}",
+                            timeout=10) as r:
+                        results[route] = r.read().decode()
+            except urllib.error.HTTPError as e:
+                if e.code != 503:  # /readyz before the model loaded
+                    results["error"] = f"{e.code} {e.url}"
+                    return
+                results["not_ready"] = results.get("not_ready", 0) + 1
+                time.sleep(0.005)
+                continue
+            except (urllib.error.URLError, ConnectionError, OSError):
+                return  # the driver's plane went away: done
+            results["scrapes"] = results.get("scrapes", 0) + 1
+            for line in results["/metrics"].splitlines():
+                if line and not line.startswith("#"):
+                    nm = line.split("{", 1)[0].split(" ", 1)[0]
+                    (names if name_re.match(nm) else bad).add(nm)
+            dist = json.loads(results["/distz"]).get("serving", {})
+            rows = dist.get("default", {}).get("scores", {}).get(
+                "moments", {}).get("count", 0)
+            results["max_live_rows"] = max(rows,
+                                           results.get("max_live_rows", 0))
+            time.sleep(0.01)
+    finally:
+        agg.stop()
+        results["names"], results["bad_names"] = names, bad
+
+
+def distmon_cost(root: Path, card: str, reference: dict) -> None:
+    """Path 11's serving outside the driver: the 10,000 hold-out rows in
+    8-row requests replayed through a front-end of path 8's resident
+    model by 16 requesters in 2 ms windows, with no score monitor and
+    with one (the driver's --distmon), in turns (off, on, on, off), each
+    replay timed on the host clock; every replay's scores must be the
+    same bytes."""
+    import torch
+
+    from photon_ml_tpu_torch.data.avro_reader import (
+        iter_game_dataset_batches,
+    )
+    from photon_ml_tpu_torch.data.distmon import ScoreDistributionMonitor
+    from photon_ml_tpu_torch.data.paldb import load_feature_index_maps
+    from photon_ml_tpu_torch.io.model_io import load_game_model
+    from photon_ml_tpu_torch.serving import FrontendConfig, ServingFrontend
+
+    model_dir = root / "p8-resident" / "best"
+    maps = load_feature_index_maps(model_dir / "feature-indexes")
+    model = load_game_model(model_dir, maps)
+    requests = [ds.subset(np.arange(a, min(a + 8, ds.num_rows)))
+                for ds in iter_game_dataset_batches(
+                    root / "validate", id_types=[], feature_shard_maps=maps,
+                    batch_rows=4096)
+                for a in range(0, ds.num_rows, 8)]
+    rates, outs = [], []
+    for on in (False, True, True, False):
+        fe = ServingFrontend({"default": model}, dtype=torch.float32,
+                             config=FrontendConfig(coalesce_window_s=0.002,
+                                                   max_pending=1024))
+        mon = None
+        if on:
+            mon = ScoreDistributionMonitor("default", reference=reference)
+            fe.engine("default").score_monitor = mon
+        t0 = time.perf_counter()
+        results, info = fe.replay(requests, concurrency=16)
+        seconds = time.perf_counter() - t0
+        check(info["shed"] == info["errors"] == 0, f"distmon cost: {info}")
+        if mon is not None:
+            mon.publish_gauges()
+            check(mon.snapshot()["scores"]["moments"]["count"] == PATH6_VAL,
+                  "distmon cost: the monitor missed rows")
+        rates.append((on, PATH6_VAL / seconds))
+        outs.append(b"".join(r.tobytes() for r in results))
+        del fe
+    same = all(o == outs[0] for o in outs)
+    on_r = [r for o, r in rates if o]
+    off_r = [r for o, r in rates if not o]
+    print(f"path 11 distmon cost: 8-row replays, rows a second in turns "
+          f"{[(('on' if o else 'off'), round(r, 1)) for o, r in rates]}; "
+          f"mean on {np.mean(on_r):.1f} against off {np.mean(off_r):.1f} "
+          f"({np.mean(on_r) / np.mean(off_r) - 1:+.3%}); scores the same "
+          f"bytes off and on: {same}; card {card}", flush=True)
+    check(same, "distmon cost: scores differ with the monitor on and off")
+
+
+def path11(root: Path, val) -> int:
+    """Path 11: drift serving of path 8's resident best model (the fixed
+    effect over the 200-feature ``global`` shard, trained with
+    --distmon, so its model-metadata.json carries
+    ``referenceDistributions``) on path 6's 10,000 hold-out rows,
+    unchanged and shifted (``write_shifted_holdout``), through the
+    scoring driver three times: PATH11_SERVE with both PATH11_SLOS on
+    the unchanged rows, the same on the shifted rows, and --stream
+    --distmon (4,096-row batches) on the shifted rows, each with
+    --obs-port 0 and watched from a thread (``watch_plane``; the
+    --stream run's for its final sketch state). Checks: PSI < 0.1
+    unchanged and > 0.25 shifted; the drift SLO compliant, then violated
+    with violations >= 1; the served and the streamed shifted runs give
+    the same score quantile sketch state bit for bit (a row's bits do
+    not depend on its bucket, and the sketch is multiset-determined) and
+    the same moments' count, min and max (their sums are folded per
+    flush, and a live scrape flushes the served run's buffer at times
+    the run does not fix: the means within 1e-12 of the mean |score|);
+    ``score_distribution`` counts 10,000 rows; every /metrics sample
+    name is legal Prometheus; the front-end's counters appear with
+    ``_total``; /distz showed scores while the served runs were live;
+    the aggregator's merged PATH11_COUNTERS equal the run's
+    metrics.json. Then ``distmon_cost``. Returns the row-9 launches of
+    the three runs, counted from 0 just before each and read just after."""
+    import threading
+
+    from photon_ml_tpu_torch.cli import game_scoring_driver
+    from photon_ml_tpu_torch.ops import spmv
+
+    card = card_line()
+    t0 = time.perf_counter()
+    write_shifted_holdout(val, root)
+    print(f"path 11 shifted hold-out written: {PATH6_VAL} rows, global "
+          f"values x{PATH11_SCALE:g}, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    model_dir = root / "p8-resident" / "best"
+    reference = json.loads((model_dir / "model-metadata.json")
+                           .read_text())["referenceDistributions"]
+    slos = [a for s in PATH11_SLOS for a in ("--slo", s)]
+    launches = 0
+    runs = {}
+    for tag, inp, flags in (
+            ("serve", "validate", [*PATH11_SERVE, *slos]),
+            ("serve-shifted", "shifted", [*PATH11_SERVE, *slos]),
+            ("stream-shifted", "shifted", ["--stream", "--distmon",
+                                           "--batch-rows", "4096",
+                                           "--obs-port", "0"])):
+        out = root / f"p11-{tag}"
+        out.mkdir()
+        results, stop = {}, threading.Event()
+        watcher = threading.Thread(target=watch_plane,
+                                   args=(out, results, stop), daemon=True)
+        watcher.start()
+        # ---- the main path: counts set to 0 just before, read after ----
+        spmv.reset_launch_counts()
+        t1 = time.perf_counter()
+        try:
+            summary = game_scoring_driver.run([
+                "--input-dirs", str(root / inp), "--game-model-input-dir",
+                str(model_dir), "--evaluators", "AUC", *flags,
+                "--output-dir", str(out)])
+        finally:
+            stop.set()
+            watcher.join(timeout=60)
+        seconds = time.perf_counter() - t1
+        run_launches = spmv.csr_matvec.launches
+        # ------------------------------------------------------------------
+        launches += run_launches
+        runs[tag] = (summary, results)
+        dist = summary["distributions"]["default"]
+        drift = dist["drift"]
+        slo = {k: (v["current"], v["burn_rate"], v["compliant"],
+                   v["violations"])
+               for k, v in summary.get("slo", {}).items()}
+        print(f"path 11 {tag}: {summary['num_rows']} rows in {seconds:.2f} "
+              f"s, AUC {summary['metrics']['AUC']:.6f}, PSI "
+              f"{drift['psi']:.6f}, KS {drift['ks']:.6f}, score rows "
+              f"{drift['rows']} (reference {drift['reference_rows']}), "
+              f"slo (current, burn, compliant, violations) {slo}"
+              f", row-9 launches {run_launches}; card {card}", flush=True)
+        check(drift["rows"] == PATH6_VAL and run_launches > 0,
+              f"path 11 {tag}: rows {drift['rows']}, launches "
+              f"{run_launches}")
+        check(not watcher.is_alive(), f"path 11 {tag}: watcher still runs")
+        eng = (summary["frontend"]["engines"]["default"]
+               if "frontend" in summary else summary["engine"])
+        counters = summary["telemetry"]["metrics"]["counters"]
+        fleet = results.get("fleet", {})
+        names = (PATH11_COUNTERS if "frontend" in summary
+                 else PATH11_COUNTERS[2:])
+        merged = {k: (fleet.get(k), counters.get(k)) for k in names}
+        print(f"path 11 {tag} plane: {results.get('scrapes', 0)} scrapes "
+              f"({results.get('not_ready', 0)} before ready), "
+              f"{len(results.get('names', ()))} sample names, illegal "
+              f"{sorted(results.get('bad_names', ()))}, /distz score rows "
+              f"seen live {results.get('max_live_rows')}, fleet vs "
+              f"metrics.json {merged}", flush=True)
+        check("error" not in results and results.get("scrapes", 0) > 0,
+              f"path 11 {tag}: scraper {results.get('error')}")
+        check(not results["bad_names"], f"path 11 {tag}: illegal names")
+        check("frontend" not in summary
+              or {"serving_frontend_admitted_total",
+                  "serving_frontend_completed_total"} <= results["names"],
+              f"path 11 {tag}: front-end counters without _total")
+        check("frontend" not in summary
+              or results.get("max_live_rows", 0) > 0,
+              f"path 11 {tag}: /distz showed no scores")
+        check(all(a == b and b > 0 for a, b in merged.values()),
+              f"path 11 {tag}: fleet counters {merged}")
+        check(eng["score_distribution"]["scores"]["moments"]["count"]
+              == PATH6_VAL, f"path 11 {tag}: score_distribution")
+    same = runs["serve"][0]["distributions"]["default"]["drift"]
+    moved = runs["serve-shifted"][0]["distributions"]["default"]["drift"]
+    check(same["psi"] < 0.1 < 0.25 < moved["psi"],
+          f"path 11: PSI {same['psi']} unchanged, {moved['psi']} shifted")
+    d_same = runs["serve"][0]["slo"]["drift"]
+    d_moved = runs["serve-shifted"][0]["slo"]["drift"]
+    check(d_same["compliant"] is True and d_moved["compliant"] is False
+          and d_moved["violations"] >= 1,
+          f"path 11: drift SLO {d_same} then {d_moved}")
+    # The final sketch states, as the aggregator's last /snapshotz poll
+    # merged them (one peer: its own states).
+    states = [runs[tag][1]["sketches"]["serving"]
+              for tag in ("serve-shifted", "stream-shifted")]
+    q_same = (states[0]["default.scores.quantiles"]
+              == states[1]["default.scores.quantiles"])
+    a, b = (s["default.scores.moments"] for s in states)
+    m_same = all(a[k] == b[k] for k in ("count", "nnz", "min", "max"))
+    (ma, _), (mb, scale) = (
+        (m["mean"], m["abs_mean"]) for m in (
+            runs[tag][0]["distributions"]["default"]["scores"]["moments"]
+            for tag in ("serve-shifted", "stream-shifted")))
+    m_rel = abs(ma - mb) / scale  # of the mean |score|
+    print(f"path 11 served vs streamed shifted sketches: quantile state "
+          f"bit for bit {q_same} ({states[0]['default.scores.quantiles']['count']}"
+          f" rows), moments count/nnz/min/max equal {m_same}, mean "
+          f"relative difference {m_rel:.3g}", flush=True)
+    check(q_same and m_same and m_rel <= 1e-12,
+          "path 11: the served and streamed sketches differ")
+    distmon_cost(root, card, reference)
+    return launches
+
+
 def order_contract_check() -> None:
     """The kernels' order contract (csrc/csr_order.cuh): a row of 3,
     L - 1, L, L + 1 and 3L + 5 entries (L the chunk), first in one CSR
@@ -3653,12 +4088,16 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         launches10 = path10(Path(tmp))
         print(f"path 10: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        launches11 = path11(Path(tmp), val)
+        print(f"path 11: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     glm_full_width(train)
     print(f"glm full width: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches_stream, block = stream_full_width(train)
-    spmv_row = spmv_entry(block, launches8 + launches_stream + launches10)
+    spmv_row = spmv_entry(block, launches8 + launches_stream + launches10
+                          + launches11)
     print(f"stream full width: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches_grid, block = grid_full_width(train)

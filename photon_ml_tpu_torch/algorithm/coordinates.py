@@ -257,13 +257,15 @@ class StreamingFixedEffectCoordinate:
             self.feature_shard_id)
 
     def solve(self, model: Optional[FixedEffectModel] = None,
-              trace_ctx=None, margins_out=None
+              trace_ctx=None, convergence_ring=None, margins_out=None
               ) -> Tuple[FixedEffectModel, OptimizerResult]:
         """One full-batch GLM solve by streamed accumulation,
         warm-started from ``model`` when given. ``trace_ctx`` is the
         solve's trace context (telemetry/tracectx.py; the streaming
         driver mints one per λ), threaded into the solver for its
-        per-iteration events and divergence tagging. ``margins_out``
+        per-iteration events and divergence tagging.
+        ``convergence_ring`` and ``margins_out`` are the ``--distmon``
+        hooks: the ring gets one entry per outer iteration, and the list
         receives the final per-shard margins."""
         from photon_ml_tpu_torch.optimization.glm_lbfgs import (
             minimize_lbfgs_glm_streaming,
@@ -285,13 +287,13 @@ class StreamingFixedEffectCoordinate:
                 self._sharded, coef0, self._l2,
                 max_iter=self.config.max_iterations,
                 tol=self.config.tolerance, trace_ctx=trace_ctx,
-                margins_out=margins_out)
+                convergence_ring=convergence_ring, margins_out=margins_out)
         else:
             result = minimize_lbfgs_glm_streaming(
                 self._sharded, coef0, self._l2,
                 max_iter=self.config.max_iterations,
                 tol=self.config.tolerance, trace_ctx=trace_ctx,
-                margins_out=margins_out)
+                convergence_ring=convergence_ring, margins_out=margins_out)
         new_glm = model.glm.update_coefficients(Coefficients(result.x))
         return model.update_model(new_glm), result
 
@@ -329,7 +331,7 @@ def grid_batchable(configs) -> Tuple[bool, str]:
 
 def solve_fixed_effect_grid(coordinate: StreamingFixedEffectCoordinate,
                             configs, models=None, trace_ctxs=None,
-                            margins_out=None
+                            convergence_rings=None, margins_out=None
                             ) -> List[Tuple[FixedEffectModel,
                                             OptimizerResult]]:
     """Solve a whole λ grid in ONE batched streamed sweep: coefficients
@@ -341,11 +343,11 @@ def solve_fixed_effect_grid(coordinate: StreamingFixedEffectCoordinate,
     ``coordinate`` supplies the cache, objective and task; ``configs``
     is the grid (ValueError with the reason when not
     :func:`grid_batchable`); ``models`` warm-starts per row (entries may
-    be None); ``trace_ctxs`` (row-aligned, entries may be None) thread
-    into the grid solver; ``margins_out`` receives the ``[G, rows]``
-    per-shard margins. Returns the row-aligned ``(model, result)`` pairs that G
-    sequential ``coordinate.solve`` calls produce; G = 1 is the scalar
-    streamed solve, bit for bit."""
+    be None); ``trace_ctxs`` and ``convergence_rings`` (row-aligned,
+    entries may be None) thread into the grid solver; ``margins_out``
+    receives the ``[G, rows]`` per-shard margins. Returns the row-aligned
+    ``(model, result)`` pairs that G sequential ``coordinate.solve``
+    calls produce; G = 1 is the scalar streamed solve, bit for bit."""
     from photon_ml_tpu_torch.optimization.glm_lbfgs import (
         minimize_lbfgs_glm_grid_streaming,
     )
@@ -380,12 +382,12 @@ def solve_fixed_effect_grid(coordinate: StreamingFixedEffectCoordinate,
         results = minimize_tron_grid_streaming(
             coordinate._sharded, x0s, l2s, max_iter=base.max_iterations,
             tol=base.tolerance, trace_ctxs=trace_ctxs,
-            margins_out=margins_out)
+            convergence_rings=convergence_rings, margins_out=margins_out)
     else:
         results = minimize_lbfgs_glm_grid_streaming(
             coordinate._sharded, x0s, l2s, max_iter=base.max_iterations,
             tol=base.tolerance, trace_ctxs=trace_ctxs,
-            margins_out=margins_out)
+            convergence_rings=convergence_rings, margins_out=margins_out)
     return [(m.update_model(m.glm.update_coefficients(
         Coefficients(r.x))), r) for m, r in zip(models, results)]
 

@@ -1,13 +1,13 @@
 """Command-line drivers (port of photon_ml_tpu/cli/; reference
-ml/Driver.scala, ml/cli/game/): the in-core GAME training driver and the
-batch GAME scoring driver.
+ml/Driver.scala, ml/cli/game/): the GAME training and scoring drivers,
+the GLM driver and the fleet observability aggregator
+(``obs_aggregate``).
 
 They keep every flag of their JAX parsers, so every JAX command line
-parses. A flag that belongs to a later item of ROADMAP queue A (the
-observability plane A5c, network serving A5d, multi-GPU A6) raises an
-error naming that item when it is given a value other than its default.
-The helpers here are shared by the drivers; ``obs.py`` holds the flight
-recorder's wiring.
+parses. A flag that belongs to a later item of ROADMAP queue A (network
+serving A5d, multi-GPU A6) raises an error naming that item when it is
+given a value other than its default. The helpers here are shared by
+the drivers; ``obs.py`` holds the observability plane's wiring.
 """
 
 from __future__ import annotations
@@ -23,7 +23,6 @@ from photon_ml_tpu_torch.telemetry import span
 
 # Later queue items, for the error a flag of one of them raises.
 ITEMS = {
-    "A5c": "the observability plane and drift monitoring",
     "A5d": "network serving",
     "A6": "multi-GPU",
 }

@@ -1,8 +1,8 @@
 """GAME scoring driver (port of photon_ml_tpu/cli/game_scoring_driver.py:
-build_parser :48-150, run :197-261 with its telemetry and flight
-recorder, the legacy aliases :264-278, _run_scoring
-:280-373 with its --stream/--serve flag checks :284-300, _run_stream
-:393-471, _run_serve :474-576; reference ml/cli/game/scoring/
+build_parser :48-150, run :197-261 with its telemetry and observability
+plane, the legacy aliases :264-278, _run_scoring :280-373 with its
+--stream/--serve/--distmon flag checks :284-300, _attach_score_monitor
+:375-391, _run_stream :393-471, _run_serve :474-576; reference ml/cli/game/scoring/
 Driver.scala:36-265): load a saved GAME model, score a dataset on the
 card, write ScoringResultAvro records to <output-dir>/scores/
 part-00000.avro, optionally evaluate, and write metrics.json.
@@ -32,13 +32,24 @@ snapshot too large to densify) ends the run with its error, and with
 ``SystemExit`` on the --stream and --serve paths, as JAX's --stream does.
 
 Telemetry, as in JAX: the run resets and enables the process's
-telemetry, opens the root ``driver`` span and the phase spans, arms the
-flight recorder (``--flight-events``), writes a Chrome trace under
-``--trace-out`` and metrics.json's ``telemetry`` and ``observability``
-blocks.
+telemetry (trace sampling on under ``--trace-out`` or ``--obs-port``),
+opens the root ``driver`` span and the phase spans, arms the flight
+recorder (``--flight-events``), serves the live plane under
+``--obs-port`` (``/readyz`` ready once the model is loaded; the
+front-end's ``stats()`` on ``/statusz`` under ``--serve``), judges the
+``--slo`` objectives, writes a Chrome trace under ``--trace-out`` and
+metrics.json's ``telemetry``, ``observability`` and ``slo`` blocks.
+
+``--distmon`` (with ``--stream`` or ``--serve``; SystemExit otherwise)
+hangs a ``ScoreDistributionMonitor`` off the engine's settle, scored
+against the model's ``referenceDistributions`` (written by a
+``--stream-train --distmon`` run): the drift gauges
+``serving.model.default.score_drift_psi`` / ``_ks`` refresh on every
+scrape and once before the ``slo`` block, ``/distz`` shows the live
+sketch, and metrics.json gains ``distributions``.
 
 Every JAX flag parses. --listen and --adaptive-admission raise naming
-ROADMAP A5d, --distmon, --obs-port and --slo A5c.
+ROADMAP A5d.
 
 ``run(argv, device="cuda", dtype=None)`` scores on the card and raises
 without CUDA unless the caller passes ``device="cpu"``; ``dtype`` None
@@ -64,7 +75,6 @@ from photon_ml_tpu_torch.cli import (
     resolve_run_device,
 )
 from photon_ml_tpu_torch.cli.obs import (
-    OBSERVABILITY_FLAGS,
     DriverObservability,
     add_observability_args,
 )
@@ -81,8 +91,6 @@ from photon_ml_tpu_torch.utils.logging_utils import setup_photon_logger
 LATER_FLAGS = {
     "listen": ("--listen", None, "A5d"),
     "adaptive_admission": ("--adaptive-admission", False, "A5d"),
-    "distmon": ("--distmon", False, "A5c"),
-    **OBSERVABILITY_FLAGS,
 }
 
 
@@ -129,7 +137,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--adaptive-admission", action="store_true",
                    help="SLO-adaptive admission (ROADMAP A5d; raises)")
     p.add_argument("--distmon", action="store_true",
-                   help="score drift monitoring (ROADMAP A5c; raises)")
+                   help="score-distribution monitoring (--stream or "
+                        "--serve): a streaming score sketch fed at the "
+                        "engine's settle, drift (PSI/KS) against the "
+                        "model's embedded referenceDistributions "
+                        "(trained with --stream-train --distmon) as "
+                        "serving.model.default.score_drift_psi/_ks "
+                        "gauges, live /distz with --obs-port, and a "
+                        "distributions metrics.json block")
     p.add_argument("--trace-out", default=None, metavar="PATH",
                    help="write a Chrome trace-event JSON of the run's "
                         "pipeline spans (one track a thread; load in "
@@ -150,14 +165,19 @@ def run(argv=None, *, device="cuda", dtype=None) -> dict:
     # Per-run telemetry: phase spans and the registry snapshot in
     # metrics.json (and --trace-out).
     telemetry.reset()
-    telemetry.enable(trace=bool(args.trace_out))
+    # Trace sampling is on whenever something consumes traces: a
+    # --trace-out export, or the live plane's /tracez.
+    telemetry.enable(trace=bool(args.trace_out)
+                     or args.obs_port is not None)
     obs = None
     try:
-        obs = DriverObservability(args, out_dir).start()
+        # Built inside the try: a bad --slo spec or an occupied
+        # --obs-port still unwinds through the finally below.
+        obs = DriverObservability(args, out_dir, role="scoring").start()
         # Root span: imports, logging and the glue between the named
         # phases land in its self time.
         with telemetry.span("driver"):
-            summary = _run_scoring(args, out_dir, logger, dev, dtype)
+            summary = _run_scoring(args, out_dir, logger, obs, dev, dtype)
         wall = time.perf_counter() - t0
         summary["total_seconds"] = wall
         _apply_legacy_aliases(summary)
@@ -199,18 +219,25 @@ def _apply_legacy_aliases(summary: dict) -> dict:
     return summary
 
 
-def _run_scoring(args, out_dir, logger, device, dtype) -> dict:
+def _run_scoring(args, out_dir, logger, obs, device, dtype) -> dict:
     # Flag contradictions fail before the model loads.
     if args.stream and args.serve:
         raise SystemExit("--stream and --serve are mutually exclusive: "
                          "--stream is the bounded-memory bulk path, "
                          "--serve the concurrent-request replay harness")
+    if args.distmon and not (args.stream or args.serve):
+        raise SystemExit("--distmon attaches score sketches to the "
+                         "streaming engine's scatter-back; pass "
+                         "--stream or --serve")
     model_dir = Path(args.game_model_input_dir)
     index_dir = Path(args.feature_index_dir) if args.feature_index_dir else \
         model_dir / "feature-indexes"
     with phase(logger, "load_model"):
         shard_maps = load_feature_index_maps(index_dir)
         model = load_game_model(model_dir, shard_maps)
+    # Liveness and readiness part here: /healthz answered from the
+    # server's start, /readyz turns 200 now the model is resident.
+    obs.mark_ready("model_loaded")
 
     with phase(logger, "setup"):
         meta = json.loads((model_dir / "model-metadata.json").read_text())
@@ -232,12 +259,17 @@ def _run_scoring(args, out_dir, logger, device, dtype) -> dict:
         scores_dir.mkdir(exist_ok=True)
         scores_path = scores_dir / "part-00000.avro"
 
+    # The reference distributions a --stream-train --distmon run wrote
+    # into the model (None otherwise): what serving drift-scores against.
+    reference = meta.get("referenceDistributions")
     if args.serve:
         return _run_serve(args, inputs, id_types, shard_maps, model,
-                          evaluators, scores_path, logger, device, dtype)
+                          evaluators, scores_path, logger, obs, reference,
+                          device, dtype)
     if args.stream:
         return _run_stream(args, inputs, id_types, shard_maps, model,
-                           evaluators, scores_path, logger, device, dtype)
+                           evaluators, scores_path, logger, obs, reference,
+                           device, dtype)
     with phase(logger, "ingest"):
         data, _ = read_game_dataset(inputs, id_types=id_types,
                                     feature_shard_maps=shard_maps)
@@ -283,8 +315,36 @@ def _records(datasets_and_scores, counters, acc):
                    "label": float(lab), "metadataMap": None}
 
 
+def _attach_score_monitor(args, engine, label, reference, obs):
+    """--distmon: hang a ScoreDistributionMonitor off the engine's
+    settle and register its /distz provider, its drift-gauge scrape hook
+    (drift is computed on every scrape and heartbeat, and once more at
+    finish before the slo block) and its /snapshotz sketches. Returns the
+    monitor, or None without the flag."""
+    if not args.distmon:
+        return None
+    from photon_ml_tpu_torch.data.distmon import ScoreDistributionMonitor
+
+    mon = ScoreDistributionMonitor(label, reference=reference)
+    engine.score_monitor = mon
+    obs.add_dist_provider("serving", lambda: {label: mon.snapshot()})
+    obs.add_scrape_hook("score_drift", mon.publish_gauges)
+    obs.add_sketch_provider("serving", mon.sketch_states)
+    return mon
+
+
+def _distributions(summary: dict, score_mon) -> dict:
+    """The ``distributions`` block of a --distmon run, after a last
+    gauge refresh."""
+    if score_mon is not None:
+        score_mon.publish_gauges()
+        summary["distributions"] = {"default": score_mon.snapshot()}
+    return summary
+
+
 def _run_stream(args, inputs, id_types, shard_maps, model, evaluators,
-                scores_path, logger, device, dtype) -> dict:
+                scores_path, logger, obs, reference, device,
+                dtype) -> dict:
     """Bounded-memory scoring through the decode -> upload -> dispatch
     pipeline (``score_container_stream``), writing records per batch.
     Only the evaluation columns accumulate across batches (when
@@ -303,6 +363,8 @@ def _run_stream(args, inputs, id_types, shard_maps, model, evaluators,
     except UnsupportedSubModelError as e:
         raise SystemExit(
             f"--stream requires a device-scorable model: {e}") from e
+    score_mon = _attach_score_monitor(args, engine, "default", reference,
+                                      obs)
     try:
         with phase(logger, "setup_stream"):
             scored = engine.score_container_stream(
@@ -322,7 +384,7 @@ def _run_stream(args, inputs, id_types, shard_maps, model, evaluators,
                 counters["rows"], counters["batches"], args.batch_rows)
     with phase(logger, "evaluate"):
         metrics = acc.metrics(evaluators) if acc is not None else {}
-    return {
+    return _distributions({
         "num_rows": counters["rows"],
         "metrics": metrics,
         "scoring_path": "streaming-engine",
@@ -330,11 +392,12 @@ def _run_stream(args, inputs, id_types, shard_maps, model, evaluators,
         "batch_rows": args.batch_rows,
         "feeder": scored.stream.stats(),
         "engine": engine.stats(),
-    }
+    }, score_mon)
 
 
 def _run_serve(args, inputs, id_types, shard_maps, model, evaluators,
-               scores_path, logger, device, dtype) -> dict:
+               scores_path, logger, obs, reference, device,
+               dtype) -> dict:
     """Concurrent-request replay through the async front-end: the decoded
     input cut into ``--request-rows``-row requests, ``--serve-concurrency``
     closed-loop requesters, each ``--coalesce-ms`` window coalesced into
@@ -366,6 +429,10 @@ def _run_serve(args, inputs, id_types, shard_maps, model, evaluators,
     except UnsupportedSubModelError as e:
         raise SystemExit(
             f"--serve requires a device-scorable model: {e}") from e
+    # /statusz carries the front-end's live stats().
+    obs.add_status_provider("frontend", frontend.stats)
+    score_mon = _attach_score_monitor(args, frontend.engine("default"),
+                                      "default", reference, obs)
     with phase(logger, "ingest"):
         requests = []
         for ds in iter_game_dataset_batches(
@@ -397,7 +464,7 @@ def _run_serve(args, inputs, id_types, shard_maps, model, evaluators,
                         _records(zip(requests, results), counters, acc))
     with phase(logger, "evaluate"):
         metrics = acc.metrics(evaluators) if acc is not None else {}
-    return {
+    return _distributions({
         "num_rows": counters["rows"],
         "metrics": metrics,
         "scoring_path": "async-frontend",
@@ -406,7 +473,7 @@ def _run_serve(args, inputs, id_types, shard_maps, model, evaluators,
         "coalesce_window_ms": args.coalesce_ms,
         "concurrency": args.serve_concurrency,
         "frontend": frontend.stats(),
-    }
+    }, score_mon)
 
 
 def main() -> None:

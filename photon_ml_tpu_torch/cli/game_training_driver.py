@@ -1,12 +1,13 @@
 """GAME training driver, in core and streamed (port of
 photon_ml_tpu/cli/game_training_driver.py: _parse_named :52,
 _positive_int :62, _parse_mesh_shape :69, parse_byte_size :99,
-build_parser :116-310, run :311-389 with its telemetry and flight
-recorder, _run_training :391-612, _save_outputs
-:613-662, _write_summary :663-703, _stream_validate_many :704-737,
-_solve_grid_batched :739-822, _stream_train :824-1158,
-_stream_train_mf :1161-1403; reference ml/cli/game/training/Driver.scala:
-43-298, params from ml/estimators/GameParams.scala:40-427).
+build_parser :116-310, run :311-389 with its telemetry and
+observability plane, _run_training :391-612, _save_outputs :613-662,
+_write_summary :663-703, _stream_validate_many :704-737,
+_solve_grid_batched :739-822, _stream_train :824-1158 and
+_stream_train_mf :1161-1403, each with its --distmon wiring; reference
+ml/cli/game/training/Driver.scala:43-298, params from
+ml/estimators/GameParams.scala:40-427).
 
 Coordinate mini-DSLs preserved from the reference:
   --fixed-effect-data-configurations   name:featureShardId
@@ -43,17 +44,31 @@ in a process pool (data/parallel_ingest.py).
 
 Telemetry, as in JAX: the run resets and enables the process's
 telemetry (span events recorded only under ``--trace-out``, which
-writes a Chrome trace), opens the root ``driver`` span and the phase
-spans, arms the flight recorder (``--flight-events``, default 4096;
-``<output-dir>/flight.json`` on a fault or SIGTERM), mints one trace
-context per λ of a streamed solve, and writes metrics.json's
-``telemetry`` and ``observability`` blocks. ``--profile-output-dir``
-wraps the solve (in core) or the whole streamed training in a
-``torch.profiler`` trace (utils/profiling.py).
+writes a Chrome trace; trace sampling also under ``--obs-port``), opens
+the root ``driver`` span and the phase spans, arms the flight recorder
+(``--flight-events``, default 4096; ``<output-dir>/flight.json`` on a
+fault or SIGTERM), serves the live plane under ``--obs-port`` with a
+1 s heartbeat (``/readyz`` ready once the solve succeeded; the shard or
+factor cache's ``stats()`` on ``/statusz``), judges the ``--slo``
+objectives, mints one trace context per λ of a streamed solve, and
+writes metrics.json's ``telemetry``, ``observability`` and ``slo``
+blocks. ``--profile-output-dir`` wraps the solve (in core) or the whole
+streamed training in a ``torch.profiler`` trace (utils/profiling.py).
 
-Every JAX flag parses. The flags of later queue items raise an error
-that names the item: --distmon, --obs-port, --slo (A5c);
---mesh-devices, --mesh-shape (A6). The ``stream_train`` block of
+``--distmon`` (``--stream-train`` only; ValueError otherwise) wraps the
+training stream in a ``MonitoredStream``: label, offset, weight and
+feature-value sketches of every decoded batch (the MF stream observes
+one pass), whose ``state_sha256`` does not depend on residency, feeder
+or prefetch depth; per-λ convergence rings (live from the streaming
+solvers, from the histories on the resident path); training-score
+sketches from the streaming solvers' final margins, or on the resident
+path from one product of the assembled batch with the best model
+(kernel row 9 on the card); metrics.json's ``data_quality`` block; and
+``referenceDistributions`` (label and, for a fixed effect, training
+scores) in the best model's model-metadata.json.
+
+Every JAX flag parses. The flags of a later queue item raise an error
+that names it: --mesh-devices, --mesh-shape (A6). The ``stream_train`` block of
 metrics.json has no ``trace_budgets`` or ``trace_counts`` (the JAX
 TracingGuard, ROADMAP A7).
 
@@ -72,6 +87,8 @@ import sys
 import time
 from pathlib import Path
 
+import torch
+
 from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.algorithm.coordinates import grid_batchable
 from photon_ml_tpu_torch.cli import (
@@ -80,7 +97,6 @@ from photon_ml_tpu_torch.cli import (
     resolve_run_device,
 )
 from photon_ml_tpu_torch.cli.obs import (
-    OBSERVABILITY_FLAGS,
     DriverObservability,
     add_observability_args,
 )
@@ -102,6 +118,7 @@ from photon_ml_tpu_torch.optimization.config import (
     FactoredRandomEffectOptimizationConfiguration,
     GLMOptimizationConfiguration,
 )
+from photon_ml_tpu_torch.optimization.convergence import ConvergenceRing
 from photon_ml_tpu_torch.types import TaskType
 from photon_ml_tpu_torch.utils.date_range import resolve_input_dirs
 from photon_ml_tpu_torch.utils.events import (
@@ -116,8 +133,6 @@ from photon_ml_tpu_torch.utils.profiling import maybe_trace
 # dest -> (flag, default, ROADMAP queue item): given any other value, the
 # flag raises (cli/__init__.reject_later_flags).
 LATER_FLAGS = {
-    "distmon": ("--distmon", False, "A5c"),
-    **OBSERVABILITY_FLAGS,
     "mesh_devices": ("--mesh-devices", None, "A6"),
     "mesh_shape": ("--mesh-shape", None, "A6"),
 }
@@ -282,8 +297,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decode-ahead depth of the --stream-train feeder "
                         "(and spill re-upload look-ahead); 0 disables")
     p.add_argument("--distmon", action="store_true",
-                   help="distribution observability (ROADMAP A5c; "
-                        "raises)")
+                   help="distribution observability (--stream-train "
+                        "only): label/weight/offset/feature sketches of "
+                        "every decoded batch (no extra feature pass; "
+                        "state independent of residency, feeder and "
+                        "prefetch), per-λ convergence rings, a "
+                        "data_quality metrics.json block, live /distz "
+                        "(with --obs-port), and reference distributions "
+                        "(label and training-score quantiles) written "
+                        "into the model for serving-side drift scoring")
     p.add_argument("--trace-out", default=None, metavar="PATH",
                    help="write a Chrome trace-event JSON of the run's "
                         "pipeline spans (one track a thread; load in "
@@ -334,6 +356,12 @@ def _check_flags(args) -> None:
             "--spill-source redecode keeps none — the combination "
             "would silently train as f32; pick one")
     reject_later_flags(args, LATER_FLAGS)
+    if args.distmon and not args.stream_train:
+        raise ValueError(
+            "--distmon piggybacks distribution sketches on the "
+            "--stream-train decode pass; pass --stream-train (the "
+            "one-shot path has data/stats.py BasicStatisticalSummary "
+            "for one-shot statistics)")
     if not args.stream_train:
         return
     fe_data = _parse_named(args.fixed_effect_data_configurations,
@@ -375,11 +403,19 @@ def run(argv=None, *, device="cuda", dtype=None) -> dict:
     # The driver owns this process's telemetry: per-run metrics and
     # stage spans land in metrics.json (and --trace-out).
     telemetry.reset()
-    telemetry.enable(trace=bool(args.trace_out))
+    # Trace sampling is on whenever something consumes traces: a
+    # --trace-out export, or the live plane's /tracez.
+    telemetry.enable(trace=bool(args.trace_out)
+                     or args.obs_port is not None)
     obs = None
     emitter = EventEmitter()
     try:
-        obs = DriverObservability(args, out_dir).start()
+        # Built inside the try: a bad --slo spec or an occupied
+        # --obs-port still unwinds through the finally below. The 1 s
+        # heartbeat keeps liveness gauges, registry deltas and SLO burn
+        # fresh between solver iterations.
+        obs = DriverObservability(args, out_dir, heartbeat_s=1.0,
+                                  role="training").start()
         for cp in (args.event_listeners or "").split(","):
             if cp.strip():
                 emitter.register_listener_by_name(cp.strip())
@@ -388,13 +424,23 @@ def run(argv=None, *, device="cuda", dtype=None) -> dict:
         # self time, so the stage table sums to the whole run.
         with telemetry.span("driver"):
             (sequence, results, best_configs, best_result, shard_maps,
-             num_rows, stream_info) = _run_training(args, logger, task,
-                                                    dev, dtype, emitter)
+             num_rows, stream_info, distmon_out) = _run_training(
+                args, logger, task, dev, dtype, emitter, obs)
+            # /readyz turns 200 only after the solve succeeded.
+            obs.mark_ready("solve_complete")
             _save_outputs(args, out_dir, logger, sequence, results,
-                          best_configs, best_result, shard_maps)
+                          best_configs, best_result, shard_maps,
+                          extra_metadata=(
+                              {"referenceDistributions":
+                               distmon_out["reference"]}
+                              if distmon_out is not None else None))
         summary = _write_summary(args, out_dir, logger, task, sequence,
                                  t0, results, best_configs, best_result,
-                                 num_rows, stream_info, obs)
+                                 num_rows, stream_info, obs,
+                                 data_quality=(
+                                     distmon_out["data_quality"]
+                                     if distmon_out is not None
+                                     else None))
         emitter.send_event(
             TrainingFinishEvent(args.job_name, summary["totalSeconds"]))
         return summary
@@ -411,9 +457,10 @@ def run(argv=None, *, device="cuda", dtype=None) -> dict:
         telemetry.disable()
 
 
-def _run_training(args, logger, task, device, dtype, emitter):
+def _run_training(args, logger, task, device, dtype, emitter, obs):
     """Config parse + train (the in-core estimator or --stream-train);
-    returns what the save and summary need."""
+    returns what the save and summary need. ``obs`` lets the streamed
+    paths register their live providers as their components come up."""
     fe_data = _parse_named(args.fixed_effect_data_configurations,
                            "fixed-effect data config")
     fe_opt = _parse_named(args.fixed_effect_optimization_configurations,
@@ -473,18 +520,18 @@ def _run_training(args, logger, task, device, dtype, emitter):
         with maybe_trace(args.profile_output_dir, device):
             if sequence[0] in fre_data:
                 (results, best_configs, best_result, shard_maps, num_rows,
-                 stream_info) = _stream_train_mf(
+                 stream_info, distmon_out) = _stream_train_mf(
                     args, logger, task, fre_data, fre_opt, sequence,
                     train_inputs, evaluators, preloaded_maps, emitter,
-                    device, dtype)
+                    obs, device, dtype)
             else:
                 (results, best_configs, best_result, shard_maps, num_rows,
-                 stream_info) = _stream_train(
+                 stream_info, distmon_out) = _stream_train(
                     args, logger, task, fe_data, fe_opt, sequence,
                     train_inputs, evaluators, preloaded_maps, opt_grid,
-                    emitter, device, dtype)
+                    emitter, obs, device, dtype)
         return (sequence, results, best_configs, best_result, shard_maps,
-                num_rows, stream_info)
+                num_rows, stream_info, distmon_out)
 
     logger.info("reading training data from %s", train_inputs)
     with phase(logger, "ingest"):
@@ -560,7 +607,7 @@ def _run_training(args, logger, task, device, dtype, emitter):
             checkpoint_interval=args.checkpoint_interval)
     best_configs, best_result = estimator.select_best(results)
     return (sequence, results, best_configs, best_result, shard_maps,
-            int(data.num_rows), None)
+            int(data.num_rows), None, None)
 
 
 def _stream_validate_many(game_models, args, shard_maps, evaluators,
@@ -606,10 +653,13 @@ def _stream_validate_many(game_models, args, shard_maps, evaluators,
 
 
 def _solve_grid_batched(args, logger, name, shard, task, grid, cache,
-                        dtype):
+                        dtype, monitor, lam_label):
     """--grid-batched sweep: ONE StreamingFixedEffectCoordinate hosts the
     whole λ grid and ``solve_fixed_effect_grid`` advances all G points
-    per feature pass over the shard cache. Returns the (configs,
+    per feature pass over the shard cache. Observability stays per λ:
+    each grid point keeps its trace context, its --distmon convergence
+    ring and its training-score sketch (sliced from the batched
+    ``[G, rows]`` margins). Returns the (configs,
     CoordinateDescentResult) pairs the sequential sweep builds, every
     point with the sweep's shared wall time, and the shared sharded
     objective."""
@@ -629,6 +679,13 @@ def _solve_grid_batched(args, logger, name, shard, task, grid, cache,
         name=name, cache=cache, feature_shard_id=shard, task_type=task,
         config=grid[0], dtype=dtype)
     t0 = time.perf_counter()
+    rings, margins_holder = None, []
+    if monitor is not None:
+        rings = []
+        for cfg in grid:
+            ring = ConvergenceRing()
+            monitor.add_ring(lam_label(cfg), ring)
+            rings.append(ring)
     # One trace context per grid point, as the sequential sweep mints
     # them: a row's divergence fault carries its own trace id.
     ctxs = []
@@ -643,12 +700,20 @@ def _solve_grid_batched(args, logger, name, shard, task, grid, cache,
     trackers_per = [[] for _ in grid]
     obj_hist_per = [[] for _ in grid]
     for _ in range(args.num_iterations):
-        pairs = solve_fixed_effect_grid(coord, grid, models=models,
-                                        trace_ctxs=ctxs)
+        pairs = solve_fixed_effect_grid(
+            coord, grid, models=models, trace_ctxs=ctxs,
+            convergence_rings=rings, margins_out=margins_holder)
         models = [m for m, _ in pairs]
         for gi, (_, res) in enumerate(pairs):
             trackers_per[gi].append(res)
             obj_hist_per[gi].append(float(res.value))
+    shared = coord.sharded_objective
+    if monitor is not None and margins_holder:
+        for gi, cfg in enumerate(grid):
+            monitor.observe_scores(
+                lam_label(cfg),
+                shared.host_scores_from_margins(
+                    shared.grid_row_margins(margins_holder, gi)))
     elapsed = time.perf_counter() - t0
     results = []
     for gi, cfg in enumerate(grid):
@@ -662,12 +727,12 @@ def _solve_grid_batched(args, logger, name, shard, task, grid, cache,
             validation_history=[], best_model=gm, best_metric=None,
             trackers={name: trackers_per[gi]}, updates=[],
             timings={name: elapsed})))
-    return results, coord.sharded_objective
+    return results, shared
 
 
 def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
                   train_inputs, evaluators, preloaded_maps, opt_grid,
-                  emitter, device, dtype):
+                  emitter, obs, device, dtype):
     """Out-of-core training (--stream-train): block-streamed ingest (host
     memory O(batch_rows)) into either
 
@@ -678,7 +743,9 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
       eviction-forced runs write the same model).
 
     Validation (when asked for) streams through the scorer in both
-    modes."""
+    modes. With --distmon the training stream is a ``MonitoredStream``
+    and the returned ``distmon_out`` holds the ``data_quality`` block
+    and the model's ``referenceDistributions``; it is None otherwise."""
     from photon_ml_tpu_torch.algorithm.coordinate_descent import (
         CoordinateDescentResult,
     )
@@ -717,11 +784,31 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
             shard_maps = {shard: build_index_map(
                 train_inputs, ingest_workers=args.ingest_workers)}
 
+    monitor = None
+    if args.distmon:
+        from photon_ml_tpu_torch.data.distmon import (
+            MonitoredStream,
+            StreamingDistributionMonitor,
+        )
+
+        # The sketches ride the decode pass: every batch the stream
+        # yields is observed on its way to the cache or the assembler
+        # (on the prefetch thread when the feeder prefetches), so they
+        # cost no feature pass and their state is fixed by shard order.
+        monitor = StreamingDistributionMonitor(feature_shards=[shard])
+        obs.add_dist_provider("training", monitor.snapshot)
+        obs.add_scrape_hook("distmon", monitor.publish_gauges)
+        obs.add_sketch_provider("training", monitor.sketch_states)
+
     def make_stream():
-        return BlockGameStream(
+        s = BlockGameStream(
             train_inputs, id_types=[], feature_shard_maps=shard_maps,
             batch_rows=args.batch_rows, feeder=args.feeder,
             prefetch_depth=max(0, args.prefetch_batches))
+        return s if monitor is None else MonitoredStream(s, monitor)
+
+    def lam_label(cfg):
+        return f"{name}:l2={cfg.regularization_weight:g}"
 
     budget = args.hbm_budget  # parsed to bytes by argparse
     if args.checkpoint_dir and budget is not None:
@@ -790,6 +877,9 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
                 spill_dtype=args.spill_dtype,
                 spill_source=args.spill_source, redecode_fetch=fetcher,
                 device=device)
+        # Live residency view on /statusz: hits, misses, evictions and
+        # spill bytes as they happen.
+        obs.add_status_provider("shard_cache", cache.stats)
         results = []
         shared = None
         batchable, why_not = grid_batchable(grid)
@@ -801,7 +891,8 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
         with phase(logger, "solve"):
             if use_batched:
                 results, shared = _solve_grid_batched(
-                    args, logger, name, shard, task, grid, cache, dtype)
+                    args, logger, name, shard, task, grid, cache, dtype,
+                    monitor, lam_label)
             for cfg in (() if use_batched else grid):
                 coord = StreamingFixedEffectCoordinate(
                     name=name, cache=cache, feature_shard_id=shard,
@@ -810,6 +901,14 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
                 shared = coord.sharded_objective
                 t0 = time.perf_counter()
                 model, trackers, obj_hist = None, [], []
+                # --distmon hooks: a live per-λ convergence ring and the
+                # solver's final margins, from which the training scores
+                # are sketched without a scoring pass.
+                ring, margins_holder = None, None
+                if monitor is not None:
+                    ring = ConvergenceRing()
+                    monitor.add_ring(lam_label(cfg), ring)
+                    margins_holder = []
                 # One trace context per λ: the solve's identity across
                 # its outer iterations; a divergence fault carries it.
                 ctx = telemetry.mint("solve")
@@ -817,9 +916,15 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
                              reg_weight=cfg.regularization_weight,
                              optimizer=str(cfg.optimizer_type))
                 for _ in range(args.num_iterations):
-                    model, res = coord.solve(model, trace_ctx=ctx)
+                    model, res = coord.solve(
+                        model, trace_ctx=ctx, convergence_ring=ring,
+                        margins_out=margins_holder)
                     trackers.append(res)
                     obj_hist.append(float(res.value))
+                if monitor is not None and margins_holder:
+                    monitor.observe_scores(
+                        lam_label(cfg),
+                        shared.host_scores_from_margins(margins_holder))
                 ctx.annotate(
                     iterations=int(trackers[-1].iterations),
                     reason=trackers[-1].reason_enum().summary)
@@ -877,13 +982,41 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
                      if res.validation_history else None)))
 
     best_configs, best_result = select_best_result(results, evaluators)
+
+    distmon_out = None
+    if monitor is not None:
+        best_label = lam_label(best_configs[name])
+        if budget is None:
+            # Resident path: the in-core solvers ran, so the rings fill
+            # from every solve's history, and the best model's training
+            # scores come from ONE product over the assembled device
+            # batch (no decode pass; kernel row 9 on the card), copied
+            # to the host once.
+            for configs, res in results:
+                for trk in res.trackers.get(name) or []:
+                    monitor.ring_from_history(
+                        lam_label(configs[name]),
+                        trk.value_history.cpu().numpy(),
+                        trk.grad_norm_history.cpu().numpy())
+            batch = data.fixed_effect_batch(shard)
+            fe_model = best_result.best_model.models[name]
+            w = torch.as_tensor(fe_model.glm.coefficients.means,
+                                dtype=batch.labels.dtype,
+                                device=batch.labels.device)
+            monitor.observe_scores(
+                best_label, batch.features.matvec(w).cpu().numpy())
+        monitor.publish_gauges()
+        distmon_out = {
+            "data_quality": monitor.data_quality_block(),
+            "reference": monitor.reference(score_label=best_label),
+        }
     return (results, best_configs, best_result, shard_maps, num_rows,
-            stream_info)
+            stream_info, distmon_out)
 
 
 def _stream_train_mf(args, logger, task, fre_data, fre_opt, sequence,
                      train_inputs, evaluators, preloaded_maps, emitter,
-                     device, dtype):
+                     obs, device, dtype):
     """Out-of-core matrix factorization (--stream-train of a factored
     random effect; port of the JAX driver's _stream_train_mf
     :1161-1403): observations stream through ``BlockGameStream``,
@@ -891,8 +1024,10 @@ def _stream_train_mf(args, logger, task, fre_data, fre_opt, sequence,
     ``DeviceFactorCache`` (--hbm-budget, --spill-dtype, --spill-source);
     each alternating sweep is a streamed ridge γ pass and a streamed
     L-BFGS refit of B. λ-grid points with the same num_factors share one
-    objective. Each λ mints a trace context; the JAX live status
-    provider and --distmon hooks are ROADMAP A5c."""
+    objective. Each λ mints a trace context; the factor cache's stats()
+    is a live /statusz provider. With --distmon the first stream (one
+    full pass) is observed, so every row counts once; the reference
+    holds the label only (MF has no cheap training-score surface)."""
     from photon_ml_tpu_torch.algorithm.coordinate_descent import (
         CoordinateDescentResult,
     )
@@ -934,13 +1069,30 @@ def _stream_train_mf(args, logger, task, fre_data, fre_opt, sequence,
                 train_inputs, ingest_workers=args.ingest_workers)}
 
     streams = []
+    monitor = None
+    if args.distmon:
+        from photon_ml_tpu_torch.data.distmon import (
+            MonitoredStream,
+            StreamingDistributionMonitor,
+        )
+
+        # MF re-decodes the observations every feature pass, each pass
+        # the same bytes: the monitor observes the first pass only.
+        monitor = StreamingDistributionMonitor(
+            feature_shards=[shard], id_types=[re_type])
+        obs.add_dist_provider("training", monitor.snapshot)
+        obs.add_scrape_hook("distmon", monitor.publish_gauges)
+        obs.add_sketch_provider("training", monitor.sketch_states)
 
     def make_stream():
         s = BlockGameStream(
             train_inputs, id_types=[re_type], feature_shard_maps=shard_maps,
             batch_rows=args.batch_rows, feeder=args.feeder,
             prefetch_depth=max(0, args.prefetch_batches))
+        first = not streams
         streams[:] = [s]
+        if monitor is not None and first:
+            return MonitoredStream(s, monitor, max_passes=1)
         return s
 
     budget = args.hbm_budget
@@ -963,6 +1115,15 @@ def _stream_train_mf(args, logger, task, fre_data, fre_opt, sequence,
 
     shared = {}  # num_factors -> StreamedMFObjective
     results = []
+
+    def factor_cache_status():
+        # Reads through the shared-objective table, so a grid over
+        # several num_factors values (several caches) stays observable.
+        if len(shared) == 1:
+            return next(iter(shared.values())).cache.stats()
+        return {f"num_factors_{k}": o.cache.stats()
+                for k, o in sorted(shared.items())}
+
     with phase(logger, "solve"):
         for cfg in grid:
             coord = StreamingFactoredRandomEffectCoordinate(
@@ -979,6 +1140,8 @@ def _stream_train_mf(args, logger, task, fre_data, fre_opt, sequence,
                               else "buffer"),
                 mf_objective=shared.get(cfg.mf.num_factors),
                 random_access=fetcher, dtype=dtype, device=device)
+            if not shared:
+                obs.add_status_provider("factor_cache", factor_cache_status)
             shared[cfg.mf.num_factors] = coord.mf_objective
             t0 = time.perf_counter()
             model, trackers, obj_hist = None, [], []
@@ -1056,13 +1219,24 @@ def _stream_train_mf(args, logger, task, fre_data, fre_opt, sequence,
                      if res.validation_history else None)))
 
     best_configs, best_result = select_best_result(results, evaluators)
+
+    distmon_out = None
+    if monitor is not None:
+        monitor.publish_gauges()
+        distmon_out = {
+            "data_quality": monitor.data_quality_block(),
+            "reference": monitor.reference(),
+        }
     return (results, best_configs, best_result, shard_maps, first.n_rows,
-            stream_info)
+            stream_info, distmon_out)
 
 
 def _save_outputs(args, out_dir, logger, sequence, results,
-                  best_configs, best_result, shard_maps) -> None:
-    """Model + index-map save (the ``finalize`` phase)."""
+                  best_configs, best_result, shard_maps,
+                  extra_metadata=None) -> None:
+    """Model + index-map save (the ``finalize`` phase).
+    ``extra_metadata`` merges keys into model-metadata.json (the
+    --distmon ``referenceDistributions``)."""
     tracker_summary = summarize_trackers(best_result.trackers)
     for name, per_update in tracker_summary.items():
         if per_update:
@@ -1082,6 +1256,7 @@ def _save_outputs(args, out_dir, logger, sequence, results,
                 "updatingSequence": sequence,
                 "numIterations": args.num_iterations,
                 "optimizationTrackers": tracker_summary,
+                **(extra_metadata or {}),
             })
         # The feature index maps beside the model, so the scoring driver
         # decodes features identically.
@@ -1100,7 +1275,7 @@ def _save_outputs(args, out_dir, logger, sequence, results,
 
 def _write_summary(args, out_dir, logger, task, sequence, t0, results,
                    best_configs, best_result, num_rows, stream_info,
-                   obs) -> dict:
+                   obs, data_quality=None) -> dict:
     """metrics.json (the JAX keys; the ``stream_train`` block of a
     --stream-train run) and the --trace-out export. Runs after the root
     ``driver`` span closed, so the telemetry block includes its self
@@ -1121,6 +1296,10 @@ def _write_summary(args, out_dir, logger, task, sequence, t0, results,
     }
     if stream_info is not None:
         summary["stream_train"] = stream_info
+    if data_quality is not None:
+        # --distmon: sketch summaries, per-λ convergence tails and the
+        # canonical state hash.
+        summary["data_quality"] = data_quality
     obs.finish(summary)
     summary["telemetry"] = telemetry.attribution_summary(wall)
     if args.trace_out:

@@ -4,7 +4,7 @@ with its summary :151, OptimizerResult with coef_history :184 and
 reason_enum :190; the streaming solvers' divergence watchdog
 check_solver_finite and SolverDivergedError :71-140 with the batched λ
 grid's per-row provenance and the solve's trace context; the
-``ConvergenceRing`` of ``--distmon`` is ROADMAP A5c).
+``--distmon`` ``ConvergenceRing`` :28-60).
 
 An optimizer stops when (ml/optimization/Optimizer.scala:156-170)
   - iteration count hits max_iter                   -> MAX_ITERATIONS
@@ -19,11 +19,55 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
+import threading
+from collections import deque
 from typing import Optional, Union
 
 import torch
 
 Tensor = torch.Tensor
+
+
+class ConvergenceRing:
+    """Bounded per-outer-iteration solver history (loss, gradient norm,
+    accepted step size): the live-observable complement of
+    :class:`OptimizerResult`'s padded history arrays.
+
+    The host-driven streaming solvers (optimization/glm_lbfgs.py and
+    tron.py ``convergence_ring=``) append one entry per outer iteration
+    from host floats they already synchronized for their convergence
+    tests, so a long ``--stream-train --distmon`` run's /distz shows each
+    λ's convergence tail live. The in-core solvers fill rings after the
+    fact from their histories (data/distmon.py ``ring_from_history``;
+    ``step`` is None there). Only the newest ``capacity`` entries are
+    kept (``recorded`` counts every append). Lock-guarded: the solver
+    thread appends while scrape threads snapshot."""
+
+    def __init__(self, capacity: int = 256):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = int(capacity)
+        self.recorded = 0
+        self._entries: deque = deque(maxlen=self.capacity)
+        self._lock = threading.Lock()
+
+    def append(self, iteration: int, value, grad_norm,
+               step=None) -> None:
+        entry = {
+            "iteration": int(iteration),
+            "value": float(value),
+            "grad_norm": float(grad_norm),
+            "step": None if step is None else float(step),
+        }
+        with self._lock:
+            self.recorded += 1
+            self._entries.append(entry)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"capacity": self.capacity,
+                    "recorded": self.recorded,
+                    "tail": [dict(e) for e in self._entries]}
 
 
 class ConvergenceReason(enum.IntEnum):

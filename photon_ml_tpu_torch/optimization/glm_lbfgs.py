@@ -196,6 +196,7 @@ def minimize_lbfgs_glm_streaming(
     max_line_search: int = 30,
     track_coefficients: bool = False,
     trace_ctx=None,
+    convergence_ring=None,
     margins_out=None,
 ) -> OptimizerResult:
     """Out-of-core L-BFGS: the outer iteration runs on the host,
@@ -220,9 +221,12 @@ def minimize_lbfgs_glm_streaming(
     gets a ``solver_step`` event per outer iteration, and its id rides on
     the divergence fault; each outer iteration is a ``solver_step`` span
     feeding ``training.iteration_seconds`` and
-    ``training.solver_iterations``. ``margins_out`` (a caller-owned list)
-    is replaced with the final per-shard margins. The JAX
-    ``convergence_ring`` of ``--distmon`` is ROADMAP A5c."""
+    ``training.solver_iterations``. ``convergence_ring`` (a
+    ``ConvergenceRing``, the ``--distmon`` hook) gets one entry per
+    outer iteration, from host values the convergence tests already
+    read (the candidate steps come back in the same copy as the trial
+    values), so it adds no device synchronization. ``margins_out`` (a
+    caller-owned list) is replaced with the final per-shard margins."""
     sobj = sharded_objective
     x = x0
     dtype, device = x.dtype, x.device
@@ -239,6 +243,8 @@ def minimize_lbfgs_glm_streaming(
     f_h = _host(f)
     gnorm = _host(torch.linalg.norm(g))
     check_solver_finite("streaming-lbfgs", 0, f_h, gnorm, trace_ctx)
+    if convergence_ring is not None:
+        convergence_ring.append(0, f_h, gnorm, None)
     gnorm0 = gnorm
     f0_scale = np.maximum(np.abs(f_h), np_dtype.type(1e-30))
     hist = empty_history(d, history_size, dtype, device)
@@ -266,18 +272,25 @@ def minimize_lbfgs_glm_streaming(
             thresholds = f + c1 * ts * gp
             f_trials = sobj.trial_values(
                 z_list, zp_list, ts, xx + 2.0 * ts * xp + ts * ts * pp, l2)
-            ft_host = f_trials.cpu().numpy()
-            armijo = np.logical_and(ft_host <= thresholds.cpu().numpy(),
+            # One copy brings the trial values, their thresholds and the
+            # candidate steps to the host.
+            ft_host, thr_host, ts_host = torch.stack(
+                (f_trials, thresholds, ts)).cpu().numpy()
+            armijo = np.logical_and(ft_host <= thr_host,
                                     np.isfinite(ft_host))
             ok = bool(armijo.any())
             idx = int(np.argmax(armijo))  # first True
             t_acc, f_new = ts[idx], f_trials[idx]
+            t_acc_h = ts_host[idx]
 
             k = n_batched
             t_tail = ts[-1]
+            t_tail_h = ts_host[-1]
             while not ok and k < max_line_search + 1:
                 # Sequential tail past the batched block: rare (0.5^8).
+                # Halving is exact, so the host step tracks the device's.
                 t_tail = t_tail * shrink
+                t_tail_h = t_tail_h * np_dtype.type(0.5)
                 t1 = t_tail[None]
                 f_t = sobj.trial_values(z_list, zp_list, t1,
                                         xx + 2.0 * t1 * xp + t1 * t1 * pp,
@@ -285,6 +298,7 @@ def minimize_lbfgs_glm_streaming(
                 f_t_h = _host(f_t)
                 if f_t_h <= _host(f + c1 * t_tail * gp) and np.isfinite(f_t_h):
                     ok, t_acc, f_new = True, t_tail, f_t
+                    t_acc_h = t_tail_h
                     break
                 k += 1
 
@@ -295,6 +309,9 @@ def minimize_lbfgs_glm_streaming(
                     value_hist[it], gnorm_hist[it] = f_h, gnorm
                     if coefs is not None:
                         coefs.append(x)
+                if convergence_ring is not None:
+                    # Failed line search: the iterate did not move.
+                    convergence_ring.append(it, f_h, gnorm, 0.0)
                 break
 
             x_new = x + t_acc * direction
@@ -312,6 +329,8 @@ def minimize_lbfgs_glm_streaming(
             value_hist[it], gnorm_hist[it] = f_h, gnorm
             if coefs is not None:
                 coefs.append(x)
+            if convergence_ring is not None:
+                convergence_ring.append(it, f_h, gnorm, t_acc_h)
 
             if gnorm_new <= tol_s * gnorm0:
                 reason = ConvergenceReason.GRADIENT_CONVERGED
@@ -407,6 +426,7 @@ def minimize_lbfgs_glm_grid_streaming(
     max_line_search: int = 30,
     track_coefficients: bool = False,
     trace_ctxs=None,
+    convergence_rings=None,
     margins_out=None,
 ):
     """Batched λ-grid streaming L-BFGS: one set of feature passes per
@@ -429,9 +449,10 @@ def minimize_lbfgs_glm_grid_streaming(
     row's ``solver_step`` events and tags its divergence fault; each
     outer iteration is one ``solver_step`` span, and the gauge
     ``training.grid.active_points`` counts the rows still iterating.
+    ``convergence_rings`` (row-aligned, entries may be None) get one
+    entry per outer iteration a row takes part in, from host values.
     ``margins_out`` receives the final per-shard ``[G, rows]`` margins
-    (``ShardedGLMObjective.grid_row_margins`` slices one row out). The
-    JAX ``convergence_rings`` are ROADMAP A5c."""
+    (``ShardedGLMObjective.grid_row_margins`` slices one row out)."""
     sobj = sharded_objective
     x = x0s
     if x.dim() != 2:
@@ -447,10 +468,12 @@ def minimize_lbfgs_glm_grid_streaming(
             f"l2_weights must be [G]={G} (one λ per grid row), got "
             f"shape {tuple(l2s.shape)}")
     ctxs = list(trace_ctxs) if trace_ctxs is not None else [None] * G
-    if len(ctxs) != G:
+    rings = (list(convergence_rings) if convergence_rings is not None
+             else [None] * G)
+    if len(ctxs) != G or len(rings) != G:
         raise ValueError(
-            f"trace_ctxs must be row-aligned with the grid (G={G}), got "
-            f"{len(ctxs)}")
+            f"trace_ctxs/convergence_rings must be row-aligned with the "
+            f"grid (G={G}), got {len(ctxs)}/{len(rings)}")
 
     if G == 1:
         # Bitwise gate: the 1-row grid IS the scalar streamed solver.
@@ -460,7 +483,7 @@ def minimize_lbfgs_glm_grid_streaming(
             history_size=history_size, c1=c1,
             max_line_search=max_line_search,
             track_coefficients=track_coefficients, trace_ctx=ctxs[0],
-            margins_out=holder)
+            convergence_ring=rings[0], margins_out=holder)
         if margins_out is not None:
             margins_out[:] = [z[None] for z in holder]
         return [res]
@@ -478,6 +501,8 @@ def minimize_lbfgs_glm_grid_streaming(
     for gi in range(G):
         check_solver_finite("streaming-lbfgs-grid", 0, f_h[gi], gnorm[gi],
                             ctxs[gi], lam=l2_h[gi], grid_row=gi)
+        if rings[gi] is not None:
+            rings[gi].append(0, f_h[gi], gnorm[gi], None)
     gnorm0 = gnorm.copy()
     f0_scale = np.maximum(np.abs(f_h), np_dtype.type(1e-30))
     hist = _stack_hists([empty_history(d, history_size, dtype, device)] * G)
@@ -552,6 +577,9 @@ def minimize_lbfgs_glm_grid_streaming(
                     gnorm_hist[gi, its[gi]] = gnorm[gi]
                     if coef_hist is not None:
                         coef_hist[gi, its[gi]] = x[gi].cpu().numpy()
+                if rings[gi] is not None:
+                    # Failed line search: the row's iterate did not move.
+                    rings[gi].append(int(its[gi]), f_h[gi], gnorm[gi], 0.0)
             active &= ok
 
             if moved.any():
@@ -577,6 +605,9 @@ def minimize_lbfgs_glm_grid_streaming(
                     gnorm_hist[gi, its[gi]] = gnorm[gi]
                     if coef_hist is not None:
                         coef_hist[gi, its[gi]] = x[gi].cpu().numpy()
+                    if rings[gi] is not None:
+                        rings[gi].append(int(its[gi]), f_h[gi], gnorm[gi],
+                                         float(t_np[gi]))
                     if gnorm[gi] <= tol_s * gnorm0[gi]:
                         reasons[gi] = ConvergenceReason.GRADIENT_CONVERGED
                     elif f_delta[gi] <= tol_s * f0_scale[gi]:

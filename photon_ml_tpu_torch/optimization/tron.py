@@ -329,6 +329,7 @@ def minimize_tron_streaming(
     max_improvement_failures: int = 5,
     track_coefficients: bool = False,
     trace_ctx=None,
+    convergence_ring=None,
     margins_out=None,
 ) -> OptimizerResult:
     """Out-of-core TRON: the outer trust-region loop runs on the host;
@@ -346,9 +347,10 @@ def minimize_tron_streaming(
     a non-finite value only shrinks the trust region, as in the in-core
     solver. ``trace_ctx`` and the ``solver_step`` span of each outer
     iteration (CG and trial included) are as in
-    ``minimize_lbfgs_glm_streaming``. ``margins_out`` (a caller-owned
-    list) is replaced with the final per-shard margins. The JAX
-    ``convergence_ring`` of ``--distmon`` is ROADMAP A5c."""
+    ``minimize_lbfgs_glm_streaming``. ``convergence_ring`` gets one
+    entry per accepted step (step size ``||s||``, read in the same copy
+    as the gradient norm the convergence test reads). ``margins_out`` (a
+    caller-owned list) is replaced with the final per-shard margins."""
     sobj = sharded_objective
     x = x0
     dtype = x.dtype
@@ -360,6 +362,8 @@ def minimize_tron_streaming(
     f_h = _host(f)
     gnorm = _host(torch.linalg.norm(g))
     check_solver_finite("streaming-tron", 0, f_h, gnorm, trace_ctx)
+    if convergence_ring is not None:
+        convergence_ring.append(0, f_h, gnorm, None)
     gnorm0 = gnorm
     f0_scale = np.maximum(np.abs(f_h), np_dtype.type(1e-30))
     delta = torch.linalg.norm(g)
@@ -410,12 +414,16 @@ def minimize_tron_streaming(
                 f_new_h = _host(f_new)
                 f_delta = np.abs(f_h - f_new_h)
                 f, f_h = f_new, f_new_h
-                gnorm = _host(torch.linalg.norm(g))
+                # The step's norm comes back in the gradient norm's copy.
+                gnorm, snorm = torch.stack(
+                    (torch.linalg.norm(g), torch.linalg.norm(s))).cpu().numpy()
                 check_solver_finite("streaming-tron", it, f_h, gnorm,
                                     trace_ctx)
                 value_hist[it], gnorm_hist[it] = f_h, gnorm
                 if coefs is not None:
                     coefs.append(x)
+                if convergence_ring is not None:
+                    convergence_ring.append(it, f_h, gnorm, snorm)
                 if gnorm <= tol_s * gnorm0:
                     reason = ConvergenceReason.GRADIENT_CONVERGED
                 elif f_delta <= tol_s * f0_scale:
@@ -467,6 +475,7 @@ def minimize_tron_grid_streaming(
     max_improvement_failures: int = 5,
     track_coefficients: bool = False,
     trace_ctxs=None,
+    convergence_rings=None,
     margins_out=None,
 ):
     """Batched λ-grid streaming TRON: one curvature pass, one shared CG
@@ -485,8 +494,9 @@ def minimize_tron_grid_streaming(
     states are watchdog-checked; a non-finite accepted row raises
     ``SolverDivergedError`` naming that row and its λ, tagged with
     ``trace_ctxs[row]`` (row-aligned, entries may be None; each active
-    row gets its ``solver_step`` events). The JAX ``convergence_rings``
-    are ROADMAP A5c."""
+    row gets its ``solver_step`` events); ``convergence_rings``
+    (row-aligned, entries may be None) get one entry per accepted
+    step."""
     from photon_ml_tpu_torch.optimization.glm_lbfgs import (
         _grid_select_rows,
     )
@@ -506,10 +516,12 @@ def minimize_tron_grid_streaming(
             f"l2_weights must be [G]={G} (one λ per grid row), got "
             f"shape {tuple(l2s.shape)}")
     ctxs = list(trace_ctxs) if trace_ctxs is not None else [None] * G
-    if len(ctxs) != G:
+    rings = (list(convergence_rings) if convergence_rings is not None
+             else [None] * G)
+    if len(ctxs) != G or len(rings) != G:
         raise ValueError(
-            f"trace_ctxs must be row-aligned with the grid (G={G}), got "
-            f"{len(ctxs)}")
+            f"trace_ctxs/convergence_rings must be row-aligned with the "
+            f"grid (G={G}), got {len(ctxs)}/{len(rings)}")
 
     if G == 1:
         # Bitwise gate: the 1-row grid IS the scalar streamed solver.
@@ -519,7 +531,7 @@ def minimize_tron_grid_streaming(
             max_cg=max_cg,
             max_improvement_failures=max_improvement_failures,
             track_coefficients=track_coefficients, trace_ctx=ctxs[0],
-            margins_out=holder)
+            convergence_ring=rings[0], margins_out=holder)
         if margins_out is not None:
             margins_out[:] = [z[None] for z in holder]
         return [res]
@@ -532,6 +544,8 @@ def minimize_tron_grid_streaming(
     for gi in range(G):
         check_solver_finite("streaming-tron-grid", 0, f_h[gi], gnorm[gi],
                             ctxs[gi], lam=l2_h[gi], grid_row=gi)
+        if rings[gi] is not None:
+            rings[gi].append(0, f_h[gi], gnorm[gi], None)
     gnorm0 = gnorm.copy()
     f0_scale = np.maximum(np.abs(f_h), np_dtype.type(1e-30))
     delta = torch.as_tensor(gnorm0, device=device)
@@ -603,7 +617,9 @@ def minimize_tron_grid_streaming(
                 z_list = [torch.where(acc_dev[:, None], zt, z)
                           for zt, z in zip(z_try, z_list)]
                 f_new_h = f_new.cpu().numpy()
-                gnorm_new = torch.linalg.norm(g, dim=-1).cpu().numpy()
+                gnorm_new, snorm = torch.stack(
+                    (torch.linalg.norm(g, dim=-1),
+                     torch.linalg.norm(s, dim=-1))).cpu().numpy()
                 f_delta = np.abs(f_h - f_new_h)
                 f_h = np.where(accept, f_new_h, f_h)
                 gnorm = np.where(accept, gnorm_new, gnorm)
@@ -619,6 +635,9 @@ def minimize_tron_grid_streaming(
                     gnorm_hist[gi, its[gi]] = gnorm[gi]
                     if coef_hist is not None:
                         coef_hist[gi, its[gi]] = x[gi].cpu().numpy()
+                    if rings[gi] is not None:
+                        rings[gi].append(int(its[gi]), f_h[gi], gnorm[gi],
+                                         float(snorm[gi]))
                     if gnorm[gi] <= tol_s * gnorm0[gi]:
                         reasons[gi] = ConvergenceReason.GRADIENT_CONVERGED
                     elif f_delta[gi] <= tol_s * f0_scale[gi]:

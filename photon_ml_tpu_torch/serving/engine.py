@@ -2,8 +2,8 @@
 request data, static-shape bucket dispatch through captured CUDA graphs
 (port of photon_ml_tpu/serving/engine.py: the registry metrics :57-66,
 ExecutableCache :69-118 with its profiler, _SubSpec :120, _StreamScoring
-:131, _HostRequest :148, _vstack_csr :157, StreamingGameScorer :175-769;
-its score monitor is ROADMAP A5c).
+:131, _HostRequest :148, _vstack_csr :157, StreamingGameScorer :175-769
+with its score monitor :197-204, :601-602, :640-641, :767-768).
 
 The inverse of ``DeviceGameScorer`` (which freezes one dataset and
 varies the model): the model's parameters are uploaded once at
@@ -59,8 +59,13 @@ settled result), mirrored per model under ``serving.model.<label>.*``
 when the engine has a ``metrics_label``, and the cache's
 :class:`~photon_ml_tpu_torch.telemetry.ExecutableProfiler` (build and
 first-replay wall per bucket, dispatch-to-settle per rows bucket, read
-where the window already waits). ``stats()`` has JAX's keys but the
-score monitor's ``score_distribution`` (ROADMAP A5c).
+where the window already waits). ``stats()`` has JAX's keys.
+
+``score_monitor`` (None by default; data/distmon.py
+``ScoreDistributionMonitor``, attached by ``--distmon``) is fed at both
+settles with the host scores the settle has just copied out of the
+pinned output: one buffered append per settled group, no device read of
+its own. ``stats()`` then carries its ``score_distribution``.
 """
 
 from __future__ import annotations
@@ -388,6 +393,9 @@ class StreamingGameScorer:
         # across models, so a labelled engine also mirrors into its own
         # family and stats() reports its own latency histogram.
         self.metrics_label = metrics_label
+        # Optional per-model score-distribution monitor; None skips the
+        # settle's call (one attribute load and a branch).
+        self.score_monitor = None
         if metrics_label:
             pre = f"serving.model.{metrics_label}."
             self._m_requests = telemetry.counter(pre + "requests")
@@ -722,6 +730,8 @@ class StreamingGameScorer:
             now = time.perf_counter()
             for idx, chunk in zip(idxs, np.split(host, splits)):
                 results[idx] = chunk
+            if self.score_monitor is not None:
+                self.score_monitor.observe(host)
             # One shared dispatch: every request of the group waited the
             # same time from featureization to its settled result.
             self._observe_latency(now - t_start, n=len(idxs))
@@ -759,6 +769,8 @@ class StreamingGameScorer:
         def settle(done):
             out, n_real, t_start, rows_b, t_disp = done
             pending.append(out.numpy()[:n_real].copy())
+            if self.score_monitor is not None:
+                self.score_monitor.observe(pending[-1])
             now = time.perf_counter()
             self.cache.profiler.record_dispatch(rows_b, now - t_disp,
                                                 n_real)
@@ -851,8 +863,9 @@ class StreamingGameScorer:
                 "bucket_shapes": sorted(self.cache.keys())}
 
     def stats(self) -> dict:
-        """Engine counters, snake_case (JAX's keys; the score monitor's
-        ``score_distribution`` is ROADMAP A5c). ``request_latency_seconds``
+        """Engine counters, snake_case (JAX's keys, with the score
+        monitor's ``score_distribution`` when one is attached).
+        ``request_latency_seconds``
         reads this engine's per-model histogram when it has a
         ``metrics_label``, else the process-wide one (which sums across
         live engines; populated only while telemetry is enabled). An
@@ -874,4 +887,6 @@ class StreamingGameScorer:
         h = (self._h_latency if self._h_latency is not None
              else _H_REQUEST_LATENCY)
         s["request_latency_seconds"] = h.snapshot()
+        if self.score_monitor is not None:
+            s["score_distribution"] = self.score_monitor.snapshot()
         return s

@@ -1,8 +1,8 @@
-"""Telemetry core: metrics registry, pipeline spans, Chrome trace export,
-request-scoped trace contexts, the flight recorder and the executable
-profiler (port of photon_ml_tpu/telemetry/__init__.py:1-190; the
-observability plane it also exports there, ``ObservabilityServer``,
-SLOs, sketches and federation, is ROADMAP A5c).
+"""Telemetry: metrics registry, pipeline spans, Chrome trace export,
+request-scoped trace contexts, the flight recorder, the executable
+profiler, and the observability plane: Prometheus exposition and the
+``ObservabilityServer``, SLOs, mergeable sketches and fleet federation
+(port of photon_ml_tpu/telemetry/__init__.py:1-190).
 
 Quick tour::
 
@@ -46,9 +46,39 @@ from photon_ml_tpu_torch.telemetry.spans import (
     timed_span,
     tracer,
 )
+from photon_ml_tpu_torch.telemetry.exposition import (
+    ObservabilityServer,
+    prometheus_name,
+    render_prometheus,
+)
 from photon_ml_tpu_torch.telemetry.recorder import (
     FlightRecorder,
     install_sigterm_dump,
+)
+from photon_ml_tpu_torch.telemetry.slo import (
+    LatencyObjective,
+    RatioObjective,
+    SLOTracker,
+    ValueObjective,
+    evaluate_specs,
+    parse_slo,
+)
+from photon_ml_tpu_torch.telemetry.federation import (
+    SNAPSHOT_SCHEMA,
+    FleetAggregator,
+    FleetView,
+    MergedRegistry,
+    gauge_merge_policy,
+    merge_snapshots,
+    read_obs_descriptor,
+    registry_snapshot,
+    write_obs_descriptor,
+)
+from photon_ml_tpu_torch.telemetry.sketches import (
+    MomentsSketch,
+    QuantileSketch,
+    TopKSketch,
+    sketch_from_state,
 )
 from photon_ml_tpu_torch.telemetry import tracectx as _tracectx_mod
 from photon_ml_tpu_torch.telemetry.tracectx import (
@@ -112,30 +142,52 @@ __all__ = [
     "DEFAULT_LATENCY_BUCKETS",
     "Counter",
     "ExecutableProfiler",
+    "FleetAggregator",
+    "FleetView",
     "FlightRecorder",
     "Gauge",
     "Histogram",
+    "LatencyObjective",
+    "MergedRegistry",
     "MetricsRegistry",
+    "MomentsSketch",
     "NOOP_CONTEXT",
+    "ObservabilityServer",
+    "QuantileSketch",
+    "RatioObjective",
+    "SLOTracker",
+    "SNAPSHOT_SCHEMA",
+    "TopKSketch",
     "TraceContext",
     "TraceTail",
     "Tracer",
+    "ValueObjective",
     "attribution_summary",
     "counter",
     "disable",
     "enable",
     "enabled",
+    "evaluate_specs",
     "export_chrome_trace",
     "gauge",
+    "gauge_merge_policy",
+    "merge_snapshots",
     "histogram",
     "install_sigterm_dump",
     "mint",
+    "parse_slo",
+    "prometheus_name",
+    "read_obs_descriptor",
     "registry",
+    "registry_snapshot",
+    "render_prometheus",
     "reset",
+    "sketch_from_state",
     "snapshot",
     "span",
     "stage_attribution",
     "timed_span",
     "trace_tail",
     "tracer",
+    "write_obs_descriptor",
 ]

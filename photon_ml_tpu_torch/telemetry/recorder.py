@@ -20,7 +20,8 @@ Dump triggers (all write the same Chrome-trace JSON as ``--trace-out``):
 - **on SIGTERM**: :func:`install_sigterm_dump` (main thread only;
   elsewhere a no-op) dumps, then exits 143 through ``SystemExit`` so
   ``finally`` blocks still run;
-- **on demand**: :meth:`FlightRecorder.dump`.
+- **on demand**: the observability server's ``/debugz/dump`` route, or
+  :meth:`FlightRecorder.dump`.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import json
 import os
 import signal
 import threading
+import time
 from collections import deque
 from typing import Dict
 
@@ -46,10 +48,10 @@ class FlightRecorder:
     ``record_span`` is called by the tracer for every COMPLETED span
     while installed (install()); appends take one short lock (the same
     cost class as a registry counter inc — spans are per-stage, never
-    per-row). Registry deltas piggyback on span completions (JAX's
-    ``tick()``, the observability server's heartbeat, is ROADMAP A5c): at
-    most one capture per ``snapshot_interval_s``, storing only the
-    counters/gauges whose value changed since the previous capture.
+    per-row). Registry deltas piggyback on span completions and on the
+    observability server's heartbeat ``tick()``: at most one capture per
+    ``snapshot_interval_s``, storing only the counters/gauges whose
+    value changed since the previous capture.
     """
 
     def __init__(self, max_events: int = 4096,
@@ -75,6 +77,14 @@ class FlightRecorder:
             self._appended += 1
         if t1 - self._last_delta >= self.snapshot_interval_s:
             self._capture_delta(t1)
+
+    def tick(self) -> None:
+        """Heartbeat hook: capture a registry delta if one is due even
+        while no spans are closing (an idle-but-alive process still
+        leaves a counter trail)."""
+        now = time.perf_counter()
+        if now - self._last_delta >= self.snapshot_interval_s:
+            self._capture_delta(now)
 
     def _capture_delta(self, now: float) -> None:
         # Non-blocking: if another thread is mid-capture, this span's

@@ -1,7 +1,7 @@
 """Process-wide metrics registry: counters, gauges, fixed-bucket latency
 histograms with interpolated P50/P95/P99 (port of
-photon_ml_tpu/telemetry/registry.py:1-437; the exposition state of
-Prometheus scrapes, :261-279, is ROADMAP A5c).
+photon_ml_tpu/telemetry/registry.py:1-437, with the exposition state of
+Prometheus scrapes and SLO math, :261-279).
 
 Components keep their per-instance ``stats()`` dicts for local
 introspection and mirror into named registry metrics; drivers snapshot
@@ -277,6 +277,25 @@ class Histogram:
             out = {b: c for b, c in zip(self._bounds, self._counts)}
             out["+inf"] = self._counts[-1]
         return out
+
+    def exposition_state(self) -> Tuple[Tuple[float, ...], list, int, float]:
+        """Atomic ``(bounds, cumulative_counts, count, sum)`` for
+        Prometheus exposition and SLO math: ``cumulative_counts[i]`` is
+        the number of samples ``<= bounds[i]`` (``le`` semantics — the
+        bucket layout already matches, so the mapping is a running sum,
+        not a re-bin), and the implicit ``+Inf`` bucket equals
+        ``count``. One lock acquisition, so a scrape racing ``observe``
+        sees a consistent histogram (cumulative counts monotone,
+        ``sum``/``count`` from the same instant)."""
+        with self._lock:
+            counts = list(self._counts)
+            count, total = self._count, self._sum
+        cum = []
+        c = 0
+        for v in counts[:-1]:
+            c += v
+            cum.append(c)
+        return self._bounds, cum, count, total
 
     def exemplars(self) -> Dict:
         """(upper-edge or "+inf") -> (trace_id, value, unix_ts) for

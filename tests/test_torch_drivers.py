@@ -28,9 +28,10 @@ full key set, ``telemetry`` and ``observability`` included; the
 training runs take --trace-out, and their stage names, the metrics they
 moved and their trace's span names are JAX's. The telemetry flags
 (--trace-out, --profile-output-dir, --flight-events) run and leave
-their output; the flags of later queue items raise an error naming the
-item, and the ported --stream-train flags, each with a flag of a later
-item, raise naming that item.
+their output, and so do the observability flags (--distmon, --obs-port,
+--slo); the flags of later queue items raise an error naming the item,
+and the ported flags, each with a flag of a later item, raise naming
+that item.
 """
 
 import functools
@@ -337,24 +338,47 @@ TRAINING_LATER = [
       "--factored-random-effect-optimization-configurations",
       "mf:20,1e-6,1.0,1.0,LBFGS,L2;20,1e-6,1.0,1.0,LBFGS,L2;1,2",
       "--random-effect-data-configurations", "--updating-sequence", "mf",
-      "--distmon"], "A5c", "--distmon"),
+      "--mesh-devices", "2"], "A6", "--mesh-devices"),
     (["--hbm-budget", "8K", *_STREAM_FE, *_GRID2, "--mesh-devices", "2"],
      "A6", "--mesh-devices"),
     (["--grid-batched", "off", "--hbm-budget", "8K", *_STREAM_FE,
       "--mesh-devices", "2"], "A6", "--mesh-devices"),
     (["--spill-dtype", "bf16", "--hbm-budget", "8K", *_STREAM_FE,
-      "--distmon"], "A5c", "--distmon"),
+      "--mesh-shape", "2x2"], "A6", "--mesh-shape"),
     (["--spill-source", "redecode", "--hbm-budget", "8K", *_STREAM_FE,
       "--mesh-shape", "2x2"], "A6", "--mesh-shape"),
-    (["--distmon"], "A5c", "--distmon"),
-    (["--obs-port", "0"], "A5c", "--obs-port"),
-    (["--slo", "p99:x<=1ms"], "A5c", "--slo"),
+    (["--distmon", "--mesh-devices", "2"], "A6", "--mesh-devices"),
+    (["--obs-port", "0", "--mesh-shape", "2x2"], "A6", "--mesh-shape"),
+    (["--slo", "p99:x<=1ms", "--mesh-devices", "2"], "A6",
+     "--mesh-devices"),
     (["--mesh-devices", "2"], "A6", "--mesh-devices"),
     (["--mesh-shape", "2x2"], "A6", "--mesh-shape")]
 SCORING_LATER = [
-    (["--listen", "0"], "A5d"),
-    (["--adaptive-admission"], "A5d"), (["--distmon"], "A5c"),
-    (["--obs-port", "0"], "A5c"), (["--slo", "p99:x<=1ms"], "A5c")]
+    (["--listen", "0"], "A5d", "--listen"),
+    (["--adaptive-admission"], "A5d", "--adaptive-admission"),
+    (["--distmon", "--stream", "--listen", "0"], "A5d", "--listen"),
+    (["--obs-port", "0", "--adaptive-admission"], "A5d",
+     "--adaptive-admission"),
+    (["--slo", "p99:x<=1ms", "--listen", "0"], "A5d", "--listen")]
+# The observability flags, ported here (ROADMAP A5c): each case of the
+# lists above that named one now also runs without the later item's flag
+# (one coordinate-descent iteration), its output checked (what, below).
+TRAINING_OBSERVABILITY = [
+    (["--stream-train", "--factored-random-effect-data-configurations",
+      "mf:userId,global,4,-1,-1,-1,IDENTITY",
+      "--factored-random-effect-optimization-configurations",
+      "mf:20,1e-6,1.0,1.0,LBFGS,L2;20,1e-6,1.0,1.0,LBFGS,L2;1,2",
+      "--random-effect-data-configurations", "--updating-sequence", "mf",
+      "--task-type", "LINEAR_REGRESSION", "--distmon"], "distmon"),
+    (["--spill-dtype", "bf16", "--hbm-budget", "8K", *_STREAM_FE,
+      "--distmon"], "distmon"),
+    (["--distmon", *_STREAM_FE], "distmon"),
+    (["--obs-port", "0"], "obs_port"),
+    (["--slo", "p99:x<=1ms"], "slo")]
+SCORING_OBSERVABILITY = [
+    (["--distmon", "--stream", "--batch-rows", "64"], "distmon"),
+    (["--obs-port", "0"], "obs_port"),
+    (["--slo", "p99:x<=1ms"], "slo")]
 # The telemetry flags, ported here (ROADMAP A5b): the cases of the lists
 # above that named them, each now run (one coordinate-descent iteration)
 # with its output checked (what, below).
@@ -406,13 +430,13 @@ def test_training_flags_of_later_items_raise(tmp_path, extra, item, named):
     assert not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("extra,item", SCORING_LATER,
-                         ids=[e[0] for e, _ in SCORING_LATER])
-def test_scoring_flags_of_later_items_raise(tmp_path, extra, item):
+@pytest.mark.parametrize("extra,item,named", SCORING_LATER,
+                         ids=[e[0] for e, _, _ in SCORING_LATER])
+def test_scoring_flags_of_later_items_raise(tmp_path, extra, item, named):
     argv = ["--input-dirs", str(tmp_path / "none"), "--game-model-input-dir",
             str(tmp_path / "model"), "--output-dir", str(tmp_path / "out"),
             *extra]
-    with pytest.raises(ValueError, match=f"{extra[0]} is not ported yet: "
+    with pytest.raises(ValueError, match=f"{named} is not ported yet: "
                        f"it comes with ROADMAP queue {item}"):
         game_scoring_driver.run(argv, device="cpu")
     assert not (tmp_path / "out").exists()
@@ -443,6 +467,54 @@ def test_scoring_telemetry_flags_run(runs, tmp_path, extra, what):
          "--output-dir", str(out), *rel], device="cpu")
     _check_telemetry_output(summary, rel, what)
 
+
+
+def _check_observability_output(summary: dict, out: Path, what: str):
+    """An observability flag's output: --distmon's data_quality or
+    distributions block counts the rows; --obs-port's server announced
+    its bound port in <out>/obs_port and reported it; --slo's objective
+    was judged into the slo block."""
+    if what == "distmon":
+        if "data_quality" in summary:
+            dq = summary["data_quality"]
+            assert dq["rows"] == summary["num_rows"] > 0
+            assert len(dq["state_sha256"]) == 64
+        else:
+            dist = summary["distributions"]["default"]
+            assert dist["scores"]["moments"]["count"] \
+                == summary["num_rows"] > 0
+    elif what == "obs_port":
+        server = summary["observability"]["server"]
+        desc = json.loads((out / "obs_port").read_text())
+        assert desc["port"] == server["port"] > 0
+        assert server["ready"] and "/metrics" in server["routes"]
+    else:
+        (slo,) = summary["slo"].values()
+        assert slo["compliant"] and slo["objective"] == "p99(x) <= 0.001s"
+
+
+@pytest.mark.parametrize("extra,what", TRAINING_OBSERVABILITY,
+                         ids=[e[0] for e, _ in TRAINING_OBSERVABILITY])
+def test_training_observability_flags_run(runs, tmp_path, extra, what):
+    root = runs["training"]["root"]
+    out = tmp_path / "out"
+    summary = game_training_driver.run(
+        ["--train-input-dirs", str(root / "train"), "--output-dir",
+         str(out), *TRAINING_FLAGS, "--num-iterations", "1", *extra],
+        device="cpu")
+    _check_observability_output(summary, out, what)
+
+
+@pytest.mark.parametrize("extra,what", SCORING_OBSERVABILITY,
+                         ids=[e[0] for e, _ in SCORING_OBSERVABILITY])
+def test_scoring_observability_flags_run(runs, tmp_path, extra, what):
+    root = runs["training"]["root"]
+    out = tmp_path / "out"
+    summary = game_scoring_driver.run(
+        ["--input-dirs", str(runs["training"]["valid"]),
+         "--game-model-input-dir", str(root / "port" / "best"),
+         "--output-dir", str(out), *extra], device="cpu")
+    _check_observability_output(summary, out, what)
 
 STREAMED = {"stream": ["--stream", "--batch-rows", "64"],
             "serve": ["--serve", "--request-rows", "3", "--batch-rows", "64",

@@ -236,14 +236,16 @@ def test_metrics_stream_train_block_has_jax_keys(runs):
 # naming that item. The ids are the names these cases had while the
 # grid and streamed MF themselves raised naming A4b, kept so that each
 # case's record goes on under one name: what a case now asserts is its
-# `named` flag and its `item` (--distmon's item is A5c since the
-# telemetry core came, ROADMAP A5b). The case that named --trace-out
-# runs it (test_streamed_mf_trace_out_runs).
+# `named` flag and its `item`. --distmon runs since the observability
+# plane came (ROADMAP A5c; tests/test_torch_distmon.py), so its cases
+# name a mesh flag (A6) beside it. The case that named --trace-out runs
+# it (test_streamed_mf_trace_out_runs).
 @pytest.mark.parametrize("extra,named,item", [
-    (["--grid-batched", "on", *SPILL, "--distmon"], "--distmon", "A5c"),
+    (["--grid-batched", "on", *SPILL, "--distmon", "--mesh-shape", "2x2"],
+     "--mesh-shape", "A6"),
     (["--grid-batched", "auto", *SPILL, "--mesh-devices", "2"],
      "--mesh-devices", "A6"),
-    (["--distmon"], "--distmon", "A5c"),
+    (["--distmon", "--mesh-shape", "2x2"], "--mesh-shape", "A6"),
     ([*SPILL, "--mesh-devices", "2"], "--mesh-devices", "A6"),
 ], ids=["extra0---grid-batched on-A4b", "extra1---grid-batched auto-A4b",
         "extra3---distmon-A5", "extra4---mesh-devices-A6"])

@@ -10,9 +10,10 @@ tests/test_tracectx.py.
   models and requests of tests/test_torch_serving_frontend.py); where
   JAX's front-end is run beside it, the timelines' stage sequences are
   the same.
-- The live plane's ``/tracez`` and ``/metrics`` are ROADMAP A5c: the
-  concurrent case reads the tail and the exemplars directly while
-  threads observe and finish traces.
+- The concurrent case reads the tail and the exemplars directly while
+  threads observe and finish traces (the HTTP routes that serve them,
+  ``/tracez`` and ``/metrics``, are held against JAX's in
+  tests/test_torch_slo_exposition.py).
 - The watchdog case is JAX's recipe: a NaN feature under
   ``--stream-train`` diverges the streamed solve in both drivers, and
   the port's flight dump is tagged with the solve's trace id.
@@ -98,6 +99,9 @@ def _stages(ctx):
 
 def test_mint_disabled_returns_shared_noop():
     for t, _ in BOTH:
+        # An earlier file's driver run on this worker may have left
+        # traces in the process-wide tail: start from an empty one.
+        t.reset()
         t.disable()
         ctx = t.mint("request")
         assert ctx is t.NOOP_CONTEXT and ctx is t.mint("solve")
@@ -298,8 +302,8 @@ def test_deferred_path_keeps_timelines_and_resolvable_exemplars(
 
 def test_tracez_and_exemplars_under_concurrent_scrape(sampling):
     """Worker threads observe and finish traces while the main thread
-    reads the tail and the exemplars (the HTTP plane itself is ROADMAP
-    A5c): every read is well formed, and errors are kept."""
+    reads the tail and the exemplars: every read is well formed, and
+    errors are kept."""
     h = tel.histogram("load.request_latency_seconds", exemplars=True)
     stop = threading.Event()
 
