@@ -12,7 +12,9 @@ with an intercept, 5k users x 25 per-user features, 2k items x 16
 per-item features, both with an intercept in column 0, logistic; a 20%
 hold-out scored for AUC) through photon_ml_tpu_torch's GameEstimator on
 five paths, 3 coordinate-descent iterations each, path 6 through the
-training and scoring drivers and path 7 through the GLM driver:
+training and scoring drivers and path 7 through the GLM driver, paths
+8-11 through the streamed trainer and the serving paths, path 12 over
+the network:
 
 - path 1, the headline GLMix of bench.py: fixed effect L-BFGS max_iter
   50, tol 1e-7, L2 1; per-user L-BFGS max_iter 20, tol 1e-6, L2 1;
@@ -224,6 +226,29 @@ requests are replayed outside the driver with the score monitor off
 and on in turns (off, on, on, off): rows a second each, the same
 score bytes.
 
+Path 12 serves the same model over the network (serving/netserver.py,
+serving/router.py, serving/adaptive.py): replicas of ``python -m
+photon_ml_tpu_torch.cli.game_scoring_driver --listen 127.0.0.1:0
+--coalesce-ms 2 --obs-port 0``, each a fresh process with its own CUDA
+context on device 0, and ``python -m photon_ml_tpu_torch.cli.net_router``
+in front of two of them; this process is the client, over real sockets.
+(a) The 10,000 hold-out rows as one-row binary frames (16 connections,
+32 frames in flight each), then as 8-row HTTP/1.1 keep-alive requests:
+every score bit for bit path 10's --stream score of its row, the two
+framings the same bytes, the replica's counters exact and its graphs one
+a bucket shape; rows a second and client P50/P99 for each framing beside
+path 10's in-process figures. (b) A malformed frame between good ones,
+an oversized frame and an unknown model, each answered with its typed
+error, no neighbour's score moved. (c) The fleet: every score (a)'s,
+the router's forwarded == returned, no backend error, both replicas
+answering, the CUDA driver mapped in both replicas and never in the
+router. (d) A replica with --adaptive-admission and a P99 SLO at (a)'s
+served one-row P99, driven by an open-loop burst at 4x (a)'s rate, then
+idle: it tightens, then relaxes, and sheds only as typed ``shed``
+answers. Every process stops by SIGINT and must drain and exit 0; its
+row-9 launches (graph replays and builds times the launches a graph
+captures) must equal the process's own count.
+
 Then the gather phase runs the port's gather experiment
 (photon_ml_tpu_torch/dev_scripts/gather_experiments.py) at its full
 width, m = 12,000,000 lookups into d = 2,000,000 coefficients: w[idx],
@@ -294,7 +319,8 @@ each with its launches on the main paths, path 6's among row 1's, times
 and bound; row 9, the deterministic CSR product, with its launches in
 path 8 and the full-width stream phase and the launches path 10's bucket
 graphs executed (wrapper calls, less those recorded at capture, plus
-replays times the launches a graph holds), with path 11's; row 10, the
+replays times the launches a graph holds), with path 11's and the
+path-12 replicas' (counted from their metrics.json); row 10, the
 CSR x panel
 product, with its launches in path 9 and the grid phase and its times
 at MF's shapes), then the
@@ -305,11 +331,16 @@ when any check fails.
 
 from __future__ import annotations
 
+import asyncio
+import collections
 import contextlib
+import itertools
 import json
 import logging
 import math
 import multiprocessing
+import signal
+import struct
 import subprocess
 import sys
 import tempfile
@@ -3259,7 +3290,10 @@ def path10(root: Path) -> int:
     request latency and queue wait P50/P95/P99. Then
     ``telemetry_cost``. Returns the row-9 launches the runs executed
     (wrapper calls, less those recorded at capture, plus graph replays
-    times the launches captured per graph)."""
+    times the launches captured per graph), the launches one bucket graph
+    of this model captures (path 12 counts its replicas' launches with
+    it) and the served runs' figures (rows a second; request latency
+    P50 and P99 ms), for path 12 to print beside its own."""
     import json as _json
 
     import torch
@@ -3302,6 +3336,8 @@ def path10(root: Path) -> int:
     serving_frontend.StreamingGameScorer = Kept
     launches = 0
     served = {}
+    per_graph = set()
+    figures = {}
     try:
         for tag, flags in PATH10_RUNS:
             Kept.made.clear()
@@ -3336,6 +3372,7 @@ def path10(root: Path) -> int:
                 ratio = max(ratio, diff / max(2 * gamma * total, 1e-300))
             auc = summary["metrics"]["AUC"]
             rows_s = summary["num_rows"] / log.phases["score"]
+            figures[tag] = {"rows_s": rows_s}
             print(f"path 10 {tag}: {summary['num_rows']} rows in "
                   f"{seconds:.2f} s (score phase {log.phases['score']:.3f} s,"
                   f" {rows_s:.0f} rows a second; phases "
@@ -3384,6 +3421,9 @@ def path10(root: Path) -> int:
                       f"{fe['failed']}, cancelled {fe['cancelled']}, "
                       f"coalesced groups {fe['coalesced_groups']}; ms "
                       f"{pct}; card {card}", flush=True)
+                figures[tag].update(
+                    p50_ms=pct["request_latency_seconds"]["p50"],
+                    p99_ms=pct["request_latency_seconds"]["p99"])
                 check(fe["admitted"] == fe["completed"] == completed
                       == summary["num_requests"]
                       and fe["rejected"] == fe["failed"] == fe["cancelled"]
@@ -3393,6 +3433,7 @@ def path10(root: Path) -> int:
                                  {"driver", "score", "coalesce",
                                   "dispatch", "scatter"})
             buckets = eng.buckets()
+            per_graph |= {ex.launches_per_replay for ex in buckets.values()}
             check(set(buckets) == eng.shapes_used
                   and st["compilations"] == len(eng.shapes_used),
                   f"path 10 {tag}: graphs {sorted(buckets)} for shapes "
@@ -3427,8 +3468,10 @@ def path10(root: Path) -> int:
           f"path {time.perf_counter() - t_path:.1f} s; card {card}",
           flush=True)
     check(all(same.values()), f"path 10: served scores differ: {same}")
+    check(len(per_graph) == 1 and min(per_graph) > 0,
+          f"path 10: row-9 launches a graph {per_graph}")
     telemetry_cost(root, card)
-    return launches
+    return launches, per_graph.pop(), figures
 
 
 def telemetry_cost(root: Path, card: str) -> None:
@@ -3801,6 +3844,579 @@ def path11(root: Path, val) -> int:
     return launches
 
 
+PATH12_REPLICA = ["--listen", "127.0.0.1:0", "--serve-seconds", "900",
+                  "--coalesce-ms", "2", "--obs-port", "0"]
+PATH12_CONNS, PATH12_WINDOW = 16, 32  # (a): connections, frames in flight
+PATH12_HTTP_ROWS = 8
+PATH12_FLEET_CONNS = 8
+# (d): an open-loop burst at 4x (a)'s one-row rate on 64 connections (4x
+# (a)'s frames in flight at the server), then idle until a relax.
+PATH12_BURST, PATH12_BURST_S, PATH12_BURST_CONNS = 4.0, 1.0, 64
+PATH12_START_S, PATH12_STOP_S = 240.0, 120.0
+REPO = Path(__file__).resolve().parent
+
+
+class _Proc:
+    """A path-12 process, started fresh as ``python -m`` from the
+    repository root (never a fork of this process, which holds a CUDA
+    context), its output in a log file."""
+
+    def __init__(self, name: str, argv: list, log: Path):
+        self.name = name
+        self.log = log
+        with open(log, "w") as fh:
+            self.p = subprocess.Popen([sys.executable, "-m", *argv],
+                                      cwd=REPO, stdout=fh,
+                                      stderr=subprocess.STDOUT)
+
+    def tail(self, n: int = 25) -> str:
+        return "\n".join(self.log.read_text(errors="replace")
+                         .splitlines()[-n:])
+
+    def wait_file(self, path: Path, timeout: float) -> str:
+        """The text of ``path`` once this process has written it."""
+        deadline = time.monotonic() + timeout
+        while not (path.exists() and path.read_text().strip()):
+            check(self.p.poll() is None, f"path 12: {self.name} exited "
+                  f"{self.p.returncode} before {path.name}:\n{self.tail()}")
+            check(time.monotonic() < deadline,
+                  f"path 12: no {path.name} from {self.name} in {timeout} s")
+            time.sleep(0.05)
+        return path.read_text().strip()
+
+    def stop(self, signalled: bool = False) -> int:
+        """SIGINT (the drain path; unless ``signalled``), then the exit
+        code."""
+        if not signalled:
+            self.p.send_signal(signal.SIGINT)
+        try:
+            return self.p.wait(timeout=PATH12_STOP_S)
+        except subprocess.TimeoutExpired:
+            raise CheckFailed(f"path 12: {self.name} did not drain in "
+                              f"{PATH12_STOP_S} s:\n{self.tail()}") from None
+
+    def kill(self) -> None:
+        if self.p.poll() is None:
+            self.p.kill()
+            self.p.wait(timeout=60)
+
+
+def _status(out: Path) -> dict:
+    """A replica's live /statusz ``status`` block, off its --obs-port."""
+    import urllib.request
+
+    port = json.loads((out / "obs_port").read_text())["port"]
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/statusz",
+                                timeout=30) as resp:
+        return json.loads(resp.read())["status"]
+
+
+def _ms(values, q: float) -> float:
+    return 1e3 * float(np.quantile(np.asarray(values), q))
+
+
+async def _binary_run(port: int, frames: list, conns: int, window: int,
+                      results=None):
+    """``frames`` ((row, frame bytes)) over ``conns`` connections, each
+    keeping ``window`` frames in flight: {row: scores or the typed error
+    kind} (filled into ``results`` as answers come), the request
+    latencies (s, write to response) and the wall s."""
+    from photon_ml_tpu_torch.serving.wire import (
+        ServerError,
+        read_binary_response,
+    )
+
+    results = {} if results is None else results
+    lat = []
+
+    async def one(part):
+        r, w = await asyncio.open_connection("127.0.0.1", port)
+        sent = collections.deque()
+        todo = iter(part)
+        try:
+            for row, frame in itertools.islice(todo, window):
+                w.write(frame)
+                sent.append((row, time.perf_counter()))
+            while sent:
+                await w.drain()
+                try:
+                    res = await read_binary_response(r)
+                except ServerError as e:
+                    res = e.kind
+                row, t0 = sent.popleft()
+                lat.append(time.perf_counter() - t0)
+                results[row] = res
+                for row, frame in itertools.islice(todo, 1):
+                    w.write(frame)
+                    sent.append((row, time.perf_counter()))
+        finally:
+            w.close()
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*[one(frames[k::conns]) for k in range(conns)])
+    return results, lat, time.perf_counter() - t0
+
+
+async def _http_run(port: int, requests: list, conns: int):
+    """``requests`` ((rows, request bytes)) as sequential HTTP/1.1
+    keep-alive requests over ``conns`` connections: {row: float32
+    score}, the latencies and the wall s."""
+    from photon_ml_tpu_torch.serving.wire import read_http_response
+
+    results, lat = {}, []
+
+    async def one(part):
+        r, w = await asyncio.open_connection("127.0.0.1", port)
+        try:
+            for rows, req in part:
+                t0 = time.perf_counter()
+                w.write(req)
+                await w.drain()
+                status, payload = await read_http_response(r)
+                lat.append(time.perf_counter() - t0)
+                obj = json.loads(payload)
+                check(status == 200, f"path 12: HTTP {status} {obj}")
+                scores = np.asarray(obj["scores"], np.float64).astype(
+                    np.dtype(obj["dtype"]))
+                for j, row in enumerate(rows):
+                    results[row] = scores[j:j + 1]
+        finally:
+            w.close()
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*[one(requests[k::conns]) for k in range(conns)])
+    return results, lat, time.perf_counter() - t0
+
+
+async def _burst(port: int, frames: list, rate: float, seconds: float,
+                 conns: int):
+    """Open loop: ``rate * seconds`` frames (``frames`` cycled) sent at
+    ``rate`` a second over ``conns`` connections, whatever comes back;
+    then every answer read: [(row, scores or the typed error kind)]."""
+    from photon_ml_tpu_torch.serving.wire import (
+        ServerError,
+        read_binary_response,
+    )
+
+    links = [await asyncio.open_connection("127.0.0.1", port)
+             for _ in range(conns)]
+    pending = [collections.deque() for _ in range(conns)]
+    sent = [0] * conns
+    state = {"done": False}
+    answers = []
+
+    async def reader(c):
+        r = links[c][0]
+        got = 0
+        while not state["done"] or got < sent[c]:
+            if got == sent[c]:
+                await asyncio.sleep(0.001)
+                continue
+            try:
+                res = await read_binary_response(r)
+            except ServerError as e:
+                res = e.kind
+            answers.append((pending[c].popleft(), res))
+            got += 1
+
+    readers = [asyncio.ensure_future(reader(c)) for c in range(conns)]
+    try:
+        n = int(rate * seconds)
+        t0 = time.perf_counter()
+        k = 0
+        while k < n:
+            due = min(n, int((time.perf_counter() - t0) * rate) + 1)
+            while k < due:
+                row, frame = frames[k % len(frames)]
+                c = k % conns
+                links[c][1].write(frame)
+                pending[c].append(row)
+                sent[c] += 1
+                k += 1
+            await asyncio.sleep(0.0005)
+        state["done"] = True
+        await asyncio.gather(*readers)
+    finally:
+        for task in readers:
+            task.cancel()
+        for _, w in links:
+            w.close()
+    return answers
+
+
+def path12(root: Path, per_graph: int, figures10: dict) -> int:
+    """Path 12: network serving of path 6's saved model (config 5 at full
+    width: 200 fixed features, 5,000 users x 25, 2,000 items x 16, the
+    factored itemFactors effect at k = 4) on its 10,000 hold-out rows,
+    through replicas of ``python -m photon_ml_tpu_torch.cli.
+    game_scoring_driver --listen`` (each a fresh process with its own
+    CUDA context on device 0, --coalesce-ms 2, --obs-port 0) and
+    ``python -m photon_ml_tpu_torch.cli.net_router``, this process the
+    client. Four replicas: A for (a) and (b), B1 and B2 behind the router
+    for (c), D with --adaptive-admission for (d), started once (a) set
+    its SLO.
+
+    (a) The 10,000 rows as one-row binary frames from 16 connections,
+    each keeping 32 frames in flight, then as 8-row requests over 16
+    HTTP/1.1 keep-alive connections: every row's score bit for bit path
+    10's --stream score of its uid (the float32 score plus the row's
+    offset), both framings the same bytes, the replica's ``net``
+    responses the requests sent and ``wire_errors`` {}, graphs captured
+    the distinct bucket shapes, each captured once. Prints rows a second
+    and request P50/P99 (client side, write to response) for each
+    framing beside path 10's in-process figures.
+    (b) On A: a malformed frame pipelined between two good ones gets a
+    typed ``malformed`` answer and its neighbours' scores are (a)'s; a
+    frame over max_body_bytes gets ``too_large``; model "nope" gets
+    ``unknown_model``; A still serves, and its ``wire_errors`` count
+    exactly those three.
+    (c) 8 connections of binary frames through the router: every score
+    (a)'s bytes, the router's forwarded == returned == 10,000 with no
+    backend error, both replicas answered, and, taken while the fleet
+    serves, nvidia-smi lists compute apps and both replicas, never the
+    router, have the CUDA driver mapped (``_cuda_holders_while``).
+    (d) D with --slo p99:serving.frontend.request_latency_seconds<=X, X
+    A's own P99 of (a)'s one-row requests (its front-end's histogram):
+    an open-loop burst at 4x (a)'s one-row rate for a second on 64
+    connections, then idle: the controller tightens, then relaxes; every
+    error is a typed ``shed``, counted by D as the client counted it; every
+    answered score is (a)'s bytes.
+
+    Every process is stopped with SIGINT and must exit 0 with its
+    metrics.json (the replicas') or its stats line (the router's); a
+    failed phase kills what it started. Returns the replicas' row-9
+    launches: per replica (dispatches + graph builds) x the launches a
+    graph captures (``per_graph``, path 10's; each dispatch replays one
+    graph, each build runs the bucket's function once eagerly), which
+    must equal the process's own ``kernel_launches`` count."""
+    from photon_ml_tpu_torch.data.avro_reader import read_game_dataset
+    from photon_ml_tpu_torch.data.paldb import load_feature_index_maps
+    from photon_ml_tpu_torch.serving import netserver, wire
+
+    t_path = time.perf_counter()
+    card = card_line()
+    model_dir = root / "model" / "best"
+    maps = load_feature_index_maps(model_dir / "feature-indexes")
+    meta = json.loads((model_dir / "model-metadata.json").read_text())
+    id_types = sorted(  # the scoring driver's id columns
+        {c["randomEffectType"] for c in meta["coordinates"]
+         if c["kind"] == "random"}
+        | {c[k] for c in meta["coordinates"] if c["kind"] == "mf"
+           for k in ("rowEffectType", "colEffectType")})
+    data, _ = read_game_dataset(root / "validate", id_types, maps)
+    stream = _scores_by_uid(root / "p10-stream")
+    n = data.num_rows
+    check(n == PATH6_VAL, f"path 12: {n} hold-out rows")
+    singles = [(i, netserver.encode_request(_request(data, i, i + 1)))
+               for i in range(n)]
+    http = []
+    for a in range(0, n, PATH12_HTTP_ROWS):
+        rows = np.arange(a, min(a + PATH12_HTTP_ROWS, n))
+        body = json.dumps(netserver.json_payload(
+            _request(data, a, a + len(rows)))).encode("utf-8")
+        http.append((rows, (f"POST /score HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                            f"Content-Type: application/json\r\n"
+                            f"Content-Length: {len(body)}\r\n\r\n")
+                     .encode("latin-1") + body))
+    print(f"path 12 requests encoded: {n} one-row frames, {len(http)} "
+          f"{PATH12_HTTP_ROWS}-row HTTP bodies, "
+          f"{time.perf_counter() - t_path:.1f} s", flush=True)
+    base = ["photon_ml_tpu_torch.cli.game_scoring_driver", "--input-dirs",
+            str(root / "validate"), "--game-model-input-dir",
+            str(model_dir), *PATH12_REPLICA]
+    procs = {}
+
+    def replica(name, extra=()):
+        out = root / f"p12-{name}"
+        procs[name] = _Proc(name, [*base, *extra, "--output-dir", str(out)],
+                            root / f"p12-{name}.log")
+        return out
+
+    def ready(name, out):
+        port = int(procs[name].wait_file(out / "net_port", PATH12_START_S))
+        procs[name].wait_file(out / "obs_port", PATH12_START_S)
+        return port
+
+    def run_async(coro):
+        return asyncio.run(asyncio.wait_for(coro, 300))
+
+    try:
+        t0 = time.perf_counter()
+        outs = {name: replica(name) for name in ("A", "B1", "B2")}
+        ports = {name: ready(name, out) for name, out in outs.items()}
+        print(f"path 12 replicas A, B1, B2 listening on {ports} after "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # ---- (a) one replica, both framings ----------------------------
+        bin_res, bin_lat, bin_s = run_async(_binary_run(
+            ports["A"], singles, PATH12_CONNS, PATH12_WINDOW))
+        served_p99 = _status(outs["A"])["frontend"][
+            "request_latency_seconds"]["p99"]
+        http_res, http_lat, http_s = run_async(_http_run(
+            ports["A"], http, PATH12_CONNS))
+        st = _status(outs["A"])
+        net, fe = st["netserver"], st["frontend"]
+        eng = fe["engines"]["default"]
+        wrong = [i for i in range(n)
+                 if not isinstance(bin_res.get(i), np.ndarray)
+                 or float(np.float64(bin_res[i][0]) + data.offsets[i])
+                 != stream[str(data.uids[i])]]
+        framings = [i for i in range(n)
+                    if bin_res[i].tobytes() != http_res[i].tobytes()]
+        rate = n / bin_s
+        print(f"path 12 (a) over the wire: one-row binary {rate:.0f} rows "
+              f"a second, request P50 {_ms(bin_lat, 0.5):.3f} P99 "
+              f"{_ms(bin_lat, 0.99):.3f} ms ({PATH12_CONNS} connections x "
+              f"{PATH12_WINDOW} in flight); {PATH12_HTTP_ROWS}-row HTTP "
+              f"{n / http_s:.0f} rows a second, P50 "
+              f"{_ms(http_lat, 0.5):.3f} P99 {_ms(http_lat, 0.99):.3f} ms "
+              f"({PATH12_CONNS} keep-alive connections); in process (path "
+              f"10): {figures10}; served P99 of the one-row requests "
+              f"{1e3 * served_p99:.3f} ms; card {card}", flush=True)
+        print(f"path 12 (a) checks: rows off path 10's --stream bits "
+              f"{len(wrong)}, framings differing {len(framings)}; net "
+              f"{ {k: net[k] for k in ('requests_binary', 'requests_http', 'responses', 'wire_errors')} }; "
+              f"graphs {fe['cache']['compilations']} (traces "
+              f"{fe['cache']['traces']}) for {len(eng['bucket_shapes'])} "
+              f"bucket shapes", flush=True)
+        check(not wrong and not framings, f"path 12 (a): {len(wrong)} "
+              f"rows off --stream's bits, {len(framings)} framings differ")
+        check(net["requests_binary"] == n and net["requests_http"]
+              == len(http) and net["responses"] == n + len(http)
+              and net["wire_errors"] == {}, f"path 12 (a): net {net}")
+        check(fe["cache"]["compilations"] == fe["cache"]["traces"]
+              == fe["cache"]["entries"] == len(eng["bucket_shapes"]) > 0,
+              f"path 12 (a): graphs {fe['cache']['compilations']} traces "
+              f"{fe['cache']['traces']} for {eng['bucket_shapes']}")
+        slo = ("p99:serving.frontend.request_latency_seconds"
+               f"<={1e3 * served_p99:.6f}ms")
+        outs["D"] = replica("D", ["--adaptive-admission", "--slo", slo])
+        print(f"path 12 (d) SLO from (a): {slo}", flush=True)
+
+        # ---- (b) wire faults on the live replica -----------------------
+        async def faults(port):
+            bad = _U4_FRAME.pack(7) + b"badmeta"
+            r, w = await asyncio.open_connection("127.0.0.1", port)
+            try:
+                w.write(singles[0][1] + wire.REQUEST_MAGIC
+                        + _U4_FRAME.pack(len(bad)) + bad + singles[1][1])
+                w.write(netserver.encode_request(_request(data, 2, 3),
+                                                 model="nope"))
+                w.write(singles[3][1])
+                await w.drain()
+                got = []
+                for _ in range(5):
+                    try:
+                        got.append(await wire.read_binary_response(r))
+                    except wire.ServerError as e:
+                        got.append(e.kind)
+            finally:
+                w.close()
+            r, w = await asyncio.open_connection("127.0.0.1", port)
+            try:
+                w.write(wire.REQUEST_MAGIC + _U4_FRAME.pack(16 << 20))
+                await w.drain()
+                try:
+                    await wire.read_binary_response(r)
+                    got.append("answered")
+                except wire.ServerError as e:
+                    got.append(e.kind)
+                got.append(await r.read())
+            finally:
+                w.close()
+            return got
+
+        got = run_async(faults(ports["A"]))
+        net = _status(outs["A"])["netserver"]
+        kinds = [g if isinstance(g, (str, bytes)) else "scores" for g in got]
+        print(f"path 12 (b) faults: answers {kinds}; wire_errors "
+              f"{net['wire_errors']}", flush=True)
+        check(kinds == ["scores", "malformed", "scores", "unknown_model",
+                        "scores", "too_large", b""],
+              f"path 12 (b): answers {kinds}")
+        check(all(got[j].tobytes() == bin_res[i].tobytes()
+                  for j, i in ((0, 0), (2, 1), (4, 3))),
+              "path 12 (b): a neighbour of a fault scored otherwise")
+        check(net["wire_errors"] == {"malformed": 1, "too_large": 1,
+                                     "unknown_model": 1}
+              and net["responses"] == n + len(http) + 3,
+              f"path 12 (b): net {net}")
+
+        # ---- (c) two replicas behind the router ------------------------
+        router_file = root / "p12-router-port"
+        procs["router"] = _Proc("router", [
+            "photon_ml_tpu_torch.cli.net_router", "--listen",
+            "127.0.0.1:0", "--backend", f"127.0.0.1:{ports['B1']}",
+            "--backend", f"127.0.0.1:{ports['B2']}", "--port-file",
+            str(router_file)], root / "p12-router.log")
+        router_port = int(procs["router"].wait_file(router_file, 60))
+
+        pids = {name: procs[name].p.pid
+                for name in ("B1", "B2", "router")}
+
+        async def fleet():
+            apps = asyncio.ensure_future(asyncio.to_thread(
+                _cuda_holders_while, lambda: len(fleet_res) > n // 4,
+                pids))
+            out = await _binary_run(router_port, singles,
+                                    PATH12_FLEET_CONNS, PATH12_WINDOW,
+                                    fleet_res)
+            return out, await apps
+
+        fleet_res = {}
+        (_, fleet_lat, fleet_s), apps = run_async(fleet())
+        code = procs["router"].stop()
+        router = json.loads(procs["router"].log.read_text()
+                            .strip().splitlines()[-1])
+        answered = {name: _status(outs[name])["netserver"]["responses"]
+                    for name in ("B1", "B2")}
+        same = sum(fleet_res[i].tobytes() == bin_res[i].tobytes()
+                   for i in range(n))
+        print(f"path 12 (c) fleet: {n / fleet_s:.0f} rows a second, P50 "
+              f"{_ms(fleet_lat, 0.5):.3f} P99 {_ms(fleet_lat, 0.99):.3f} "
+              f"ms ({PATH12_FLEET_CONNS} connections x {PATH12_WINDOW}); "
+              f"replica split {answered}; router forwarded "
+              f"{router['forwarded']} returned {router['returned']} "
+              f"backend_errors {router['backend_errors']}, exit {code}; "
+              f"while serving: {apps} (pids {pids}); scores as (a) "
+              f"{same} of {n}; card {card}", flush=True)
+        check(code == 0 and router["forwarded"] == router["returned"] == n
+              and router["backend_errors"] == 0,
+              f"path 12 (c): router exit {code}, stats {router}")
+        check(all(v > 0 for v in answered.values())
+              and sum(answered.values()) == n, f"path 12 (c): {answered}")
+        check(same == n, f"path 12 (c): {n - same} scores differ from (a)")
+        check(apps["compute_apps"] and apps["libcuda_mapped"] == {
+            "B1": True, "B2": True, "router": False},
+            f"path 12 (c): CUDA holders {apps}, pids {pids}")
+
+        # ---- (d) adaptive admission under a burst ----------------------
+        ports["D"] = ready("D", outs["D"])
+        answers = run_async(_burst(ports["D"], singles,
+                                   PATH12_BURST * rate, PATH12_BURST_S,
+                                   PATH12_BURST_CONNS))
+        t_idle = time.perf_counter()
+        while True:
+            ctl = _status(outs["D"])["adaptive_admission"]
+            if ctl["relaxes"] >= 1 or time.perf_counter() - t_idle > 30:
+                break
+            time.sleep(0.25)
+        net = _status(outs["D"])["netserver"]
+        kinds = collections.Counter(
+            "scores" if isinstance(res, np.ndarray) else res
+            for _, res in answers)
+        off = sum(isinstance(res, np.ndarray)
+                  and res.tobytes() != bin_res[row].tobytes()
+                  for row, res in answers)
+        print(f"path 12 (d) adaptive: burst {len(answers)} frames at "
+              f"{PATH12_BURST * rate:.0f} a second for {PATH12_BURST_S} s "
+              f"on {PATH12_BURST_CONNS} connections: answers "
+              f"{dict(kinds)}; controller tightens {ctl['tightens']}, "
+              f"relaxes {ctl['relaxes']}, ticks {ctl['ticks']}, "
+              f"max_pending {ctl['max_pending']} (base "
+              f"{ctl['base_max_pending']}), window {ctl['coalesce_window_s']}"
+              f" s (base {ctl['base_window_s']}); wire_errors "
+              f"{net['wire_errors']}; idle to the first relax "
+              f"{time.perf_counter() - t_idle:.2f} s; card {card}",
+              flush=True)
+        check(ctl["tightens"] >= 1 and ctl["relaxes"] >= 1,
+              f"path 12 (d): controller {ctl}")
+        check(set(kinds) <= {"scores", "shed"} and off == 0,
+              f"path 12 (d): answers {dict(kinds)}, {off} scores off (a)")
+        check(net["wire_errors"] == ({"shed": kinds["shed"]}
+                                     if kinds["shed"] else {}),
+              f"path 12 (d): wire_errors {net['wire_errors']}, client "
+              f"counted {kinds['shed']} sheds")
+
+        # ---- stop: the drain path ---------------------------------------
+        launches = 0
+        replicas = ("A", "B1", "B2", "D")
+        for name in replicas:
+            procs[name].p.send_signal(signal.SIGINT)
+        for name in replicas:
+            code = procs[name].stop(signalled=True)
+            check(code == 0, f"path 12: {name} exited {code}:\n"
+                  f"{procs[name].tail()}")
+            summary = json.loads((outs[name] / "metrics.json").read_text())
+            fe = summary["frontend"]
+            eng = fe["engines"]["default"]
+            counted = summary["kernel_launches"]["csr_matvec"]
+            from_stats = (eng["dispatches"] + fe["cache"]["compilations"]) \
+                * per_graph
+            stages = sorted(
+                summary["telemetry"]["stage_attribution"].items(),
+                key=lambda kv: -kv[1]["self_s"])[:6]
+            print(f"path 12 replica {name}: drained, exit 0, "
+                  f"scoring_path {summary['scoring_path']}, net responses "
+                  f"{summary['net']['responses']}, dispatches "
+                  f"{eng['dispatches']}, graphs {fe['cache']['compilations']}"
+                  f", row-9 launches {from_stats} (the process counted "
+                  f"{counted}); top stages by self s "
+                  f"{ {k: (v['count'], round(v['self_s'], 3)) for k, v in stages} }",
+                  flush=True)
+            check(summary["scoring_path"] == "netserver"
+                  and counted == from_stats > 0
+                  and fe["cache"]["compilations"] == fe["cache"]["traces"]
+                  == len(eng["bucket_shapes"]),
+                  f"path 12 {name}: launches {counted} != {from_stats}, or "
+                  f"graphs {fe['cache']['compilations']} traces "
+                  f"{fe['cache']['traces']} for "
+                  f"{len(eng['bucket_shapes'])} bucket shapes")
+            launches += counted
+    except BaseException:
+        for proc in procs.values():
+            if proc.p.poll() is None:
+                print(f"path 12 {proc.name} log tail:\n{proc.tail()}",
+                      file=sys.stderr, flush=True)
+        raise
+    finally:
+        for proc in procs.values():
+            proc.kill()
+    print(f"path 12: {time.perf_counter() - t_path:.1f} s, row-9 launches "
+          f"{launches}; card {card}", flush=True)
+    return launches
+
+
+_U4_FRAME = struct.Struct("<I")
+
+
+def _request(data, a: int, b: int):
+    """Rows a..b of ``data`` as a client sends them: each id column
+    holding only the ids its rows use (a row slice keeps the whole
+    column's vocabulary, 5,000 users and 2,000 items, which a binary frame
+    would carry and a replica would join per request)."""
+    from photon_ml_tpu_torch.data.game_data import EntityIdColumn
+
+    ds = data.subset(slice(a, b))
+    for name, col in ds.id_columns.items():
+        vocab, codes = np.unique(np.asarray(col.vocabulary)[col.codes],
+                                 return_inverse=True)
+        ds.id_columns[name] = EntityIdColumn(codes.astype(np.int32), vocab)
+    return ds
+
+
+def _cuda_holders_while(serving, pids: dict) -> dict:
+    """Once ``serving()`` is true (the fleet is mid-run; within 60 s):
+    nvidia-smi's compute apps (pid, name, memory) and, per process of
+    ``pids`` (name -> pid), whether the CUDA driver library is mapped
+    into it (/proc/<pid>/maps), which it is once the process has made a
+    CUDA context. Where the card's processes run in a container with a
+    pid namespace of its own, nvidia-smi reports compute apps under pids
+    that are not theirs (every one as pid 1, "/process_api", on the
+    H100 host these lines were measured on), so the mappings are what
+    names the processes."""
+    deadline = time.monotonic() + 60
+    while not serving() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,process_name,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    mapped = {name: "libcuda.so" in Path(f"/proc/{pid}/maps").read_text()
+              for name, pid in pids.items()}
+    return {"compute_apps": apps, "libcuda_mapped": mapped}
+
+
 def order_contract_check() -> None:
     """The kernels' order contract (csrc/csr_order.cuh): a row of 3,
     L - 1, L, L + 1 and 3L + 5 entries (L the chunk), first in one CSR
@@ -4086,18 +4702,19 @@ def main(argv=None) -> int:
         launches9, mf_held = path9(Path(tmp), p8, glm_phases)
         print(f"path 9: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        launches10 = path10(Path(tmp))
+        launches10, per_graph, figures10 = path10(Path(tmp))
         print(f"path 10: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         launches11 = path11(Path(tmp), val)
         print(f"path 11: {time.perf_counter() - t0:.1f} s", flush=True)
+        launches12 = path12(Path(tmp), per_graph, figures10)
     t0 = time.perf_counter()
     glm_full_width(train)
     print(f"glm full width: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches_stream, block = stream_full_width(train)
     spmv_row = spmv_entry(block, launches8 + launches_stream + launches10
-                          + launches11)
+                          + launches11 + launches12)
     print(f"stream full width: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches_grid, block = grid_full_width(train)

@@ -1,13 +1,15 @@
 """Command-line drivers (port of photon_ml_tpu/cli/; reference
 ml/Driver.scala, ml/cli/game/): the GAME training and scoring drivers,
-the GLM driver and the fleet observability aggregator
-(``obs_aggregate``).
+the GLM driver, the fleet observability aggregator (``obs_aggregate``)
+and the replica router (``net_router``).
 
 They keep every flag of their JAX parsers, so every JAX command line
-parses. A flag that belongs to a later item of ROADMAP queue A (network
-serving A5d, multi-GPU A6) raises an error naming that item when it is
-given a value other than its default. The helpers here are shared by
-the drivers; ``obs.py`` holds the observability plane's wiring.
+parses. A flag that belongs to a later item of ROADMAP queue A
+(multi-GPU, A6) raises an error naming that item when it is given a
+value other than its default. The helpers here are shared by the
+drivers; ``obs.py`` holds the observability plane's wiring. This module
+imports torch only inside the helpers that need it, so
+``python -m photon_ml_tpu_torch.cli.net_router`` runs without torch.
 """
 
 from __future__ import annotations
@@ -16,14 +18,10 @@ import contextlib
 import logging
 import time
 
-import torch
-
-from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.telemetry import span
 
 # Later queue items, for the error a flag of one of them raises.
 ITEMS = {
-    "A5d": "network serving",
     "A6": "multi-GPU",
 }
 
@@ -50,6 +48,10 @@ def resolve_run_device(device, dtype):
     CPU), and ``dtype`` None meaning float64 on the CPU and float32 on
     the card (the JAX scoring driver's _maybe_enable_cpu_x64 /
     _scoring_dtype policy, game_scoring_driver.py:152-171)."""
+    import torch
+
+    from photon_ml_tpu_torch.device import resolve_device
+
     dev = resolve_device(device)
     if dtype is None:
         dtype = torch.float64 if dev.type == "cpu" else torch.float32
@@ -63,6 +65,8 @@ def phase(logger: logging.Logger, name: str):
     seconds logged, also as the record's ``phase`` and ``seconds``
     attributes. On a CUDA run the phase's device work is finished before
     the span and the clock stop."""
+    import torch
+
     t0 = time.perf_counter()
     with span(name):
         yield

@@ -1,13 +1,16 @@
 """GAME scoring driver (port of photon_ml_tpu/cli/game_scoring_driver.py:
 build_parser :48-150, run :197-261 with its telemetry and observability
 plane, the legacy aliases :264-278, _run_scoring :280-373 with its
---stream/--serve/--distmon flag checks :284-300, _attach_score_monitor
-:375-391, _run_stream :393-471, _run_serve :474-576; reference ml/cli/game/scoring/
-Driver.scala:36-265): load a saved GAME model, score a dataset on the
-card, write ScoringResultAvro records to <output-dir>/scores/
-part-00000.avro, optionally evaluate, and write metrics.json.
+--listen/--stream/--serve/--adaptive-admission/--distmon flag checks
+:284-300, _attach_score_monitor :375-391, _run_stream :393-471,
+_run_serve :474-576, _run_listen :595-655 with _parse_listen :579-592,
+which is cli/net_router.py's address parsing;
+reference ml/cli/game/scoring/Driver.scala:36-265): load a saved GAME
+model, score a dataset on the card, write ScoringResultAvro records to
+<output-dir>/scores/part-00000.avro, optionally evaluate, and write
+metrics.json.
 
-Three execution shapes, as in JAX:
+Four execution shapes, as in JAX:
 
 - default: the whole input is read into one GameDataset and scored by
   ``DeviceGameScorer``; ``scoring_path`` "device";
@@ -24,7 +27,24 @@ Three execution shapes, as in JAX:
   each ``--coalesce-ms`` window into shared bucket dispatches;
   ``scoring_path`` "async-frontend", with ``num_requests``,
   ``request_rows``, ``coalesce_window_ms``, ``concurrency`` and
-  ``frontend``.
+  ``frontend``;
+- ``--listen ADDR`` (implies ``--serve``): the input is not replayed;
+  the network front door (serving/netserver.py) serves real sockets on
+  ADDR (PORT, :PORT or HOST:PORT; port 0 is ephemeral), HTTP/1.1 JSON
+  and the binary framing on one port, both into the front-end's
+  admission path. The bound port goes to ``<output-dir>/net_port`` as
+  soon as the server listens; ``/statusz`` gains the ``netserver``
+  provider (and ``adaptive_admission``), and ``/readyz`` turns ready
+  with reason "serving". The run serves until ``--serve-seconds`` run
+  out or SIGINT arrives, then drains (every request already read is
+  answered) and writes metrics.json with ``scoring_path`` "netserver",
+  ``listen``, ``net``, ``adaptive_admission`` (with the controller),
+  ``frontend`` and, beside JAX's keys, ``kernel_launches``: the row-9
+  launches of the process (``spmv.csr_matvec.launches``: the bucket
+  graphs' eager builds and replays), for a harness outside it.
+  ``--adaptive-admission`` (with ``--listen`` and at least one
+  ``--slo``) runs serving/adaptive.py's controller over the front-end's
+  live ``max_pending`` and coalesce window.
 
 The JAX driver falls back to host numpy when its batch scorer refuses a
 sub-model; the port does not: a sub-model the scorer refuses (or a
@@ -48,9 +68,6 @@ against the model's ``referenceDistributions`` (written by a
 scrape and once before the ``slo`` block, ``/distz`` shows the live
 sketch, and metrics.json gains ``distributions``.
 
-Every JAX flag parses. --listen and --adaptive-admission raise naming
-ROADMAP A5d.
-
 ``run(argv, device="cuda", dtype=None)`` scores on the card and raises
 without CUDA unless the caller passes ``device="cpu"``; ``dtype`` None
 means float64 on the CPU and float32 on the card.
@@ -69,11 +86,7 @@ from pathlib import Path
 import numpy as np
 
 from photon_ml_tpu_torch import telemetry
-from photon_ml_tpu_torch.cli import (
-    phase,
-    reject_later_flags,
-    resolve_run_device,
-)
+from photon_ml_tpu_torch.cli import phase, resolve_run_device
 from photon_ml_tpu_torch.cli.obs import (
     DriverObservability,
     add_observability_args,
@@ -87,12 +100,6 @@ from photon_ml_tpu_torch.io.model_io import load_game_model
 from photon_ml_tpu_torch.models.device_scoring import DeviceGameScorer
 from photon_ml_tpu_torch.utils.date_range import resolve_input_dirs
 from photon_ml_tpu_torch.utils.logging_utils import setup_photon_logger
-
-LATER_FLAGS = {
-    "listen": ("--listen", None, "A5d"),
-    "adaptive_admission": ("--adaptive-admission", False, "A5d"),
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="photon-game-scoring-driver")
@@ -131,11 +138,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-pending", type=int, default=1024,
                    help="--serve admission bound")
     p.add_argument("--listen", default=None, metavar="ADDR",
-                   help="network serving (ROADMAP A5d; raises)")
+                   help="network serving (implies --serve): open the "
+                        "front door on ADDR (PORT, :PORT or HOST:PORT; "
+                        "port 0 = ephemeral, written to <output-dir>/"
+                        "net_port) speaking HTTP/1.1 JSON (POST /score) "
+                        "and the length-prefixed binary framing on one "
+                        "port, both into the front-end's admission path")
     p.add_argument("--serve-seconds", type=float, default=None,
-                   metavar="S", help="--listen lifetime")
+                   metavar="S",
+                   help="--listen lifetime: serve for S seconds, then "
+                        "drain and write the summary (default: until "
+                        "SIGINT; the drain still runs)")
     p.add_argument("--adaptive-admission", action="store_true",
-                   help="SLO-adaptive admission (ROADMAP A5d; raises)")
+                   help="--listen SLO-adaptive admission: a controller "
+                        "reads the declared --slo objectives' per-tick "
+                        "burn rate and retunes the live shed threshold "
+                        "and coalesce window with hysteresis (requires "
+                        "at least one --slo)")
     p.add_argument("--distmon", action="store_true",
                    help="score-distribution monitoring (--stream or "
                         "--serve): a streaming score sketch fed at the "
@@ -157,7 +176,6 @@ def run(argv=None, *, device="cuda", dtype=None) -> dict:
     """Score and write; returns the metrics.json summary."""
     dev, dtype = resolve_run_device(device, dtype)
     args = build_parser().parse_args(argv)
-    reject_later_flags(args, LATER_FLAGS)
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     logger = setup_photon_logger(out_dir)
@@ -221,10 +239,18 @@ def _apply_legacy_aliases(summary: dict) -> dict:
 
 def _run_scoring(args, out_dir, logger, obs, device, dtype) -> dict:
     # Flag contradictions fail before the model loads.
+    if args.listen is not None:
+        args.serve = True  # --listen is the network serving shape
     if args.stream and args.serve:
         raise SystemExit("--stream and --serve are mutually exclusive: "
                          "--stream is the bounded-memory bulk path, "
                          "--serve the concurrent-request replay harness")
+    if args.adaptive_admission and args.listen is None:
+        raise SystemExit("--adaptive-admission retunes a live network "
+                         "front door; pass --listen")
+    if args.adaptive_admission and not args.slo:
+        raise SystemExit("--adaptive-admission steers on the declared "
+                         "--slo objectives; pass at least one --slo")
     if args.distmon and not (args.stream or args.serve):
         raise SystemExit("--distmon attaches score sketches to the "
                          "streaming engine's scatter-back; pass "
@@ -433,6 +459,9 @@ def _run_serve(args, inputs, id_types, shard_maps, model, evaluators,
     obs.add_status_provider("frontend", frontend.stats)
     score_mon = _attach_score_monitor(args, frontend.engine("default"),
                                       "default", reference, obs)
+    if args.listen is not None:
+        return _distributions(_run_listen(args, frontend, logger, obs),
+                              score_mon)
     with phase(logger, "ingest"):
         requests = []
         for ds in iter_game_dataset_batches(
@@ -474,6 +503,73 @@ def _run_serve(args, inputs, id_types, shard_maps, model, evaluators,
         "concurrency": args.serve_concurrency,
         "frontend": frontend.stats(),
     }, score_mon)
+
+
+def _run_listen(args, frontend, logger, obs) -> dict:
+    """--listen: the network front door over the front-end, serving real
+    sockets instead of replaying the input (requests arrive over the
+    wire). The bound port lands in <output-dir>/net_port as soon as the
+    listener is up; the drain on exit (--serve-seconds elapsed, or
+    SIGINT) lets every admitted request settle and its response flush
+    before the summary is written."""
+    import asyncio
+
+    from photon_ml_tpu_torch.cli.net_router import _parse_addr
+    from photon_ml_tpu_torch.ops import spmv
+    from photon_ml_tpu_torch.serving.adaptive import AdaptiveAdmission
+    from photon_ml_tpu_torch.serving.netserver import (
+        NetServer,
+        NetServerConfig,
+    )
+
+    host, port = _parse_addr(args.listen, "--listen")
+    out_dir = Path(args.output_dir)
+    report = {}
+
+    async def serve() -> None:
+        async with frontend:
+            server = await NetServer(
+                frontend, NetServerConfig(host=host, port=port)).start()
+            ctl = None
+            try:
+                if args.adaptive_admission:
+                    ctl = await AdaptiveAdmission(
+                        frontend, slo_specs=args.slo).start()
+                    obs.add_status_provider("adaptive_admission",
+                                            ctl.stats)
+                obs.add_status_provider("netserver", server.stats)
+                (out_dir / "net_port").write_text(str(server.port))
+                obs.mark_ready("serving")
+                logger.info("serving on %s:%d (HTTP/1.1 + binary framing)%s",
+                            host, server.port,
+                            " with SLO-adaptive admission"
+                            if ctl is not None else "")
+                if args.serve_seconds is not None:
+                    await asyncio.sleep(args.serve_seconds)
+                else:
+                    while True:
+                        await asyncio.sleep(3600)
+            finally:
+                if ctl is not None:
+                    await ctl.stop()
+                    report["adaptive_admission"] = ctl.stats()
+                await server.close()
+                report["net"] = server.stats()
+
+    with telemetry.span("serve"):
+        try:
+            asyncio.run(serve())
+        except KeyboardInterrupt:
+            logger.info("interrupted; network front door drained")
+    return {
+        "num_rows": 0,  # rows served are in the frontend and engine stats
+        "metrics": {},
+        "scoring_path": "netserver",
+        "listen": f"{host}:{port}",
+        **report,
+        "frontend": frontend.stats(),
+        "kernel_launches": {"csr_matvec": spmv.csr_matvec.launches},
+    }
 
 
 def main() -> None:

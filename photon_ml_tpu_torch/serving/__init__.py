@@ -1,5 +1,4 @@
-"""Streaming GAME serving (port of photon_ml_tpu/serving/__init__.py, the
-names ported so far).
+"""Streaming GAME serving (port of photon_ml_tpu/serving/__init__.py).
 
 ``DeviceGameScorer`` (models/device_scoring.py) freezes one dataset and
 varies the model; this package is the inverse production shape: the
@@ -9,8 +8,8 @@ scored by one CUDA graph held in an explicit cache.
 
 Imports are lazy (PEP 562): ``serving.kernels`` is shared with
 ``models.device_scoring``, and eager engine imports here would cycle
-through the model hierarchy. The network front door, adaptive admission
-and the replica router are ROADMAP A5d.
+through the model hierarchy, and the replica router (router.py over
+wire.py) must load without torch.
 """
 
 from __future__ import annotations
@@ -25,6 +24,25 @@ _EXPORTS = {
     "RequestRejected": "photon_ml_tpu_torch.serving.frontend",
     "UnknownModelError": "photon_ml_tpu_torch.serving.frontend",
     "UnsupportedSubModelError": "photon_ml_tpu_torch.serving.kernels",
+    # Network front door (netserver.py, its dataset-free codec in
+    # wire.py): dual-framing listener, client and typed wire errors over
+    # the front-end's admission path.
+    "NetServer": "photon_ml_tpu_torch.serving.netserver",
+    "NetServerConfig": "photon_ml_tpu_torch.serving.netserver",
+    "NetClient": "photon_ml_tpu_torch.serving.netserver",
+    "WireError": "photon_ml_tpu_torch.serving.wire",
+    "MalformedFrame": "photon_ml_tpu_torch.serving.wire",
+    "FrameTooLarge": "photon_ml_tpu_torch.serving.wire",
+    "HeaderTimeout": "photon_ml_tpu_torch.serving.wire",
+    "ClientDisconnect": "photon_ml_tpu_torch.serving.wire",
+    "ServerError": "photon_ml_tpu_torch.serving.wire",
+    # SLO-adaptive admission (adaptive.py) and the replica fleet router
+    # (router.py).
+    "AdaptiveAdmission": "photon_ml_tpu_torch.serving.adaptive",
+    "AdaptiveAdmissionConfig": "photon_ml_tpu_torch.serving.adaptive",
+    "WindowedBurn": "photon_ml_tpu_torch.serving.adaptive",
+    "ReplicaRouter": "photon_ml_tpu_torch.serving.router",
+    "RouterConfig": "photon_ml_tpu_torch.serving.router",
 }
 
 __all__ = list(_EXPORTS)

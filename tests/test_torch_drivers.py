@@ -353,13 +353,23 @@ TRAINING_LATER = [
      "--mesh-devices"),
     (["--mesh-devices", "2"], "A6", "--mesh-devices"),
     (["--mesh-shape", "2x2"], "A6", "--mesh-shape")]
+# The scoring flags that named ROADMAP A5d, ported with network serving:
+# each case now serves and drains ("serve") or ends with the JAX
+# driver's own SystemExit (game_scoring_driver.py:284-300).
 SCORING_LATER = [
-    (["--listen", "0"], "A5d", "--listen"),
-    (["--adaptive-admission"], "A5d", "--adaptive-admission"),
-    (["--distmon", "--stream", "--listen", "0"], "A5d", "--listen"),
-    (["--obs-port", "0", "--adaptive-admission"], "A5d",
-     "--adaptive-admission"),
-    (["--slo", "p99:x<=1ms", "--listen", "0"], "A5d", "--listen")]
+    (["--listen", "0"], "serve", None),
+    (["--adaptive-admission"], "exit",
+     "--adaptive-admission retunes a live network front door; pass "
+     "--listen"),
+    (["--distmon", "--stream", "--listen", "0"], "exit",
+     "--stream and --serve are mutually exclusive"),
+    (["--obs-port", "0", "--adaptive-admission"], "exit",
+     "--adaptive-admission retunes a live network front door; pass "
+     "--listen"),
+    (["--slo", "p99:x<=1ms", "--listen", "0"], "serve", None),
+    (["--listen", "0", "--adaptive-admission"], "exit",
+     "--adaptive-admission steers on the declared --slo objectives; "
+     "pass at least one --slo")]
 # The observability flags, ported here (ROADMAP A5c): each case of the
 # lists above that named one now also runs without the later item's flag
 # (one coordinate-descent iteration), its output checked (what, below).
@@ -430,16 +440,163 @@ def test_training_flags_of_later_items_raise(tmp_path, extra, item, named):
     assert not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("extra,item,named", SCORING_LATER,
-                         ids=[e[0] for e, _, _ in SCORING_LATER])
-def test_scoring_flags_of_later_items_raise(tmp_path, extra, item, named):
-    argv = ["--input-dirs", str(tmp_path / "none"), "--game-model-input-dir",
-            str(tmp_path / "model"), "--output-dir", str(tmp_path / "out"),
-            *extra]
-    with pytest.raises(ValueError, match=f"{named} is not ported yet: "
-                       f"it comes with ROADMAP queue {item}"):
-        game_scoring_driver.run(argv, device="cpu")
-    assert not (tmp_path / "out").exists()
+@pytest.mark.parametrize("extra,what,message", SCORING_LATER,
+                         ids=[e[0] if i < 5 else "--listen-adaptive"
+                              for i, (e, _, _) in enumerate(SCORING_LATER)])
+def test_scoring_flags_of_later_items_raise(runs, tmp_path, extra, what,
+                                            message):
+    """The five flag cases that once raised naming ROADMAP A5d (and the
+    third of JAX's --adaptive-admission checks): a --listen run serves a
+    request in each framing and drains; a contradiction ends the run with
+    JAX's SystemExit before the model loads."""
+    run = runs["training"]
+    argv = ["--input-dirs", str(run["valid"]), "--game-model-input-dir",
+            str(run["root"] / "port" / "best"), "--output-dir",
+            str(tmp_path / "out"), *extra]
+    if what == "exit":
+        with pytest.raises(SystemExit) as ei:
+            game_scoring_driver.run(argv, device="cpu")
+        assert str(ei.value).startswith(message)
+        return
+    summary, replies = _listen(argv, tmp_path / "out", run)
+    (binary, http), want = replies
+    assert binary.tobytes() == http.tobytes()
+    np.testing.assert_allclose(binary, want, rtol=1e-12, atol=1e-12)
+    net = summary["net"]
+    assert net["responses"] == net["requests_binary"] + net[
+        "requests_http"] == 2
+    assert net["wire_errors"] == {} and net["open_connections"] == 0
+    assert summary["scoring_path"] == "netserver"
+    assert summary["listen"] == "127.0.0.1:0"
+    if "--slo" in extra:
+        (slo,) = summary["slo"].values()
+        assert slo["objective"] == "p99(x) <= 0.001s"
+
+
+LISTEN_SECONDS = 2.0
+
+
+def _listen(argv, out: Path, run, client=None):
+    """Run the scoring driver's --listen (argv) in this process on a
+    thread for LISTEN_SECONDS, wait for <out>/net_port, and score the
+    first four validation rows over the wire: ``client(port, data)`` (a
+    coroutine function) or one request in each framing. Returns the
+    summary and ``(client's result, the rows' host scores)``, the host
+    scores the port model's own ``score``."""
+    import asyncio
+    import threading
+    import time
+
+    from photon_ml_tpu_torch.data.avro_reader import read_game_dataset
+    from photon_ml_tpu_torch.data.paldb import load_feature_index_maps
+    from photon_ml_tpu_torch.io.model_io import load_game_model
+    from photon_ml_tpu_torch.serving.netserver import NetClient
+
+    model_dir = run["root"] / "port" / "best"
+    maps = load_feature_index_maps(model_dir / "feature-indexes")
+    model = load_game_model(model_dir, maps)
+    data, _ = read_game_dataset(run["valid"], ["userId"], maps)
+    data = data.subset(np.arange(4))
+    want = model.score(data)
+
+    async def both_framings(port, ds):
+        got = []
+        for framing in ("binary", "http"):
+            async with NetClient("127.0.0.1", port, framing=framing) as c:
+                got.append(await c.score(ds))
+        return got
+
+    result = {}
+
+    def serve():
+        try:
+            result["summary"] = game_scoring_driver.run(
+                [*argv, "--serve-seconds", str(LISTEN_SECONDS)],
+                device="cpu")
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            result["error"] = e
+
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    try:
+        deadline = time.monotonic() + 60
+        while not (out / "net_port").exists() and "error" not in result:
+            assert time.monotonic() < deadline, "no net_port"
+            time.sleep(0.01)
+        if "error" not in result:
+            port = int((out / "net_port").read_text())
+            replies = asyncio.run(asyncio.wait_for(
+                (client or both_framings)(port, data), 30))
+    finally:
+        thread.join(timeout=60)
+    assert not thread.is_alive(), "the --listen run did not drain"
+    if "error" in result:
+        raise result["error"]
+    summary = result["summary"]
+    assert json.loads((out / "metrics.json").read_text())[
+        "scoring_path"] == "netserver"
+    return summary, (replies, want)
+
+
+def test_listen_serves_adaptive_admission_and_the_plane(runs, tmp_path):
+    """--listen with --adaptive-admission, an SLO and --obs-port: eight
+    pipelined binary frames and a /statusz scrape while it serves; the
+    controller ticked and reported, the netserver and controller status
+    providers were live, /readyz said "serving", and metrics.json holds
+    JAX's --listen keys."""
+    import asyncio
+    import urllib.request
+
+    from photon_ml_tpu_torch.serving import netserver
+
+    run = runs["training"]
+    out = tmp_path / "out"
+    argv = ["--input-dirs", str(run["valid"]), "--game-model-input-dir",
+            str(run["root"] / "port" / "best"), "--output-dir", str(out),
+            "--listen", "127.0.0.1:0", "--adaptive-admission", "--slo",
+            "p99:serving.frontend.request_latency_seconds<=250ms",
+            "--obs-port", "0", "--coalesce-ms", "1"]
+
+    async def pipelined(port, ds):
+        rows = [ds.subset(np.asarray([i % ds.num_rows])) for i in range(8)]
+        r, w = await asyncio.open_connection("127.0.0.1", port)
+        try:
+            w.write(b"".join(netserver.encode_request(x) for x in rows))
+            await w.drain()
+            got = [await netserver.read_binary_response(r) for _ in rows]
+        finally:
+            w.close()
+        obs = json.loads((out / "obs_port").read_text())["port"]
+
+        def scrape(path):
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{obs}{path}", timeout=10) as resp:
+                return json.loads(resp.read())
+
+        loop = asyncio.get_running_loop()
+        status = await loop.run_in_executor(None, scrape, "/statusz")
+        ready = await loop.run_in_executor(None, scrape, "/readyz")
+        return got, status, ready
+
+    summary, ((got, status, ready), want) = _listen(argv, out, run,
+                                                    client=pipelined)
+    for i, s in enumerate(got):
+        np.testing.assert_allclose(s, want[[i % 4]], rtol=1e-12,
+                                   atol=1e-12)
+    assert {"netserver", "adaptive_admission", "frontend"} <= set(
+        status["status"])
+    assert status["status"]["netserver"]["requests_binary"] == 8
+    assert ready["reason"] == "serving"
+    assert set(summary) >= {"num_rows", "metrics", "scoring_path", "listen",
+                            "net", "adaptive_admission", "frontend",
+                            "kernel_launches", "slo", "observability",
+                            "telemetry", "total_seconds"}
+    ctl = summary["adaptive_admission"]
+    assert ctl["ticks"] >= 1 and ctl["apply"] is True
+    assert ctl["base_max_pending"] == 1024 and ctl["base_window_s"] == 0.001
+    assert summary["net"]["responses"] == 8
+    assert summary["frontend"]["completed"] == 8
+    assert summary["kernel_launches"] == {"csr_matvec": 0}  # the CPU's
 
 
 @pytest.mark.parametrize("extra,what", TRAINING_TELEMETRY,

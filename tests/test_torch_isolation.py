@@ -74,7 +74,8 @@ def _dataset():
     "scoring_driver", "glm_driver", "train_glm_models", "device_batch",
     "stream_training_driver", "shard_cache", "assemble_fixed_effect_batch",
     "chunked_device_put", "streaming_scorer", "serving_frontend",
-    "stream_scoring_driver", "serve_scoring_driver"])
+    "stream_scoring_driver", "serve_scoring_driver",
+    "listen_scoring_driver"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            entry):
     from photon_ml_tpu_torch.algorithm.coordinate_descent import (
@@ -170,6 +171,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         "serve_scoring_driver": lambda: game_scoring_driver.run([
             "--input-dirs", "data", "--game-model-input-dir", "model",
             "--output-dir", "out", "--serve"]),
+        "listen_scoring_driver": lambda: game_scoring_driver.run([
+            "--input-dirs", "data", "--game-model-input-dir", "model",
+            "--output-dir", "out", "--listen", "0", "--adaptive-admission",
+            "--slo", "p99:x<=1ms"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -474,7 +474,17 @@ def test_stats_keys_are_jax_keys_but_telemetry(ref):
     """The port's stats() has every key of JAX's front-end, the
     telemetry histograms and the cache's profiler included since the
     telemetry core (ROADMAP A5b): the histograms' snapshots and the
-    profiler's table carry JAX's keys too."""
+    profiler's table carry JAX's keys too. The process-wide histograms
+    snapshot an ``exemplars`` key once a kept trace stamped one, which an
+    earlier test file in the same process may have done, so both
+    packages' start from reset histograms."""
+    from photon_ml_tpu import telemetry as jax_telemetry
+    from photon_ml_tpu_torch import telemetry as port_telemetry
+
+    for reg in (jax_telemetry.registry(), port_telemetry.registry()):
+        for name in ("queue_wait_seconds", "request_latency_seconds",
+                     "coalesce_group_requests"):
+            reg.histogram(f"serving.frontend.{name}").reset()
     fe = frontend({"default": ref.model().t})
     jfe = JaxFrontend({"default": ref.model().j}, dtype=ts.JDT,
                       ladder=JaxLadder(**LADDER),
