@@ -14,7 +14,7 @@ hold-out scored for AUC) through photon_ml_tpu_torch's GameEstimator on
 five paths, 3 coordinate-descent iterations each, path 6 through the
 training and scoring drivers and path 7 through the GLM driver, paths
 8-11 through the streamed trainer and the serving paths, path 12 over
-the network:
+the network, path 13 over a 1-D mesh of two slots of cuda:0:
 
 - path 1, the headline GLMix of bench.py: fixed effect L-BFGS max_iter
   50, tol 1e-7, L2 1; per-user L-BFGS max_iter 20, tol 1e-6, L2 1;
@@ -249,6 +249,26 @@ answers. Every process stops by SIGINT and must drain and exit 0; its
 row-9 launches (graph replays and builds times the launches a graph
 captures) must equal the process's own count.
 
+Path 13 trains over the 1-D device mesh (photon_ml_tpu_torch/parallel/,
+``make_mesh(2, device="cuda:0")``: two slots of the one card; slots on
+one card measure the fold's correctness, not its scaling). (a) The
+training driver's path-8 quarter-budget f32 run (--distmon, path 8's
+grid swept one λ at a time) with --mesh-devices 2 and half the quarter
+budget per slot: every λ's model records equal path 8's, each slot
+evicted and ended within its budget, ``stream_train.cache`` carries
+``mesh_devices`` 2 and ``per_device_bytes`` and the registry equals it,
+and row 9 launched as often as in path 8's run. (b) Path 9's batched
+grid at --mesh-devices 2 writes path 9's grid model bit for bit. (c) On
+a cache placed like (a)'s, through the API, one value, gradient and Hvp
+with ``combine="local"`` lie within (S - 1) eps sum |p_i| of the ordered
+fold's. (d) GameEstimator(mesh=) on path 5's coordinates: from the same
+offsets each random-effect and the factored coordinate's first update
+over two slots gives the unsharded update's coefficients, reasons and
+iterations bit for bit with two entity-kernel launches a bucket and the
+padding entities zero; the whole fit's objective history lies within
+rtol 1e-5 of path 5's and its final AUC within 1e-4. It prints its
+seconds and its launches of rows 1-6, 9 and 10.
+
 Then the gather phase runs the port's gather experiment
 (photon_ml_tpu_torch/dev_scripts/gather_experiments.py) at its full
 width, m = 12,000,000 lookups into d = 2,000,000 coefficients: w[idx],
@@ -315,14 +335,15 @@ compare them on one card (equal digests: no entity's stop moved).
 The third line from the end is a JSON record of the kernels (rows 1-8
 of the PERF.md table: L-BFGS, the normalization fold, bounded L-BFGS,
 OWL-QN, TRON and bounded TRON, the one-hot and the residue-class gather,
-each with its launches on the main paths, path 6's among row 1's, times
+each with its launches on the main paths, path 6's and path 13's among
+row 1's, times
 and bound; row 9, the deterministic CSR product, with its launches in
 path 8 and the full-width stream phase and the launches path 10's bucket
 graphs executed (wrapper calls, less those recorded at capture, plus
 replays times the launches a graph holds), with path 11's and the
-path-12 replicas' (counted from their metrics.json); row 10, the
-CSR x panel
-product, with its launches in path 9 and the grid phase and its times
+path-12 replicas' (counted from their metrics.json) and path 13's; row
+10, the CSR x panel product, with its launches in path 9, path 13 and
+the grid phase and its times
 at MF's shapes), then the
 card's name and power limit, and the last line is {"ok": true,
 "device": ...}. It exits non-zero, printing no result, without CUDA or
@@ -334,6 +355,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import contextlib
+import dataclasses
 import itertools
 import json
 import logging
@@ -847,7 +869,8 @@ def first_update_buckets(coords):
             cfg = coord.config
             kw = dict(max_iter=cfg.max_iterations, tol=cfg.tolerance,
                       mode=entity_mode(cfg))
-            for bi, (block, c0, norm, bounds) in enumerate(zip(
+            # One slot a bucket: the coordinate has no mesh.
+            for bi, (block, c0, (norm,), (bounds,)) in enumerate(zip(
                     coord.dataset.blocks, models[n].local_coefs,
                     coord.norm_blocks, coord.bounds_blocks)):
                 if norm is not None:
@@ -866,7 +889,8 @@ def first_update_buckets(coords):
             d = coord.dataset.num_global_features
             for bi, (block, g0) in enumerate(zip(
                     coord.dataset.blocks, models[n].latent.local_coefs)):
-                args = (coord._objective.loss, project_latent(block, B, d),
+                args = (coord._objective.loss,
+                        project_latent(block.x[..., :d], B),
                         block.labels, block_offsets(block, residual),
                         block.weights, g0.contiguous(), cfg.l2_weight,
                         cfg.l1_weight)
@@ -933,6 +957,7 @@ def factored_phase_ms(coord, model, residual, reps: int = 3) -> dict:
         _flatten_gammas,
         _solve_factored_block,
         block_offsets,
+        project_latent,
     )
     from photon_ml_tpu_torch.ops.features import KroneckerFeatures
     from photon_ml_tpu_torch.ops.glm_objective import GLMBatch
@@ -942,6 +967,7 @@ def factored_phase_ms(coord, model, residual, reps: int = 3) -> dict:
     d = coord.dataset.num_global_features
     B = model.projection_matrix
     offsets = [block_offsets(b, residual) for b in blocks]
+    xs = [b.x[..., :d] for b in blocks]
 
     def timed(fn):
         out = fn()
@@ -953,10 +979,12 @@ def factored_phase_ms(coord, model, residual, reps: int = 3) -> dict:
         return 1e3 * (time.perf_counter() - t0) / reps, out
 
     latent_ms, latent = timed(lambda: [
-        _solve_factored_block(coord._objective, coord.config, b, B, o, g, d)
-        for b, o, g in zip(blocks, offsets, model.latent.local_coefs)])
+        _solve_factored_block(coord._objective, coord.config, b,
+                              project_latent(x, B), o, g)
+        for b, x, o, g in zip(blocks, xs, offsets,
+                              model.latent.local_coefs)])
     gammas = [r.x for r in latent]
-    x, y, off, w = _flatten_factored_static(blocks, offsets, d)
+    x, y, off, w = _flatten_factored_static(xs, blocks, offsets)
     batch = GLMBatch(KroneckerFeatures(x, _flatten_gammas(blocks, gammas)),
                      y, off, w)
     refit_ms, refit = timed(lambda: solve_glm(
@@ -1141,10 +1169,11 @@ def coordinates_of(train, specs):
     return coords
 
 
-def fit_path(tag: str, specs, train, val):
-    """The path's main run: GameEstimator.fit with the launch counts set
-    to 0 just before and read just after. Returns (result, launches per
-    variant, buckets per random-effect coordinate)."""
+def fit_path(tag: str, specs, train, val, mesh=None):
+    """The path's main run: GameEstimator.fit (over ``mesh`` when given)
+    with the launch counts set to 0 just before and read just after.
+    Returns (result, launches per variant, buckets per random-effect
+    coordinate)."""
     import torch
 
     from photon_ml_tpu_torch.estimators.game_estimator import GameEstimator
@@ -1156,7 +1185,9 @@ def fit_path(tag: str, specs, train, val):
 
     estimator = GameEstimator(
         TaskType.LOGISTIC_REGRESSION, specs, num_iterations=CD_ITERATIONS,
-        validation_evaluators=[AreaUnderROCCurveEvaluator()])
+        validation_evaluators=[AreaUnderROCCurveEvaluator()],
+        **({} if mesh is None else dict(device=mesh.devices[0],
+                                        mesh=mesh)))
     # ---- the main path: counts set to 0 just before, read just after ----
     entity_solver.reset_launch_counts()
     torch.cuda.synchronize()
@@ -2410,7 +2441,8 @@ def path8(root: Path) -> tuple:
     launches = sum(r["launches"] for t, r in runs.items()
                    if t not in ("oneshot", "resident", "budget-above-plain"))
     return launches, {"quarter": quarter,
-                      "quarter-f32": runs["quarter-f32"]["summary"]}
+                      "quarter-f32": runs["quarter-f32"]["summary"],
+                      "quarter-f32-launches": runs["quarter-f32"]["launches"]}
 
 
 #: Path 8's --distmon runs (the one-shot run and the plain budget-above
@@ -4417,6 +4449,249 @@ def _cuda_holders_while(serving, pids: dict) -> dict:
     return {"compute_apps": apps, "libcuda_mapped": mapped}
 
 
+# Path 13: the 1-D mesh, two slots of cuda:0 (ROADMAP A6a).
+PATH13_SLOTS = 2
+PATH13_DEVICE = "cuda:0"  # the slots' card
+PATH13_CD_RTOL, PATH13_AUC_ATOL = 1e-5, 1e-4
+#: The PERF.md row of an entity-solver variant (path 5's coordinates
+#: launch only "lbfgs").
+PATH13_ROW_OF_VARIANT = {"lbfgs": 1, "lbfgs+normalized": 2,
+                         "lbfgs+bounded": 3, "owlqn": 4,
+                         "owlqn+normalized": 4, "tron": 5,
+                         "tron+normalized": 5, "tron+bounded": 6}
+
+
+def _fold_bound_share(ordered, local, parts) -> float:
+    """The largest |local - ordered| over its bound (S - 1) eps sum |p_i|
+    (float32), elementwise; ``parts`` the S per-shard partials."""
+    import torch
+
+    eps = float(torch.finfo(torch.float32).eps)
+    s = len(parts)
+    mag = sum(p.abs().double() for p in parts)
+    bound = (s - 1) * eps * mag
+    diff = (local.double() - ordered.double()).abs()
+    return float(torch.max(diff / torch.clamp_min(bound, 1e-300)))
+
+
+def path13(root: Path, p8: dict, train, val, specs5, result5) -> dict:
+    """Path 13: path 8's, path 9's and path 5's training over a 1-D mesh
+    of PATH13_SLOTS slots of cuda:0 (module docstring, (a)-(d)). Returns
+    its launches: ``entity`` per variant, ``row9`` and ``row10``, each
+    counted from 0 just before a run of the main path and read just
+    after."""
+    import torch
+
+    from photon_ml_tpu_torch.algorithm.coordinates import (
+        FactoredRandomEffectCoordinate,
+        RandomEffectCoordinate,
+    )
+    from photon_ml_tpu_torch.cli import game_training_driver
+    from photon_ml_tpu_torch.data.block_stream import BlockGameStream
+    from photon_ml_tpu_torch.data.paldb import load_feature_index_maps
+    from photon_ml_tpu_torch.data.shard_cache import DeviceShardCache
+    from photon_ml_tpu_torch.ops import entity_solver, spmv
+    from photon_ml_tpu_torch.ops.glm_objective import GLMBatch, GLMObjective
+    from photon_ml_tpu_torch.ops.losses import loss_for_task
+    from photon_ml_tpu_torch.ops.sharded_objective import ShardedGLMObjective
+    from photon_ml_tpu_torch.parallel import make_mesh, mesh_device_list
+    from photon_ml_tpu_torch.types import TaskType
+
+    t_path = time.perf_counter()
+    mesh = make_mesh(PATH13_SLOTS, device=PATH13_DEVICE)
+    print(f"path 13 mesh: {mesh.describe()}; card {card_line()}",
+          flush=True)
+    launches = {"entity": collections.Counter(), "row9": 0, "row10": 0}
+    base = ["--train-input-dirs", str(root / "train"),
+            "--validate-input-dirs", str(root / "validate"),
+            "--feature-index-dir", str(root / "feature-index"),
+            "--task-type", "LOGISTIC_REGRESSION",
+            "--fixed-effect-data-configurations", "fixed:global",
+            "--updating-sequence", "fixed",
+            "--evaluators", "AUC,LOGISTIC_LOSS",
+            "--feeder", "native", "--batch-rows", str(PATH8_BATCH_ROWS),
+            "--stream-train", "--mesh-devices", str(PATH13_SLOTS)]
+
+    def run(tag, extra):
+        spmv.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = game_training_driver.run(
+            [*base, "--fixed-effect-optimization-configurations", PATH8_GRID,
+             *extra, "--output-dir", str(root / f"p13-{tag}")],
+            device=PATH13_DEVICE)
+        torch.cuda.synchronize()
+        mv, mm = spmv.csr_matvec.launches, spmv.csr_matmul.launches
+        launches["row9"] += mv
+        launches["row10"] += mm
+        cache = summary["stream_train"]["cache"]
+        print(f"path 13 {tag}: {time.perf_counter() - t0:.2f} s, best "
+              f"{summary['bestConfigs']['fixed']}, cache "
+              f"{ {k: cache.get(k) for k in ('shards', 'hits', 'misses', 'evictions', 'epochs', 'mesh_devices', 'per_device_bytes', 'per_device_resident_shards')} }"
+              f", row 9 launches {mv}, row 10 launches {mm}", flush=True)
+        return summary, mv, mm
+
+    # (a) the scalar streamed solve, half the quarter budget a slot.
+    per_slot = int(p8["quarter"]) // PATH13_SLOTS
+    a, mv, _ = run("scalar", ["--grid-batched", "off", "--distmon",
+                              "--hbm-budget", str(per_slot)])
+    info, cache = a["stream_train"], a["stream_train"]["cache"]
+    check(info["mesh_devices"] == PATH13_SLOTS
+          and cache["mesh_devices"] == PATH13_SLOTS
+          and len(cache["per_device_bytes"]) == PATH13_SLOTS,
+          f"path 13 (a): mesh in metrics {info}")
+    for slot in range(PATH13_SLOTS):
+        held = (cache["shards"] - slot + PATH13_SLOTS - 1) // PATH13_SLOTS
+        check(cache["per_device_resident_shards"][slot] < held,
+              f"path 13 (a): slot {slot} never evicted ({cache})")
+        check(cache["per_device_bytes"][slot] <= per_slot,
+              f"path 13 (a): slot {slot} holds "
+              f"{cache['per_device_bytes'][slot]} > {per_slot}")
+    counters = a["telemetry"]["metrics"]["counters"]
+    registry = {k: counters.get(f"data.shard_cache.{k}")
+                for k in SHARD_CACHE_KEYS}
+    check(registry == {k: cache[k] for k in SHARD_CACHE_KEYS},
+          f"path 13 (a): registry {registry} != cache {cache}")
+    check(mv == p8["quarter-f32-launches"],
+          f"path 13 (a): row 9 launched {mv} times, path 8's quarter run "
+          f"{p8['quarter-f32-launches']}")
+    # Every λ: the best model's records, and per λ its solve's
+    # convergence ring (objective and gradient norm an iteration) and its
+    # training-score sketch (the final margins) from --distmon.
+    q = p8["quarter-f32"]
+    check(_fixed_records(root / "p13-scalar")
+          == _fixed_records(root / "p8-quarter-f32"),
+          "path 13 (a): the mesh's best model differs from path 8's")
+    for key in ("convergence", "training_scores"):
+        check(a["data_quality"][key] == q["data_quality"][key],
+              f"path 13 (a): a λ's {key} differs from path 8's")
+    check(a["objectiveHistory"] == q["objectiveHistory"],
+          "path 13 (a): objective histories differ")
+    print(f"path 13 (a): {PATH13_SLOTS} slots at {per_slot} bytes each: "
+          f"path 8's quarter-f32 model bit for bit (best records, every "
+          f"λ's convergence ring and score sketch), {mv} row-9 launches "
+          "as there", flush=True)
+
+    # (b) the batched grid.
+    b, _, mm = run("grid", ["--grid-batched", "on", "--hbm-budget",
+                            p8["quarter"]])
+    check(b["stream_train"]["grid_batched"] is True,
+          "path 13 (b): the grid did not batch")
+    check(mm > 0, "path 13 (b): row 10 did not launch")
+    check(_fixed_records(root / "p13-grid") == _fixed_records(
+        root / "p9-grid"), "path 13 (b): the mesh's grid model differs "
+          "from path 9's")
+    print("path 13 (b): the batched grid over the mesh writes path 9's "
+          f"grid model bit for bit ({mm} row-10 launches)", flush=True)
+
+    # (c) the local fold on a cache placed like (a)'s.
+    maps = load_feature_index_maps(root / "feature-index")
+    stream = BlockGameStream(root / "train", id_types=[],
+                             feature_shard_maps={"global": maps["global"]},
+                             batch_rows=PATH8_BATCH_ROWS, feeder="native")
+    cache_c = DeviceShardCache.from_stream(
+        stream, "global", hbm_budget_bytes=per_slot,
+        devices=mesh_device_list(mesh), device=PATH13_DEVICE)
+    obj = GLMObjective(loss_for_task(TaskType.LOGISTIC_REGRESSION))
+    ordered = ShardedGLMObjective(obj, cache_c, mesh=mesh)
+    local = ShardedGLMObjective(obj, cache_c, mesh=mesh, combine="local")
+    gen = torch.Generator().manual_seed(13)
+    d = cache_c.n_features
+    coef = (0.1 * torch.randn(d, generator=gen)).to(PATH13_DEVICE)
+    vec = torch.randn(d, generator=gen).to(PATH13_DEVICE)
+    z_o, f_o, g_o = ordered.margins_value_grad(coef, 1.0)
+    _, f_l, g_l = local.margins_value_grad(coef, 1.0)
+    d2 = ordered.curvature_list(z_o)
+    h_o = ordered.hessian_vector(vec, d2, 1.0)
+    h_l = local.hessian_vector(vec, d2, 1.0)
+    vparts, gparts, hparts = [], [], []
+    for e, w2 in zip(cache_c.blocks(), d2):
+        _, (v_part, g_raw, _) = ordered._init(e, coef)
+        jv = obj.margin_direction(vec, GLMBatch(e.feats, e.labels,
+                                                e.offsets, e.weights))
+        vparts.append(v_part.reshape(1))
+        gparts.append(g_raw)
+        hparts.append(e.feats.rmatvec(w2 * jv))
+    shares = {"value": _fold_bound_share(f_o.reshape(1), f_l.reshape(1),
+                                         vparts),
+              "gradient": _fold_bound_share(g_o - coef, g_l - coef, gparts),
+              "hvp": _fold_bound_share(h_o - vec, h_l - vec, hparts)}
+    print(f"path 13 (c): combine='local' against 'ordered' over "
+          f"{cache_c.n_shards} shards: worst share of (S - 1) eps sum |p| "
+          f"{ {k: round(v, 4) for k, v in shares.items()} }, value "
+          f"{float(f_o):.9g} / {float(f_l):.9g}", flush=True)
+    check(all(v <= 1.0 for v in shares.values()),
+          f"path 13 (c): the local fold outside its bound {shares}")
+    del cache_c, ordered, local
+
+    # (d) in core: the first updates from the same offsets, then the fit.
+    coords = coordinates_of(train, specs5)
+    residual = coords["fixed"].score(result5.model.models["fixed"])
+    for name, coord in coords.items():
+        if not isinstance(coord, (RandomEffectCoordinate,
+                                  FactoredRandomEffectCoordinate)):
+            continue
+        twin = dataclasses.replace(coord, mesh=mesh)
+        model0 = coord.initialize_model()
+        entity_solver.reset_launch_counts()
+        one, one_trk = coord.update_model(model0, residual, None)
+        torch.cuda.synchronize()
+        n_one = entity_solver.entity_lbfgs.launches
+        entity_solver.reset_launch_counts()
+        two, two_trk = twin.update_model(model0, residual, None)
+        torch.cuda.synchronize()
+        n_two = entity_solver.entity_lbfgs.variants.copy()
+        launches["entity"].update(n_two)
+        check(sum(n_two.values()) == PATH13_SLOTS * n_one,
+              f"path 13 (d) {name}: {dict(n_two)} launches over the mesh, "
+              f"{n_one} without")
+        if isinstance(coord, FactoredRandomEffectCoordinate):
+            pairs = [(a, b) for u, v in zip(two_trk, one_trk)
+                     for a, b in zip(u.latent, v.latent)]
+            same = all(torch.equal(a, b) for a, b in zip(
+                two.latent.local_coefs, one.latent.local_coefs)) and \
+                torch.equal(two.projection_matrix, one.projection_matrix)
+        else:
+            pairs = list(zip(two_trk, one_trk))
+            same = all(torch.equal(a, b) for a, b in zip(
+                two.local_coefs, one.local_coefs))
+        pad_zero = all(bool(torch.all(a.x[b.x.shape[0]:] == 0))
+                       for a, b in pairs)
+        stops = all(torch.equal(a.reason[:b.x.shape[0]], b.reason)
+                    and torch.equal(a.iterations[:b.x.shape[0]],
+                                    b.iterations) for a, b in pairs)
+        padded = sum(a.x.shape[0] - b.x.shape[0] for a, b in pairs)
+        print(f"path 13 (d) {name} first update over the mesh: "
+              f"coefficients {'equal' if same else 'DIFFER'}, reasons and "
+              f"iterations {'equal' if stops else 'DIFFER'}, "
+              f"{padded} padding entities zero {pad_zero}, entity-kernel "
+              f"launches {dict(n_two)} against {n_one}", flush=True)
+        check(same and stops and pad_zero,
+              f"path 13 (d) {name}: the mesh's first update differs")
+    del coords
+    result13, launches13, _ = fit_path("path 13", specs5, train, val,
+                                       mesh=mesh)
+    launches["entity"].update(launches13)
+    hist13 = np.asarray(result13.objective_history)
+    hist5 = np.asarray(result5.objective_history)
+    rel = float(np.max(np.abs(hist13 - hist5) / np.abs(hist5)))
+    auc13 = result13.validation_history[-1]["AUC"]
+    auc5 = result5.validation_history[-1]["AUC"]
+    print(f"path 13 (d) fit over the mesh: objective history within "
+          f"{rel:.3g} of path 5's (rtol {PATH13_CD_RTOL}), final AUC "
+          f"{auc13:.6f} against {auc5:.6f}", flush=True)
+    check(len(hist13) == len(hist5) and rel <= PATH13_CD_RTOL,
+          f"path 13 (d): objective history {hist13} against {hist5}")
+    check(abs(auc13 - auc5) <= PATH13_AUC_ATOL,
+          f"path 13 (d): AUC {auc13} against {auc5}")
+    rows = {f"row {i}": 0 for i in range(1, 7)}
+    for v, n in launches["entity"].items():
+        rows[f"row {PATH13_ROW_OF_VARIANT[v]}"] += n
+    rows["row 9"], rows["row 10"] = launches["row9"], launches["row10"]
+    print(f"path 13: {time.perf_counter() - t_path:.1f} s, launches "
+          + json.dumps(rows), flush=True)
+    return launches
+
+
 def order_contract_check() -> None:
     """The kernels' order contract (csrc/csr_order.cuh): a row of 3,
     L - 1, L, L + 1 and 3L + 5 entries (L the chunk), first in one CSR
@@ -4708,17 +4983,19 @@ def main(argv=None) -> int:
         launches11 = path11(Path(tmp), val)
         print(f"path 11: {time.perf_counter() - t0:.1f} s", flush=True)
         launches12 = path12(Path(tmp), per_graph, figures10)
+        launches13 = path13(Path(tmp), p8, train, val, specs5, result5)
     t0 = time.perf_counter()
     glm_full_width(train)
     print(f"glm full width: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches_stream, block = stream_full_width(train)
     spmv_row = spmv_entry(block, launches8 + launches_stream + launches10
-                          + launches11 + launches12)
+                          + launches11 + launches12 + launches13["row9"])
     print(f"stream full width: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches_grid, block = grid_full_width(train)
-    spmm_row = spmm_entry(block, launches9 + launches_grid, mf_held)
+    spmm_row = spmm_entry(block, launches9 + launches_grid
+                          + launches13["row10"], mf_held)
     order_contract_check()
     repeatability_checks(train)
     print(f"grid full width: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4730,7 +5007,7 @@ def main(argv=None) -> int:
     kernels = [
         kernel_entry("entity_lbfgs[lbfgs] (row 1)", rows1,
                      launches1.get("lbfgs", 0) + launches5.get("lbfgs", 0)
-                     + launches6),
+                     + launches6 + launches13["entity"].get("lbfgs", 0)),
         kernel_entry("entity_lbfgs[normalization fold] (row 2)",
                      rows2["lbfgs"],
                      sum(n for launches in (launches2, launches3)

@@ -9,11 +9,12 @@ span :841 and per-sweep trace contexts :915-972,
 FactoredRandomEffectCoordinate :978-1120, _solve_factored_block
 :1120-1157, _flatten_factored_static :1159, _flatten_gammas :1176,
 _solve_latent_matrix :1188 (a solve_glm call), _dispatch_pallas_solver
-:1207,
-_solve_block :1371, _solve_fixed :1442, _fe_score_impl /
-_scatter_margins / _re_score_impl :1474-1494, _fre_score_impl
-:1498-1514, the size guard of _use_pallas_entity_solver :1294-1366,
-which the kernel makes unnecessary by taking any bucket).
+:1207, _shard_re_dataset :722-735 and _shard_mapped_pallas_solver
+:1234-1266 (one loop over each bucket's mesh slots here),
+_solve_block :1371, _solve_fixed :1442, _fe_score_impl :1474 and
+_re_score_impl / _fre_score_impl :1484-1514 (``_slot_scores``), the size
+guard of _use_pallas_entity_solver :1294-1366, which the kernel makes
+unnecessary by taking any bucket).
 
 Each coordinate solves against offsets augmented with the other
 coordinates' scores (reference: ml/algorithm/Coordinate.scala:26-82).
@@ -73,6 +74,7 @@ from photon_ml_tpu_torch.data.normalization import (
 from photon_ml_tpu_torch.data.random_effect import (
     EntityBlock,
     RandomEffectDataset,
+    ShardedEntityBlock,
 )
 from photon_ml_tpu_torch.data.sampling import down_sample_weights
 from photon_ml_tpu_torch.device import resolve_device
@@ -125,7 +127,13 @@ class Coordinate:
 
 @dataclasses.dataclass
 class FixedEffectCoordinate(Coordinate):
-    """Global GLM coordinate (ml/algorithm/FixedEffectCoordinate.scala)."""
+    """Global GLM coordinate (ml/algorithm/FixedEffectCoordinate.scala).
+    With ``mesh`` (a 1-D `parallel.Mesh` whose first slot is ``device``)
+    the batch's rows shard over the slots (``shard_batch``): every
+    solver runs as it does, each feature product split over the slots
+    and its [d] partials folded in slot order on devices[0]. The sums
+    reassociate against the unsharded solve, as XLA's do under the JAX
+    mesh."""
 
     name: str
     data: GameDataset
@@ -137,11 +145,31 @@ class FixedEffectCoordinate(Coordinate):
     device: object = "cuda"
     lower_bounds: Optional[object] = None  # [d], solve space
     upper_bounds: Optional[object] = None
+    mesh: Optional[object] = None  # parallel.Mesh: shard rows over it
+    feature_sharding: bool = False  # the 2-D mesh's (ROADMAP A6b)
 
     def __post_init__(self):
+        if self.feature_sharding:
+            raise NotImplementedError(
+                "feature_sharding shards the coefficients over a 2-D "
+                "(data x model) mesh: it is not ported yet, it comes with "
+                "ROADMAP queue A6b")
         self.device = resolve_device(self.device)
+        devs = _mesh_slots(self.mesh, self.device)
+        self.device = devs[0]
+        sharded = len(devs) > 1
+        # A sharded batch is built on the host and each slot uploads only
+        # its row range.
         self._batch = self.data.fixed_effect_batch(
-            self.feature_shard_id, dtype=self.dtype, device=self.device)
+            self.feature_shard_id, dtype=self.dtype,
+            device="cpu" if sharded else self.device)
+        if sharded:
+            from photon_ml_tpu_torch.parallel import shard_batch
+
+            # Rows padded to a multiple of the slots with weight-0 rows;
+            # each slot's products run on its device, the row columns
+            # and every fold on devices[0] (parallel/distributed.py).
+            self._batch = shard_batch(self._batch, self.mesh)
         if self.normalization is not None:
             self.normalization = self.normalization.to(self.device,
                                                        self.dtype)
@@ -164,6 +192,11 @@ class FixedEffectCoordinate(Coordinate):
                      residual_scores: Optional[Tensor],
                      generator: Optional[torch.Generator] = None
                      ) -> Tuple[FixedEffectModel, OptimizerResult]:
+        pad = self._batch.labels.shape[0] - self.data.num_rows
+        if residual_scores is not None and pad:
+            # The mesh's padding rows carry weight 0: any residual is inert.
+            residual_scores = torch.nn.functional.pad(residual_scores,
+                                                      (0, pad))
         result, coef = _solve_fixed(
             self._objective, self.config,
             self.task_type.is_classification, self._batch, residual_scores,
@@ -200,8 +233,11 @@ class StreamingFixedEffectCoordinate:
     L1/OWL-QN, box constraints, normalization context, or down-sampling
     below 1.0. Those configurations stream-train through the resident
     assembled path. ``sharded_objective`` shares one objective across a
-    λ grid (the L2 weight is an argument of every pass). ``mesh`` is
-    ROADMAP A6 and raises.
+    λ grid (the L2 weight is an argument of every pass). ``mesh`` (a 1-D
+    `parallel.Mesh`) folds the solve over the slots of a cache placed on
+    the same devices (ops/sharded_objective.py): the solved model is the
+    same bits for every slot count. A shared objective must fold over the
+    same mesh.
     """
 
     name: str
@@ -218,9 +254,6 @@ class StreamingFixedEffectCoordinate:
             ShardedGLMObjective,
         )
 
-        if self.mesh is not None:
-            raise ValueError("a device mesh folds the streamed solve over "
-                             "several GPUs: ROADMAP A6")
         if self.config.l1_weight > 0:
             raise ValueError(
                 "streaming fixed-effect solves support L2 only; "
@@ -240,11 +273,23 @@ class StreamingFixedEffectCoordinate:
             if self.sharded_objective.cache is not self.cache:
                 raise ValueError(
                     "shared sharded_objective must wrap the same cache")
+            want = None
+            if self.mesh is not None:
+                from photon_ml_tpu_torch.parallel import mesh_fold_devices
+
+                devs = mesh_fold_devices(self.mesh)
+                want = devs if len(devs) > 1 else None
+            if self.sharded_objective.devices != want:
+                raise ValueError(
+                    "shared sharded_objective must use the same mesh "
+                    f"(objective devices {self.sharded_objective.devices}, "
+                    f"coordinate mesh devices {want})")
             self._sharded = self.sharded_objective
             self._objective = self._sharded.objective
         else:
             self._objective = GLMObjective(loss_for_task(self.task_type))
-            self._sharded = ShardedGLMObjective(self._objective, self.cache)
+            self._sharded = ShardedGLMObjective(self._objective, self.cache,
+                                                mesh=self.mesh)
             # Exposed through the field callers pass back in (a λ grid
             # shares one objective).
             self.sharded_objective = self._sharded
@@ -595,7 +640,19 @@ class StreamingFactoredRandomEffectCoordinate:
 class RandomEffectCoordinate(Coordinate):
     """Entity-sharded coordinate (ml/algorithm/RandomEffectCoordinate.scala:
     36-201): one batched solve per bucket, scores back through a
-    scatter-add. Blocks live on the dataset's device."""
+    scatter-add. Blocks live on the dataset's device.
+
+    With ``mesh`` (a 1-D `parallel.Mesh` whose first slot is the
+    dataset's device) the dataset is replaced by one whose active and
+    passive buckets shard their entities over the slots
+    (``shard_re_dataset``, as JAX does), and the gathered normalization
+    and bounds are gathered per slot. Without one every bucket is one
+    slot. Update and score run one loop over each bucket's slots: one
+    entity-solver launch a slot over its entity range (the counterpart of
+    JAX's ``_shard_mapped_pallas_solver``), results back on devices[0] in
+    entity order (the model keeps the bucket's real entities, the tracker
+    every one, the padding entities with zero coefficients last), scores
+    scattered slot by slot, padding rows into the sentinel."""
 
     name: str
     dataset: RandomEffectDataset
@@ -604,57 +661,72 @@ class RandomEffectCoordinate(Coordinate):
     normalization: Optional[NormalizationContext] = None  # global space
     lower_bounds: Optional[object] = None  # [d], global feature space
     upper_bounds: Optional[object] = None
+    mesh: Optional[object] = None  # parallel.Mesh: shard entities over it
 
     def __post_init__(self):
         self._objective = GLMObjective(loss_for_task(self.task_type))
         check_mode(entity_mode(self.config), self.lower_bounds,
                    self.upper_bounds, self._objective.loss)
         self._l1, self._l2 = self.config.l1_weight, self.config.l2_weight
-        self.norm_blocks = tuple(
-            _gather_block_normalization(self.normalization, b)
-            for b in self.dataset.blocks)
-        self.bounds_blocks = tuple(
-            _gather_block_bounds(self.lower_bounds, self.upper_bounds, b)
-            for b in self.dataset.blocks)
+        self.dataset, self._devices = shard_re_dataset(self.dataset,
+                                                       self.mesh)
+        # Per bucket, one entry a slot.
+        self.norm_blocks = [
+            [_gather_block_normalization(self.normalization, s)
+             for s in b.slots] for b in self.dataset.blocks]
+        self.bounds_blocks = [
+            [_gather_block_bounds(self.lower_bounds, self.upper_bounds, s)
+             for s in b.slots] for b in self.dataset.blocks]
 
     def initialize_model(self) -> RandomEffectModel:
         blocks = self.dataset.blocks
-        dt = blocks[0].x.dtype if blocks else torch.float32
+        dt = blocks[0].dtype if blocks else torch.float32
         return RandomEffectModel.zeros_like_dataset(self.dataset, dtype=dt)
 
     def update_model(self, model: RandomEffectModel,
                      residual_scores: Optional[Tensor],
                      generator: Optional[torch.Generator] = None
                      ) -> Tuple[RandomEffectModel, List[OptimizerResult]]:
-        """One solve per bucket (the analog of the reference's per-entity
-        mapValues solve, RandomEffectCoordinate.scala:104-113), in the
-        normalized space when there is a normalization."""
+        """One solve per bucket and slot (the analog of the reference's
+        per-entity mapValues solve, RandomEffectCoordinate.scala:104-113),
+        in the normalized space when there is a normalization. The
+        tracker keeps the solve-space results, as JAX's does."""
+        devs = self._devices
+        residuals = _per_slot(residual_scores, devs)
         coefs, results = [], []
-        for block, c0, norm, bounds in zip(
+        for block, c0, norms, bounds in zip(
                 self.dataset.blocks, model.local_coefs, self.norm_blocks,
                 self.bounds_blocks):
-            if norm is not None:
-                c0 = gathered_to_normalized_space(c0, *norm)
-            result = _solve_block(self._objective, self.config, block,
-                                  residual_scores, c0, norm, bounds)
-            coef = result.x
-            if norm is not None:
-                coef = gathered_to_original_space(coef, *norm)
-            coefs.append(coef)
-            results.append(result)
+            parts, out = [], []
+            for sb, c, res, norm, bnd in zip(
+                    block.slots, _split(c0, devs), residuals, norms,
+                    bounds):
+                if norm is not None:
+                    c = gathered_to_normalized_space(c, *norm)
+                r = _solve_block(self._objective, self.config, sb, res, c,
+                                 norm, bnd)
+                parts.append(r)
+                out.append(r.x if norm is None
+                           else gathered_to_original_space(r.x, *norm))
+            coefs.append(_join(out, devs[0])[:block.num_entities])
+            results.append(_gather_results(parts, devs[0]))
         return model.with_coefs(coefs), results
 
     def score(self, model: RandomEffectModel) -> Tensor:
-        return _re_score_impl(self.dataset.blocks,
-                              self.dataset.passive_blocks,
-                              model.local_coefs, self.dataset.n_rows)
+        return _slot_scores(self.dataset, model.local_coefs, self._devices,
+                            lambda blk, c: blk.local_margins(c))
 
     def penalties(self, model: RandomEffectModel):
         # In the optimization (normalized) space, like the fixed effect.
-        return [(c if norm is None
-                 else gathered_to_normalized_space(c, *norm),
-                 self._l1, self._l2)
-                for c, norm in zip(model.local_coefs, self.norm_blocks)]
+        devs = self._devices
+        out = []
+        for c, norms in zip(model.local_coefs, self.norm_blocks):
+            if norms[0] is not None:
+                c = _join([gathered_to_normalized_space(p, *n) for p, n in
+                           zip(_split(c, devs), norms)],
+                          devs[0])[:c.shape[0]]
+            out.append((c, self._l1, self._l2))
+        return out
 
 
 @dataclasses.dataclass
@@ -672,7 +744,13 @@ class FactoredRandomEffectCoordinate(Coordinate):
     (ml/algorithm/FactoredRandomEffectCoordinate.scala:39-289). The
     dataset must be built with the IDENTITY projector, so blocks carry
     global-width features (B is the dimension reduction). The tracker of
-    an update is one FactoredUpdate per MF alternation."""
+    an update is one FactoredUpdate per MF alternation.
+
+    With ``mesh`` the dataset's entities shard over the slots as the
+    RandomEffectCoordinate's do, and every latent solve launches once a
+    slot. An update reads the buckets' rows back on devices[0] for the
+    whole bucket's latent projection and for the refit of B, and frees
+    them when it ends."""
 
     name: str
     dataset: RandomEffectDataset
@@ -681,6 +759,7 @@ class FactoredRandomEffectCoordinate(Coordinate):
     latent_config: GLMOptimizationConfiguration  # refit of B
     mf_config: MFOptimizationConfiguration
     seed: int = 7
+    mesh: Optional[object] = None  # parallel.Mesh: latent solves per slot
 
     def __post_init__(self):
         if self.dataset.projection is not None:
@@ -699,27 +778,28 @@ class FactoredRandomEffectCoordinate(Coordinate):
         self._l1, self._l2 = self.config.l1_weight, self.config.l2_weight
         self._ll1 = self.latent_config.l1_weight
         self._ll2 = self.latent_config.l2_weight
+        self.dataset, self._devices = shard_re_dataset(self.dataset,
+                                                       self.mesh)
 
     def initialize_model(self) -> FactoredRandomEffectModel:
         """gamma = 0 and B from ProjectionMatrix.gaussian(k, d, no
         intercept, seed): numpy, so bit-equal to the JAX package's B."""
         ds = self.dataset
-        x0 = ds.blocks[0].x
+        dt, dev = ds.blocks[0].dtype, ds.blocks[0].device
         k = self.mf_config.num_factors
         b0 = ProjectionMatrix.gaussian(k, ds.num_global_features,
                                        intercept_col=None, seed=self.seed)
         latent = RandomEffectModel(
             random_effect_type=ds.config.random_effect_type,
             feature_shard_id=ds.config.feature_shard_id,
-            local_coefs=[torch.zeros((b.num_entities, k), dtype=x0.dtype,
-                                     device=x0.device) for b in ds.blocks],
-            feat_idx=[torch.arange(k, dtype=torch.int32, device=x0.device)
+            local_coefs=[torch.zeros((b.num_entities, k), dtype=dt,
+                                     device=dev) for b in ds.blocks],
+            feat_idx=[torch.arange(k, dtype=torch.int32, device=dev)
                       .repeat(b.num_entities, 1) for b in ds.blocks],
             entity_codes=list(ds.entity_codes),
             vocabulary=ds.vocabulary,
             num_global_features=ds.num_global_features,
-            projection=torch.as_tensor(b0.matrix, dtype=x0.dtype,
-                                       device=x0.device))
+            projection=torch.as_tensor(b0.matrix, dtype=dt, device=dev))
         return FactoredRandomEffectModel(latent, self.mf_config)
 
     def update_model(self, model: FactoredRandomEffectModel,
@@ -732,16 +812,17 @@ class FactoredRandomEffectCoordinate(Coordinate):
         gammas = list(model.latent.local_coefs)
         B = model.projection_matrix
         offsets = [block_offsets(b, residual_scores) for b in blocks]
+        xs = [b.x[..., :d] for b in blocks]
         # Rows, labels, offsets and weights of the refit do not change
         # across alternations; only the per-row gammas do.
         x_flat, y_flat, off_flat, w_flat = _flatten_factored_static(
-            blocks, offsets, d)
+            xs, blocks, offsets)
         trackers = []
         for _ in range(self.mf_config.max_iterations):
-            latent = [_solve_factored_block(self._objective, self.config,
-                                            block, B, off, g0, d)
-                      for block, off, g0 in zip(blocks, offsets, gammas)]
-            gammas = [r.x for r in latent]
+            latent = [self._solve_latent(block, x, B, off, g0)
+                      for block, x, off, g0 in zip(blocks, xs, offsets,
+                                                   gammas)]
+            gammas = [r.x[:b.num_entities] for r, b in zip(latent, blocks)]
             batch = GLMBatch(
                 KroneckerFeatures(x_flat, _flatten_gammas(blocks, gammas)),
                 y_flat, off_flat, w_flat)
@@ -751,11 +832,35 @@ class FactoredRandomEffectCoordinate(Coordinate):
             trackers.append(FactoredUpdate(latent, refit))
         return model.with_update(gammas, B), trackers
 
+    def _solve_latent(self, block, x: Tensor, B: Tensor, offsets: Tensor,
+                      gamma0: Tensor) -> OptimizerResult:
+        """A bucket's latent solves: the projection of the whole bucket
+        ``x`` [E, n_pad, d] on devices[0], so its GEMM has the same
+        height whatever the slots (one of another height may take another
+        algorithm, and other bits, on the card); then one entity-solver
+        launch a slot over its entity range."""
+        devs = self._devices
+        lat, off, g0 = (_split(a, devs)
+                        for a in (project_latent(x, B), offsets, gamma0))
+        return _gather_results(
+            [_solve_factored_block(self._objective, self.config, sb, l_s,
+                                   o_s, g_s)
+             for sb, l_s, o_s, g_s in zip(block.slots, lat, off, g0)],
+            devs[0])
+
     def score(self, model: FactoredRandomEffectModel) -> Tensor:
-        return _fre_score_impl(
-            self.dataset.blocks, self.dataset.passive_blocks,
-            model.latent.local_coefs, model.projection_matrix,
-            self.dataset.n_rows, self.dataset.num_global_features)
+        B = model.projection_matrix
+        d = self.dataset.num_global_features
+
+        def margins(blk, gamma):
+            coefs = gamma @ B.to(gamma.device)  # [E, d]
+            pad = blk.d_pad - d
+            if pad:
+                coefs = torch.nn.functional.pad(coefs, (0, pad))
+            return blk.local_margins(coefs)
+
+        return _slot_scores(self.dataset, model.latent.local_coefs,
+                            self._devices, margins)
 
     def penalties(self, model: FactoredRandomEffectModel):
         """Each bucket's gamma under the latent solves' weights, then B
@@ -765,31 +870,142 @@ class FactoredRandomEffectCoordinate(Coordinate):
         return out
 
 
+def _dataset_device(dataset: RandomEffectDataset) -> torch.device:
+    return dataset.blocks[0].device if dataset.blocks \
+        else torch.device("cpu")
+
+
+def _mesh_slots(mesh, home) -> List[torch.device]:
+    """The slot devices of a coordinate's mesh, ``[home]`` without one.
+    The first slot must be the coordinate's own device (a CUDA device
+    without an index stands for any card), where its [d]-space state,
+    scores and folds live."""
+    home = torch.device(home)
+    if mesh is None:
+        return [home]
+    from photon_ml_tpu_torch.parallel import mesh_device_list
+
+    devs = mesh_device_list(mesh)
+    if devs[0].type != home.type or (home.index is not None
+                                     and devs[0].index != home.index):
+        raise ValueError(
+            f"the mesh's first slot is {devs[0]} but the coordinate's data "
+            f"lives on {home}: build the mesh from the estimator's device")
+    return devs
+
+
+def shard_re_dataset(dataset: RandomEffectDataset, mesh
+                     ) -> Tuple[RandomEffectDataset, List[torch.device]]:
+    """``(dataset, slot devices)``: every active and passive bucket's
+    entities sharded over the mesh's slots (``parallel.shard_block`` into
+    a ShardedEntityBlock, whose slots then hold the only copy of the
+    data; JAX's ``_shard_re_dataset``). Without a mesh, or with a
+    one-slot mesh, the buckets stay as they are. A bucket already sharded
+    over these slots stays as it is, so an estimator shards a dataset
+    once for every coordinate built on it."""
+    from photon_ml_tpu_torch.parallel import shard_block
+
+    devs = _mesh_slots(mesh, _dataset_device(dataset))
+
+    def shard(b):
+        if b is None or [s.device for s in b.slots] == devs:
+            return b
+        if len(devs) == 1 or isinstance(b, ShardedEntityBlock):
+            raise ValueError(
+                f"a bucket sharded over {[str(s.device) for s in b.slots]} "
+                f"cannot be used over the slots {[str(d) for d in devs]}")
+        return ShardedEntityBlock(tuple(shard_block(b, mesh, dataset.n_rows)),
+                                  b.num_entities)
+
+    if len(devs) == 1 and not any(
+            isinstance(b, ShardedEntityBlock) for b in dataset.blocks):
+        return dataset, devs
+    return dataclasses.replace(
+        dataset, blocks=[shard(b) for b in dataset.blocks],
+        passive_blocks=[shard(b) for b in dataset.passive_blocks]), devs
+
+
+def _split(a: Tensor, devices) -> List[Tensor]:
+    """Per-entity ``a`` [E, ...] padded with zeros to the slots' entity
+    count and cut into the slots' ranges (``a`` itself for one slot)."""
+    from photon_ml_tpu_torch.parallel.distributed import (
+        pad_entities,
+        split_slots,
+    )
+
+    return split_slots(pad_entities(a, len(devices)), devices)
+
+
+def _join(parts: List[Tensor], device) -> Tensor:
+    """Per-slot tensors back on ``device`` in slot order."""
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([p.to(device) for p in parts])
+
+
+def _per_slot(x: Optional[Tensor], devices) -> list:
+    """``x`` on each slot's device once (None stays None)."""
+    return [None if x is None else x.to(d) for d in devices]
+
+
+def _gather_results(parts: List[OptimizerResult], device) -> OptimizerResult:
+    """Per-slot batched results back on ``device`` in entity order."""
+    def cat(name):
+        vals = [getattr(p, name) for p in parts]
+        if not isinstance(vals[0], Tensor):
+            return vals[0]
+        return _join(vals, device)
+
+    return OptimizerResult(**{f.name: cat(f.name)
+                              for f in dataclasses.fields(OptimizerResult)})
+
+
+def _slot_scores(dataset: RandomEffectDataset, coefs, devices,
+                 margins) -> Tensor:
+    """Every bucket's margins (active and passive rows), each slot's
+    ``margins(block, coefs)`` on its device, scattered into one [n_rows]
+    score vector on devices[0]; padding rows and entities land in the
+    sentinel row, which is dropped."""
+    n_rows, dev0 = dataset.n_rows, devices[0]
+    scores = torch.zeros(
+        (n_rows + 1,), dtype=coefs[0].dtype if coefs else torch.float32,
+        device=dev0)
+    for act, pas, c in zip(dataset.blocks, dataset.passive_blocks, coefs):
+        cs = _split(c, devices)
+        for group in (act, pas):
+            for blk, c_s in zip(group.slots if group is not None else (),
+                                cs):
+                _scatter_rows(scores, blk.row_ids.to(dev0),
+                              margins(blk, c_s).to(dev0), n_rows)
+    return scores[:-1]
+
+
 def _solve_factored_block(objective: GLMObjective,
                           config: GLMOptimizationConfiguration,
-                          block: EntityBlock, B: Tensor, offsets: Tensor,
-                          gamma0: Tensor, d: int) -> OptimizerResult:
-    """The bucket's latent solves against the current B: one projection
-    for the whole bucket, then the entity solver, as ``_solve_block``
-    calls it."""
-    lat = project_latent(block, B, d)
+                          block: EntityBlock, lat: Tensor, offsets: Tensor,
+                          gamma0: Tensor) -> OptimizerResult:
+    """The latent solves of a bucket (or of a slot's range of it) on its
+    projected features ``lat`` [E, n_pad, k], as ``_solve_block`` calls
+    the entity solver."""
     return entity_lbfgs(objective.loss, lat, block.labels, offsets,
                         block.weights, gamma0.contiguous(), config.l2_weight,
                         config.l1_weight, max_iter=config.max_iterations,
                         tol=config.tolerance, mode=entity_mode(config))
 
 
-def project_latent(block: EntityBlock, B: Tensor, d: int) -> Tensor:
-    """The bucket's latent features lat = x[..., :d] B^T: [E, n_pad, k],
-    contiguous."""
-    return torch.einsum("end,kd->enk", block.x[..., :d], B).contiguous()
+def project_latent(x: Tensor, B: Tensor) -> Tensor:
+    """A bucket's latent features lat = x B^T for its global-width
+    features ``x`` [E, n_pad, d]: [E, n_pad, k], contiguous."""
+    return torch.einsum("end,kd->enk", x, B).contiguous()
 
 
-def _flatten_factored_static(blocks, offsets, d: int):
+def _flatten_factored_static(xs, blocks, offsets):
     """Every bucket's rows in block order, padding rows in place: the
-    alternation-invariant half of the refit batch (x [N, d], labels,
-    offsets with the residual, weights [N])."""
-    return (torch.cat([b.x[..., :d].reshape(-1, d) for b in blocks]),
+    alternation-invariant half of the refit batch (x [N, d] from each
+    bucket's ``xs`` [E, n_pad, d], labels, offsets with the residual,
+    weights [N])."""
+    d = xs[0].shape[-1]
+    return (torch.cat([x.reshape(-1, d) for x in xs]),
             torch.cat([b.labels.reshape(-1) for b in blocks]),
             torch.cat([o.reshape(-1) for o in offsets]),
             torch.cat([b.weights.reshape(-1) for b in blocks]))
@@ -914,44 +1130,7 @@ def _fe_score_impl(coef: Tensor, feats, n_rows: int) -> Tensor:
     return feats.matvec(coef)[:n_rows]
 
 
-def _scatter_margins(scores: Tensor, block: EntityBlock, margins: Tensor,
-                     n_rows: int) -> Tensor:
-    m = torch.where(block.row_ids < n_rows, margins,
-                    torch.zeros_like(margins))
-    return scores.index_add_(0, block.row_ids.reshape(-1).long(),
-                             m.reshape(-1))
-
-
-def _re_score_impl(blocks, pblocks, coefs, n_rows: int) -> Tensor:
-    """All bucket margins (active and passive rows) scattered into one
-    [n_rows] score vector."""
-    ref = coefs[0] if coefs else None
-    scores = torch.zeros(
-        (n_rows + 1,), dtype=ref.dtype if ref is not None else torch.float32,
-        device=ref.device if ref is not None else None)
-    for block, c in zip(blocks, coefs):
-        _scatter_margins(scores, block, block.local_margins(c), n_rows)
-    for block, c in zip(pblocks, coefs):
-        if block is not None:
-            _scatter_margins(scores, block, block.local_margins(c), n_rows)
-    return scores[:-1]
-
-
-def _fre_score_impl(blocks, pblocks, gammas, B: Tensor, n_rows: int,
-                    d: int) -> Tensor:
-    """gamma_e^T B x per row, active and passive, scattered into one
-    [n_rows] score vector."""
-    def block_margins(block, gamma):
-        coefs = gamma @ B  # [E, d]
-        pad = block.d_pad - d
-        if pad:
-            coefs = torch.nn.functional.pad(coefs, (0, pad))
-        return block.local_margins(coefs)
-
-    scores = torch.zeros((n_rows + 1,), dtype=B.dtype, device=B.device)
-    for block, g in zip(blocks, gammas):
-        _scatter_margins(scores, block, block_margins(block, g), n_rows)
-    for block, g in zip(pblocks, gammas):
-        if block is not None:
-            _scatter_margins(scores, block, block_margins(block, g), n_rows)
-    return scores[:-1]
+def _scatter_rows(scores: Tensor, row_ids: Tensor, margins: Tensor,
+                  n_rows: int) -> Tensor:
+    m = torch.where(row_ids < n_rows, margins, torch.zeros_like(margins))
+    return scores.index_add_(0, row_ids.reshape(-1).long(), m.reshape(-1))

@@ -4,9 +4,9 @@ the GLM driver, the fleet observability aggregator (``obs_aggregate``)
 and the replica router (``net_router``).
 
 They keep every flag of their JAX parsers, so every JAX command line
-parses. A flag that belongs to a later item of ROADMAP queue A
-(multi-GPU, A6) raises an error naming that item when it is given a
-value other than its default. The helpers here are shared by the
+parses. A flag value that belongs to a later item of ROADMAP queue A
+(the 2-D device mesh, A6b: ``--mesh-shape RxC`` with C > 1) raises an
+error naming that item. The helpers here are shared by the
 drivers; ``obs.py`` holds the observability plane's wiring. This module
 imports torch only inside the helpers that need it, so
 ``python -m photon_ml_tpu_torch.cli.net_router`` runs without torch.
@@ -22,7 +22,7 @@ from photon_ml_tpu_torch.telemetry import span
 
 # Later queue items, for the error a flag of one of them raises.
 ITEMS = {
-    "A6": "multi-GPU",
+    "A6b": "the 2-D device mesh and multi-host",
 }
 
 
@@ -32,14 +32,6 @@ def later_item_error(flag: str, item: str, why: str = "") -> ValueError:
     return ValueError(f"{flag} is not ported yet: it comes with ROADMAP "
                       f"queue {item} ({ITEMS[item]})"
                       + (f": {why}" if why else ""))
-
-
-def reject_later_flags(args, later: dict) -> None:
-    """Raise ValueError for the first flag in ``later`` (dest -> (flag,
-    default, item)) whose parsed value is not its default."""
-    for dest, (flag, default, item) in later.items():
-        if getattr(args, dest) != default:
-            raise later_item_error(flag, item)
 
 
 def resolve_run_device(device, dtype):

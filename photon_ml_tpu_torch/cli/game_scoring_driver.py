@@ -79,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -538,7 +539,11 @@ def _run_listen(args, frontend, logger, obs) -> dict:
                     obs.add_status_provider("adaptive_admission",
                                             ctl.stats)
                 obs.add_status_provider("netserver", server.stats)
-                (out_dir / "net_port").write_text(str(server.port))
+                # Written whole, then renamed: a poller that sees the
+                # file never reads it half written.
+                tmp = out_dir / "net_port.tmp"
+                tmp.write_text(str(server.port))
+                os.replace(tmp, out_dir / "net_port")
                 obs.mark_ready("serving")
                 logger.info("serving on %s:%d (HTTP/1.1 + binary framing)%s",
                             host, server.port,

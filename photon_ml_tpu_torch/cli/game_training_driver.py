@@ -1,6 +1,7 @@
 """GAME training driver, in core and streamed (port of
 photon_ml_tpu/cli/game_training_driver.py: _parse_named :52,
-_positive_int :62, _parse_mesh_shape :69, parse_byte_size :99,
+_positive_int :62, _parse_mesh_shape :69, _mesh_shape :86,
+parse_byte_size :99,
 build_parser :116-310, run :311-389 with its telemetry and
 observability plane, _run_training :391-612, _save_outputs :613-662,
 _write_summary :663-703, _stream_validate_many :704-737,
@@ -67,10 +68,21 @@ path from one product of the assembled batch with the best model
 ``referenceDistributions`` (label and, for a fixed effect, training
 scores) in the best model's model-metadata.json.
 
-Every JAX flag parses. The flags of a later queue item raise an error
-that names it: --mesh-devices, --mesh-shape (A6). The ``stream_train`` block of
-metrics.json has no ``trace_budgets`` or ``trace_counts`` (the JAX
-TracingGuard, ROADMAP A7).
+``--mesh-devices N`` (or its other spelling ``--mesh-shape Nx1``) folds
+the ``--hbm-budget`` solve, scalar or batched grid, over a 1-D mesh of N
+slots built from the run's ``device`` by the slot rule
+(parallel/distributed.py): ``"cuda"`` takes the first N cards (fewer
+raise "requested N devices, have M"), ``"cuda:K"`` N slots on card K and
+``"cpu"`` N slots on the CPU. Cached shards place round-robin over the
+slots, the budget binds per slot, and the fold combines in fixed shard
+order, so every N writes the same model bytes. The log line says how
+many slots and how many distinct devices the run used, and metrics.json
+records ``mesh_devices`` and ``mesh_shape``. JAX's checks hold: not both
+spellings, a mesh only with ``--stream-train``, N > 1 only with
+``--hbm-budget``, no mesh for streamed MF. ``--mesh-shape RxC`` with
+C > 1 (the 2-D mesh) raises naming ROADMAP A6b. The ``stream_train``
+block of metrics.json has no ``trace_budgets`` or ``trace_counts`` (the
+JAX TracingGuard, ROADMAP A7).
 
 ``run(argv, device="cuda", dtype=None)`` trains on the card and raises
 without CUDA unless the caller passes ``device="cpu"`` (the CPU tests);
@@ -92,8 +104,8 @@ import torch
 from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.algorithm.coordinates import grid_batchable
 from photon_ml_tpu_torch.cli import (
+    later_item_error,
     phase,
-    reject_later_flags,
     resolve_run_device,
 )
 from photon_ml_tpu_torch.cli.obs import (
@@ -130,13 +142,6 @@ from photon_ml_tpu_torch.utils.events import (
 from photon_ml_tpu_torch.utils.logging_utils import setup_photon_logger
 from photon_ml_tpu_torch.utils.profiling import maybe_trace
 
-# dest -> (flag, default, ROADMAP queue item): given any other value, the
-# flag raises (cli/__init__.reject_later_flags).
-LATER_FLAGS = {
-    "mesh_devices": ("--mesh-devices", None, "A6"),
-    "mesh_shape": ("--mesh-shape", None, "A6"),
-}
-
 
 def _parse_named(values, what):
     out = {}
@@ -167,6 +172,16 @@ def _parse_mesh_shape(s: str) -> tuple:
         raise argparse.ArgumentTypeError(
             f"mesh extents must be >= 1, got {r}x{c}")
     return (r, c)
+
+
+def _mesh_shape(args) -> tuple | None:
+    """Resolved (data, model) mesh extents: --mesh-shape RxC, or
+    --mesh-devices N == Nx1; None when neither is given."""
+    if args.mesh_shape is not None:
+        return args.mesh_shape
+    if args.mesh_devices is not None:
+        return (args.mesh_devices, 1)
+    return None
 
 
 _BYTE_SUFFIXES = {"K": 1 << 10, "M": 1 << 20, "G": 1 << 30, "T": 1 << 40}
@@ -273,9 +288,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "a batchable grid of more than one point; 'off' "
                         "sweeps the grid one λ at a time")
     p.add_argument("--mesh-devices", type=_positive_int, default=None,
-                   metavar="N", help="1-D device mesh (ROADMAP A6; raises)")
+                   metavar="N",
+                   help="fold the --hbm-budget streaming solve over a "
+                        "1-D mesh of N slots: the first N cards, or N "
+                        "slots of one card when the run's device names "
+                        "it (cuda:K). Cached shards place round-robin "
+                        "(shard i on slot i mod N), per-shard partials "
+                        "accumulate on their own device, and the fold "
+                        "combines in fixed shard order: every N writes "
+                        "the same model. Requires --stream-train; N > 1 "
+                        "also --hbm-budget. Equivalent to --mesh-shape "
+                        "Nx1")
     p.add_argument("--mesh-shape", type=_parse_mesh_shape, default=None,
-                   metavar="RxC", help="2-D device mesh (ROADMAP A6; raises)")
+                   metavar="RxC",
+                   help="mesh extents, data x model: Nx1 is "
+                        "--mesh-devices N; C > 1 (the 2-D mesh) is "
+                        "ROADMAP A6b and raises")
     p.add_argument("--spill-dtype", choices=["f32", "bf16"], default="f32",
                    help="--hbm-budget spill encoding: 'f32' spills the "
                         "raw triplet (re-uploads are the evicted bytes); "
@@ -328,6 +356,22 @@ def _check_flags(args) -> None:
         raise ValueError(
             "--mesh-shape and --mesh-devices are two spellings of the "
             "same mesh (--mesh-devices N == --mesh-shape Nx1); pass one")
+    mesh_rc = _mesh_shape(args)
+    if mesh_rc is not None and mesh_rc[1] > 1:
+        raise later_item_error(
+            "--mesh-shape", "A6b",
+            f"{mesh_rc[0]}x{mesh_rc[1]} shards the coefficients over a "
+            "model axis; Nx1 is the 1-D mesh")
+    if mesh_rc is not None and not args.stream_train:
+        raise ValueError(
+            "--mesh-devices/--mesh-shape apply to the --stream-train "
+            "solve; pass --stream-train (and --hbm-budget for a mesh "
+            "of > 1 device)")
+    if mesh_rc is not None and mesh_rc[0] > 1 and args.hbm_budget is None:
+        raise ValueError(
+            "a mesh of > 1 device requires --hbm-budget: the device "
+            "fold runs over the sharded shard-cache solve (the "
+            "resident assembled path is a single fused device batch)")
     if args.grid_batched != "auto" and not args.stream_train:
         raise ValueError(
             "--grid-batched applies to the --stream-train λ-grid "
@@ -355,7 +399,6 @@ def _check_flags(args) -> None:
             "--spill-dtype bf16 compresses host spill buffers, but "
             "--spill-source redecode keeps none — the combination "
             "would silently train as f32; pick one")
-    reject_later_flags(args, LATER_FLAGS)
     if args.distmon and not args.stream_train:
         raise ValueError(
             "--distmon piggybacks distribution sketches on the "
@@ -378,6 +421,11 @@ def _check_flags(args) -> None:
             "or factored-random-effect coordinate (plain random "
             "effects need entity grouping over the full dataset); "
             f"got sequence {sequence}")
+    if sequence[0] in fre_data and mesh_rc is not None:
+        raise ValueError(
+            "--mesh-devices/--mesh-shape are not supported for "
+            "streamed MF coordinates yet (the factor-table device "
+            "fold is the noted follow-on); drop the flag")
     if sequence[0] in fre_data or args.hbm_budget is None:
         return
     table = _parse_named(args.fixed_effect_optimization_configurations,
@@ -653,7 +701,7 @@ def _stream_validate_many(game_models, args, shard_maps, evaluators,
 
 
 def _solve_grid_batched(args, logger, name, shard, task, grid, cache,
-                        dtype, monitor, lam_label):
+                        dtype, mesh, monitor, lam_label):
     """--grid-batched sweep: ONE StreamingFixedEffectCoordinate hosts the
     whole λ grid and ``solve_fixed_effect_grid`` advances all G points
     per feature pass over the shard cache. Observability stays per λ:
@@ -677,7 +725,7 @@ def _solve_grid_batched(args, logger, name, shard, task, grid, cache,
                 "pass (--grid-batched %s)", G, args.grid_batched)
     coord = StreamingFixedEffectCoordinate(
         name=name, cache=cache, feature_shard_id=shard, task_type=task,
-        config=grid[0], dtype=dtype)
+        config=grid[0], dtype=dtype, mesh=mesh)
     t0 = time.perf_counter()
     rings, margins_holder = None, []
     if monitor is not None:
@@ -848,8 +896,8 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
             "mode": "resident-assembled",
             "batch_rows": args.batch_rows,
             "hbm_budget_bytes": None,
-            "mesh_devices": None,
-            "mesh_shape": None,
+            "mesh_devices": args.mesh_devices,
+            "mesh_shape": _mesh_shape(args),
             "spill_dtype": None,  # nothing spills on the resident path
             "spill_source": None,
             "feeder": dict(data.ingest_stats),
@@ -859,8 +907,19 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
         }
     else:
         # -- spill: sharded streaming accumulate over the device cache ----
-        logger.info("stream-train (spill, hbm budget %d bytes, spill "
+        mesh, devices = None, None
+        mesh_rc = _mesh_shape(args)
+        if mesh_rc is not None and mesh_rc[0] > 1:
+            from photon_ml_tpu_torch.parallel import (
+                make_mesh,
+                mesh_fold_devices,
+            )
+
+            mesh = make_mesh(mesh_rc[0], device=device)
+            devices = mesh_fold_devices(mesh)
+        logger.info("stream-train (spill, hbm budget %d bytes%s, spill "
                     "%s/%s): caching %r from %s in %d-row shards", budget,
+                    (f" PER SLOT x {mesh.describe()}" if mesh else ""),
                     args.spill_dtype, args.spill_source, shard,
                     train_inputs, args.batch_rows)
         fetcher = None
@@ -874,7 +933,7 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
             cache = DeviceShardCache.from_stream(
                 make_stream(), shard, dtype=dtype, hbm_budget_bytes=budget,
                 prefetch_depth=max(0, args.prefetch_batches),
-                spill_dtype=args.spill_dtype,
+                devices=devices, spill_dtype=args.spill_dtype,
                 spill_source=args.spill_source, redecode_fetch=fetcher,
                 device=device)
         # Live residency view on /statusz: hits, misses, evictions and
@@ -892,12 +951,12 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
             if use_batched:
                 results, shared = _solve_grid_batched(
                     args, logger, name, shard, task, grid, cache, dtype,
-                    monitor, lam_label)
+                    mesh, monitor, lam_label)
             for cfg in (() if use_batched else grid):
                 coord = StreamingFixedEffectCoordinate(
                     name=name, cache=cache, feature_shard_id=shard,
                     task_type=task, config=cfg, dtype=dtype,
-                    sharded_objective=shared)
+                    sharded_objective=shared, mesh=mesh)
                 shared = coord.sharded_objective
                 t0 = time.perf_counter()
                 model, trackers, obj_hist = None, [], []
@@ -941,8 +1000,8 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
             "mode": "spill",
             "batch_rows": args.batch_rows,
             "hbm_budget_bytes": budget,
-            "mesh_devices": None,
-            "mesh_shape": None,
+            "mesh_devices": args.mesh_devices,
+            "mesh_shape": mesh_rc,
             "spill_dtype": args.spill_dtype,
             "spill_source": args.spill_source,
             "feeder": cache.ingest_stats,

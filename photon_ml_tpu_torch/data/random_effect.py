@@ -100,9 +100,63 @@ class EntityBlock:
     def d_pad(self) -> int:
         return self.x.shape[2]
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.x.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+    @property
+    def slots(self) -> Tuple["EntityBlock", ...]:
+        """The block as one slot (see ShardedEntityBlock)."""
+        return (self,)
+
     def local_margins(self, coefs: Tensor) -> Tensor:
         """x @ coef per entity: [E, n_pad]."""
         return torch.einsum("end,ed->en", self.x, coefs)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedEntityBlock:
+    """A bucket whose entities are sharded over a 1-D mesh's slots
+    (parallel.shard_block): ``slots[s]`` holds entity range s on its
+    slot's device, the last ranges ending in all-padding entities, and
+    ``num_entities`` counts the real ones. The slots hold the only copy
+    of the data. The EntityBlock fields gather the real entities back on
+    the first slot's device, for the metadata and row columns a caller
+    reads once; solves and scores run slot by slot."""
+
+    slots: Tuple[EntityBlock, ...]
+    num_entities: int
+
+    @property
+    def n_pad(self) -> int:
+        return self.slots[0].n_pad
+
+    @property
+    def d_pad(self) -> int:
+        return self.slots[0].d_pad
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.slots[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.slots[0].device
+
+    def _gather(self, name: str) -> Tensor:
+        return torch.cat([getattr(b, name).to(self.device)
+                          for b in self.slots])[:self.num_entities]
+
+    x = property(lambda self: self._gather("x"))
+    labels = property(lambda self: self._gather("labels"))
+    offsets = property(lambda self: self._gather("offsets"))
+    weights = property(lambda self: self._gather("weights"))
+    row_ids = property(lambda self: self._gather("row_ids"))
+    feat_idx = property(lambda self: self._gather("feat_idx"))
 
 
 @dataclasses.dataclass

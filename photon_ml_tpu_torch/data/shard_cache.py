@@ -2,7 +2,8 @@
 photon_ml_tpu/data/shard_cache.py: SpillBlock, encode_spill,
 _decode_spill_impl, restore_spilled_features :157-320,
 StreamedFixedEffectData, assemble_fixed_effect_batch :324-440, and the
-single-device DeviceShardCache :535-1150, with its registry mirrors
+DeviceShardCache :535-1150 with its 1-D mesh placement (``devices=``
+:70-80, :496-497, :610-630, :904-935, :1140-1148), its registry mirrors
 :125-139 and spans :762, :946, :1039).
 
 A `BlockGameStream` is consumed ONCE, batch by batch, and its rows land
@@ -55,9 +56,18 @@ The spill tier has two knobs:
   `BlockRandomAccess` row-range fetch (byte-identical to the ingest-time
   batch), inside the `blocks()` prefetch thread.
 
-The JAX module's mesh placement (``devices=``) and column blocks
-(``col_blocks > 1``) are ROADMAP A6: passing them raises. The registry
-metrics ``data.shard_cache.*`` mirror ``stats()`` (while telemetry is
+With ``devices`` (a 1-D mesh's slot devices, ``--mesh-devices``;
+parallel/distributed.py), blocks place ROUND-ROBIN over the slots: block
+i lives on ``devices[i % N]`` with its row-space columns, re-uploads and
+re-decodes return to the block's slot, and ``hbm_budget_bytes`` binds PER
+SLOT (each slot's resident feature bytes stay within it; Belady's rule
+runs per slot, whose blocks are an index-arithmetic subsequence of the
+shard order, so the global cyclic distance ranks them as the slot's own
+replay does). Placement is a pure function of the block index, so the
+shard order, and with it every fold's order, does not move. A one-slot
+list (or None) is exactly the single-pool cache. Column blocks
+(``col_blocks > 1``, the 2-D mesh) are ROADMAP A6b: they raise. The
+registry metrics ``data.shard_cache.*`` mirror ``stats()`` (while telemetry is
 on); each block's ingest upload is a ``shard_upload`` span, a buffer
 restore ``shard_reupload`` and a re-decode ``shard_redecode``.
 """
@@ -112,13 +122,16 @@ def _row_ids_i32(indptr: np.ndarray, offset: int = 0) -> np.ndarray:
             + offset).astype(np.int32)
 
 
-def _reject_mesh(devices, col_blocks) -> None:
-    if devices is not None and len(devices) > 1:
-        raise ValueError("devices= places shards over a device mesh: "
-                         "multi-GPU training is ROADMAP A6")
+def _mesh_devices(devices, col_blocks) -> Optional[List[torch.device]]:
+    """The slot devices of a mesh placement (None for one slot or
+    none); column blocks are the 2-D mesh's."""
     if int(col_blocks) != 1:
         raise ValueError("col_blocks > 1 splits the coefficient dimension "
-                         "over a 2-D device mesh: ROADMAP A6")
+                         "over a 2-D device mesh: it comes with ROADMAP "
+                         "queue A6b")
+    if devices is None or len(devices) < 2:
+        return None
+    return [resolve_device(d) for d in devices]
 
 
 def _check_spill_options(spill_dtype: str, spill_source: str) -> None:
@@ -445,6 +458,8 @@ class CachedShard:
     spill: Optional[SpillBlock]
     feature_bytes: int  # CSRBlock.nbytes while resident
     feats: Optional[CSRBlock] = None  # None = spilled
+    device: Optional[torch.device] = None  # where the block lives
+    slot: int = 0  # mesh slot (index % slots); 0 without a mesh
 
     @property
     def spill_bytes(self) -> int:
@@ -464,6 +479,7 @@ class ResidentBlock:
     labels: Tensor
     offsets: Tensor
     weights: Tensor
+    slot: int = 0  # the slot the block (and its partials) live on
 
 
 class DeviceShardCache:
@@ -485,6 +501,10 @@ class DeviceShardCache:
     for n-1, the least-recently-used block is always the next one
     needed). The in-hand block is never evicted, so one block can exceed
     a too-small budget.
+
+    ``devices`` (two or more) places block i on ``devices[i % N]`` and
+    makes the budget bind per slot (module docstring); ``device`` is then
+    ``devices[0]``, where the solver's [d]-space state lives.
     """
 
     def __init__(self, entries: List[CachedShard], n_rows: int,
@@ -498,7 +518,7 @@ class DeviceShardCache:
                  shard_id: Optional[str] = None,
                  redecode_fetch: Optional[Callable] = None,
                  col_blocks: int = 1, device="cuda"):
-        _reject_mesh(devices, col_blocks)
+        devs = _mesh_devices(devices, col_blocks)
         _check_spill_options(spill_dtype, spill_source)
         if spill_source == "redecode" and hbm_budget_bytes is not None \
                 and redecode_fetch is None:
@@ -510,7 +530,12 @@ class DeviceShardCache:
         self.n_rows = int(n_rows)
         self.n_features = int(n_features)
         self.dtype = dtype
-        self.device = resolve_device(device)
+        self.devices = devs
+        self.n_slots = len(devs) if devs else 1
+        self.device = devs[0] if devs else resolve_device(device)
+        for e in entries:
+            if e.device is None:
+                e.device = self.device
         self.hbm_budget_bytes = hbm_budget_bytes
         self.prefetch_depth = max(0, int(prefetch_depth))
         self.ingest_stats = dict(ingest_stats or {})
@@ -522,9 +547,11 @@ class DeviceShardCache:
                        "bytes_reuploaded": 0, "epochs": 0,
                        "spill_bytes_written": 0, "redecodes": 0,
                        "bytes_redecoded": 0}
-        self._device_bytes = sum(e.feature_bytes for e in entries
-                                 if e.feats is not None)
-        self.peak_device_bytes = self._device_bytes
+        self._slot_bytes = [0] * self.n_slots
+        for e in entries:
+            if e.feats is not None:
+                self._slot_bytes[e.slot] += e.feature_bytes
+        self.peak_device_bytes = self.device_bytes
         if hbm_budget_bytes is None:
             for e in entries:
                 e.spill = None
@@ -539,8 +566,9 @@ class DeviceShardCache:
 
     @property
     def device_bytes(self) -> int:
-        """Feature bytes resident on the device."""
-        return self._device_bytes
+        """Feature bytes resident, summed over the slots (with a mesh the
+        budget binds per slot: ``stats()["per_device_bytes"]``)."""
+        return sum(self._slot_bytes)
 
     # -- construction ------------------------------------------------------
 
@@ -559,17 +587,20 @@ class DeviceShardCache:
         upload — the most recently ingested block spills first (its next
         use, at the start of the first replay, is the furthest away), so
         the ingest peak stays O(budget + one block) and the resident set
-        ends as a PREFIX of the shard order."""
-        _reject_mesh(devices, col_blocks)
+        ends as a PREFIX of the shard order. ``devices`` (two or more)
+        places block i on ``devices[i % N]``, and the budget then binds
+        each slot's bytes, evicting within the new block's own slot."""
+        devs = _mesh_devices(devices, col_blocks)
         _check_spill_options(spill_dtype, spill_source)
-        dev = resolve_device(device)
+        n_slots = len(devs) if devs else 1
+        home = devs[0] if devs else resolve_device(device)
         np_dtype = _NUMPY_OF[dtype]
         keep_buffers = (hbm_budget_bytes is not None
                         and spill_source == "buffer")
         entries: List[CachedShard] = []
         n_rows = 0
         d = None
-        device_bytes = 0
+        slot_bytes = [0] * n_slots
         peak_bytes = 0
         evictions = 0
         spill_written = 0
@@ -577,6 +608,8 @@ class DeviceShardCache:
             with telemetry.span("shard_upload"):
                 if ds.num_rows == 0:
                     continue
+                slot = len(entries) % n_slots
+                dev = devs[slot] if devs else home
                 mat = ds.feature_shards[shard_id].tocsr()
                 d = mat.shape[1]
                 values = mat.data.astype(np_dtype)
@@ -610,20 +643,22 @@ class DeviceShardCache:
                     nnz=int(mat.nnz), row_offset=n_rows,
                     labels=col(ds.responses), offsets=col(ds.offsets),
                     weights=col(ds.weights),
-                    spill=spill, feature_bytes=feats.nbytes, feats=feats)
+                    spill=spill, feature_bytes=feats.nbytes, feats=feats,
+                    device=dev, slot=slot)
                 entries.append(e)
                 n_rows += ds.num_rows
-                device_bytes += e.feature_bytes
-                peak_bytes = max(peak_bytes, device_bytes)
+                slot_bytes[slot] += e.feature_bytes
+                peak_bytes = max(peak_bytes, sum(slot_bytes))
                 if hbm_budget_bytes is not None:
-                    # Evict-as-you-go, most recent first (keep the
-                    # prefix), never the block just uploaded.
+                    # Evict-as-you-go within the new block's slot, most
+                    # recent first (keep the prefix), never the block
+                    # just uploaded.
                     for victim in reversed(entries[:-1]):
-                        if device_bytes <= hbm_budget_bytes:
+                        if slot_bytes[slot] <= hbm_budget_bytes:
                             break
-                        if victim.feats is not None:
+                        if victim.slot == slot and victim.feats is not None:
                             victim.feats = None
-                            device_bytes -= victim.feature_bytes
+                            slot_bytes[slot] -= victim.feature_bytes
                             evictions += 1
                             _M_EVICTIONS.inc()
         if not entries:
@@ -634,7 +669,7 @@ class DeviceShardCache:
                     ingest_stats=stream.stats(),
                     spill_dtype=spill_dtype, spill_source=spill_source,
                     shard_id=shard_id, redecode_fetch=redecode_fetch,
-                    device=dev)
+                    devices=devs, device=home)
         cache._stats["evictions"] += evictions
         cache._stats["spill_bytes_written"] += spill_written
         cache.peak_device_bytes = max(cache.peak_device_bytes, peak_bytes)
@@ -658,27 +693,33 @@ class DeviceShardCache:
         return list(self._entries)
 
     def _enforce_budget(self, pinned: int) -> None:
-        """Evict until within budget. Victim = the resident block whose
-        next use is FURTHEST in the fixed cyclic replay order from the
-        block in hand (`pinned`; -1 = before an epoch, i.e. next use
-        starts at shard 0)."""
+        """Evict until within budget, slot by slot. Victim = the slot's
+        resident block whose next use is FURTHEST in the fixed cyclic
+        replay order from the block in hand (`pinned`; -1 = before an
+        epoch, i.e. next use starts at shard 0). A slot's blocks are an
+        index-arithmetic subsequence of the shard order, so the global
+        cyclic distance ranks them as the slot's own replay does."""
         budget = self.hbm_budget_bytes
-        if budget is None or self._device_bytes <= budget:
+        if budget is None:
             return
         n = len(self._entries)
         cur = pinned if pinned >= 0 else 0
-        resident = [e for e in self._entries
-                    if e.feats is not None and e.index != pinned]
-        # descending cyclic distance (j - cur) mod n: furthest next use
-        # first.
-        resident.sort(key=lambda e: -((e.index - cur) % n))
-        while self._device_bytes > budget and resident:
-            victim = resident.pop(0)
-            victim.feats = None
-            self._device_bytes -= victim.feature_bytes
-            self._stats["evictions"] += 1
-            _M_EVICTIONS.inc()
-        _G_DEVICE_BYTES.set(self._device_bytes)
+        for slot in range(self.n_slots):
+            if self._slot_bytes[slot] <= budget:
+                continue
+            resident = [e for e in self._entries
+                        if e.feats is not None and e.index != pinned
+                        and e.slot == slot]
+            # descending cyclic distance (j - cur) mod n: furthest next
+            # use first.
+            resident.sort(key=lambda e: -((e.index - cur) % n))
+            while self._slot_bytes[slot] > budget and resident:
+                victim = resident.pop(0)
+                victim.feats = None
+                self._slot_bytes[slot] -= victim.feature_bytes
+                self._stats["evictions"] += 1
+                _M_EVICTIONS.inc()
+        _G_DEVICE_BYTES.set(self.device_bytes)
 
     def _redecode(self, e: CachedShard) -> CSRBlock:
         """redecode-tier miss: re-decode the block's source rows through
@@ -709,7 +750,7 @@ class DeviceShardCache:
         self._stats["bytes_redecoded"] += redecoded
         _M_REDECODE_BYTES.inc(redecoded)
         return restore_spilled_features(spill, e.n_rows, self.n_features,
-                                        self.device, self.dtype)
+                                        e.device, self.dtype)
 
     def ensure(self, index: int) -> ResidentBlock:
         """A resident snapshot of the block, restored on a miss: buffer
@@ -731,14 +772,14 @@ class DeviceShardCache:
                     "buffers (cache built without an hbm budget)")
             self._stats["bytes_reuploaded"] += reupload
             _M_REUPLOAD_BYTES.inc(reupload)
-            self._device_bytes += e.feature_bytes
+            self._slot_bytes[e.slot] += e.feature_bytes
             self.peak_device_bytes = max(self.peak_device_bytes,
-                                         self._device_bytes)
+                                         self.device_bytes)
             _G_PEAK_BYTES.set(self.peak_device_bytes)
             if e.spill is not None:
                 with telemetry.span("shard_reupload"):
                     e.feats = restore_spilled_features(
-                        e.spill, e.n_rows, self.n_features, self.device,
+                        e.spill, e.n_rows, self.n_features, e.device,
                         self.dtype)
             else:
                 e.feats = self._redecode(e)
@@ -748,7 +789,7 @@ class DeviceShardCache:
             _M_HITS.inc()
         return ResidentBlock(index=e.index, n_rows=e.n_rows, feats=e.feats,
                              labels=e.labels, offsets=e.offsets,
-                             weights=e.weights)
+                             weights=e.weights, slot=e.slot)
 
     def blocks(self, prefetch_depth: Optional[int] = None
                ) -> Iterator[ResidentBlock]:
@@ -787,11 +828,13 @@ class DeviceShardCache:
             "spill_bytes_host": self.spill_bytes_host,
             "resident_shards": sum(1 for e in self._entries
                                    if e.feats is not None),
-            "mesh_devices": None,
+            "mesh_devices": len(self.devices) if self.devices else None,
             "col_blocks": 1,
             "col_block_size": None,
-            "per_device_bytes": [self.device_bytes],
+            "per_device_bytes": list(self._slot_bytes),
             "per_device_resident_shards": [
-                sum(1 for e in self._entries if e.feats is not None)],
+                sum(1 for e in self._entries
+                    if e.feats is not None and e.slot == slot)
+                for slot in range(self.n_slots)],
         })
         return s

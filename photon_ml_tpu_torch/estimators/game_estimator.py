@@ -1,7 +1,8 @@
 """GameEstimator: data prep + coordinate construction + grid training
 (port of photon_ml_tpu/estimators/game_estimator.py: FixedEffectSpec :42,
-RandomEffectSpec :58, FactoredRandomEffectSpec :74-83, GameEstimator.fit
-:110 with the factored wiring :124-168 and per-combination checkpoints
+RandomEffectSpec :58, FactoredRandomEffectSpec :74-83, GameEstimator
+:88-108 with ``mesh`` and .fit :110 with the factored wiring and the
+mesh passed to every coordinate :124-173, per-combination checkpoints
 :175-191, select_best :193, select_best_result :227; reference
 ml/estimators/GameEstimator.scala:51-527).
 
@@ -17,8 +18,16 @@ dataset is built with the IDENTITY projector whatever its config says,
 with no Pearson trim and no intercept column, and its coordinate draws
 B from the fit's ``seed``. With ``checkpoint_dir`` each combination
 checkpoints into its own ``combo-<i>/`` there, tagged with its
-configurations, and a rerun resumes each one. Feature sharding is not
-ported yet (ROADMAP queue A6).
+configurations, and a rerun resumes each one.
+
+``mesh`` (a 1-D `parallel.Mesh` whose first slot is ``device``; None by
+default) goes to every coordinate, as in JAX: the fixed effects shard
+their rows, the random and factored effects their entities, over its
+slots (algorithm/coordinates.py). Each random-effect dataset is sharded
+once, before the combinations, so its slots hold the only copy of its
+data. A fixed-effect spec's
+``feature_sharding`` (coefficients over the 2-D mesh's model axis) is
+ROADMAP A6b and raises.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from photon_ml_tpu_torch.algorithm.coordinates import (
     FactoredRandomEffectCoordinate,
     FixedEffectCoordinate,
     RandomEffectCoordinate,
+    shard_re_dataset,
 )
 from photon_ml_tpu_torch.data.game_data import GameDataset
 from photon_ml_tpu_torch.data.normalization import NormalizationContext
@@ -65,6 +75,7 @@ class FixedEffectSpec:
     normalization: Optional[NormalizationContext] = None
     lower_bounds: Optional[object] = None
     upper_bounds: Optional[object] = None
+    feature_sharding: bool = False  # the 2-D mesh's (ROADMAP A6b)
 
 
 @dataclasses.dataclass
@@ -115,7 +126,7 @@ class GameEstimator:
                  coordinate_specs: Sequence[CoordinateSpec],
                  num_iterations: int = 1,
                  validation_evaluators: Sequence[Evaluator] = (),
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", mesh=None):
         if not coordinate_specs:
             raise ValueError("at least one coordinate spec required")
         names = [s.name for s in coordinate_specs]
@@ -127,6 +138,7 @@ class GameEstimator:
         self.validation_evaluators = list(validation_evaluators)
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.mesh = mesh
 
     def fit(self, data: GameDataset,
             validation_data: Optional[GameDataset] = None,
@@ -134,7 +146,9 @@ class GameEstimator:
             checkpoint_interval: int = 1) -> Results:
         """Train one model per per-coordinate config combination."""
         re_datasets = {
-            s.name: spec_dataset(data, s, seed, self.dtype, self.device)
+            s.name: shard_re_dataset(
+                spec_dataset(data, s, seed, self.dtype, self.device),
+                self.mesh)[0]
             for s in self.specs
             if isinstance(s, (RandomEffectSpec, FactoredRandomEffectSpec))}
 
@@ -151,7 +165,8 @@ class GameEstimator:
                         task_type=self.task_type, config=configs[s.name],
                         normalization=s.normalization, dtype=self.dtype,
                         device=self.device, lower_bounds=s.lower_bounds,
-                        upper_bounds=s.upper_bounds)
+                        upper_bounds=s.upper_bounds,
+                        feature_sharding=s.feature_sharding, mesh=self.mesh)
                 elif isinstance(s, FactoredRandomEffectSpec):
                     cfg = configs[s.name]
                     coords[s.name] = FactoredRandomEffectCoordinate(
@@ -159,14 +174,14 @@ class GameEstimator:
                         task_type=self.task_type,
                         config=cfg.random_effect,
                         latent_config=cfg.latent_factor, mf_config=cfg.mf,
-                        seed=seed)
+                        seed=seed, mesh=self.mesh)
                 else:
                     coords[s.name] = RandomEffectCoordinate(
                         name=s.name, dataset=re_datasets[s.name],
                         task_type=self.task_type, config=configs[s.name],
                         normalization=s.normalization,
                         lower_bounds=s.lower_bounds,
-                        upper_bounds=s.upper_bounds)
+                        upper_bounds=s.upper_bounds, mesh=self.mesh)
             cd = CoordinateDescent(
                 coords, self.task_type, validation_data=validation_data,
                 validation_evaluators=self.validation_evaluators,

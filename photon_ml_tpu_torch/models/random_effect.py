@@ -107,12 +107,12 @@ class RandomEffectModel:
             random_effect_type=ds.config.random_effect_type,
             feature_shard_id=ds.config.feature_shard_id,
             local_coefs=[torch.zeros((b.num_entities, b.d_pad), dtype=dtype,
-                                     device=b.x.device) for b in ds.blocks],
+                                     device=b.device) for b in ds.blocks],
             feat_idx=[b.feat_idx for b in ds.blocks],
             entity_codes=list(ds.entity_codes),
             vocabulary=ds.vocabulary,
             num_global_features=ds.num_global_features,
             projection=(None if ds.projection is None else torch.as_tensor(
                 ds.projection.matrix, dtype=dtype,
-                device=ds.blocks[0].x.device if ds.blocks else None)),
+                device=ds.blocks[0].device if ds.blocks else None)),
         )

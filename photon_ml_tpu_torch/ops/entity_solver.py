@@ -709,10 +709,13 @@ def _plan(device: int, r: int, d: int, m: int, f64: bool, mode: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _counter(device: int) -> Tensor:
-    """The persistent grid's entity counter on CUDA device ``device``: 2
-    int32 zeros, made once; every launch on the device leaves them 0
-    again. Launches follow each other on the current stream."""
+def _counter(device: int, stream: int) -> Tensor:
+    """The persistent grid's entity counter for launches on CUDA device
+    ``device`` and stream ``stream``: 2 int32 zeros, made once; every
+    launch leaves them 0 again. Launches on one stream follow each
+    other, so they share it; a launch on another stream (two mesh slots
+    of one card driven from two streams) gets its own and cannot skip or
+    repeat another launch's entities."""
     return torch.zeros((2,), dtype=torch.int32,
                        device=torch.device("cuda", device))
 
@@ -773,8 +776,9 @@ def entity_lbfgs(
 
     CPU tensors (float32 or float64) run ``entity_lbfgs_plain``. CUDA
     tensors launch the kernel (float32, contiguous, any r and d) and raise
-    on anything it does not take. Launches on one device follow each
-    other on the current stream. Both compute in ``compute_dtype``.
+    on anything it does not take. Each launch runs on the current stream
+    of its device, with an entity counter of its own for that stream.
+    Both compute in ``compute_dtype``.
     ``entity_lbfgs.launches`` counts kernel launches, and
     ``entity_lbfgs.variants`` counts them per ``variant(mode, normalized,
     bounded)``."""
@@ -861,14 +865,14 @@ def entity_lbfgs(
         return None if t is None else t.data_ptr()
 
     def launch():
+        stream = torch.cuda.current_stream().cuda_stream
         return _load_kernel()[1](
             handle, x.data_ptr(), labels.data_ptr(), offsets.data_ptr(),
             weights.data_ptr(), coef0.data_ptr(), ptr(factors), ptr(shifts),
             ptr(lower), ptr(upper), out_c.data_ptr(), fout.data_ptr(),
-            iout.data_ptr(), _counter(dev.index).data_ptr(), ptr(workspace),
-            E, max_iter, max_line_search, float(l2_weight),
-            float(l1_weight), float(tol), float(c1),
-            torch.cuda.current_stream().cuda_stream)
+            iout.data_ptr(), _counter(dev.index, stream).data_ptr(),
+            ptr(workspace), E, max_iter, max_line_search, float(l2_weight),
+            float(l1_weight), float(tol), float(c1), stream)
 
     if dev.index == torch.cuda.current_device():
         err = launch()

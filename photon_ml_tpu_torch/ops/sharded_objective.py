@@ -1,8 +1,10 @@
 """Sharded GLM objective: full-batch (value, gradient, Hessian-vector) by
-accumulating per-shard partials over a device shard cache (port of
-photon_ml_tpu/ops/sharded_objective.py: ShardedGLMObjective :276 with
-the single-device kit :424-497 and the fixed shard-order fold
-_SingleFold/_OrderedFold :195-215).
+accumulating per-shard partials over a device shard cache and, with a
+mesh, over the slots of a 1-D device mesh (port of
+photon_ml_tpu/ops/sharded_objective.py: ShardedGLMObjective :276-423 with
+its mesh validation :294-352 and gauges :161-164, the kit :424-497, the
+folds _SingleFold/_OrderedFold/_LocalFold :173-240, _per_device :839-845,
+_dev_span :847-854 and _new_fold :856-865).
 
 The out-of-core analog of the reference's treeAggregate objective
 (`ValueAndGradientAggregator.scala:243-274`,
@@ -49,16 +51,42 @@ feature pass is one ``accumulate`` span (JAX :1122): launches are
 asynchronous, so its self time is enqueue plus what the cache makes it
 wait for (``shard_reupload`` and ``prefetch_wait`` nest inside).
 
-Not ported here: the 1-D and 2-D mesh folds, ``combine="local"`` and the
-row and column kits, scalar and grid, which only a mesh builds (ROADMAP
-A6), and the JAX
-``TracingGuard`` trace budgets (``trace_budgets``,
-``assert_trace_budget``; ROADMAP A7 — the port compiles nothing per
-shape). Passing ``mesh`` raises naming A6.
+**Mesh (``mesh=``, a 1-D `parallel.Mesh`).** The cache must be placed on
+the mesh's slot devices (``DeviceShardCache.from_stream(devices=...)``):
+block i lives on slot i % N. Each block's partial is computed on its own
+slot's device, the coefficient or direction put on each slot's device
+once a pass (``_per_device``, the reference's coefficient broadcast);
+row-space state (margins, directional margins, curvature) stays on each
+block's device. ``combine`` picks the cross-device reduction:
+
+- ``"ordered"`` (default): every partial moves to ``devices[0]`` and
+  left-folds in GLOBAL SHARD ORDER: the single-device fold's additions,
+  one for one, so the result is the same bits for every slot count
+  (each slot's products are the same kernels on the same inputs).
+- ``"local"``: each slot left-folds its own blocks in shard order on its
+  device, then the slot partials left-fold in slot order on
+  ``devices[0]`` (the depth-2 treeAggregate shape: N - 1 transfers a
+  pass). It reassociates the same S addends into N round-robin groups,
+  so it differs from "ordered" by at most (S - 1) eps sum_i |p_i|; it is
+  deterministic for fixed (S, N) and IS "ordered" at N = 1.
+
+A one-slot mesh (or none) is the single-device fold exactly. The batched
+λ grid folds the same ways. Each slot's share of a pass is a
+``device_fold:d<slot>`` span and each combine a ``cross_device_combine``
+span (JAX's names); the registry gauge
+``training.mesh.data_axis_devices`` holds the slot count and the counter
+``training.mesh.data_axis_transfer_bytes`` the bytes of partials that
+the folds moved to another device (none on a mesh of slots of one
+card). The 2-D mesh's column kits, ``_ColFold`` and its model-axis
+metrics are ROADMAP A6b. Not ported either: the JAX ``TracingGuard``
+trace budgets (``trace_budgets``, ``assert_trace_budget``; ROADMAP A7 —
+the port compiles nothing per shape).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import List, Sequence, Tuple
 
 import torch
@@ -71,6 +99,12 @@ Tensor = torch.Tensor
 
 #: One batched-grid feature pass (the registry twin of ``grid_passes``).
 _M_GRID_PASSES = telemetry.counter("training.grid.feature_passes")
+# The data axis's slot count and the bytes of partials its folds move
+# between devices (JAX :161-164; the model axis is ROADMAP A6b).
+_G_MESH_DATA = telemetry.gauge("training.mesh.data_axis_devices")
+_M_DATA_XFER = telemetry.counter("training.mesh.data_axis_transfer_bytes")
+
+_NULL_SPAN = contextlib.nullcontext()
 
 
 def _fold(acc, part):
@@ -79,29 +113,145 @@ def _fold(acc, part):
     return part if acc is None else tuple(a + b for a, b in zip(acc, part))
 
 
+def _move(part, device):
+    """A partial (a tuple of tensors) on ``device``, counting the bytes
+    that cross to another device."""
+    moved = sum(t.numel() * t.element_size() for t in part
+                if t.device != device)
+    if moved:
+        _M_DATA_XFER.inc(moved)
+    return tuple(t.to(device) for t in part)
+
+
+class _SingleFold:
+    """No mesh (or one slot): today's left-fold in shard order."""
+
+    def __init__(self, devices=None):
+        self.devices = devices
+        self.acc = None
+
+    def add(self, slot: int, part) -> None:
+        self.acc = _fold(self.acc, part)
+
+    def result(self):
+        return self.acc
+
+
+class _OrderedFold(_SingleFold):
+    """The default mesh combine: each partial moves to ``devices[0]`` and
+    left-folds in GLOBAL shard order, the single fold's additions."""
+
+    def add(self, slot: int, part) -> None:
+        with span("cross_device_combine"):
+            self.acc = _fold(self.acc, _move(part, self.devices[0]))
+
+
+class _LocalFold(_SingleFold):
+    """Per-slot left-folds on each slot's device, in shard order, then
+    the slot partials left-fold in slot order on ``devices[0]``."""
+
+    def __init__(self, devices):
+        super().__init__(devices)
+        self.accs = [None] * len(devices)
+
+    def add(self, slot: int, part) -> None:
+        self.accs[slot] = _fold(self.accs[slot], part)
+
+    def result(self):
+        acc = None
+        with span("cross_device_combine"):
+            for part in self.accs:
+                if part is not None:
+                    acc = _fold(acc, _move(part, self.devices[0]))
+        return acc
+
+
 class ShardedGLMObjective:
     """Streaming (value, gradient, Hvp) over a DeviceShardCache.
 
     ``objective`` supplies the loss and (optional) normalization context;
     row-space solver state (margins, direction margins, curvature) lives
     as per-shard lists aligned with the cache's fixed shard order and is
-    always resident — the feature blocks are the only thing the cache may
-    spill, which keeps the margin-cached L-BFGS line search free of
-    feature passes (optimization/glm_lbfgs.py)."""
+    always resident, on each shard's own slot device — the feature blocks
+    are the only thing the cache may spill, which keeps the margin-cached
+    L-BFGS line search free of feature passes (optimization/glm_lbfgs.py).
 
-    def __init__(self, objective: GLMObjective, cache, mesh=None):
+    ``mesh`` (a 1-D `parallel.Mesh`) folds over the slots of a cache
+    placed on the same devices; ``combine`` is "ordered" or "local"
+    (module docstring)."""
+
+    def __init__(self, objective: GLMObjective, cache, mesh=None,
+                 combine: str = "ordered"):
+        if combine not in ("ordered", "local"):
+            raise ValueError(
+                f"combine must be 'ordered' or 'local', got {combine!r}")
+        self.combine = combine
+        devices = None
         if mesh is not None:
-            raise ValueError("a mesh-sharded objective folds over several "
-                             "devices: multi-GPU training is ROADMAP A6")
+            from photon_ml_tpu_torch.parallel.distributed import (
+                mesh_fold_devices,
+            )
+
+            devs = mesh_fold_devices(mesh)
+            if len(devs) > 1:
+                devices = devs
+        self.mesh = mesh if devices is not None else None
+        self.devices = devices
+        cache_devs = getattr(cache, "devices", None)
+        if devices is not None:
+            if cache_devs is None or list(cache_devs) != list(devices):
+                raise ValueError(
+                    "mesh-sharded objective needs a cache placed on the "
+                    f"same devices: mesh has {devices}, cache has "
+                    f"{cache_devs} — build the DeviceShardCache with "
+                    "devices=mesh_device_list(mesh)")
+            _G_MESH_DATA.set(len(devices))
+        elif cache_devs is not None:
+            raise ValueError(
+                f"cache is placed on {len(cache_devs)} mesh devices but "
+                "the objective was built without a mesh — pass "
+                "mesh=make_mesh(len(cache.devices))")
         self.objective = objective
         self.cache = cache
         self.grid_passes = 0
+        # The objective on each slot's device (its normalization vectors
+        # moved there), so a slot's kernels read only its own device.
+        norm = objective.normalization
+        self._objs = ([objective] if devices is None or norm is None
+                      else [dataclasses.replace(objective,
+                                                normalization=norm.to(d))
+                            for d in devices])
+
+    # -- mesh plumbing -------------------------------------------------------
+
+    def _per_device(self, x) -> list:
+        """``x`` on every slot's device, once a pass: the coefficient
+        broadcast. Without a mesh the value is used as it is."""
+        if self.devices is None or not isinstance(x, Tensor):
+            return [x] * (1 if self.devices is None else len(self.devices))
+        return [x.to(d) for d in self.devices]
+
+    def _obj(self, slot: int) -> GLMObjective:
+        return self._objs[slot if len(self._objs) > 1 else 0]
+
+    def _dev_span(self, slot: int):
+        """A slot's share of a pass (mesh only), as JAX names it."""
+        if self.devices is None:
+            return _NULL_SPAN
+        return span(f"device_fold:d{slot}")
+
+    def _new_fold(self):
+        if self.devices is None:
+            return _SingleFold()
+        if self.combine == "ordered":
+            return _OrderedFold(self.devices)
+        return _LocalFold(self.devices)
 
     # -- per-shard partials (the JAX single-device kit) ---------------------
 
     def _init(self, e, coef: Tensor):
         """Margins + value partial + raw-gradient partial, one pass."""
-        obj = self.objective
+        obj = self._obj(e.slot)
         batch = GLMBatch(e.feats, e.labels, e.offsets, e.weights)
         z = obj.margins(coef, batch)
         val = torch.sum(e.weights * obj.loss.loss(z, e.labels))
@@ -142,21 +292,42 @@ class ShardedGLMObjective:
                 r = r * norm.factors
         return r + l2 * coef
 
+    def _pass(self, fn, vec=None, z_list=None):
+        """One feature pass in shard order: ``fn(e, vec_on_slot, z)`` per
+        block returns (row-space output or None, partial); partials fold
+        as the mesh's combine folds them. Returns (outputs, folded)."""
+        fold = self._new_fold()
+        outs: List[Tensor] = []
+        with span("accumulate"):
+            vecs = self._per_device(vec)
+            zs = z_list if z_list is not None else [None] * self.cache.n_shards
+            for e, z in zip(self.cache.blocks(), zs):
+                self._require_restored(e)
+                with self._dev_span(e.slot):
+                    out, part = fn(e, vecs[e.slot], z)
+                if out is not None:
+                    outs.append(out)
+                if part is not None:
+                    fold.add(e.slot, part)
+        return outs, fold.result()
+
+    def _row_fold(self, fn, z_list, zp_list, ts):
+        """A row-space pass (no feature block): ``fn(e, z, zp, ts)`` per
+        shard, folded as ``_pass`` folds."""
+        fold = self._new_fold()
+        tss = self._per_device(ts)
+        for e, z, zp in zip(self.cache.entries, z_list, zp_list):
+            fold.add(e.slot, fn(e, z, zp, tss[e.slot]))
+        return fold.result()
+
     # -- accumulation passes -----------------------------------------------
 
     def margins_value_grad(self, coef: Tensor, l2
                            ) -> Tuple[List[Tensor], Tensor, Tensor]:
         """One pass over the feature blocks: per-shard margins (kept as
         row-space state), the objective value and the gradient."""
-        z_list: List[Tensor] = []
-        acc = None
-        with span("accumulate"):
-            for e in self.cache.blocks():
-                self._require_restored(e)
-                z, part = self._init(e, coef)
-                z_list.append(z)
-                acc = _fold(acc, part)
-        val, g_raw, su = acc
+        z_list, (val, g_raw, su) = self._pass(
+            lambda e, c, _: self._init(e, c), coef)
         f = val + 0.5 * l2 * torch.dot(coef, coef)
         return z_list, f, self._finish_grad(g_raw, su, coef, l2)
 
@@ -166,13 +337,10 @@ class ShardedGLMObjective:
 
     def margin_direction_list(self, direction: Tensor) -> List[Tensor]:
         """Per-shard directional margins (one feature pass)."""
-        out: List[Tensor] = []
-        with span("accumulate"):
-            for e in self.cache.blocks():
-                self._require_restored(e)
-                out.append(self.objective.margin_direction(
-                    direction, GLMBatch(e.feats, e.labels, e.offsets,
-                                        e.weights)))
+        out, _ = self._pass(lambda e, p, _: (
+            self._obj(e.slot).margin_direction(
+                p, GLMBatch(e.feats, e.labels, e.offsets, e.weights)),
+            None), direction)
         return out
 
     def trial_values(self, z_list: Sequence[Tensor],
@@ -180,9 +348,9 @@ class ShardedGLMObjective:
                      coef_sq: Tensor, l2) -> Tensor:
         """Objective values at the [K] line-search candidates — row-space
         only (margins are cached): NO feature pass, no spill traffic."""
-        acc = None
-        for e, z, zp in zip(self.cache.entries, z_list, zp_list):
-            acc = _fold(acc, self._trial(z, zp, e.labels, e.weights, ts))
+        acc = self._row_fold(
+            lambda e, z, zp, t: self._trial(z, zp, e.labels, e.weights, t),
+            z_list, zp_list, ts)
         return acc[0] + 0.5 * l2 * coef_sq
 
     def update_margins(self, z_list: Sequence[Tensor], t,
@@ -190,19 +358,20 @@ class ShardedGLMObjective:
         """z + t*zp per shard — the accepted-step margin update (the
         expression the in-core solver applies to its whole margin
         vector)."""
-        return [z + t * zp for z, zp in zip(z_list, zp_list)]
+        ts = self._per_device(t)
+        return [z + ts[e.slot] * zp
+                for e, z, zp in zip(self.cache.entries, z_list, zp_list)]
 
     def grad_from_margins_list(self, coef: Tensor,
                                z_list: Sequence[Tensor], l2) -> Tensor:
         """Gradient given cached margins: one rmatvec pass."""
         loss = self.objective.loss
-        acc = None
-        with span("accumulate"):
-            for e, z in zip(self.cache.blocks(), z_list):
-                self._require_restored(e)
-                u = e.weights * loss.d1(z, e.labels)
-                acc = _fold(acc, (e.feats.rmatvec(u), torch.sum(u)))
-        g_raw, su = acc
+
+        def part(e, _, z):
+            u = e.weights * loss.d1(z, e.labels)
+            return None, (e.feats.rmatvec(u), torch.sum(u))
+
+        _, (g_raw, su) = self._pass(part, z_list=z_list)
         return self._finish_grad(g_raw, su, coef, l2)
 
     def curvature_list(self, z_list: Sequence[Tensor]) -> List[Tensor]:
@@ -217,15 +386,13 @@ class ShardedGLMObjective:
         """H @ vec with precomputed curvature: one matvec + one rmatvec
         per shard (the streaming form of
         GLMObjective.hessian_vector_from_margins)."""
-        acc = None
-        with span("accumulate"):
-            for e, d2 in zip(self.cache.blocks(), d2_list):
-                self._require_restored(e)
-                jv = self.objective.margin_direction(
-                    vec, GLMBatch(e.feats, e.labels, e.offsets, e.weights))
-                t = d2 * jv
-                acc = _fold(acc, (e.feats.rmatvec(t), torch.sum(t)))
-        r_raw, su = acc
+        def part(e, v, d2):
+            jv = self._obj(e.slot).margin_direction(
+                v, GLMBatch(e.feats, e.labels, e.offsets, e.weights))
+            t = d2 * jv
+            return None, (e.feats.rmatvec(t), torch.sum(t))
+
+        _, (r_raw, su) = self._pass(part, vec, d2_list)
         return self._finish_grad(r_raw, su, vec, l2)
 
     def host_scores_from_margins(self, z_list: Sequence[Tensor]):
@@ -245,9 +412,9 @@ class ShardedGLMObjective:
 
     # -- the batched λ grid: per-shard grid partials ----------------------
 
-    def _grid_norm_prep(self, coefs: Tensor):
+    def _grid_norm_prep(self, coefs: Tensor, slot: int = 0):
         """Per-row (effective coefficients, margin shift [G, 1])."""
-        norm = self.objective.normalization
+        norm = self._obj(slot).normalization
         if norm is None:
             return coefs, None
         eff = torch.stack([norm.effective_coefficients(c) for c in coefs])
@@ -257,7 +424,7 @@ class ShardedGLMObjective:
     def _grid_margins(self, e, coefs: Tensor) -> Tensor:
         """[G, rows] margins X c_g + offsets (+ shift_g): the scalar
         ``GLMObjective.margins`` per lane, the product through row 10."""
-        eff, shift = self._grid_norm_prep(coefs)
+        eff, shift = self._grid_norm_prep(coefs, e.slot)
         z = e.feats.matmat(eff.T.contiguous()).T + e.offsets[None, :]
         return z if shift is None else z + shift
 
@@ -310,35 +477,27 @@ class ShardedGLMObjective:
                 r = r * norm.factors[None, :]
         return r + l2s[:, None] * coefs
 
+    def _count_grid_pass(self) -> None:
+        self.grid_passes += 1
+        _M_GRID_PASSES.inc()
+
     # -- grid passes ---------------------------------------------------------
 
     def grid_margins_value_grad(self, coefs: Tensor, l2s: Tensor
                                 ) -> Tuple[List[Tensor], Tensor, Tensor]:
         """One feature pass for every grid row: per-shard [G, rows]
         margins, [G] values and [G, d] gradients."""
-        self.grid_passes += 1
-        _M_GRID_PASSES.inc()
-        z_list: List[Tensor] = []
-        acc = None
-        with span("accumulate"):
-            for e in self.cache.blocks():
-                self._require_restored(e)
-                z, part = self._grid_init(e, coefs)
-                z_list.append(z)
-                acc = _fold(acc, part)
-        val, g_raw, su = acc
+        self._count_grid_pass()
+        z_list, (val, g_raw, su) = self._pass(
+            lambda e, c, _: self._grid_init(e, c), coefs)
         f = val + 0.5 * l2s * torch.sum(coefs * coefs, dim=-1)
         return z_list, f, self._grid_finish_grad(g_raw, su, coefs, l2s)
 
     def grid_margin_direction_list(self, directions: Tensor) -> List[Tensor]:
         """Per-shard [G, rows] directional margins: one feature pass."""
-        self.grid_passes += 1
-        _M_GRID_PASSES.inc()
-        out: List[Tensor] = []
-        with span("accumulate"):
-            for e in self.cache.blocks():
-                self._require_restored(e)
-                out.append(self._grid_direction(e, directions))
+        self._count_grid_pass()
+        out, _ = self._pass(
+            lambda e, p, _: (self._grid_direction(e, p), None), directions)
         return out
 
     def grid_trial_values(self, z_list: Sequence[Tensor],
@@ -346,30 +505,27 @@ class ShardedGLMObjective:
                           coef_sq: Tensor, l2s: Tensor) -> Tensor:
         """[G, K] objective values at per-row step candidates ts [G, K]:
         row-space only, no feature pass."""
-        acc = None
-        for e, z, zp in zip(self.cache.entries, z_list, zp_list):
-            acc = _fold(acc, self._grid_trial(z, zp, e.labels, e.weights,
-                                              ts))
+        acc = self._row_fold(
+            lambda e, z, zp, t: self._grid_trial(z, zp, e.labels,
+                                                 e.weights, t),
+            z_list, zp_list, ts)
         return acc[0] + 0.5 * l2s[:, None] * coef_sq
 
     def grid_update_margins(self, z_list: Sequence[Tensor], t: Tensor,
                             zp_list: Sequence[Tensor]) -> List[Tensor]:
         """z + t*zp per shard with a per-row step [G]; rows with t == 0
         keep their margins bit for bit."""
-        return [self._grid_axpy(z, t, zp) for z, zp in zip(z_list, zp_list)]
+        ts = self._per_device(t)
+        return [self._grid_axpy(z, ts[e.slot], zp)
+                for e, z, zp in zip(self.cache.entries, z_list, zp_list)]
 
     def grid_grad_from_margins_list(self, coefs: Tensor,
                                     z_list: Sequence[Tensor],
                                     l2s: Tensor) -> Tensor:
         """[G, d] gradients from cached [G, rows] margins: one pass."""
-        self.grid_passes += 1
-        _M_GRID_PASSES.inc()
-        acc = None
-        with span("accumulate"):
-            for e, z in zip(self.cache.blocks(), z_list):
-                self._require_restored(e)
-                acc = _fold(acc, self._grid_grad(e, z))
-        g_raw, su = acc
+        self._count_grid_pass()
+        _, (g_raw, su) = self._pass(
+            lambda e, _, z: (None, self._grid_grad(e, z)), z_list=z_list)
         return self._grid_finish_grad(g_raw, su, coefs, l2s)
 
     def grid_curvature_list(self, z_list: Sequence[Tensor]) -> List[Tensor]:
@@ -382,14 +538,10 @@ class ShardedGLMObjective:
                             l2s: Tensor) -> Tensor:
         """[G, d] H_g v_g with per-row curvature: one pass serves every
         row's CG iterate."""
-        self.grid_passes += 1
-        _M_GRID_PASSES.inc()
-        acc = None
-        with span("accumulate"):
-            for e, d2 in zip(self.cache.blocks(), d2_list):
-                self._require_restored(e)
-                acc = _fold(acc, self._grid_hvp(e, d2, vecs))
-        r_raw, su = acc
+        self._count_grid_pass()
+        _, (r_raw, su) = self._pass(
+            lambda e, v, d2: (None, self._grid_hvp(e, d2, v)), vecs,
+            d2_list)
         return self._grid_finish_grad(r_raw, su, vecs, l2s)
 
     @staticmethod

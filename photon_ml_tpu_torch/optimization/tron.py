@@ -614,7 +614,8 @@ def minimize_tron_grid_streaming(
                 acc_dev = torch.as_tensor(accept, device=device)
                 x = _grid_select_rows(acc_dev, x_try, x)
                 g = _grid_select_rows(acc_dev, g_new, g)
-                z_list = [torch.where(acc_dev[:, None], zt, z)
+                # Each shard's margins live on its own mesh slot's device.
+                z_list = [torch.where(acc_dev.to(z.device)[:, None], zt, z)
                           for zt, z in zip(z_try, z_list)]
                 f_new_h = f_new.cpu().numpy()
                 gnorm_new, snorm = torch.stack(

@@ -37,6 +37,7 @@ that item.
 import functools
 import importlib.util
 import json
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -325,9 +326,11 @@ def test_cross_scoring(runs, example):
 
 # --stream-train and its flags are ported (streamed ingest and training,
 # the batched λ grid and streamed matrix factorization, ROADMAP A4 and
-# A4b); each of those entries keeps its first flag and adds what still
-# belongs to a later item, which must raise naming it (the named flag,
-# third).
+# A4b), and so is the 1-D mesh (A6a). Each entry keeps its flags and id;
+# its second field says how it ends now: "run" trains one iteration over
+# a 2-slot CPU mesh, "raise" ends with JAX's own message (the third
+# field) before anything is written, "A6b" with the error naming the
+# 2-D mesh's item.
 _STREAM_FE = ["--stream-train", "--random-effect-data-configurations",
               "--updating-sequence", "fixed"]
 _GRID2 = ["--fixed-effect-optimization-configurations",
@@ -338,21 +341,24 @@ TRAINING_LATER = [
       "--factored-random-effect-optimization-configurations",
       "mf:20,1e-6,1.0,1.0,LBFGS,L2;20,1e-6,1.0,1.0,LBFGS,L2;1,2",
       "--random-effect-data-configurations", "--updating-sequence", "mf",
-      "--mesh-devices", "2"], "A6", "--mesh-devices"),
+      "--mesh-devices", "2"], "raise",
+     "a mesh of > 1 device requires --hbm-budget"),
     (["--hbm-budget", "8K", *_STREAM_FE, *_GRID2, "--mesh-devices", "2"],
-     "A6", "--mesh-devices"),
+     "run", None),
     (["--grid-batched", "off", "--hbm-budget", "8K", *_STREAM_FE,
-      "--mesh-devices", "2"], "A6", "--mesh-devices"),
+      "--mesh-devices", "2"], "run", None),
     (["--spill-dtype", "bf16", "--hbm-budget", "8K", *_STREAM_FE,
-      "--mesh-shape", "2x2"], "A6", "--mesh-shape"),
+      "--mesh-shape", "2x2"], "A6b", "--mesh-shape"),
     (["--spill-source", "redecode", "--hbm-budget", "8K", *_STREAM_FE,
-      "--mesh-shape", "2x2"], "A6", "--mesh-shape"),
-    (["--distmon", "--mesh-devices", "2"], "A6", "--mesh-devices"),
-    (["--obs-port", "0", "--mesh-shape", "2x2"], "A6", "--mesh-shape"),
-    (["--slo", "p99:x<=1ms", "--mesh-devices", "2"], "A6",
-     "--mesh-devices"),
-    (["--mesh-devices", "2"], "A6", "--mesh-devices"),
-    (["--mesh-shape", "2x2"], "A6", "--mesh-shape")]
+      "--mesh-shape", "2x2"], "A6b", "--mesh-shape"),
+    (["--distmon", "--mesh-devices", "2"], "raise",
+     "--mesh-devices/--mesh-shape apply to the --stream-train solve"),
+    (["--obs-port", "0", "--mesh-shape", "2x2"], "A6b", "--mesh-shape"),
+    (["--slo", "p99:x<=1ms", "--mesh-devices", "2"], "raise",
+     "--mesh-devices/--mesh-shape apply to the --stream-train solve"),
+    (["--mesh-devices", "2"], "raise",
+     "--mesh-devices/--mesh-shape apply to the --stream-train solve"),
+    (["--mesh-shape", "2x2"], "A6b", "--mesh-shape")]
 # The scoring flags that named ROADMAP A5d, ported with network serving:
 # each case now serves and drains ("serve") or ends with the JAX
 # driver's own SystemExit (game_scoring_driver.py:284-300).
@@ -429,13 +435,32 @@ def _check_telemetry_output(summary: dict, argv, what: str):
     assert "driver" in summary["telemetry"]["stage_attribution"]
 
 
-@pytest.mark.parametrize("extra,item,named", TRAINING_LATER,
+@pytest.mark.parametrize("extra,outcome,expect", TRAINING_LATER,
                          ids=[e[0] for e, _, _ in TRAINING_LATER])
-def test_training_flags_of_later_items_raise(tmp_path, extra, item, named):
+def test_training_flags_of_later_items_raise(runs, tmp_path, extra, outcome,
+                                             expect):
+    """The ten mesh-flag cases that once raised naming ROADMAP A6: the
+    spill runs train over a 2-slot CPU mesh, the rest end with JAX's
+    message, and a 2-D mesh with the error naming A6b."""
+    if outcome == "run":
+        argv = ["--train-input-dirs", str(runs["training"]["root"] / "train"),
+                "--output-dir", str(tmp_path / "out"), *TRAINING_FLAGS,
+                *extra, "--num-iterations", "1", "--batch-rows", "64"]
+        summary = game_training_driver.run(argv, device="cpu")
+        info = summary["stream_train"]
+        assert info["mode"] == "spill" and info["mesh_devices"] == 2
+        assert list(info["mesh_shape"]) == [2, 1]
+        cache = info["cache"]
+        assert cache["mesh_devices"] == 2 and cache["shards"] == 5
+        assert len(cache["per_device_bytes"]) == 2
+        assert sum(cache["per_device_bytes"]) == cache["device_bytes"]
+        assert (tmp_path / "out" / "best" / "fixed-effect").is_dir()
+        return
     argv = ["--train-input-dirs", str(tmp_path / "none"), "--output-dir",
             str(tmp_path / "out"), *TRAINING_FLAGS, *extra]
-    with pytest.raises(ValueError, match=f"{named} is not ported yet: "
-                       f"it comes with ROADMAP queue {item}"):
+    match = (re.escape(expect) if outcome == "raise" else
+             f"{expect} is not ported yet: it comes with ROADMAP queue A6b")
+    with pytest.raises(ValueError, match=match):
         game_training_driver.run(argv, device="cpu")
     assert not (tmp_path / "out").exists()
 

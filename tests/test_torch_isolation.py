@@ -75,7 +75,7 @@ def _dataset():
     "stream_training_driver", "shard_cache", "assemble_fixed_effect_batch",
     "chunked_device_put", "streaming_scorer", "serving_frontend",
     "stream_scoring_driver", "serve_scoring_driver",
-    "listen_scoring_driver"])
+    "listen_scoring_driver", "make_mesh", "mesh_training_driver"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            entry):
     from photon_ml_tpu_torch.algorithm.coordinate_descent import (
@@ -95,6 +95,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         build_random_effect_dataset,
     )
     from photon_ml_tpu_torch.data.device_feed import chunked_device_put
+    from photon_ml_tpu_torch.parallel import make_mesh
     from photon_ml_tpu_torch.data.shard_cache import (
         DeviceShardCache,
         assemble_fixed_effect_batch,
@@ -175,6 +176,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
             "--input-dirs", "data", "--game-model-input-dir", "model",
             "--output-dir", "out", "--listen", "0", "--adaptive-admission",
             "--slo", "p99:x<=1ms"]),
+        "make_mesh": lambda: make_mesh(2),
+        "mesh_training_driver": lambda: game_training_driver.run([
+            "--train-input-dirs", "train", "--output-dir", "out",
+            "--task-type", "LOGISTIC_REGRESSION",
+            "--fixed-effect-data-configurations", "fixed:g",
+            "--updating-sequence", "fixed", "--stream-train",
+            "--hbm-budget", "8K", "--mesh-devices", "2"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -264,9 +264,13 @@ def test_empty_stream_and_mesh_raise(problem):
     with pytest.raises(ValueError, match="no rows"):
         DeviceShardCache.from_stream(FakeStream(X, np.zeros(0), 10), "g",
                                      device="cpu")
-    with pytest.raises(ValueError, match="A6"):
-        _cache(problem, devices=["cpu", "cpu"])
-    with pytest.raises(ValueError, match="A6"):
+    # devices= places the shards over a 1-D mesh of slots (ROADMAP A6a,
+    # tests/test_torch_mesh.py); column blocks are the 2-D mesh's (A6b).
+    two = _cache(problem, devices=["cpu", "cpu"])
+    assert two.n_slots == 2 and two.stats()["mesh_devices"] == 2
+    assert [e.slot for e in two.entries] == [
+        i % 2 for i in range(two.n_shards)]
+    with pytest.raises(ValueError, match="A6b"):
         _cache(problem, col_blocks=2)
 
 

@@ -232,30 +232,39 @@ def test_metrics_stream_train_block_has_jax_keys(runs):
 
 
 # The batched grid and streamed MF run (tests/test_torch_stream_grid.py,
-# test_torch_stream_mf.py); with a flag of a later item they raise
-# naming that item. The ids are the names these cases had while the
-# grid and streamed MF themselves raised naming A4b, kept so that each
-# case's record goes on under one name: what a case now asserts is its
-# `named` flag and its `item`. --distmon runs since the observability
-# plane came (ROADMAP A5c; tests/test_torch_distmon.py), so its cases
-# name a mesh flag (A6) beside it. The case that named --trace-out runs
-# it (test_streamed_mf_trace_out_runs).
+# test_torch_stream_mf.py), and so does the 1-D mesh (ROADMAP A6a,
+# tests/test_torch_mesh.py). The ids are the names these cases had while
+# the grid and streamed MF themselves raised naming A4b, kept so that
+# each case's record goes on under one name; --distmon runs since the
+# observability plane came (ROADMAP A5c). What a case asserts now: a
+# 2-D mesh (``--mesh-shape 2x2``) raises naming A6b before anything is
+# written; a 2-slot ``--mesh-devices 2`` trains, the sequential sweep
+# writing the unmeshed spill run's records bit for bit.
 @pytest.mark.parametrize("extra,named,item", [
     (["--grid-batched", "on", *SPILL, "--distmon", "--mesh-shape", "2x2"],
-     "--mesh-shape", "A6"),
+     "--mesh-shape", "A6b"),
     (["--grid-batched", "auto", *SPILL, "--mesh-devices", "2"],
-     "--mesh-devices", "A6"),
-    (["--distmon", "--mesh-shape", "2x2"], "--mesh-shape", "A6"),
-    ([*SPILL, "--mesh-devices", "2"], "--mesh-devices", "A6"),
+     "--mesh-devices", "run"),
+    (["--distmon", "--mesh-shape", "2x2"], "--mesh-shape", "A6b"),
+    ([*SPILL, "--mesh-devices", "2"], "--mesh-devices", "run"),
 ], ids=["extra0---grid-batched on-A4b", "extra1---grid-batched auto-A4b",
         "extra3---distmon-A5", "extra4---mesh-devices-A6"])
 def test_unported_stream_flags_raise_naming_item(runs, tmp_path, extra,
                                                  named, item):
+    argv = [*runs["data"], *BASE, *extra, "--output-dir",
+            str(tmp_path / "out")]
+    if item == "run":
+        info = game_training_driver.run(argv, device="cpu")["stream_train"]
+        assert info["mesh_devices"] == 2
+        assert info["cache"]["mesh_devices"] == 2
+        assert info["grid_batched"] is ("auto" in extra)
+        if "auto" not in extra:
+            assert _records(tmp_path / "out") == _records(
+                runs["root"] / "spill")
+        return
     with pytest.raises(ValueError, match=f"{named} is not ported yet: it "
                        f"comes with ROADMAP queue {item}"):
-        game_training_driver.run(
-            [*runs["data"], *BASE, *extra, "--output-dir",
-             str(tmp_path / "out")], device="cpu")
+        game_training_driver.run(argv, device="cpu")
     assert not (tmp_path / "out").exists()
 
 

@@ -44,6 +44,7 @@ from photon_ml_tpu_torch.data.shard_cache import DeviceShardCache
 from photon_ml_tpu_torch.ops.glm_objective import GLMObjective
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.ops.sharded_objective import ShardedGLMObjective
+from photon_ml_tpu_torch.parallel import make_mesh, mesh_device_list
 from photon_ml_tpu_torch.optimization.config import (
     GLMOptimizationConfiguration,
 )
@@ -348,7 +349,9 @@ def test_streaming_coordinate_matches_solver_and_scope_errors(problem):
                 name="fixed", cache=cache, feature_shard_id="g",
                 task_type=TASK, config=GLMOptimizationConfiguration.parse(
                     bad))
-    with pytest.raises(ValueError, match="A6"):
+    # mesh= folds over a 1-D mesh of slots (ROADMAP A6a); anything but
+    # a parallel.Mesh is refused by type.
+    with pytest.raises(TypeError, match="Mesh"):
         StreamingFixedEffectCoordinate(
             name="fixed", cache=cache, feature_shard_id="g", task_type=TASK,
             config=cfg, mesh=object())
@@ -357,9 +360,22 @@ def test_streaming_coordinate_matches_solver_and_scope_errors(problem):
             name="fixed", cache=_cache(problem), feature_shard_id="g",
             task_type=TASK, config=cfg,
             sharded_objective=coord.sharded_objective)
-    with pytest.raises(ValueError, match="A6"):
+    with pytest.raises(TypeError, match="Mesh"):
         ShardedGLMObjective(GLMObjective(loss_for_task(TASK)), cache,
                             mesh=object())
+    # A real 1-D mesh runs: two slots over a cache placed on them give
+    # the single-device fold's solve, bit for bit.
+    mesh = make_mesh(2, device="cpu")
+    two = _cache(problem, devices=mesh_device_list(mesh))
+    meshed = StreamingFixedEffectCoordinate(
+        name="fixed", cache=two, feature_shard_id="g", task_type=TASK,
+        config=cfg, dtype=F64, mesh=mesh)
+    got, _ = meshed.solve(model)
+    want, _ = StreamingFixedEffectCoordinate(
+        name="fixed", cache=_cache(problem), feature_shard_id="g",
+        task_type=TASK, config=cfg, dtype=F64).solve(model)
+    assert torch.equal(got.glm.coefficients.means,
+                       want.glm.coefficients.means)
 
 
 def test_restore_dtype_contract_rejects_leaked_bf16(problem):
