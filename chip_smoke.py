@@ -14,7 +14,8 @@ hold-out scored for AUC) through photon_ml_tpu_torch's GameEstimator on
 five paths, 3 coordinate-descent iterations each, path 6 through the
 training and scoring drivers and path 7 through the GLM driver, paths
 8-11 through the streamed trainer and the serving paths, path 12 over
-the network, path 13 over a 1-D mesh of two slots of cuda:0:
+the network, path 13 over a 1-D mesh of two slots of cuda:0, path 14
+over 2-D (data x model) meshes of slots of cuda:0:
 
 - path 1, the headline GLMix of bench.py: fixed effect L-BFGS max_iter
   50, tol 1e-7, L2 1; per-user L-BFGS max_iter 20, tol 1e-6, L2 1;
@@ -269,6 +270,34 @@ padding entities zero; the whole fit's objective history lies within
 rtol 1e-5 of path 5's and its final AUC within 1e-4. It prints its
 seconds and its launches of rows 1-6, 9 and 10.
 
+Path 14 trains over the 2-D (data x model) mesh
+(``make_mesh_2d(R, C, device="cuda:0")``: R x C slots of the one card;
+the coefficients' column blocks on the model axis, ROADMAP A6b). (a)
+Path 8's quarter-budget f32 run (path 8's files and grid, swept one λ at
+a time, --feeder native, path 8's batch rows) through the training
+driver at --mesh-shape 1x2 and 2x2, half the quarter budget per slot:
+every λ's model records equal the quarter run's bit for bit, every slot
+evicted and ended within its budget, ``stream_train.cache`` carries
+``col_blocks``, ``col_block_size`` and ``per_device_bytes`` for 2 and 4
+slots and the registry equals it, and row 9 launched as often as path
+8's run plus S (C - 1) launches for each pass that carries a transposed
+product (S shards; the passes counted in the run; the count printed).
+(b) Path 9's batched grid at 2x2 writes path 9's grid model bit for bit.
+(c) Path 8's --spill-source redecode run at 2x2, the whole quarter
+budget a slot (a miss re-decodes its rows), writes its records bit for
+bit. (d) GameEstimator(mesh=make_mesh_2d(2, 2, device="cuda:0")) on
+path 5's coordinates with the fixed effect feature-sharded: each random-
+effect and the factored coordinate's first update over the mesh gives
+the unsharded update's bits with two entity-kernel launches a bucket
+(one a data row) and the padding entities zero, the fixed effect's
+first update lies within value rtol 1e-5 and coefficients atol 2e-3 (the
+float32 floor of tests/test_distributed.py) of the unsharded one, the
+fit's objective history within rtol 1e-5 of path 5's and its final AUC
+within 1e-4. (e) A world of one process joins over loopback on nccl
+(``initialize_multihost``), is the primary host, all-reduces a tensor
+on cuda:0 and leaves. It prints its seconds and its launches of rows 1,
+9 and 10.
+
 Then the gather phase runs the port's gather experiment
 (photon_ml_tpu_torch/dev_scripts/gather_experiments.py) at its full
 width, m = 12,000,000 lookups into d = 2,000,000 coefficients: w[idx],
@@ -335,15 +364,15 @@ compare them on one card (equal digests: no entity's stop moved).
 The third line from the end is a JSON record of the kernels (rows 1-8
 of the PERF.md table: L-BFGS, the normalization fold, bounded L-BFGS,
 OWL-QN, TRON and bounded TRON, the one-hot and the residue-class gather,
-each with its launches on the main paths, path 6's and path 13's among
-row 1's, times
+each with its launches on the main paths, path 6's, path 13's and
+path 14's among row 1's, times
 and bound; row 9, the deterministic CSR product, with its launches in
 path 8 and the full-width stream phase and the launches path 10's bucket
 graphs executed (wrapper calls, less those recorded at capture, plus
 replays times the launches a graph holds), with path 11's and the
-path-12 replicas' (counted from their metrics.json) and path 13's; row
-10, the CSR x panel product, with its launches in path 9, path 13 and
-the grid phase and its times
+path-12 replicas' (counted from their metrics.json), path 13's and
+path 14's; row 10, the CSR x panel product, with its launches in path 9,
+paths 13 and 14 and the grid phase and its times
 at MF's shapes), then the
 card's name and power limit, and the last line is {"ok": true,
 "device": ...}. It exits non-zero, printing no result, without CUDA or
@@ -4692,6 +4721,299 @@ def path13(root: Path, p8: dict, train, val, specs5, result5) -> dict:
     return launches
 
 
+# Path 14: the 2-D (data x model) mesh, slots of cuda:0 (ROADMAP A6b).
+PATH14_DEVICE = "cuda:0"
+PATH14_SHAPES = ((1, 2), (2, 2))
+PATH14_FE_RTOL, PATH14_FE_ATOL = 1e-5, 2e-3
+
+
+class _PassCounts:
+    """Counts the streamed objective's feature passes by kind while it is
+    entered (the methods wrapped, their results untouched): a pass with
+    a transposed product launches row 9 once a column slice of a shard,
+    one without once a shard."""
+
+    KINDS = ("margins_value_grad", "margin_direction_list",
+             "grad_from_margins_list", "hessian_vector")
+
+    def __enter__(self):
+        from photon_ml_tpu_torch.ops.sharded_objective import (
+            ShardedGLMObjective,
+        )
+
+        self.cls, self.counts = ShardedGLMObjective, dict.fromkeys(
+            self.KINDS, 0)
+        self.saved = {k: getattr(ShardedGLMObjective, k) for k in self.KINDS}
+
+        def wrap(kind, fn):
+            def counted(*a, **kw):
+                self.counts[kind] += 1
+                return fn(*a, **kw)
+            return counted
+
+        for k, fn in self.saved.items():
+            setattr(ShardedGLMObjective, k, wrap(k, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.saved.items():
+            setattr(self.cls, k, fn)
+
+    def row9(self, shards: int, cols: int, base: int) -> int:
+        """Row 9's launches at ``cols`` column blocks, from the unblocked
+        run's ``base``: each pass with a transposed product adds C - 1 a
+        shard (1 + C launches against 2, or C against 1)."""
+        c = self.counts
+        transposed = (c["margins_value_grad"] + c["grad_from_margins_list"]
+                      + c["hessian_vector"])
+        return base + shards * (cols - 1) * transposed
+
+
+def path14(root: Path, p8: dict, train, val, specs5, result5) -> dict:
+    """Path 14: path 8's, path 9's and path 5's training over 2-D meshes
+    of slots of cuda:0, and a world of one process (module docstring,
+    (a)-(e)). Returns its launches: ``entity`` per variant, ``row9`` and
+    ``row10``, each counted from 0 just before a run of the main path and
+    read just after."""
+    import torch
+
+    from photon_ml_tpu_torch.algorithm.coordinates import (
+        FactoredRandomEffectCoordinate,
+        FixedEffectCoordinate,
+        RandomEffectCoordinate,
+    )
+    from photon_ml_tpu_torch.cli import game_training_driver
+    from photon_ml_tpu_torch.estimators.game_estimator import FixedEffectSpec
+    from photon_ml_tpu_torch.ops import entity_solver, spmv
+    from photon_ml_tpu_torch.parallel import (
+        initialize_multihost,
+        is_primary_host,
+        make_mesh_2d,
+    )
+
+    t_path = time.perf_counter()
+    launches = {"entity": collections.Counter(), "row9": 0, "row10": 0}
+    base = ["--train-input-dirs", str(root / "train"),
+            "--validate-input-dirs", str(root / "validate"),
+            "--feature-index-dir", str(root / "feature-index"),
+            "--task-type", "LOGISTIC_REGRESSION",
+            "--fixed-effect-data-configurations", "fixed:global",
+            "--updating-sequence", "fixed",
+            "--evaluators", "AUC,LOGISTIC_LOSS",
+            "--feeder", "native", "--batch-rows", str(PATH8_BATCH_ROWS),
+            "--stream-train"]
+    per_slot = int(p8["quarter"]) // 2
+
+    def run(tag, shape, extra, grid=PATH8_GRID, budget=per_slot):
+        spmv.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _PassCounts() as passes:
+            summary = game_training_driver.run(
+                [*base, "--fixed-effect-optimization-configurations", grid,
+                 "--mesh-shape", f"{shape[0]}x{shape[1]}",
+                 "--hbm-budget", str(budget), *extra,
+                 "--output-dir", str(root / f"p14-{tag}")],
+                device=PATH14_DEVICE)
+            torch.cuda.synchronize()
+        mv, mm = spmv.csr_matvec.launches, spmv.csr_matmul.launches
+        launches["row9"] += mv
+        launches["row10"] += mm
+        cache = summary["stream_train"]["cache"]
+        print(f"path 14 {tag}: {time.perf_counter() - t0:.2f} s, best "
+              f"{summary['bestConfigs']['fixed']}, cache "
+              f"{ {k: cache.get(k) for k in ('shards', 'hits', 'misses', 'evictions', 'epochs', 'col_blocks', 'col_block_size', 'per_device_bytes', 'per_device_resident_shards')} }"
+              f", passes {passes.counts}, row 9 launches {mv}, row 10 "
+              f"launches {mm}", flush=True)
+        return summary, passes, mv, mm
+
+    def check_cache(tag, summary, shape):
+        r, c = shape
+        info, cache = summary["stream_train"], summary["stream_train"][
+            "cache"]
+        check(list(info["mesh_shape"]) == [r, c]
+              and cache["mesh_devices"] == r * c
+              and cache["col_blocks"] == c
+              and cache["col_block_size"] == -(-200 // c)
+              and len(cache["per_device_bytes"]) == r * c,
+              f"path 14 {tag}: mesh in metrics {info}")
+        for slot in range(r * c):
+            held = (cache["shards"] - slot // c + r - 1) // r
+            check(cache["per_device_resident_shards"][slot] < held,
+                  f"path 14 {tag}: slot {slot} never evicted ({cache})")
+            check(cache["per_device_bytes"][slot] <= per_slot,
+                  f"path 14 {tag}: slot {slot} holds "
+                  f"{cache['per_device_bytes'][slot]} > {per_slot}")
+        metrics = summary["telemetry"]["metrics"]
+        registry = {k: metrics["counters"].get(f"data.shard_cache.{k}")
+                    for k in SHARD_CACHE_KEYS}
+        registry.update({k: metrics["gauges"].get(f"data.shard_cache.{k}")
+                         for k in ("col_blocks", "col_block_size")})
+        check(registry == {k: cache[k] for k in registry},
+              f"path 14 {tag}: registry {registry} != cache {cache}")
+
+    # (a) the scalar streamed solve, half the quarter budget a slot.
+    q = p8["quarter-f32"]
+    want = _fixed_records(root / "p8-quarter-f32")
+    for shape in PATH14_SHAPES:
+        tag = f"scalar-{shape[0]}x{shape[1]}"
+        a, passes, mv, _ = run(tag, shape, ["--grid-batched", "off",
+                                            "--distmon"])
+        check_cache(tag, a, shape)
+        check(_fixed_records(root / f"p14-{tag}") == want,
+              f"path 14 (a) {tag}: the best model differs from path 8's")
+        for key in ("convergence", "training_scores"):
+            check(a["data_quality"][key] == q["data_quality"][key],
+                  f"path 14 (a) {tag}: a λ's {key} differs from path 8's")
+        check(a["objectiveHistory"] == q["objectiveHistory"],
+              f"path 14 (a) {tag}: objective histories differ")
+        shards = a["stream_train"]["cache"]["shards"]
+        base9 = p8["quarter-f32-launches"]
+        expect = passes.row9(shards, shape[1], base9)
+        n_t = (expect - base9) // (shards * (shape[1] - 1))
+        print(f"path 14 (a) {tag}: {per_slot} bytes a slot: path 8's "
+              "quarter-f32 model bit for bit (best records, every λ's "
+              f"convergence ring and score sketch); row 9 launched {mv} "
+              f"times = path 8's {base9} + {shards} shards x (C - 1 = "
+              f"{shape[1] - 1}) x {n_t} passes with a transposed product "
+              f"= {expect}", flush=True)
+        check(mv == expect, f"path 14 (a) {tag}: row 9 launched {mv} "
+              f"times, expected {expect}")
+
+    # (b) the batched grid.
+    b, _, _, mm = run("grid-2x2", (2, 2), ["--grid-batched", "on"])
+    check(b["stream_train"]["grid_batched"] is True,
+          "path 14 (b): the grid did not batch")
+    check(mm > 0, "path 14 (b): row 10 did not launch")
+    check(_fixed_records(root / "p14-grid-2x2") == _fixed_records(
+        root / "p9-grid"), "path 14 (b): the 2x2 grid model differs from "
+          "path 9's")
+    print("path 14 (b): the batched grid over 2x2 writes path 9's grid "
+          f"model bit for bit ({mm} row-10 launches)", flush=True)
+
+    # (c) the redecode tier, at path 8's whole quarter budget a slot: every
+    # miss re-decodes its Avro rows, so fewer misses keep it short.
+    best = q["bestConfigs"]["fixed"]
+    red, _, _, _ = run("redecode-2x2", (2, 2), [
+        "--grid-batched", "off", "--spill-source", "redecode"],
+        grid="fixed:" + best, budget=int(p8["quarter"]))
+    check(red["stream_train"]["cache"]["evictions"] > 0,
+          "path 14 (c): the redecode run evicted nothing")
+    check(_fixed_records(root / "p14-redecode-2x2")
+          == _fixed_records(root / "p8-quarter-redecode"),
+          "path 14 (c): the 2x2 redecode model differs from path 8's")
+    print("path 14 (c): --spill-source redecode over 2x2 writes path 8's "
+          "redecode records bit for bit", flush=True)
+
+    # (d) in core: the first updates from the same offsets, then the fit.
+    mesh = make_mesh_2d(2, 2, device=PATH14_DEVICE)
+    print(f"path 14 mesh: {mesh.describe()}; card {card_line()}",
+          flush=True)
+    coords = coordinates_of(train, specs5)
+    residual = coords["fixed"].score(result5.model.models["fixed"])
+    for name, coord in coords.items():
+        model0 = coord.initialize_model()
+        if isinstance(coord, FixedEffectCoordinate):
+            twin = dataclasses.replace(coord, mesh=mesh,
+                                       feature_sharding=True)
+            one, one_res = coord.update_model(model0, None)
+            two, two_res = twin.update_model(model0, None)
+            torch.cuda.synchronize()
+            a_ = two.glm.coefficients.means.double()
+            b_ = one.glm.coefficients.means.double()
+            worst = float((a_ - b_).abs().max())
+            rel = abs(float(two_res.value) - float(one_res.value)) / abs(
+                float(one_res.value))
+            print(f"path 14 (d) {name} feature-sharded first update: value "
+                  f"within {rel:.3g} (rtol {PATH14_FE_RTOL}), coefficients "
+                  f"within {worst:.3g} (atol {PATH14_FE_ATOL}) of the "
+                  f"unsharded update, padded width {twin._d_pad}", flush=True)
+            check(rel <= PATH14_FE_RTOL and worst <= PATH14_FE_ATOL,
+                  f"path 14 (d) {name}: the feature-sharded update differs")
+            continue
+        twin = dataclasses.replace(coord, mesh=mesh)
+        entity_solver.reset_launch_counts()
+        one, one_trk = coord.update_model(model0, residual, None)
+        torch.cuda.synchronize()
+        n_one = entity_solver.entity_lbfgs.launches
+        entity_solver.reset_launch_counts()
+        two, two_trk = twin.update_model(model0, residual, None)
+        torch.cuda.synchronize()
+        n_two = entity_solver.entity_lbfgs.variants.copy()
+        launches["entity"].update(n_two)
+        check(sum(n_two.values()) == 2 * n_one,
+              f"path 14 (d) {name}: {dict(n_two)} launches over the mesh, "
+              f"{n_one} without")
+        if isinstance(coord, FactoredRandomEffectCoordinate):
+            pairs = [(x, y) for u, v in zip(two_trk, one_trk)
+                     for x, y in zip(u.latent, v.latent)]
+            same = all(torch.equal(x, y) for x, y in zip(
+                two.latent.local_coefs, one.latent.local_coefs)) and \
+                torch.equal(two.projection_matrix, one.projection_matrix)
+        else:
+            pairs = list(zip(two_trk, one_trk))
+            same = all(torch.equal(x, y) for x, y in zip(
+                two.local_coefs, one.local_coefs))
+        pad_zero = all(bool(torch.all(x.x[y.x.shape[0]:] == 0))
+                       for x, y in pairs)
+        stops = all(torch.equal(x.reason[:y.x.shape[0]], y.reason)
+                    and torch.equal(x.iterations[:y.x.shape[0]],
+                                    y.iterations) for x, y in pairs)
+        print(f"path 14 (d) {name} first update over 2x2: coefficients "
+              f"{'equal' if same else 'DIFFER'}, reasons and iterations "
+              f"{'equal' if stops else 'DIFFER'}, padding entities zero "
+              f"{pad_zero}, entity-kernel launches {dict(n_two)} against "
+              f"{n_one}", flush=True)
+        check(same and stops and pad_zero,
+              f"path 14 (d) {name}: the mesh's first update differs")
+    del coords
+    specs14 = [dataclasses.replace(s_, feature_sharding=True)
+               if isinstance(s_, FixedEffectSpec) else s_ for s_ in specs5]
+    result14, launches14, _ = fit_path("path 14", specs14, train, val,
+                                       mesh=mesh)
+    launches["entity"].update(launches14)
+    hist14 = np.asarray(result14.objective_history)
+    hist5 = np.asarray(result5.objective_history)
+    rel = float(np.max(np.abs(hist14 - hist5) / np.abs(hist5)))
+    auc14 = result14.validation_history[-1]["AUC"]
+    auc5 = result5.validation_history[-1]["AUC"]
+    print(f"path 14 (d) fit over 2x2: objective history within {rel:.3g} "
+          f"of path 5's (rtol {PATH13_CD_RTOL}), final AUC {auc14:.6f} "
+          f"against {auc5:.6f}", flush=True)
+    check(len(hist14) == len(hist5) and rel <= PATH13_CD_RTOL,
+          f"path 14 (d): objective history {hist14} against {hist5}")
+    check(abs(auc14 - auc5) <= PATH13_AUC_ATOL,
+          f"path 14 (d): AUC {auc14} against {auc5}")
+
+    # (e) multi-host: a world of one over loopback on nccl.
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    try:
+        up = initialize_multihost(f"127.0.0.1:{port}", 1, 0,
+                                  device=PATH14_DEVICE, timeout=120)
+        primary = is_primary_host()
+        t = torch.ones(4, device=PATH14_DEVICE)
+        torch.distributed.all_reduce(t)
+        torch.cuda.synchronize()
+        summed = t.tolist()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    print(f"path 14 (e): initialize_multihost over loopback on nccl "
+          f"{up}, primary host {primary}, all-reduce {summed}, group "
+          f"left {not torch.distributed.is_initialized()}", flush=True)
+    check(up and primary and summed == [1.0] * 4
+          and not torch.distributed.is_initialized(),
+          "path 14 (e): the world of one failed")
+    rows = {"row 1": launches["entity"].get("lbfgs", 0),
+            "row 9": launches["row9"], "row 10": launches["row10"]}
+    print(f"path 14: {time.perf_counter() - t_path:.1f} s, launches "
+          + json.dumps(rows), flush=True)
+    return launches
+
+
 def order_contract_check() -> None:
     """The kernels' order contract (csrc/csr_order.cuh): a row of 3,
     L - 1, L, L + 1 and 3L + 5 entries (L the chunk), first in one CSR
@@ -4984,18 +5306,21 @@ def main(argv=None) -> int:
         print(f"path 11: {time.perf_counter() - t0:.1f} s", flush=True)
         launches12 = path12(Path(tmp), per_graph, figures10)
         launches13 = path13(Path(tmp), p8, train, val, specs5, result5)
+        launches14 = path14(Path(tmp), p8, train, val, specs5, result5)
     t0 = time.perf_counter()
     glm_full_width(train)
     print(f"glm full width: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches_stream, block = stream_full_width(train)
     spmv_row = spmv_entry(block, launches8 + launches_stream + launches10
-                          + launches11 + launches12 + launches13["row9"])
+                          + launches11 + launches12 + launches13["row9"]
+                          + launches14["row9"])
     print(f"stream full width: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches_grid, block = grid_full_width(train)
     spmm_row = spmm_entry(block, launches9 + launches_grid
-                          + launches13["row10"], mf_held)
+                          + launches13["row10"] + launches14["row10"],
+                          mf_held)
     order_contract_check()
     repeatability_checks(train)
     print(f"grid full width: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5007,7 +5332,8 @@ def main(argv=None) -> int:
     kernels = [
         kernel_entry("entity_lbfgs[lbfgs] (row 1)", rows1,
                      launches1.get("lbfgs", 0) + launches5.get("lbfgs", 0)
-                     + launches6 + launches13["entity"].get("lbfgs", 0)),
+                     + launches6 + launches13["entity"].get("lbfgs", 0)
+                     + launches14["entity"].get("lbfgs", 0)),
         kernel_entry("entity_lbfgs[normalization fold] (row 2)",
                      rows2["lbfgs"],
                      sum(n for launches in (launches2, launches3)

@@ -10,7 +10,9 @@ FactoredRandomEffectCoordinate :978-1120, _solve_factored_block
 :1120-1157, _flatten_factored_static :1159, _flatten_gammas :1176,
 _solve_latent_matrix :1188 (a solve_glm call), _dispatch_pallas_solver
 :1207, _shard_re_dataset :722-735 and _shard_mapped_pallas_solver
-:1234-1266 (one loop over each bucket's mesh slots here),
+:1234-1266 (one loop over each bucket's mesh slots here; on a 2-D
+mesh over its data rows), FixedEffectCoordinate's feature sharding
+(``feature_sharding``, ``_pad_d``, :136-193),
 _solve_block :1371, _solve_fixed :1442, _fe_score_impl :1474 and
 _re_score_impl / _fre_score_impl :1484-1514 (``_slot_scores``), the size
 guard of _use_pallas_entity_solver :1294-1366, which the kernel makes
@@ -128,12 +130,22 @@ class Coordinate:
 @dataclasses.dataclass
 class FixedEffectCoordinate(Coordinate):
     """Global GLM coordinate (ml/algorithm/FixedEffectCoordinate.scala).
-    With ``mesh`` (a 1-D `parallel.Mesh` whose first slot is ``device``)
-    the batch's rows shard over the slots (``shard_batch``): every
-    solver runs as it does, each feature product split over the slots
-    and its [d] partials folded in slot order on devices[0]. The sums
-    reassociate against the unsharded solve, as XLA's do under the JAX
-    mesh."""
+    With ``mesh`` (a 1-D or 2-D `parallel.Mesh` whose first slot is
+    ``device``) the batch's rows shard over the data axis's slots
+    (``shard_batch``): every solver runs as it does, each feature product
+    split over the slots and its [d] partials folded in slot order on
+    devices[0]. The sums reassociate against the unsharded solve, as
+    XLA's do under the JAX mesh.
+
+    ``feature_sharding`` (with a mesh) shards the FEATURE dimension too
+    (``shard_batch_feature_dim``): over the model axis of a 2-D mesh,
+    rows over its data axis at the same time (dense features only: a
+    CSR raises JAX's message), or over the one axis of a 1-D mesh (a CSR
+    becomes ``BlockedCSRFeatures``, one column block a slot). The width
+    is padded to C column blocks: coefficients, normalization (factor 1,
+    shift 0) and bounds (+-inf) are padded into the solve and the score
+    (``_pad_d``) and cut back after it, so models keep the true width
+    and the padded coordinates stay exactly 0."""
 
     name: str
     data: GameDataset
@@ -146,40 +158,69 @@ class FixedEffectCoordinate(Coordinate):
     lower_bounds: Optional[object] = None  # [d], solve space
     upper_bounds: Optional[object] = None
     mesh: Optional[object] = None  # parallel.Mesh: shard rows over it
-    feature_sharding: bool = False  # the 2-D mesh's (ROADMAP A6b)
+    feature_sharding: bool = False  # shard the features over the mesh
 
     def __post_init__(self):
-        if self.feature_sharding:
-            raise NotImplementedError(
-                "feature_sharding shards the coefficients over a 2-D "
-                "(data x model) mesh: it is not ported yet, it comes with "
-                "ROADMAP queue A6b")
         self.device = resolve_device(self.device)
         devs = _mesh_slots(self.mesh, self.device)
         self.device = devs[0]
-        sharded = len(devs) > 1
+        by_features = self.feature_sharding and self.mesh is not None
+        sharded = len(devs) > 1 or (by_features and self.mesh.size > 1)
         # A sharded batch is built on the host and each slot uploads only
-        # its row range.
+        # its share.
         self._batch = self.data.fixed_effect_batch(
             self.feature_shard_id, dtype=self.dtype,
             device="cpu" if sharded else self.device)
-        if sharded:
+        self._d = self.data.feature_shards[self.feature_shard_id].shape[1]
+        if by_features:
+            from photon_ml_tpu_torch.parallel import (
+                DATA_AXIS,
+                MODEL_AXIS,
+                shard_batch_feature_dim,
+            )
+
+            two_d = MODEL_AXIS in self.mesh.shape
+            self._batch = shard_batch_feature_dim(
+                self._batch, self.mesh,
+                col_axis=MODEL_AXIS if two_d else DATA_AXIS,
+                row_axis=DATA_AXIS if two_d else None)
+        elif sharded:
             from photon_ml_tpu_torch.parallel import shard_batch
 
             # Rows padded to a multiple of the slots with weight-0 rows;
             # each slot's products run on its device, the row columns
             # and every fold on devices[0] (parallel/distributed.py).
-            self._batch = shard_batch(self._batch, self.mesh)
+            self._batch = shard_batch(self._batch, self.mesh,
+                                      axis=self.mesh.axis_names[0])
+        self._d_pad = self._batch.features.num_features
         if self.normalization is not None:
             self.normalization = self.normalization.to(self.device,
                                                        self.dtype)
+        norm_solve = self.normalization
+        if norm_solve is not None and self._d_pad != self._d:
+            # Padded columns take inert normalization entries (factor 1,
+            # shift 0), so the padded coordinates stay zero.
+            norm_solve = dataclasses.replace(
+                norm_solve,
+                factors=self._pad_d(norm_solve.factors, 1.0),
+                shifts=self._pad_d(norm_solve.shifts))
+        self._norm_solve = norm_solve
         self._bounds = tuple(
-            None if b is None else torch.as_tensor(
-                b, dtype=self.dtype, device=self.device)
-            for b in (self.lower_bounds, self.upper_bounds))
+            None if b is None else self._pad_d(torch.as_tensor(
+                b, dtype=self.dtype, device=self.device), fill)
+            for b, fill in ((self.lower_bounds, -math.inf),
+                            (self.upper_bounds, math.inf)))
         self._objective = GLMObjective(loss_for_task(self.task_type),
-                                       self.normalization)
+                                       norm_solve)
         self._l1, self._l2 = self.config.l1_weight, self.config.l2_weight
+
+    def _pad_d(self, a: Optional[Tensor], fill=0.0) -> Optional[Tensor]:
+        """A [d] vector padded to the feature-sharded width (as it is
+        without feature sharding)."""
+        if a is None or self._d_pad == self._d:
+            return a
+        return torch.nn.functional.pad(a, (0, self._d_pad - self._d),
+                                       value=fill)
 
     def initialize_model(self) -> FixedEffectModel:
         d = self.data.feature_shards[self.feature_shard_id].shape[1]
@@ -200,13 +241,14 @@ class FixedEffectCoordinate(Coordinate):
         result, coef = _solve_fixed(
             self._objective, self.config,
             self.task_type.is_classification, self._batch, residual_scores,
-            generator, model.glm.coefficients.means, self.normalization,
-            *self._bounds)
-        new_glm = model.glm.update_coefficients(Coefficients(coef))
+            generator, self._pad_d(model.glm.coefficients.means),
+            self._norm_solve, *self._bounds)
+        new_glm = model.glm.update_coefficients(
+            Coefficients(coef[:self._d]))
         return model.update_model(new_glm), result
 
     def score(self, model: FixedEffectModel) -> Tensor:
-        return _fe_score_impl(model.glm.coefficients.means,
+        return _fe_score_impl(self._pad_d(model.glm.coefficients.means),
                               self._batch.features, self.data.num_rows)
 
     def penalties(self, model: FixedEffectModel):
@@ -234,10 +276,11 @@ class StreamingFixedEffectCoordinate:
     below 1.0. Those configurations stream-train through the resident
     assembled path. ``sharded_objective`` shares one objective across a
     λ grid (the L2 weight is an argument of every pass). ``mesh`` (a 1-D
-    `parallel.Mesh`) folds the solve over the slots of a cache placed on
-    the same devices (ops/sharded_objective.py): the solved model is the
-    same bits for every slot count. A shared objective must fold over the
-    same mesh.
+    or 2-D `parallel.Mesh`) folds the solve over the slots of a cache
+    placed on the same devices (ops/sharded_objective.py); a 2-D mesh of
+    C model-axis extents needs a cache built with ``col_blocks=C``. The
+    solved model is the same bits for every mesh shape on the card. A
+    shared objective must fold over the same mesh.
     """
 
     name: str
@@ -642,9 +685,11 @@ class RandomEffectCoordinate(Coordinate):
     36-201): one batched solve per bucket, scores back through a
     scatter-add. Blocks live on the dataset's device.
 
-    With ``mesh`` (a 1-D `parallel.Mesh` whose first slot is the
-    dataset's device) the dataset is replaced by one whose active and
-    passive buckets shard their entities over the slots
+    With ``mesh`` (a `parallel.Mesh` whose first slot is the dataset's
+    device) the dataset is replaced by one whose active and passive
+    buckets shard their entities over the data axis's slots (a 2-D
+    mesh's data rows: one launch a data row, where JAX's ``shard_map``
+    runs each row's shard again on each model-axis device)
     (``shard_re_dataset``, as JAX does), and the gathered normalization
     and bounds are gathered per slot. Without one every bucket is one
     slot. Update and score run one loop over each bucket's slots: one
@@ -876,16 +921,18 @@ def _dataset_device(dataset: RandomEffectDataset) -> torch.device:
 
 
 def _mesh_slots(mesh, home) -> List[torch.device]:
-    """The slot devices of a coordinate's mesh, ``[home]`` without one.
-    The first slot must be the coordinate's own device (a CUDA device
-    without an index stands for any card), where its [d]-space state,
-    scores and folds live."""
+    """The slot devices of a coordinate's mesh along its data axis (a
+    1-D mesh's slots, a 2-D mesh's data rows ``grid[r][0]``: entities
+    and rows shard over them, one launch a data row), ``[home]`` without
+    one. The first slot must be the coordinate's own device (a CUDA
+    device without an index stands for any card), where its [d]-space
+    state, scores and folds live."""
     home = torch.device(home)
     if mesh is None:
         return [home]
-    from photon_ml_tpu_torch.parallel import mesh_device_list
+    from photon_ml_tpu_torch.parallel import axis_slots
 
-    devs = mesh_device_list(mesh)
+    devs = axis_slots(mesh, mesh.axis_names[0])
     if devs[0].type != home.type or (home.index is not None
                                      and devs[0].index != home.index):
         raise ValueError(
@@ -914,8 +961,9 @@ def shard_re_dataset(dataset: RandomEffectDataset, mesh
             raise ValueError(
                 f"a bucket sharded over {[str(s.device) for s in b.slots]} "
                 f"cannot be used over the slots {[str(d) for d in devs]}")
-        return ShardedEntityBlock(tuple(shard_block(b, mesh, dataset.n_rows)),
-                                  b.num_entities)
+        return ShardedEntityBlock(tuple(shard_block(
+            b, mesh, dataset.n_rows, axis=mesh.axis_names[0])),
+            b.num_entities)
 
     if len(devs) == 1 and not any(
             isinstance(b, ShardedEntityBlock) for b in dataset.blocks):

@@ -5,9 +5,8 @@ and the replica router (``net_router``).
 
 They keep every flag of their JAX parsers, so every JAX command line
 parses. A flag value that belongs to a later item of ROADMAP queue A
-(the 2-D device mesh, A6b: ``--mesh-shape RxC`` with C > 1) raises an
-error naming that item. The helpers here are shared by the
-drivers; ``obs.py`` holds the observability plane's wiring. This module
+raises an error naming that item (``later_item_error``; no flag of the
+drivers does now). The helpers here are shared by the drivers; ``obs.py`` holds the observability plane's wiring. This module
 imports torch only inside the helpers that need it, so
 ``python -m photon_ml_tpu_torch.cli.net_router`` runs without torch.
 """
@@ -20,10 +19,9 @@ import time
 
 from photon_ml_tpu_torch.telemetry import span
 
-# Later queue items, for the error a flag of one of them raises.
-ITEMS = {
-    "A6b": "the 2-D device mesh and multi-host",
-}
+# Later queue items, for the error a flag of one of them raises (none of
+# the drivers' flags belongs to one now).
+ITEMS: dict = {}
 
 
 def later_item_error(flag: str, item: str, why: str = "") -> ValueError:

@@ -75,12 +75,17 @@ slots built from the run's ``device`` by the slot rule
 raise "requested N devices, have M"), ``"cuda:K"`` N slots on card K and
 ``"cpu"`` N slots on the CPU. Cached shards place round-robin over the
 slots, the budget binds per slot, and the fold combines in fixed shard
-order, so every N writes the same model bytes. The log line says how
-many slots and how many distinct devices the run used, and metrics.json
-records ``mesh_devices`` and ``mesh_shape``. JAX's checks hold: not both
-spellings, a mesh only with ``--stream-train``, N > 1 only with
-``--hbm-budget``, no mesh for streamed MF. ``--mesh-shape RxC`` with
-C > 1 (the 2-D mesh) raises naming ROADMAP A6b. The ``stream_train``
+order, so every N writes the same model bytes. ``--mesh-shape RxC`` with
+C > 1 folds it over the 2-D (data x model) mesh of R x C slots
+(``make_mesh_2d`` by the same rule): the cache cuts every shard into C
+column slices (``col_blocks=C``), the budget binds per slot, and the
+model is the unmeshed run's bits on the card (ops/sharded_objective.py).
+The log line says how many slots and how many distinct devices the run
+used ("R data x C model" for a 2-D mesh), and metrics.json records
+``mesh_devices`` and ``mesh_shape``. JAX's checks hold: not both
+spellings, a mesh only with ``--stream-train``, a mesh of more than one
+slot only with ``--hbm-budget``, no mesh for streamed MF. The
+``stream_train``
 block of metrics.json has no ``trace_budgets`` or ``trace_counts`` (the
 JAX TracingGuard, ROADMAP A7).
 
@@ -103,11 +108,7 @@ import torch
 
 from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.algorithm.coordinates import grid_batchable
-from photon_ml_tpu_torch.cli import (
-    later_item_error,
-    phase,
-    resolve_run_device,
-)
+from photon_ml_tpu_torch.cli import phase, resolve_run_device
 from photon_ml_tpu_torch.cli.obs import (
     DriverObservability,
     add_observability_args,
@@ -301,9 +302,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "Nx1")
     p.add_argument("--mesh-shape", type=_parse_mesh_shape, default=None,
                    metavar="RxC",
-                   help="mesh extents, data x model: Nx1 is "
-                        "--mesh-devices N; C > 1 (the 2-D mesh) is "
-                        "ROADMAP A6b and raises")
+                   help="fold the --hbm-budget streaming solve over a "
+                        "2-D (data x model) mesh of R x C slots: cached "
+                        "shards place round-robin over the R data rows "
+                        "AND split into C column blocks of the "
+                        "coefficient dimension, one per model-axis slot; "
+                        "Nx1 is --mesh-devices N. Requires --stream-train; "
+                        "R*C > 1 also --hbm-budget")
     p.add_argument("--spill-dtype", choices=["f32", "bf16"], default="f32",
                    help="--hbm-budget spill encoding: 'f32' spills the "
                         "raw triplet (re-uploads are the evicted bytes); "
@@ -357,17 +362,13 @@ def _check_flags(args) -> None:
             "--mesh-shape and --mesh-devices are two spellings of the "
             "same mesh (--mesh-devices N == --mesh-shape Nx1); pass one")
     mesh_rc = _mesh_shape(args)
-    if mesh_rc is not None and mesh_rc[1] > 1:
-        raise later_item_error(
-            "--mesh-shape", "A6b",
-            f"{mesh_rc[0]}x{mesh_rc[1]} shards the coefficients over a "
-            "model axis; Nx1 is the 1-D mesh")
     if mesh_rc is not None and not args.stream_train:
         raise ValueError(
             "--mesh-devices/--mesh-shape apply to the --stream-train "
             "solve; pass --stream-train (and --hbm-budget for a mesh "
             "of > 1 device)")
-    if mesh_rc is not None and mesh_rc[0] > 1 and args.hbm_budget is None:
+    if mesh_rc is not None and mesh_rc[0] * mesh_rc[1] > 1 \
+            and args.hbm_budget is None:
         raise ValueError(
             "a mesh of > 1 device requires --hbm-budget: the device "
             "fold runs over the sharded shard-cache solve (the "
@@ -907,19 +908,24 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
         }
     else:
         # -- spill: sharded streaming accumulate over the device cache ----
-        mesh, devices = None, None
+        mesh, devices, col_blocks = None, None, 1
         mesh_rc = _mesh_shape(args)
-        if mesh_rc is not None and mesh_rc[0] > 1:
+        if mesh_rc is not None and mesh_rc[0] * mesh_rc[1] > 1:
             from photon_ml_tpu_torch.parallel import (
                 make_mesh,
+                make_mesh_2d,
                 mesh_fold_devices,
             )
 
-            mesh = make_mesh(mesh_rc[0], device=device)
+            col_blocks = mesh_rc[1]
+            mesh = (make_mesh(mesh_rc[0], device=device) if col_blocks == 1
+                    else make_mesh_2d(*mesh_rc, device=device))
             devices = mesh_fold_devices(mesh)
         logger.info("stream-train (spill, hbm budget %d bytes%s, spill "
                     "%s/%s): caching %r from %s in %d-row shards", budget,
-                    (f" PER SLOT x {mesh.describe()}" if mesh else ""),
+                    (f" PER SLOT x {mesh.describe()}"
+                     + (f" ({mesh_rc[0]} data x {mesh_rc[1]} model)"
+                        if col_blocks > 1 else "") if mesh else ""),
                     args.spill_dtype, args.spill_source, shard,
                     train_inputs, args.batch_rows)
         fetcher = None
@@ -935,7 +941,7 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
                 prefetch_depth=max(0, args.prefetch_batches),
                 devices=devices, spill_dtype=args.spill_dtype,
                 spill_source=args.spill_source, redecode_fetch=fetcher,
-                device=device)
+                col_blocks=col_blocks, device=device)
         # Live residency view on /statusz: hits, misses, evictions and
         # spill bytes as they happen.
         obs.add_status_provider("shard_cache", cache.stats)

@@ -2,7 +2,7 @@
 (port of photon_ml_tpu/data/factor_cache.py:93-580: FactorShardSpec,
 FactorPlan, plan_factors, count_stream_entities, FactorSpill,
 encode_factor_spill / restore_spilled_factors, FactorShard and
-DeviceFactorCache).
+DeviceFactorCache with its ``devices=`` placement :339-411).
 
 The factor half of streamed MF (ops/mf_alternating.py is the solver
 half): the per-entity latent factors of a factored random effect live in
@@ -32,6 +32,11 @@ blocks); ``redecode`` keeps no host copy and re-derives an evicted shard
 from the observations through the solver's hook: the γ solve is an exact
 ridge solve, a pure function of (observations, B), so the re-derived
 bytes are the evicted ones. bf16 with redecode is rejected.
+
+**Placement** (``devices=``, a model-axis device list): shard i's table
+lives on ``devices[i % D]``, placed at every write and restore, so spill
+re-uploads and re-derivations land back on the shard's home device.
+Without it every table lives on ``device``.
 
 The registry metrics ``data.factor_cache.*`` (JAX :66-81) mirror the
 cache's ``stats()`` while telemetry is on; a spill restore is a
@@ -278,13 +283,15 @@ class DeviceFactorCache:
     coordinate (module docstring). The sweep writes shards in fixed
     order (``write``) and reads them in the same order (``ensure``);
     ``set_redecode`` installs the redecode tier's hook,
-    ``fn(shard_index) -> [e_pad, k]``, for the current sweep."""
+    ``fn(shard_index) -> [e_pad, k]``, for the current sweep. ``devices``
+    places shard i on ``devices[i % D]`` (module docstring)."""
 
     def __init__(self, plan: FactorPlan, num_factors: int,
                  hbm_budget_bytes: Optional[int] = None,
                  spill_dtype: str = "f32", spill_source: str = "buffer",
                  redecode: Optional[Callable] = None,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda",
+                 devices: Optional[List] = None):
         if spill_dtype not in FACTOR_SPILL_DTYPES:
             raise ValueError(
                 f"spill_dtype must be one of {FACTOR_SPILL_DTYPES}, got "
@@ -308,6 +315,8 @@ class DeviceFactorCache:
         self.spill_source = spill_source
         self.dtype = dtype
         self.device = torch.device(device)
+        self.devices = ([torch.device(d) for d in devices] if devices
+                        else None)
         self._redecode = redecode
         item = torch.empty((), dtype=dtype).element_size()
         self._entries = [FactorShard(spec=s,
@@ -322,6 +331,15 @@ class DeviceFactorCache:
 
     def set_redecode(self, fn: Optional[Callable]) -> None:
         self._redecode = fn
+
+    def shard_device(self, index: int) -> Optional[torch.device]:
+        """Shard ``index``'s home device, or None when unplaced."""
+        if self.devices is None:
+            return None
+        return self.devices[index % len(self.devices)]
+
+    def _home(self, index: int) -> torch.device:
+        return self.shard_device(index) or self.device
 
     @property
     def n_shards(self) -> int:
@@ -358,7 +376,7 @@ class DeviceFactorCache:
         callers must use the returned table). A stale spill record is
         dropped; the budget is enforced with this shard pinned."""
         e = self._entries[index]
-        gamma = gamma.to(self.device, self.dtype)
+        gamma = gamma.to(self._home(index), self.dtype)
         self._check_shape(index, gamma, "write")
         if self.spill_dtype == "bf16":
             gamma = quantize_bf16(gamma)
@@ -391,13 +409,14 @@ class DeviceFactorCache:
             reupload = e.spill.nbytes
             with telemetry.span("factor_reupload"):
                 gamma = restore_spilled_factors(e.spill, self.dtype,
-                                                self.device)
+                                                self._home(index))
         elif self._redecode is not None:
             reupload = e.factor_bytes
             self._stats["redecodes"] += 1
             _M_REDECODES.inc()
             with telemetry.span("factor_redecode"):
-                gamma = self._redecode(index).to(self.device, self.dtype)
+                gamma = self._redecode(index).to(self._home(index),
+                                                 self.dtype)
             self._check_shape(index, gamma, "redecode")
         else:
             raise RuntimeError(
@@ -453,7 +472,7 @@ class DeviceFactorCache:
             "spill_dtype": self.spill_dtype,
             "spill_source": self.spill_source,
             "spill_bytes_host": self.spill_bytes_host,
-            "devices": None,
+            "devices": len(self.devices) if self.devices else None,
             "resident_shards": sum(1 for e in self._entries
                                    if e.gamma is not None),
         })

@@ -3,8 +3,10 @@ photon_ml_tpu/data/shard_cache.py: SpillBlock, encode_spill,
 _decode_spill_impl, restore_spilled_features :157-320,
 StreamedFixedEffectData, assemble_fixed_effect_batch :324-440, and the
 DeviceShardCache :535-1150 with its 1-D mesh placement (``devices=``
-:70-80, :496-497, :610-630, :904-935, :1140-1148), its registry mirrors
-:125-139 and spans :762, :946, :1039).
+:70-80, :496-497, :610-630, :904-935, :1140-1148) and its column blocks
+(``col_blocks=``, ColumnSlice :442-463, :82-99, :564-632, :671-869,
+_redecode_2d and _ensure_2d :968-1045, :1120-1143), its registry
+mirrors :125-139 and spans :762, :946, :1039).
 
 A `BlockGameStream` is consumed ONCE, batch by batch, and its rows land
 on the device in one of two regimes:
@@ -65,11 +67,32 @@ runs per slot, whose blocks are an index-arithmetic subsequence of the
 shard order, so the global cyclic distance ranks them as the slot's own
 replay does). Placement is a pure function of the block index, so the
 shard order, and with it every fold's order, does not move. A one-slot
-list (or None) is exactly the single-pool cache. Column blocks
-(``col_blocks > 1``, the 2-D mesh) are ROADMAP A6b: they raise. The
-registry metrics ``data.shard_cache.*`` mirror ``stats()`` (while telemetry is
-on); each block's ingest upload is a ``shard_upload`` span, a buffer
-restore ``shard_reupload`` and a re-decode ``shard_redecode``.
+list (or None) is exactly the single-pool cache.
+
+With ``col_blocks=C`` (> 1; the 2-D mesh, ``--mesh-shape RxC``) each
+batch's CSR is cut into C column blocks of ceil(d / C) columns
+(parallel/distributed.py ``split_csr_columns``: local column ids, each
+block's entries an order-preserving subsequence of the batch's) and the
+unit of placement, eviction and spill is the COLUMN SLICE (``ColumnSlice``,
+a ``CSRBlock`` of width ceil(d / C)): slice c of shard i lives on slot
+``(i % R) * C + c`` of the row-major ``devices`` (R = len(devices) / C),
+spilled and restored through its own record in every tier (the
+``redecode`` tier re-decodes the batch once and re-cuts only the missing
+slices). The row-space columns live on the row's HOME slot
+``(i % R) * C + C - 1``, with the blocks' row lengths [C, rows]; the home
+slice also holds the product stream (ops/spmv.py ``EntryStream``: the
+full rows' offsets and the map from their entry order to the slices'
+concatenated products), counted in its bytes, rebuilt from the lengths
+when it is restored. ``hbm_budget_bytes`` binds per slot and Belady's
+rule runs per slot, as in the 1-D case: a slot's slices are an
+index-arithmetic subsequence of the shard order. ``col_blocks=1`` is the
+1-D cache, bit for bit.
+
+The registry metrics ``data.shard_cache.*`` mirror ``stats()`` (while
+telemetry is on; ``col_blocks`` and ``col_block_size`` as gauges, set
+only with column blocks); each block's ingest upload is a
+``shard_upload`` span, a buffer restore ``shard_reupload`` and a
+re-decode ``shard_redecode``.
 """
 
 from __future__ import annotations
@@ -92,7 +115,12 @@ from photon_ml_tpu_torch.ops.features import (
     DenseFeatures,
 )
 from photon_ml_tpu_torch.ops.glm_objective import GLMBatch
-from photon_ml_tpu_torch.ops.spmv import CSRBlock, block_from_triplet
+from photon_ml_tpu_torch.ops.spmv import (
+    CSRBlock,
+    EntryStream,
+    block_from_triplet,
+    block_lengths,
+)
 
 # Registry mirrors of the per-instance ``_stats`` (no-ops while
 # telemetry is off); the JAX package's names.
@@ -107,6 +135,10 @@ _G_DEVICE_BYTES = telemetry.gauge("data.shard_cache.device_bytes")
 _G_PEAK_BYTES = telemetry.gauge("data.shard_cache.peak_device_bytes")
 # Host-side spill residency (stream_train.cache.spill_bytes_host).
 _G_SPILL_HOST = telemetry.gauge("data.shard_cache.spill_bytes_host")
+# The column blocks of a 2-D mesh's cache and their width (set only when
+# col_blocks > 1).
+_G_COL_BLOCKS = telemetry.gauge("data.shard_cache.col_blocks")
+_G_COL_BLOCK_SIZE = telemetry.gauge("data.shard_cache.col_block_size")
 
 Tensor = torch.Tensor
 
@@ -124,14 +156,23 @@ def _row_ids_i32(indptr: np.ndarray, offset: int = 0) -> np.ndarray:
 
 def _mesh_devices(devices, col_blocks) -> Optional[List[torch.device]]:
     """The slot devices of a mesh placement (None for one slot or
-    none); column blocks are the 2-D mesh's."""
-    if int(col_blocks) != 1:
-        raise ValueError("col_blocks > 1 splits the coefficient dimension "
-                         "over a 2-D device mesh: it comes with ROADMAP "
-                         "queue A6b")
-    if devices is None or len(devices) < 2:
-        return None
-    return [resolve_device(d) for d in devices]
+    none), checked against the column blocks of a 2-D mesh (JAX's
+    messages)."""
+    devs = (None if devices is None or len(devices) < 2
+            else [resolve_device(d) for d in devices])
+    if int(col_blocks) < 1:
+        raise ValueError(f"col_blocks must be >= 1, got {col_blocks}")
+    if int(col_blocks) > 1:
+        if devs is None:
+            raise ValueError(
+                "col_blocks > 1 places column blocks on a (data, model) "
+                "device grid — pass devices="
+                "mesh_fold_devices(make_mesh_2d(R, C))")
+        if len(devs) % int(col_blocks):
+            raise ValueError(
+                f"{len(devs)} devices do not tile a grid with {col_blocks} "
+                "column blocks — need a multiple of col_blocks")
+    return devs
 
 
 def _check_spill_options(spill_dtype: str, spill_source: str) -> None:
@@ -439,6 +480,37 @@ def assemble_fixed_effect_batch(
 # ---------------------------------------------------------------------------
 
 
+def _drop(unit) -> None:
+    """Evict a feature unit (a shard, or a column slice with its product
+    stream)."""
+    unit.feats = None
+    if isinstance(unit, ColumnSlice):
+        unit.stream = None
+
+
+@dataclasses.dataclass
+class ColumnSlice:
+    """One (shard, column block) unit of a ``col_blocks > 1`` cache: the
+    shard's entries whose columns lie in block ``c``, with local column
+    ids (a ``CSRBlock`` of the block's width). The slice, not the shard,
+    is the unit of placement (slot ``(i % R) * C + c``), eviction and
+    spill. The home slice (c = C - 1) also holds the shard's product
+    stream (``stream``), counted in its ``feature_bytes``."""
+
+    c: int
+    nnz: int
+    spill: Optional[SpillBlock]
+    feature_bytes: int
+    feats: Optional[CSRBlock] = None  # None = spilled
+    device: Optional[torch.device] = None
+    slot: int = 0
+    stream: Optional[EntryStream] = None  # the home slice's, while resident
+
+    @property
+    def spill_bytes(self) -> int:
+        return 0 if self.spill is None else self.spill.nbytes
+
+
 @dataclasses.dataclass
 class CachedShard:
     """One streamed batch on the device. Row-space columns (labels,
@@ -446,7 +518,12 @@ class CachedShard:
     the margin-cached line search feature-pass-free. The feature block
     (``feats``) is the evictable part; ``spill`` is the host record it
     restores from (None in the ``redecode`` tier, where a miss re-decodes
-    the source Avro rows instead)."""
+    the source Avro rows instead).
+
+    With ``col_blocks > 1`` the features are the ``cols`` slices
+    (``feats``/``spill`` None), ``device``/``slot`` are the HOME slot's,
+    and ``lengths`` [C, rows] (int32, resident there) are the slices' row
+    lengths, from which the product stream is rebuilt."""
 
     index: int
     n_rows: int
@@ -460,9 +537,13 @@ class CachedShard:
     feats: Optional[CSRBlock] = None  # None = spilled
     device: Optional[torch.device] = None  # where the block lives
     slot: int = 0  # mesh slot (index % slots); 0 without a mesh
+    cols: Optional[List[ColumnSlice]] = None  # col_blocks > 1 units
+    lengths: Optional[Tensor] = None  # [C, rows] row lengths of cols
 
     @property
     def spill_bytes(self) -> int:
+        if self.cols is not None:
+            return sum(u.spill_bytes for u in self.cols)
         return 0 if self.spill is None else self.spill.nbytes
 
 
@@ -475,11 +556,15 @@ class ResidentBlock:
 
     index: int
     n_rows: int
-    feats: CSRBlock
+    feats: Optional[CSRBlock]
     labels: Tensor
     offsets: Tensor
     weights: Tensor
     slot: int = 0  # the slot the block (and its partials) live on
+    # col_blocks > 1: the column slices in column order (feats None) and
+    # the product stream on the home slot (``slot``).
+    cols: tuple = ()
+    stream: Optional[EntryStream] = None
 
 
 class DeviceShardCache:
@@ -505,6 +590,8 @@ class DeviceShardCache:
     ``devices`` (two or more) places block i on ``devices[i % N]`` and
     makes the budget bind per slot (module docstring); ``device`` is then
     ``devices[0]``, where the solver's [d]-space state lives.
+    ``col_blocks`` (> 1) cuts every block into that many column slices
+    over a 2-D mesh's row-major ``devices`` (module docstring).
     """
 
     def __init__(self, entries: List[CachedShard], n_rows: int,
@@ -532,6 +619,10 @@ class DeviceShardCache:
         self.dtype = dtype
         self.devices = devs
         self.n_slots = len(devs) if devs else 1
+        self.col_blocks = int(col_blocks)
+        # The uniform column-block width (split_csr_columns' rule); the
+        # 2-D objective slices the coefficients by it.
+        self.col_block_size = -(-self.n_features // self.col_blocks)
         self.device = devs[0] if devs else resolve_device(device)
         for e in entries:
             if e.device is None:
@@ -548,14 +639,27 @@ class DeviceShardCache:
                        "spill_bytes_written": 0, "redecodes": 0,
                        "bytes_redecoded": 0}
         self._slot_bytes = [0] * self.n_slots
-        for e in entries:
-            if e.feats is not None:
-                self._slot_bytes[e.slot] += e.feature_bytes
+        for _, u in self._all_units():
+            if u.feats is not None:
+                self._slot_bytes[u.slot] += u.feature_bytes
         self.peak_device_bytes = self.device_bytes
         if hbm_budget_bytes is None:
-            for e in entries:
-                e.spill = None
+            for _, u in self._all_units():
+                u.spill = None
         _G_SPILL_HOST.set(self.spill_bytes_host)
+        if self.col_blocks > 1:
+            _G_COL_BLOCKS.set(self.col_blocks)
+            _G_COL_BLOCK_SIZE.set(self.col_block_size)
+
+    def _all_units(self):
+        """(entry, evictable feature unit) pairs in shard order: the
+        CachedShard itself, or its ColumnSlices with col_blocks > 1."""
+        for e in self._entries:
+            if e.cols is not None:
+                for u in e.cols:
+                    yield e, u
+            else:
+                yield e, e
 
     @property
     def spill_bytes_host(self) -> int:
@@ -593,6 +697,8 @@ class DeviceShardCache:
         devs = _mesh_devices(devices, col_blocks)
         _check_spill_options(spill_dtype, spill_source)
         n_slots = len(devs) if devs else 1
+        n_cols = int(col_blocks)
+        n_row_slots = n_slots // n_cols
         home = devs[0] if devs else resolve_device(device)
         np_dtype = _NUMPY_OF[dtype]
         keep_buffers = (hbm_budget_bytes is not None
@@ -604,36 +710,67 @@ class DeviceShardCache:
         peak_bytes = 0
         evictions = 0
         spill_written = 0
+
+        def build_unit(mat, n, width, dev):
+            """Spill-encode and upload one feature unit (the whole
+            shard, or one column slice): (spill record, block)."""
+            nonlocal spill_written
+            values = mat.data.astype(np_dtype)
+            cols = mat.indices.astype(np.int32)
+            rows = _row_ids_i32(mat.indptr)
+            spill = None
+            if keep_buffers:
+                spill = encode_spill(values, cols, rows, int(mat.nnz),
+                                     spill_dtype)
+                spill_written += spill.nbytes
+                _M_SPILL_WRITTEN.inc(spill.nbytes)
+            if spill is not None and spill.dtype_tag != "f32":
+                # Lossy spill encodings quantize AT INGEST: every block
+                # takes the same encode -> restore round trip whether or
+                # not it ever spills, so bf16 replays stay deterministic
+                # and residency-independent.
+                return spill, restore_spilled_features(spill, n, width,
+                                                       dev, dtype)
+            return spill, block_from_triplet(
+                chunked_device_put(values, device=dev),
+                chunked_device_put(cols, device=dev),
+                chunked_device_put(rows, device=dev), n, width)
+
         for ds in stream:
             with telemetry.span("shard_upload"):
                 if ds.num_rows == 0:
                     continue
-                slot = len(entries) % n_slots
+                r_slot = len(entries) % n_row_slots
+                # With column blocks the row-space columns live on the
+                # row's HOME slot, the last column's.
+                slot = r_slot * n_cols + n_cols - 1
                 dev = devs[slot] if devs else home
                 mat = ds.feature_shards[shard_id].tocsr()
                 d = mat.shape[1]
-                values = mat.data.astype(np_dtype)
-                cols = mat.indices.astype(np.int32)
-                rows = _row_ids_i32(mat.indptr)
-                spill = None
-                if keep_buffers:
-                    spill = encode_spill(values, cols, rows, int(mat.nnz),
-                                         spill_dtype)
-                    spill_written += spill.nbytes
-                    _M_SPILL_WRITTEN.inc(spill.nbytes)
-                if spill is not None and spill.dtype_tag != "f32":
-                    # Lossy spill encodings quantize AT INGEST: every
-                    # block takes the same encode -> restore round trip
-                    # whether or not it ever spills, so bf16 replays stay
-                    # deterministic and residency-independent.
-                    feats = restore_spilled_features(spill, ds.num_rows, d,
-                                                     dev, dtype)
+                cols_list, lengths = None, None
+                if n_cols > 1:
+                    from photon_ml_tpu_torch.parallel.distributed import (
+                        split_csr_columns,
+                    )
+
+                    width, subs = split_csr_columns(mat, n_cols)
+                    cols_list = []
+                    for c, sub in enumerate(subs):
+                        c_slot = r_slot * n_cols + c
+                        sp_c, f_c = build_unit(sub, ds.num_rows, width,
+                                               devs[c_slot])
+                        cols_list.append(ColumnSlice(
+                            c=c, nnz=int(sub.nnz), spill=sp_c,
+                            feature_bytes=f_c.nbytes, feats=f_c,
+                            device=devs[c_slot], slot=c_slot))
+                    lengths = block_lengths(
+                        [u.feats for u in cols_list]).to(dev)
+                    last = cols_list[-1]
+                    last.stream = EntryStream(lengths, dtype)
+                    last.feature_bytes += last.stream.nbytes
+                    spill, feats = None, None
                 else:
-                    feats = block_from_triplet(
-                        chunked_device_put(values, device=dev),
-                        chunked_device_put(cols, device=dev),
-                        chunked_device_put(rows, device=dev), ds.num_rows,
-                        d)
+                    spill, feats = build_unit(mat, ds.num_rows, d, dev)
 
                 def col(x):
                     return chunked_device_put(np.asarray(x), dtype, dev)
@@ -642,25 +779,32 @@ class DeviceShardCache:
                     index=len(entries), n_rows=ds.num_rows,
                     nnz=int(mat.nnz), row_offset=n_rows,
                     labels=col(ds.responses), offsets=col(ds.offsets),
-                    weights=col(ds.weights),
-                    spill=spill, feature_bytes=feats.nbytes, feats=feats,
-                    device=dev, slot=slot)
+                    weights=col(ds.weights), spill=spill,
+                    feature_bytes=(feats.nbytes if feats is not None else
+                                   sum(u.feature_bytes for u in cols_list)),
+                    feats=feats, device=dev, slot=slot, cols=cols_list,
+                    lengths=lengths)
                 entries.append(e)
                 n_rows += ds.num_rows
-                slot_bytes[slot] += e.feature_bytes
+                new_units = cols_list if cols_list is not None else [e]
+                for u in new_units:
+                    slot_bytes[u.slot] += u.feature_bytes
                 peak_bytes = max(peak_bytes, sum(slot_bytes))
                 if hbm_budget_bytes is not None:
-                    # Evict-as-you-go within the new block's slot, most
-                    # recent first (keep the prefix), never the block
+                    # Evict-as-you-go within each new unit's slot, most
+                    # recent first (keep the prefix), never the shard
                     # just uploaded.
-                    for victim in reversed(entries[:-1]):
-                        if slot_bytes[slot] <= hbm_budget_bytes:
-                            break
-                        if victim.slot == slot and victim.feats is not None:
-                            victim.feats = None
-                            slot_bytes[slot] -= victim.feature_bytes
-                            evictions += 1
-                            _M_EVICTIONS.inc()
+                    for u in new_units:
+                        for victim in reversed(entries[:-1]):
+                            if slot_bytes[u.slot] <= hbm_budget_bytes:
+                                break
+                            vu = (victim.cols[u.slot % n_cols]
+                                  if victim.cols is not None else victim)
+                            if vu.slot == u.slot and vu.feats is not None:
+                                _drop(vu)
+                                slot_bytes[u.slot] -= vu.feature_bytes
+                                evictions += 1
+                                _M_EVICTIONS.inc()
         if not entries:
             raise ValueError("stream yielded no rows to cache")
         cache = cls(entries, n_rows, int(d), dtype,
@@ -669,7 +813,7 @@ class DeviceShardCache:
                     ingest_stats=stream.stats(),
                     spill_dtype=spill_dtype, spill_source=spill_source,
                     shard_id=shard_id, redecode_fetch=redecode_fetch,
-                    devices=devs, device=home)
+                    devices=devs, col_blocks=n_cols, device=home)
         cache._stats["evictions"] += evictions
         cache._stats["spill_bytes_written"] += spill_written
         cache.peak_device_bytes = max(cache.peak_device_bytes, peak_bytes)
@@ -707,15 +851,15 @@ class DeviceShardCache:
         for slot in range(self.n_slots):
             if self._slot_bytes[slot] <= budget:
                 continue
-            resident = [e for e in self._entries
-                        if e.feats is not None and e.index != pinned
-                        and e.slot == slot]
+            resident = [(e, u) for e, u in self._all_units()
+                        if u.feats is not None and e.index != pinned
+                        and u.slot == slot]
             # descending cyclic distance (j - cur) mod n: furthest next
-            # use first.
-            resident.sort(key=lambda e: -((e.index - cur) % n))
+            # use first (a slot holds one unit a shard at most).
+            resident.sort(key=lambda p: -((p[0].index - cur) % n))
             while self._slot_bytes[slot] > budget and resident:
-                victim = resident.pop(0)
-                victim.feats = None
+                _, victim = resident.pop(0)
+                _drop(victim)
                 self._slot_bytes[slot] -= victim.feature_bytes
                 self._stats["evictions"] += 1
                 _M_EVICTIONS.inc()
@@ -752,11 +896,101 @@ class DeviceShardCache:
         return restore_spilled_features(spill, e.n_rows, self.n_features,
                                         e.device, self.dtype)
 
+    def _redecode_2d(self, e: CachedShard, missing: List[ColumnSlice]
+                     ) -> None:
+        """redecode-tier miss of a column-blocked shard: ONE row-range
+        fetch re-decodes the batch, the ingest's column cut re-cuts it,
+        and only the missing slices upload, each to its own slot."""
+        from photon_ml_tpu_torch.parallel.distributed import (
+            split_csr_columns,
+        )
+
+        fetch = self._redecode_fetch
+        before = getattr(fetch, "payload_bytes_read", None)
+        with telemetry.span("shard_redecode"):
+            ds = fetch(e.row_offset, e.n_rows)
+            mat = ds.feature_shards[self._shard_id].tocsr()
+            if mat.shape[0] != e.n_rows or int(mat.nnz) != e.nnz:
+                raise RuntimeError(
+                    f"re-decoded shard {e.index} does not match the "
+                    f"ingested block: got {mat.shape[0]} rows/{mat.nnz} "
+                    f"nnz, cached {e.n_rows}/{e.nnz} — the input "
+                    "changed under the cache")
+            _, subs = split_csr_columns(mat, self.col_blocks)
+            for u in missing:
+                sub = subs[u.c]
+                u.feats = restore_spilled_features(
+                    SpillBlock(nnz=u.nnz,
+                               enc_values=sub.data.astype(
+                                   _NUMPY_OF[self.dtype]),
+                               enc_cols=sub.indices.astype(np.int32),
+                               enc_rows=_row_ids_i32(sub.indptr),
+                               dtype_tag="f32"),
+                    e.n_rows, self.col_block_size, u.device, self.dtype)
+        self._stats["redecodes"] += 1
+        after = getattr(fetch, "payload_bytes_read", None)
+        redecoded = (after - before if before is not None
+                     and after is not None
+                     else sum(u.feature_bytes for u in missing))
+        self._stats["bytes_redecoded"] += redecoded
+        _M_REDECODE_BYTES.inc(redecoded)
+
+    def _ensure_2d(self, e: CachedShard) -> ResidentBlock:
+        """Column-blocked residency: a miss restores each evicted slice
+        to its own slot (and the home slice's product stream from the
+        resident row lengths); the snapshot carries the slices in column
+        order."""
+        missing = [u for u in e.cols if u.feats is None]
+        if missing:
+            self._stats["misses"] += 1
+            _M_MISSES.inc()
+            item = np.dtype(_NUMPY_OF[self.dtype]).itemsize
+            reupload = 0
+            for u in missing:
+                if u.spill is not None:
+                    reupload += u.spill.nbytes
+                elif self._redecode_fetch is not None:
+                    reupload += u.nnz * (item + 8)
+                else:
+                    raise RuntimeError(
+                        f"shard {e.index} column block {u.c} was evicted "
+                        "but has no spill buffers (cache built without an "
+                        "hbm budget)")
+            self._stats["bytes_reuploaded"] += reupload
+            _M_REUPLOAD_BYTES.inc(reupload)
+            for u in missing:
+                self._slot_bytes[u.slot] += u.feature_bytes
+            self.peak_device_bytes = max(self.peak_device_bytes,
+                                         self.device_bytes)
+            _G_PEAK_BYTES.set(self.peak_device_bytes)
+            if missing[0].spill is not None:
+                with telemetry.span("shard_reupload"):
+                    for u in missing:
+                        u.feats = restore_spilled_features(
+                            u.spill, e.n_rows, self.col_block_size,
+                            u.device, self.dtype)
+            else:
+                self._redecode_2d(e, missing)
+            last = e.cols[-1]
+            if last.stream is None:
+                last.stream = EntryStream(e.lengths, self.dtype)
+            self._enforce_budget(pinned=e.index)
+        else:
+            self._stats["hits"] += 1
+            _M_HITS.inc()
+        return ResidentBlock(index=e.index, n_rows=e.n_rows, feats=None,
+                             labels=e.labels, offsets=e.offsets,
+                             weights=e.weights, slot=e.slot,
+                             cols=tuple(u.feats for u in e.cols),
+                             stream=e.cols[-1].stream)
+
     def ensure(self, index: int) -> ResidentBlock:
         """A resident snapshot of the block, restored on a miss: buffer
         spill re-uploads (and decodes) the host record, the redecode
         tier re-decodes the source Avro rows."""
         e = self._entries[index]
+        if e.cols is not None:
+            return self._ensure_2d(e)
         if e.feats is None:
             self._stats["misses"] += 1
             _M_MISSES.inc()
@@ -817,24 +1051,29 @@ class DeviceShardCache:
         s.update({
             "shards": self.n_shards,
             "rows": self.n_rows,
-            # The port's blocks are unpadded: each its own (rows, nnz).
-            "bucket_shapes": sorted({(e.n_rows, e.nnz)
-                                     for e in self._entries}),
+            # The port's blocks are unpadded: each its own (rows, nnz),
+            # a column slice's with column blocks.
+            "bucket_shapes": sorted({(e.n_rows, u.nnz)
+                                     for e, u in self._all_units()}),
             "hbm_budget_bytes": self.hbm_budget_bytes,
             "device_bytes": self.device_bytes,
             "peak_device_bytes": self.peak_device_bytes,
             "spill_dtype": self.spill_dtype,
             "spill_source": self.spill_source,
             "spill_bytes_host": self.spill_bytes_host,
-            "resident_shards": sum(1 for e in self._entries
-                                   if e.feats is not None),
+            "resident_shards": sum(
+                1 for e in self._entries
+                if all(u.feats is not None for u in (e.cols or [e]))),
             "mesh_devices": len(self.devices) if self.devices else None,
-            "col_blocks": 1,
-            "col_block_size": None,
+            # With column blocks the per-slot unit is a column slice, and
+            # the slots are row-major over the (R, C) grid.
+            "col_blocks": self.col_blocks,
+            "col_block_size": (self.col_block_size
+                               if self.col_blocks > 1 else None),
             "per_device_bytes": list(self._slot_bytes),
             "per_device_resident_shards": [
-                sum(1 for e in self._entries
-                    if e.feats is not None and e.slot == slot)
+                sum(1 for _, u in self._all_units()
+                    if u.feats is not None and u.slot == slot)
                 for slot in range(self.n_slots)],
         })
         return s

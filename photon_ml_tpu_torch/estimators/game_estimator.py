@@ -20,14 +20,14 @@ B from the fit's ``seed``. With ``checkpoint_dir`` each combination
 checkpoints into its own ``combo-<i>/`` there, tagged with its
 configurations, and a rerun resumes each one.
 
-``mesh`` (a 1-D `parallel.Mesh` whose first slot is ``device``; None by
-default) goes to every coordinate, as in JAX: the fixed effects shard
-their rows, the random and factored effects their entities, over its
-slots (algorithm/coordinates.py). Each random-effect dataset is sharded
-once, before the combinations, so its slots hold the only copy of its
-data. A fixed-effect spec's
-``feature_sharding`` (coefficients over the 2-D mesh's model axis) is
-ROADMAP A6b and raises.
+``mesh`` (a 1-D or 2-D `parallel.Mesh` whose first slot is ``device``;
+None by default) goes to every coordinate, as in JAX: the fixed effects
+shard their rows, the random and factored effects their entities, over
+its data axis's slots (a 2-D mesh's data rows; algorithm/coordinates.py).
+Each random-effect dataset is sharded once, before the combinations, so
+its slots hold the only copy of its data. A fixed-effect spec's
+``feature_sharding`` (FixedEffectSpec :43-54) shards its coefficients
+over the mesh's model axis (the one axis of a 1-D mesh) as well.
 """
 
 from __future__ import annotations
@@ -75,7 +75,7 @@ class FixedEffectSpec:
     normalization: Optional[NormalizationContext] = None
     lower_bounds: Optional[object] = None
     upper_bounds: Optional[object] = None
-    feature_sharding: bool = False  # the 2-D mesh's (ROADMAP A6b)
+    feature_sharding: bool = False  # coefficients over the mesh's model axis
 
 
 @dataclasses.dataclass

@@ -1,6 +1,8 @@
 """Device-resident feature matrices (port of photon_ml_tpu/ops/features.py:
 DenseFeatures :33-103, CSRFeatures :106-174, KroneckerFeatures :177-228,
-padded_csr_arrays :969-997, features_to_device :1002-1058).
+BlockedCSRFeatures :231-316, blocked_csr_from_scipy :319-349,
+blocked_ell_from_scipy :516-521, padded_csr_arrays :969-997,
+features_to_device :1002-1058).
 
 - ``DenseFeatures``: dense ``[n_rows, n_features]``; products are
   ``torch.matmul``. ``x`` may be stored in bfloat16
@@ -19,6 +21,14 @@ padded_csr_arrays :969-997, features_to_device :1002-1058).
   features are built (``spmv.CSROperand``: int32, one device,
   contiguous), so a product checks only its vector. On the CPU they are
   ``torch.mv`` on the sparse tensor.
+- ``BlockedCSRFeatures``: the CSR cut into C column blocks of
+  ``block_size`` columns (the feature-sharded fixed effect over a mesh's
+  column axis, parallel/distributed.py): block c holds its entries with
+  LOCAL column ids, as a ``spmv.CSRBlock`` (CSR and transpose) on its
+  own device, and the margins sum the blocks' entry products through the
+  product stream (``spmv.EntryStream``) on the home device, so a margin
+  is the unblocked CSR's bits on the card; each block's transposed
+  product is that slice of the unblocked one's, whole in one block.
 - ``KroneckerFeatures``: the lazy row-wise Kronecker product x_i (x)
   gamma_i of a factored random effect's projection-matrix refit; each
   product is one contraction and the ``[n, k d]`` matrix is never built.
@@ -27,20 +37,28 @@ The dense/sparse choice by density is the JAX package's. Its ELL
 layouts (features.py:233-930, ``sparse_layout="bucketed_ell"`` and
 ``"sort_permute_ell"``) work around the TPU's slow gathers and
 scatter-adds; ``features_to_device`` accepts their names and builds CSR
-for them.
+for them, and ``blocked_ell_from_scipy`` (the column-blocked ELL
+``BlockedEllFeatures``) builds ``BlockedCSRFeatures``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Tuple, Union
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from photon_ml_tpu_torch.device import resolve_device
-from photon_ml_tpu_torch.ops.spmv import CSROperand
+from photon_ml_tpu_torch.ops.spmv import (
+    CSRBlock,
+    CSROperand,
+    EntryStream,
+    block_from_triplet,
+    block_lengths,
+    entry_products,
+)
 
 Tensor = torch.Tensor
 
@@ -201,7 +219,112 @@ class KroneckerFeatures:
                             self.x * self.x).reshape(-1)
 
 
-FeatureMatrix = Union[DenseFeatures, CSRFeatures, KroneckerFeatures]
+@dataclasses.dataclass(frozen=True)
+class BlockedCSRFeatures:
+    """A CSR [n_rows, n_features] cut into ``num_blocks`` column blocks of
+    ``block_size`` columns (``n_features`` is the padded width, num_blocks
+    x block_size): ``blocks[c]`` the block's entries with local column
+    ids, on its own device; ``stream`` the product stream on the home
+    device, where every [n_rows] vector lives. A [n_features] vector
+    goes to the blocks a slice each; the transposed products come back
+    a slice each and join in block order on the home device."""
+
+    blocks: Tuple[CSRBlock, ...]
+    stream: EntryStream
+    n_rows: int
+    n_features: int
+    block_size: int
+
+    @property
+    def num_blocks(self) -> int:
+        return len(self.blocks)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n_rows, self.n_features)
+
+    @property
+    def num_features(self) -> int:
+        return self.n_features
+
+    @property
+    def device(self) -> torch.device:
+        return self.stream.device
+
+    def _slices(self, v: Tensor) -> list:
+        bs = self.block_size
+        return [v[c * bs:(c + 1) * bs].to(b.crow.device)
+                for c, b in enumerate(self.blocks)]
+
+    def _mv(self, v: Tensor, square: bool) -> Tensor:
+        return self.stream.matvec([
+            entry_products(b, x, square)
+            for b, x in zip(self.blocks, self._slices(v))])
+
+    def _rmv(self, u: Tensor, square: bool) -> Tensor:
+        parts = []
+        for b in self.blocks:
+            op = b._ops[1]
+            if square:
+                op = op.with_values(b.values_t * b.values_t)
+            parts.append(op.matvec(u.to(b.crow.device)).to(self.device))
+        return torch.cat(parts)
+
+    def matvec(self, v: Tensor) -> Tensor:
+        return self._mv(v, False)
+
+    def rmatvec(self, u: Tensor) -> Tensor:
+        return self._rmv(u, False)
+
+    def row_sq_matvec(self, v: Tensor) -> Tensor:
+        return self._mv(v, True)
+
+    def sq_rmatvec(self, u: Tensor) -> Tensor:
+        return self._rmv(u, True)
+
+
+#: JAX's column-blocked dual ELL (features.py:354) is built as CSR blocks.
+BlockedEllFeatures = BlockedCSRFeatures
+
+
+def blocked_csr_from_scipy(mat, num_blocks: int, dtype=torch.float32,
+                           device="cuda", devices=None
+                           ) -> BlockedCSRFeatures:
+    """Cut a host sparse matrix into ``num_blocks`` column blocks of
+    ceil(d / num_blocks) columns (``split_csr_columns``; columns padded
+    to a multiple of num_blocks): block c on ``devices[c]`` (every block
+    on ``device`` when None), the product stream on ``devices[0]``."""
+    from photon_ml_tpu_torch.parallel.distributed import split_csr_columns
+
+    if devices is None:
+        devices = [resolve_device(device)] * int(num_blocks)
+    if len(devices) != num_blocks:
+        raise ValueError(f"{num_blocks} column blocks need as many devices, "
+                         f"got {len(devices)}")
+    block, subs = split_csr_columns(mat, num_blocks)
+    blocks = []
+    for sub, dev in zip(subs, devices):
+        dev = torch.device(dev)
+        rows = np.repeat(np.arange(sub.shape[0], dtype=np.int32),
+                         np.diff(sub.indptr))
+        blocks.append(block_from_triplet(
+            torch.as_tensor(sub.data, dtype=dtype, device=dev),
+            torch.as_tensor(sub.indices.astype(np.int32), device=dev),
+            torch.as_tensor(rows, device=dev), sub.shape[0], block))
+    home = torch.device(devices[0])
+    return BlockedCSRFeatures(
+        tuple(blocks), EntryStream(block_lengths(blocks).to(home), dtype),
+        int(mat.shape[0]), int(num_blocks * block), int(block))
+
+
+def blocked_ell_from_scipy(mat, num_blocks: int = 1, dtype=torch.float32,
+                           device="cuda") -> BlockedCSRFeatures:
+    """JAX's ``BlockedEllFeatures`` builder, as ``BlockedCSRFeatures``."""
+    return blocked_csr_from_scipy(mat, num_blocks, dtype, device)
+
+
+FeatureMatrix = Union[DenseFeatures, CSRFeatures, KroneckerFeatures,
+                      BlockedCSRFeatures]
 
 
 def _csr_tensor(mat: sp.csr_matrix, dtype, device) -> Tensor:

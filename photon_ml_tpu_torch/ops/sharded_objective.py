@@ -1,10 +1,13 @@
 """Sharded GLM objective: full-batch (value, gradient, Hessian-vector) by
 accumulating per-shard partials over a device shard cache and, with a
-mesh, over the slots of a 1-D device mesh (port of
+mesh, over the slots of a 1-D or 2-D device mesh (port of
 photon_ml_tpu/ops/sharded_objective.py: ShardedGLMObjective :276-423 with
 its mesh validation :294-352 and gauges :161-164, the kit :424-497, the
-folds _SingleFold/_OrderedFold/_LocalFold :173-240, _per_device :839-845,
-_dev_span :847-854 and _new_fold :856-865).
+folds _SingleFold/_OrderedFold/_LocalFold :173-240 and _ColFold
+:242-273, the 2-D row and column kits :498-611 and grid twins :703-838,
+_per_device :839-845, _dev_span :847-854, _new_fold :856-865, the 2-D
+plumbing _put_col_slices/_chain_margins/_rmv_cols :888-943, the 2-D
+passes :1254-1341 and the 2-D grid passes :1484-1569).
 
 The out-of-core analog of the reference's treeAggregate objective
 (`ValueAndGradientAggregator.scala:243-274`,
@@ -77,10 +80,49 @@ span (JAX's names); the registry gauge
 ``training.mesh.data_axis_devices`` holds the slot count and the counter
 ``training.mesh.data_axis_transfer_bytes`` the bytes of partials that
 the folds moved to another device (none on a mesh of slots of one
-card). The 2-D mesh's column kits, ``_ColFold`` and its model-axis
-metrics are ROADMAP A6b. Not ported either: the JAX ``TracingGuard``
-trace budgets (``trace_budgets``, ``assert_trace_budget``; ROADMAP A7 —
-the port compiles nothing per shape).
+card). Not ported: the JAX ``TracingGuard`` trace budgets
+(``trace_budgets``, ``assert_trace_budget``; ROADMAP A7 — the port
+compiles nothing per shape).
+
+**2-D (data x model) mesh** (``parallel.make_mesh_2d(R, C)``, C > 1,
+over a cache built with ``col_blocks=C``). Shard i's column slice c
+lives on ``grid[i % R][c]`` and its row-space state (labels, margins,
+curvature, the value and u partials) on the row's home slot
+``grid[i % R][C - 1]`` (``ResidentBlock.slot``). A pass:
+
+- puts the coefficient's (or direction's) column slices on the slots,
+  1/C of it each (``_col_slices``; under normalization ``eff`` and the
+  margin shift come from the same full-width calls as the 1-D path's,
+  on the solver's device, ``devices[0]``);
+- forms each slice's entry products on its slot (``spmv.
+  entry_products``, a ``col_block_fold:c<c>`` span), moves them to the
+  home slot, and sums them there through the product stream
+  (``spmv.EntryStream``: rows 9 and 10 on the full rows' offsets and a
+  map into the concatenated products). The JAX package chains
+  per-block scatter-adds into the margin, whose bits rest on XLA's
+  scatter adding in stream order; the port's row 9 sums a row in lanes
+  set by its length, which a block's sub-row does not share, so the
+  port moves the products instead of partial margins: the margin is the
+  unblocked row's bits on the card. The price: each pass moves a
+  shard's nnz products across the model axis, where JAX moves n_rows
+  partial margins;
+- sends u (or t) from the home slot to the column slots, each slice's
+  transposed product there (whole features, so each is that slice of
+  the unblocked rmatvec, bit for bit) folding per column in GLOBAL shard
+  order on ``grid[0][c]`` (``_ColFold``, the ordered fold per
+  coefficient slice), the C folded slices joined in column order on the
+  solver's device (``torch.cat``: a ``model_axis_concat`` span; a
+  concat adds nothing). The scalars (value, sum u) fold through the
+  ordered data-axis fold.
+
+So every shape {none, 1x1, 2x1, 1x2, 2x2} gives the same value,
+gradient, Hvp and solve bits on the card (the CPU's plain products keep
+no order, so there the shapes agree to rounding). ``combine="local"`` is
+refused with C > 1, as in JAX. The registry gauge
+``training.mesh.model_axis_devices`` holds C and the counter
+``training.mesh.model_axis_transfer_bytes`` the bytes that the model
+axis moved to another device (slices, products, u, the concat; none on
+slots of one card).
 """
 
 from __future__ import annotations
@@ -93,16 +135,19 @@ import torch
 
 from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.ops.glm_objective import GLMBatch, GLMObjective
+from photon_ml_tpu_torch.ops.spmv import entry_products
 from photon_ml_tpu_torch.telemetry import span
 
 Tensor = torch.Tensor
 
 #: One batched-grid feature pass (the registry twin of ``grid_passes``).
 _M_GRID_PASSES = telemetry.counter("training.grid.feature_passes")
-# The data axis's slot count and the bytes of partials its folds move
-# between devices (JAX :161-164; the model axis is ROADMAP A6b).
+# Each axis's extent and the bytes its folds and hops move between
+# devices (JAX :161-164).
 _G_MESH_DATA = telemetry.gauge("training.mesh.data_axis_devices")
+_G_MESH_MODEL = telemetry.gauge("training.mesh.model_axis_devices")
 _M_DATA_XFER = telemetry.counter("training.mesh.data_axis_transfer_bytes")
+_M_MODEL_XFER = telemetry.counter("training.mesh.model_axis_transfer_bytes")
 
 _NULL_SPAN = contextlib.nullcontext()
 
@@ -113,14 +158,19 @@ def _fold(acc, part):
     return part if acc is None else tuple(a + b for a, b in zip(acc, part))
 
 
-def _move(part, device):
+def _move(part, device, counter=_M_DATA_XFER):
     """A partial (a tuple of tensors) on ``device``, counting the bytes
     that cross to another device."""
     moved = sum(t.numel() * t.element_size() for t in part
                 if t.device != device)
     if moved:
-        _M_DATA_XFER.inc(moved)
+        counter.inc(moved)
     return tuple(t.to(device) for t in part)
+
+
+def _to_model(t: Tensor, device) -> Tensor:
+    """``t`` on ``device`` across the model axis."""
+    return _move((t,), device, _M_MODEL_XFER)[0]
 
 
 class _SingleFold:
@@ -166,6 +216,34 @@ class _LocalFold(_SingleFold):
         return acc
 
 
+class _ColFold:
+    """The 2-D combine of per-column [block_size] (or [block_size, G])
+    partials: column c left-folds in GLOBAL shard order on its fold slot
+    ``grid[0][c]`` (the ordered fold per coefficient slice), and
+    ``result`` joins the C folded slices in column order on the solver's
+    device, cut to the true width. A panel joins as [d, G] and comes
+    back as its transpose: the [G, d] layout of the 1-D path's
+    ``rmatmat(...).T`` partials, so the solver's reductions over it (a
+    norm a row) walk the same memory order and keep their bits."""
+
+    def __init__(self, sobj: "ShardedGLMObjective"):
+        self.s = sobj
+        self.cols = [None] * sobj.col_blocks
+
+    def add(self, c: int, part: Tensor) -> None:
+        with span("cross_device_combine"):
+            (part,) = _move((part,), self.s.grid[0][c])
+            self.cols[c] = part if self.cols[c] is None \
+                else self.cols[c] + part
+
+    def result(self) -> Tensor:
+        with span("model_axis_concat"):
+            dev0 = self.s.devices[0]
+            joined = torch.cat([_to_model(p, dev0) for p in self.cols])
+            joined = joined[:self.s.cache.n_features]
+            return joined if joined.dim() == 1 else joined.T
+
+
 class ShardedGLMObjective:
     """Streaming (value, gradient, Hvp) over a DeviceShardCache.
 
@@ -176,9 +254,10 @@ class ShardedGLMObjective:
     are the only thing the cache may spill, which keeps the margin-cached
     L-BFGS line search free of feature passes (optimization/glm_lbfgs.py).
 
-    ``mesh`` (a 1-D `parallel.Mesh`) folds over the slots of a cache
-    placed on the same devices; ``combine`` is "ordered" or "local"
-    (module docstring)."""
+    ``mesh`` (a 1-D or 2-D `parallel.Mesh`) folds over the slots of a
+    cache placed on the same devices (with ``col_blocks`` the mesh's
+    model extent); ``combine`` is "ordered" or "local" (module
+    docstring)."""
 
     def __init__(self, objective: GLMObjective, cache, mesh=None,
                  combine: str = "ordered"):
@@ -186,17 +265,19 @@ class ShardedGLMObjective:
             raise ValueError(
                 f"combine must be 'ordered' or 'local', got {combine!r}")
         self.combine = combine
-        devices = None
+        devices, grid, col_blocks = None, None, 1
         if mesh is not None:
-            from photon_ml_tpu_torch.parallel.distributed import (
-                mesh_fold_devices,
-            )
+            from photon_ml_tpu_torch.parallel.distributed import mesh_grid_2d
 
-            devs = mesh_fold_devices(mesh)
-            if len(devs) > 1:
-                devices = devs
+            n_data, n_model, g2d = mesh_grid_2d(mesh)
+            if n_data * n_model > 1:
+                devices = [d for row in g2d for d in row]
+                grid, col_blocks = g2d, n_model
         self.mesh = mesh if devices is not None else None
         self.devices = devices
+        self.grid = grid
+        self.col_blocks = col_blocks
+        self.data_rows = 1 if devices is None else len(devices) // col_blocks
         cache_devs = getattr(cache, "devices", None)
         if devices is not None:
             if cache_devs is None or list(cache_devs) != list(devices):
@@ -205,22 +286,39 @@ class ShardedGLMObjective:
                     f"same devices: mesh has {devices}, cache has "
                     f"{cache_devs} — build the DeviceShardCache with "
                     "devices=mesh_device_list(mesh)")
-            _G_MESH_DATA.set(len(devices))
         elif cache_devs is not None:
             raise ValueError(
                 f"cache is placed on {len(cache_devs)} mesh devices but "
                 "the objective was built without a mesh — pass "
                 "mesh=make_mesh(len(cache.devices))")
+        cache_cols = int(getattr(cache, "col_blocks", 1) or 1)
+        if cache_cols != col_blocks:
+            raise ValueError(
+                f"cache was built with col_blocks={cache_cols} but the "
+                f"mesh has {col_blocks} model-axis devices — build the "
+                "DeviceShardCache with col_blocks matching the mesh's "
+                "model extent")
+        if col_blocks > 1 and combine != "ordered":
+            raise ValueError(
+                "combine='local' is not supported with a model axis "
+                "(col_blocks > 1): per-column partials fold in ordered "
+                "shard order only — use combine='ordered' or a 1-D mesh")
+        if devices is not None:
+            _G_MESH_DATA.set(self.data_rows)
+            _G_MESH_MODEL.set(col_blocks)
+        self.block_size = cache.col_block_size if col_blocks > 1 else 0
         self.objective = objective
         self.cache = cache
         self.grid_passes = 0
         # The objective on each slot's device (its normalization vectors
-        # moved there), so a slot's kernels read only its own device.
+        # moved there), so a slot's kernels read only its own device; a
+        # 2-D mesh applies the normalization on the solver's device only.
         norm = objective.normalization
+        slots = devices if col_blocks == 1 else (devices or [])[:1]
         self._objs = ([objective] if devices is None or norm is None
                       else [dataclasses.replace(objective,
                                                 normalization=norm.to(d))
-                            for d in devices])
+                            for d in slots])
 
     # -- mesh plumbing -------------------------------------------------------
 
@@ -268,16 +366,18 @@ class ShardedGLMObjective:
             dim=-1),)
 
     def _require_restored(self, block) -> None:
-        """A feature block must reach the accumulate in the cache's type:
-        a spill encoding leaking past `restore_spilled_features` would
-        otherwise accumulate at the wrong precision."""
-        got = block.feats.values.dtype
-        if got != self.cache.dtype:
-            raise TypeError(
-                f"feature block {block.index} reached the sharded "
-                f"accumulate as {got}, expected {self.cache.dtype} — spill "
-                "codecs must restore through data/shard_cache.py "
-                "restore_spilled_features")
+        """A feature block (every column slice of it) must reach the
+        accumulate in the cache's type: a spill encoding leaking past
+        `restore_spilled_features` would otherwise accumulate at the
+        wrong precision."""
+        for feats in block.cols or (block.feats,):
+            got = feats.values.dtype
+            if got != self.cache.dtype:
+                raise TypeError(
+                    f"feature block {block.index} reached the sharded "
+                    f"accumulate as {got}, expected {self.cache.dtype} — "
+                    "spill codecs must restore through data/shard_cache.py "
+                    "restore_spilled_features")
 
     def _finish_grad(self, g_raw: Tensor, su: Tensor, coef: Tensor,
                      l2) -> Tensor:
@@ -326,6 +426,8 @@ class ShardedGLMObjective:
                            ) -> Tuple[List[Tensor], Tensor, Tensor]:
         """One pass over the feature blocks: per-shard margins (kept as
         row-space state), the objective value and the gradient."""
+        if self.col_blocks > 1:
+            return self._margins_value_grad_2d(coef, l2)
         z_list, (val, g_raw, su) = self._pass(
             lambda e, c, _: self._init(e, c), coef)
         f = val + 0.5 * l2 * torch.dot(coef, coef)
@@ -337,6 +439,8 @@ class ShardedGLMObjective:
 
     def margin_direction_list(self, direction: Tensor) -> List[Tensor]:
         """Per-shard directional margins (one feature pass)."""
+        if self.col_blocks > 1:
+            return self._direction_2d(direction)
         out, _ = self._pass(lambda e, p, _: (
             self._obj(e.slot).margin_direction(
                 p, GLMBatch(e.feats, e.labels, e.offsets, e.weights)),
@@ -365,6 +469,8 @@ class ShardedGLMObjective:
     def grad_from_margins_list(self, coef: Tensor,
                                z_list: Sequence[Tensor], l2) -> Tensor:
         """Gradient given cached margins: one rmatvec pass."""
+        if self.col_blocks > 1:
+            return self._grad_from_margins_2d(coef, z_list, l2)
         loss = self.objective.loss
 
         def part(e, _, z):
@@ -386,6 +492,9 @@ class ShardedGLMObjective:
         """H @ vec with precomputed curvature: one matvec + one rmatvec
         per shard (the streaming form of
         GLMObjective.hessian_vector_from_margins)."""
+        if self.col_blocks > 1:
+            return self._hessian_vector_2d(vec, d2_list, l2)
+
         def part(e, v, d2):
             jv = self._obj(e.slot).margin_direction(
                 v, GLMBatch(e.feats, e.labels, e.offsets, e.weights))
@@ -488,6 +597,8 @@ class ShardedGLMObjective:
         """One feature pass for every grid row: per-shard [G, rows]
         margins, [G] values and [G, d] gradients."""
         self._count_grid_pass()
+        if self.col_blocks > 1:
+            return self._margins_value_grad_2d(coefs, l2s)
         z_list, (val, g_raw, su) = self._pass(
             lambda e, c, _: self._grid_init(e, c), coefs)
         f = val + 0.5 * l2s * torch.sum(coefs * coefs, dim=-1)
@@ -496,6 +607,8 @@ class ShardedGLMObjective:
     def grid_margin_direction_list(self, directions: Tensor) -> List[Tensor]:
         """Per-shard [G, rows] directional margins: one feature pass."""
         self._count_grid_pass()
+        if self.col_blocks > 1:
+            return self._direction_2d(directions)
         out, _ = self._pass(
             lambda e, p, _: (self._grid_direction(e, p), None), directions)
         return out
@@ -524,6 +637,8 @@ class ShardedGLMObjective:
                                     l2s: Tensor) -> Tensor:
         """[G, d] gradients from cached [G, rows] margins: one pass."""
         self._count_grid_pass()
+        if self.col_blocks > 1:
+            return self._grad_from_margins_2d(coefs, z_list, l2s)
         _, (g_raw, su) = self._pass(
             lambda e, _, z: (None, self._grid_grad(e, z)), z_list=z_list)
         return self._grid_finish_grad(g_raw, su, coefs, l2s)
@@ -539,10 +654,154 @@ class ShardedGLMObjective:
         """[G, d] H_g v_g with per-row curvature: one pass serves every
         row's CG iterate."""
         self._count_grid_pass()
+        if self.col_blocks > 1:
+            return self._hessian_vector_2d(vecs, d2_list, l2s)
         _, (r_raw, su) = self._pass(
             lambda e, v, d2: (None, self._grid_hvp(e, d2, v)), vecs,
             d2_list)
         return self._grid_finish_grad(r_raw, su, vecs, l2s)
+
+    # -- the 2-D (data x model) passes (module docstring) -------------------
+    #
+    # One body serves the scalar pass ([d] coefficients, [rows] margins)
+    # and its grid twin ([G, d], [G, rows]): the same expressions as the
+    # 1-D path's, with each product split over the column slices.
+
+    def _col_slices(self, vec: Tensor) -> List[List[Tensor]]:
+        """``out[r][c]``: column slice c of a [d] vector (or of a [G, d]
+        panel, as [block_size, G]), its tail zero-padded, on
+        ``grid[r][c]``."""
+        bs, n_cols = self.block_size, self.col_blocks
+        pad = n_cols * bs - vec.shape[-1]
+        v = torch.nn.functional.pad(vec, (0, pad)) if pad else vec
+        sl = [v[c * bs:(c + 1) * bs] if v.dim() == 1
+              else v[:, c * bs:(c + 1) * bs].T for c in range(n_cols)]
+        return [[_to_model(x, d) for x, d in zip(sl, row)]
+                for row in self.grid]
+
+    def _norm_2d(self, vec: Tensor):
+        """(eff, margin shift or None) on the solver's device, from the
+        calls the 1-D path makes (``GLMObjective.margins``)."""
+        norm = self._objs[0].normalization
+        if norm is None:
+            return vec, None
+        if vec.dim() == 2:
+            return self._grid_norm_prep(vec, 0)
+        return norm.effective_coefficients(vec), norm.margin_shift(vec)
+
+    def _margins_2d(self, e, w_r, shift) -> Tensor:
+        """The shard's margins X eff + offsets (+ shift) on its home slot:
+        each slice's entry products on its slot, summed there through the
+        product stream (row 9, or row 10 for a panel)."""
+        home = e.labels.device
+        parts = []
+        for c, (blk, x) in enumerate(zip(e.cols, w_r)):
+            with span(f"col_block_fold:c{c}"):
+                parts.append(_to_model(entry_products(blk, x), home))
+        if w_r[0].dim() == 1:
+            z = e.stream.matvec(parts) + e.offsets
+        else:
+            z = e.stream.matmat(parts).T + e.offsets[None, :]
+        return z if shift is None else z + _to_model(shift, home)
+
+    def _rmv_2d(self, e, u: Tensor, fold: _ColFold) -> None:
+        """u [rows] (or [G, rows]) from the home slot to the column
+        slots, each slice's transposed product there into its column's
+        fold."""
+        r = e.slot // self.col_blocks
+        for c, blk in enumerate(e.cols):
+            u_c = _to_model(u, self.grid[r][c])
+            with span(f"col_block_fold:c{c}"):
+                part = (blk.rmatvec(u_c) if u.dim() == 1
+                        else blk.rmatmat(u_c.T.contiguous()))
+            fold.add(c, part)
+
+    def _pass_2d(self, fn, vec=None, z_list=None):
+        """One feature pass over the 2-D mesh in shard order: ``fn(e,
+        slices of row r or None, z, column fold)`` per block returns
+        (row-space output or None, scalar partial or None). Returns
+        (outputs, folded scalars, joined column partials or None)."""
+        sfold, colfold = self._new_fold(), _ColFold(self)
+        outs: List[Tensor] = []
+        with span("accumulate"):
+            slices = None if vec is None else self._col_slices(vec)
+            zs = z_list if z_list is not None else [None] * self.cache.n_shards
+            for e, z in zip(self.cache.blocks(), zs):
+                self._require_restored(e)
+                w_r = None if slices is None \
+                    else slices[e.slot // self.col_blocks]
+                with self._dev_span(e.slot):
+                    out, part = fn(e, w_r, z, colfold)
+                if out is not None:
+                    outs.append(out)
+                if part is not None:
+                    sfold.add(e.slot, part)
+            joined = (colfold.result() if colfold.cols[0] is not None
+                      else None)
+        return outs, sfold.result(), joined
+
+    def _sum(self, t: Tensor) -> Tensor:
+        """A row-space sum, per lane for a [G, rows] panel."""
+        return torch.sum(t) if t.dim() == 1 else torch.sum(t, dim=-1)
+
+    def _finish_2d(self, g_raw, su, coef, l2):
+        if coef.dim() == 1:
+            return self._finish_grad(g_raw, su, coef, l2)
+        return self._grid_finish_grad(g_raw, su, coef, l2)
+
+    def _margins_value_grad_2d(self, coef: Tensor, l2):
+        eff, shift = self._norm_2d(coef)
+        loss = self.objective.loss
+
+        def part(e, w_r, _, fold):
+            z = self._margins_2d(e, w_r, shift)
+            lab = e.labels if z.dim() == 1 else e.labels[None, :]
+            wts = e.weights if z.dim() == 1 else e.weights[None, :]
+            u = wts * loss.d1(z, lab)
+            self._rmv_2d(e, u, fold)
+            return z, (self._sum(wts * loss.loss(z, lab)), self._sum(u))
+
+        z_list, (val, su), g_raw = self._pass_2d(part, eff)
+        sq = (torch.dot(coef, coef) if coef.dim() == 1
+              else torch.sum(coef * coef, dim=-1))
+        return (z_list, val + 0.5 * l2 * sq,
+                self._finish_2d(g_raw, su, coef, l2))
+
+    def _direction_2d(self, direction: Tensor) -> List[Tensor]:
+        eff, shift = self._norm_2d(direction)
+
+        def part(e, w_r, _, fold):
+            z = self._margins_2d(e, w_r, shift)
+            return z - (e.offsets if z.dim() == 1 else e.offsets[None, :]), \
+                None
+
+        return self._pass_2d(part, eff)[0]
+
+    def _grad_from_margins_2d(self, coef: Tensor, z_list, l2) -> Tensor:
+        loss = self.objective.loss
+
+        def part(e, _, z, fold):
+            lab = e.labels if z.dim() == 1 else e.labels[None, :]
+            wts = e.weights if z.dim() == 1 else e.weights[None, :]
+            u = wts * loss.d1(z, lab)
+            self._rmv_2d(e, u, fold)
+            return None, (self._sum(u),)
+
+        _, (su,), g_raw = self._pass_2d(part, z_list=z_list)
+        return self._finish_2d(g_raw, su, coef, l2)
+
+    def _hessian_vector_2d(self, vec: Tensor, d2_list, l2) -> Tensor:
+        eff, shift = self._norm_2d(vec)
+
+        def part(e, w_r, d2, fold):
+            z = self._margins_2d(e, w_r, shift)
+            t = d2 * (z - (e.offsets if z.dim() == 1
+                           else e.offsets[None, :]))
+            self._rmv_2d(e, t, fold)
+            return None, (self._sum(t),)
+
+        _, (su,), r_raw = self._pass_2d(part, eff, d2_list)
+        return self._finish_2d(r_raw, su, vec, l2)
 
     @staticmethod
     def grid_row_margins(z_list: Sequence[Tensor], row: int

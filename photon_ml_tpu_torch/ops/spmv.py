@@ -440,3 +440,96 @@ def block_from_triplet(values: Tensor, cols: Tensor, rows: Tensor,
         crow_t=_crow(cols[order], n_features),
         row_t=rows[order].contiguous(), values_t=values[order].contiguous(),
         n_rows=int(n_rows), n_features=int(n_features))
+
+
+def entry_products(block: CSRBlock, x: Tensor, square: bool = False
+                   ) -> Tensor:
+    """A column block's entry products, in its entry order: ``val[k] *
+    x[col[k]]`` ([nnz]) for a vector x [n_features], or ``val[k] *
+    x[col[k], :]`` ([nnz, n]) for a panel [n_features, n]; with
+    ``square`` each value is squared first (``val * val``, as
+    ``CSRFeatures.row_sq_matvec`` squares it). These are the roundings
+    of the products that rows 9 and 10 form for the same operands, so
+    the product stream (``EntryStream``) sums them to the unblocked
+    row's bits."""
+    val = block.values * block.values if square else block.values
+    gathered = torch.index_select(x, 0, block.col)
+    return val * gathered if x.dim() == 1 else val[:, None] * gathered
+
+
+class EntryStream:
+    """The product stream of a CSR cut into C column blocks (the 2-D
+    mesh's margins, ops/sharded_objective.py, and ``BlockedCSRFeatures``'
+    products, ops/features.py).
+
+    A row's entries, columns ascending, are block 0's entries of the row,
+    then block 1's, and so on: the blocks are contiguous column ranges,
+    each an order-preserving subsequence of the full entry stream
+    (parallel/distributed.py ``split_csr_columns``). So the full row's
+    entry k is entry ``pos[k]`` of ``concat(p_0, ..., p_{C-1})``, where
+    ``p_c`` are block c's ``entry_products``. The margin is then row 9
+    (row 10 for a panel) on the CSR ``(crow, pos, ones)`` of the full
+    rows over that concatenation: each product ``1.0 * p`` is ``p``
+    exactly, and the kernel adds a row's products in the order its
+    length sets (csrc/csr_order.cuh), so the result is the unblocked
+    product's bits on the card. On the CPU both go through the plain
+    version, which keeps no such order.
+
+    Built from the blocks' row lengths ``lengths`` [C, rows] on the
+    device that sums (the 2-D mesh's home slot), with exact integer
+    ops; ``nbytes`` is what it holds there (offsets, map and ones)."""
+
+    def __init__(self, lengths: Tensor, dtype: torch.dtype):
+        lengths = lengths.to(torch.int64)
+        dev = lengths.device
+        n_blocks, rows = lengths.shape
+        crow = torch.zeros(rows + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(lengths.sum(0), 0)
+        nnz = int(crow[-1])
+        pos = torch.empty(nnz, dtype=torch.int64, device=dev)
+        row_ids = torch.arange(rows, device=dev)
+        before = torch.zeros(rows, dtype=torch.int64, device=dev)
+        offset = 0
+        for c in range(n_blocks):
+            n_c = int(lengths[c].sum())
+            crow_c = torch.zeros(rows + 1, dtype=torch.int64, device=dev)
+            crow_c[1:] = torch.cumsum(lengths[c], 0)
+            r = torch.repeat_interleave(row_ids, lengths[c])
+            k = torch.arange(n_c, device=dev)
+            pos[crow[r] + before[r] + (k - crow_c[r])] = offset + k
+            before += lengths[c]
+            offset += n_c
+        self.sizes = [int(n) for n in lengths.sum(1)]
+        self.op = CSROperand(crow.to(torch.int32), pos.to(torch.int32),
+                             torch.ones(nnz, dtype=dtype, device=dev), nnz)
+
+    @property
+    def device(self) -> torch.device:
+        return self.op.device
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.op.crow, self.op.col, self.op.val))
+
+    def _concat(self, parts) -> Tensor:
+        got = [int(p.shape[0]) for p in parts]
+        if got != self.sizes:
+            raise ValueError(f"the product stream takes blocks of "
+                             f"{self.sizes} entries, got {got}")
+        return torch.cat([p.to(self.device) for p in parts])
+
+    def matvec(self, parts) -> Tensor:
+        """[rows] margins from the blocks' [nnz_c] products."""
+        return self.op.matvec(self._concat(parts))
+
+    def matmat(self, parts) -> Tensor:
+        """[rows, n] margins from the blocks' [nnz_c, n] products."""
+        return self.op.matmat(self._concat(parts))
+
+
+def block_lengths(blocks) -> Tensor:
+    """[C, rows] int32 row lengths of column blocks (``CSRBlock``s of one
+    row count), on the first block's device."""
+    dev = blocks[0].crow.device
+    return torch.stack([torch.diff(b.crow).to(dev) for b in blocks])

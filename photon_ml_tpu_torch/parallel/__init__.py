@@ -1,12 +1,18 @@
 """Device-mesh parallelism (port of photon_ml_tpu/parallel/__init__.py):
-the 1-D mesh of slots, row and entity sharding (distributed.py). The
-2-D mesh and multi-host (``parallel/multihost.py``) are ROADMAP A6b."""
+the 1-D and 2-D meshes of slots, row, entity and feature sharding
+(distributed.py) and multi-host initialization (multihost.py)."""
 
+from photon_ml_tpu_torch.parallel.multihost import (
+    initialize_multihost,
+    is_primary_host,
+)
 from photon_ml_tpu_torch.parallel.distributed import (
     DATA_AXIS,
     MODEL_AXIS,
+    FeatureShardedFeatures,
     Mesh,
     RowShardedFeatures,
+    axis_slots,
     make_mesh,
     make_mesh_2d,
     mesh_device_list,
@@ -25,8 +31,10 @@ from photon_ml_tpu_torch.parallel.distributed import (
 __all__ = [
     "DATA_AXIS",
     "MODEL_AXIS",
+    "FeatureShardedFeatures",
     "Mesh",
     "RowShardedFeatures",
+    "axis_slots",
     "make_mesh",
     "make_mesh_2d",
     "mesh_device_list",
@@ -40,4 +48,6 @@ __all__ = [
     "shard_coef",
     "split_csr_columns",
     "unpad_coef",
+    "initialize_multihost",
+    "is_primary_host",
 ]

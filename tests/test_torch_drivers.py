@@ -326,11 +326,11 @@ def test_cross_scoring(runs, example):
 
 # --stream-train and its flags are ported (streamed ingest and training,
 # the batched λ grid and streamed matrix factorization, ROADMAP A4 and
-# A4b), and so is the 1-D mesh (A6a). Each entry keeps its flags and id;
-# its second field says how it ends now: "run" trains one iteration over
-# a 2-slot CPU mesh, "raise" ends with JAX's own message (the third
-# field) before anything is written, "A6b" with the error naming the
-# 2-D mesh's item.
+# A4b), and so are the 1-D mesh (A6a) and the 2-D mesh (A6b). Each entry
+# keeps its flags and id; its second field says how it ends now: "run"
+# trains one iteration over a 2-slot CPU mesh, "run2d" over a 2 x 2 CPU
+# mesh, "raise" ends with JAX's own message (the third field) before
+# anything is written.
 _STREAM_FE = ["--stream-train", "--random-effect-data-configurations",
               "--updating-sequence", "fixed"]
 _GRID2 = ["--fixed-effect-optimization-configurations",
@@ -348,17 +348,19 @@ TRAINING_LATER = [
     (["--grid-batched", "off", "--hbm-budget", "8K", *_STREAM_FE,
       "--mesh-devices", "2"], "run", None),
     (["--spill-dtype", "bf16", "--hbm-budget", "8K", *_STREAM_FE,
-      "--mesh-shape", "2x2"], "A6b", "--mesh-shape"),
+      "--mesh-shape", "2x2"], "run2d", None),
     (["--spill-source", "redecode", "--hbm-budget", "8K", *_STREAM_FE,
-      "--mesh-shape", "2x2"], "A6b", "--mesh-shape"),
+      "--mesh-shape", "2x2"], "run2d", None),
     (["--distmon", "--mesh-devices", "2"], "raise",
      "--mesh-devices/--mesh-shape apply to the --stream-train solve"),
-    (["--obs-port", "0", "--mesh-shape", "2x2"], "A6b", "--mesh-shape"),
+    (["--obs-port", "0", "--mesh-shape", "2x2"], "raise",
+     "--mesh-devices/--mesh-shape apply to the --stream-train solve"),
     (["--slo", "p99:x<=1ms", "--mesh-devices", "2"], "raise",
      "--mesh-devices/--mesh-shape apply to the --stream-train solve"),
     (["--mesh-devices", "2"], "raise",
      "--mesh-devices/--mesh-shape apply to the --stream-train solve"),
-    (["--mesh-shape", "2x2"], "A6b", "--mesh-shape")]
+    (["--mesh-shape", "2x2"], "raise",
+     "--mesh-devices/--mesh-shape apply to the --stream-train solve")]
 # The scoring flags that named ROADMAP A5d, ported with network serving:
 # each case now serves and drains ("serve") or ends with the JAX
 # driver's own SystemExit (game_scoring_driver.py:284-300).
@@ -440,27 +442,28 @@ def _check_telemetry_output(summary: dict, argv, what: str):
 def test_training_flags_of_later_items_raise(runs, tmp_path, extra, outcome,
                                              expect):
     """The ten mesh-flag cases that once raised naming ROADMAP A6: the
-    spill runs train over a 2-slot CPU mesh, the rest end with JAX's
-    message, and a 2-D mesh with the error naming A6b."""
-    if outcome == "run":
+    spill runs train over a 2-slot CPU mesh or a 2 x 2 one (the cases
+    that raised naming A6b), the rest end with JAX's message."""
+    if outcome in ("run", "run2d"):
         argv = ["--train-input-dirs", str(runs["training"]["root"] / "train"),
                 "--output-dir", str(tmp_path / "out"), *TRAINING_FLAGS,
                 *extra, "--num-iterations", "1", "--batch-rows", "64"]
         summary = game_training_driver.run(argv, device="cpu")
         info = summary["stream_train"]
-        assert info["mode"] == "spill" and info["mesh_devices"] == 2
-        assert list(info["mesh_shape"]) == [2, 1]
+        slots, shape = (2, [2, 1]) if outcome == "run" else (4, [2, 2])
+        assert info["mode"] == "spill"
+        assert info["mesh_devices"] == (2 if outcome == "run" else None)
+        assert list(info["mesh_shape"]) == shape
         cache = info["cache"]
-        assert cache["mesh_devices"] == 2 and cache["shards"] == 5
-        assert len(cache["per_device_bytes"]) == 2
+        assert cache["mesh_devices"] == slots and cache["shards"] == 5
+        assert cache["col_blocks"] == shape[1]
+        assert len(cache["per_device_bytes"]) == slots
         assert sum(cache["per_device_bytes"]) == cache["device_bytes"]
         assert (tmp_path / "out" / "best" / "fixed-effect").is_dir()
         return
     argv = ["--train-input-dirs", str(tmp_path / "none"), "--output-dir",
             str(tmp_path / "out"), *TRAINING_FLAGS, *extra]
-    match = (re.escape(expect) if outcome == "raise" else
-             f"{expect} is not ported yet: it comes with ROADMAP queue A6b")
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match=re.escape(expect)):
         game_training_driver.run(argv, device="cpu")
     assert not (tmp_path / "out").exists()
 

@@ -131,11 +131,20 @@ def test_slot_rule_and_two_d_names_raise():
         make_mesh(2)  # "cuda" on a host without a card
     with pytest.raises(TypeError, match="Mesh"):
         mesh_device_list(object())
-    for call in (lambda: make_mesh_2d(2, 2), lambda: split_csr_columns(
-            sp.eye(3, format="csr"), 2), lambda: shard_coef(None, m),
-            lambda: Mesh((torch.device("cpu"),) * 4, ("data", "model"))):
-        with pytest.raises(NotImplementedError, match="A6b"):
-            call()
+    # The four calls that raised naming A6b build the 2-D mesh and its
+    # arrays now (tests/test_torch_mesh2d.py holds them against JAX's).
+    m2 = make_mesh_2d(2, 2, device="cpu")
+    assert m2.shape == {"data": 2, "model": 2} and m2.size == 4
+    assert "2 x 2 slots on 1 distinct device" in m2.describe()
+    bs, subs = split_csr_columns(sp.eye(3, format="csr"), 2)
+    assert bs == 2 and [s_.shape for s_ in subs] == [(3, 2), (3, 1)]
+    assert [s_.nnz for s_ in subs] == [2, 1]
+    parts = shard_coef(torch.arange(3.0), m)
+    assert [p.tolist() for p in parts] == [[0.0], [1.0], [2.0]]
+    grid = Mesh((torch.device("cpu"),) * 4, ("data", "model"), (2, 2))
+    assert grid.shape == m2.shape and grid.devices == m2.devices
+    with pytest.raises(ValueError, match="needs dims"):
+        Mesh((torch.device("cpu"),) * 4, ("data", "model"))
     x = torch.arange(3.0)
     assert all(r is x for r in replicate(x, m))
 
@@ -364,12 +373,16 @@ def test_coordinate_mesh_must_start_on_its_device(rng):
         RandomEffectCoordinate("re", ds, TaskType.LOGISTIC_REGRESSION,
                                GLMOptimizationConfiguration.parse(RE_CFG),
                                mesh=bad)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        FixedEffectCoordinate(
-            "fixed", GameDataset.build(**cols), "u",
-            TaskType.LOGISTIC_REGRESSION,
-            GLMOptimizationConfiguration.parse(RE_CFG), dtype=F64,
-            device="cpu", feature_sharding=True)
+    # feature_sharding (which raised naming A6b) builds: over two slots
+    # the 3 columns pad to 4 and the model keeps 3.
+    fe = FixedEffectCoordinate(
+        "fixed", GameDataset.build(**cols), "u",
+        TaskType.LOGISTIC_REGRESSION,
+        GLMOptimizationConfiguration.parse(RE_CFG), dtype=F64,
+        device="cpu", feature_sharding=True, mesh=_mesh(2))
+    assert (fe._d, fe._d_pad) == (3, 4)
+    model, _ = fe.update_model(fe.initialize_model(), None)
+    assert model.glm.coefficients.means.shape == (3,)
 
 
 def _owns_only_itself(t):

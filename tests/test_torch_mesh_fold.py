@@ -254,10 +254,14 @@ def test_mesh_validation_errors(problem):
         ShardedGLMObjective(obj, placed, mesh=mesh2, combine="tree")
     with pytest.raises(TypeError, match="Mesh"):
         ShardedGLMObjective(obj, placed, mesh=object())
-    with pytest.raises(ValueError, match="A6b"):
-        DeviceShardCache.from_stream(FakeStream(problem, 128), "g",
-                                     dtype=F64, device="cpu",
-                                     devices=["cpu", "cpu"], col_blocks=2)
+    # col_blocks=2 (which raised naming A6b) builds a column-blocked
+    # cache, which a 1-D mesh's objective refuses.
+    blocked = DeviceShardCache.from_stream(
+        FakeStream(problem, 128), "g", dtype=F64, device="cpu",
+        devices=["cpu", "cpu"], col_blocks=2)
+    assert blocked.stats()["col_blocks"] == 2
+    with pytest.raises(ValueError, match="col_blocks=2"):
+        ShardedGLMObjective(obj, blocked, mesh=mesh2)
 
 
 def test_streaming_coordinate_mesh_mismatch(problem):

@@ -265,13 +265,19 @@ def test_empty_stream_and_mesh_raise(problem):
         DeviceShardCache.from_stream(FakeStream(X, np.zeros(0), 10), "g",
                                      device="cpu")
     # devices= places the shards over a 1-D mesh of slots (ROADMAP A6a,
-    # tests/test_torch_mesh.py); column blocks are the 2-D mesh's (A6b).
+    # tests/test_torch_mesh.py); col_blocks=2 (which raised naming A6b)
+    # cuts them into column slices over a 1 x 2 grid (ROADMAP A6b,
+    # tests/test_torch_mesh2d.py), and needs the grid's devices.
     two = _cache(problem, devices=["cpu", "cpu"])
     assert two.n_slots == 2 and two.stats()["mesh_devices"] == 2
     assert [e.slot for e in two.entries] == [
         i % 2 for i in range(two.n_shards)]
-    with pytest.raises(ValueError, match="A6b"):
+    with pytest.raises(ValueError, match="device grid"):
         _cache(problem, col_blocks=2)
+    cols = _cache(problem, devices=["cpu", "cpu"], col_blocks=2)
+    assert cols.stats()["col_blocks"] == 2
+    assert all(e.slot == 1 and [u.slot for u in e.cols] == [0, 1]
+               for e in cols.entries)
 
 
 # -- spill codecs, against the JAX package's ---------------------------------

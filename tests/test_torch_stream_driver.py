@@ -236,16 +236,18 @@ def test_metrics_stream_train_block_has_jax_keys(runs):
 # tests/test_torch_mesh.py). The ids are the names these cases had while
 # the grid and streamed MF themselves raised naming A4b, kept so that
 # each case's record goes on under one name; --distmon runs since the
-# observability plane came (ROADMAP A5c). What a case asserts now: a
-# 2-D mesh (``--mesh-shape 2x2``) raises naming A6b before anything is
-# written; a 2-slot ``--mesh-devices 2`` trains, the sequential sweep
-# writing the unmeshed spill run's records bit for bit.
+# observability plane came (ROADMAP A5c), and so does the 2-D mesh
+# (A6b). What a case asserts now: a 2-slot ``--mesh-devices 2`` trains,
+# the sequential sweep writing the unmeshed spill run's records bit for
+# bit; the batched grid trains over a 2 x 2 mesh (``--mesh-shape
+# 2x2``); a 2 x 2 mesh without ``--hbm-budget`` ends with JAX's message
+# before anything is written.
 @pytest.mark.parametrize("extra,named,item", [
     (["--grid-batched", "on", *SPILL, "--distmon", "--mesh-shape", "2x2"],
-     "--mesh-shape", "A6b"),
+     "--mesh-shape", "run"),
     (["--grid-batched", "auto", *SPILL, "--mesh-devices", "2"],
      "--mesh-devices", "run"),
-    (["--distmon", "--mesh-shape", "2x2"], "--mesh-shape", "A6b"),
+    (["--distmon", "--mesh-shape", "2x2"], "--hbm-budget", "raise"),
     ([*SPILL, "--mesh-devices", "2"], "--mesh-devices", "run"),
 ], ids=["extra0---grid-batched on-A4b", "extra1---grid-batched auto-A4b",
         "extra3---distmon-A5", "extra4---mesh-devices-A6"])
@@ -255,15 +257,19 @@ def test_unported_stream_flags_raise_naming_item(runs, tmp_path, extra,
             str(tmp_path / "out")]
     if item == "run":
         info = game_training_driver.run(argv, device="cpu")["stream_train"]
-        assert info["mesh_devices"] == 2
-        assert info["cache"]["mesh_devices"] == 2
-        assert info["grid_batched"] is ("auto" in extra)
-        if "auto" not in extra:
+        two_d = named == "--mesh-shape"
+        assert info["mesh_devices"] == (None if two_d else 2)
+        assert list(info["mesh_shape"]) == ([2, 2] if two_d else [2, 1])
+        assert info["cache"]["mesh_devices"] == (4 if two_d else 2)
+        assert info["cache"]["col_blocks"] == (2 if two_d else 1)
+        batched = "on" in extra or "auto" in extra
+        assert info["grid_batched"] is batched
+        if not batched:
             assert _records(tmp_path / "out") == _records(
                 runs["root"] / "spill")
         return
-    with pytest.raises(ValueError, match=f"{named} is not ported yet: it "
-                       f"comes with ROADMAP queue {item}"):
+    with pytest.raises(ValueError, match="a mesh of > 1 device requires "
+                       f"{named}"):
         game_training_driver.run(argv, device="cpu")
     assert not (tmp_path / "out").exists()
 
