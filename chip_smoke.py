@@ -298,6 +298,27 @@ within 1e-4. (e) A world of one process joins over loopback on nccl
 on cuda:0 and leaves. It prints its seconds and its launches of rows 1,
 9 and 10.
 
+Paths 1-6 fit through the fused coordinate update (ROADMAP A3a): each
+in-core coordinate update is one replay of a CUDA graph captured once a
+run, its solvers' loops WHILE nodes (photon_ml_tpu_torch/utils/
+device_loop.py, csrc/device_loop.cu), its launches counted per replay;
+each fit prints its digest (sha256 of its coefficients and objective
+history) and one ``graph`` line a coordinate (nodes, loop bodies,
+capture and instantiate seconds, pool bytes). Path 15 (right after path
+5) refits paths 1-5 through the eager plain loop
+(``GameEstimator(fused=False)``: every solver loop reads its predicate
+on the host) and holds them against the fused fits bit for bit: digest,
+objective history, validation AUCs, every tracker tensor of every
+update, and the row-1 and row-9 launches; paths 1-5 are dense, so it
+also fits path 1's coordinates both ways on a copy of the data whose
+global shard is thinned to a tenth of its entries (CSRFeatures: row 9
+inside the fixed effect's update graph, which must launch it as often as
+the eager fit does). It prints a ``path 15`` line a fit with both fits'
+ms per update in iterations 0-2 (span averages: the capture falls
+outside every span), both fits' seconds (captures included) and the
+graphs' figures. Path 6's profile line adds the busy share from the first graph
+replay on.
+
 Then the gather phase runs the port's gather experiment
 (photon_ml_tpu_torch/dev_scripts/gather_experiments.py) at its full
 width, m = 12,000,000 lookups into d = 2,000,000 coefficients: w[idx],
@@ -353,6 +374,7 @@ bucket lines also carry the launch plan (lanes over the coordinates,
 resident entities, waves).
 
     python3 chip_smoke.py --entity-buckets [--tree DIR]
+    python3 chip_smoke.py --fit-digests [--tree DIR]
 
 times only the entity-solver kernel of DIR's photon_ml_tpu_torch (this
 checkout by default) on every bucket of paths 1-5's first updates:
@@ -360,6 +382,10 @@ device, call and host ms, occupancy, the spread of the entities'
 iterations and a digest of every entity's iterations, reason and work
 (``stops``), one ``ab`` line each; run it on two trees in turns to
 compare them on one card (equal digests: no entity's stop moved).
+``--fit-digests`` fits paths 1-5 with DIR's GameEstimator at its
+defaults and prints a ``digest`` line a path (digest, AUCs, entity-kernel
+launches, fit seconds): equal digests in two trees' lines mean the same
+coefficients and objective histories.
 
 The third line from the end is a JSON record of the kernels (rows 1-8
 of the PERF.md table: L-BFGS, the normalization fold, bounded L-BFGS,
@@ -607,13 +633,19 @@ def device_ms(fn, reps: int = 10) -> float:
     """Mean device ms per call of ``fn``, without its host work: ``reps``
     calls captured in one CUDA graph (after a warm-up call, which plans
     and builds outside the capture), the graph replayed 3 times between
-    CUDA events."""
+    CUDA events. The launches recorded into the graph count nowhere
+    (``device_loop.uncounted``; a tree without it counts them as
+    ``recorded``)."""
     import torch
 
+    try:
+        from photon_ml_tpu_torch.utils.device_loop import uncounted
+    except ImportError:
+        uncounted = contextlib.nullcontext
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with uncounted(), torch.cuda.graph(graph, capture_error_mode="relaxed"):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -1057,8 +1089,9 @@ def report_updates(result) -> None:
                       f"max {int(its.max())}, {work}")
         elif tracker.outer_steps is not None:
             solver = (f"TRON iterations {int(tracker.iterations)} "
-                      f"({tracker.outer_steps} outer, {tracker.cg_steps} "
-                      f"CG), reason {int(tracker.reason)}")
+                      f"({int(tracker.outer_steps)} outer, "
+                      f"{int(tracker.cg_steps)} CG), reason "
+                      f"{int(tracker.reason)}")
         else:
             solver = (f"solver iterations {int(tracker.iterations)}, "
                       f"reason {int(tracker.reason)}")
@@ -1198,13 +1231,183 @@ def coordinates_of(train, specs):
     return coords
 
 
-def fit_path(tag: str, specs, train, val, mesh=None):
-    """The path's main run: GameEstimator.fit (over ``mesh`` when given)
-    with the launch counts set to 0 just before and read just after.
-    Returns (result, launches per variant, buckets per random-effect
-    coordinate)."""
+# Row 9's launches and the seconds of each fit_path run, by tag.
+FIT_ROW9: dict = {}
+FIT_S: dict = {}
+# The density of path 15's sparse fixed-effect shard: below the dense
+# threshold (ops/features.py), so the fixed effect is CSRFeatures.
+SPARSE_FE_DENSITY = 0.1
+
+
+def tensors_of(obj) -> list:
+    """Every tensor in a model, tracker or list of them, in a fixed
+    order."""
     import torch
 
+    out = []
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            out.append(o)
+        elif isinstance(o, (list, tuple)):
+            for v in o:
+                walk(v)
+        elif hasattr(o, "__dataclass_fields__"):
+            for f in o.__dataclass_fields__:
+                walk(getattr(o, f))
+
+    walk(obj)
+    return out
+
+
+def fit_digest(result) -> str:
+    """sha256 of a fit's final coefficients (every tensor of its model,
+    in coordinate order) and its objective history."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors_of(list(result.model.models.values())):
+        h.update(t.detach().cpu().numpy().tobytes())
+    h.update(np.asarray(result.objective_history, np.float64).tobytes())
+    return h.hexdigest()
+
+
+def fit_path(tag: str, specs, train, val, mesh=None, fused=True):
+    """The path's main run: GameEstimator.fit (over ``mesh`` when given;
+    ``fused=False``: the eager plain loop) with the launch counts set to
+    0 just before and read just after. Returns (result, launches per
+    variant, buckets per random-effect coordinate); row 9's launches go
+    to ``FIT_ROW9[tag]``."""
+    import torch
+
+    from photon_ml_tpu_torch.estimators.game_estimator import GameEstimator
+    from photon_ml_tpu_torch.evaluation.evaluators import (
+        AreaUnderROCCurveEvaluator,
+    )
+    from photon_ml_tpu_torch.ops import entity_solver, spmv
+    from photon_ml_tpu_torch.types import TaskType
+
+    estimator = GameEstimator(
+        TaskType.LOGISTIC_REGRESSION, specs, num_iterations=CD_ITERATIONS,
+        validation_evaluators=[AreaUnderROCCurveEvaluator()], fused=fused,
+        **({} if mesh is None else dict(device=mesh.devices[0],
+                                        mesh=mesh)))
+    # ---- the main path: counts set to 0 just before, read just after ----
+    entity_solver.reset_launch_counts()
+    spmv.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (_, result), = estimator.fit(train, val)
+    torch.cuda.synchronize()
+    fit_s = FIT_S[tag] = time.perf_counter() - t0
+    launches = dict(entity_solver.entity_lbfgs.variants)
+    FIT_ROW9[tag] = spmv.csr_matvec.launches
+    # ----------------------------------------------------------------------
+    buckets = {name: len(getattr(m, "latent", m).local_coefs)
+               for name, m in result.model.models.items()
+               if hasattr(getattr(m, "latent", m), "local_coefs")}
+    print(f"{tag} fit: {fit_s:.2f} s (random-effect dataset builds and "
+          f"graph captures included), buckets {buckets}, digest "
+          f"{fit_digest(result)}", flush=True)
+    for name, st in result.graphs.items():
+        print(f"{tag} graph {name}: " + json.dumps(st), flush=True)
+    report_updates(result)
+    print(f"{tag} entity-solver launches: {launches}, row 9 launches "
+          f"{FIT_ROW9[tag]}", flush=True)
+    return result, launches, buckets
+
+
+def ms_by_iteration(result) -> list:
+    """Mean ms per update in each coordinate-descent iteration."""
+    out = []
+    for it in range(CD_ITERATIONS):
+        secs = [u["seconds"] for u in result.updates if u["iteration"] == it]
+        out.append(1e3 * sum(secs) / len(secs))
+    return out
+
+
+def sparse_fixed(data, seed: int = 15):
+    """``data`` with its global shard thinned to SPARSE_FE_DENSITY (a
+    seeded draw over its entries; the intercept column kept whole), so
+    that a fixed effect on it is CSRFeatures and its solves run row 9."""
+    import scipy.sparse as sp
+
+    x = data.feature_shards["global"].tocoo()
+    keep = ((np.random.default_rng(seed).random(x.nnz) < SPARSE_FE_DENSITY)
+            | (x.col == D_FIXED - 1))
+    thin = sp.csr_matrix((x.data[keep], (x.row[keep], x.col[keep])),
+                         shape=x.shape)
+    return dataclasses.replace(
+        data, feature_shards={**data.feature_shards, "global": thin})
+
+
+def path15(train, val, specs, fused: dict) -> dict:
+    """Path 15 (A3a, the fused coordinate update): paths 1-5 refitted
+    through the eager plain loop (``GameEstimator(fused=False)``: every
+    solver loop a host loop) and held against their fused fits: the same
+    digest, objective history, validation AUCs, every tracker tensor of
+    every update (coefficients, values, iterations, stop reasons,
+    histories, work) and the same row-1 and row-9 launches, bit for bit.
+    Paths 1-5 are dense, so path 1's coordinates are also fitted both
+    ways on ``sparse_fixed`` data ("csr"): its fixed effect runs row 9
+    inside its update graph, and row 9 must launch, as often as in the
+    eager fit. Prints each graph's nodes, capture and instantiate seconds
+    and pool bytes, the ms per update of iterations 0-2 (span averages:
+    a capture is outside every span) and each fit's seconds (captures
+    included), fused and eager."""
+    t0 = time.perf_counter()
+    train_csr, val_csr = sparse_fixed(train), sparse_fixed(val)
+    nnz = train_csr.feature_shards["global"].nnz
+    print(f"path 15 csr data: global shard density "
+          f"{nnz / (train.num_rows * D_FIXED):.4f} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    res_c, launches_c, _ = fit_path("path 15 (csr)", specs[1], train_csr,
+                                    val_csr)
+    check(FIT_ROW9["path 15 (csr)"] > 0,
+          "path 15 (csr): row 9 did not launch in the fused fit")
+    fused = {**fused, "csr": (res_c, launches_c)}
+    data = {p: (train, val) for p in fused}
+    data["csr"] = (train_csr, val_csr)
+    table = {}
+    for p in fused:
+        res_f, launches_f = fused[p]
+        tag = f"path 15 (path {p} eager)"
+        res_e, launches_e, _ = fit_path(tag, specs[1 if p == "csr" else p],
+                                        *data[p], fused=False)
+        check(fit_digest(res_e) == fit_digest(res_f),
+              f"path 15: path {p}'s eager digest differs from its fused")
+        check(res_e.objective_history == res_f.objective_history,
+              f"path 15: path {p}'s objective histories differ")
+        check(res_e.validation_history == res_f.validation_history,
+              f"path 15: path {p}'s validation AUCs differ")
+        for name in res_f.trackers:
+            te = tensors_of(res_e.trackers[name])
+            tf = tensors_of(res_f.trackers[name])
+            check(len(te) == len(tf) and all(
+                a.shape == b.shape and a.dtype == b.dtype
+                and bool(((a == b) | (a.isnan() & b.isnan())).all())
+                for a, b in zip(te, tf)),
+                f"path 15: path {p} {name}'s trackers differ")
+        ftag = "path 15 (csr)" if p == "csr" else f"path {p}"
+        check(launches_e == launches_f and FIT_ROW9[tag] == FIT_ROW9[ftag],
+              f"path 15: path {p}'s launches differ: eager {launches_e} "
+              f"row 9 {FIT_ROW9[tag]}, fused {launches_f} row 9 "
+              f"{FIT_ROW9[ftag]}")
+        row = {"path": p, "digest": fit_digest(res_f)[:16],
+               "fused_ms": ms_by_iteration(res_f),
+               "eager_ms": ms_by_iteration(res_e),
+               "fused_fit_s": FIT_S[ftag], "eager_fit_s": FIT_S[tag],
+               "row9": FIT_ROW9[ftag], "graphs": res_f.graphs}
+        print("path 15 " + json.dumps(row), flush=True)
+        table[p] = row
+    return table
+
+
+def fit_digests() -> None:
+    """``--fit-digests``: paths 1-5 fitted by the imported tree's
+    GameEstimator with its defaults, one ``digest`` line each (the
+    fit's digest, AUCs and entity-kernel launches); run it on two trees
+    in turns to compare them on one card."""
     from photon_ml_tpu_torch.estimators.game_estimator import GameEstimator
     from photon_ml_tpu_torch.evaluation.evaluators import (
         AreaUnderROCCurveEvaluator,
@@ -1212,28 +1415,21 @@ def fit_path(tag: str, specs, train, val, mesh=None):
     from photon_ml_tpu_torch.ops import entity_solver
     from photon_ml_tpu_torch.types import TaskType
 
-    estimator = GameEstimator(
-        TaskType.LOGISTIC_REGRESSION, specs, num_iterations=CD_ITERATIONS,
-        validation_evaluators=[AreaUnderROCCurveEvaluator()],
-        **({} if mesh is None else dict(device=mesh.devices[0],
-                                        mesh=mesh)))
-    # ---- the main path: counts set to 0 just before, read just after ----
-    entity_solver.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    (_, result), = estimator.fit(train, val)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    launches = dict(entity_solver.entity_lbfgs.variants)
-    # ----------------------------------------------------------------------
-    buckets = {name: len(getattr(m, "latent", m).local_coefs)
-               for name, m in result.model.models.items()
-               if hasattr(getattr(m, "latent", m), "local_coefs")}
-    print(f"{tag} fit: {fit_s:.2f} s (random-effect dataset builds "
-          f"included), buckets {buckets}", flush=True)
-    report_updates(result)
-    print(f"{tag} entity-solver launches: {launches}", flush=True)
-    return result, launches, buckets
+    train, val = split_data()
+    specs, _ = path_specs(train)
+    for p in sorted(specs):
+        entity_solver.reset_launch_counts()
+        t0 = time.perf_counter()
+        (_, result), = GameEstimator(
+            TaskType.LOGISTIC_REGRESSION, specs[p],
+            num_iterations=CD_ITERATIONS,
+            validation_evaluators=[AreaUnderROCCurveEvaluator()]).fit(
+                train, val)
+        print("digest " + json.dumps({
+            "path": p, "digest": fit_digest(result),
+            "auc": [m["AUC"] for m in result.validation_history],
+            "launches": dict(entity_solver.entity_lbfgs.variants),
+            "fit_s": time.perf_counter() - t0}), flush=True)
 
 
 def kernel_entry(name: str, rows, launches: int) -> dict:
@@ -1712,7 +1908,9 @@ def device_activity(trace_path: Path, card: str) -> dict:
     """The profiled window of a torch.profiler trace (utils/profiling.py,
     CPU and CUDA activity): its device busy share (the union of kernel,
     memcpy and memset intervals over the window, from the first to the
-    last event of any kind), the idle share, the three largest idle gaps
+    last event of any kind), the idle share, the busy share from the
+    first CUDA graph launch on (the fused updates and their validations,
+    None without a replay), the three largest idle gaps
     with what the host was doing in each: the operations that cover the
     gap's midpoint (outermost and innermost ``cpu_op``, and the CUDA
     runtime call if one is under way) or, where none does (Python
@@ -1766,8 +1964,20 @@ def device_activity(trace_path: Path, card: str) -> dict:
         if e.get("cat") == "kernel":
             by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) + e["dur"]
     window = hi - lo
+    # The replays' window: from the first CUDA graph launch to the end of
+    # the last device event (the fused coordinate-descent loop, with its
+    # validations).
+    replays = [e["ts"] for e in host if e["cat"] == "cuda_runtime"
+               and e["name"].startswith("cudaGraphLaunch")]
+    graph_share = graph_ms = None
+    if replays and merged:
+        g0, g1 = min(replays), merged[-1][1]
+        graph_ms = (g1 - g0) / 1e3
+        graph_share = sum(max(0.0, min(b, g1) - max(a, g0))
+                          for a, b in merged) / (g1 - g0)
     out = {"window_ms": window / 1e3, "busy_ms": busy / 1e3,
            "busy_share": busy / window, "idle_share": 1 - busy / window,
+           "replay_window_ms": graph_ms, "replay_busy_share": graph_share,
            "device_events": len(dev), "gaps": gap_rows,
            "kernel_ms": {k: v / 1e3 for k, v in sorted(
                by_kernel.items(), key=lambda kv: -kv[1])},
@@ -1777,7 +1987,9 @@ def device_activity(trace_path: Path, card: str) -> dict:
     print(f"profile {trace_path.name}: window {out['window_ms']:.1f} ms, "
           f"device busy {out['busy_ms']:.1f} ms (share "
           f"{out['busy_share']:.4f}, idle {out['idle_share']:.4f}) over "
-          f"{len(dev)} kernel/memcpy/memset events; largest idle gaps "
+          f"{len(dev)} kernel/memcpy/memset events; from the first graph "
+          f"replay on: {graph_ms} ms, busy share {graph_share}; largest "
+          f"idle gaps "
           f"{gap_rows}; device ms by kernel (top 5) "
           f"{ {k[:60]: round(v, 3) for k, v in top.items()} }; card {card}",
           flush=True)
@@ -5118,9 +5330,13 @@ def main(argv=None) -> int:
     ap.add_argument("--entity-buckets", action="store_true",
                     help="only time the entity-solver kernel per bucket of "
                          "paths 1-5's first updates (an A/B of two trees)")
+    ap.add_argument("--fit-digests", action="store_true",
+                    help="only fit paths 1-5 and print each fit's digest "
+                         "(an A/B of two trees)")
     ap.add_argument("--tree", default=None,
-                    help="with --entity-buckets: the repository checkout "
-                         "whose photon_ml_tpu_torch is imported and built")
+                    help="with --entity-buckets or --fit-digests: the "
+                         "repository checkout whose photon_ml_tpu_torch is "
+                         "imported and built")
     args = ap.parse_args(argv)
     if args.tree is not None:
         sys.path.insert(0, str(Path(args.tree).resolve()))
@@ -5150,6 +5366,10 @@ def main(argv=None) -> int:
     build_kernels()
     if args.entity_buckets:
         entity_buckets(args.tree or ".")
+        print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    if args.fit_digests:
+        fit_digests()
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
     train, val = split_data()
@@ -5280,6 +5500,14 @@ def main(argv=None) -> int:
     print(f"path 5 final: AUC {result5.validation_history[-1]['AUC']:.6f}, "
           f"objective {result5.objective_history[-1]:.6f}, latent buckets "
           f"{latent_shapes}", flush=True)
+
+    # ------- path 15: paths 1-5 through the eager plain loop ---------------
+    t0 = time.perf_counter()
+    path15(train, val, specs, {
+        1: (result1, launches1), 2: (result2, launches2),
+        3: (result3, launches3), 4: (result4, launches4),
+        5: (result5, launches5)})
+    print(f"path 15: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ------- paths 6 and 7: the drivers on Avro (rows cut) -----------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_avro_") as tmp:

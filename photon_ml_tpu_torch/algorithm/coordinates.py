@@ -87,7 +87,11 @@ from photon_ml_tpu_torch.models.factored_random_effect import (
 from photon_ml_tpu_torch.models.fixed_effect import FixedEffectModel
 from photon_ml_tpu_torch.models.glm import model_for_task
 from photon_ml_tpu_torch.models.random_effect import RandomEffectModel
-from photon_ml_tpu_torch.ops.entity_solver import check_mode, entity_lbfgs
+from photon_ml_tpu_torch.ops.entity_solver import (
+    check_mode,
+    entity_lbfgs,
+    prepare_launch,
+)
 from photon_ml_tpu_torch.ops.features import KroneckerFeatures
 from photon_ml_tpu_torch.ops.glm_objective import GLMBatch, GLMObjective
 from photon_ml_tpu_torch.ops.losses import loss_for_task
@@ -109,22 +113,68 @@ class Coordinate:
     (model, tracker), ``score(model)`` -> [n_rows] margins,
     ``initialize_model()``, and ``penalties(model)`` -> (coefficients,
     l1, l2) triples in the optimization space
-    (CoordinateDescent.scala:203-212)."""
+    (CoordinateDescent.scala:203-212).
+
+    The pure interface under it (JAX coordinates.py:88-120) works on a
+    model's parameters, a list of tensors: ``params_of(model)``,
+    ``model_of(params, model)``, ``pure_update(params, residual,
+    weights)`` -> (params, tracker), ``pure_score(params)`` and
+    ``pure_penalties(params)``. It makes no model objects and reads
+    nothing back, so coordinate descent records a whole update into one
+    CUDA graph (algorithm/coordinate_descent.py). ``sample_weights``
+    draws a down-sampled update's weights outside that graph (None: the
+    update does not down-sample), and ``prepare_capture`` makes what a
+    capture needs first (a kernel's plan, a product's scratch).
+    ``update_model``, ``score`` and ``penalties`` are thin wrappers over
+    it."""
 
     name: str
 
     def update_model(self, model, residual_scores: Optional[Tensor],
-                     generator: Optional[torch.Generator]):
-        raise NotImplementedError
+                     generator: Optional[torch.Generator] = None,
+                     weights: Optional[Tensor] = None):
+        """``weights``, when given, are the update's down-sampled
+        weights, drawn before (coordinate descent draws them outside its
+        update graph); else they are drawn from ``generator``."""
+        if weights is None:
+            weights = self.sample_weights(generator)
+        params, tracker = self.pure_update(self.params_of(model),
+                                           residual_scores, weights)
+        return self.model_of(params, model), tracker
 
     def score(self, model) -> Tensor:
-        raise NotImplementedError
+        return self.pure_score(self.params_of(model))
+
+    def penalties(self, model) -> List[Tuple[Tensor, float, float]]:
+        return self.pure_penalties(self.params_of(model))
 
     def initialize_model(self):
         raise NotImplementedError
 
-    def penalties(self, model) -> List[Tuple[Tensor, float, float]]:
+    def params_of(self, model) -> List[Tensor]:
         raise NotImplementedError
+
+    def model_of(self, params: List[Tensor], model):
+        raise NotImplementedError
+
+    def pure_update(self, params: List[Tensor],
+                    residual_scores: Optional[Tensor],
+                    weights: Optional[Tensor] = None):
+        raise NotImplementedError
+
+    def pure_score(self, params: List[Tensor]) -> Tensor:
+        raise NotImplementedError
+
+    def pure_penalties(self, params: List[Tensor]
+                       ) -> List[Tuple[Tensor, float, float]]:
+        raise NotImplementedError
+
+    def sample_weights(self, generator: Optional[torch.Generator]
+                       ) -> Optional[Tensor]:
+        return None
+
+    def prepare_capture(self) -> None:
+        pass
 
 
 @dataclasses.dataclass
@@ -229,34 +279,56 @@ class FixedEffectCoordinate(Coordinate):
             glm_cls(Coefficients.zeros(d, self.dtype, self.device)),
             self.feature_shard_id)
 
-    def update_model(self, model: FixedEffectModel,
-                     residual_scores: Optional[Tensor],
-                     generator: Optional[torch.Generator] = None
-                     ) -> Tuple[FixedEffectModel, OptimizerResult]:
+    def params_of(self, model: FixedEffectModel) -> List[Tensor]:
+        return [model.glm.coefficients.means]
+
+    def model_of(self, params: List[Tensor],
+                 model: FixedEffectModel) -> FixedEffectModel:
+        return model.update_model(
+            model.glm.update_coefficients(Coefficients(params[0])))
+
+    def sample_weights(self, generator: Optional[torch.Generator]
+                       ) -> Optional[Tensor]:
+        """The down-sampled weights of an update drawn from ``generator``
+        (None at rate 1.0, where the batch's weights stand)."""
+        if self.config.down_sampling_rate >= 1.0:
+            return None
+        return down_sample_weights(generator, self._batch.labels,
+                                   self._batch.weights,
+                                   self.config.down_sampling_rate,
+                                   self.task_type.is_classification)
+
+    def pure_update(self, params: List[Tensor],
+                    residual_scores: Optional[Tensor],
+                    weights: Optional[Tensor] = None
+                    ) -> Tuple[List[Tensor], OptimizerResult]:
         pad = self._batch.labels.shape[0] - self.data.num_rows
         if residual_scores is not None and pad:
             # The mesh's padding rows carry weight 0: any residual is inert.
             residual_scores = torch.nn.functional.pad(residual_scores,
                                                       (0, pad))
         result, coef = _solve_fixed(
-            self._objective, self.config,
-            self.task_type.is_classification, self._batch, residual_scores,
-            generator, self._pad_d(model.glm.coefficients.means),
-            self._norm_solve, *self._bounds)
-        new_glm = model.glm.update_coefficients(
-            Coefficients(coef[:self._d]))
-        return model.update_model(new_glm), result
+            self._objective, self.config, self._batch, residual_scores,
+            weights, self._pad_d(params[0]), self._norm_solve,
+            *self._bounds)
+        return [coef[:self._d]], result
 
-    def score(self, model: FixedEffectModel) -> Tensor:
-        return _fe_score_impl(self._pad_d(model.glm.coefficients.means),
-                              self._batch.features, self.data.num_rows)
+    def pure_score(self, params: List[Tensor]) -> Tensor:
+        return _fe_score_impl(self._pad_d(params[0]), self._batch.features,
+                              self.data.num_rows)
 
-    def penalties(self, model: FixedEffectModel):
+    def pure_penalties(self, params: List[Tensor]):
         # The penalty applies in the optimization (normalized) space.
-        coef = model.glm.coefficients.means
+        coef = params[0]
         if self.normalization is not None:
             coef = self.normalization.model_to_normalized_space(coef)
         return [(coef, self._l1, self._l2)]
+
+    def prepare_capture(self) -> None:
+        """The CSR operands' scratch, made before a capture (ops/spmv.py;
+        dense features need none)."""
+        for op in getattr(self._batch.features, "_ops", ()):
+            op.prepare()
 
 
 @dataclasses.dataclass
@@ -728,10 +800,17 @@ class RandomEffectCoordinate(Coordinate):
         dt = blocks[0].dtype if blocks else torch.float32
         return RandomEffectModel.zeros_like_dataset(self.dataset, dtype=dt)
 
-    def update_model(self, model: RandomEffectModel,
-                     residual_scores: Optional[Tensor],
-                     generator: Optional[torch.Generator] = None
-                     ) -> Tuple[RandomEffectModel, List[OptimizerResult]]:
+    def params_of(self, model: RandomEffectModel) -> List[Tensor]:
+        return list(model.local_coefs)
+
+    def model_of(self, params: List[Tensor],
+                 model: RandomEffectModel) -> RandomEffectModel:
+        return model.with_coefs(params)
+
+    def pure_update(self, params: List[Tensor],
+                    residual_scores: Optional[Tensor],
+                    weights: Optional[Tensor] = None
+                    ) -> Tuple[List[Tensor], List[OptimizerResult]]:
         """One solve per bucket and slot (the analog of the reference's
         per-entity mapValues solve, RandomEffectCoordinate.scala:104-113),
         in the normalized space when there is a normalization. The
@@ -740,7 +819,7 @@ class RandomEffectCoordinate(Coordinate):
         residuals = _per_slot(residual_scores, devs)
         coefs, results = [], []
         for block, c0, norms, bounds in zip(
-                self.dataset.blocks, model.local_coefs, self.norm_blocks,
+                self.dataset.blocks, params, self.norm_blocks,
                 self.bounds_blocks):
             parts, out = [], []
             for sb, c, res, norm, bnd in zip(
@@ -755,23 +834,33 @@ class RandomEffectCoordinate(Coordinate):
                            else gathered_to_original_space(r.x, *norm))
             coefs.append(_join(out, devs[0])[:block.num_entities])
             results.append(_gather_results(parts, devs[0]))
-        return model.with_coefs(coefs), results
+        return coefs, results
 
-    def score(self, model: RandomEffectModel) -> Tensor:
-        return _slot_scores(self.dataset, model.local_coefs, self._devices,
+    def pure_score(self, params: List[Tensor]) -> Tensor:
+        return _slot_scores(self.dataset, params, self._devices,
                             lambda blk, c: blk.local_margins(c))
 
-    def penalties(self, model: RandomEffectModel):
+    def pure_penalties(self, params: List[Tensor]):
         # In the optimization (normalized) space, like the fixed effect.
         devs = self._devices
         out = []
-        for c, norms in zip(model.local_coefs, self.norm_blocks):
+        for c, norms in zip(params, self.norm_blocks):
             if norms[0] is not None:
                 c = _join([gathered_to_normalized_space(p, *n) for p, n in
                            zip(_split(c, devs), norms)],
                           devs[0])[:c.shape[0]]
             out.append((c, self._l1, self._l2))
         return out
+
+    def prepare_capture(self) -> None:
+        """Every bucket's entity-solver plan and stream counter."""
+        mode = entity_mode(self.config)
+        for block in self.dataset.blocks:
+            for sb in block.slots:
+                if sb.x.is_cuda:
+                    prepare_launch(sb.x.device, sb.x.shape[1],
+                                   sb.x.shape[2], mode=mode,
+                                   loss_id=self._objective.loss.kernel_id)
 
 
 @dataclasses.dataclass
@@ -847,15 +936,22 @@ class FactoredRandomEffectCoordinate(Coordinate):
             projection=torch.as_tensor(b0.matrix, dtype=dt, device=dev))
         return FactoredRandomEffectModel(latent, self.mf_config)
 
-    def update_model(self, model: FactoredRandomEffectModel,
-                     residual_scores: Optional[Tensor],
-                     generator: Optional[torch.Generator] = None
-                     ) -> Tuple[FactoredRandomEffectModel,
-                                List[FactoredUpdate]]:
+    def params_of(self, model: FactoredRandomEffectModel) -> List[Tensor]:
+        """Each bucket's gamma, then B."""
+        return [*model.latent.local_coefs, model.projection_matrix]
+
+    def model_of(self, params: List[Tensor],
+                 model: FactoredRandomEffectModel
+                 ) -> FactoredRandomEffectModel:
+        return model.with_update(params[:-1], params[-1])
+
+    def pure_update(self, params: List[Tensor],
+                    residual_scores: Optional[Tensor],
+                    weights: Optional[Tensor] = None
+                    ) -> Tuple[List[Tensor], List[FactoredUpdate]]:
         blocks = self.dataset.blocks
         d = self.dataset.num_global_features
-        gammas = list(model.latent.local_coefs)
-        B = model.projection_matrix
+        gammas, B = list(params[:-1]), params[-1]
         offsets = [block_offsets(b, residual_scores) for b in blocks]
         xs = [b.x[..., :d] for b in blocks]
         # Rows, labels, offsets and weights of the refit do not change
@@ -875,7 +971,18 @@ class FactoredRandomEffectCoordinate(Coordinate):
                               B.reshape(-1))
             B = refit.x.reshape(B.shape)
             trackers.append(FactoredUpdate(latent, refit))
-        return model.with_update(gammas, B), trackers
+        return [*gammas, B], trackers
+
+    def prepare_capture(self) -> None:
+        """Every latent bucket's entity-solver plan and stream counter
+        (its features are [E, n_pad, k])."""
+        mode = entity_mode(self.config)
+        k = self.mf_config.num_factors
+        for block in self.dataset.blocks:
+            for sb in block.slots:
+                if sb.x.is_cuda:
+                    prepare_launch(sb.x.device, sb.x.shape[1], k, mode=mode,
+                                   loss_id=self._objective.loss.kernel_id)
 
     def _solve_latent(self, block, x: Tensor, B: Tensor, offsets: Tensor,
                       gamma0: Tensor) -> OptimizerResult:
@@ -893,8 +1000,8 @@ class FactoredRandomEffectCoordinate(Coordinate):
              for sb, l_s, o_s, g_s in zip(block.slots, lat, off, g0)],
             devs[0])
 
-    def score(self, model: FactoredRandomEffectModel) -> Tensor:
-        B = model.projection_matrix
+    def pure_score(self, params: List[Tensor]) -> Tensor:
+        B = params[-1]
         d = self.dataset.num_global_features
 
         def margins(blk, gamma):
@@ -904,14 +1011,14 @@ class FactoredRandomEffectCoordinate(Coordinate):
                 coefs = torch.nn.functional.pad(coefs, (0, pad))
             return blk.local_margins(coefs)
 
-        return _slot_scores(self.dataset, model.latent.local_coefs,
-                            self._devices, margins)
+        return _slot_scores(self.dataset, params[:-1], self._devices,
+                            margins)
 
-    def penalties(self, model: FactoredRandomEffectModel):
+    def pure_penalties(self, params: List[Tensor]):
         """Each bucket's gamma under the latent solves' weights, then B
         under the refit's, in the JAX order."""
-        out = [(g, self._l1, self._l2) for g in model.latent.local_coefs]
-        out.append((model.projection_matrix, self._ll1, self._ll2))
+        out = [(g, self._l1, self._l2) for g in params[:-1]]
+        out.append((params[-1], self._ll1, self._ll2))
         return out
 
 
@@ -1145,25 +1252,23 @@ def _solve_block(objective: GLMObjective,
 
 
 def _solve_fixed(objective: GLMObjective,
-                 config: GLMOptimizationConfiguration,
-                 is_classification: bool, batch: GLMBatch,
+                 config: GLMOptimizationConfiguration, batch: GLMBatch,
                  residual_scores: Optional[Tensor],
-                 generator: Optional[torch.Generator], coef0: Tensor,
+                 weights: Optional[Tensor], coef0: Tensor,
                  normalization: Optional[NormalizationContext] = None,
                  lower_bounds: Optional[Tensor] = None,
                  upper_bounds: Optional[Tensor] = None
                  ) -> Tuple[OptimizerResult, Tensor]:
-    """The fixed-effect update: residual -> offsets, down-sampling, the
-    solve in the normalized space (bounds clamp that iterate), the
-    coefficients back to the original space. Returns (result,
-    original-space coefficients)."""
+    """The fixed-effect update: residual -> offsets, the down-sampled
+    ``weights`` (None: the batch's), the solve in the normalized space
+    (bounds clamp that iterate), the coefficients back to the original
+    space. Returns (result, original-space coefficients)."""
     if residual_scores is not None:
         batch = batch.with_offsets(
             batch.offsets + residual_scores.to(batch.offsets.dtype))
-    weights = down_sample_weights(generator, batch.labels, batch.weights,
-                                  config.down_sampling_rate,
-                                  is_classification)
-    batch = GLMBatch(batch.features, batch.labels, batch.offsets, weights)
+    if weights is not None:
+        batch = GLMBatch(batch.features, batch.labels, batch.offsets,
+                         weights)
     if normalization is not None:
         coef0 = normalization.model_to_normalized_space(coef0)
     result = solve_glm(objective, batch, config, coef0, lower_bounds,

@@ -928,6 +928,8 @@ def _stream_train(args, logger, task, fe_data, fe_opt, sequence,
                         if col_blocks > 1 else "") if mesh else ""),
                     args.spill_dtype, args.spill_source, shard,
                     train_inputs, args.batch_rows)
+        logger.info("streamed solves run as host loops over the shard "
+                    "cache, not as fused update graphs (ROADMAP A3b)")
         fetcher = None
         if args.spill_source == "redecode":
             # Misses re-decode their covering container blocks by global
@@ -1177,6 +1179,8 @@ def _stream_train_mf(args, logger, task, fre_data, fre_opt, sequence,
         f", hbm budget {budget} bytes, spill {args.spill_dtype}/"
         f"{args.spill_source}", name, re_type, train_inputs,
         args.batch_rows)
+    logger.info("streamed solves run as host loops over the factor "
+                "cache, not as fused update graphs (ROADMAP A3b)")
 
     shared = {}  # num_factors -> StreamedMFObjective
     results = []

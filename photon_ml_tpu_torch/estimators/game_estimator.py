@@ -28,6 +28,11 @@ Each random-effect dataset is sharded once, before the combinations, so
 its slots hold the only copy of its data. A fixed-effect spec's
 ``feature_sharding`` (FixedEffectSpec :43-54) shards its coefficients
 over the mesh's model axis (the one axis of a 1-D mesh) as well.
+
+``fused`` (True by default) runs each coordinate update on the card as
+one replay of a CUDA graph captured once a run (algorithm/
+coordinate_descent.py); False runs the eager plain loop. A mesh, and the
+CPU, run eagerly whatever it says.
 """
 
 from __future__ import annotations
@@ -126,7 +131,8 @@ class GameEstimator:
                  coordinate_specs: Sequence[CoordinateSpec],
                  num_iterations: int = 1,
                  validation_evaluators: Sequence[Evaluator] = (),
-                 dtype=torch.float32, device="cuda", mesh=None):
+                 dtype=torch.float32, device="cuda", mesh=None,
+                 fused: bool = True):
         if not coordinate_specs:
             raise ValueError("at least one coordinate spec required")
         names = [s.name for s in coordinate_specs]
@@ -139,6 +145,7 @@ class GameEstimator:
         self.dtype = dtype
         self.device = resolve_device(device)
         self.mesh = mesh
+        self.fused = fused
 
     def fit(self, data: GameDataset,
             validation_data: Optional[GameDataset] = None,
@@ -185,7 +192,7 @@ class GameEstimator:
             cd = CoordinateDescent(
                 coords, self.task_type, validation_data=validation_data,
                 validation_evaluators=self.validation_evaluators,
-                dtype=self.dtype, device=self.device)
+                dtype=self.dtype, device=self.device, fused=self.fused)
             tag = {k: v.to_string() for k, v in configs.items()}
             logger.info("training combo %s", tag)
             results.append((configs, cd.run(

@@ -111,6 +111,9 @@ def train_glm_models(
     λ). Variances are taken at the solve-space coefficients, before the
     means go back to the original space, as in JAX."""
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        logger.info("the λ grid's solves run eagerly, one host read an "
+                    "iteration: one graph a solve is ROADMAP A3b")
     batch = device_batch(features, labels, offsets, weights, dtype=dtype,
                          storage_dtype=storage_dtype, device=dev)
     d = batch.features.num_features

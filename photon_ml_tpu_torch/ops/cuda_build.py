@@ -52,6 +52,7 @@ KERNEL_SOURCES: Dict[str, KernelSources] = {
                               headers=("csr_order.cuh",)),
     "csr_spmm": KernelSources(units=("csr_spmm.cu", "csr_spmm_f64.cu"),
                               headers=("csr_order.cuh", "csr_spmm.cuh")),
+    "device_loop": KernelSources(units=("device_loop.cu",), headers=()),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -137,6 +137,7 @@ from photon_ml_tpu_torch.optimization.convergence import (
     OptimizerResult,
 )
 from photon_ml_tpu_torch.optimization.owlqn import pseudo_gradient
+from photon_ml_tpu_torch.utils import device_loop
 
 Tensor = torch.Tensor
 
@@ -781,7 +782,8 @@ def entity_lbfgs(
     Both compute in ``compute_dtype``.
     ``entity_lbfgs.launches`` counts kernel launches, and
     ``entity_lbfgs.variants`` counts them per ``variant(mode, normalized,
-    bounded)``."""
+    bounded)``; a launch recorded into a CUDA graph counts per replay
+    (``_count``). A graph capture needs ``prepare_launch`` first."""
     check_mode(mode, lower, upper, loss)
     normalized = factors is not None or shifts is not None
     bounded = lower is not None or upper is not None
@@ -882,9 +884,42 @@ def entity_lbfgs(
     if err != 0:
         raise RuntimeError(f"entity_lbfgs kernel launch failed: CUDA error "
                            f"{err}")
-    entity_lbfgs.launches += 1
-    entity_lbfgs.variants[variant(mode, normalized, bounded)] += 1
+    _count(variant(mode, normalized, bounded))
     return result
+
+
+def _count(name: str) -> None:
+    """One launch of the kernel in variant ``name``: counted now; or,
+    recorded into a CUDA graph, counted by the graph's launch tally for
+    every replay that runs it (utils/device_loop.py). A capture without
+    a tally raises: its launches would go uncounted."""
+    if torch.cuda.is_current_stream_capturing():
+        tally = device_loop.active_tally()
+        if tally is None:
+            raise RuntimeError("entity_lbfgs recorded into a CUDA graph "
+                               "with no launch tally active: its launches "
+                               "would not be counted")
+        tally.count(("entity_lbfgs", name))
+        return
+    entity_lbfgs.launches += 1
+    entity_lbfgs.variants[name] += 1
+
+
+def _settle(key, n: int) -> None:
+    entity_lbfgs.launches += n
+    entity_lbfgs.variants[key[1]] += n
+
+
+def prepare_launch(device: torch.device, r: int, d: int, m: int = DEFAULT_M,
+                   compute_dtype: torch.dtype = torch.float64,
+                   mode: str = "lbfgs", loss_id: int = 0) -> None:
+    """Make what a launch on entities of r rows and d coordinates on the
+    CUDA ``device`` takes from the current stream, before a CUDA graph
+    capture: the launch plan and that stream's entity counter."""
+    _plan(device.index, r, d, m, compute_dtype == torch.float64,
+          _MODE_IDS[mode], loss_id)
+    with torch.cuda.device(device):
+        _counter(device.index, torch.cuda.current_stream().cuda_stream)
 
 
 def reset_launch_counts() -> None:
@@ -895,3 +930,4 @@ def reset_launch_counts() -> None:
 
 entity_lbfgs.launches = 0
 entity_lbfgs.variants = collections.Counter()
+device_loop.on_settle("entity_lbfgs", _settle)

@@ -53,6 +53,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from photon_ml_tpu_torch.utils import device_loop
+
 Tensor = torch.Tensor
 
 
@@ -262,6 +264,13 @@ class CSROperand:
             _count(csr_matmul)
         return y
 
+    def prepare(self, n: int = 1) -> None:
+        """Make the C call's operands of width n (the scratch included)
+        without a product: what a CUDA graph capture needs before it
+        records the operand's first product of that width."""
+        if self.index is not None and n not in self._calls:
+            self._make_call(_library(), n)
+
     def _launch(self, panel: bool, x: Tensor, y: Tensor, n: int) -> bool:
         """One C call into y on the current stream; False when there are
         no rows (nothing launched)."""
@@ -311,11 +320,24 @@ class CSROperand:
 
 def _count(product) -> None:
     """One call of ``product``'s kernel: a launch, or, on a stream that
-    is capturing a CUDA graph, a launch recorded into the graph."""
+    is capturing a CUDA graph, a launch recorded into the graph. A
+    recorded launch counts in ``recorded`` (a serving bucket's graph adds
+    its recorded launches per replay), or, while a coordinate update's
+    graph is captured with a launch tally, in the tally, which counts it
+    each time a replay runs it, inside a device loop once a trip
+    (utils/device_loop.py)."""
     if torch.cuda.is_current_stream_capturing():
-        product.recorded += 1
+        tally = device_loop.active_tally()
+        if tally is not None:
+            tally.count((product.__name__,))
+        else:
+            product.recorded += 1
     else:
         product.launches += 1
+
+
+def _settle(key, n: int) -> None:
+    _PRODUCTS[key[0]].launches += n
 
 
 def _checked(crow: Tensor, col: Tensor, val: Tensor, x: Tensor,
@@ -357,6 +379,9 @@ def reset_launch_counts() -> None:
 
 
 reset_launch_counts()
+_PRODUCTS = {p.__name__: p for p in (csr_matvec, csr_matmul)}
+for _name in _PRODUCTS:
+    device_loop.on_settle(_name, _settle)
 
 
 def _crow(ids: Tensor, n: int) -> Tensor:

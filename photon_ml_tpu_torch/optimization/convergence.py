@@ -102,16 +102,17 @@ class OptimizerResult:
     x: Tensor
     value: Tensor
     grad_norm: Tensor
-    iterations: Tensor  # int32
-    reason: Tensor  # int32, a ConvergenceReason value
+    iterations: Tensor  # int32, on the solve's device
+    reason: Tensor  # int32, a ConvergenceReason value, on the device
     value_history: Optional[Tensor] = None
     grad_norm_history: Optional[Tensor] = None
     # Batched entity solver only: line-search trials priced per entity,
     # summed over its iterations (the JAX package does not report them).
     trials: Optional[Tensor] = None
     # TRON only: outer iterations run, accepted or not, and
-    # conjugate-gradient steps summed over them (ints for a single solve,
-    # [E] int32 tensors for the batched entity solver).
+    # conjugate-gradient steps summed over them (0-d int32 tensors for an
+    # in-core solve, ints for a streamed one, [E] int32 tensors for the
+    # batched entity solver).
     outer_steps: Optional[Union[int, Tensor]] = None
     cg_steps: Optional[Union[int, Tensor]] = None
     # Per-iteration coefficient snapshots [max_iter + 1, d] (NaN past
@@ -121,6 +122,29 @@ class OptimizerResult:
 
     def reason_enum(self) -> ConvergenceReason:
         return ConvergenceReason(int(self.reason))
+
+
+def history_buffer(first: Tensor, max_iter: int) -> Tensor:
+    """A solver's history on the device: ``[max_iter + 1, ...]`` of NaN
+    with ``first`` (the iterate's value, gradient norm or coefficients
+    before the first iteration) in row 0. Later rows are written at a
+    device index (``history_write``), so the host need not know how
+    many iterations ran; ``padded_history``'s contract holds."""
+    buf = torch.full((max_iter + 1, *first.shape), float("nan"),
+                     dtype=first.dtype, device=first.device)
+    buf[0] = first
+    return buf
+
+
+def history_write(buf: Tensor, index: Tensor, value: Tensor) -> None:
+    """``buf[index] = value`` in place, ``index`` a 0-d device integer."""
+    buf.index_copy_(0, index.reshape(1).long(), value.unsqueeze(0))
+
+
+def code(reason: ConvergenceReason, like: Tensor) -> Tensor:
+    """A stop reason as a 0-d int32 on ``like``'s device, made there (no
+    copy from the host, so it may be recorded into a CUDA graph)."""
+    return torch.full((), int(reason), dtype=torch.int32, device=like.device)
 
 
 def padded_history(rows, max_iter: int) -> Tensor:

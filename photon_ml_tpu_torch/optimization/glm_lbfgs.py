@@ -16,11 +16,13 @@ and every Armijo trial is elementwise work with no feature contraction.
 Each iteration does one matvec (zp) and one rmatvec (the gradient at the
 accepted point).
 
-The JAX ``lax.while_loop`` becomes a host loop over device tensors with
-one host sync per iteration (the stop reason). To keep that single sync,
-all ``max_line_search + 1`` candidates t_k = t0 * 0.5^k are priced in one
-``[T, n]`` pass and the first passing one is taken; the JAX solver prices
-8 and runs the rest only when none pass, which accepts the same step.
+The JAX ``lax.while_loop`` becomes a device loop (utils/device_loop.py):
+one WHILE node of a CUDA graph when the solve is captured, a host loop
+that reads the stop reason once an iteration when it runs eagerly. All
+``max_line_search + 1`` candidates t_k = t0 * 0.5^k are priced in one
+``[T, n]`` pass and the first passing one is taken (no inner loop); the
+JAX solver prices 8 and runs the rest only when none pass, which accepts
+the same step. The streamed solvers below stay host loops (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ from photon_ml_tpu_torch.optimization.convergence import (
     ConvergenceReason,
     OptimizerResult,
     check_solver_finite,
+    code,
+    history_buffer,
+    history_write,
     padded_history,
 )
 from photon_ml_tpu_torch.optimization.lbfgs import (
@@ -43,6 +48,7 @@ from photon_ml_tpu_torch.optimization.lbfgs import (
     select_history,
     update_history,
 )
+from photon_ml_tpu_torch.utils.device_loop import while_loop
 
 Tensor = torch.Tensor
 
@@ -57,24 +63,50 @@ _M_ITERATIONS = telemetry.counter("training.solver_iterations")
 _G_GRID_ACTIVE = telemetry.gauge("training.grid.active_points")
 
 
-def _reason(ok, gnorm_new, gnorm0, f_delta, f0_scale, it_new: int,
+def _reason(ok, gnorm_new, gnorm0, f_delta, f0_scale, it_new: Tensor,
             max_iter: int, tol: float) -> Tensor:
-    """Stop reason after one iteration, checked in the JAX order."""
-    i32 = torch.int32
-
-    def code(reason):
-        return torch.tensor(int(reason), dtype=i32, device=ok.device)
-
-    tail = code(ConvergenceReason.MAX_ITERATIONS if it_new >= max_iter
-                else ConvergenceReason.NOT_CONVERGED)
+    """Stop reason after one iteration, checked in the JAX order
+    (``it_new`` a 0-d device count)."""
+    tail = torch.where(it_new >= max_iter,
+                       code(ConvergenceReason.MAX_ITERATIONS, ok),
+                       code(ConvergenceReason.NOT_CONVERGED, ok))
     return torch.where(
-        ~ok, code(ConvergenceReason.OBJECTIVE_NOT_IMPROVING),
+        ~ok, code(ConvergenceReason.OBJECTIVE_NOT_IMPROVING, ok),
         torch.where(gnorm_new <= tol * gnorm0,
-                    code(ConvergenceReason.GRADIENT_CONVERGED),
+                    code(ConvergenceReason.GRADIENT_CONVERGED, ok),
                     torch.where(f_delta <= tol * f0_scale,
                                 code(ConvergenceReason.
-                                     FUNCTION_VALUES_CONVERGED),
+                                     FUNCTION_VALUES_CONVERGED, ok),
                                 tail)))
+
+
+def first_reason(gnorm0: Tensor) -> Tensor:
+    """GRADIENT_CONVERGED when the start is stationary, else
+    NOT_CONVERGED: the solvers' stop reason before their first
+    iteration, on the device."""
+    return torch.where(gnorm0 <= 0.0,
+                       code(ConvergenceReason.GRADIENT_CONVERGED, gnorm0),
+                       code(ConvergenceReason.NOT_CONVERGED, gnorm0))
+
+
+def not_converged(state) -> Tensor:
+    """The solvers' loop predicate: no stop reason yet."""
+    return state["reason"] == _NC
+
+
+def select(i: Tensor, v: Tensor) -> Tensor:
+    """``v[i]`` for a 0-d device index, without reading it on the host."""
+    return torch.index_select(v, 0, i.reshape(1))[0]
+
+
+def history_state(hist: LBFGSHistory) -> dict:
+    return {"hs": hist.s, "hy": hist.y, "hrho": hist.rho,
+            "hcount": hist.count}
+
+
+def state_history(state) -> LBFGSHistory:
+    return LBFGSHistory(state["hs"], state["hy"], state["hrho"],
+                        state["hcount"])
 
 
 def minimize_lbfgs_glm(
@@ -92,9 +124,10 @@ def minimize_lbfgs_glm(
 ) -> OptimizerResult:
     """Unconstrained L2 GLM solve; defaults mirror the reference
     (maxIter=100, tol=1e-7, m=10, ml/optimization/LBFGS.scala:152-156).
-    ``track_coefficients`` keeps each recorded iterate (a reference to
-    the device tensor, no host sync) and stacks them once at the end
-    into ``coef_history``; the solve is the same either way."""
+    ``track_coefficients`` writes each recorded iterate into
+    ``coef_history``; the solve is the same either way. One device loop
+    (utils/device_loop.py): captured into a CUDA graph it reads nothing
+    back; run eagerly it reads the stop reason once an iteration."""
     dtype, device = x0.dtype, x0.device
     x = x0
     z = objective.margins(x, batch)
@@ -103,18 +136,22 @@ def minimize_lbfgs_glm(
     gnorm0 = torch.linalg.norm(g)
     f0_scale = torch.clamp_min(torch.abs(f), 1e-30)
     hist = empty_history(x.shape[-1], history_size, dtype, device)
-
-    values, gnorms = [f], [gnorm0]
-    coefs = [x] if track_coefficients else None
-    reason = (int(ConvergenceReason.GRADIENT_CONVERGED)
-              if float(gnorm0) <= 0.0 else _NC)
-    it = 0
+    state = {"x": x.clone(), "z": z, "f": f, "g": g,
+             **history_state(hist),
+             "it": torch.zeros((), dtype=torch.int32, device=device),
+             "reason": first_reason(gnorm0),
+             "values": history_buffer(f, max_iter),
+             "gnorms": history_buffer(gnorm0, max_iter)}
+    if track_coefficients:
+        state["coefs"] = history_buffer(x, max_iter)
     powers = torch.pow(
-        torch.tensor(0.5, dtype=dtype, device=device),
+        torch.full((), 0.5, dtype=dtype, device=device),
         torch.arange(max_line_search + 1, dtype=dtype, device=device))
     labels, weights = batch.labels[None, :], batch.weights[None, :]
 
-    while reason == _NC:
+    def step(s):
+        x, z, f, g = s["x"], s["z"], s["f"], s["g"]
+        hist = state_history(s)
         direction = compact_direction(g, hist)
         direction = torch.where(torch.dot(direction, g) >= 0, -g, direction)
         zp = objective.margin_direction(direction, batch)
@@ -132,39 +169,37 @@ def minimize_lbfgs_glm(
         armijo = (f_trials <= f + c1 * ts * gp) & torch.isfinite(f_trials)
         ok = torch.any(armijo)
         idx = torch.argmax(armijo.to(torch.int32))  # first passing trial
-        t_acc, f_new = ts[idx], f_trials[idx]
+        t_acc, f_new = select(idx, ts), select(idx, f_trials)
 
         x_new = x + t_acc * direction
         z_new = z + t_acc * zp
         g_new = objective.gradient_from_margins(x_new, z_new, batch,
                                                 l2_weight)
         hist_new = update_history(hist, x_new - x, g_new - g)
-        it += 1
+        it = s["it"] + 1
         gnorm_new = torch.linalg.norm(g_new)
-        reason_t = _reason(ok, gnorm_new, gnorm0, torch.abs(f - f_new),
-                           f0_scale, it, max_iter, tol)
+        reason = _reason(ok, gnorm_new, gnorm0, torch.abs(f - f_new),
+                         f0_scale, it, max_iter, tol)
 
         # A failed line search does not move the iterate.
         x = torch.where(ok, x_new, x)
-        z = torch.where(ok, z_new, z)
         f = torch.where(ok, f_new, f)
         gnorm_new = torch.where(ok, gnorm_new, torch.linalg.norm(g))
-        g = torch.where(ok, g_new, g)
-        hist = select_history(ok, hist_new, hist)
-        values.append(f)
-        gnorms.append(gnorm_new)
-        if coefs is not None:
-            coefs.append(x)
-        reason = int(reason_t)  # the iteration's one host sync
+        history_write(s["values"], it, f)
+        history_write(s["gnorms"], it, gnorm_new)
+        if track_coefficients:
+            history_write(s["coefs"], it, x)
+        return {"x": x, "z": torch.where(ok, z_new, z), "f": f,
+                "g": torch.where(ok, g_new, g),
+                **history_state(select_history(ok, hist_new, hist)),
+                "it": it, "reason": reason}
 
+    s = while_loop(state, step, not_converged)
     return OptimizerResult(
-        x=x, value=f, grad_norm=torch.linalg.norm(g),
-        iterations=torch.tensor(it, dtype=torch.int32),
-        reason=torch.tensor(reason, dtype=torch.int32),
-        value_history=padded_history(values, max_iter),
-        grad_norm_history=padded_history(gnorms, max_iter),
-        coef_history=(None if coefs is None
-                      else padded_history(coefs, max_iter)))
+        x=s["x"], value=s["f"], grad_norm=torch.linalg.norm(s["g"]),
+        iterations=s["it"], reason=s["reason"],
+        value_history=s["values"], grad_norm_history=s["gnorms"],
+        coef_history=s.get("coefs"))
 
 
 def _host(v: Tensor):

@@ -17,8 +17,10 @@ glm_lbfgs.py): x0 is projected onto [lower, upper] first, each trial is
 clamped and priced by a full value-and-gradient evaluation, Armijo is
 tested on the realized displacement, and the stop tests use the raw
 gradient norm (reference: OptimizationUtils.projectCoefficientsToHypercube
-at LBFGS.scala:77). The JAX ``lax.while_loop`` becomes a host loop: one
-sync per line-search trial and one per iteration.
+at LBFGS.scala:77). The JAX ``lax.while_loop``s become device loops
+(utils/device_loop.py), the line search one inside the iteration's: in
+a captured update graph nothing is read back; run eagerly, the host
+reads one predicate a trial and one an iteration.
 """
 
 from __future__ import annotations
@@ -28,10 +30,11 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import torch
 
 from photon_ml_tpu_torch.optimization.convergence import (
-    ConvergenceReason,
     OptimizerResult,
-    padded_history,
+    history_buffer,
+    history_write,
 )
+from photon_ml_tpu_torch.utils.device_loop import while_loop
 
 Tensor = torch.Tensor
 
@@ -145,24 +148,33 @@ def backtracking_line_search(
     max_steps: int,
     project_fn: Callable[[Tensor], Tensor],
     shrink: float = 0.5,
-) -> Tuple[bool, Tensor, Tensor, Tensor]:
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Armijo backtracking on the projected step: t = initial_step, then
     t * shrink up to ``max_steps`` more times, until
     f(x_t) <= f + c1 <decrease_grad, x_t - x> with f(x_t) finite, where
     x_t = project_fn(x + t direction). Returns (ok, x_new, f_new, g_new),
-    the last trial when none passed. A host loop: one sync per trial."""
-    t = initial_step
-    k = 0
-    while True:
-        x_t = project_fn(x + t * direction)
+    ``ok`` a device bool, the last trial when none passed. An inner
+    device loop (utils/device_loop.py): a WHILE node inside the solver's
+    when captured, a host read a trial when eager."""
+    device = x.device
+    state = {"t": initial_step.clone(),
+             "k": torch.zeros((), dtype=torch.int32, device=device),
+             "searching": torch.ones((), dtype=torch.bool, device=device),
+             "ok": torch.zeros((), dtype=torch.bool, device=device),
+             "x_t": torch.empty_like(x), "f_t": torch.empty_like(f),
+             "g_t": torch.empty_like(x)}
+
+    def trial(s):
+        x_t = project_fn(x + s["t"] * direction)
         f_t, g_t = vg(x_t, *args)
         armijo = ((f_t <= f + c1 * torch.dot(decrease_grad, x_t - x))
                   & torch.isfinite(f_t))
-        ok = bool(armijo)
-        if ok or k >= max_steps:
-            return ok, x_t, f_t, g_t
-        t = t * shrink
-        k += 1
+        return {"x_t": x_t, "f_t": f_t, "g_t": g_t, "ok": armijo,
+                "searching": ~armijo & (s["k"] < max_steps),
+                "t": s["t"] * shrink, "k": s["k"] + 1}
+
+    s = while_loop(state, trial, lambda s: s["searching"])
+    return s["ok"], s["x_t"], s["f_t"], s["g_t"]
 
 
 def minimize_lbfgs(
@@ -183,12 +195,17 @@ def minimize_lbfgs(
     upper_bounds] (either may be None: unbounded on that side).
     ``value_and_grad(x, *args)`` returns (value, gradient). Defaults
     mirror the reference (maxIter=100, tol=1e-7, m=10).
-    ``track_coefficients`` keeps each recorded iterate (a reference to
-    the device tensor, no host sync) and stacks them once at the end
-    into ``coef_history``; the solve is the same either way."""
-    # glm_lbfgs imports this module, so its stop-reason helper is taken
-    # at call time.
-    from photon_ml_tpu_torch.optimization.glm_lbfgs import _reason
+    ``track_coefficients`` writes each recorded iterate into
+    ``coef_history``; the solve is the same either way."""
+    # glm_lbfgs imports this module, so its helpers are taken at call
+    # time.
+    from photon_ml_tpu_torch.optimization.glm_lbfgs import (
+        _reason,
+        first_reason,
+        history_state,
+        not_converged,
+        state_history,
+    )
 
     dtype, device = x0.dtype, x0.device
     x = _project(x0, lower_bounds, upper_bounds)
@@ -196,13 +213,18 @@ def minimize_lbfgs(
     gnorm0 = torch.linalg.norm(g)
     f0_scale = torch.clamp_min(torch.abs(f), 1e-30)
     hist = empty_history(x.shape[-1], history_size, dtype, device)
-    values, gnorms = [f], [gnorm0]
-    coefs = [x] if track_coefficients else None
-    nc = int(ConvergenceReason.NOT_CONVERGED)
-    reason = (int(ConvergenceReason.GRADIENT_CONVERGED)
-              if float(gnorm0) <= 0.0 else nc)
-    it = 0
-    while reason == nc:
+    state = {"x": x.clone(), "f": f.clone(), "g": g.clone(),
+             **history_state(hist),
+             "it": torch.zeros((), dtype=torch.int32, device=device),
+             "reason": first_reason(gnorm0),
+             "values": history_buffer(f, max_iter),
+             "gnorms": history_buffer(gnorm0, max_iter)}
+    if track_coefficients:
+        state["coefs"] = history_buffer(x, max_iter)
+
+    def step(s):
+        x, f, g = s["x"], s["f"], s["g"]
+        hist = state_history(s)
         direction = compact_direction(g, hist)
         # Steepest descent when the direction does not descend.
         direction = torch.where(torch.dot(direction, g) >= 0, -g, direction)
@@ -215,24 +237,24 @@ def minimize_lbfgs(
             c1=c1, max_steps=max_line_search,
             project_fn=lambda v: _project(v, lower_bounds, upper_bounds))
         hist_new = update_history(hist, x_new - x, g_new - g)
-        it += 1
+        it = s["it"] + 1
         gnorm_new = torch.linalg.norm(g_new)
-        reason_t = _reason(torch.tensor(ok, device=device), gnorm_new,
-                           gnorm0, torch.abs(f - f_new), f0_scale, it,
-                           max_iter, tol)
-        if ok:  # a failed search leaves the iterate where it was
-            x, f, g, hist = x_new, f_new, g_new, hist_new
-        values.append(f)
-        gnorms.append(gnorm_new)
-        if coefs is not None:
-            coefs.append(x)
-        reason = int(reason_t)  # the iteration's sync
+        reason = _reason(ok, gnorm_new, gnorm0, torch.abs(f - f_new),
+                         f0_scale, it, max_iter, tol)
+        # A failed search leaves the iterate where it was.
+        x = torch.where(ok, x_new, x)
+        f = torch.where(ok, f_new, f)
+        history_write(s["values"], it, f)
+        history_write(s["gnorms"], it, gnorm_new)
+        if track_coefficients:
+            history_write(s["coefs"], it, x)
+        return {"x": x, "f": f, "g": torch.where(ok, g_new, g),
+                **history_state(select_history(ok, hist_new, hist)),
+                "it": it, "reason": reason}
 
+    s = while_loop(state, step, not_converged)
     return OptimizerResult(
-        x=x, value=f, grad_norm=torch.linalg.norm(g),
-        iterations=torch.tensor(it, dtype=torch.int32),
-        reason=torch.tensor(reason, dtype=torch.int32),
-        value_history=padded_history(values, max_iter),
-        grad_norm_history=padded_history(gnorms, max_iter),
-        coef_history=(None if coefs is None
-                      else padded_history(coefs, max_iter)))
+        x=s["x"], value=s["f"], grad_norm=torch.linalg.norm(s["g"]),
+        iterations=s["it"], reason=s["reason"],
+        value_history=s["values"], grad_norm_history=s["gnorms"],
+        coef_history=s.get("coefs"))

@@ -11,8 +11,10 @@ L-BFGS with the three OWL-QN changes (Andrew & Gao 2007):
   (components that cross zero become zero);
 - curvature pairs use the smooth gradient only.
 
-The JAX ``lax.while_loop`` becomes a host loop over device tensors: one
-sync per line-search trial and one per iteration (the stop reason).
+The JAX ``lax.while_loop`` becomes a device loop (utils/device_loop.py)
+with the line search as an inner one: captured into an update graph it
+reads nothing back; run eagerly, the host reads one predicate a trial
+and one an iteration.
 """
 
 from __future__ import annotations
@@ -22,21 +24,27 @@ from typing import Any, Callable, Tuple
 import torch
 
 from photon_ml_tpu_torch.optimization.convergence import (
-    ConvergenceReason,
     OptimizerResult,
-    padded_history,
+    history_buffer,
+    history_write,
 )
-from photon_ml_tpu_torch.optimization.glm_lbfgs import _reason
+from photon_ml_tpu_torch.optimization.glm_lbfgs import (
+    _reason,
+    first_reason,
+    history_state,
+    not_converged,
+    state_history,
+)
 from photon_ml_tpu_torch.optimization.lbfgs import (
     backtracking_line_search,
     compact_direction,
     empty_history,
+    select_history,
     update_history,
 )
+from photon_ml_tpu_torch.utils.device_loop import while_loop
 
 Tensor = torch.Tensor
-
-_NC = int(ConvergenceReason.NOT_CONVERGED)
 
 def pseudo_gradient(x: Tensor, g: Tensor, l1) -> Tensor:
     """Pseudo-gradient of f(x) + l1 . |x| (elementwise l1 >= 0)."""
@@ -70,12 +78,14 @@ def minimize_owlqn(
     returns the smooth part's (value, gradient); ``l1_weight`` is a
     scalar or a per-coordinate vector. Histories hold the full objective
     and the pseudo-gradient norm.
-    ``track_coefficients`` keeps each recorded iterate (a reference to
-    the device tensor, no host sync) and stacks them once at the end
-    into ``coef_history``; the solve is the same either way."""
+    ``track_coefficients`` writes each recorded iterate into
+    ``coef_history``; the solve is the same either way."""
     dtype, device = x0.dtype, x0.device
-    l1 = torch.broadcast_to(torch.as_tensor(l1_weight, dtype=dtype,
-                                            device=device), x0.shape)
+    if isinstance(l1_weight, Tensor):
+        l1 = l1_weight.to(dtype=dtype, device=device)
+    else:
+        l1 = torch.full((), float(l1_weight), dtype=dtype, device=device)
+    l1 = torch.broadcast_to(l1, x0.shape)
 
     def full(x, *a):
         f_s, g_s = value_and_grad(x, *a)
@@ -87,12 +97,18 @@ def minimize_owlqn(
     pgnorm0 = torch.linalg.norm(pg)
     f0_scale = torch.clamp_min(torch.abs(f), 1e-30)
     hist = empty_history(x.shape[-1], history_size, dtype, device)
-    values, gnorms = [f], [pgnorm0]
-    coefs = [x] if track_coefficients else None
-    reason = (int(ConvergenceReason.GRADIENT_CONVERGED)
-              if float(pgnorm0) <= 0.0 else _NC)
-    it = 0
-    while reason == _NC:
+    state = {"x": x.clone(), "f": f, "g": g.clone(), "pg": pg,
+             **history_state(hist),
+             "it": torch.zeros((), dtype=torch.int32, device=device),
+             "reason": first_reason(pgnorm0),
+             "values": history_buffer(f, max_iter),
+             "gnorms": history_buffer(pgnorm0, max_iter)}
+    if track_coefficients:
+        state["coefs"] = history_buffer(x, max_iter)
+
+    def step(s):
+        x, f, g, pg = s["x"], s["f"], s["g"], s["pg"]
+        hist = state_history(s)
         direction = compact_direction(pg, hist)
         direction = torch.where(direction * pg < 0, direction,
                                 torch.zeros_like(direction))
@@ -109,24 +125,24 @@ def minimize_owlqn(
             project_fn=lambda v: _orthant_project(v, orthant))
         hist_new = update_history(hist, x_new - x, g_new - g)
         pg_new = pseudo_gradient(x_new, g_new, l1)
-        it += 1
+        it = s["it"] + 1
         pgnorm_new = torch.linalg.norm(pg_new)
-        ok_t = torch.tensor(ok, device=device)
-        reason_t = _reason(ok_t, pgnorm_new, pgnorm0, torch.abs(f - f_new),
-                           f0_scale, it, max_iter, tol)
-        if ok:
-            x, f, g, pg, hist = x_new, f_new, g_new, pg_new, hist_new
-        values.append(f)
-        gnorms.append(pgnorm_new)
-        if coefs is not None:
-            coefs.append(x)
-        reason = int(reason_t)  # the iteration's sync
+        reason = _reason(ok, pgnorm_new, pgnorm0, torch.abs(f - f_new),
+                         f0_scale, it, max_iter, tol)
+        x = torch.where(ok, x_new, x)
+        f = torch.where(ok, f_new, f)
+        history_write(s["values"], it, f)
+        history_write(s["gnorms"], it, pgnorm_new)
+        if track_coefficients:
+            history_write(s["coefs"], it, x)
+        return {"x": x, "f": f, "g": torch.where(ok, g_new, g),
+                "pg": torch.where(ok, pg_new, pg),
+                **history_state(select_history(ok, hist_new, hist)),
+                "it": it, "reason": reason}
 
+    s = while_loop(state, step, not_converged)
     return OptimizerResult(
-        x=x, value=f, grad_norm=torch.linalg.norm(pg),
-        iterations=torch.tensor(it, dtype=torch.int32),
-        reason=torch.tensor(reason, dtype=torch.int32),
-        value_history=padded_history(values, max_iter),
-        grad_norm_history=padded_history(gnorms, max_iter),
-        coef_history=(None if coefs is None
-                      else padded_history(coefs, max_iter)))
+        x=s["x"], value=s["f"], grad_norm=torch.linalg.norm(s["pg"]),
+        iterations=s["it"], reason=s["reason"],
+        value_history=s["values"], grad_norm_history=s["gnorms"],
+        coef_history=s.get("coefs"))

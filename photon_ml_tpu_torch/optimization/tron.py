@@ -7,8 +7,10 @@ An outer trust-region loop whose inner Steihaug-Toint CG does one
 Hessian-vector product per step. The radius starts at ||g0||, is clamped
 to the first step's length, and follows LIBLINEAR's rules; the solve
 stops after more than 5 consecutive improvement failures. The JAX
-``lax.while_loop``s become host loops over device tensors: one sync per
-CG step (its stop test) and one per outer iteration (the stop reason).
+``lax.while_loop``s become device loops (utils/device_loop.py), CG one
+inside the outer iteration's: in a captured update graph nothing is read
+back; run eagerly, the host reads one predicate a CG step and one an
+outer iteration.
 
 With box constraints (the projected variant, TRON.scala:228) x0 is
 projected first; stationarity is the projected-gradient norm
@@ -38,9 +40,13 @@ from photon_ml_tpu_torch.optimization.convergence import (
     ConvergenceReason,
     OptimizerResult,
     check_solver_finite,
+    code,
+    history_buffer,
+    history_write,
     padded_history,
 )
 from photon_ml_tpu_torch.optimization.lbfgs import _project
+from photon_ml_tpu_torch.utils.device_loop import while_loop
 
 Tensor = torch.Tensor
 
@@ -57,46 +63,28 @@ _G_GRID_ACTIVE = telemetry.gauge("training.grid.active_points")
 
 
 def _truncated_cg(hvp: Callable[[Tensor], Tensor], g: Tensor, delta: Tensor,
-                  max_cg: int) -> Tuple[Tensor, Tensor, int]:
+                  max_cg: int) -> Tuple[Tensor, Tensor, Tensor]:
     """Steihaug-Toint truncated CG: approximately solve H s = -g with
     ||s|| <= delta. Returns (s, r, steps) with r the final residual
-    -g - H s, used by the predicted reduction."""
-    s = torch.zeros_like(g)
-    r = -g
-    d = -g
-    rtr = torch.dot(r, r)
+    -g - H s, used by the predicted reduction, and steps a 0-d device
+    count. An inner device loop (utils/device_loop.py)."""
     stop_norm = _CG_XI * torch.linalg.norm(g)
-    one = torch.ones((), dtype=g.dtype, device=g.device)
-    done = bool(torch.linalg.norm(r) <= stop_norm)
-    k = 0
-    while not done and k < max_cg:
-        hd = hvp(d)
-        dhd = torch.dot(d, hd)
-        # A non-positive curvature direction marches to the boundary.
-        alpha = rtr / torch.where(dhd > 0, dhd, one)
-        s_try = s + alpha * d
-        crossed = (torch.linalg.norm(s_try) > delta) | (dhd <= 0)
+    r = -g
+    state = {"s": torch.zeros_like(g), "r": r, "d": r.clone(),
+             "rtr": torch.dot(r, r),
+             "k": torch.zeros((), dtype=torch.int32, device=g.device),
+             "done": torch.linalg.norm(r) <= stop_norm}
 
-        # Boundary intersection: tau >= 0 with ||s + tau d|| = delta.
-        std = torch.dot(s, d)
-        dd = torch.dot(d, d)
-        ss = torch.dot(s, s)
-        gap = torch.clamp_min(delta * delta - ss, 0.0)
-        rad = torch.sqrt(torch.clamp_min(std * std + dd * gap, 0.0))
-        safe_dd = torch.clamp_min(dd, 1e-30)
-        tau = torch.where(std >= 0, gap / torch.clamp_min(std + rad, 1e-30),
-                          (rad - std) / safe_dd)
+    def cg_step(st):
+        s, r, d, rtr, done = _stream_cg_step(st["s"], st["r"], st["d"],
+                                             st["rtr"], hvp(st["d"]), delta,
+                                             stop_norm)
+        return {"s": s, "r": r, "d": d, "rtr": rtr, "k": st["k"] + 1,
+                "done": done}
 
-        step = torch.where(crossed, tau, alpha)
-        s = s + step * d
-        r = r - step * hd
-        rtr_new = torch.dot(r, r)
-        beta = rtr_new / torch.clamp_min(rtr, 1e-30)
-        d = r + beta * d
-        rtr = rtr_new
-        k += 1
-        done = bool(crossed | (torch.sqrt(rtr_new) <= stop_norm))
-    return s, r, k
+    st = while_loop(state, cg_step,
+                    lambda st: ~st["done"] & (st["k"] < max_cg))
+    return st["s"], st["r"], st["k"]
 
 
 def minimize_tron(
@@ -120,23 +108,31 @@ def minimize_tron(
     per outer iteration (GLMObjective.make_tron_hvp). Defaults mirror the
     reference (maxIter=15, tol=1e-5, <=20 CG steps, <=5 improvement
     failures). ``iterations`` counts accepted steps; ``outer_steps`` and
-    ``cg_steps`` count every outer iteration and CG step. Either bound
-    may be None (unbounded on that side). Only accepted iterates are
-    recorded.
-    ``track_coefficients`` keeps each recorded iterate (a reference to
-    the device tensor, no host sync) and stacks them once at the end
-    into ``coef_history``; the solve is the same either way."""
+    ``cg_steps`` count every outer iteration and CG step (0-d device
+    counts). Either bound may be None (unbounded on that side). Only
+    accepted iterates are recorded.
+    ``track_coefficients`` writes each recorded iterate into
+    ``coef_history``; the solve is the same either way. The outer
+    iteration and CG are device loops (utils/device_loop.py); the outer
+    one runs at most (max_improvement_failures + 1) x max_iter times."""
+    from photon_ml_tpu_torch.optimization.glm_lbfgs import (
+        first_reason,
+        not_converged,
+        select,
+    )
+
     if make_hvp is None:
         raise TypeError("minimize_tron needs make_hvp: the port has no "
                         "automatic Hessian-vector product")
     dtype, device = x0.dtype, x0.device
 
     def scalar(v):
-        return torch.tensor(v, dtype=dtype, device=device)
+        return torch.full((), v, dtype=dtype, device=device)
 
     sigma1, sigma2, sigma3 = scalar(_SIGMA1), scalar(_SIGMA2), scalar(_SIGMA3)
     lo, hi = lower_bounds, upper_bounds
     bounded = lo is not None or hi is not None
+    i32 = torch.int32
 
     def proj_grad_norm(x, g):
         # ||g|| unconstrained; the projected-gradient norm with bounds.
@@ -148,15 +144,22 @@ def minimize_tron(
     f, g = value_and_grad(x, *args)
     gnorm0 = proj_grad_norm(x, g)
     f0_scale = torch.clamp_min(torch.abs(f), 1e-30)
-    delta = gnorm0
-    values, gnorms = [f], [gnorm0]
-    coefs = [x] if track_coefficients else None
-    reason = (int(ConvergenceReason.GRADIENT_CONVERGED)
-              if float(gnorm0) <= 0.0
-              else int(ConvergenceReason.NOT_CONVERGED))
-    it = fails = outer = cg_steps = 0
-    first = True
-    while reason == int(ConvergenceReason.NOT_CONVERGED):
+
+    def zero():
+        return torch.zeros((), dtype=i32, device=device)
+
+    state = {"x": x.clone(), "f": f.clone(), "g": g.clone(),
+             "delta": gnorm0.clone(), "it": zero(), "fails": zero(),
+             "outer": zero(), "cg": zero(),
+             "first": torch.ones((), dtype=torch.bool, device=device),
+             "reason": first_reason(gnorm0),
+             "values": history_buffer(f, max_iter),
+             "gnorms": history_buffer(gnorm0, max_iter)}
+    if track_coefficients:
+        state["coefs"] = history_buffer(x, max_iter)
+
+    def trip(st):
+        x, f, g, delta = st["x"], st["f"], st["g"], st["delta"]
         hvp = make_hvp(x, *args)
         if bounded:
             # Active-set reduction: CG runs in the free subspace.
@@ -171,8 +174,6 @@ def minimize_tron(
                                     delta, max_cg)
         else:
             s, r, k = _truncated_cg(hvp, g, delta, max_cg)
-        cg_steps += k
-        outer += 1
         x_try = _project(x + s, lo, hi)
         s_real = x_try - x
         f_new, g_new = value_and_grad(x_try, *args)
@@ -186,8 +187,7 @@ def minimize_tron(
             prered = -0.5 * (gs - torch.dot(s_real, r))
         actred = f - f_new
         snorm = torch.linalg.norm(s_real)
-        if first:
-            delta = torch.minimum(delta, snorm)
+        delta = torch.where(st["first"], torch.minimum(delta, snorm), delta)
 
         # LIBLINEAR step-size interpolation for the radius update.
         denom = f_new - f - gs
@@ -211,39 +211,48 @@ def minimize_tron(
                     torch.maximum(delta,
                                   torch.minimum(alpha_s, sigma3 * delta)))))
 
-        accept = bool((actred > _ETA0 * prered) & torch.isfinite(f_new))
-        first = False
-        if accept:
-            it += 1
-            fails = 0
-            f_delta = torch.abs(f - f_new)
-            x, f, g = x_try, f_new, g_new
-            gnorm = proj_grad_norm(x, g)
-            values.append(f)
-            gnorms.append(gnorm)
-            if coefs is not None:
-                coefs.append(x)
-            if bool(gnorm <= tol * gnorm0):
-                reason = int(ConvergenceReason.GRADIENT_CONVERGED)
-            elif bool(f_delta <= tol * f0_scale):
-                reason = int(ConvergenceReason.FUNCTION_VALUES_CONVERGED)
-        else:
-            fails += 1
-        if fails > max_improvement_failures:
-            reason = int(ConvergenceReason.OBJECTIVE_NOT_IMPROVING)
-        elif (reason == int(ConvergenceReason.NOT_CONVERGED)
-              and it >= max_iter):
-            reason = int(ConvergenceReason.MAX_ITERATIONS)
+        accept = (actred > _ETA0 * prered) & torch.isfinite(f_new)
+        it = st["it"] + accept.to(i32)
+        fails = torch.where(accept, torch.zeros_like(st["fails"]),
+                            st["fails"] + 1)
+        f_delta = torch.abs(f - f_new)
+        gnorm = proj_grad_norm(x_try, g_new)
+        # Only accepted iterates are recorded: a rejected trip writes the
+        # entry at the unchanged count back onto itself.
+        for key, v in (("values", f_new), ("gnorms", gnorm),
+                       ("coefs", x_try)):
+            if key in st:
+                history_write(st[key], it, torch.where(
+                    accept, v, select(it, st[key])))
+        nc = code(ConvergenceReason.NOT_CONVERGED, x)
+        reason = torch.where(
+            accept,
+            torch.where(gnorm <= tol * gnorm0,
+                        code(ConvergenceReason.GRADIENT_CONVERGED, x),
+                        torch.where(f_delta <= tol * f0_scale,
+                                    code(ConvergenceReason.
+                                         FUNCTION_VALUES_CONVERGED, x),
+                                    nc)),
+            st["reason"])
+        reason = torch.where(
+            fails > max_improvement_failures,
+            code(ConvergenceReason.OBJECTIVE_NOT_IMPROVING, x),
+            torch.where((reason == nc) & (it >= max_iter),
+                        code(ConvergenceReason.MAX_ITERATIONS, x), reason))
+        return {"x": torch.where(accept, x_try, x),
+                "f": torch.where(accept, f_new, f),
+                "g": torch.where(accept, g_new, g), "delta": delta,
+                "it": it, "fails": fails, "outer": st["outer"] + 1,
+                "cg": st["cg"] + k,
+                "first": torch.zeros_like(st["first"]), "reason": reason}
 
+    st = while_loop(state, trip, not_converged)
     return OptimizerResult(
-        x=x, value=f, grad_norm=torch.linalg.norm(g),
-        iterations=torch.tensor(it, dtype=torch.int32),
-        reason=torch.tensor(reason, dtype=torch.int32),
-        value_history=padded_history(values, max_iter),
-        grad_norm_history=padded_history(gnorms, max_iter),
-        coef_history=(None if coefs is None
-                      else padded_history(coefs, max_iter)),
-        outer_steps=outer, cg_steps=cg_steps)
+        x=st["x"], value=st["f"], grad_norm=torch.linalg.norm(st["g"]),
+        iterations=st["it"], reason=st["reason"],
+        value_history=st["values"], grad_norm_history=st["gnorms"],
+        coef_history=st.get("coefs"),
+        outer_steps=st["outer"], cg_steps=st["cg"])
 
 
 def _host(v: Tensor):
@@ -252,9 +261,10 @@ def _host(v: Tensor):
 
 
 def _stream_cg_step(s, r, d_vec, rtr, hd, delta, stop_norm):
-    """One Steihaug-Toint CG step given the (streamed) Hessian product:
-    the body of `_truncated_cg`; the streaming driver makes the loop
-    decisions on the host."""
+    """One Steihaug-Toint CG step given the Hessian product ``hd``: the
+    body of `_truncated_cg`'s device loop, and of the streaming driver's
+    host loop. A non-positive curvature direction marches to the
+    boundary (tau >= 0 with ||s + tau d|| = delta)."""
     one = torch.ones((), dtype=s.dtype, device=s.device)
     dhd = torch.dot(d_vec, hd)
     alpha = rtr / torch.where(dhd > 0, dhd, one)

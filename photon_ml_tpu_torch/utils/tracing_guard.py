@@ -1,6 +1,6 @@
-"""Build-count guard for the serving engine's bucket executables (port
-of photon_ml_tpu/utils/tracing_guard.py: RetraceError :38, TracingGuard
-:70-145).
+"""Build-count guard for the serving engine's bucket executables and the
+coordinate updates' graphs (port of photon_ml_tpu/utils/tracing_guard.py:
+RetraceError :38, assert_max_retraces :57-68, TracingGuard :70-145).
 
 JAX's guard reads each jitted callable's compile-cache size. A bucket
 executable of the port has no jit cache: on the card it is a captured
@@ -21,7 +21,9 @@ An executable that holds device state (a bucket's graph, buffers and
 parameters) hands the guard its :class:`BuildCount` (``builds``) in its
 place, so being tracked never keeps it alive: a swapped-out model's
 buckets are freed while their builds stay counted.
-The training drivers' ``trace_budgets`` keys are ROADMAP A7.
+Coordinate descent tracks each coordinate's update graph as
+``fused:{name}`` and asserts one capture each at a run's end. The
+training drivers' ``trace_budgets`` keys are ROADMAP A7.
 """
 
 from __future__ import annotations
@@ -47,6 +49,18 @@ def trace_count(fn) -> int:
     """The builds of a tracked executable (its ``traces``; 0 for an
     object without the attribute, e.g. a test double)."""
     return int(getattr(fn, "traces", 0))
+
+
+def assert_max_retraces(fn, max_traces: int, name: str = "") -> None:
+    """Assert that one tracked executable was built at most
+    ``max_traces`` times (its total, first build included)."""
+    n = trace_count(fn)
+    if n > max_traces:
+        label = name or getattr(fn, "__name__", repr(fn))
+        raise RetraceError(
+            f"{label}: traced {n} times, budget {max_traces} — something "
+            "rebuilds it (a key that does not pin its shapes, or an "
+            "executable built per call)")
 
 
 class TracingGuard:
