@@ -15,7 +15,8 @@ five paths, 3 coordinate-descent iterations each, path 6 through the
 training and scoring drivers and path 7 through the GLM driver, paths
 8-11 through the streamed trainer and the serving paths, path 12 over
 the network, path 13 over a 1-D mesh of two slots of cuda:0, path 14
-over 2-D (data x model) meshes of slots of cuda:0:
+over 2-D (data x model) meshes of slots of cuda:0, path 16 through the
+feature-indexing job and damped Newton:
 
 - path 1, the headline GLMix of bench.py: fixed effect L-BFGS max_iter
   50, tol 1e-7, L2 1; per-user L-BFGS max_iter 20, tol 1e-6, L2 1;
@@ -283,9 +284,10 @@ slots and the registry equals it, and row 9 launched as often as path
 8's run plus S (C - 1) launches for each pass that carries a transposed
 product (S shards; the passes counted in the run; the count printed).
 (b) Path 9's batched grid at 2x2 writes path 9's grid model bit for bit.
-(c) Path 8's --spill-source redecode run at 2x2, the whole quarter
-budget a slot (a miss re-decodes its rows), writes its records bit for
-bit. (d) GameEstimator(mesh=make_mesh_2d(2, 2, device="cuda:0")) on
+(c) Path 8's --spill-source redecode run at 2x2, twice the quarter
+budget a slot (a miss re-decodes its rows; the slots of column 0, which
+also hold their shards' product maps, still evict), writes its records
+bit for bit. (d) GameEstimator(mesh=make_mesh_2d(2, 2, device="cuda:0")) on
 path 5's coordinates with the fixed effect feature-sharded: each random-
 effect and the factored coordinate's first update over the mesh gives
 the unsharded update's bits with two entity-kernel launches a bucket
@@ -297,6 +299,42 @@ within 1e-4. (e) A world of one process joins over loopback on nccl
 (``initialize_multihost``), is the primary host, all-reduces a tensor
 on cuda:0 and leaves. It prints its seconds and its launches of rows 1,
 9 and 10.
+
+Path 16 runs the tooling a user of examples/run_game_full.sh calls
+first, on path 6's files. (a) The port's feature-indexing job
+(photon_ml_tpu_torch.cli.feature_indexing.run) twice on the training
+files: with run_game_full.sh:20-23's flags (--format paldb
+--partition-num 2 --shard-name global) and --save-name-and-term-sets
+true, and with --format json. Both stores load through
+load_feature_index_maps, hold path 6's 238 names and the intercept at
+indices contiguous from 0; every PalDB partition holds both directions;
+the JSON map is build_index_map's; the two name-and-term text sets are
+equal. (b) run_game_full.sh's fixed and per-user coordinates (TRON/L2
+fixed effect over global, elastic-net per-user effect over global, one
+coordinate-descent iteration) through the training driver five times:
+with --feature-index-dir on the PalDB stores, on a JSON store holding
+the map they load as (the same columns: the model records and the
+objective history bit for bit), and on the scan-order JSON store; then
+on the PalDB stores and the scan-order store again with the per-user
+solves run to convergence (500 iterations, tolerance 1e-12). That map
+orders the columns otherwise, so its models are compared by feature
+name, for either per-user budget: hold-out AUCs within 1e-4,
+fixed-effect coefficients within 1e-3, the per-user coefficients'
+largest difference printed with each run's per-user stop reasons. The
+other order of the float32 sums moves the fixed effect and so every
+per-user offset, and the flags' per-user solves, cut at 30 iterations
+and a relative tolerance of 1e-6, carry that on; with the solves
+converged every per-user coefficient is held within 1e-3. The per-user
+solves launch row 4 ("owlqn"), as often in every run. (c) minimize_newton in float64 on path 1's
+per-user bucket of n_pad 32 (2,755 entities, d_pad 32, path 1's λ; dense
+tensors: torch.func differentiates no ctypes kernel) on the card and on
+the CPU: equal iterations and reasons for every entity, coefficients
+within 1e-9, every entity's objective within rtol 1e-6 of row 1's
+L-BFGS on the same inputs run to convergence (tol 1e-12; at path 1's
+tolerance row 1 stops some entities ~1e-5 above their optimum, and no
+entity's Newton objective may lie above that solution by more than rtol
+1e-6); it prints the ms an iteration. It prints its
+seconds and its part of row 4's launches.
 
 Paths 1-6 fit through the fused coordinate update (ROADMAP A3a): each
 in-core coordinate update is one replay of a CUDA graph captured once a
@@ -391,7 +429,7 @@ The third line from the end is a JSON record of the kernels (rows 1-8
 of the PERF.md table: L-BFGS, the normalization fold, bounded L-BFGS,
 OWL-QN, TRON and bounded TRON, the one-hot and the residue-class gather,
 each with its launches on the main paths, path 6's, path 13's and
-path 14's among row 1's, times
+path 14's among row 1's, path 16's per-user solves among row 4's, times
 and bound; row 9, the deterministic CSR product, with its launches in
 path 8 and the full-width stream phase and the launches path 10's bucket
 graphs executed (wrapper calls, less those recorded at capture, plus
@@ -4937,6 +4975,8 @@ def path13(root: Path, p8: dict, train, val, specs5, result5) -> dict:
 PATH14_DEVICE = "cuda:0"
 PATH14_SHAPES = ((1, 2), (2, 2))
 PATH14_FE_RTOL, PATH14_FE_ATOL = 1e-5, 2e-3
+# (c)'s budget a slot, in quarters of path 8's shard bytes.
+PATH14_REDECODE_QUARTERS = 2
 
 
 class _PassCounts:
@@ -5102,12 +5142,15 @@ def path14(root: Path, p8: dict, train, val, specs5, result5) -> dict:
     print("path 14 (b): the batched grid over 2x2 writes path 9's grid "
           f"model bit for bit ({mm} row-10 launches)", flush=True)
 
-    # (c) the redecode tier, at path 8's whole quarter budget a slot: every
-    # miss re-decodes its Avro rows, so fewer misses keep it short.
+    # (c) the redecode tier, at half path 8's shard bytes a slot (twice
+    # the quarter): every miss re-decodes its Avro rows, so fewer misses
+    # keep it short. A column-0 slot also holds its shards' product maps
+    # and needs more than half the shard bytes, so it still evicts.
     best = q["bestConfigs"]["fixed"]
     red, _, _, _ = run("redecode-2x2", (2, 2), [
         "--grid-batched", "off", "--spill-source", "redecode"],
-        grid="fixed:" + best, budget=int(p8["quarter"]))
+        grid="fixed:" + best, budget=PATH14_REDECODE_QUARTERS
+        * int(p8["quarter"]))
     check(red["stream_train"]["cache"]["evictions"] > 0,
           "path 14 (c): the redecode run evicted nothing")
     check(_fixed_records(root / "p14-redecode-2x2")
@@ -5224,6 +5267,270 @@ def path14(root: Path, p8: dict, train, val, specs5, result5) -> dict:
     print(f"path 14: {time.perf_counter() - t_path:.1f} s, launches "
           + json.dumps(rows), flush=True)
     return launches
+
+
+# Path 16: the indexing job, training on its stores, damped Newton.
+PATH16_FIXED = "fixed:15,1e-5,1.0,1.0,TRON,L2"  # run_game_full.sh:35-36
+PATH16_PER_USER = ("perUser:userId,global,4,-1,-1,-1",
+                   "perUser:30,1e-6,0.5,1.0,LBFGS,ELASTIC_NET,0.5")
+PATH16_AUC_ATOL, PATH16_COEF_ATOL = 1e-4, 1e-3
+# Against the scan-order JSON map the columns sit in another order, so
+# the float32 sums do: that moves the TRON fixed effect, hence every
+# per-user offset, and run_game_full.sh's per-user solves, cut at 30
+# iterations and at a relative tolerance of 1e-6, carry the move on. The
+# same two maps with the per-user solves run to convergence (these
+# flags) witness that, and there every per-user coefficient is held.
+PATH16_PER_USER_CONVERGED = "perUser:500,1e-12,0.5,1.0,LBFGS,ELASTIC_NET,0.5"
+PATH16_NEWTON_ATOL, PATH16_NEWTON_VALUE_RTOL = 1e-9, 1e-6
+PATH16_N_PAD = 32  # the per-user bucket Newton solves (2,755 entities)
+PATH16_DEVICE = "cuda"
+PATH16_LBFGS_TOL, PATH16_LBFGS_MAX_ITER = 1e-12, 200
+
+
+def _by_name(loaded, maps, coordinate: str, names: list) -> np.ndarray:
+    """A loaded coordinate's coefficients in the column order of
+    ``names``: the fixed effect's as [1, n], a random effect's as
+    [entities, n] in vocabulary order."""
+    cols = [maps["global"].get_index(n) for n in names]
+    model = loaded.models[coordinate]
+    if coordinate == "fixed":
+        return model.glm.coefficients.means.cpu().double().numpy()[
+            None, cols]
+    order = np.argsort(np.asarray(model.vocabulary, dtype=object))
+    return model.matrix.toarray()[order][:, cols]
+
+
+def path16(root: Path, train, specs1) -> dict:
+    """Path 16 (module docstring): (a) the feature-indexing job on path
+    6's training files, PalDB and JSON; (b) run_game_full.sh's fixed and
+    per-user coordinates trained on either store; (c) damped Newton on
+    the card against the CPU and row 1. Returns the per-user solves'
+    entity-kernel launches per variant (counted from 0 just before each
+    training run and read just after)."""
+    import torch
+
+    from photon_ml_tpu_torch.cli import feature_indexing, game_training_driver
+    from photon_ml_tpu_torch.data.avro_reader import build_index_map
+    from photon_ml_tpu_torch.data.index_map import INTERCEPT_KEY, feature_key
+    from photon_ml_tpu_torch.data.paldb import (
+        load_feature_index_maps,
+        read_paldb_store,
+    )
+    from photon_ml_tpu_torch.io.model_io import load_game_model
+    from photon_ml_tpu_torch.ops import DenseFeatures, GLMObjective
+    from photon_ml_tpu_torch.ops import entity_solver
+    from photon_ml_tpu_torch.ops.glm_objective import make_batch
+    from photon_ml_tpu_torch.optimization import minimize_newton
+
+    t_path = time.perf_counter()
+    # ---- (a) the indexing job, run_game_full.sh:20-23's flags and JSON --
+    stores = {"paldb": root / "p16-paldb", "json": root / "p16-json"}
+    t0 = time.perf_counter()
+    for fmt, out in stores.items():
+        extra = (["--partition-num", "2"] if fmt == "paldb" else [])
+        feature_indexing.run([
+            "--data-path", str(root / "train"), "--output-dir", str(out),
+            "--format", fmt, *extra, "--shard-name", "global",
+            "--save-name-and-term-sets", "true"])
+    index_s = time.perf_counter() - t0
+    maps = {fmt: load_feature_index_maps(out) for fmt, out in
+            stores.items()}
+    names = sorted({feature_key(n) for s in PATH6_NAMES
+                    for n in PATH6_NAMES[s]})
+    for fmt, m in maps.items():
+        keys = dict(m["global"].key_items())
+        check(set(m) == {"global"} and set(keys) == set(names)
+              | {INTERCEPT_KEY} and len(names) == 238,
+              f"path 16 (a) {fmt}: the map holds {len(keys)} names")
+        check(sorted(keys.values()) == list(range(len(keys))),
+              f"path 16 (a) {fmt}: indices are not contiguous from 0")
+    for i in range(2):
+        pairs = list(read_paldb_store(
+            stores["paldb"] / f"paldb-partition-global-{i}.dat"))
+        fwd = {k: v for k, v in pairs if isinstance(k, str)}
+        back = {k: v for k, v in pairs if isinstance(k, int)}
+        check(len(fwd) > 0 and {v: k for k, v in fwd.items()} == back,
+              f"path 16 (a): partition {i} does not hold both directions")
+    scanned = build_index_map(root / "train")
+    check(dict(maps["json"]["global"].key_items())
+          == dict(scanned.key_items()),
+          "path 16 (a): the JSON map differs from build_index_map's")
+    sets = {fmt: (out / "name-and-term-sets" / "features.txt").read_text()
+            for fmt, out in stores.items()}
+    check(sets["paldb"] == sets["json"] and sets["json"].splitlines()
+          == [f"{n}\x01" for n in sorted(PATH6_NAMES["global"]
+                                          + PATH6_NAMES["user"]
+                                          + PATH6_NAMES["item"])],
+          "path 16 (a): the name-and-term sets differ")
+    moved = sum(maps["paldb"]["global"].get_index(n)
+                != maps["json"]["global"].get_index(n) for n in names)
+    print(f"path 16 (a): the indexing job twice ({index_s:.2f} s): 2 PalDB "
+          f"partitions and a JSON map of {len(names)} names + the "
+          f"intercept, both directions in each partition, indices 0.."
+          f"{len(names)}, the JSON map build_index_map's, equal name-and-"
+          f"term sets; {moved} names sit at another column in the PalDB "
+          "map", flush=True)
+
+    # ---- (b) training on the PalDB stores and on JSON stores ------------
+    # The PalDB map saved as JSON (the same columns) and the scan-order
+    # JSON map (other columns: compared by feature name), then the PalDB
+    # stores and the scan-order map again with the per-user solves run to
+    # convergence.
+    stores["paldb-as-json"] = root / "p16-paldb-as-json"
+    stores["paldb-as-json"].mkdir()
+    maps["paldb-as-json"] = maps["paldb"]
+    maps["paldb"]["global"].save(stores["paldb-as-json"] / "global.json")
+    runs, launches = {}, collections.Counter()
+    t0 = time.perf_counter()
+    per_user = {"flags": PATH16_PER_USER[1],
+                "converged": PATH16_PER_USER_CONVERGED}
+    for fmt, solve in (("paldb", "flags"), ("paldb-as-json", "flags"),
+                       ("json", "flags"), ("paldb", "converged"),
+                       ("json", "converged")):
+        out = root / f"p16-model-{fmt}-{solve}"
+        argv = [
+            "--train-input-dirs", str(root / "train"),
+            "--validate-input-dirs", str(root / "validate"),
+            "--feature-index-dir", str(stores[fmt]),
+            "--output-dir", str(out),
+            "--task-type", "LOGISTIC_REGRESSION",
+            "--fixed-effect-data-configurations", "fixed:global",
+            "--fixed-effect-optimization-configurations", PATH16_FIXED,
+            "--random-effect-data-configurations", PATH16_PER_USER[0],
+            "--random-effect-optimization-configurations",
+            per_user[solve], "--updating-sequence", "fixed,perUser",
+            "--num-iterations", "1", "--evaluators", "AUC"]
+        # ---- the main path: counts set to 0 just before, read after ----
+        entity_solver.reset_launch_counts()
+        t1 = time.perf_counter()
+        summary = game_training_driver.run(argv, device=PATH16_DEVICE)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        ran = dict(entity_solver.entity_lbfgs.variants)
+        # -----------------------------------------------------------------
+        launches.update(ran)
+        loaded = load_game_model(out / "best", maps[fmt])
+        reasons = json.loads((out / "best" / "model-metadata.json")
+                             .read_text())["optimizationTrackers"][
+                                 "perUser"][-1]["convergenceReasons"]
+        runs[fmt, solve] = dict(
+            summary=summary, launches=ran, records=_avro_records(out),
+            fixed=_by_name(loaded, maps[fmt], "fixed", names),
+            per_user=_by_name(loaded, maps[fmt], "perUser", names))
+        print(f"path 16 (b) {fmt} {solve}: {seconds:.2f} s, AUC "
+              f"{summary['validationHistory'][-1]['AUC']:.6f}, entity-"
+              f"kernel launches {ran}, per-user solves stop {reasons}",
+              flush=True)
+    train_s = time.perf_counter() - t0
+    p, same = runs["paldb", "flags"], runs["paldb-as-json", "flags"]
+    check(all(r["launches"] == p["launches"] for r in runs.values())
+          and set(p["launches"]) == {"owlqn"} and p["launches"]["owlqn"] > 0,
+          "path 16 (b): per-user launches "
+          + str({f"{k[0]} {k[1]}": r["launches"] for k, r in runs.items()}))
+    check(p["records"] == same["records"]
+          and p["summary"]["objectiveHistory"]
+          == same["summary"]["objectiveHistory"],
+          "path 16 (b): the PalDB stores and their map as JSON trained "
+          "different models")
+    print("path 16 (b): PalDB stores and their map as JSON: model records "
+          "and objective histories bit for bit", flush=True)
+    for solve in per_user:
+        p, j = runs["paldb", solve], runs["json", solve]
+        auc = [r["summary"]["validationHistory"][-1]["AUC"] for r in (p, j)]
+        d_auc = abs(auc[0] - auc[1])
+        d_fixed = float(np.abs(p["fixed"] - j["fixed"]).max())
+        per_entity = np.abs(p["per_user"] - j["per_user"]).max(axis=1)
+        q50, q90, q99 = np.quantile(per_entity, [0.5, 0.9, 0.99])
+        print(f"path 16 (b) {solve}: PalDB stores against the scan-order "
+              f"JSON store by feature name: AUC {auc[0]:.6f} / {auc[1]:.6f}"
+              f" (|d| {d_auc:.3g}, atol {PATH16_AUC_ATOL}), fixed "
+              f"coefficients |d| <= {d_fixed:.3g} (atol {PATH16_COEF_ATOL})"
+              f", per-user |d| <= {float(per_entity.max()):.3g} over "
+              f"{len(per_entity)} entities (median {q50:.3g}, 90% "
+              f"{q90:.3g}, 99% {q99:.3g}; "
+              f"{int((per_entity > PATH16_COEF_ATOL).sum())} entities beyond"
+              f" {PATH16_COEF_ATOL})", flush=True)
+        check(d_auc <= PATH16_AUC_ATOL,
+              f"path 16 (b) {solve}: the AUCs differ")
+        check(d_fixed <= PATH16_COEF_ATOL,
+              f"path 16 (b) {solve}: the fixed-effect coefficients differ")
+        check(p["per_user"].shape == j["per_user"].shape,
+              f"path 16 (b) {solve}: the per-user models hold other "
+              "entities")
+        check(solve == "flags"
+              or float(per_entity.max()) <= PATH16_COEF_ATOL,
+              f"path 16 (b) {solve}: the per-user coefficients differ")
+
+    # ---- (c) damped Newton on path 1's n_pad 32 per-user bucket ----------
+    t0 = time.perf_counter()
+    for name, _, kind, block, args, kw in first_update_buckets(
+            coordinates_of(train, specs1)):
+        if kind == "re" and name == "perUser" and \
+                block.x.shape[1] == PATH16_N_PAD:
+            break
+    loss, x, labels, offsets, weights, c0, l2 = args[:7]
+    e, r, d = x.shape
+    # Row 1 at path 1's tolerance stops some entities 1e-5 above their
+    # optimum, so the reference solution is row 1 run to convergence.
+    row1 = entity_solver.entity_lbfgs(*args, **kw)
+    row1_conv = entity_solver.entity_lbfgs(*args, **dict(
+        kw, tol=PATH16_LBFGS_TOL, max_iter=PATH16_LBFGS_MAX_ITER))
+    torch.cuda.synchronize()
+    objective = GLMObjective(loss)
+
+    def newton(device):
+        xs, ys, os_, ws = (t.to(device, torch.float64) for t in (
+            x, labels, offsets, weights))
+        batch = make_batch(DenseFeatures(xs), ys, os_, ws)
+        return minimize_newton(objective.value, torch.zeros(
+            (e, d), dtype=torch.float64, device=device), args=(batch, l2))
+
+    newton(PATH16_DEVICE)  # first call: torch.func's and cuSOLVER's set-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = newton(PATH16_DEVICE)
+    torch.cuda.synchronize()
+    cuda_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    ref = newton("cpu")
+    cpu_s = time.perf_counter() - t1
+    iters = int(res.iterations.max())
+    worst = float((res.x.cpu() - ref.x).abs().max())
+    rel = ((res.value - row1_conv.value.double()).abs()
+           / row1_conv.value.double().abs().clamp_min(1e-30))
+    below = float(((res.value - row1.value.double())
+                   / row1.value.double().abs()).min())
+    worse = int((res.value > row1.value.double()
+                 * (1 + PATH16_NEWTON_VALUE_RTOL)).sum())
+    print(f"path 16 (c): minimize_newton float64 on {e} entities [{r} x "
+          f"{d}] (path 1's per-user bucket, l2 {l2}): iterations "
+          f"{np.bincount(res.iterations.cpu().numpy()).tolist()} by count"
+          f", reasons {np.bincount(res.reason.cpu().numpy(), minlength=5).tolist()}"
+          f"; CPU equal iterations "
+          f"{torch.equal(res.iterations.cpu(), ref.iterations)} and reasons"
+          f" {torch.equal(res.reason.cpu(), ref.reason)}, coefficients "
+          f"within {worst:.3g} (atol {PATH16_NEWTON_ATOL}); objective "
+          f"within {float(rel.max()):.3g} of row 1's L-BFGS run to "
+          f"convergence (tol {PATH16_LBFGS_TOL}; rtol "
+          f"{PATH16_NEWTON_VALUE_RTOL}), down to {below:.3g} below row 1 "
+          f"at path 1's tolerance, above it on {worse} entities; "
+          f"{1e3 * cuda_s:.1f} ms on the card"
+          f" = {1e3 * cuda_s / max(iters, 1):.2f} ms an iteration over "
+          f"{iters} (CPU {1e3 * cpu_s:.1f} ms); card {card_line()}",
+          flush=True)
+    check(torch.equal(res.iterations.cpu(), ref.iterations)
+          and torch.equal(res.reason.cpu(), ref.reason),
+          "path 16 (c): Newton's iterations or reasons differ on the CPU")
+    check(worst <= PATH16_NEWTON_ATOL,
+          f"path 16 (c): Newton's coefficients differ by {worst}")
+    check(float(rel.max()) <= PATH16_NEWTON_VALUE_RTOL and worse == 0,
+          f"path 16 (c): Newton's objective {float(rel.max())} from row 1,"
+          f" above row 1 at path 1's tolerance on {worse} entities")
+    newton_s = time.perf_counter() - t0
+    print(f"path 16: {time.perf_counter() - t_path:.1f} s ((a) "
+          f"{index_s:.1f}, (b) {train_s:.1f}, (c) {newton_s:.1f}), "
+          f"per-user launches {dict(launches)}", flush=True)
+    return dict(launches)
 
 
 def order_contract_check() -> None:
@@ -5535,6 +5842,7 @@ def main(argv=None) -> int:
         launches12 = path12(Path(tmp), per_graph, figures10)
         launches13 = path13(Path(tmp), p8, train, val, specs5, result5)
         launches14 = path14(Path(tmp), p8, train, val, specs5, result5)
+        launches16 = path16(Path(tmp), train, specs1)
     t0 = time.perf_counter()
     glm_full_width(train)
     print(f"glm full width: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5570,7 +5878,8 @@ def main(argv=None) -> int:
         kernel_entry("entity_lbfgs[bounded lbfgs] (row 3)",
                      rows4["perUser"], launches4.get("lbfgs+bounded", 0)),
         kernel_entry("entity_lbfgs[owlqn] (row 4)", rows2["owlqn"],
-                     launches2.get("owlqn+normalized", 0)),
+                     launches2.get("owlqn+normalized", 0)
+                     + launches16.get("owlqn", 0)),
         kernel_entry("entity_lbfgs[tron] (row 5)",
                      rows3["perUser"] + rows3["perItem"],
                      launches3.get("tron", 0)

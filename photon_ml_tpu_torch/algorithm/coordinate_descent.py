@@ -82,7 +82,7 @@ Tensor = torch.Tensor
 def _clone(obj):
     """``obj`` with every tensor in it cloned (a replay's outputs,
     before the next replay overwrites them)."""
-    return ckpt._map_leaves(obj, lambda t: t.clone())
+    return ckpt.map_leaves(obj, lambda t: t.clone())
 
 
 class LazyTrackers(Mapping):

@@ -1,7 +1,8 @@
 """Command-line drivers (port of photon_ml_tpu/cli/; reference
 ml/Driver.scala, ml/cli/game/): the GAME training and scoring drivers,
-the GLM driver, the fleet observability aggregator (``obs_aggregate``)
-and the replica router (``net_router``).
+the GLM driver, the feature-indexing job (``feature_indexing``), the
+fleet observability aggregator (``obs_aggregate``) and the replica
+router (``net_router``).
 
 They keep every flag of their JAX parsers, so every JAX command line
 parses. A flag value that belongs to a later item of ROADMAP queue A

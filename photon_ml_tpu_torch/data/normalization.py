@@ -1,8 +1,9 @@
 """Feature normalization as algebra, never materialized on the data (port
 of photon_ml_tpu/data/normalization.py: NormalizationContext :29-83,
-gather_normalization :99-138, gathered_to_normalized_space /
-gathered_to_original_space :141-161, build_normalization_context
-:176-219; reference ml/normalization/NormalizationContext.scala:38-83).
+no_normalization :84, gather_normalization :99-138,
+gathered_to_normalized_space / gathered_to_original_space :141-161,
+build_normalization_context :176-219; reference
+ml/normalization/NormalizationContext.scala:38-83).
 
 The solve runs in the normalized space x' = (x - shift) * factor without
 rewriting the data: margins use effective coefficients eff = coef *
@@ -99,6 +100,10 @@ class NormalizationContext:
         if self.factors is not None:
             out = out / self.factors
         return out
+
+
+def no_normalization() -> NormalizationContext:
+    return NormalizationContext(factors=None, shifts=None, intercept_id=-1)
 
 
 def gather_normalization(norm: NormalizationContext, feat_idx: Tensor

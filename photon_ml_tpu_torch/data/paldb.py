@@ -1,7 +1,7 @@
-"""Parser for PalDB 1.1 stores — reference index-map interop (the reader
-side of photon_ml_tpu/data/paldb.py: :1-273 and load_feature_index_maps
-:446, copied; the writer :274-445 comes with the feature-indexing CLI,
-ROADMAP queue A7).
+"""Parser AND writer for PalDB 1.1 stores — reference index-map interop
+(a copy of photon_ml_tpu/data/paldb.py: the reader :1-273, the writer
+:274-445 and load_feature_index_maps :446; with ``timestamp=0`` the
+writer's bytes equal the JAX package's, file for file).
 
 The reference builds its feature-index stores with LinkedIn PalDB
 (`com.linkedin.paldb:paldb:1.1.0`, photon-ml/build.gradle:52) through
@@ -255,10 +255,201 @@ def load_store_namespace(directory, namespace: str,
     return IndexMap.load(Path(directory) / f"{namespace}.json")
 
 
+# ---------------------------------------------------------------------------
+# Writer — the other half of PalDBIndexMapBuilder interop
+# (ml/FeatureIndexingJob.scala:145-174 produces these stores; a migrated
+# pipeline that feeds index stores to other Photon-adjacent tooling needs
+# us to produce them too). Layout constants verified against the
+# reference's checked-in fixtures (PalDBIndexMapTest/, GameIntegTest/
+# feature-indexes/): slots = Math.round(count / 0.75), slot = serialized
+# key + LSB-first varint data offset zero-padded to slotSize, sections
+# ascending by serialized key length, each section's data prefixed with
+# one 0x00 byte (offset 0 = empty slot sentinel), and slot placement by
+# murmur3-32(seed 42, masked positive) with linear probing — the hash was
+# determined empirically from the fixtures (11/14 keys sit at their exact
+# hash slot, the rest at linear-probe distance 1).
+# ---------------------------------------------------------------------------
+
+_LOAD_FACTOR = 0.75
+_MURMUR_SEED = 42
+
+
+def _pack_varint(v: int) -> bytes:
+    """LSB-first 7-bit varint (inverse of _unpack_varint)."""
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _encode_value(v: Union[int, str]) -> bytes:
+    """Serialize one int/str in the PalDB StorageSerialization subset
+    (inverse of _decode_value)."""
+    if isinstance(v, bool) or not isinstance(v, (int, str)):
+        raise TypeError(f"PalDB writer supports int/str, got {type(v)}")
+    if isinstance(v, int):
+        if v < 0:
+            raise ValueError(f"negative ints are not supported: {v}")
+        if v <= 8:
+            return bytes([0x05 + v])
+        if v <= 255:
+            return bytes([0x0E, v])
+        return bytes([0x10]) + _pack_varint(v)
+    out = bytearray([0x67])
+    out += _pack_varint(len(v))
+    for c in v:
+        out += _pack_varint(ord(c))
+    return bytes(out)
+
+
+def _murmur3_32(data: bytes, seed: int = _MURMUR_SEED) -> int:
+    """MurmurHash3 x86 32-bit — PalDB's HashUtils slot hash."""
+    c1, c2 = 0xCC9E2D51, 0x1B873593
+    h = seed & 0xFFFFFFFF
+    n = len(data)
+    for i in range(n // 4):
+        k = struct.unpack_from("<I", data, i * 4)[0]
+        k = (k * c1) & 0xFFFFFFFF
+        k = ((k << 15) | (k >> 17)) & 0xFFFFFFFF
+        k = (k * c2) & 0xFFFFFFFF
+        h ^= k
+        h = ((h << 13) | (h >> 19)) & 0xFFFFFFFF
+        h = (h * 5 + 0xE6546B64) & 0xFFFFFFFF
+    k = 0
+    tail = data[(n // 4) * 4:]
+    if len(tail) >= 3:
+        k ^= tail[2] << 16
+    if len(tail) >= 2:
+        k ^= tail[1] << 8
+    if tail:
+        k ^= tail[0]
+        k = (k * c1) & 0xFFFFFFFF
+        k = ((k << 15) | (k >> 17)) & 0xFFFFFFFF
+        k = (k * c2) & 0xFFFFFFFF
+        h ^= k
+    h ^= n
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & 0xFFFFFFFF
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & 0xFFFFFFFF
+    h ^= h >> 16
+    return h & 0x7FFFFFFF
+
+
+def write_paldb_store(path, pairs, timestamp: int = 0) -> None:
+    """Write one PALDB_V1 store file from (key, value) pairs (int/str
+    each). Round-trips through read_paldb_store and follows the layout of
+    stores the reference's PalDBIndexMapBuilder produces."""
+    by_len: Dict[int, List[Tuple[bytes, bytes]]] = {}
+    seen_keys = set()
+    n_pairs = 0
+    for k, v in pairs:
+        kb = _encode_value(k)
+        if kb in seen_keys:
+            raise ValueError(f"duplicate PalDB key {k!r}")
+        seen_keys.add(kb)
+        by_len.setdefault(len(kb), []).append((kb, _encode_value(v)))
+        n_pairs += 1
+    # n_pairs == 0 is legal: a hash partition can be empty (Spark's
+    # HashPartitioner tolerates it, and the store must still exist for
+    # PalDBIndexMap.load's 0..N-1 filename scan).
+
+    sections = []  # (klen, cnt, slots, ssize, index_blob, data_blob)
+    for klen in sorted(by_len):
+        entries = by_len[klen]
+        data = bytearray(b"\x00")  # offset 0 marks an empty index slot
+        offsets = []
+        for _, vb in entries:
+            offsets.append(len(data))
+            data += _pack_varint(len(vb)) + vb
+        cnt = len(entries)
+        slots = max(1, int(cnt / _LOAD_FACTOR + 0.5))  # Math.round
+        ssize = klen + len(_pack_varint(max(offsets)))
+        index = bytearray(slots * ssize)
+        for (kb, _), off in zip(entries, offsets):
+            s = _murmur3_32(kb) % slots
+            for _probe in range(slots):
+                base = s * ssize
+                if _unpack_varint(index, base + klen)[0] == 0:
+                    rec = kb + _pack_varint(off)
+                    index[base:base + len(rec)] = rec
+                    break
+                s = (s + 1) % slots
+            else:
+                raise AssertionError("open-addressed index overflow")
+        sections.append((klen, cnt, slots, ssize, bytes(index),
+                         bytes(data)))
+
+    magic = _MAGIC.encode()
+    header = bytearray()
+    header += struct.pack(">H", len(magic)) + magic
+    header += struct.pack(">q", timestamp)
+    header += struct.pack(">iii", n_pairs, len(sections),
+                          max(by_len) if by_len else 0)
+    ioff = 0
+    doff = 0
+    for klen, cnt, slots, ssize, index, data in sections:
+        header += struct.pack(">iiiii", klen, cnt, slots, ssize, ioff)
+        header += struct.pack(">q", doff)
+        ioff += len(index)
+        doff += len(data)
+    header += struct.pack(">i", 0)  # serializer count
+    index_start = len(header) + 4 + 8
+    header += struct.pack(">i", index_start)
+    header += struct.pack(">q", index_start + ioff)  # data start
+
+    with open(path, "wb") as f:
+        f.write(bytes(header))
+        for *_, index, _data in sections:
+            f.write(index)
+        for *_, data in sections:
+            f.write(data)
+
+
+def build_paldb_index_stores(directory, namespace: str,
+                             names, num_partitions: int = 1) -> IndexMap:
+    """Write a partitioned PalDB feature-index store the way
+    FeatureIndexingJob does (ml/FeatureIndexingJob.scala:145-174 via
+    PalDBIndexMapBuilder.put, which stores BOTH directions): names are
+    partitioned with Spark's HashPartitioner, each partition assigns
+    per-partition local indices (sorted order — deterministic), and the
+    global index of partition i's features is local + the cumulative
+    count of partitions < i, exactly the contract PalDBIndexMap.load
+    (and load_paldb_index_map here) reconstructs. Returns the resulting
+    global IndexMap."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    names = list(names)
+    if len(set(names)) != len(names):
+        raise ValueError("duplicate feature names")
+    parts: List[List[str]] = [[] for _ in range(num_partitions)]
+    for name in names:
+        parts[java_hash_partition(name, num_partitions)].append(name)
+
+    key_to_index: Dict[str, int] = {}
+    offset = 0
+    for i, members in enumerate(parts):
+        members = sorted(members)
+        pairs: List[Tuple[Union[int, str], Union[int, str]]] = []
+        for local, name in enumerate(members):
+            pairs.append((name, local))
+            pairs.append((local, name))
+            key_to_index[name] = local + offset
+        write_paldb_store(
+            directory / f"paldb-partition-{namespace}-{i}.dat", pairs)
+        offset += len(members)
+    return IndexMap(key_to_index)
+
+
 def load_feature_index_maps(directory) -> Dict[str, IndexMap]:
     """shard id -> IndexMap from a feature-index directory of EITHER
     format: the reference's partitioned PalDB stores
     (paldb-partition-<shard>-<i>.dat) or this package's JSON stores
-    (<shard>.json, written by the training driver)."""
+    (<shard>.json, written by the training driver / feature-indexing CLI)."""
     return {ns: load_store_namespace(directory, ns, parts)
             for ns, parts in discover_store_namespaces(directory).items()}

@@ -1,6 +1,7 @@
 """Random-effect datasets: per-entity problems as bucketed, padded dense
 blocks (port of photon_ml_tpu/data/random_effect.py: EntityBlock :83,
-RandomEffectDataset :125, build_random_effect_dataset :233-333 with the
+RandomEffectDataset :125, filter_features_by_support :201,
+build_random_effect_dataset :233-333 with the
 RANDOM=<k> projector branch, _pack_block :336-375).
 
 Entities are grouped by id on the host, capped by reservoir sampling,
@@ -203,6 +204,22 @@ def pearson_correlation_scores(x: sp.csr_matrix, y: np.ndarray,
     if intercept_col is not None and 0 <= intercept_col < x.shape[1]:
         corr[intercept_col] = np.inf
     return corr
+
+
+def filter_features_by_support(
+    x: sp.csr_matrix, min_num_support: int,
+    intercept_col: Optional[int] = None,
+) -> np.ndarray:
+    """Column indices observed (nonzero) in at least ``min_num_support``
+    rows (a copy of photon_ml_tpu/data/random_effect.py:201;
+    LocalDataSet.filterFeaturesBySupport, ml/data/LocalDataSet.scala:93-114,
+    an API the reference exposes but never wires into its pipeline; same
+    status here). The intercept column always survives."""
+    support = np.diff(x.tocsc().indptr)
+    keep = support >= min_num_support
+    if intercept_col is not None and 0 <= intercept_col < x.shape[1]:
+        keep[intercept_col] = True
+    return np.flatnonzero(keep)
 
 
 def _next_size(v: int, minimum: int) -> int:

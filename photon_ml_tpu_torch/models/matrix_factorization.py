@@ -16,7 +16,6 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.device import resolve_device
-from photon_ml_tpu_torch.serving.kernels import score_mf
 from photon_ml_tpu_torch.utils.vocab import vocab_code_lookup
 
 Tensor = torch.Tensor
@@ -38,6 +37,9 @@ class MatrixFactorizationModel:
     def score(self, data) -> Tensor:
         """Per-row dot of the two entities' factors; an entity unknown to
         the model scores 0. On the factors' device."""
+        # serving.kernels imports the models package: taken at call time.
+        from photon_ml_tpu_torch.serving.kernels import score_mf
+
         dev = self.row_factors.device
         r = torch.as_tensor(self._codes(data, self.row_effect_type,
                                         self.row_vocabulary), device=dev)

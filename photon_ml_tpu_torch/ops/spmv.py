@@ -276,6 +276,12 @@ class CSROperand:
         no rows (nothing launched)."""
         if self.rows == 0:
             return False
+        if torch._C._functorch.is_functorch_wrapped_tensor(x):
+            raise TypeError(
+                "the CSR product's CUDA kernel is called through ctypes: "
+                "torch.func cannot differentiate or vmap it (a "
+                "minimize_newton objective over CSRFeatures on the card); "
+                "give such an objective DenseFeatures")
         if not x.is_contiguous():
             raise ValueError("the CUDA kernel takes a contiguous x")
         lib = _library()

@@ -1,5 +1,6 @@
 """Optimizer / regularization configuration and box constraints (port of
-photon_ml_tpu/optimization/config.py:19-228, the matrix-factorization
+photon_ml_tpu/optimization/config.py:19-228 with OptimizerConfig :85,
+the matrix-factorization
 configurations :233-310 and parse_constraint_string / constraint_arrays
 :313-370).
 
@@ -79,6 +80,61 @@ class RegularizationContext:
     def to_json(self) -> Dict:
         return {"regularizationType": self.reg_type.value,
                 "elasticNetParam": self.elastic_net_alpha}
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """What the optimizer factory needs (ml/optimization/OptimizerConfig.scala).
+
+    Defaults are per-optimizer in the factory (LBFGS: 100/1e-7,
+    TRON: 15/1e-5), so None here means "use the optimizer's default".
+    """
+
+    optimizer_type: OptimizerType = OptimizerType.LBFGS
+    max_iterations: Optional[int] = None
+    tolerance: Optional[float] = None
+    constraint_map: Optional[ConstraintMap] = None
+
+    def __post_init__(self):
+        if self.max_iterations is not None and self.max_iterations <= 0:
+            raise ValueError(
+                f"maxIterations must be positive, got {self.max_iterations}")
+        if self.tolerance is not None and self.tolerance <= 0:
+            raise ValueError(
+                f"tolerance must be positive, got {self.tolerance}")
+
+    def resolved(self) -> "OptimizerConfig":
+        if self.optimizer_type == OptimizerType.TRON:
+            mi, tol = 15, 1e-5
+        else:
+            mi, tol = 100, 1e-7
+        return dataclasses.replace(
+            self,
+            max_iterations=(
+                self.max_iterations if self.max_iterations is not None else mi),
+            tolerance=self.tolerance if self.tolerance is not None else tol,
+        )
+
+    def to_json(self) -> Dict:
+        r = self.resolved()
+        return {
+            "optimizerType": r.optimizer_type.value,
+            "maximumIterations": r.max_iterations,
+            "tolerance": r.tolerance,
+            "constraintMap": (
+                None if r.constraint_map is None
+                else {str(k): list(v) for k, v in r.constraint_map.items()}),
+        }
+
+    @classmethod
+    def from_json(cls, d: Dict) -> "OptimizerConfig":
+        cm = d.get("constraintMap")
+        return cls(
+            OptimizerType(d["optimizerType"]),
+            d.get("maximumIterations"),
+            d.get("tolerance"),
+            None if cm is None else {int(k): tuple(v) for k, v in cm.items()},
+        )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -70,36 +70,39 @@ class HostArray:
     array: np.ndarray
 
 
-def _map_leaves(obj, fn):
+def map_leaves(obj, fn):
+    """``obj`` with ``fn`` applied to each tensor (and HostArray) inside
+    its dataclasses, dicts, lists and tuples, in that walk's order; other
+    values kept as they are."""
     if isinstance(obj, (torch.Tensor, HostArray)):
         return fn(obj)
     if isinstance(obj, np.ndarray) or obj is None or isinstance(
             obj, (str, bytes, int, float, bool)):
         return obj
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        changes = {f.name: _map_leaves(getattr(obj, f.name), fn)
+        changes = {f.name: map_leaves(getattr(obj, f.name), fn)
                    for f in dataclasses.fields(obj) if f.init}
         return dataclasses.replace(obj, **changes)
     if isinstance(obj, dict):
-        return {k: _map_leaves(v, fn) for k, v in obj.items()}
+        return {k: map_leaves(v, fn) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
-        return type(obj)(_map_leaves(v, fn) for v in obj)
+        return type(obj)(map_leaves(v, fn) for v in obj)
     return obj
 
 
 def to_host(obj):
     """Replace every tensor in dataclasses / dicts / lists / tuples with a
     HostArray holding its values as numpy."""
-    return _map_leaves(obj, lambda t: t if isinstance(t, HostArray)
-                       else HostArray(t.detach().cpu().numpy()))
+    return map_leaves(obj, lambda t: t if isinstance(t, HostArray)
+                      else HostArray(t.detach().cpu().numpy()))
 
 
 def to_device(obj, device):
     """Inverse of ``to_host``: each HostArray becomes a tensor on
     ``device`` with its dtype and values."""
-    return _map_leaves(obj, lambda t: t.to(device)
-                       if isinstance(t, torch.Tensor)
-                       else torch.as_tensor(t.array, device=device))
+    return map_leaves(obj, lambda t: t.to(device)
+                      if isinstance(t, torch.Tensor)
+                      else torch.as_tensor(t.array, device=device))
 
 
 def checkpoint_path(directory, step: int) -> Path:

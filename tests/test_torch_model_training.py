@@ -78,7 +78,8 @@ ROUTES = {
 }
 
 
-def _train_both(route, track=False, storage=False):
+def _train_both(route, track=False, storage=False, with_jax=True):
+    """The port's λ grid and JAX's (None with ``with_jax=False``)."""
     spec = ROUTES[route]
     x, y, off, wt = _problem()
     d = x.shape[1]
@@ -100,6 +101,8 @@ def _train_both(route, track=False, storage=False):
         normalization=norm, dtype=torch.float64,
         storage_dtype=torch.bfloat16 if storage else None, device="cpu",
         **common)
+    if not with_jax:
+        return port, None
     ref = jax_mt.train_glm_models(
         x, y, jax_mt.TaskType.LOGISTIC_REGRESSION,
         regularization_context=jax_config.RegularizationContext(
@@ -165,7 +168,7 @@ def test_tracked_models_match_jax_and_leave_the_solve_alone(route):
         assert torch.isnan(hist[pt.num_iterations + 1:]).all()
         assert torch.equal(hist[pt.num_iterations], p.result.x)
     # The same solve with tracking off, bit for bit.
-    untracked, _ = _train_both(route)
+    untracked, _ = _train_both(route, with_jax=False)
     for p, u in zip(port, untracked):
         assert torch.equal(p.result.x, u.result.x)
         assert torch.equal(p.result.value, u.result.value)
